@@ -8,8 +8,9 @@ Phases, each fatal on failure:
      diffpiso_tpu_torch/csrc (timed);
   2. every kernel against its plain PyTorch version on the card, at 512^2,
      on the operator planes of a real step (jac2 forward and transposed;
-     the solves must also agree on their sweep / iteration counts), plus
-     each kernel's time, its plain version's, a library yardstick where one
+     the solves must also agree on their sweep / iteration counts; the FV
+     pair and the corrector bridge / tail forward and VJP), plus each
+     kernel's time, its plain version's, a library yardstick where one
      PyTorch call computes the same thing, and its bound;
   3. a small-input check: 3 steps at 64^2 on the card against the plain
      path on the CPU;
@@ -18,7 +19,20 @@ Phases, each fatal on failure:
      preconditioner, warm-started pressure increments) — 10 warm-up steps,
      then 200 timed steps with every kernel launch counter reset to 0 just
      before them; asserts finite state, warn fraction 0 and each counter at
-     calls-per-step x 200.
+     calls-per-step x 200;
+  5. the gradient path: (a) a 3-step rollout gradient at 128^2 with the
+     main path's viscosity and tolerances, where the pressure-adjoint gate
+     zeroes most adjoints, on the card against the plain path on the CPU:
+     the same gate decision for every adjoint solve and relative l2 <=
+     1e-3; (b) grad30,
+     the 30-step unrolled gradient of sum v^2 with respect to a forcing
+     field from the state phase 4 leaves, under the "outputs" remat
+     protocol: one untimed evaluation, then 3 timed ones, each with every
+     counter reset to 0 before it and checked after it (the momentum solve
+     2 x 30, the pressure solve 4 x 30, every other kernel at the count
+     derived below), warn fraction 0, finite non-zero gradient; the gated
+     adjoint solves and how far their residuals lie from the gate's limit
+     are reported.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -37,6 +51,8 @@ ADV_TOL = 1e-6
 P_TOL = 1e-8
 WARMUP_STEPS = 10
 TIMED_STEPS = 200
+UNROLL = 30
+GRAD_REPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 
@@ -79,11 +95,13 @@ def main() -> int:
         return 1
     from diffpiso_tpu_torch import native
     from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
     from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.ops.advassembly import (
         advection_assembly_plain, assembly_scalars, fused_advection_assembly)
+    from diffpiso_tpu_torch.ops import corrector, fv2
     from diffpiso_tpu_torch.ops.fv import fv_divergence
     from diffpiso_tpu_torch.ops.laplace import (
         assemble_pressure_laplacian, laplace_mask_planes)
@@ -142,7 +160,8 @@ def main() -> int:
 
     stencil = assemble_advection_stencil(
         vel, dx, domain.velocity_pad_modes(), VISCOSITY, beta, sim.dirichlet_mask,
-        sim.active_mask, sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic)
+        sim.active_mask, sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic,
+        uniform=sim.uniform_masks)
     influence = [(dx[0] * dx[1] / dx[0] ** 2) / (beta - a) for a in stencil.diag_A]
     masks = laplace_mask_planes(sim.active_mask, sim.accessible_mask, (True, True),
                                 (N, N), torch.float32)
@@ -236,6 +255,117 @@ def main() -> int:
         iterations=kk,
     ))
 
+    # the FV pair on the step's planes: div2 of v*, grad2 of the pressure
+    # increment; the VJPs are the other kernel with negated factors
+    fs = (dx[0] * dx[1] / dx[0], dx[0] * dx[1] / dx[1])
+    nfs = (-fs[0], -fs[1])
+    vs0, vs1 = v_star.components
+
+    def vjp(fn, leaves, cts):
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, cts)
+
+    div_err = max(
+        float((fv2.div2(fs, (vs0, vs1)) - fv2.div2_plain(fs, (vs0, vs1))).abs().max()),
+        *[float((a - b).abs().max()) for a, b in zip(
+            vjp(lambda a, b: fv2.div2(fs, (a, b)), (vs0, vs1), kx), fv2.grad2_plain(nfs, kx))])
+    grad_err = max(
+        *[float((a - b).abs().max()) for a, b in zip(fv2.grad2(fs, kx), fv2.grad2_plain(fs, kx))],
+        float((vjp(lambda a: fv2.grad2(fs, a), (kx,), (vs0, vs1))[0]
+               - fv2.div2_plain(nfs, (vs0, vs1))).abs().max()))
+    fv_scale = max(float(vs0.abs().max()), float(kx.abs().max())) * max(fs)
+    print(f"fv2 div2 / grad2 vs plain (forward and VJP): max abs err {div_err:.3e} / "
+          f"{grad_err:.3e}", flush=True)
+    if not max(div_err, grad_err) <= 1e-6 * fv_scale:
+        fail(f"fv2: kernel vs plain max abs err {max(div_err, grad_err):.3e} > 1e-6 x scale")
+    # div: 2 planes in, 1 out, 5 flops per cell; grad: 1 in, 2 out, 4 flops
+    for name, fn, plain, fl, err in (
+        ("div2", lambda: fv2.div2(fs, (vs0, vs1)), lambda: fv2.div2_plain(fs, (vs0, vs1)), 5,
+         div_err),
+        ("grad2", lambda: fv2.grad2(fs, kx), lambda: fv2.grad2_plain(fs, kx), 4, grad_err),
+    ):
+        b_fv, by_fv = bound(3 * plane_bytes, fl * N * N)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/fv2.cu",
+            replaces=("diffpiso_tpu/ops/pallas_fv.py:225" if name == "div2"
+                      else "diffpiso_tpu/ops/pallas_fv.py:260"),
+            max_abs_err=err, ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 50),
+            bound_ms=b_fv, bound_by=by_fv, library_ms=None,
+        ))
+
+    # the corrector bridge on the step's planes (p_inc1 = the pcg2 solution
+    # above, v* the jac2 solution, the stencil of the step), then the tail
+    # on the second corrector's solve of the bridge's divergence
+    bma = [beta - a for a in stencil.diag_A]
+    dxprod = dx[0] * dx[1]
+    bridge_in = [kx, vs0, vs1, *bma]
+    for d in range(2):
+        bridge_in += [stencil.center[d], stencil.lo[d][0], stencil.hi[d][0],
+                      stencil.lo[d][1], stencil.hi[d][1]]
+    bridge_in += list(stencil.diag_A)
+
+    def bridge_kernel(p, v0, v1):
+        v2, h, hdiv = corrector.corrector1_bridge(p, (v0, v1), bma, stencil, stencil.diag_A,
+                                                  beta, dx)
+        return (*v2, *h, hdiv)
+
+    def bridge_ref(p, v0, v1):
+        return corrector.bridge_plain(fs[0], fs[1], dxprod, beta, p, v0, v1, *bridge_in[3:])
+
+    gen_ct = torch.Generator(device=dev).manual_seed(2)
+    cts = [torch.randn((N, N), generator=gen_ct, device=dev) for _ in range(5)]
+    b_out = bridge_kernel(kx, vs0, vs1)
+    b_ref = bridge_ref(kx, vs0, vs1)
+    b_err = max(float((a - b).abs().max()) for a, b in zip(b_out, b_ref))
+    b_rel = max(rel_err(a, b) for a, b in zip(b_out, b_ref))
+    # the Function's backward recomputes the plain chain, so its VJP against
+    # autograd of the plain version checks the recompute's wiring, not the kernel
+    b_vjp = max(rel_err(a, b) for a, b in zip(vjp(bridge_kernel, (kx, vs0, vs1), cts),
+                                              vjp(bridge_ref, (kx, vs0, vs1), cts)))
+    print(f"corrector bridge kernel vs plain: forward max rel err {b_rel:.3e} (abs "
+          f"{b_err:.3e}); backward wiring (plain recompute vs autograd of plain) max rel "
+          f"err {b_vjp:.3e}", flush=True)
+    if not (b_rel <= 1e-6 and b_vjp <= 1e-6):
+        fail(f"corrector bridge: kernel vs plain rel err {b_rel:.3e} / VJP {b_vjp:.3e} > 1e-6")
+    _, _, h0, h1, hdiv = b_out
+    kx2, _, _ = fused_pcg2_solve(lap, hdiv, None, v0, v0t, v1, v1t, sym, P_TOL, 1000)
+    tail_in = [kx2, b_out[0], b_out[1], h0, h1, *bma]
+
+    def tail_kernel(p, a, b):
+        return corrector.corrector2_tail(p, (a, b), (h0, h1), bma, dx)
+
+    def tail_ref(p, a, b):
+        return corrector.tail_plain(fs[0], fs[1], dxprod, p, a, b, h0, h1, *bma)
+
+    t_out, t_ref = tail_kernel(*tail_in[:3]), tail_ref(*tail_in[:3])
+    t_err = max(float((a - b).abs().max()) for a, b in zip(t_out, t_ref))
+    t_rel = max(rel_err(a, b) for a, b in zip(t_out, t_ref))
+    t_vjp = max(rel_err(a, b) for a, b in zip(vjp(tail_kernel, tail_in[:3], cts[:2]),
+                                              vjp(tail_ref, tail_in[:3], cts[:2])))
+    print(f"corrector tail kernel vs plain: forward max rel err {t_rel:.3e} (abs "
+          f"{t_err:.3e}); backward wiring max rel err {t_vjp:.3e}", flush=True)
+    if not (t_rel <= 1e-6 and t_vjp <= 1e-6):
+        fail(f"corrector tail: kernel vs plain rel err {t_rel:.3e} / VJP {t_vjp:.3e} > 1e-6")
+    # bridge: 17 planes in, 5 out; per cell 2 x (grad 2, delta 3, v 1,
+    # H 12, H/bma 1) + div 5 = 43 flops. tail: 7 in, 2 out, 2 x 6 flops.
+    b_br, by_br = bound(22 * plane_bytes, 43 * N * N)
+    kernels.append(dict(
+        name="corrector1_bridge", route="cuda", source="diffpiso_tpu_torch/csrc/corrector.cu",
+        replaces="diffpiso_tpu/ops/pallas_corrector.py:526", max_abs_err=b_err,
+        ms=cuda_time_ms(lambda: bridge_kernel(kx, vs0, vs1), 200),
+        plain_ms=cuda_time_ms(lambda: bridge_ref(kx, vs0, vs1), 50),
+        bound_ms=b_br, bound_by=by_br, library_ms=None,
+    ))
+    b_tl, by_tl = bound(9 * plane_bytes, 12 * N * N)
+    kernels.append(dict(
+        name="corrector2_tail", route="cuda", source="diffpiso_tpu_torch/csrc/corrector.cu",
+        replaces="diffpiso_tpu/ops/pallas_corrector.py:633", max_abs_err=t_err,
+        ms=cuda_time_ms(lambda: tail_kernel(*tail_in[:3]), 200),
+        plain_ms=cuda_time_ms(lambda: tail_ref(*tail_in[:3]), 50),
+        bound_ms=b_tl, bound_by=by_tl, library_ms=None,
+    ))
+
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
     outs = {}
@@ -274,6 +404,10 @@ def main() -> int:
         "laplace_assembly": (fused_laplace_assembly, 1),
         "jacobi2_solve": (fused_jacobi2_solve, 1),
         "pcg2_solve": (fused_pcg2_solve, 2),
+        "div2": (fv2.div2, 1),
+        "grad2": (fv2.grad2, 1),
+        "corrector1_bridge": (corrector.corrector1_bridge, 1),
+        "corrector2_tail": (corrector.corrector2_tail, 1),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -310,8 +444,130 @@ def main() -> int:
         if launches[k] != per_step * TIMED_STEPS:
             fail(f"{k}: {launches[k]} wrapper launches, expected {per_step * TIMED_STEPS}")
 
+    # -- phase 5: the gradient path ---------------------------------------------
+    # (a) small input at the main path's viscosity and tolerances: a 3-step
+    # rollout gradient on the card vs the plain path on the CPU, from one
+    # initial state. At 128^2 the float32 residual of most cold pressure
+    # adjoints ends above 100 x adj_tol, so the gate zeroes them: each
+    # adjoint's decision must come out the same on both devices, or the
+    # gradients would differ completely.
+    n_grad = 128
+    grads, decisions, ratios = {}, {}, {}
+    for d in (dev, torch.device("cpu")):
+        dom_s, sim_s = decaying_turbulence_setup((n_grad, n_grad), viscosity=VISCOSITY, device=d)
+        v_s = random_solenoidal(dom_s, torch.Generator().manual_seed(1), device=d)
+        f_s = StaggeredField(tuple(torch.zeros(n_grad, n_grad, device=d) for _ in range(2)),
+                             periodic=(True, True))
+
+        def step_s(v, p, g1, g2, f, dom_s=dom_s, sim_s=sim_s):
+            return piso_step(v, p, 0.4 / n_grad, dom_s, sim_s, forcing_term=f,
+                             pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                             advection_tol=ADV_TOL, pressure_tol=P_TOL)
+
+        r_s = rollout_loss_grad(step_s, v_s, dom_s.centered_grid(0.0, device=d), f_s, 3)
+        if r_s.warns:
+            fail(f"{n_grad}^2 rollout gradient on {d.type}: {r_s.warns} steps warned")
+        grads[d.type] = [c.cpu().double() for c in r_s.grad.components]
+        decisions[d.type] = [(a.system, a.gated) for a in r_s.adjoints]
+        ratios[d.type] = [round(a.residual / a.limit, 3) for a in r_s.adjoints
+                          if a.limit is not None]
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(grads["cuda"], grads["cpu"]))
+    den = sum(float(torch.sum(b ** 2)) for b in grads["cpu"])
+    g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    n_gated = sum(g for _, g in decisions["cpu"])
+    print(f"{n_grad}^2 x 3-step rollout gradient (viscosity {VISCOSITY}, pressure tol {P_TOL}), "
+          f"card vs CPU plain path: rel l2 {g_rel:.3e}; gated adjoints card "
+          f"{sum(g for _, g in decisions['cuda'])} / CPU {n_gated} of {len(decisions['cpu'])}; "
+          f"pressure adjoint residual / gate limit, card {ratios['cuda']}, CPU {ratios['cpu']}",
+          flush=True)
+    if decisions["cuda"] != decisions["cpu"]:
+        fail(f"{n_grad}^2 rollout gradient: adjoint gate decisions differ, card "
+             f"{decisions['cuda']} vs CPU {decisions['cpu']}")
+    if not n_gated:
+        fail(f"{n_grad}^2 rollout gradient: no adjoint gated, so this check does not cover the gate")
+    if not g_rel <= 1e-3:
+        fail(f"{n_grad}^2 rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+    # (b) grad30 at 512^2 from the state phase 4 leaves. Launches per
+    # evaluation, U = 30 unrolled steps, "outputs" remat: each step runs
+    # once forward and once more as the backward's replay, in which the
+    # solves hand back their recorded outputs. So the assemblies, the
+    # bridge and the tail run 2U; the momentum solve runs U forward + U
+    # transposed adjoints, the pressure solve 2U forward + 2U adjoints.
+    # div2: U (div v*) + U (replay) + U - 1 (VJP of the predictor's
+    # grad2 of p: the initial pressure carries no gradient, so the first
+    # step has none); grad2: U (predictor) + U (replay) + U (VJP of div v*).
+    # The corrector backward is the VJP of the plain chain: no launch.
+    U = UNROLL
+    expected = {
+        "advection_assembly": 2 * U, "laplace_assembly": 2 * U,
+        "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U,
+        "div2": 3 * U - 1, "grad2": 3 * U,
+        "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
+    }
+    forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
+                             periodic=(True, True))
+
+    def step_g(v, p, g1, g2, f):
+        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=ADV_TOL, pressure_tol=P_TOL)
+
+    evals = []
+    for rep in range(1 + GRAD_REPS):
+        for fn, _ in wrappers.values():
+            fn.launches = 0
+        fb0 = krylov.bicgstab.fallbacks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step_g, v, pressure, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = {k: fn.launches for k, (fn, _) in wrappers.items()}
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_pcg2_iters_per_step=sum(a.iterations for a in p_adj) / U,
+            # adjoint solves whose gradient the (1 - failed) gate zeroed, as in
+            # the JAX package: a float32 adjoint at tol 1e-8 x max|g| can end
+            # above 100 x that tol (reported, not a failure). Beside it, the
+            # pressure adjoints' residual / limit nearest the gate on either
+            # side: the largest that passed and the smallest that was gated.
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
+                                        default=None),
+            bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0, launches=counts,
+        ))
+        print(json.dumps(dict(grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"grad30: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"grad30: |grad| = {gnorm} (must be finite and > 0)")
+        for k, want in expected.items():
+            if counts[k] != want:
+                fail(f"grad30: {k} launched {counts[k]} times, expected {want}")
+    timed = [e for e in evals if e["timed"]]
+    grad30 = dict(
+        workload=f"decaying turbulence {N}^2, grad{U} (d sum v^2 / d forcing), remat outputs",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_pcg2_iters_per_step=sum(e["adjoint_pcg2_iters_per_step"] for e in timed)
+        / len(timed),
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )
+    print(json.dumps(grad30), flush=True)
+
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["grad30_launches"] = grad30["launches_per_eval"][entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

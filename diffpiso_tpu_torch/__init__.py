@@ -9,10 +9,12 @@ Entry points that create tensors run on `cuda` unless the caller passes
 `device="cpu"`; without a card and without an explicit device they raise.
 On a CUDA tensor every ported kernel wrapper launches its hand-written
 kernel (diffpiso_tpu_torch/csrc/); on a CPU tensor it runs its plain
-PyTorch version.
+PyTorch version. `rollout_loss_grad` differentiates an unrolled rollout
+through the solves' implicit-function-theorem adjoints.
 """
 
 from diffpiso_tpu_torch.core.piso import PisoOutput, SimulationParameters, piso_step
+from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
 from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
 from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.box import Box
@@ -32,4 +34,5 @@ __all__ = [
     "piso_step",
     "random_solenoidal",
     "resolve_device",
+    "rollout_loss_grad",
 ]

@@ -1,6 +1,8 @@
-"""The PISO step and flow-case setups."""
+"""The PISO step, flow-case setups and the unrolled rollout gradient."""
 
 from diffpiso_tpu_torch.core.piso import PisoOutput, SimulationParameters, piso_step
+from diffpiso_tpu_torch.core.rollout import RolloutGrad, rollout_loss_grad
 from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
 
-__all__ = ["PisoOutput", "SimulationParameters", "decaying_turbulence_setup", "piso_step"]
+__all__ = ["PisoOutput", "RolloutGrad", "SimulationParameters", "decaying_turbulence_setup",
+           "piso_step", "rollout_loss_grad"]

@@ -1,4 +1,4 @@
-"""The PISO step, forward.
+"""The PISO step.
 
 Counterpart of diffpiso_tpu/core/piso.py piso_step: one predictor (implicit
 advection-diffusion solve) and two pressure correctors, matrix-free.
@@ -17,15 +17,21 @@ advection-diffusion solve) and two pressure correctors, matrix-free.
     v*** = v** + (H - grad(p2)/prod(dx))/(beta-A)
   p    += p1 + p2
 
-The corrector glue is the reference's plain branch (its fused corrector
-kernels are not ported yet). `warn` and `p_iterations` are host values:
-the solves read their convergence norms back anyway. `full_output` returns
-the intermediates dict of the reference except `adjoint_channels`, which
-belongs to the gradient path (a later slice)."""
+On periodic float32 planes of one shape with all-one active / accessible
+masks the corrector glue runs as kernel 6 (ops/corrector.py
+corrector1_bridge and corrector2_tail), the JAX package's gate; every
+other case keeps the plain branch. The step is differentiable: the solves
+are autograd Functions with implicit-function-theorem adjoints
+(solvers/base.py), the FV and corrector kernels autograd Functions, and
+the operator coefficients carry no gradient. `warn` and `p_iterations`
+are host values: the solves read their convergence norms back anyway.
+`full_output` returns the intermediates dict of the reference. The
+adjoint warm-start channels (`adjoint_channels`) are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math as _math
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -33,9 +39,14 @@ import torch
 
 from diffpiso_tpu_torch.fields.domain import Domain
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.ops import corrector
 from diffpiso_tpu_torch.ops.fv import fv_divergence, fv_gradient
 from diffpiso_tpu_torch.ops.laplace import assemble_pressure_laplacian
-from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil, explicit_H
+from diffpiso_tpu_torch.ops.stencil import (
+    assemble_advection_stencil,
+    explicit_H,
+    uniform_masks,
+)
 from diffpiso_tpu_torch.solvers.base import (
     AdvectionSolver,
     PressureSolver,
@@ -60,6 +71,20 @@ class SimulationParameters:
     bool_periodic: Tuple[bool, ...] = (False, False)
     linear_solver: AdvectionSolver = AdvectionSolver()
     pressure_solver: PressureSolver = PressureSolver()
+
+    @functools.cached_property
+    def masks_all_one(self) -> bool:
+        """Every cell active and accessible. Read once per parameter set (the
+        masks are constants of a simulation, as they are trace-time
+        constants of the JAX step), not once per step."""
+        return bool(torch.all(self.active_mask == 1)) and (
+            self.accessible_mask is None or bool(torch.all(self.accessible_mask == 1)))
+
+    @functools.cached_property
+    def uniform_masks(self) -> bool:
+        """No Dirichlet faces, every cell active, no no-slip walls (the gate
+        of the uniform advection assembly), read once per parameter set."""
+        return uniform_masks(self.dirichlet_mask, self.active_mask, self.no_slip_mask)
 
 
 class PisoOutput(NamedTuple):
@@ -88,8 +113,10 @@ def piso_step(
     pressure_tol=1e-6,
     full_output: bool = False,
 ) -> PisoOutput:
-    """Advance one PISO step (forward). Runs on the device the state lies
-    on; the kernels launch for CUDA tensors."""
+    """Advance one PISO step. Runs on the device the state lies on; the
+    kernels launch for CUDA tensors. Differentiable with respect to the
+    velocity, pressure and forcing (implicit-function-theorem adjoints
+    through the solves)."""
     dx = domain.dx
     dxprod = _math.prod(dx)
     beta = dxprod / dt
@@ -102,6 +129,7 @@ def piso_step(
         velocity.map(torch.Tensor.detach), dx, domain.velocity_pad_modes(),
         viscosity, beta, sim.dirichlet_mask, sim.active_mask,
         sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic,
+        uniform=sim.uniform_masks,
     )
 
     # -- predictor
@@ -136,30 +164,53 @@ def piso_step(
     p_inc1, iters1, pw1 = solve_pressure_system(
         sim.pressure_solver, laplacian, v1_div, pressure_inc1_guess, pressure_tol)
 
-    grad_p1 = fv_gradient(p_inc1, dx, domain.pressure_pad_modes(), sim.accessible_mask)
-    velocity_s2 = velocity_star - StaggeredField(
-        tuple(g / bma / dxprod for g, bma in zip(grad_p1.components, beta_minus_A.components)),
-        periodic=velocity.periodic,
+    # fused corrector glue (kernel 6) under the JAX package's gate:
+    # periodic, one plane shape, float32, all-one masks
+    bridge_ok = (
+        all(velocity.periodic)
+        and corrector.eligible([p_inc1.shape, *(c.shape for c in velocity_star.components)],
+                               p_inc1.dtype)
+        and sim.masks_all_one
     )
+    if bridge_ok:
+        v2_c, h_c, h_div = corrector.corrector1_bridge(
+            p_inc1, velocity_star.components, beta_minus_A.components,
+            stencil, stencil.diag_A, beta, dx,
+        )
+        velocity_s2 = StaggeredField(v2_c, periodic=velocity.periodic)
+        h = StaggeredField(h_c, periodic=velocity.periodic)
+    else:
+        grad_p1 = fv_gradient(p_inc1, dx, domain.pressure_pad_modes(), sim.accessible_mask)
+        velocity_s2 = velocity_star - StaggeredField(
+            tuple(g / bma / dxprod for g, bma in zip(grad_p1.components, beta_minus_A.components)),
+            periodic=velocity.periodic,
+        )
 
-    # -- corrector 2
-    h = explicit_H(stencil, velocity_s2 - velocity_star, beta)
-    h_over = StaggeredField(
-        tuple(hc / bma for hc, bma in zip(h.components, beta_minus_A.components)),
-        periodic=velocity.periodic,
-    )
-    h_div = fv_divergence(h_over, dx) * active_int
+        # -- corrector 2
+        h = explicit_H(stencil, velocity_s2 - velocity_star, beta)
+        h_over = StaggeredField(
+            tuple(hc / bma for hc, bma in zip(h.components, beta_minus_A.components)),
+            periodic=velocity.periodic,
+        )
+        h_div = fv_divergence(h_over, dx) * active_int
     p_inc2, iters2, pw2 = solve_pressure_system(
         sim.pressure_solver, laplacian, h_div, pressure_inc2_guess, pressure_tol)
 
-    grad_p2 = fv_gradient(p_inc2, dx, domain.pressure_pad_modes(), sim.accessible_mask)
-    velocity_s3 = velocity_s2 + StaggeredField(
-        tuple(
-            (hc - g / dxprod) / bma
-            for hc, g, bma in zip(h.components, grad_p2.components, beta_minus_A.components)
-        ),
-        periodic=velocity.periodic,
-    )
+    if bridge_ok:
+        velocity_s3 = StaggeredField(
+            corrector.corrector2_tail(p_inc2, velocity_s2.components, h.components,
+                                      beta_minus_A.components, dx),
+            periodic=velocity.periodic,
+        )
+    else:
+        grad_p2 = fv_gradient(p_inc2, dx, domain.pressure_pad_modes(), sim.accessible_mask)
+        velocity_s3 = velocity_s2 + StaggeredField(
+            tuple(
+                (hc - g / dxprod) / bma
+                for hc, g, bma in zip(h.components, grad_p2.components, beta_minus_A.components)
+            ),
+            periodic=velocity.periodic,
+        )
     new_pressure = pressure + p_inc1 + p_inc2
 
     intermediates = None

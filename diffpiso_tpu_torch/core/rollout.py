@@ -1,0 +1,97 @@
+"""The unrolled rollout gradient (training through the solver).
+
+Counterpart of the JAX package's `bench.py bench_grad` loss and its remat
+policies: the loss of the velocity after `unroll` steps from a given state
+(by default sum_c sum v_c^2), differentiated with respect to a forcing
+field that enters every step; the pressure increments warm-start the next
+step's solves, starting from zeros.
+
+Each step runs with a `SolveStash` (solvers/base.py) recording, which
+also collects the step's adjoint solves for the result.
+remat="outputs" is the JAX package's default protocol for 2-D gradients
+(`save_only_these_names("diffpiso_solve_out")`): each step runs under
+`torch.utils.checkpoint` (non-reentrant) with the stash as its context.
+The step keeps only its inputs and its solve outputs; the backward pass
+replays assembly, FV and corrector glue, while the solves hand back their
+recorded outputs, so no Krylov loop runs twice. Per step
+the momentum solve runs twice (forward, transposed adjoint) and the
+pressure solve four times (two correctors, forward and adjoint).
+remat="none" keeps every intermediate; it is the reference that "outputs"
+is held against."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.solvers.base import AdjointSolve, SolveStash
+
+REMAT_POLICIES = ("outputs", "none")
+
+
+class RolloutGrad(NamedTuple):
+    loss: float
+    grad: StaggeredField  # d loss / d forcing
+    p_iterations: List[Tuple[int, int]]  # forward pressure iterations per step
+    warns: int  # steps in which any forward solve warned
+    # the adjoint solves, step by step, each step's in the order its
+    # backward pass ran them (pressure 2, pressure 1, momentum)
+    adjoints: List[AdjointSolve]
+
+
+def sum_of_squares(vel: StaggeredField) -> torch.Tensor:
+    """The grad30 benchmark loss: sum_c sum v_c^2."""
+    return sum(torch.sum(c * c) for c in vel.components)
+
+
+def rollout_loss_grad(
+    step: Callable[..., Any],
+    vel: StaggeredField,
+    p: torch.Tensor,
+    forcing: StaggeredField,
+    unroll: int,
+    remat: str = "outputs",
+    loss_fn: Callable[[StaggeredField], torch.Tensor] = sum_of_squares,
+) -> RolloutGrad:
+    """Gradient of loss_fn(velocity after `unroll` steps) with respect to
+    `forcing`. `step(vel, p, g1, g2, forcing)` advances one step and returns
+    a PisoOutput (piso_step with the caller's domain, parameters and
+    tolerances bound)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
+    per = vel.periodic
+    f_leaves = tuple(c.detach().requires_grad_(True) for c in forcing.components)
+    forcing_g = StaggeredField(f_leaves, periodic=forcing.periodic)
+
+    def run(v0, v1, p, g1, g2, *f):
+        out = step(StaggeredField((v0, v1), periodic=per), p, g1, g2,
+                   StaggeredField(f, periodic=forcing.periodic))
+        return (*out.velocity.components, out.pressure, out.pressure_inc1,
+                out.pressure_inc2, out.p_iterations, out.warn)
+
+    comps = tuple(c.detach() for c in vel.components)
+    p = p.detach()
+    g1 = g2 = torch.zeros_like(p)
+    iters, warns, stashes = [], 0, []
+    for _ in range(unroll):
+        args = (*comps, p, g1, g2, *forcing_g.components)
+        stash = SolveStash()
+        stashes.append(stash)
+        if remat == "outputs":
+            res = checkpoint(run, *args, use_reentrant=False, context_fn=stash.contexts,
+                             preserve_rng_state=False)
+        else:
+            with stash.recording():
+                res = run(*args)
+        *comps, p, g1, g2, its, warn = res
+        iters.append(tuple(its))
+        warns += int(warn)
+    loss = loss_fn(StaggeredField(tuple(comps), periodic=per))
+    grads = torch.autograd.grad(loss, f_leaves)
+    return RolloutGrad(loss=float(loss.detach()),
+                       grad=StaggeredField(grads, periodic=forcing.periodic),
+                       p_iterations=iters, warns=warns,
+                       adjoints=[a for s in stashes for a in s.adjoints])

@@ -1,5 +1,6 @@
-"""Operators: FV divergence/gradient, advection stencil, pressure Laplacian,
-and the two assembly kernels."""
+"""Operators: FV divergence/gradient (with the periodic FV kernel pair,
+fv2.py), advection stencil, pressure Laplacian, the two assembly kernels
+and the corrector bridge / tail kernels (corrector.py)."""
 
 from diffpiso_tpu_torch.ops.fv import fv_divergence, fv_gradient
 from diffpiso_tpu_torch.ops.laplace import (

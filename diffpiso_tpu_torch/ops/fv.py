@@ -1,10 +1,11 @@
 """Finite-volume operators on staggered grids, periodic axes.
 
-Counterpart of the plain (jnp) branches of diffpiso_tpu/ops/fv.py. The
-periodic FV divergence/gradient kernels of the JAX package (pallas_fv
-div2/grad2) are not ported yet; this module is the branch the JAX package
-takes whenever their gate is closed. All results are volume-integrated
-(factors prod(dx)/dx_d baked in)."""
+Counterpart of diffpiso_tpu/ops/fv.py for periodic axes. Rank-2 float32
+planes of one shape go to kernel 5 (ops/fv2.py div2 / grad2, autograd
+Functions whose VJPs are each other, negated), as the JAX package sends
+them to pallas_fv; everything else runs the plain roll formulation, the
+branch the JAX package takes when that gate is closed. All results are
+volume-integrated (factors prod(dx)/dx_d baked in)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.material import CIRCULAR
+from diffpiso_tpu_torch.ops import fv2
 
 
 def _periodic_axes(pad_modes, rank):
@@ -43,6 +45,10 @@ def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
     """Volume-integrated divergence sum_d (comp_d[+1] - comp_d) prod(dx)/dx_d."""
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
+    comps = field.components
+    if field.rank == 2 and all(field.periodic) \
+            and fv2.eligible2([c.shape for c in comps], comps[0].dtype):
+        return fv2.div2(tuple(dxprod / d for d in dx), comps)
     total = None
     for d, comp in enumerate(field.components):
         if not field.periodic[d]:
@@ -76,10 +82,13 @@ def fv_gradient(
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
     periodic = _periodic_axes(pad_modes, pressure.ndim)
-    comps = [
-        (pressure - torch.roll(pressure, 1, d)) * (dxprod / dx[d])
-        for d in range(pressure.ndim)
-    ]
+    if pressure.ndim == 2 and fv2.eligible2([pressure.shape], pressure.dtype):
+        comps = list(fv2.grad2(tuple(dxprod / d for d in dx), pressure))
+    else:
+        comps = [
+            (pressure - torch.roll(pressure, 1, d)) * (dxprod / dx[d])
+            for d in range(pressure.ndim)
+        ]
     if accessible_mask is not None:
         comps = [
             g * fm.to(g.dtype)

@@ -51,7 +51,7 @@ def _win(arr, off, size):
     return arr[tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, size))]
 
 
-def _uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
+def uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
     """No Dirichlet faces, every cell active, no no-slip walls."""
     if any(bool(torch.any(c)) for c in dirichlet_mask.components):
         return False
@@ -60,8 +60,9 @@ def _uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
     return no_slip_mask is None or not bool(torch.any(no_slip_mask))
 
 
-def advassembly_eligible(velocity, dirichlet_mask, active_mask, no_slip_mask,
-                         viscosity, periodic) -> bool:
+def advassembly_eligible(velocity, viscosity, periodic, uniform: bool) -> bool:
+    """Kernel 1 takes the field: a periodic float32 plane pair of one shape,
+    scalar viscosity, and `uniform` masks (`uniform_masks` of the masks)."""
     if velocity.rank != 2 or tuple(periodic) != (True, True):
         return False
     if velocity.components[0].shape != velocity.components[1].shape:
@@ -70,7 +71,7 @@ def advassembly_eligible(velocity, dirichlet_mask, active_mask, no_slip_mask,
         return False
     if isinstance(viscosity, (StaggeredField, torch.Tensor)) and getattr(viscosity, "ndim", 1) > 0:
         return False  # per-face viscosity keeps the general body
-    return _uniform_masks(dirichlet_mask, active_mask, no_slip_mask)
+    return uniform
 
 
 def assemble_advection_stencil(
@@ -84,17 +85,21 @@ def assemble_advection_stencil(
     accessible_mask: torch.Tensor,
     no_slip_mask: torch.Tensor | None,
     periodic: Sequence[bool],
+    *,
+    uniform: bool,
 ) -> AdvectionStencil:
     """Assemble the per-component implicit operators M_c around `velocity`
-    (Picard linearization). Masks are centered and padded by one."""
+    (Picard linearization). Masks are centered and padded by one.
+    `uniform` must be `uniform_masks(dirichlet_mask, active_mask,
+    no_slip_mask)`: the masks are constants of a simulation, so the caller
+    reads them once (SimulationParameters.uniform_masks), not per step."""
     rank = velocity.rank
     dx = tuple(float(v) for v in dx)
     periodic = tuple(bool(p) for p in periodic)
     if periodic != velocity.periodic:
         raise ValueError("velocity field periodicity must match the requested periodic axes")
 
-    if advassembly_eligible(velocity, dirichlet_mask, active_mask, no_slip_mask,
-                            viscosity, periodic):
+    if advassembly_eligible(velocity, viscosity, periodic, uniform):
         planes = fused_advection_assembly(
             velocity.components[0], velocity.components[1],
             *assembly_scalars(dx, float(viscosity), beta),

@@ -1,15 +1,36 @@
-"""Solver configurations and the forward predictor / corrector solves.
+"""Solver configurations and the differentiable predictor / corrector solves.
 
-Counterpart of diffpiso_tpu/solvers/base.py, forward only: the
-implicit-function-theorem adjoints (a transposed solve in the backward
-pass, zero gradient through the operator coefficients, the (1 - warn)
-gate) become `torch.autograd.Function`s in a later slice. `_adjoint_tol`
-is ported already."""
+Counterpart of diffpiso_tpu/solvers/base.py. `solve_advection_system` and
+`solve_pressure_system` are autograd Functions with the JAX package's
+implicit-function-theorem adjoints:
+
+* the backward pass is the transposed solve of the cotangent, at
+  `_adjoint_tol(tol, g)`: jac2 with transpose=True through `bicgstab` for
+  the momentum system; the same spectral pcg2, cold-started, for the
+  symmetric pressure system;
+* the operator coefficients, the initial guess and tol get zero gradient
+  (Picard linearization, as in the reference);
+* the gradient is gated by (1 - warn_forward) (1 - adjoint_failed); for
+  the pressure adjoint, failed also means residual > 100 adj_tol.
+
+`warn` and iteration counts are host values returned beside the tensors.
+
+A rollout (core/rollout.py) runs each step with a `SolveStash` recording:
+it records every solve's output and, once the backward pass has run, the
+step's adjoint solves (`AdjointSolve`). Under the "outputs" remat protocol
+the backward's replay of the step hands the recorded outputs back instead
+of solving again, so the Krylov loops never re-run; the operators the
+adjoints need are saved tensors, rebuilt by the replay of the assembly.
+The adjoint warm-start channels (`solve_*_ws`) are not ported."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
@@ -24,6 +45,75 @@ def _adjoint_tol(tol, cotangent):
     magnitude: relative accuracy of the adjoint solve is relative accuracy
     of the gradient."""
     return tol * torch.clamp(_tree_max_abs(cotangent), min=1.0)
+
+
+class AdjointSolve(NamedTuple):
+    """One backward solve. `limit` is the residual above which the gate
+    zeroes a converged pressure adjoint (100 x adj_tol); None for the
+    momentum adjoint, which the gate judges by its warn alone."""
+
+    system: str  # "momentum" or "pressure"
+    iterations: int  # Krylov iterations (momentum: BiCGSTAB's after jac2; 0 if jac2 converged)
+    residual: float
+    limit: Optional[float]
+    gated: bool  # the gate zeroed this adjoint's gradient
+
+
+class SolveStash:
+    """The solve outputs of one step, in call order, and the adjoint solves
+    its backward pass ran, in the order it ran them. `recording()` is the
+    context of the step's first run, `replaying()` that of its
+    recomputation in the backward pass."""
+
+    def __init__(self):
+        self.entries = []
+        self.replay_at = None  # index of the next entry to hand back while replaying
+        self.adjoints = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        token = _STASH.set(self)
+        try:
+            yield
+        finally:
+            _STASH.reset(token)
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self.replay_at = 0
+        token = _STASH.set(self)
+        try:
+            yield
+        finally:
+            _STASH.reset(token)
+            self.replay_at = None
+
+    def contexts(self):
+        """The (forward, recompute) pair `torch.utils.checkpoint` takes as
+        `context_fn`."""
+        return self.recording(), self.replaying()
+
+
+_STASH: contextvars.ContextVar = contextvars.ContextVar("diffpiso_solve_stash", default=None)
+
+
+def _run_or_replay(solve):
+    """`solve()` -> (tensors, host info), or the recorded result while a
+    stash replays; recorded while a stash records."""
+    stash = _STASH.get()
+    if stash is not None and stash.replay_at is not None:
+        xs, info = stash.entries[stash.replay_at]
+        stash.replay_at += 1
+        return tuple(x.detach() for x in xs), info
+    xs, info = solve()
+    if stash is not None:
+        stash.entries.append((tuple(x.detach() for x in xs), info))
+    return xs, info
+
+
+def _record_adjoint(ctx, solve: AdjointSolve):
+    if ctx.stash is not None:
+        ctx.stash.adjoints.append(solve)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +147,9 @@ class PressureSolver:
         return solve_pressure_system(self, laplacian, rhs, guess, tol)
 
 
-def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
-                           rhs: StaggeredField, guess, tol, transpose: bool = False):
-    """Solve (-M) v = rhs (or (-M^T) v = rhs) for the velocity predictor.
-    Returns (v, warn)."""
+def _adv_solve_impl(cfg: AdvectionSolver, stencil: AdvectionStencil,
+                    rhs: StaggeredField, guess, tol, transpose: bool = False):
+    """Solve (-M) v = rhs (or (-M^T) v = rhs). Returns (v, SolveResult)."""
     in_dtype = rhs.dtype
     if cfg.dtype is not None:
         dt = getattr(torch, cfg.dtype)
@@ -81,7 +170,62 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
         diag=diag if cfg.precondition else None,
         stencil=stencil, negate=True, transpose=transpose,
     )
-    return result.x.map(lambda a: a.to(in_dtype)), result.warn
+    return result.x.map(lambda a: a.to(in_dtype)), result
+
+
+def _stencil_planes(st: AdvectionStencil):
+    return tuple(t for c in range(st.rank) for t in (st.center[c], *st.lo[c], *st.hi[c]))
+
+
+def _stencil_from_planes(planes, rank):
+    k = 1 + 2 * rank
+    comps = [planes[c * k:(c + 1) * k] for c in range(rank)]
+    return AdvectionStencil(
+        center=tuple(p[0] for p in comps),
+        lo=tuple(tuple(p[1:1 + rank]) for p in comps),
+        hi=tuple(tuple(p[1 + rank:]) for p in comps),
+        diag_A=(),  # the solves never read it
+    )
+
+
+class _AdvectionSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, stencil, guess, tol, periodic, info, *rhs):
+        def solve():
+            x, res = _adv_solve_impl(cfg, stencil, StaggeredField(rhs, periodic), guess, tol)
+            return x.components, res.warn
+
+        xs, warn = _run_or_replay(solve)
+        info["warn"] = warn
+        ctx.cfg, ctx.tol, ctx.periodic, ctx.warn = cfg, tol, periodic, warn
+        ctx.rank, ctx.stash = stencil.rank, _STASH.get()
+        ctx.save_for_backward(*_stencil_planes(stencil))
+        return xs
+
+    @staticmethod
+    def backward(ctx, *g):
+        stencil = _stencil_from_planes(ctx.saved_tensors, ctx.rank)
+        ct = StaggeredField(g, periodic=ctx.periodic)
+        adj_tol = float(_adjoint_tol(ctx.tol, ct))
+        db, res = _adv_solve_impl(ctx.cfg, stencil, ct, None, adj_tol, transpose=True)
+        gate = (1.0 - float(ctx.warn)) * (1.0 - float(res.warn))
+        _record_adjoint(ctx, AdjointSolve("momentum", res.iterations, float(res.residual_norm),
+                                          None, gate != 1.0))
+        if gate != 1.0:
+            db = db * gate
+        return (None,) * 6 + tuple(db.components)
+
+
+def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
+                           rhs: StaggeredField, guess, tol):
+    """Solve (-M) v = rhs for the velocity predictor. Returns (v, warn).
+    Differentiable in rhs (the IFT adjoint); the stencil, guess and tol get
+    zero gradient."""
+    info = {}
+    guess = None if guess is None else guess.map(torch.Tensor.detach)
+    xs = _AdvectionSolve.apply(cfg, stencil, guess, float(tol), rhs.periodic, info,
+                               *rhs.components)
+    return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
 
 
 def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
@@ -94,13 +238,60 @@ def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
     return MatmulSpectralSolver(kinds=("fourier",) * lap.rank, shape=tuple(lap.center.shape)), weights
 
 
-def solve_pressure_system(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, guess, tol):
-    """Solve L p = rhs. Returns (p, iterations, warn)."""
+def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
+                         adjoint: bool = False):
+    """One spectral PCG solve of L p = rhs. The adjoint takes the adjoint
+    preconditioner and a cold start."""
     if cfg.dtype is not None:
         raise NotImplementedError("the whole-solve PCG runs in float32 only")
-    result = pcg(
-        laplacian, rhs, guess,
-        precond_mm=pressure_preconditioner(cfg.preconditioner, laplacian),
+    kind = cfg.preconditioner
+    if adjoint and cfg.adjoint_preconditioner != "same":
+        kind = cfg.adjoint_preconditioner
+    return pcg(
+        lap, rhs, None if adjoint else guess,
+        precond_mm=pressure_preconditioner(kind, lap),
         tol=tol, max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean,
     )
-    return result.x, result.iterations, result.warn
+
+
+class _PressureSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, lap, guess, tol, info, rhs):
+        def solve():
+            res = _pressure_solve_impl(cfg, lap, rhs, guess, tol)
+            return (res.x,), (res.iterations, res.warn)
+
+        (x,), (iters, warn) = _run_or_replay(solve)
+        info["iterations"], info["warn"] = iters, warn
+        ctx.cfg, ctx.tol, ctx.warn, ctx.periodic = cfg, tol, warn, lap.periodic
+        ctx.stash = _STASH.get()
+        ctx.save_for_backward(lap.center, *lap.lo, *lap.hi, lap.shift)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        center, *planes, shift = ctx.saved_tensors
+        rank = len(planes) // 2
+        lap = LaplaceStencil(center=center, lo=tuple(planes[:rank]), hi=tuple(planes[rank:]),
+                             shift=shift, periodic=ctx.periodic)
+        adj_tol = float(_adjoint_tol(ctx.tol, g))
+        res = _pressure_solve_impl(ctx.cfg, lap, g, None, adj_tol, adjoint=True)
+        limit = float(np.float32(100.0) * np.float32(adj_tol))
+        adj_failed = res.warn or res.residual_norm > limit
+        gate = (1.0 - float(ctx.warn)) * (1.0 - float(adj_failed))
+        _record_adjoint(ctx, AdjointSolve("pressure", res.iterations, float(res.residual_norm),
+                                          limit, gate != 1.0))
+        db = res.x
+        if gate != 1.0:
+            db = db * gate
+        return None, None, None, None, None, db
+
+
+def solve_pressure_system(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, guess, tol):
+    """Solve L p = rhs. Returns (p, iterations, warn). Differentiable in rhs
+    (L is symmetric: the adjoint is the same solve of the cotangent, cold
+    started); the Laplacian, guess and tol get zero gradient."""
+    info = {}
+    guess = None if guess is None else guess.detach()
+    x = _PressureSolve.apply(cfg, laplacian, guess, float(tol), info, rhs)
+    return x, info["iterations"], info["warn"]

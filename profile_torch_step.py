@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of one forward PISO step of the PyTorch / CUDA port goes.
+"""Where the time of the PyTorch / CUDA port's main path goes.
 
     python3 profile_torch_step.py [--n 512] [--steps 20] [--trace PATH]
+    python3 profile_torch_step.py --grad [--trace PATH]
 
 Runs the main path of the port (2-D periodic decaying turbulence, viscosity
 1e-4, dt = 0.4/n, advection tol 1e-6, pressure tol 1e-8, warm-started
-pressure increments): 10 warm-up steps, then `--steps` steps under
-torch.profiler. Prints the card, then one JSON line: host wall time per
-step, device busy time per step (the sum of kernel and copy times; one
+pressure increments): 10 warm-up steps, then under torch.profiler either
+`--steps` forward steps or, with --grad, one grad30 evaluation (the
+30-step rollout gradient of sum v^2 with respect to a forcing field,
+"outputs" remat) after one unprofiled evaluation. Prints the card,
+then one JSON line: host wall time per step (per unrolled step with
+--grad), device busy time per step (the sum of kernel and copy times; one
 stream, so they do not overlap), the device idle share, and device time
-per step grouped by kernel family, largest first. Writes the Chrome trace
-to --trace (default chiprun_out/profile_torch_step.json). Needs a GPU.
+and launches per step grouped by kernel family, largest first. Writes the
+Chrome trace to --trace (default traces/profile_torch_step.json, or
+profile_torch_grad.json with --grad). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import subprocess
 import sys
 import time
 
+UNROLL = 30
+
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("pcg2_sgemm", "pcg2 GEMM (M^-1 r contractions)"),
@@ -31,6 +38,8 @@ FAMILIES = (
     ("laplace_assembly", "laplace assembly"),
     ("jac2_", "jacobi2 sweeps"),
     ("advassembly", "advection assembly"),
+    ("fv2_", "FV div2 / grad2"),
+    ("corrector_", "corrector bridge / tail"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
 )
@@ -40,15 +49,20 @@ def family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
-    return "plain PyTorch ops (FV, corrector glue, masks, matvec)"
+    return "plain PyTorch ops (glue, masks, matvec, corrector VJP)"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--trace", default="chiprun_out/profile_torch_step.json")
+    ap.add_argument("--grad", action="store_true",
+                    help="profile one rollout-gradient evaluation instead of forward steps")
+    ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    if args.trace is None:
+        args.trace = ("traces/profile_torch_grad.json" if args.grad
+                      else "traces/profile_torch_step.json")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -57,7 +71,9 @@ def main() -> int:
         print("no CUDA device: profile_torch_step.py needs one GPU", file=sys.stderr)
         return 1
     from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
     from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.native import build_all
 
@@ -80,11 +96,28 @@ def main() -> int:
                 raise RuntimeError("a solve warned during profiling")
             v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
 
+    forcing = StaggeredField(tuple(torch.zeros(n, n, device=dev) for _ in range(2)),
+                             periodic=(True, True))
+
+    def grad_eval():
+        res = rollout_loss_grad(
+            lambda v, p, g1, g2, f: piso_step(
+                v, p, 0.4 / n, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-8),
+            v, p, forcing, UNROLL, remat="outputs")
+        if res.warns:
+            raise RuntimeError("a solve warned during profiling")
+
     run(10)
+    if args.grad:
+        grad_eval()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(args.steps)
+        if args.grad:
+            grad_eval()
+        else:
+            run(args.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
@@ -102,9 +135,10 @@ def main() -> int:
     if busy_us <= 0:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
-    steps = args.steps
+    steps = UNROLL if args.grad else args.steps
     print(json.dumps(dict(
-        n=n, steps=steps, host_ms_per_step=wall * 1e3 / steps,
+        n=n, mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward",
+        steps=steps, host_ms_per_step=wall * 1e3 / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_idle_share=1.0 - busy_us / 1e6 / wall,
         device_ms_per_step={k: v / 1e3 / steps for k, v in by_family.most_common()},

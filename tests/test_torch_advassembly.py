@@ -85,14 +85,16 @@ def test_assemble_dispatches_uniform_periodic_to_the_kernel_wrapper(monkeypatch)
     vel = StaggeredField(tuple(t(c) for c in comps), (True, True))
     dm = StaggeredField((torch.zeros(8, 8, dtype=torch.bool),) * 2, (True, True))
     ones = torch.ones(10, 10)
-    pst.assemble_advection_stencil(vel, DX, CIRC, NU, BETA, dm, ones, ones, None, (True, True))
+    pst.assemble_advection_stencil(vel, DX, CIRC, NU, BETA, dm, ones, ones, None, (True, True),
+                                   uniform=pst.uniform_masks(dm, ones, None))
     assert calls == [(8, 8)]
     # a Dirichlet face makes the masks non-uniform: the general body runs
     dm2 = StaggeredField((torch.zeros(8, 8, dtype=torch.bool),
                           torch.zeros(8, 8, dtype=torch.bool).index_fill(0, torch.tensor([2]), True)),
                          (True, True))
+    assert not pst.uniform_masks(dm2, ones, None)
     pst.assemble_advection_stencil(vel, DX, CIRC, NU, BETA, dm2, ones, ones, None,
-                                   (True, True))
+                                   (True, True), uniform=False)
     assert calls == [(8, 8)]
 
 
@@ -112,10 +114,11 @@ def test_general_body_matches_jax_with_masks(seed):
             JField(tuple(jnp.asarray(c) for c in comps), periodic=(True, True)), DX, CIRC,
             visc, BETA, JField(tuple(jnp.asarray(m) for m in dmask), periodic=(True, True)),
             jnp.asarray(act), jnp.asarray(act), jnp.asarray(ns), (True, True))
+    pdmask = StaggeredField(tuple(t(m) for m in dmask), (True, True))
     got = pst.assemble_advection_stencil(
         StaggeredField(tuple(t(c) for c in comps), (True, True)), DX, CIRC, visc, BETA,
-        StaggeredField(tuple(t(m) for m in dmask), (True, True)), t(act), t(act), t(ns),
-        (True, True))
+        pdmask, t(act), t(act), t(ns), (True, True),
+        uniform=pst.uniform_masks(pdmask, t(act), t(ns)))
     for a, b in zip(_stencil_planes(got), _stencil_planes(want)):
         np.testing.assert_allclose(n(a), n(b), rtol=1e-6, atol=1e-6)
 

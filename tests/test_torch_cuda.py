@@ -1,5 +1,8 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
-and the CUDA step against the CPU plain path. Every test here needs a GPU
+"""The CUDA kernels against their plain PyTorch versions on the card (the
+two assemblies, jac2, pcg2, the FV pair forward and VJP, the corrector
+bridge / tail forward; their VJP recomputes the plain chain, so comparing
+it checks only the wiring), the CUDA step and the CUDA rollout gradient
+against the CPU plain path, with each adjoint's gate decision. Every test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
@@ -13,8 +16,11 @@ import torch
 
 from diffpiso_tpu_torch import convert
 from diffpiso_tpu_torch.core.piso import piso_step
+from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
 from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.fields.noise import random_solenoidal
+from diffpiso_tpu_torch.ops import corrector, fv2
 from diffpiso_tpu_torch.ops import laplace as plap
 from diffpiso_tpu_torch.ops.advassembly import (
     advection_assembly_plain,
@@ -22,6 +28,7 @@ from diffpiso_tpu_torch.ops.advassembly import (
     fused_advection_assembly,
 )
 from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly, laplace_assembly_plain
+from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
@@ -147,3 +154,110 @@ def test_cuda_steps_match_the_cpu_plain_path(cuda_device):
     assert itc == itp
     for a, b in zip(vc, vp):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+ODD = (96, 160)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, ODD])
+def test_fv2_kernels_match_plain_forward_and_vjp(shape, cuda_device):
+    fs = (0.013, 0.021)
+    v, u, p = (_rand(shape, s).to(cuda_device).requires_grad_(True) for s in (40, 41, 42))
+    ct = _rand(shape, 43).to(cuda_device)
+    before = (fv2.div2.launches, fv2.grad2.launches)
+    d = fv2.div2(fs, (v, u))
+    g = fv2.grad2(fs, p)
+    assert (fv2.div2.launches, fv2.grad2.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(d, fv2.div2_plain(fs, (v.detach(), u.detach())), rtol=0, atol=0)
+    for a, b in zip(g, fv2.grad2_plain(fs, p.detach())):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # VJPs: the other kernel with negated factors, bit-equal to the plain one
+    gv, gu = torch.autograd.grad(d, (v, u), ct)
+    (gp,) = torch.autograd.grad(g, (p,), (ct, 2.0 * ct))
+    want = fv2.grad2_plain((-fs[0], -fs[1]), ct)
+    torch.testing.assert_close(gv, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(gu, want[1], rtol=0, atol=0)
+    torch.testing.assert_close(gp, fv2.div2_plain((-fs[0], -fs[1]), (ct, 2.0 * ct)),
+                               rtol=0, atol=0)
+    assert (fv2.div2.launches, fv2.grad2.launches) == (before[0] + 2, before[1] + 2)
+
+
+def _bridge_planes(shape, dev, beta):
+    rng = np.random.RandomState(50)
+
+    def r(scale, offset=0.0):
+        return t(offset + scale * rng.randn(*shape)).to(dev)
+
+    planes = [r(1e-3), r(0.5), r(0.5), r(0.1, beta), r(0.1, beta)]
+    for _ in range(2):
+        planes += [r(0.3, -beta - 4.0)] + [r(0.2) for _ in range(4)]
+    return planes + [r(0.3, -1.0), r(0.3, -1.0)]
+
+
+@pytest.mark.parametrize("shape", [SHAPE, ODD])
+def test_corrector_kernels_match_plain_forward_and_vjp(shape, cuda_device):
+    dx = (0.0123, 0.0123)
+    beta = 51.2
+    f0, f1, dxprod = dx[1], dx[0], dx[0] * dx[1]
+    planes = _bridge_planes(shape, cuda_device, beta)
+    ins = [x.requires_grad_(i < 3) for i, x in enumerate(planes)]
+    stencil = AdvectionStencil(center=(ins[5], ins[10]), lo=((ins[6], ins[8]), (ins[11], ins[13])),
+                               hi=((ins[7], ins[9]), (ins[12], ins[14])), diag_A=(ins[15], ins[16]))
+    before = corrector.corrector1_bridge.launches
+    v2, h, hdiv = corrector.corrector1_bridge(ins[0], ins[1:3], ins[3:5], stencil,
+                                              stencil.diag_A, beta, dx)
+    assert corrector.corrector1_bridge.launches == before + 1
+    want = corrector.bridge_plain(f0, f1, dxprod, beta, *[x.detach() for x in ins])
+    for a, b in zip((*v2, *h, hdiv), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cts = [_rand(shape, 60 + k).to(cuda_device) for k in range(5)]
+    got = torch.autograd.grad((*v2, *h, hdiv), ins[:3], cts)
+    with torch.enable_grad():
+        ref_in = [x.detach().requires_grad_(i < 3) for i, x in enumerate(ins)]
+        ref = torch.autograd.grad(corrector.bridge_plain(f0, f1, dxprod, beta, *ref_in),
+                                  ref_in[:3], cts)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    tins = [x.detach().requires_grad_(i < 5) for i, x in enumerate(
+        [ins[0], ins[1], ins[2], want[2], want[3], ins[3], ins[4]])]
+    before = corrector.corrector2_tail.launches
+    v3 = corrector.corrector2_tail(tins[0], tins[1:3], tins[3:5], tins[5:7], dx)
+    assert corrector.corrector2_tail.launches == before + 1
+    twant = corrector.tail_plain(f0, f1, dxprod, *[x.detach() for x in tins])
+    for a, b in zip(v3, twant):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    got = torch.autograd.grad(v3, tins[:5], cts[:2])
+    ref_in = [x.detach().requires_grad_(i < 5) for i, x in enumerate(tins)]
+    ref = torch.autograd.grad(corrector.tail_plain(f0, f1, dxprod, *ref_in), ref_in[:5], cts[:2])
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n, viscosity, p_tol", [
+    (32, 1e-3, 1e-6),
+    (128, 1e-4, 1e-8),  # the main path's settings: the pressure-adjoint gate fires
+])
+def test_cuda_rollout_gradient_matches_the_cpu_plain_path(n, viscosity, p_tol, cuda_device):
+    grads, decisions = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        domain, sim = decaying_turbulence_setup((n, n), viscosity=viscosity, device=dev)
+        vel = random_solenoidal(domain, torch.Generator().manual_seed(1), device=dev)
+        p = domain.centered_grid(0.0, device=dev)
+        forcing = StaggeredField(tuple(torch.zeros(n, n, device=dev) for _ in range(2)),
+                                 periodic=(True, True))
+
+        def step(v, p, g1, g2, f, domain=domain, sim=sim):
+            return piso_step(v, p, 0.4 / n, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                             pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=p_tol)
+
+        res = rollout_loss_grad(step, vel, p, forcing, 3)
+        assert res.warns == 0
+        grads.append([c.cpu().double() for c in res.grad.components])
+        decisions.append([(a.system, a.gated) for a in res.adjoints])
+    # each adjoint solve gated alike on both devices
+    assert decisions[0] == decisions[1]
+    assert any(g for _, g in decisions[1]) == (p_tol == 1e-8)
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
+    den = sum(float(torch.sum(b ** 2)) for b in grads[1])
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3

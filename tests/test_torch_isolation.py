@@ -40,6 +40,12 @@ def test_source_names_no_jax_and_no_reference_package(path):
     assert not re.search(r"diffpiso_tpu(?!_torch|/)", src), f"{path} names the reference package"
 
 
+def test_the_scan_covers_the_gradient_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/ops/fv2.py", "diffpiso_tpu_torch/ops/corrector.py",
+            "diffpiso_tpu_torch/core/rollout.py"} <= scanned
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 

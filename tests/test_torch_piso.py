@@ -63,9 +63,21 @@ def _port_rollout(comps, sim=None, device="cpu"):
 @pytest.mark.parametrize("jax_path", ["default", "kernels_forced"])
 def test_piso_steps_match_jax(jax_path, monkeypatch):
     comps = _initial_velocity()
+    reached = []
     if jax_path == "kernels_forced":
+        from diffpiso_tpu.ops import pallas_corrector, pallas_fv
+
         force_jax_kernels(monkeypatch)
+        for mod, name in ((pallas_fv, "div2"), (pallas_fv, "grad2"),
+                          (pallas_corrector, "corrector1_bridge"),
+                          (pallas_corrector, "corrector2_tail")):
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k:
+                                reached.append(_n) or _f(*a, **k))
     jvel, jp, jiters, jsim = _jax_rollout(comps)
+    if jax_path == "kernels_forced":
+        # the JAX step went through its FV and corrector kernels
+        assert set(reached) == {"div2", "grad2", "corrector1_bridge", "corrector2_tail"}
     # the port runs on the state converted from the JAX setup
     sim = convert.simulation_parameters(jax_sim_to_numpy(jsim), device="cpu")
     vel, p, iters = _port_rollout(comps, sim)

@@ -68,19 +68,30 @@ class FakePltpu:
 
 
 def force_jax_kernels(monkeypatch):
-    """Run the four JAX kernels of the ported slice in interpret mode on the
-    CPU, with their gates forced open: advection assembly, Laplace
-    assembly, jac2 and pcg2."""
+    """Run the JAX kernels of the ported slices in interpret mode on the CPU,
+    with their gates forced open: advection assembly, Laplace assembly,
+    jac2, pcg2, the periodic FV pair (div2 / grad2) and the corrector
+    bridge / tail (the pattern of tests/test_pallas_fv.py and
+    tests/test_pallas_corrector.py)."""
     import jax.numpy as jnp
 
-    from diffpiso_tpu.ops import pallas_advassembly, pallas_assembly
+    from diffpiso_tpu.ops import (
+        pallas_advassembly,
+        pallas_assembly,
+        pallas_corrector,
+        pallas_fv,
+    )
     from diffpiso_tpu.solvers import pallas_krylov
 
-    for mod in (pallas_advassembly, pallas_assembly, pallas_krylov):
+    for mod in (pallas_advassembly, pallas_assembly, pallas_krylov, pallas_fv,
+                pallas_corrector):
         monkeypatch.setattr(mod, "_INTERPRET", True)
+    for mod in (pallas_krylov, pallas_fv, pallas_corrector):
+        monkeypatch.setattr(mod, "_roll", lambda a, s, ax: jnp.roll(a, s, ax))
+    monkeypatch.setattr(pallas_fv, "eligible2", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_corrector, "eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_advassembly, "pltpu", FakePltpu())
     monkeypatch.setattr(pallas_assembly, "pltpu", FakePltpu())
-    monkeypatch.setattr(pallas_krylov, "_roll", lambda a, s, ax: jnp.roll(a, s, ax))
     monkeypatch.setattr(pallas_advassembly, "advassembly_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_assembly, "assembly_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
