@@ -11,7 +11,16 @@ Phases, each fatal on failure:
      the solves must also agree on their sweep / iteration counts; the FV
      pair and the corrector bridge / tail forward and VJP), plus each
      kernel's time, its plain version's, a library yardstick where one
-     PyTorch call computes the same thing, and its bound;
+     PyTorch call computes the same thing, its bound, and its device time
+     per launch from torch.profiler (measured after phase 6, so no
+     profiler session precedes a timed path); then (2b) the same at the
+     lid-driven
+     cavity's 512 shapes (pressure plane 513 x 512, faces 514 x 512 and
+     513 x 513) on the planes of a cavity step: the bounded FV trio
+     (grad2m, div2m, gradT2m) forward and VJP, the stencil matvec in both
+     forms (yardstick: one cuSPARSE CSR SpMV), the three BiCGSTAB phases
+     in both forms on both face shapes, jac2, pcg2 and the Laplace
+     assembly;
   3. a small-input check: 3 steps at 64^2 on the card against the plain
      path on the CPU;
   4. the main path: 2-D periodic decaying turbulence at 512^2 (viscosity
@@ -32,7 +41,23 @@ Phases, each fatal on failure:
      2 x 30, the pressure solve 4 x 30, every other kernel at the count
      derived below), warn fraction 0, finite non-zero gradient; the gated
      adjoint solves and how far their residuals lie from the gate's limit
-     are reported.
+     are reported;
+  6. the lid-driven cavity (the JAX package's `bench.py workload_cavity`:
+     `lid_driven_cavity_setup`, viscosity 1e-3, dt = 0.2/n, advection and
+     pressure tol 1e-6, dct_mm preconditioner): (a) at 64^2, 3 steps and
+     then the 3-step rollout gradient on the card against the plain path
+     on the CPU (equal iteration counts and gate decisions, gradient
+     relative l2 <= 1e-3); (b) at 512 from rest, a 2000-step spin-up, then
+     200 timed forward steps with every counter reset before them
+     (counters at calls-per-step x 200, warn fraction 0, no BiCGSTAB
+     fallback, finite state, max |div v| on active cells reported); (c)
+     grad30 from the developed state, 1 untimed and 3 timed evaluations
+     with the counters checked per evaluation and equal in all four (a
+     momentum adjoint whose jac2 misses its tol hands over to BiCGSTAB, as
+     in the JAX package on the TPU: its iterations launch the three phase
+     kernels per component, its residuals the matvec; such fallbacks are
+     reported), warn 0, finite non-zero gradient, the gated adjoints
+     reported with residual / limit.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -81,10 +106,598 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+# fragments of the names of this repository's kernels (csrc/*.cu)
+OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
+               "matvec_kernel", "pcg2", "bicg_")
+
+
+def device_time(fn, reps: int = 20) -> dict:
+    """A placeholder for the device time of `fn`, measured by
+    `measure_device_times` after every timed path has run (a profiler
+    session may leave tracing hooks that slow the host afterwards)."""
+    return {"_device_time": (fn, reps)}
+
+
+def measure_device_times(entries) -> None:
+    """Replace each placeholder of `device_time` in the entries (and their
+    nested dicts) by its measurement."""
+    for entry in entries:
+        for sub in [entry] + [v for v in entry.values() if isinstance(v, dict)]:
+            if "_device_time" in sub:
+                sub.update(profile_device(*sub.pop("_device_time")))
+
+
+def profile_device(fn, reps: int) -> dict:
+    """Device time of `fn` under torch.profiler: the kernels of this
+    repository it launches per call, and their mean device time per launch
+    (microseconds). The host-clock `ms` of a call beside it includes the
+    wrapper's own cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(k in e.name for k in OWN_KERNELS)]
+    total_us = sum(e.time_range.elapsed_us() for e in evs)
+    return dict(device_launches_per_call=len(evs) / reps,
+                device_us_per_launch=total_us / len(evs) if evs else None)
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+CAV_N = 512
+CAV_TOL = 1e-6
+CAV_SPINUP = 2000
+CAV_STEPS = 200
+CAV_SMALL = 64
+BICG_PHASES = ("bicg_phase_p", "bicg_phase_s", "bicg_phase_x")
+# kernels only the bounded cavity runs; their `launches` come from its paths
+# (those only its grad30 launches, from that)
+CAVITY_KERNELS = ("grad2m", "div2m", "gradT2m", "stencil_matvec") + BICG_PHASES
+CAVITY_GRAD_KERNELS = ("gradT2m",) + BICG_PHASES
+
+
+def csr_of_stencil(c, ly, hy, lx, hx):
+    """The 5-point stencil (roll wrap) as one CSR matrix, for the library
+    yardstick of the matvec (cuSPARSE SpMV); built once, outside timing."""
+    import torch
+
+    ny, nx = c.shape
+    idx = torch.arange(ny * nx, device=c.device).reshape(ny, nx)
+    cols = [idx, torch.roll(idx, 1, 0), torch.roll(idx, -1, 0), torch.roll(idx, 1, 1),
+            torch.roll(idx, -1, 1)]
+    rows = torch.cat([idx.reshape(-1)] * 5)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, torch.cat([k.reshape(-1) for k in cols])]),
+                                  torch.cat([a.reshape(-1) for a in (c, ly, hy, lx, hx)]),
+                                  (ny * nx, ny * nx)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def bicg_second_iteration(st_c, invd, b, transpose) -> dict:
+    """The arguments of each BiCGSTAB phase in the second iteration of the
+    loop on one component, A = -M (or -M^T), from x0 = 0: one iteration of
+    the plain phases, then the next one's inputs, each phase's from the
+    plain outputs of the one before."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import bicg
+
+    r = rhat = b
+    x = p = v = torch.zeros_like(b)
+    one = torch.ones((), device=b.device)
+    rho, rho_new, alpha, omega = one, torch.sum(b * b), one, one
+    for _ in range(2):
+        beta = (rho_new / rho) * (alpha / omega)
+        args = {"p": (st_c, invd, r, p, v, rhat, beta, omega, -1.0, transpose)}
+        p, v, d = bicg.bicg_phase_p_plain(*args["p"])
+        alpha = rho_new / d
+        args["s"] = (st_c, invd, r, v, alpha, -1.0, transpose)
+        s, t, tt, ts = bicg.bicg_phase_s_plain(*args["s"])
+        omega = ts / tt
+        args["x"] = (invd, p, s, t, x, rhat, alpha, omega)
+        x, r, _, rho_next = bicg.bicg_phase_x_plain(*args["x"])
+        rho, rho_new = rho_new, rho_next
+    return args
+
+
+def cavity_kernels(dev, kernels: list) -> dict:
+    """Phase 2b: the cavity path's kernels against their plain versions at
+    the 512 cavity's shapes, on the planes of a step 20 steps from rest.
+    Appends the entries of the bounded FV trio, the matvec and the BiCGSTAB
+    phases to `kernels` and returns the cavity measurements of jac2, pcg2 and the Laplace
+    assembly, keyed by their entry names."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import lid_driven_cavity_setup
+    from diffpiso_tpu_torch.ops import fv, fv2m, matvec
+    from diffpiso_tpu_torch.ops.laplace import laplace_mask_planes
+    from diffpiso_tpu_torch.ops.laplace_assembly import (
+        fused_laplace_assembly, laplace_assembly_plain)
+    from diffpiso_tpu_torch.solvers import bicg
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+    from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, pcg2_plain
+
+    domain, sim, dt = lid_driven_cavity_setup(CAV_N, device=dev)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    for _ in range(20):
+        o = piso_step(v, p, dt, domain, sim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                      advection_tol=CAV_TOL, pressure_tol=CAV_TOL, full_output=True)
+        if o.warn:
+            fail("cavity: a solve warned in the steps that make phase 2b's planes")
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    it = o.intermediates
+    st, lap = it["stencil"], it["laplacian"]
+    vs0, vs1 = it["velocity_star"].components
+    p1 = o.pressure_inc1
+    ny, nx = p1.shape
+    dx = domain.dx
+    fs = (dx[0] * dx[1] / dx[0], dx[0] * dx[1] / dx[1])
+    nfs = (-fs[0], -fs[1])
+    per = (False, False)
+    rep = tuple((lo != "zero", hi != "zero") for lo, hi in domain.pressure_pad_modes())
+    masks = tuple(m.contiguous() for m in fv._face_masks(sim.accessible_mask, per, 2))
+    cell = ny * nx * 4
+    faces = (vs0.numel() + vs1.numel()) * 4
+
+    def vjp(fn, leaves, cts):
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, cts)
+
+    def maxerr(pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    # the FV trio: forward, and each VJP against the plain transpose
+    g_err = max(maxerr(zip(fv2m.grad2m(fs, per, rep, p1, masks),
+                           fv2m.grad2m_plain(fs, per, rep, p1, masks))),
+                maxerr([(vjp(lambda a: fv2m.grad2m(fs, per, rep, a, masks), (p1,), (vs0, vs1))[0],
+                         fv2m.gradT2m_plain(fs, per, rep, (vs0, vs1), masks))]))
+    d_err = max(maxerr([(fv2m.div2m(fs, per, (vs0, vs1)), fv2m.div2m_plain(fs, per, (vs0, vs1)))]),
+                maxerr(zip(vjp(lambda a, b: fv2m.div2m(fs, per, (a, b)), (vs0, vs1), p1),
+                           fv2m.grad2m_plain(nfs, per, fv2m.NO_REP, p1))))
+    t_err = maxerr([(fv2m.gradT2m(fs, per, rep, (vs0, vs1), masks),
+                     fv2m.gradT2m_plain(fs, per, rep, (vs0, vs1), masks))])
+    scale = max(float(vs0.abs().max()), float(vs1.abs().max()), float(p1.abs().max())) * max(fs)
+    print(f"cavity FV trio vs plain (forward and VJP): max abs err grad2m {g_err:.3e}, div2m "
+          f"{d_err:.3e}, gradT2m {t_err:.3e} (planes up to {scale:.3e})", flush=True)
+    if not max(g_err, d_err, t_err) <= 1e-6 * scale:
+        fail("cavity FV trio: kernel vs plain beyond 1e-6 x scale")
+    n_faces = vs0.numel() + vs1.numel()
+    for name, fn, plain, by, fl, err, line in (
+        # grad2m: p and the two face masks in, two face planes out; 3 flops a face
+        ("grad2m", lambda: fv2m.grad2m(fs, per, rep, p1, masks),
+         lambda: fv2m.grad2m_plain(fs, per, rep, p1, masks), cell + 2 * faces, 3 * n_faces, g_err,
+         376),
+        # div2m: two face planes in, one cell plane out; 5 flops a cell
+        ("div2m", lambda: fv2m.div2m(fs, per, (vs0, vs1)),
+         lambda: fv2m.div2m_plain(fs, per, (vs0, vs1)), faces + cell, 5 * ny * nx, d_err, 333),
+        # gradT2m: two cotangent and two mask planes in, one cell plane out; 7 flops a cell
+        ("gradT2m", lambda: fv2m.gradT2m(fs, per, rep, (vs0, vs1), masks),
+         lambda: fv2m.gradT2m_plain(fs, per, rep, (vs0, vs1), masks), 2 * faces + cell,
+         7 * ny * nx, t_err, 417),
+    ):
+        b_, by_ = bound(by, fl)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/fv2m.cu",
+            replaces=f"diffpiso_tpu/ops/pallas_fv.py:{line}", max_abs_err=err,
+            ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 50), **device_time(fn),
+            bound_ms=b_, bound_by=by_, library_ms=None, shape=[ny, nx],
+        ))
+
+    # the matvec, both components and both forms, on explicit_H's input
+    w = [a - b for a, b in zip(it["velocity_s2"].components, (vs0, vs1))]
+    mv_err = 0.0
+    for c in range(2):
+        planes = (st.center[c], st.lo[c][0], st.hi[c][0], st.lo[c][1], st.hi[c][1])
+        for tr in (False, True):
+            mv_err = max(mv_err, maxerr([
+                (matvec.fused_stencil_matvec(planes[0], (planes[1], planes[3]),
+                                             (planes[2], planes[4]), w[c], tr),
+                 matvec.matvec_plain(*planes, w[c], tr)),
+                (vjp(lambda x: matvec.fused_stencil_matvec(planes[0], (planes[1], planes[3]),
+                                                           (planes[2], planes[4]), x, tr),
+                     (w[c],), w[c])[0], matvec.matvec_plain(*planes, w[c], not tr))]))
+    mv_scale = max(float(x.abs().max()) for x in w) * max(float(a.abs().max()) for a in st.center)
+    print(f"cavity stencil matvec vs plain (both components, both forms, forward and VJP): max "
+          f"abs err {mv_err:.3e} (products up to {mv_scale:.3e})", flush=True)
+    if not mv_err <= 1e-6 * mv_scale:
+        fail("cavity stencil matvec: kernel vs plain beyond 1e-6 x scale")
+    planes0 = (st.center[0], st.lo[0][0], st.hi[0][0], st.lo[0][1], st.hi[0][1])
+    csr = csr_of_stencil(*planes0)
+    spmv = csr @ w[0].reshape(-1, 1)
+    lib_err = float((spmv.reshape(w[0].shape) - matvec.matvec_plain(*planes0, w[0])).abs().max())
+    print(f"cuSPARSE SpMV yardstick vs plain matvec: max abs err {lib_err:.3e}", flush=True)
+    x0f = w[0].reshape(-1, 1)
+
+    def mv_k(tr=False):
+        return matvec.fused_stencil_matvec(planes0[0], (planes0[1], planes0[3]),
+                                           (planes0[2], planes0[4]), w[0], tr)
+
+    b_mv, by_mv = bound(7 * w[0].numel() * 4, 9 * w[0].numel())
+    kernels.append(dict(
+        name="stencil_matvec", route="cuda", source="diffpiso_tpu_torch/csrc/matvec.cu",
+        replaces="diffpiso_tpu/ops/pallas_stencil.py:188", max_abs_err=mv_err,
+        ms=cuda_time_ms(mv_k, 200), ms_transposed=cuda_time_ms(lambda: mv_k(True), 200),
+        plain_ms=cuda_time_ms(lambda: matvec.matvec_plain(*planes0, w[0]), 50),
+        **device_time(mv_k), bound_ms=b_mv, bound_by=by_mv,
+        library_ms=cuda_time_ms(lambda: csr @ x0f, 200), shape=list(w[0].shape),
+    ))
+
+    # the BiCGSTAB phases on the step's momentum operator, both forms and
+    # both face shapes, with the inputs of the loop's second iteration (p
+    # and v nonzero) on the cotangent grad30's last adjoint solves (2 v)
+    st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
+    ph_err, ph_scalar_rel, ph_inputs = 0.0, 0.0, {}
+    for c in range(2):
+        invd = torch.where(st.center[c].abs() > 1e-30, 1.0 / -st.center[c], 1.0)
+        rhs_c = 2.0 * o.velocity.components[c]
+        for tr in (True, False):
+            args = bicg_second_iteration(st_cs[c], invd, rhs_c, tr)
+            ph_inputs[(c, tr)] = args
+            for kern, plain, a in ((bicg.fused_bicg_phase_p, bicg.bicg_phase_p_plain, args["p"]),
+                                   (bicg.fused_bicg_phase_s, bicg.bicg_phase_s_plain, args["s"]),
+                                   (bicg.fused_bicg_phase_x, bicg.bicg_phase_x_plain, args["x"])):
+                got, want = kern(*a), plain(*a)
+                ph_err = max(ph_err, maxerr(zip(got[:2], want[:2])))
+                ph_scalar_rel = max(ph_scalar_rel, *(float((g - w).abs() / w.abs().clamp_min(1e-30))
+                                                     for g, w in zip(got[2:], want[2:])))
+    print(f"cavity BiCGSTAB phases vs plain (both components, both forms): planes max abs err "
+          f"{ph_err:.3e}, scalars max rel err {ph_scalar_rel:.3e}", flush=True)
+    if not (ph_err == 0.0 and ph_scalar_rel <= 1e-5):
+        fail("cavity BiCGSTAB phases: planes not bit-equal or scalars beyond rel 1e-5")
+    a = ph_inputs[(0, True)]  # grad30's form, on the 514 x 512 faces
+    plane = a["x"][0].numel() * 4
+    cells = a["x"][0].numel()
+    # planes in + out and flops per cell: p 10 + 2, 17; s 8 + 2, 17; x 6 + 2, 12
+    for name, kern, plain, args, planes, flops, line in (
+        ("bicg_phase_p", bicg.fused_bicg_phase_p, bicg.bicg_phase_p_plain, a["p"], 12, 17, 456),
+        ("bicg_phase_s", bicg.fused_bicg_phase_s, bicg.bicg_phase_s_plain, a["s"], 10, 17, 480),
+        ("bicg_phase_x", bicg.fused_bicg_phase_x, bicg.bicg_phase_x_plain, a["x"], 8, 12, 502),
+    ):
+        b_, by_ = bound(planes * plane, flops * cells)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/bicg.cu",
+            replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}", max_abs_err=ph_err,
+            scalars_max_rel_err=ph_scalar_rel,
+            ms=cuda_time_ms(lambda: kern(*args), 200), plain_ms=cuda_time_ms(lambda: plain(*args), 50),
+            **device_time(lambda kern=kern, args=args: kern(*args)), bound_ms=b_, bound_by=by_,
+            library_ms=None,
+            shape=list(a["x"][0].shape),
+        ))
+
+    # jac2 on the step's momentum system, both forms
+    b_c = tuple(it["rhs"].components)
+    x_c = tuple(o.velocity.components)
+    sweeps, j_err = {}, 0.0
+    for tr in (False, True):
+        k = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, tr, CAV_TOL, 33)
+        q = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, CAV_TOL, 33)
+        j_err = max(j_err, maxerr([(k[0], q[0]), (k[1], q[1])]))
+        rel = max(rel_err(k[0], q[0]), rel_err(k[1], q[1]))
+        print(f"cavity jac2 transpose={tr}: sweeps kernel {k[3]} plain {q[3]}, residual kernel "
+              f"{k[2]:.3e} plain {q[2]:.3e}, x rel err {rel:.3e}", flush=True)
+        if k[3] != q[3]:
+            fail(f"cavity jac2 transpose={tr}: sweep counts differ ({k[3]} vs {q[3]})")
+        if not rel <= 1e-6:
+            fail(f"cavity jac2 transpose={tr}: x rel err {rel:.3e} > 1e-6")
+        sweeps[tr] = k[3]
+    # per component: 7 planes in and x out; per face 2 residual matvecs
+    # (init, exit) of 11 flops and 13 per sweep, plus the inverse diagonal
+    b_jac, by_jac = bound(8 * faces, n_faces * (2 + 22 + 13 * sweeps[False]))
+    out = {"jacobi2_solve": dict(
+        shapes=[list(vs0.shape), list(vs1.shape)], sweeps=sweeps[False], max_abs_err=j_err,
+        ms=cuda_time_ms(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, CAV_TOL, 33), 50),
+        plain_ms=cuda_time_ms(lambda: jacobi2_plain(st_cs, b_c, x_c, -1.0, False, CAV_TOL, 33), 10),
+        **device_time(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, CAV_TOL, 33)),
+        bound_ms=b_jac, bound_by=by_jac, library_ms=None)}
+
+    # pcg2 on the first corrector's system, cold (as an adjoint) and warm
+    mss, weights = pressure_preconditioner("dct_mm", lap)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, dev)
+    sym = safe_symbol(mss, weights, torch.float32, dev)
+    rhs = it["v1_div"]
+    iters = {}
+    p_err = 0.0
+    for label, guess in (("cold", None), ("warm", g1 * 0.5)):
+        kx, kr, kk = fused_pcg2_solve(lap, rhs, guess, v0, v0t, v1, v1t, sym, CAV_TOL, 600)
+        px, pr, pk = pcg2_plain(lap, rhs, guess, v0, v1, sym, CAV_TOL, 600)
+        rel = rel_err(kx, px)
+        p_err = max(p_err, float((kx - px).abs().max()))
+        print(f"cavity pcg2 ({label}): iterations kernel {kk} plain {pk}, residual kernel "
+              f"{kr:.3e} plain {pr:.3e}, x rel err {rel:.3e}", flush=True)
+        if kk != pk:
+            fail(f"cavity pcg2 ({label}): iteration counts differ ({kk} vs {pk})")
+        if not rel <= 1e-4:
+            fail(f"cavity pcg2 ({label}): x rel err {rel:.3e} > 1e-4")
+        iters[label] = kk
+    kk = iters["cold"]
+    b_pcg, by_pcg = bound(9 * cell + (ny * ny + nx * nx) * 4 * 2,
+                          kk * (4.0 * ny * nx * (ny + nx) + 30 * ny * nx) + 24 * ny * nx)
+    out["pcg2_solve"] = dict(
+        shape=[ny, nx], iterations=iters, max_abs_err=p_err,
+        ms=cuda_time_ms(lambda: fused_pcg2_solve(lap, rhs, None, v0, v0t, v1, v1t, sym, CAV_TOL,
+                                                 600), 20),
+        plain_ms=cuda_time_ms(lambda: pcg2_plain(lap, rhs, None, v0, v1, sym, CAV_TOL, 600), 5),
+        **device_time(lambda: fused_pcg2_solve(lap, rhs, None, v0, v0t, v1, v1t, sym, CAV_TOL,
+                                               600), 5),
+        bound_ms=b_pcg, bound_by=by_pcg, library_ms=cuda_time_ms(lambda: torch.matmul(v0, rhs), 200))
+
+    # the Laplace assembly with the cavity's masks (bounded flags, 513 rows)
+    influence = [(dx[0] * dx[1] / dx[0] ** 2) / ((dx[0] * dx[1] / dt) - a) for a in st.diag_A]
+    lmasks = laplace_mask_planes(sim.active_mask, sim.accessible_mask, per, (ny, nx),
+                                 torch.float32)
+    k_lap = fused_laplace_assembly(influence[0], influence[1], lmasks, per)
+    p_lap = laplace_assembly_plain(influence[0], influence[1], lmasks, per)
+    l_err = maxerr(zip(k_lap[:5], p_lap[:5]))
+    l_rel = max(rel_err(a, b) for a, b in zip(k_lap[:5], p_lap[:5]))
+    s_rel = rel_err(k_lap[5], p_lap[5])
+    print(f"cavity laplace assembly vs plain: planes max abs err {l_err:.3e}, sum|diag| rel err "
+          f"{s_rel:.3e}", flush=True)
+    if not (l_rel <= 1e-6 and s_rel <= 1e-5):
+        fail("cavity laplace assembly: kernel vs plain beyond rel 1e-6 (planes) / 1e-5 (sum)")
+    b_lap, by_lap = bound(faces + 8 * cell + 5 * cell + 4, 12 * ny * nx)
+    out["laplace_assembly"] = dict(
+        shape=[ny, nx], max_abs_err=l_err,
+        ms=cuda_time_ms(lambda: fused_laplace_assembly(influence[0], influence[1], lmasks, per),
+                        200),
+        plain_ms=cuda_time_ms(lambda: laplace_assembly_plain(influence[0], influence[1], lmasks,
+                                                             per), 50),
+        **device_time(lambda: fused_laplace_assembly(influence[0], influence[1], lmasks, per)),
+        bound_ms=b_lap, bound_by=by_lap, library_ms=None)
+    return out
+
+
+def cavity_step_fn(domain, sim, dt):
+    from diffpiso_tpu_torch.core.piso import piso_step
+
+    def step(v, p, g1, g2, f=None):
+        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=CAV_TOL, pressure_tol=CAV_TOL)
+
+    return step
+
+
+def cavity_small_check(dev) -> None:
+    """Phase 6a: the 64^2 cavity, 3 steps from rest and then the 3-step
+    rollout gradient from the CPU's state, on the card against the plain
+    path on the CPU."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import lid_driven_cavity_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    cpu = torch.device("cpu")
+    states, iters = {}, {}
+    for d in (dev, cpu):
+        domain, sim, dt = lid_driven_cavity_setup(CAV_SMALL, device=d)
+        step = cavity_step_fn(domain, sim, dt)
+        v, p = domain.staggered_grid(0.0, device=d), domain.centered_grid(0.0, device=d)
+        g1 = g2 = torch.zeros_like(p)
+        iters[d.type] = []
+        for _ in range(3):
+            o = step(v, p, g1, g2)
+            if o.warn:
+                fail(f"{CAV_SMALL}^2 cavity on {d.type}: a solve warned")
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters[d.type].append(o.p_iterations)
+        states[d.type] = (v, p)
+    err = max(float((a.cpu() - b).abs().max() - 2e-4 * b.abs().max())
+              for a, b in zip(states["cuda"][0].components, states["cpu"][0].components))
+    print(f"{CAV_SMALL}^2 cavity x 3 steps, card vs CPU plain path: pressure iterations card "
+          f"{iters['cuda']} / CPU {iters['cpu']}, max(|d| - 2e-4|ref|) = {err:.3e}", flush=True)
+    if iters["cuda"] != iters["cpu"]:
+        fail(f"{CAV_SMALL}^2 cavity: pressure iteration counts differ card vs CPU")
+    if not err <= 2e-5:
+        fail(f"{CAV_SMALL}^2 cavity: card step disagrees with the CPU beyond rtol 2e-4, atol 2e-5")
+    v_cpu, p_cpu = states["cpu"]
+    grads, decisions, ratios = {}, {}, {}
+    for d in (dev, cpu):
+        domain, sim, dt = lid_driven_cavity_setup(CAV_SMALL, device=d)
+        v = StaggeredField(tuple(c.to(d) for c in v_cpu.components), periodic=(False, False))
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components), periodic=(False, False))
+        r = rollout_loss_grad(cavity_step_fn(domain, sim, dt), v, p_cpu.to(d), f, 3)
+        if r.warns:
+            fail(f"{CAV_SMALL}^2 cavity rollout gradient on {d.type}: {r.warns} steps warned")
+        grads[d.type] = [c.cpu().double() for c in r.grad.components]
+        decisions[d.type] = [(a.system, a.gated) for a in r.adjoints]
+        ratios[d.type] = [round(a.residual / a.limit, 4) for a in r.adjoints
+                          if a.limit is not None]
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(grads["cuda"], grads["cpu"]))
+    den = sum(float(torch.sum(b ** 2)) for b in grads["cpu"])
+    g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    print(f"{CAV_SMALL}^2 cavity x 3-step rollout gradient, card vs CPU plain path: rel l2 "
+          f"{g_rel:.3e}; gated adjoints card {sum(g for _, g in decisions['cuda'])} / CPU "
+          f"{sum(g for _, g in decisions['cpu'])} of {len(decisions['cpu'])}; pressure adjoint "
+          f"residual / gate limit, card {ratios['cuda']}, CPU {ratios['cpu']}", flush=True)
+    if decisions["cuda"] != decisions["cpu"]:
+        fail(f"{CAV_SMALL}^2 cavity gradient: adjoint gate decisions differ, card "
+             f"{decisions['cuda']} vs CPU {decisions['cpu']}")
+    if not g_rel <= 1e-3:
+        fail(f"{CAV_SMALL}^2 cavity gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def cavity_path(dev, wrappers: dict) -> tuple:
+    """Phases 6b and 6c: the 512 cavity from rest, the spin-up, 200 timed
+    forward steps and grad30, every launch counter checked. `wrappers`
+    maps each kernel's name to its wrapper (the holder of its counter).
+    Returns (forward launches, grad30 launches per evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import lid_driven_cavity_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+    from diffpiso_tpu_torch.solvers import krylov
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    domain, sim, dt = lid_driven_cavity_setup(CAV_N, device=dev)
+    step = cavity_step_fn(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+
+    def advance(k):
+        nonlocal v, p, g1, g2
+        warns, iters = 0, [0, 0]
+        for _ in range(k):
+            o = step(v, p, g1, g2)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            warns += int(o.warn)
+            iters[0] += o.p_iterations[0]
+            iters[1] += o.p_iterations[1]
+        return warns, [i / k for i in iters]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spin_warns, spin_iters = advance(CAV_SPINUP)
+    torch.cuda.synchronize()
+    spin_s = time.perf_counter() - t0
+    print(f"cavity {CAV_N}: {CAV_SPINUP}-step spin-up in {spin_s:.1f} s, warned steps "
+          f"{spin_warns}, pressure iterations per step {spin_iters}", flush=True)
+
+    # -- 6b: the forward path
+    reset()
+    fb0 = krylov.bicgstab.fallbacks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warns, iters = advance(CAV_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    fallbacks = krylov.bicgstab.fallbacks - fb0
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    active_int = sim.active_mask[1:-1, 1:-1]
+    div = float((fv_divergence(v, domain.dx) * active_int).abs().max())
+    print(json.dumps(dict(
+        workload=f"lid-driven cavity {CAV_N}^2 ({CAV_N + 1} x {CAV_N} cells, developed, "
+                 f"{CAV_SPINUP}-step spin-up), forward",
+        steps=CAV_STEPS, steps_per_sec=CAV_STEPS / elapsed, pressure_iters_per_step=iters,
+        warn_fraction=warns / CAV_STEPS, spinup_warned_steps=spin_warns,
+        bicgstab_fallbacks=fallbacks, max_abs_div_active=div, launches=fwd,
+    )), flush=True)
+    if not finite:
+        fail("cavity: non-finite state after the forward path")
+    if warns:
+        fail(f"cavity: warn fraction {warns / CAV_STEPS} (must be 0)")
+    if fallbacks:
+        fail(f"cavity: {fallbacks} BiCGSTAB fallbacks (must be 0)")
+    # per step: the three pressure gradients, two divergences, explicit_H's
+    # two matvecs, one momentum and two pressure solves, one Laplace
+    # assembly; the periodic kernels stay off the bounded path
+    per_step = {"grad2m": 3, "div2m": 2, "stencil_matvec": 2, "jacobi2_solve": 1,
+                "pcg2_solve": 2, "laplace_assembly": 1}
+    for k in fwd:
+        if fwd[k] != per_step.get(k, 0) * CAV_STEPS:
+            fail(f"cavity forward: {k} launched {fwd[k]} times, expected "
+                 f"{per_step.get(k, 0) * CAV_STEPS}")
+
+    # -- 6c: grad30 from the developed state. Per evaluation, U steps,
+    # "outputs" remat (tests/test_torch_cavity.py derives the same counts on
+    # the CPU): the forward and the replay run 3U grad2m, 2U div2m and 2U
+    # matvecs each; the backward adds 2U grad2m (the div2m VJPs), 3U - 1
+    # gradT2m (the initial pressure carries no gradient) and 2U transposed
+    # matvecs; the solves run 2U (momentum) and 4U (pressure) times, the
+    # Laplace assembly 2U. A momentum solve whose jac2 misses its tol hands
+    # over to BiCGSTAB, as the JAX package does on the TPU (the last step's
+    # adjoint, on this state): each of its iterations launches the three
+    # phase kernels once per component, and its residuals at entry and exit
+    # (the operator applies) one matvec per component each, in the solve's
+    # form. Every evaluation runs from the same state, so every evaluation
+    # must count the same.
+    U = UNROLL
+    expected = {"grad2m": 8 * U, "div2m": 4 * U, "gradT2m": 3 * U - 1, "stencil_matvec": 6 * U,
+                "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U, "laplace_assembly": 2 * U}
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(False, False))
+    evals = []
+    for rep in range(1 + GRAD_REPS):
+        reset()
+        wrappers["stencil_matvec"].launches_transposed = 0
+        fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
+        ap0 = dict(krylov.bicgstab.applies)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = read()
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_pcg2_iters_per_step=sum(a.iterations for a in p_adj) / U,
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            gated_ratios=[round(a.residual / a.limit, 4) for a in p_adj if a.gated],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0,
+            bicgstab_iterations=krylov.bicgstab.iterations - it0,
+            bicgstab_applies={str(t): krylov.bicgstab.applies[t] - ap0[t] for t in (False, True)},
+            # (unrolled step, BiCGSTAB iterations, true residual) of each
+            # momentum adjoint that needed BiCGSTAB iterations after jac2
+            momentum_adjoints_past_jac2=[
+                (k, a.iterations, a.residual)
+                for k, a in enumerate(a for a in res.adjoints if a.system == "momentum")
+                if a.iterations > 0],
+            launches=counts, matvec_transposed=wrappers["stencil_matvec"].launches_transposed,
+        ))
+        print(json.dumps(dict(cavity_grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"cavity grad30: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"cavity grad30: |grad| = {gnorm} (must be finite and > 0)")
+        e = evals[-1]
+        applies, iters = e["bicgstab_applies"], e["bicgstab_iterations"]
+        want = dict(expected, stencil_matvec=6 * U + 2 * (applies["False"] + applies["True"]),
+                    **{k: 2 * iters for k in BICG_PHASES})
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"cavity grad30: {k} launched {counts[k]} times, expected "
+                     f"{want.get(k, 0)}")
+        if e["matvec_transposed"] != 2 * U + 2 * applies["True"]:
+            fail(f"cavity grad30: {e['matvec_transposed']} transposed matvecs, "
+                 f"expected {2 * U + 2 * applies['True']}")
+        same = ("launches", "bicgstab_fallbacks", "bicgstab_iterations", "bicgstab_applies")
+        if any(e[k] != evals[0][k] for k in same):
+            fail("cavity grad30: an evaluation from the same state counted differently")
+    timed = [e for e in evals if e["timed"]]
+    print(json.dumps(dict(
+        workload=f"lid-driven cavity {CAV_N}^2, grad{U} (d sum v^2 / d forcing), remat outputs",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_pcg2_iters_per_step=sum(e["adjoint_pcg2_iters_per_step"] for e in timed)
+        / len(timed),
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        bicgstab_fallbacks_per_eval=[e["bicgstab_fallbacks"] for e in evals],
+        bicgstab_iterations_per_eval=[e["bicgstab_iterations"] for e in evals],
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )), flush=True)
+    return fwd, timed[-1]["launches"]
 
 
 def main() -> int:
@@ -101,14 +714,14 @@ def main() -> int:
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.ops.advassembly import (
         advection_assembly_plain, assembly_scalars, fused_advection_assembly)
-    from diffpiso_tpu_torch.ops import corrector, fv2
+    from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, matvec
     from diffpiso_tpu_torch.ops.fv import fv_divergence
     from diffpiso_tpu_torch.ops.laplace import (
         assemble_pressure_laplacian, laplace_mask_planes)
     from diffpiso_tpu_torch.ops.laplace_assembly import (
         fused_laplace_assembly, laplace_assembly_plain)
     from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
-    from diffpiso_tpu_torch.solvers import krylov
+    from diffpiso_tpu_torch.solvers import bicg, krylov
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
     from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
@@ -154,6 +767,7 @@ def main() -> int:
         replaces="diffpiso_tpu/ops/pallas_advassembly.py:189",
         max_abs_err=adv_err,
         ms=cuda_time_ms(lambda: fused_advection_assembly(w0, w1, *scal), 200),
+        **device_time(lambda: fused_advection_assembly(w0, w1, *scal)),
         plain_ms=cuda_time_ms(lambda: advection_assembly_plain(w0, w1, *scal), 50),
         bound_ms=b_adv, bound_by=by_adv, library_ms=None,
     ))
@@ -181,6 +795,8 @@ def main() -> int:
         max_abs_err=lap_err,
         ms=cuda_time_ms(lambda: fused_laplace_assembly(influence[0], influence[1], masks,
                                                        (True, True)), 200),
+        **device_time(lambda: fused_laplace_assembly(influence[0], influence[1], masks,
+                                                     (True, True))),
         plain_ms=cuda_time_ms(lambda: laplace_assembly_plain(influence[0], influence[1], masks,
                                                              (True, True)), 50),
         bound_ms=b_lap, bound_by=by_lap, library_ms=None,
@@ -212,6 +828,7 @@ def main() -> int:
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:803",
         max_abs_err=jac_err,
         ms=cuda_time_ms(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33), 50),
+        **device_time(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)),
         plain_ms=cuda_time_ms(lambda: jacobi2_plain(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33), 10),
         bound_ms=b_jac, bound_by=by_jac, library_ms=None,
     ))
@@ -252,6 +869,8 @@ def main() -> int:
         # yardstick: one 512^3 fp32 contraction through cuBLAS; the port never calls it
         library_ms=cuda_time_ms(lambda: torch.matmul(v0, rhs), 200),
         gemm_ms=cuda_time_ms(lambda: gemm(v0, rhs), 200),
+        **device_time(lambda: fused_pcg2_solve(lap, rhs, None, v0, v0t, v1, v1t, sym, P_TOL,
+                                               1000), 5),
         iterations=kk,
     ))
 
@@ -291,6 +910,7 @@ def main() -> int:
             replaces=("diffpiso_tpu/ops/pallas_fv.py:225" if name == "div2"
                       else "diffpiso_tpu/ops/pallas_fv.py:260"),
             max_abs_err=err, ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 50),
+            **device_time(fn),
             bound_ms=b_fv, bound_by=by_fv, library_ms=None,
         ))
 
@@ -354,6 +974,7 @@ def main() -> int:
         name="corrector1_bridge", route="cuda", source="diffpiso_tpu_torch/csrc/corrector.cu",
         replaces="diffpiso_tpu/ops/pallas_corrector.py:526", max_abs_err=b_err,
         ms=cuda_time_ms(lambda: bridge_kernel(kx, vs0, vs1), 200),
+        **device_time(lambda: bridge_kernel(kx, vs0, vs1)),
         plain_ms=cuda_time_ms(lambda: bridge_ref(kx, vs0, vs1), 50),
         bound_ms=b_br, bound_by=by_br, library_ms=None,
     ))
@@ -362,9 +983,13 @@ def main() -> int:
         name="corrector2_tail", route="cuda", source="diffpiso_tpu_torch/csrc/corrector.cu",
         replaces="diffpiso_tpu/ops/pallas_corrector.py:633", max_abs_err=t_err,
         ms=cuda_time_ms(lambda: tail_kernel(*tail_in[:3]), 200),
+        **device_time(lambda: tail_kernel(*tail_in[:3])),
         plain_ms=cuda_time_ms(lambda: tail_ref(*tail_in[:3]), 50),
         bound_ms=b_tl, bound_by=by_tl, library_ms=None,
     ))
+
+    # -- phase 2b: the cavity path's kernels at the 512 cavity's shapes ------------
+    cavity_measured = cavity_kernels(dev, kernels)
 
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
@@ -408,6 +1033,15 @@ def main() -> int:
         "grad2": (fv2.grad2, 1),
         "corrector1_bridge": (corrector.corrector1_bridge, 1),
         "corrector2_tail": (corrector.corrector2_tail, 1),
+        # the bounded cavity's kernels stay off the periodic path
+        "grad2m": (fv2m.grad2m, 0),
+        "div2m": (fv2m.div2m, 0),
+        "gradT2m": (fv2m.gradT2m, 0),
+        "stencil_matvec": (matvec.fused_stencil_matvec, 0),
+        # the BiCGSTAB phases run only after a jac2 solve that misses its tol
+        "bicg_phase_p": (bicg.fused_bicg_phase_p, 0),
+        "bicg_phase_s": (bicg.fused_bicg_phase_s, 0),
+        "bicg_phase_x": (bicg.fused_bicg_phase_x, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -504,6 +1138,7 @@ def main() -> int:
         "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U,
         "div2": 3 * U - 1, "grad2": 3 * U,
         "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
+        "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -516,7 +1151,8 @@ def main() -> int:
     for rep in range(1 + GRAD_REPS):
         for fn, _ in wrappers.values():
             fn.launches = 0
-        fb0 = krylov.bicgstab.fallbacks
+        fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
+        ap0 = sum(krylov.bicgstab.applies.values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step_g, v, pressure, forcing, U, remat="outputs")
@@ -541,14 +1177,19 @@ def main() -> int:
                                          default=None),
             adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
                                         default=None),
-            bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0, launches=counts,
+            bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0,
+            bicgstab_iterations=krylov.bicgstab.iterations - it0, launches=counts,
         ))
         print(json.dumps(dict(grad_eval=rep, **evals[-1])), flush=True)
         if res.warns:
             fail(f"grad30: warn fraction {res.warns / U} (must be 0)")
         if not (gnorm > 0 and gnorm < float("inf")):
             fail(f"grad30: |grad| = {gnorm} (must be finite and > 0)")
-        for k, want in expected.items():
+        # a BiCGSTAB fallback, should one occur, runs its phases and matvecs
+        applies = sum(krylov.bicgstab.applies.values()) - ap0
+        want_all = dict(expected, stencil_matvec=2 * applies,
+                        **{k: 2 * evals[-1]["bicgstab_iterations"] for k in BICG_PHASES})
+        for k, want in want_all.items():
             if counts[k] != want:
                 fail(f"grad30: {k} launched {counts[k]} times, expected {want}")
     timed = [e for e in evals if e["timed"]]
@@ -565,9 +1206,32 @@ def main() -> int:
     )
     print(json.dumps(grad30), flush=True)
 
+    # -- phase 6: the lid-driven cavity -----------------------------------------
+    cavity_small_check(dev)
+    cav_fwd, cav_grad = cavity_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+
+    # each kernel's `launches` come from the path it is checked on: the
+    # cavity's own kernels from its forward run (gradT2m, which only a
+    # backward pass launches, and the BiCGSTAB phases, which only its
+    # adjoint's fallback launches, from its grad30 evaluation), the others
+    # from the turbulence forward run; every path's counts stand beside them
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
-        entry["grad30_launches"] = grad30["launches_per_eval"][entry["name"]]
+        name = entry["name"]
+        if name in CAVITY_KERNELS:
+            grad_only = name in CAVITY_GRAD_KERNELS
+            entry["path"] = "cavity grad30" if grad_only else "cavity forward"
+            entry["launches"] = cav_grad[name] if grad_only else cav_fwd[name]
+        else:
+            entry["path"] = "turbulence forward"
+            entry["launches"] = launches[name]
+        entry["grad30_launches"] = grad30["launches_per_eval"][name]
+        entry["cavity_launches"] = cav_fwd[name]
+        entry["cavity_grad30_launches"] = cav_grad[name]
+        if name in cavity_measured:
+            entry["cavity"] = cavity_measured[name]
+        if not entry["launches"]:
+            fail(f"{name}: never launched on its path")
+    measure_device_times(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,22 +15,26 @@ through the solves' implicit-function-theorem adjoints.
 
 from diffpiso_tpu_torch.core.piso import PisoOutput, SimulationParameters, piso_step
 from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
 from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.box import Box
 from diffpiso_tpu_torch.fields.domain import Domain
 from diffpiso_tpu_torch.fields.grid import StaggeredField
-from diffpiso_tpu_torch.fields.material import PERIODIC
+from diffpiso_tpu_torch.fields.material import CLOSED, OPEN, PERIODIC, STICKY
 from diffpiso_tpu_torch.fields.noise import random_solenoidal
 
 __all__ = [
     "Box",
+    "CLOSED",
     "Domain",
+    "OPEN",
     "PERIODIC",
     "PisoOutput",
     "SimulationParameters",
     "StaggeredField",
+    "STICKY",
     "decaying_turbulence_setup",
+    "lid_driven_cavity_setup",
     "piso_step",
     "random_solenoidal",
     "resolve_device",

@@ -20,7 +20,11 @@ advection-diffusion solve) and two pressure correctors, matrix-free.
 On periodic float32 planes of one shape with all-one active / accessible
 masks the corrector glue runs as kernel 6 (ops/corrector.py
 corrector1_bridge and corrector2_tail), the JAX package's gate; every
-other case keeps the plain branch. The step is differentiable: the solves
+other case keeps the unfused branch: on a bounded domain (the lid-driven
+cavity) its gradients and divergences run the bounded FV kernels
+(ops/fv2m.py, through ops/fv.py) with the accessible mask's face masks,
+the rhs takes the Dirichlet select, the divergences are masked to active
+cells, and explicit_H runs the stencil-matvec kernel (ops/matvec.py). The step is differentiable: the solves
 are autograd Functions with implicit-function-theorem adjoints
 (solvers/base.py), the FV and corrector kernels autograd Functions, and
 the operator coefficients carry no gradient. `warn` and `p_iterations`

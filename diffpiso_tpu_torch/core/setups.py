@@ -1,6 +1,8 @@
 """Flow-case setups.
 
-Counterpart of diffpiso_tpu/core/setups.py decaying_turbulence_setup."""
+Counterpart of diffpiso_tpu/core/setups.py decaying_turbulence_setup, and
+of the lid-driven cavity builder of the JAX package's benchmark
+(`bench.py build`, the `workload_cavity` configuration)."""
 
 from __future__ import annotations
 
@@ -9,12 +11,13 @@ from typing import Tuple
 
 import torch
 
+from diffpiso_tpu_torch.core.masks import lid_driven_cavity_masks
 from diffpiso_tpu_torch.core.piso import SimulationParameters
 from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.box import Box
 from diffpiso_tpu_torch.fields.domain import Domain
 from diffpiso_tpu_torch.fields.grid import StaggeredField
-from diffpiso_tpu_torch.fields.material import PERIODIC
+from diffpiso_tpu_torch.fields.material import OPEN, PERIODIC
 from diffpiso_tpu_torch.solvers.base import AdvectionSolver, PressureSolver
 
 
@@ -69,3 +72,37 @@ def decaying_turbulence_setup(
         ),
     )
     return domain, sim
+
+
+def lid_driven_cavity_setup(n: int = 512, device=None):
+    """The lid-driven cavity of the JAX package's benchmark: an (n+1, n)
+    grid with OPEN boundaries over a (1 + 1/n, 1) box (the extra top row of
+    cells is inactive and carries the lid, speed 1, as a Dirichlet value),
+    viscosity 1e-3, an all-Neumann rank-deficient pressure system with mean
+    deflation and the `dct_mm` preconditioner (forward and adjoint),
+    momentum solves capped at 100 iterations, pressure solves at 600.
+    Returns (domain, sim, dt) with dt = 0.2/n.
+    The benchmark runs its advection and pressure solves at tol 1e-6.
+
+    Runs on `cuda` unless `device` names another; raises without a card."""
+    device = resolve_device(device)
+    dm, dv, active, accessible, no_slip = lid_driven_cavity_masks(n, device=device)
+    domain = Domain((n + 1, n), Box.from_size((1.0 + 1.0 / n, 1.0)), boundaries=OPEN)
+    sim = SimulationParameters(
+        dirichlet_mask=dm,
+        dirichlet_values=dv,
+        active_mask=active,
+        accessible_mask=accessible,
+        no_slip_mask=no_slip,
+        viscosity=1e-3,
+        laplace_rank_deficient=True,
+        bool_periodic=(False, False),
+        linear_solver=AdvectionSolver(max_iterations=100),
+        pressure_solver=PressureSolver(
+            max_iterations=600,
+            deflate_mean=True,
+            preconditioner="dct_mm",
+            adjoint_preconditioner="dct_mm",
+        ),
+    )
+    return domain, sim, 0.2 / n

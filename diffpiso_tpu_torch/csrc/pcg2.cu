@@ -1,9 +1,11 @@
 // Whole spectral-preconditioned PCG for the 2-D pressure system.
 //
 // Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_pcg2_solve (TPU
-// kernel `_pcg2_solve_kernel` around `_pcg2_core`), periodic and unpadded.
+// kernel `_pcg2_solve_kernel` around `_pcg2_core`), unpadded, on periodic
+// or bounded planes of any shape; the GEMM guards M, N and K that are not
+// tile multiples (the cavity's 513 rows).
 // The algorithm, as on the TPU:
-//   A p   = L p + shift * sum(p)            (5-point stencil, periodic)
+//   A p   = L p + shift * sum(p)            (5-point stencil, roll wrap)
 //   proj r = r - sum(r) / n                 (when deflating)
 //   M^-1 r = V0^T ((V0 r V1^T) / S) V1      (S = +inf on singular modes)
 //   r = proj(b - A x0); p = 0; rz = 1

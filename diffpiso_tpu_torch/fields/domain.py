@@ -11,6 +11,7 @@ import torch
 
 from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.box import Box
+from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.material import Material
 
 
@@ -35,7 +36,9 @@ class Domain:
         if box is None:
             box = Box.from_size(tuple(float(r) for r in resolution))
         if boundaries is None:
-            raise ValueError("name the boundary materials (only PERIODIC is ported)")
+            from diffpiso_tpu_torch.fields.material import OPEN
+
+            boundaries = OPEN
         object.__setattr__(self, "resolution", resolution)
         object.__setattr__(self, "box", box)
         object.__setattr__(
@@ -63,6 +66,22 @@ class Domain:
     def pressure_pad_modes(self):
         return tuple((lo.pressure_pad, hi.pressure_pad) for lo, hi in self.boundaries)
 
+    def staggered_component_shape(self, d: int) -> Tuple[int, ...]:
+        """Component d's face-array shape: +1 along d unless periodic (then
+        only the unique faces are stored)."""
+        return tuple(
+            r + (1 if i == d and not self.periodic[i] else 0)
+            for i, r in enumerate(self.resolution)
+        )
+
     def centered_grid(self, value=0.0, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.full(self.resolution, value, dtype=dtype,
                           device=resolve_device(device))
+
+    def staggered_grid(self, value=0.0, dtype=torch.float32, device=None) -> StaggeredField:
+        device = resolve_device(device)
+        return StaggeredField(
+            tuple(torch.full(self.staggered_component_shape(d), value, dtype=dtype,
+                             device=device) for d in range(self.rank)),
+            periodic=self.periodic,
+        )

@@ -1,11 +1,13 @@
-"""Finite-volume operators on staggered grids, periodic axes.
+"""Finite-volume operators on staggered grids.
 
-Counterpart of diffpiso_tpu/ops/fv.py for periodic axes. Rank-2 float32
-planes of one shape go to kernel 5 (ops/fv2.py div2 / grad2, autograd
-Functions whose VJPs are each other, negated), as the JAX package sends
-them to pallas_fv; everything else runs the plain roll formulation, the
-branch the JAX package takes when that gate is closed. All results are
-volume-integrated (factors prod(dx)/dx_d baked in)."""
+Counterpart of diffpiso_tpu/ops/fv.py. Rank-2 float32 planes go to the FV
+kernels as the JAX package sends them to pallas_fv: fully periodic planes
+of one shape to kernel 5 (ops/fv2.py div2 / grad2), bounded and mixed
+ones, whose faces carry the duplicated boundary entries, to kernels 7-9
+(ops/fv2m.py div2m / grad2m, with gradT2m as grad2m's VJP). Everything
+else runs the plain formulation, the branch the JAX package takes when
+those gates are closed. All results are volume-integrated (factors
+prod(dx)/dx_d baked in)."""
 
 from __future__ import annotations
 
@@ -13,60 +15,109 @@ import math as _math
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
-from diffpiso_tpu_torch.fields.material import CIRCULAR
-from diffpiso_tpu_torch.ops import fv2
+from diffpiso_tpu_torch.fields.material import CIRCULAR, REPLICATE, SYMMETRIC, ZERO
+from diffpiso_tpu_torch.ops import fv2, fv2m
 
 
-def _periodic_axes(pad_modes, rank):
+def _modes(pad_modes, rank):
+    """((lo, hi) per axis) from one mode or the per-axis pairs."""
     if isinstance(pad_modes, str):
-        pad_modes = tuple((pad_modes, pad_modes) for _ in range(rank))
-    for lo, hi in pad_modes:
-        if lo != CIRCULAR or hi != CIRCULAR:
-            raise NotImplementedError("only periodic (circular) pad modes are ported")
-    return (True,) * rank
+        return tuple((pad_modes, pad_modes) for _ in range(rank))
+    return tuple(tuple(m) for m in pad_modes)
+
+
+def _slice(a, axis, start, stop):
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(start, stop)
+    return a[tuple(idx)]
+
+
+def _pad_side(a, axis, width, mode, high):
+    """The `width` entries padded on one side of `axis` by `mode`."""
+    n = a.shape[axis]
+    if mode == ZERO:
+        shape = list(a.shape)
+        shape[axis] = width
+        return a.new_zeros(shape)
+    if mode == REPLICATE:
+        edge = _slice(a, axis, n - 1, n) if high else _slice(a, axis, 0, 1)
+        return torch.cat([edge] * width, axis)
+    if mode == SYMMETRIC:
+        part = _slice(a, axis, n - width, n) if high else _slice(a, axis, 0, width)
+        return torch.flip(part, (axis,))
+    if mode == CIRCULAR:
+        return _slice(a, axis, 0, width) if high else _slice(a, axis, n - width, n)
+    raise ValueError(f"unknown pad mode {mode!r}")
 
 
 def pad_staggered(field: StaggeredField, modes, width: int = 1) -> Tuple[torch.Tensor, ...]:
-    """Wrap-pad each component by `width` on all sides (periodic axes store
-    unique faces, so the wrap runs over the stored faces)."""
-    _periodic_axes(modes, field.rank)
-    if not all(field.periodic):
-        raise NotImplementedError("only fields with unique periodic faces are ported")
-    pads = (width,) * (2 * field.rank)
-    return tuple(
-        F.pad(c[None, None], pads, mode="circular")[0, 0] for c in field.components
-    )
+    """Pad each staggered component by `width` on all sides. On a periodic
+    axis a component staggered along it that stores the duplicated face
+    drops that face before wrapping and pads one more on the high side, so
+    the wrap runs over the unique faces (fields marked periodic store
+    unique faces already)."""
+    modes = _modes(modes, field.rank)
+    out = []
+    for c, data in enumerate(field.components):
+        for axis in range(field.rank):
+            lo, hi = modes[axis]
+            w_hi = width
+            if lo == CIRCULAR or hi == CIRCULAR:
+                if not lo == hi == CIRCULAR:
+                    raise ValueError("periodic axes must wrap on both sides")
+                if axis == c and not field.periodic[axis]:
+                    data = _slice(data, axis, 0, data.shape[axis] - 1)
+                    w_hi = width + 1
+            data = torch.cat([_pad_side(data, axis, width, lo, False), data,
+                              _pad_side(data, axis, w_hi, hi, True)], axis)
+        out.append(data)
+    return tuple(out)
 
 
 def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
-    """Volume-integrated divergence sum_d (comp_d[+1] - comp_d) prod(dx)/dx_d."""
+    """Volume-integrated divergence sum_d (comp_d[+1] - comp_d) prod(dx)/dx_d,
+    from the faces the field stores (no padding)."""
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
     comps = field.components
+    fs = tuple(dxprod / d for d in dx)
     if field.rank == 2 and all(field.periodic) \
             and fv2.eligible2([c.shape for c in comps], comps[0].dtype):
-        return fv2.div2(tuple(dxprod / d for d in dx), comps)
+        return fv2.div2(fs, comps)
+    if field.rank == 2:
+        out_shape = (comps[1].shape[0], comps[0].shape[1])
+        if fv2m.eligible2m([c.shape for c in comps], out_shape, field.periodic, comps[0].dtype):
+            return fv2m.div2m(fs, field.periodic, comps)
     total = None
-    for d, comp in enumerate(field.components):
-        if not field.periodic[d]:
-            raise NotImplementedError("only periodic axes are ported")
-        term = (torch.roll(comp, -1, d) - comp) * (dxprod / dx[d])
+    for d, comp in enumerate(comps):
+        if field.periodic[d]:
+            diff = torch.roll(comp, -1, d) - comp
+        else:
+            diff = _slice(comp, d, 1, comp.shape[d]) - _slice(comp, d, 0, comp.shape[d] - 1)
+        term = diff * fs[d]
         total = term if total is None else total + term
     return total
 
 
-def _face_masks(accessible_mask, ndim):
-    """Per-component face-open masks from the padded centered mask (periodic
-    axes: the face at index i couples cells i-1 and i)."""
+def _face_masks(accessible_mask, periodic, ndim):
+    """Per-component face-open masks from the padded centered mask: a face
+    is open when both cells it couples are accessible. On periodic axes
+    (unique faces) the face at index i couples cells i-1 and i."""
     out = []
     for d in range(ndim):
-        idx_up = tuple(slice(1, -1) for _ in range(ndim))
-        idx_lo = tuple(slice(0, -2) if i == d else slice(1, -1) for i in range(ndim))
+        up = slice(1, -1) if periodic[d] else slice(1, None)
+        lo = slice(0, -2) if periodic[d] else slice(0, -1)
+        idx_up = tuple(up if i == d else slice(1, -1) for i in range(ndim))
+        idx_lo = tuple(lo if i == d else slice(1, -1) for i in range(ndim))
         out.append(torch.minimum(accessible_mask[idx_up], accessible_mask[idx_lo]))
     return out
+
+
+def _mask_gradient_faces(comps, accessible_mask, periodic, ndim):
+    fms = _face_masks(accessible_mask, periodic, ndim)
+    return [g * fm.to(g.dtype) for g, fm in zip(comps, fms)]
 
 
 def fv_gradient(
@@ -75,23 +126,46 @@ def fv_gradient(
     pad_modes,
     accessible_mask: torch.Tensor | None = None,
 ) -> StaggeredField:
-    """Volume-integrated pressure gradient on the unique periodic faces:
-    (p - p shifted +1 along d) prod(dx)/dx_d; faces touching an
+    """Volume-integrated pressure gradient on the staggered faces: per axis
+    d, (p_upper - p_lower) prod(dx)/dx_d with p padded by one along d by
+    the pressure pad modes (zero at solid walls, replicate at open
+    boundaries; wrap on periodic axes, unique faces). Faces touching an
     inaccessible cell are zeroed when `accessible_mask` (padded, res+2) is
     given."""
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
-    periodic = _periodic_axes(pad_modes, pressure.ndim)
-    if pressure.ndim == 2 and fv2.eligible2([pressure.shape], pressure.dtype):
-        comps = list(fv2.grad2(tuple(dxprod / d for d in dx), pressure))
-    else:
-        comps = [
-            (pressure - torch.roll(pressure, 1, d)) * (dxprod / dx[d])
-            for d in range(pressure.ndim)
-        ]
+    rank = pressure.ndim
+    modes = _modes(pad_modes, rank)
+    periodic = tuple(lo == CIRCULAR for lo, _ in modes)
+    fs = tuple(dxprod / d for d in dx)
+    if rank == 2 and all(periodic) and fv2.eligible2([pressure.shape], pressure.dtype):
+        comps = list(fv2.grad2(fs, pressure))
+        if accessible_mask is not None:
+            comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
+        return StaggeredField(tuple(comps), periodic=periodic)
+    if rank == 2 and all(
+            periodic[d] or all(m in (ZERO, REPLICATE, SYMMETRIC) for m in modes[d])
+            for d in range(2)):
+        shapes = fv2m.face_shapes(pressure.shape, periodic)
+        if fv2m.eligible2m(shapes, pressure.shape, periodic, pressure.dtype):
+            # SYMMETRIC at pad width 1 is REPLICATE
+            rep = tuple((modes[d][0] != ZERO, modes[d][1] != ZERO) for d in range(2))
+            masks = None
+            if accessible_mask is not None:
+                masks = tuple(m.to(pressure.dtype).contiguous()
+                              for m in _face_masks(accessible_mask, periodic, 2))
+            comps = fv2m.grad2m(fs, periodic, rep, pressure, masks)
+            return StaggeredField(tuple(comps), periodic=periodic)
+    comps = []
+    for d in range(rank):
+        lo_mode, hi_mode = modes[d]
+        if lo_mode == CIRCULAR:
+            grad = pressure - torch.roll(pressure, 1, d)
+        else:
+            lower = torch.cat([_pad_side(pressure, d, 1, lo_mode, False), pressure], d)
+            upper = torch.cat([pressure, _pad_side(pressure, d, 1, hi_mode, True)], d)
+            grad = upper - lower
+        comps.append(grad * fs[d])
     if accessible_mask is not None:
-        comps = [
-            g * fm.to(g.dtype)
-            for g, fm in zip(comps, _face_masks(accessible_mask, pressure.ndim))
-        ]
+        comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
     return StaggeredField(tuple(comps), periodic=periodic)

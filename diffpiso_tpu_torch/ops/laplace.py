@@ -14,8 +14,8 @@ The rank-deficient (all-Neumann) case solves (L + s 1 1^T) with
 s = 0.1 sum|diag| / n. The mask planes are built here exactly as in the
 JAX package; the combination with the influence and sum|diag| run in
 kernel 2 (ops/laplace_assembly.py). The 5-point matvec in
-`apply_laplacian` is plain PyTorch (the stencil-matvec kernel is not
-ported yet)."""
+`apply_laplacian` is kernel 10 (ops/matvec.py) for float32 planes, as in
+the JAX package (the pressure solves themselves run pcg2's own)."""
 
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.ops import matvec
 from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly
 
 
@@ -115,8 +116,8 @@ def assemble_pressure_laplacian(
 
 def apply_laplacian(st: LaplaceStencil, p: torch.Tensor) -> torch.Tensor:
     """z = L p + s sum(p)."""
-    z = st.center * p
-    for d in range(st.rank):
-        z = z + st.lo[d] * torch.roll(p, 1, d)
-        z = z + st.hi[d] * torch.roll(p, -1, d)
+    if matvec.eligible(p.shape, p.dtype):
+        z = matvec.fused_stencil_matvec(st.center, st.lo, st.hi, p)
+    else:
+        z = matvec.stencil_apply_plain(st.center, st.lo, st.hi, p)
     return z + st.shift * torch.sum(p)

@@ -7,10 +7,12 @@ component's own face grid; applying it is five shift-multiply-adds.
 
 `assemble_advection_stencil` sends the uniform-mask periodic case (the
 decaying-turbulence configuration) to kernel 1 (ops/advassembly.py) and
-runs the general masked body otherwise. The 5-point matvec in
-`apply_stencil` is plain PyTorch here: the JAX package's stencil-matvec
-kernel is not ported yet, and this is the branch it takes with that gate
-closed."""
+runs the general masked body otherwise (bounded domains such as the
+lid-driven cavity; plain PyTorch, as the JAX package's masked-assembly
+kernel is off by default there). The 5-point matvec behind
+`apply_stencil`, `apply_stencil_transpose` and `explicit_H` is kernel 10
+(ops/matvec.py) for float32 rank-2 planes, as the JAX package sends them
+to its stencil-matvec kernel, and the plain roll formulation otherwise."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Sequence, Tuple
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.ops import matvec
 from diffpiso_tpu_torch.ops.advassembly import assembly_scalars, fused_advection_assembly
 from diffpiso_tpu_torch.ops.fv import pad_staggered
 
@@ -49,6 +52,17 @@ class AdvectionStencil:
 def _win(arr, off, size):
     """Window of a 1-padded array: arr[1+off : 1+off+size] per axis."""
     return arr[tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, size))]
+
+
+def _interior_masks(shape, d: int, periodic: bool, device):
+    """(interior_lo, interior_hi): the face is not on the lower / upper
+    domain end along axis d. Periodic axes have no domain ends."""
+    if periodic:
+        t = torch.ones((1,) * len(shape), dtype=torch.bool, device=device)
+        return t, t
+    n = shape[d]
+    idx = torch.arange(n, device=device).reshape(tuple(n if i == d else 1 for i in range(len(shape))))
+    return idx > 0, idx < n - 1
 
 
 def uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
@@ -141,19 +155,20 @@ def assemble_advection_stencil(
             # the high centered neighbour sits at +e_d for d != c and at 0
             # for d == c (the face between two cells belongs to the upper one)
             off_hi = e[d] if d != c else zero_off
+            interior_lo, interior_hi = _interior_masks(S, d, periodic[d], velocity.device)
             act_lo = _win(active_mask, off_lo, S)
             act_hi = _win(active_mask, off_hi, S)
             ns_lo = _win(no_slip_b, off_lo, S)
             ns_hi = _win(no_slip_b, off_hi, S)
-            # periodic axes have no domain ends: every face is interior, so
-            # tbb = active(nbr) == 1 or no_slip(nbr)
-            tbb_lo = (act_lo == 1.0) | ns_lo
-            tbb_hi = (act_hi == 1.0) | ns_hi
+            tbb_lo = (act_lo == 1.0) | (interior_lo & ns_lo)
+            tbb_hi = (act_hi == 1.0) | (interior_hi & ns_hi)
             tbb_lo_f = tbb_lo.to(dtype)
             tbb_hi_f = tbb_hi.to(dtype)
             visc = nu * (area[d] / dx[d])
-            coeff_lo = torch.where(tbb_lo, 0.5 * flux_lo + visc, 0.0)
-            coeff_hi = torch.where(tbb_hi, -0.5 * flux_hi + visc, 0.0)
+            # links across periodic wraps always exist; links across
+            # bounded domain ends are dropped
+            coeff_lo = torch.where(tbb_lo & interior_lo, 0.5 * flux_lo + visc, 0.0)
+            coeff_hi = torch.where(tbb_hi & interior_hi, -0.5 * flux_hi + visc, 0.0)
             wall = 1.0 if d != c else 0.0
             diag = diag + flux_lo * (2.0 - tbb_lo_f) * 0.5 - visc * (
                 tbb_lo_f + wall * (1.0 - tbb_lo_f) * ns_lo.to(dtype) * 2.0
@@ -179,20 +194,16 @@ def assemble_advection_stencil(
 
 
 def _apply_component(center, lo, hi, x):
-    y = center * x
-    for d in range(x.ndim):
-        y = y + lo[d] * torch.roll(x, 1, d)
-        y = y + hi[d] * torch.roll(x, -1, d)
-    return y
+    if matvec.eligible(x.shape, x.dtype):
+        return matvec.fused_stencil_matvec(center, lo, hi, x)
+    return matvec.stencil_apply_plain(center, lo, hi, x)
 
 
 def _apply_component_T(center, lo, hi, x):
     # (M^T x)[i] = center[i] x[i] + sum_d lo[i+e_d] x[i+e_d] + hi[i-e_d] x[i-e_d]
-    y = center * x
-    for d in range(x.ndim):
-        y = y + torch.roll(lo[d] * x, -1, d)
-        y = y + torch.roll(hi[d] * x, 1, d)
-    return y
+    if matvec.eligible(x.shape, x.dtype):
+        return matvec.fused_stencil_matvec(center, lo, hi, x, transpose=True)
+    return matvec.stencil_apply_plain(center, lo, hi, x, transpose=True)
 
 
 def apply_stencil(st: AdvectionStencil, field: StaggeredField, negate: bool = False) -> StaggeredField:

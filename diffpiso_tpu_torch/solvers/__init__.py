@@ -1,5 +1,6 @@
-"""Solvers: Krylov loops, the spectral preconditioner, and the two
-whole-solve kernels (jacobi2, pcg2)."""
+"""Solvers: Krylov loops, the spectral preconditioner, the two
+whole-solve kernels (jacobi2, pcg2) and the BiCGSTAB phase kernels
+(bicg)."""
 
 from diffpiso_tpu_torch.solvers.base import (
     AdvectionSolver,

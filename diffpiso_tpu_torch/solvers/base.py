@@ -130,10 +130,11 @@ class AdvectionSolver:
 
 @dataclasses.dataclass(frozen=True)
 class PressureSolver:
-    """Config for the pressure-increment solve. Only the `fft_mm` spectral
-    preconditioner (periodic boxes) is ported; `residual_reset` and
-    `randomized_restarts` belong to the per-iteration PCG tier and the
-    restart policy that come with bounded domains."""
+    """Config for the pressure-increment solve. The `fft_mm` (periodic
+    boxes) and `dct_mm` (all-Neumann bounded domains) spectral
+    preconditioners are ported; `residual_reset` belongs to the
+    per-iteration PCG tier, which is not; `randomized_restarts` must stay
+    0 (not ported)."""
 
     max_iterations: int = 2000
     residual_reset: int = 50
@@ -228,14 +229,22 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
     return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
 
 
+_MM_KINDS = {"fft_mm": "fourier", "dct_mm": "dct2"}
+
+
 def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
     """(MatmulSpectralSolver, per-axis weights) of the spectral
-    preconditioner: the mean |off-diagonal| per axis as the constant
-    stencil weights."""
-    if kind != "fft_mm":
+    preconditioner: real Fourier bases for `fft_mm` (periodic boxes),
+    DCT-II bases for `dct_mm` (all-Neumann bounded domains), with the
+    mean |off-diagonal| per axis as the constant stencil weights. Both
+    zero the singular mode, so their output is mean-free, the condition
+    under which the JAX package takes its whole-solve PCG."""
+    if kind not in _MM_KINDS:
         raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
     weights = tuple(torch.mean(torch.abs(l)) for l in lap.lo)
-    return MatmulSpectralSolver(kinds=("fourier",) * lap.rank, shape=tuple(lap.center.shape)), weights
+    solver = MatmulSpectralSolver(kinds=(_MM_KINDS[kind],) * lap.rank,
+                                  shape=tuple(lap.center.shape))
+    return solver, weights
 
 
 def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
@@ -244,6 +253,9 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
     preconditioner and a cold start."""
     if cfg.dtype is not None:
         raise NotImplementedError("the whole-solve PCG runs in float32 only")
+    if cfg.randomized_restarts:
+        raise NotImplementedError("randomized restarts are not ported (no ported "
+                                  "configuration sets them)")
     kind = cfg.preconditioner
     if adjoint and cfg.adjoint_preconditioner != "same":
         kind = cfg.adjoint_preconditioner

@@ -1,8 +1,11 @@
-"""Spectral inverse of the periodic 5-point Laplacian through dense real
-Fourier eigenbases (the `fft_mm` preconditioner).
+"""Spectral inverse of the constant-coefficient 5-point Laplacian through
+dense orthonormal eigenbases: real Fourier on periodic axes (the `fft_mm`
+preconditioner), DCT-II on homogeneous-Neumann bounded axes (`dct_mm`,
+the bounded-domain pressure layout of the lid-driven cavity).
 
-Counterpart of the `fourier` parts of diffpiso_tpu/solvers/fourier.py
-(fourier_basis, _eigs, MatmulSpectralSolver._mats/_symbol, _safe_symbol).
+Counterpart of the matmul parts of diffpiso_tpu/solvers/fourier.py
+(dct2_basis, fourier_basis, _eigs, MatmulSpectralSolver._mats/_symbol,
+_safe_symbol).
 The bases are built in numpy float64 and rounded to the working dtype, as
 in the JAX package; this port keeps its own copy of the builders.
 
@@ -20,6 +23,18 @@ import numpy as np
 import torch
 
 
+def dct2_basis(n: int) -> np.ndarray:
+    """Orthonormal DCT-II analysis matrix V (rows = eigenvectors of the
+    homogeneous-Neumann second-difference stencil): V[k, i] =
+    s_k cos(pi k (2i+1) / 2n), eigenvalue 2 cos(pi k / n) - 2."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    v = np.cos(np.pi * k * (2 * i + 1) / (2 * n))
+    v[0] *= np.sqrt(1.0 / n)
+    v[1:] *= np.sqrt(2.0 / n)
+    return v
+
+
 def fourier_basis(n: int) -> np.ndarray:
     """Orthonormal REAL Fourier basis (rows = eigenvectors of the periodic
     second-difference stencil); each cosine row is followed by its sine."""
@@ -33,7 +48,12 @@ def fourier_basis(n: int) -> np.ndarray:
     return np.concatenate(rows, axis=0)
 
 
+_BASIS = {"dct2": dct2_basis, "fourier": fourier_basis}
+
+
 def _eigs(n: int, kind: str) -> np.ndarray:
+    if kind == "dct2":
+        return 2.0 * np.cos(np.pi * np.arange(n) / n) - 2.0
     if kind != "fourier":
         raise NotImplementedError(f"basis kind {kind!r} is not ported")
     freqs = [0] + [k for k in range(1, (n - 1) // 2 + 1) for _ in (0, 1)]
@@ -46,15 +66,15 @@ def _eigs(n: int, kind: str) -> np.ndarray:
 def _basis_tensors(kind: str, n: int, dtype, device: str):
     """(V, V^T) as contiguous tensors; the transposed copy lets every
     contraction of the preconditioner run as a plain row-major product."""
-    if kind != "fourier":
+    if kind not in _BASIS:
         raise NotImplementedError(f"basis kind {kind!r} is not ported")
-    v = torch.as_tensor(fourier_basis(n), dtype=dtype, device=device)
+    v = torch.as_tensor(_BASIS[kind](n), dtype=dtype, device=device)
     return v, v.t().contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
 class MatmulSpectralSolver:
-    """Spectral inverse of a separable constant-coefficient periodic
+    """Spectral inverse of a separable constant-coefficient
     stencil: z = V0^T ((V0 r V1^T) / S) V1 with S the eigenvalue symbol."""
 
     kinds: Tuple[str, ...]

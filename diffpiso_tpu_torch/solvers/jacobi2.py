@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.ops.matvec import matvec_plain
 
 _P = ctypes.c_void_p
 _SIGS = {
@@ -36,20 +37,8 @@ _SIGS = {
 
 
 def adv_matvec(c, ly, hy, lx, hx, p, transpose, sgn):
-    """sgn * (M p) or sgn * (M^T p) for one component (periodic rolls)."""
-    if not transpose:
-        q = c * p
-        q = q + ly * torch.roll(p, 1, 0)
-        q = q + hy * torch.roll(p, -1, 0)
-        q = q + lx * torch.roll(p, 1, 1)
-        q = q + hx * torch.roll(p, -1, 1)
-    else:
-        q = c * p
-        q = q + torch.roll(ly * p, -1, 0)
-        q = q + torch.roll(hy * p, 1, 0)
-        q = q + torch.roll(lx * p, -1, 1)
-        q = q + torch.roll(hx * p, 1, 1)
-    return sgn * q
+    """sgn * (M p) or sgn * (M^T p) for one component (roll wrap)."""
+    return sgn * matvec_plain(c, ly, hy, lx, hx, p, transpose)
 
 
 def _max_abs(planes) -> float:
@@ -88,7 +77,9 @@ def jacobi2_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
 def fused_jacobi2_solve(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
     """Whole-solve Jacobi-Richardson for the 2-component 2-D momentum
     system. st_cs = [(center, (lo_y, lo_x), (hi_y, hi_x))] * 2; b_c/x_c are
-    component tuples. Returns (x0', x1', true max-residual as a float,
+    component tuples. The two components may differ in shape (a bounded
+    domain's (ny+1, nx) and (ny, nx+1) faces); bounded axes carry zero edge
+    coefficients, so the wrap of the matvec adds nothing there. Returns (x0', x1', true max-residual as a float,
     sweeps). The caller keeps its BiCGSTAB fallback on the returned norm."""
     if b_c[0].device.type == "cpu":
         return jacobi2_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)

@@ -1,8 +1,9 @@
 """Krylov solvers on staggered fields and pressure planes.
 
 Counterpart of diffpiso_tpu/solvers/krylov.py: `bicgstab` (Jacobi
-preconditioning, the whole-solve Jacobi accelerator in front, the
-restart-if-bad policy) and `pcg` as far as the whole-solve spectral PCG.
+preconditioning, the whole-solve Jacobi accelerator in front, the fused
+phase-kernel loop and the generic one, the restart-if-bad policy) and
+`pcg` as far as the whole-solve spectral PCG.
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
 float32, as in the reference."""
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve
@@ -103,6 +105,55 @@ def _bicgstab_once(apply_A, precond, b, x0, tol, max_iter):
     return x, float(_tree_max_abs(_axpy(-1.0, apply_A(x), b))), k
 
 
+def _bicgstab_once_fused(st_cs, inv_diag, apply_A, b, x0, tol, max_iter, sgn, transpose):
+    """The BiCGSTAB loop of `_bicgstab_once` through the three phase
+    kernels per component (solvers/bicg.py), in the JAX package's fused
+    recurrence: the x-phase also returns rhat . r' for the next iteration,
+    and the scalars stay on the device; one host read per iteration."""
+    eps = 1e-30
+
+    def guard(v):
+        return torch.where(v.abs() < eps, 1.0, v)
+
+    ncomp = len(st_cs)
+    invd = _comps(inv_diag)
+    r0 = _axpy(-1.0, apply_A(x0), b)
+    rnorm0 = float(_tree_max_abs(r0))
+    if rnorm0 < tol:
+        return x0, rnorm0, 0
+    rhat = _comps(r0)
+    one = torch.ones((), dtype=rhat[0].dtype, device=rhat[0].device)
+    x_c, r_c = _comps(x0), rhat
+    p_c = v_c = tuple(torch.zeros_like(c) for c in rhat)
+    rho, rho_new, alpha, omega = one, sum(torch.sum(rh * rh) for rh in rhat), one, one
+    k = 0
+    done = False
+    while not done and k < max_iter:
+        breakdown = rho_new.abs() < eps
+        beta = (rho_new / torch.where(breakdown, 1.0, rho)) * (alpha / guard(omega))
+        outs = [fused_bicg_phase_p(st_cs[c], invd[c], r_c[c], p_c[c], v_c[c], rhat[c], beta,
+                                   omega, sgn, transpose) for c in range(ncomp)]
+        p_c, v_c = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+        alpha = rho_new / guard(sum(o[2] for o in outs))
+        outs = [fused_bicg_phase_s(st_cs[c], invd[c], r_c[c], v_c[c], alpha, sgn, transpose)
+                for c in range(ncomp)]
+        s_c, t_c = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+        omega = sum(o[3] for o in outs) / guard(sum(o[2] for o in outs))
+        outs = [fused_bicg_phase_x(invd[c], p_c[c], s_c[c], t_c[c], x_c[c], rhat[c], alpha, omega)
+                for c in range(ncomp)]
+        x_c, r_c = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+        rnorm = outs[0][2]
+        for o in outs[1:]:
+            rnorm = torch.maximum(rnorm, o[2])
+        rho, rho_new = rho_new, sum(o[3] for o in outs)
+        rn, broke = torch.stack((rnorm, breakdown.to(rnorm.dtype))).tolist()
+        done = rn < tol or broke != 0.0 or not np.isfinite(rn)
+        k += 1
+    x = _rebuild(b, x_c)
+    # true residual (the recurrence residual can drift)
+    return x, float(_tree_max_abs(_axpy(-1.0, apply_A(x), b))), k
+
+
 def bicgstab(
     apply_A: Callable,
     b,
@@ -121,8 +172,11 @@ def bicgstab(
     whole-solve Jacobi-Richardson kernel (solvers/jacobi2.py) runs first:
     the advection system is diagonally dominant by beta, so it usually
     reaches tol alone and the Krylov loop never runs; otherwise BiCGSTAB
-    continues from the Jacobi iterate. A non-finite or > 100 tol final
-    residual restarts once from zeros; warn is set when even that fails."""
+    continues from the Jacobi iterate. On float32 planes its loop runs the
+    three phase kernels per component (solvers/bicg.py), as the JAX
+    package's fused loop does; the generic loop serves the rest. A
+    non-finite or > 100 tol final residual restarts once from zeros; warn
+    is set when even that fails."""
     if x0 is None:
         x0 = _zeros_like(b)
     tol32 = _f32(tol)
@@ -140,20 +194,29 @@ def bicgstab(
         def precond(v):
             return v
 
-    def once(x_init):
-        return _bicgstab_once(apply_A, precond, b, x_init, tol32, max_iter)
+    def counted_apply(v):
+        bicgstab.applies[bool(transpose)] += 1
+        return apply_A(v)
 
     comps = _comps(b)
-    if (
-        stencil is not None
-        and inv_diag is not None
-        and len(comps) == 2
-        and all(c.ndim == 2 for c in stencil.center)
-    ):
-        st_cs = [(stencil.center[i], stencil.lo[i], stencil.hi[i]) for i in range(2)]
+    sgn = -1.0 if negate else 1.0
+    structured = (stencil is not None and inv_diag is not None
+                  and all(c.ndim == 2 for c in stencil.center))
+    st_cs = [(stencil.center[i], stencil.lo[i], stencil.hi[i])
+             for i in range(len(comps))] if structured else None
+    # the JAX gate of the fused loop: rank-2 planes of at most 4-byte floats
+    # (its cap of 8 MiB per plane is the TPU's VMEM, not the function's)
+    fused = structured and all(c.dtype == torch.float32 for c in stencil.center)
+
+    def once(x_init):
+        if fused:
+            return _bicgstab_once_fused(st_cs, inv_diag, counted_apply, b, x_init, tol32,
+                                        max_iter, sgn, transpose)
+        return _bicgstab_once(counted_apply, precond, b, x_init, tol32, max_iter)
+
+    if structured and len(comps) == 2:
         xo0, xo1, jn, _ = fused_jacobi2_solve(
-            st_cs, tuple(comps), tuple(_comps(x0)), -1.0 if negate else 1.0,
-            transpose, tol32, 1 + 8 * 4,
+            st_cs, tuple(comps), tuple(_comps(x0)), sgn, transpose, tol32, 1 + 8 * 4,
         )
         x0 = _rebuild(b, [xo0, xo1])
         if jn < tol32:
@@ -168,11 +231,16 @@ def bicgstab(
         xr, rr, kr = once(_zeros_like(b))
         x, rnorm, k = xr, rr, k + kr  # report the total work of both attempts
     warn = not np.isfinite(rnorm) or rnorm > bad_at
+    bicgstab.iterations += k
     return SolveResult(x=x, iterations=k, residual_norm=rnorm,
                        converged=rnorm < tol32, warn=warn)
 
 
 bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGSTAB
+bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
+# operator applications inside the BiCGSTAB loop, by transpose flag (each
+# applies the matvec once per component)
+bicgstab.applies = {False: 0, True: 0}
 
 
 def pcg(
@@ -187,14 +255,14 @@ def pcg(
 ) -> SolveResult:
     """Spectrally preconditioned CG on the pressure Laplacian `stencil`:
     the whole-solve kernel (solvers/pcg2.py), the path the reference takes
-    for a 2-D plane with the matmul spectral preconditioner over the full
-    periodic grid. precond_mm = (MatmulSpectralSolver, weights). The
-    per-iteration loop with residual resets comes with bounded domains."""
+    for a 2-D plane with a mean-free matmul spectral preconditioner over
+    the full grid, periodic or bounded (bounded axes carry zero edge
+    links, so the kernel's wrap is harmless, and the shift and deflation
+    run over the true plane). precond_mm = (MatmulSpectralSolver,
+    weights). The per-iteration loop with residual resets is not ported."""
     solver, weights = precond_mm
-    if b.ndim != 2 or tuple(solver.shape) != tuple(b.shape) or not all(stencil.periodic):
-        raise NotImplementedError(
-            "only the whole-solve spectral PCG on periodic 2-D planes is ported"
-        )
+    if b.ndim != 2 or tuple(solver.shape) != tuple(b.shape):
+        raise NotImplementedError("only the whole-solve spectral PCG on 2-D planes is ported")
     (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     sym = safe_symbol(solver, weights, b.dtype, b.device)
     x, rn, k = fused_pcg2_solve(stencil, b, x0, v0, v0t, v1, v1t, sym, tol,

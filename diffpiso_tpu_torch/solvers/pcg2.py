@@ -1,8 +1,13 @@
 """Kernel 4: whole spectral-preconditioned PCG for the 2-D pressure system.
 
 Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_pcg2_solve (TPU kernel
-`_pcg2_solve_kernel` around `_pcg2_core`), for periodic planes without
-padding; the pad-and-mask path waits for bounded domains. The CUDA kernels
+`_pcg2_solve_kernel` around `_pcg2_core`) on periodic and bounded planes of
+any shape (the 512^2 turbulence box, the cavity's 513 x 512 plane). The TPU
+zero-pads unaligned bounded planes to (8, 128) multiples and masks the
+global terms; that is an alignment workaround, so here nothing is padded:
+the stencil keeps its roll wrap (bounded axes carry zero edge links), and
+the rank-one shift and the mean deflation run over the true plane, which
+is what the masked TPU path computes. The CUDA kernels
 are csrc/pcg2.cu: a hand-written tiled fp32 GEMM for the four eigenbasis
 contractions of M^-1 r (the divide by the symbol fused into the second
 product's epilogue), and one-pass elementwise kernels with deterministic
@@ -87,7 +92,7 @@ def pcg2_plain(lap, b, x0, v0, v1, sym, tol, max_iter, deflate=True):
 
 
 def fused_pcg2_solve(lap, b, x0, v0, v0t, v1, v1t, sym, tol, max_iter, deflate=True):
-    """Whole-solve spectral PCG. lap: LaplaceStencil (periodic, 2-D);
+    """Whole-solve spectral PCG. lap: LaplaceStencil (2-D);
     v0/v1 the eigenbases with their transposes v0t/v1t; sym the safe
     symbol; x0 None means a cold start. Returns (x, true residual as a
     float, iterations)."""

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch / CUDA port's main path goes.
+"""Where the time of the PyTorch / CUDA port's main paths goes.
 
-    python3 profile_torch_step.py [--n 512] [--steps 20] [--trace PATH]
-    python3 profile_torch_step.py --grad [--trace PATH]
+    python3 profile_torch_step.py [--workload turbulence|cavity] [--n 512] [--steps 20] [--trace PATH]
+    python3 profile_torch_step.py [--workload turbulence|cavity] --grad [--trace PATH]
 
-Runs the main path of the port (2-D periodic decaying turbulence, viscosity
-1e-4, dt = 0.4/n, advection tol 1e-6, pressure tol 1e-8, warm-started
-pressure increments): 10 warm-up steps, then under torch.profiler either
+Runs one workload of the port: `turbulence` (the default; 2-D periodic
+decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
+pressure tol 1e-8, 10 warm-up steps) or `cavity` (the lid-driven cavity of
+`lid_driven_cavity_setup`, (n+1) x n cells, dt = 0.2/n, advection and
+pressure tol 1e-6, developed by a 2000-step spin-up from rest), with
+warm-started pressure increments. Then under torch.profiler either
 `--steps` forward steps or, with --grad, one grad30 evaluation (the
 30-step rollout gradient of sum v^2 with respect to a forcing field,
 "outputs" remat) after one unprofiled evaluation. Prints the card,
@@ -14,8 +17,8 @@ then one JSON line: host wall time per step (per unrolled step with
 --grad), device busy time per step (the sum of kernel and copy times; one
 stream, so they do not overlap), the device idle share, and device time
 and launches per step grouped by kernel family, largest first. Writes the
-Chrome trace to --trace (default traces/profile_torch_step.json, or
-profile_torch_grad.json with --grad). Needs a GPU.
+Chrome trace to --trace (default traces/profile_torch_<workload>_<step or
+grad>.json). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ FAMILIES = (
     ("jac2_", "jacobi2 sweeps"),
     ("advassembly", "advection assembly"),
     ("fv2_", "FV div2 / grad2"),
+    ("fv2m_", "FV div2m / grad2m / gradT2m"),
+    ("matvec_kernel", "stencil matvec"),
+    ("bicg_", "BiCGSTAB phases"),
     ("corrector_", "corrector bridge / tail"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
@@ -49,11 +55,12 @@ def family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
-    return "plain PyTorch ops (glue, masks, matvec, corrector VJP)"
+    return "plain PyTorch ops (glue, masks, masked assembly, corrector VJP)"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=("turbulence", "cavity"), default="turbulence")
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
@@ -61,8 +68,7 @@ def main() -> int:
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if args.trace is None:
-        args.trace = ("traces/profile_torch_grad.json" if args.grad
-                      else "traces/profile_torch_step.json")
+        args.trace = f"traces/profile_torch_{args.workload}_{'grad' if args.grad else 'step'}.json"
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -72,7 +78,7 @@ def main() -> int:
         return 1
     from diffpiso_tpu_torch.core.piso import piso_step
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.native import build_all
@@ -82,33 +88,37 @@ def main() -> int:
     build_all()
     dev = torch.device("cuda")
     n = args.n
-    domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
-    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if args.workload == "turbulence":
+        domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
+        dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 10
+        v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    else:
+        domain, sim, dt = lid_driven_cavity_setup(n, device=dev)
+        adv_tol, p_tol, warmup = 1e-6, 1e-6, 2000
+        v = domain.staggered_grid(0.0, device=dev)
     p = domain.centered_grid(0.0, device=dev)
     g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+
+    def step(v, p, g1, g2, f=None):
+        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=adv_tol, pressure_tol=p_tol)
 
     def run(k):
         nonlocal v, p, g1, g2
         for _ in range(k):
-            o = piso_step(v, p, 0.4 / n, domain, sim, pressure_inc1_guess=g1,
-                          pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-8)
+            o = step(v, p, g1, g2)
             if o.warn:
                 raise RuntimeError("a solve warned during profiling")
             v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
 
-    forcing = StaggeredField(tuple(torch.zeros(n, n, device=dev) for _ in range(2)),
-                             periodic=(True, True))
-
     def grad_eval():
-        res = rollout_loss_grad(
-            lambda v, p, g1, g2, f: piso_step(
-                v, p, 0.4 / n, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
-                pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-8),
-            v, p, forcing, UNROLL, remat="outputs")
+        forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                                 periodic=v.periodic)
+        res = rollout_loss_grad(step, v, p, forcing, UNROLL, remat="outputs")
         if res.warns:
             raise RuntimeError("a solve warned during profiling")
 
-    run(10)
+    run(warmup)
     if args.grad:
         grad_eval()
     torch.cuda.synchronize()
@@ -137,7 +147,8 @@ def main() -> int:
         return 1
     steps = UNROLL if args.grad else args.steps
     print(json.dumps(dict(
-        n=n, mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward",
+        workload=args.workload, n=n,
+        mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward",
         steps=steps, host_ms_per_step=wall * 1e3 / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_idle_share=1.0 - busy_us / 1e6 / wall,

@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card (the
 two assemblies, jac2, pcg2, the FV pair forward and VJP, the corrector
 bridge / tail forward; their VJP recomputes the plain chain, so comparing
-it checks only the wiring), the CUDA step and the CUDA rollout gradient
-against the CPU plain path, with each adjoint's gate decision. Every test here needs a GPU
+it checks only the wiring; the bounded FV trio forward and VJP, the
+stencil matvec in both forms, jac2 and pcg2 at the cavity's unequal
+bounded shapes, the BiCGSTAB phases and the loop they run), the CUDA step and the CUDA rollout gradient against the
+CPU plain path (turbulence and lid-driven cavity), with each adjoint's
+gate decision. Every test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
@@ -17,10 +20,10 @@ import torch
 from diffpiso_tpu_torch import convert
 from diffpiso_tpu_torch.core.piso import piso_step
 from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.noise import random_solenoidal
-from diffpiso_tpu_torch.ops import corrector, fv2
+from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, matvec
 from diffpiso_tpu_torch.ops import laplace as plap
 from diffpiso_tpu_torch.ops.advassembly import (
     advection_assembly_plain,
@@ -30,6 +33,7 @@ from diffpiso_tpu_torch.ops.advassembly import (
 from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly, laplace_assembly_plain
 from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
 from diffpiso_tpu_torch.solvers import base as pbase
+from diffpiso_tpu_torch.solvers import bicg
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
@@ -258,6 +262,190 @@ def test_cuda_rollout_gradient_matches_the_cpu_plain_path(n, viscosity, p_tol, c
     # each adjoint solve gated alike on both devices
     assert decisions[0] == decisions[1]
     assert any(g for _, g in decisions[1]) == (p_tol == 1e-8)
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
+    den = sum(float(torch.sum(b ** 2)) for b in grads[1])
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+CAVITY = (513, 512)  # the 512 cavity's pressure plane
+
+
+@pytest.mark.parametrize("shape", [CAVITY, (9, 12)])
+def test_fv2m_kernels_match_plain_forward_and_vjp(shape, cuda_device):
+    per, rep = (False, False), ((True, True), (True, False))
+    fs = (0.013, 0.021)
+    vs, us = fv2m.face_shapes(shape, per)
+    v, u = (_rand(s_, k).to(cuda_device).requires_grad_(True) for s_, k in ((vs, 70), (us, 71)))
+    p = _rand(shape, 72).to(cuda_device).requires_grad_(True)
+    masks = tuple(_rand(s_, k).gt(0).float().to(cuda_device) for s_, k in ((vs, 73), (us, 74)))
+    ct, cv, cu = _rand(shape, 75).to(cuda_device), _rand(vs, 76).to(cuda_device), \
+        _rand(us, 77).to(cuda_device)
+    before = (fv2m.div2m.launches, fv2m.grad2m.launches, fv2m.gradT2m.launches)
+    d = fv2m.div2m(fs, per, (v, u))
+    g = fv2m.grad2m(fs, per, rep, p, masks)
+    assert (fv2m.div2m.launches, fv2m.grad2m.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(d, fv2m.div2m_plain(fs, per, (v.detach(), u.detach())),
+                               rtol=0, atol=0)
+    for a, b in zip(g, fv2m.grad2m_plain(fs, per, rep, p.detach(), masks)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # VJPs: div2m's is the zero-ghost gradient with negated factors, grad2m's
+    # the transpose kernel; both bit-equal to the plain versions
+    gv, gu = torch.autograd.grad(d, (v, u), ct)
+    (gp,) = torch.autograd.grad(g, (p,), (cv, cu))
+    want = fv2m.grad2m_plain((-fs[0], -fs[1]), per, fv2m.NO_REP, ct)
+    torch.testing.assert_close(gv, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(gu, want[1], rtol=0, atol=0)
+    torch.testing.assert_close(gp, fv2m.gradT2m_plain(fs, per, rep, (cv, cu), masks),
+                               rtol=0, atol=0)
+    assert (fv2m.div2m.launches, fv2m.grad2m.launches, fv2m.gradT2m.launches) == \
+        (before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+@pytest.mark.parametrize("shape", [(514, 512), (513, 513), (7, 5)])
+def test_matvec_kernel_matches_plain_both_forms_and_vjp(shape, cuda_device):
+    planes = [_rand(shape, 80 + k).to(cuda_device) for k in range(5)]
+    x = _rand(shape, 85).to(cuda_device).requires_grad_(True)
+    dz = _rand(shape, 86).to(cuda_device)
+    for transpose in (False, True):
+        before = (matvec.fused_stencil_matvec.launches,
+                  matvec.fused_stencil_matvec.launches_transposed)
+        z = matvec.fused_stencil_matvec(planes[0], (planes[1], planes[3]),
+                                        (planes[2], planes[4]), x, transpose)
+        torch.testing.assert_close(z, matvec.matvec_plain(*planes, x.detach(), transpose),
+                                   rtol=0, atol=0)
+        (gx,) = torch.autograd.grad(z, (x,), dz)
+        torch.testing.assert_close(gx, matvec.matvec_plain(*planes, dz, not transpose),
+                                   rtol=0, atol=0)
+        assert (matvec.fused_stencil_matvec.launches,
+                matvec.fused_stencil_matvec.launches_transposed) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", [(514, 512), (513, 513), (7, 5)])
+def test_bicg_phase_kernels_match_plain(shape, transpose, cuda_device):
+    """Planes bit-equal; the reductions within rel 1e-5 (summation order),
+    the max exact."""
+    c = _rand(shape, 90, 0.3, -3.0).to(cuda_device)
+    lo = tuple(_rand(shape, 91 + k, 0.4).to(cuda_device) for k in range(2))
+    hi = tuple(_rand(shape, 93 + k, 0.4).to(cuda_device) for k in range(2))
+    st_c, invd = (c, lo, hi), 1.0 / -c
+    r, p, v, rhat, x = (_rand(shape, 95 + k).to(cuda_device) for k in range(5))
+    sc = [torch.tensor(a, device=cuda_device) for a in (0.7, -0.3, 1.3)]
+    before = [f.launches for f in (bicg.fused_bicg_phase_p, bicg.fused_bicg_phase_s,
+                                   bicg.fused_bicg_phase_x)]
+    outs = [
+        (bicg.fused_bicg_phase_p(st_c, invd, r, p, v, rhat, sc[0], sc[1], -1.0, transpose),
+         bicg.bicg_phase_p_plain(st_c, invd, r, p, v, rhat, sc[0], sc[1], -1.0, transpose), 2),
+        (bicg.fused_bicg_phase_s(st_c, invd, r, v, sc[2], -1.0, transpose),
+         bicg.bicg_phase_s_plain(st_c, invd, r, v, sc[2], -1.0, transpose), 2),
+        (bicg.fused_bicg_phase_x(invd, p, r, v, x, rhat, sc[2], sc[1]),
+         bicg.bicg_phase_x_plain(invd, p, r, v, x, rhat, sc[2], sc[1]), 2),
+    ]
+    for got, want, n_planes in outs:
+        for a, b in zip(got[:n_planes], want[:n_planes]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for a, b in zip(got[n_planes:], want[n_planes:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs()))
+    assert float(outs[2][0][2]) == float(outs[2][1][2])
+    assert [f.launches for f in (bicg.fused_bicg_phase_p, bicg.fused_bicg_phase_s,
+                                 bicg.fused_bicg_phase_x)] == [b + 1 for b in before]
+
+
+def test_cuda_bicgstab_fallback_matches_the_cpu(cuda_device):
+    """A momentum-like system jac2 cannot finish (|center| ~ 1.6 against
+    off-diagonal mass ~ 1.6): BiCGSTAB's phase kernels on the card take the
+    same iterations as the plain phases on the CPU, to the same answer."""
+    from diffpiso_tpu_torch.ops import stencil as pst
+    from diffpiso_tpu_torch.solvers import krylov
+
+    shape = (18, 16)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        comps = []
+        for k in range(2):
+            comps.append((_rand(shape, 60 + 5 * k, 0.3, -1.6).to(dev),
+                          tuple(_rand(shape, 61 + 5 * k + d, 0.4).to(dev) for d in range(2)),
+                          tuple(_rand(shape, 63 + 5 * k + d, 0.4).to(dev) for d in range(2))))
+        st = AdvectionStencil(center=tuple(c[0] for c in comps), lo=tuple(c[1] for c in comps),
+                              hi=tuple(c[2] for c in comps), diag_A=tuple(c[0] for c in comps))
+        b = StaggeredField(tuple(_rand(shape, 70 + k).to(dev) for k in range(2)), (True, True))
+        phases = bicg.fused_bicg_phase_x.launches
+        res = krylov.bicgstab(lambda v: pst.apply_stencil_transpose(st, v, negate=True), b,
+                              tol=1e-6, max_iter=400,
+                              diag=StaggeredField(tuple(-c for c in st.center), (True, True)),
+                              stencil=st, negate=True, transpose=True)
+        assert not res.warn and res.iterations > 0
+        results.append((res, bicg.fused_bicg_phase_x.launches - phases))
+    (card, x_launches), (cpu, _) = results
+    assert card.iterations == cpu.iterations and x_launches == 2 * card.iterations
+    for a, b in zip(card.x.components, cpu.x.components):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+def _cavity_operators(n, dev, steps=5):
+    """A cavity's step planes after `steps` steps from rest: the stencil,
+    v*, the Laplacian and the divergence of v*."""
+    domain, sim, dt = lid_driven_cavity_setup(n, device=dev)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    for _ in range(steps):
+        out = piso_step(v, p, dt, domain, sim, advection_tol=1e-6, pressure_tol=1e-6,
+                        full_output=True)
+        v, p = out.velocity, out.pressure
+    return out.intermediates
+
+
+def test_jacobi2_and_pcg2_kernels_match_plain_at_the_cavity_shapes(cuda_device):
+    it = _cavity_operators(512, cuda_device)
+    st, lap = it["stencil"], it["laplacian"]
+    st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
+    b = tuple(it["rhs"].components)
+    x0 = tuple(torch.zeros_like(c) for c in b)
+    for transpose in (False, True):
+        k = fused_jacobi2_solve(st_cs, b, x0, -1.0, transpose, 1e-6, 33)
+        pj = jacobi2_plain(st_cs, b, x0, -1.0, transpose, 1e-6, 33)
+        assert k[3] == pj[3] > 0 and k[2] == pj[2]
+        torch.testing.assert_close(k[0], pj[0], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], pj[1], rtol=0, atol=0)
+    mss, weights = pbase.pressure_preconditioner("dct_mm", lap)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, cuda_device)
+    sym = safe_symbol(mss, weights, torch.float32, cuda_device)
+    rhs = it["v1_div"]
+    kx, krn, kk = fused_pcg2_solve(lap, rhs, None, v0, v0t, v1, v1t, sym, 1e-6, 600)
+    px, prn, pk = pcg2_plain(lap, rhs, None, v0, v1, sym, 1e-6, 600)
+    assert kk == pk > 0 and krn < 1e-6 and prn < 1e-6
+    torch.testing.assert_close(kx, px, rtol=0, atol=1e-4 * float(px.abs().max()))
+
+
+def test_cuda_cavity_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
+    n = 32
+    grads, decisions, states = [], [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        domain, sim, dt = lid_driven_cavity_setup(n, device=dev)
+        v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+        g1 = g2 = torch.zeros_like(p)
+
+        def step(v, p, g1, g2, f=None, domain=domain, sim=sim, dt=dt):
+            return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                             pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-6)
+
+        iters = []
+        for _ in range(3):
+            out = step(v, p, g1, g2)
+            assert not out.warn
+            v, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
+            iters.append(out.p_iterations)
+        states.append(([c.cpu() for c in v.components], iters))
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                           periodic=(False, False))
+        res = rollout_loss_grad(step, v, p, f, 3)
+        assert res.warns == 0
+        grads.append([c.cpu().double() for c in res.grad.components])
+        decisions.append([(a.system, a.gated) for a in res.adjoints])
+    (vc, itc), (vp, itp) = states
+    assert itc == itp
+    for a, b in zip(vc, vp):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    assert decisions[0] == decisions[1]
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
     den = sum(float(torch.sum(b ** 2)) for b in grads[1])
     assert den > 0 and (num / den) ** 0.5 <= 1e-3

@@ -46,6 +46,15 @@ def test_the_scan_covers_the_gradient_slice_modules():
             "diffpiso_tpu_torch/core/rollout.py"} <= scanned
 
 
+def test_the_scan_covers_the_cavity_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/ops/fv2m.py", "diffpiso_tpu_torch/ops/matvec.py",
+            "diffpiso_tpu_torch/core/masks.py", "diffpiso_tpu_torch/core/setups.py",
+            "diffpiso_tpu_torch/fields/material.py", "diffpiso_tpu_torch/solvers/bicg.py"} <= scanned
+    for name in ("fv2m", "matvec", "bicg"):
+        assert (PKG / "csrc" / f"{name}.cu").exists()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 
@@ -59,6 +68,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         p.random_solenoidal(domain, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         domain.centered_grid(0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.lid_driven_cavity_setup(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        domain.staggered_grid(0.0)
     # an explicit CPU request works
     v = p.random_solenoidal(domain, torch.Generator().manual_seed(0), device="cpu")
     assert v.components[0].device.type == "cpu"

@@ -70,8 +70,8 @@ class FakePltpu:
 def force_jax_kernels(monkeypatch):
     """Run the JAX kernels of the ported slices in interpret mode on the CPU,
     with their gates forced open: advection assembly, Laplace assembly,
-    jac2, pcg2, the periodic FV pair (div2 / grad2) and the corrector
-    bridge / tail (the pattern of tests/test_pallas_fv.py and
+    jac2, pcg2, the periodic FV pair (div2 / grad2), the corrector bridge /
+    tail and the BiCGSTAB phase kernels (the pattern of tests/test_pallas_fv.py and
     tests/test_pallas_corrector.py)."""
     import jax.numpy as jnp
 
@@ -96,3 +96,26 @@ def force_jax_kernels(monkeypatch):
     monkeypatch.setattr(pallas_assembly, "assembly_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "pcg2_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "eligible", lambda *a, **k: True)
+
+
+def force_jax_cavity_kernels(monkeypatch):
+    """Run the JAX kernels the bounded cavity path takes on the TPU in
+    interpret mode on the CPU: the bounded FV trio (div2m / grad2m and its
+    transpose), jac2, pcg2 (its pad-and-mask path for unaligned planes) and
+    the BiCGSTAB phase kernels behind a jac2 solve that misses its tolerance.
+    The stencil-matvec gate (`pallas_eligible`) has no interpret escape, so
+    explicit_H keeps the jnp branch that kernel's own tests compare with;
+    the masked advection assembly is off by default there and stays off."""
+    import jax.numpy as jnp
+
+    from diffpiso_tpu.ops import pallas_fv
+    from diffpiso_tpu.solvers import pallas_krylov
+
+    for mod in (pallas_krylov, pallas_fv):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+        monkeypatch.setattr(mod, "_roll", lambda a, s, ax: jnp.roll(a, s, ax))
+    monkeypatch.setattr(pallas_fv, "eligible2m", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "pcg2_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "eligible", lambda *a, **k: True)
