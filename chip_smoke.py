@@ -20,7 +20,14 @@ Phases, each fatal on failure:
      (grad2m, div2m, gradT2m) forward and VJP, the stencil matvec in both
      forms (yardstick: one cuSPARSE CSR SpMV), the three BiCGSTAB phases
      in both forms on both face shapes, jac2, pcg2 and the Laplace
-     assembly;
+     assembly; then (2c) at the spatial mixing layer's 128 x 512 on the
+     planes of a step 20 steps into its run: the three per-iteration PCG
+     phase kernels (residual, apply, update) with deflation off and on and
+     shift 0 and non-zero (planes within rel 1e-6 of their scale, scalars
+     within rel 1e-5), one whole per-iteration PCG solve forward (warm) and
+     adjoint (cold) with the kernels against the plain phases (equal
+     iteration counts), the matvec on the (128, 513) u plane in both forms
+     (bit-equal), jac2 and the Laplace assembly with its masks;
   3. a small-input check: 3 steps at 64^2 on the card against the plain
      path on the CPU;
   4. the main path: 2-D periodic decaying turbulence at 512^2 (viscosity
@@ -57,7 +64,26 @@ Phases, each fatal on failure:
      in the JAX package on the TPU: its iterations launch the three phase
      kernels per component, its residuals the matvec; such fallbacks are
      reported), warn 0, finite non-zero gradient, the gated adjoints
-     reported with residual / limit.
+     reported with residual / limit;
+  7. the spatial mixing layer (the JAX package's `bench.py workload_dns`:
+     `spatial_mixing_layer_setup`, max iterations (200, 2000), dt = 0.2 x
+     128 / ny, tol 1e-6, channel_mm, the inflow perturbation recomputed on
+     the card every step at bench's float32 time t0 + i dt, the pressure
+     increments carried as guesses within each 100-step call): (a) at 32 x 128, 5 steps and then the 3-step
+     rollout gradient on the card against the plain path on the CPU
+     (equal pressure iteration counts and gate decisions, gradient
+     relative l2 <= 1e-3); (b) at 128 x 512 from its initial state, the
+     400-step spin-up, then 400 timed forward steps with every counter
+     reset before them (the PCG phase kernels and any BiCGSTAB hand-over at
+     the counts the solver loops' own counters derive, the other kernels
+     at calls per step x 400, 0 launches of pcg2, the uniform-mask assembly
+     and the corrector bridge / tail, warn 0, finite state, max |div v| on
+     active cells reported); (c) grad30 from that state with the Dirichlet
+     values frozen at the last forward call's time, 1 untimed and 3 timed
+     evaluations, counts checked per evaluation and equal in all four,
+     warn 0, finite non-zero gradient, gated adjoints reported with
+     residual / limit. The turbulence and cavity paths assert 0 launches
+     of the PCG phase kernels (they take pcg2).
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -108,7 +134,7 @@ def rel_err(a, b) -> float:
 
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
-               "matvec_kernel", "pcg2", "bicg_")
+               "matvec_kernel", "pcg2", "bicg_", "pcgp_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -700,6 +726,561 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     return fwd, timed[-1]["launches"]
 
 
+MIX_RES = (128, 512)  # bench.py workload_dns
+MIX_SMALL = (32, 128)  # bench.py --quick
+MIX_TOL = 1e-6
+MIX_SPINUP = 400  # bench's 1 + 3 calls of 100 steps
+MIX_STEPS = 400  # bench's 4 timed calls of 100 steps
+MIX_CALL = 100
+PCG_PHASES = ("pcg_residual", "pcg_apply", "pcg_update")
+# kernels only the mixing layer runs; their `launches` come from its forward path
+MIXING_KERNELS = PCG_PHASES
+
+
+def mixing_setup(res, dev):
+    from diffpiso_tpu_torch.core.setups import spatial_mixing_layer_setup
+
+    return spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.2 * 128 / res[0]},
+                                      max_iterations=(200, 2000), device=dev)
+
+
+def mixing_step_fn(setup, frozen=None):
+    """The mixing layer's step as bench.py's DNS workload runs it: the inflow
+    perturbation at time `tm` (or the `frozen` Dirichlet values) and
+    warm-started pressure increments."""
+    from diffpiso_tpu_torch.core.piso import piso_step
+
+    def step(v, p, g1, g2, f=None, tm=None):
+        dv = frozen if tm is None else setup.dirichlet_values(setup.perturbation(tm))
+        return piso_step(v, p, setup.dt, setup.domain, setup.sim, dirichlet_values=dv,
+                         forcing_term=f, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                         advection_tol=MIX_TOL, pressure_tol=MIX_TOL)
+
+    return step
+
+
+def bench_t0(k: int, dt: float) -> float:
+    """The host time bench.py passes to the call that runs step k: calls of
+    MIX_CALL steps, t0 advanced by MIX_CALL dt (a Python float) per call."""
+    t0 = 0.0
+    for _ in range(k // MIX_CALL):
+        t0 += MIX_CALL * dt
+    return t0
+
+
+def bench_time(k: int, dt: float):
+    """Step k's perturbation time as bench.py computes it in its scan:
+    float32 t0 + i dt."""
+    import numpy as np
+
+    return np.float32(np.float32(bench_t0(k, dt)) + np.float32(k % MIX_CALL) * np.float32(dt))
+
+
+def loop_counters() -> dict:
+    """The solver loops' own counters, from which the PCG phase kernels'
+    and the BiCGSTAB hand-overs' launches follow."""
+    from diffpiso_tpu_torch.solvers import krylov
+
+    p, b = krylov.pcg, krylov.bicgstab
+    return dict(pcg_loops=p.loops, pcg_warm_entries=p.warm_entries, pcg_resets=p.resets,
+                pcg_iterations=p.iterations, bicgstab_fallbacks=b.fallbacks,
+                bicgstab_iterations=b.iterations, applies=b.applies[False],
+                applies_T=b.applies[True])
+
+
+def derived_launches(c0: dict, c1: dict) -> tuple:
+    """(launches the loops derive, counter deltas): the PCG residual once per
+    warm entry, reset and finished loop; apply and update once per
+    iteration; after a jac2 miss, each BiCGSTAB phase once per component
+    and iteration, the matvec once per component and operator apply."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    return ({"pcg_residual": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
+             "pcg_apply": d["pcg_iterations"], "pcg_update": d["pcg_iterations"],
+             **{k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES}}, d)
+
+
+def summable(v, total: float):
+    """`v` rounded to a grid of 2^-k with at most 100 steps a cell, and its
+    sum moved to the grid point nearest `total` (at most 11 more steps a
+    cell): a plane of n <= 2^17 cells then sums exactly in float32 in any
+    order (every partial sum is under 2^24 steps)."""
+    import numpy as np
+    import torch
+
+    a = v.double().cpu().numpy()
+    k = np.floor(np.log2(50.0 / np.abs(a).max()))
+    u = np.rint(a * 2.0 ** k)
+    u -= np.rint(u.mean())
+    n = u.size
+    diff = int(np.clip(np.rint(total * 2.0 ** k), -10 * n, 10 * n) - u.sum())
+    flat = u.reshape(-1)
+    flat += diff // n
+    flat[: diff % n] += 1
+    return torch.as_tensor((u / 2.0 ** k).astype(np.float32), device=v.device)
+
+
+def mixing_kernels(dev, kernels: list) -> dict:
+    """Phase 2c: at the mixing layer's 128 x 512, on the operators of a real
+    step 20 steps into its run: the three PCG phase kernels against their
+    plain versions (deflate off and on, shift 0 and 0.1 sum|diag| / n), one
+    whole per-iteration PCG solve forward (warm) and adjoint (cold) with the
+    kernels against the plain phases on the card, the matvec on the
+    (128, 513) u plane (the TPU's row-tiled case) in both forms, jac2 and
+    the Laplace assembly with the mixing layer's masks. Appends the phase
+    kernels' entries to `kernels`; returns the mixing-shape measurements of
+    the matvec, jac2 and the Laplace assembly, keyed by entry name."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.ops import matvec
+    from diffpiso_tpu_torch.ops.laplace import LaplaceStencil, laplace_mask_planes
+    from diffpiso_tpu_torch.ops.laplace_assembly import (
+        fused_laplace_assembly, laplace_assembly_plain)
+    from diffpiso_tpu_torch.solvers import krylov, pcgphases
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+
+    setup = mixing_setup(MIX_RES, dev)
+    step = mixing_step_fn(setup)
+    v, p = setup.initial_state()
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    k = 0
+    for k in range(20):
+        o = step(v, p, g1, g2, tm=bench_time(k, setup.dt))
+        if o.warn:
+            fail("mixing layer: a solve warned in the steps that make phase 2c's planes")
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    o = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                  dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                      bench_time(k + 1, setup.dt))),
+                  pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=MIX_TOL,
+                  pressure_tol=MIX_TOL, full_output=True)
+    it = o.intermediates
+    st, lap = it["stencil"], it["laplacian"]
+    rhs, guess = it["v1_div"], 0.5 * g1  # a warm start that has to iterate
+    ny, nx = rhs.shape
+    plane = ny * nx * 4
+    if not float(lap.shift) == 0.0:
+        fail("mixing layer: the Laplacian carries a shift (its system is full rank)")
+    mss, weights = pressure_preconditioner("channel_mm", lap)
+    (v0, _), (v1, _) = mss.mats(torch.float32, dev)
+    sym = safe_symbol(mss, weights, torch.float32, dev)
+
+    def prec(r):
+        return spectral_apply_plain(v0, v1, sym, r)
+
+    def maxerr(pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    def scale(planes):
+        return max(float(b.abs().max()) for b in planes)
+
+    shifted = LaplaceStencil(center=lap.center, lo=lap.lo, hi=lap.hi,
+                             shift=0.1 * lap.center.abs().sum() / (ny * nx),
+                             periodic=lap.periodic)
+    errs = {k: 0.0 for k in PCG_PHASES}
+    rels = {k: 0.0 for k in PCG_PHASES}
+    inputs = {}
+    # The shifted checks take x and p on an exactly summable grid, with
+    # shift sum(.) near the size of L(.): on this full-rank Laplacian's own
+    # iterates shift sum(x) outweighs b by ten orders (both float32 versions
+    # then lie 2e-3 from float64), and on mean-free ones sum(x) is rounding
+    # noise that the kernel and torch.sum take in different orders (measured
+    # on the H100); on the grid both sum exactly, and the shift still acts.
+    s_val = float(shifted.shift)
+    for lab, L in (("shift 0", lap), ("shift > 0", shifted)):
+        on_grid = L is shifted
+        x0 = summable(guess, float(rhs.abs().max()) / s_val) if on_grid else guess
+        for deflate in (False, True):
+            kr = pcgphases.fused_residual(L, rhs, x0, deflate)
+            pr = pcgphases.residual_plain(L, rhs, x0, deflate)
+            r = pr[0]
+            z = prec(r)
+            if on_grid:
+                z = summable(z, float(pcgphases.lap_matvec(lap, z).abs().max()) / s_val)
+            rz = torch.sum(r * z)
+            args_a = (L, rz, x0, r, z, deflate)
+            ka, pa = pcgphases.fused_pcg_apply(*args_a), pcgphases.pcg_apply_plain(*args_a)
+            args_u = (rz, pa[1], prec(pa[1]), z)
+            ku, pu = pcgphases.fused_pcg_update(*args_u), pcgphases.pcg_update_plain(*args_u)
+            if lab == "shift 0" and not deflate:  # the main path's arguments
+                inputs = {"pcg_residual": (L, rhs, x0, deflate), "pcg_apply": args_a,
+                          "pcg_update": args_u}
+            for name, got, want, n_planes in (("pcg_residual", kr, pr, 1),
+                                              ("pcg_apply", ka, pa, 2),
+                                              ("pcg_update", ku, pu, 1)):
+                e = maxerr(zip(got[:n_planes], want[:n_planes]))
+                rel = e / max(scale(want[:n_planes]), 1e-30)
+                srel = max(float((g - w).abs() / w.abs().clamp_min(1e-30))
+                           for g, w in zip(got[n_planes:], want[n_planes:]))
+                print(f"mixing {name} ({lab}, deflate={deflate}) vs plain: planes max abs err "
+                      f"{e:.3e} (rel to scale {rel:.3e}), scalars max rel err {srel:.3e}",
+                      flush=True)
+                if not (rel <= 1e-6 and srel <= 1e-5):
+                    fail(f"mixing {name} ({lab}, deflate={deflate}): kernel vs plain beyond "
+                         f"rel 1e-6 of the planes' scale / rel 1e-5 (scalars)")
+                errs[name] = max(errs[name], e)
+                rels[name] = max(rels[name], srel)
+
+    # one whole solve each way, the kernels against the plain phases on the card
+    def solve(adjoint):
+        b = 2.0 * rhs if adjoint else rhs
+        return krylov.pcg(lap, b, None if adjoint else guess, precond_mm=(mss, weights),
+                          tol=MIX_TOL * (max(1.0, float(b.abs().max())) if adjoint else 1.0),
+                          max_iter=2000, residual_reset=0 if adjoint else 50,
+                          precond_zero_mean=False, early_exit=not adjoint)
+
+    names = ("fused_residual", "fused_pcg_apply", "fused_pcg_update")
+    plains = (pcgphases.residual_plain, pcgphases.pcg_apply_plain, pcgphases.pcg_update_plain)
+    solves = {}
+    for label, adjoint in (("forward, warm", False), ("adjoint, cold", True)):
+        res_k = solve(adjoint)
+        saved = [getattr(krylov, nm) for nm in names]
+        for nm, fn in zip(names, plains):
+            setattr(krylov, nm, fn)
+        try:
+            res_p = solve(adjoint)
+        finally:
+            for nm, fn in zip(names, saved):
+                setattr(krylov, nm, fn)
+        rel = rel_err(res_k.x, res_p.x)
+        print(f"mixing pressure PCG ({label}): iterations kernels {res_k.iterations} plain "
+              f"{res_p.iterations}, residual kernels {res_k.residual_norm:.3e} plain "
+              f"{res_p.residual_norm:.3e}, x rel err {rel:.3e}", flush=True)
+        if res_k.iterations != res_p.iterations or res_k.iterations == 0:
+            fail(f"mixing pressure PCG ({label}): iteration counts differ or are 0")
+        if res_k.warn or not rel <= 1e-4:
+            fail(f"mixing pressure PCG ({label}): warned or x rel err {rel:.3e} > 1e-4")
+        solves[label] = res_k.iterations
+
+    # bytes per call of the phases (planes in + out): residual 5 + b, x in, r
+    # out; apply 5 + x, r, p in, x', r' out; update r, z, p in, p' out.
+    # flops per cell: residual 10, apply 15, update 4
+    for name, fn, plain, planes, flops, line in (
+        ("pcg_residual", pcgphases.fused_residual, pcgphases.residual_plain, 8, 10, 258),
+        ("pcg_apply", pcgphases.fused_pcg_apply, pcgphases.pcg_apply_plain, 10, 15, 1542),
+        ("pcg_update", pcgphases.fused_pcg_update, pcgphases.pcg_update_plain, 4, 4, 1579),
+    ):
+        a = inputs[name]
+        b_, by_ = bound(planes * plane, flops * ny * nx)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/pcgphases.cu",
+            replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}", max_abs_err=errs[name],
+            scalars_max_rel_err=rels[name],
+            ms=cuda_time_ms(lambda fn=fn, a=a: fn(*a), 200),
+            plain_ms=cuda_time_ms(lambda plain=plain, a=a: plain(*a), 50),
+            **device_time(lambda fn=fn, a=a: fn(*a)), bound_ms=b_, bound_by=by_,
+            library_ms=None, shape=[ny, nx], solve_iterations=solves,
+        ))
+
+    # the matvec on the u plane (128, 513), both forms, on explicit_H's input
+    w = it["velocity_s2"].components[1] - it["velocity_star"].components[1]
+    planes_u = (st.center[1], st.lo[1][0], st.hi[1][0], st.lo[1][1], st.hi[1][1])
+
+    def mv_k(tr=False):
+        return matvec.fused_stencil_matvec(planes_u[0], (planes_u[1], planes_u[3]),
+                                           (planes_u[2], planes_u[4]), w, tr)
+
+    mv_err = maxerr([(mv_k(tr), matvec.matvec_plain(*planes_u, w, tr)) for tr in (False, True)])
+    print(f"mixing stencil matvec on the {tuple(w.shape)} u plane vs plain (both forms): max "
+          f"abs err {mv_err:.3e}", flush=True)
+    if mv_err != 0.0:
+        fail("mixing stencil matvec: kernel vs plain not bit-equal on the (128, 513) plane")
+    b_mv, by_mv = bound(7 * w.numel() * 4, 9 * w.numel())
+    out = {"stencil_matvec": dict(
+        shape=list(w.shape), max_abs_err=mv_err, ms=cuda_time_ms(mv_k, 200),
+        ms_transposed=cuda_time_ms(lambda: mv_k(True), 200),
+        plain_ms=cuda_time_ms(lambda: matvec.matvec_plain(*planes_u, w), 50),
+        **device_time(mv_k), bound_ms=b_mv, bound_by=by_mv)}
+
+    # jac2 on the step's momentum system (faces (129, 512) and (128, 513)), both forms
+    st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
+    b_c = tuple(it["rhs"].components)
+    x_c = tuple(v.components)
+    sweeps, j_err = {}, 0.0
+    for tr in (False, True):
+        kj = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, tr, MIX_TOL, 33)
+        pj = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, MIX_TOL, 33)
+        j_err = max(j_err, maxerr([(kj[0], pj[0]), (kj[1], pj[1])]))
+        rel = max(rel_err(kj[0], pj[0]), rel_err(kj[1], pj[1]))
+        print(f"mixing jac2 transpose={tr}: sweeps kernel {kj[3]} plain {pj[3]}, residual kernel "
+              f"{kj[2]:.3e} plain {pj[2]:.3e}, x rel err {rel:.3e}", flush=True)
+        if kj[3] != pj[3] or not rel <= 1e-6:
+            fail(f"mixing jac2 transpose={tr}: sweeps differ or x rel err {rel:.3e} > 1e-6")
+        sweeps[tr] = kj[3]
+    faces = sum(c.numel() for c in b_c)
+    b_jac, by_jac = bound(8 * faces * 4, faces * (2 + 22 + 13 * sweeps[False]))
+    out["jacobi2_solve"] = dict(
+        shapes=[list(c.shape) for c in b_c], sweeps=sweeps[False], max_abs_err=j_err,
+        ms=cuda_time_ms(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, MIX_TOL, 33), 50),
+        plain_ms=cuda_time_ms(lambda: jacobi2_plain(st_cs, b_c, x_c, -1.0, False, MIX_TOL, 33), 10),
+        **device_time(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, MIX_TOL, 33)),
+        bound_ms=b_jac, bound_by=by_jac)
+
+    # the Laplace assembly with the mixing layer's masks (open outflow)
+    sim, dx = setup.sim, setup.domain.dx
+    beta = dx[0] * dx[1] / setup.dt
+    influence = [(dx[0] * dx[1] / dx[0] ** 2) / (beta - a) for a in st.diag_A]
+    lmasks = laplace_mask_planes(sim.active_mask, sim.accessible_mask, (False, False), (ny, nx),
+                                 torch.float32)
+    k_lap = fused_laplace_assembly(influence[0], influence[1], lmasks, (False, False))
+    p_lap = laplace_assembly_plain(influence[0], influence[1], lmasks, (False, False))
+    l_err = maxerr(zip(k_lap[:5], p_lap[:5]))
+    l_rel = max(rel_err(a, b) for a, b in zip(k_lap[:5], p_lap[:5]))
+    s_rel = rel_err(k_lap[5], p_lap[5])
+    print(f"mixing laplace assembly vs plain: planes max abs err {l_err:.3e}, sum|diag| rel err "
+          f"{s_rel:.3e}", flush=True)
+    if not (l_rel <= 1e-6 and s_rel <= 1e-5):
+        fail("mixing laplace assembly: kernel vs plain beyond rel 1e-6 (planes) / 1e-5 (sum)")
+    b_lap, by_lap = bound(faces * 4 + 13 * plane + 4, 12 * ny * nx)
+    out["laplace_assembly"] = dict(
+        shape=[ny, nx], max_abs_err=l_err,
+        ms=cuda_time_ms(lambda: fused_laplace_assembly(influence[0], influence[1], lmasks,
+                                                       (False, False)), 200),
+        plain_ms=cuda_time_ms(lambda: laplace_assembly_plain(influence[0], influence[1], lmasks,
+                                                             (False, False)), 50),
+        **device_time(lambda: fused_laplace_assembly(influence[0], influence[1], lmasks,
+                                                     (False, False))),
+        bound_ms=b_lap, bound_by=by_lap)
+    return out
+
+
+def mixing_small_check(dev) -> None:
+    """Phase 7a: the mixing layer at bench's --quick size, 5 steps from its
+    initial state and then the 3-step rollout gradient from the CPU's
+    state (Dirichlet values frozen), on the card against the plain path on
+    the CPU: equal pressure iteration counts, the velocity within rtol 2e-4
+    / atol 2e-5, gradient relative l2 <= 1e-3, every adjoint's gate
+    decision equal."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    cpu = torch.device("cpu")
+    states, iters = {}, {}
+    for d in (dev, cpu):
+        setup = mixing_setup(MIX_SMALL, d)
+        step = mixing_step_fn(setup)
+        v, p = setup.initial_state()
+        g1 = g2 = torch.zeros_like(p)
+        iters[d.type] = []
+        for k in range(5):
+            o = step(v, p, g1, g2, tm=bench_time(k, setup.dt))
+            if o.warn:
+                fail(f"{MIX_SMALL} mixing layer on {d.type}: a solve warned")
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters[d.type].append(o.p_iterations)
+        states[d.type] = (v, p)
+    err = max(float((a.cpu() - b).abs().max() - 2e-4 * b.abs().max())
+              for a, b in zip(states["cuda"][0].components, states["cpu"][0].components))
+    print(f"{MIX_SMALL} mixing layer x 5 steps, card vs CPU plain path: pressure iterations card "
+          f"{iters['cuda']} / CPU {iters['cpu']}, velocity max(|d| - 2e-4|ref|) = {err:.3e}",
+          flush=True)
+    if iters["cuda"] != iters["cpu"]:
+        fail(f"{MIX_SMALL} mixing layer: pressure iteration counts differ card vs CPU")
+    if not err <= 2e-5:
+        fail(f"{MIX_SMALL} mixing layer: card velocity disagrees with the CPU beyond rtol 2e-4, "
+             f"atol 2e-5")
+    v_cpu, p_cpu = states["cpu"]
+    grads, decisions, ratios = {}, {}, {}
+    for d in (dev, cpu):
+        setup = mixing_setup(MIX_SMALL, d)
+        frozen = setup.dirichlet_values(setup.perturbation(bench_time(5, setup.dt)))
+        v = StaggeredField(tuple(c.to(d) for c in v_cpu.components), periodic=(False, False))
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components), periodic=(False, False))
+        r = rollout_loss_grad(mixing_step_fn(setup, frozen), v, p_cpu.to(d), f, 3)
+        if r.warns:
+            fail(f"{MIX_SMALL} mixing rollout gradient on {d.type}: {r.warns} steps warned")
+        grads[d.type] = [c.cpu().double() for c in r.grad.components]
+        decisions[d.type] = [(a.system, a.gated) for a in r.adjoints]
+        ratios[d.type] = [round(a.residual / a.limit, 4) for a in r.adjoints
+                          if a.limit is not None]
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(grads["cuda"], grads["cpu"]))
+    den = sum(float(torch.sum(b ** 2)) for b in grads["cpu"])
+    g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    print(f"{MIX_SMALL} mixing layer x 3-step rollout gradient, card vs CPU plain path: rel l2 "
+          f"{g_rel:.3e}; gated adjoints card {sum(g for _, g in decisions['cuda'])} / CPU "
+          f"{sum(g for _, g in decisions['cpu'])} of {len(decisions['cpu'])}; pressure adjoint "
+          f"residual / gate limit, card {ratios['cuda']}, CPU {ratios['cpu']}", flush=True)
+    if decisions["cuda"] != decisions["cpu"]:
+        fail(f"{MIX_SMALL} mixing gradient: adjoint gate decisions differ, card "
+             f"{decisions['cuda']} vs CPU {decisions['cpu']}")
+    if not g_rel <= 1e-3:
+        fail(f"{MIX_SMALL} mixing gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def mixing_path(dev, wrappers: dict) -> tuple:
+    """Phases 7b and 7c: the 128 x 512 mixing layer (bench.py workload_dns)
+    from its initial state, the 400-step spin-up, 400 timed forward steps
+    and grad30, every launch counter checked against what the steps and the
+    solver loops' counters derive. Returns (forward launches, grad30
+    launches per evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    import numpy as np
+
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 matmul is on: M^-1 r must contract in full float32")
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+        wrappers["stencil_matvec"].launches_transposed = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    setup = mixing_setup(MIX_RES, dev)
+    step = mixing_step_fn(setup)
+    v, p = setup.initial_state()
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    clock = [0]
+
+    def advance(k):
+        nonlocal v, p, g1, g2
+        warns, iters = 0, [0, 0]
+        for _ in range(k):
+            if clock[0] % MIX_CALL == 0:  # each bench call starts its scan from zero guesses
+                g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+            o = step(v, p, g1, g2, tm=bench_time(clock[0], setup.dt))
+            clock[0] += 1
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            warns += int(o.warn)
+            iters[0] += o.p_iterations[0]
+            iters[1] += o.p_iterations[1]
+        return warns, [i / k for i in iters]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spin_warns, spin_iters = advance(MIX_SPINUP)
+    torch.cuda.synchronize()
+    spin_s = time.perf_counter() - t0
+    print(f"mixing layer {MIX_RES}: {MIX_SPINUP}-step spin-up in {spin_s:.1f} s, warned steps "
+          f"{spin_warns}, pressure iterations per step {spin_iters}", flush=True)
+
+    # -- 7b: the forward path
+    reset()
+    c0 = loop_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warns, iters = advance(MIX_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    fwd_T = wrappers["stencil_matvec"].launches_transposed
+    loops, d = derived_launches(c0, loop_counters())
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    active_int = setup.sim.active_mask[1:-1, 1:-1]
+    div = float((fv_divergence(v, setup.domain.dx) * active_int).abs().max())
+    print(json.dumps(dict(
+        workload=f"spatial mixing layer DNS {MIX_RES[0]}x{MIX_RES[1]} ({MIX_SPINUP}-step "
+                 f"spin-up), forward",
+        steps=MIX_STEPS, steps_per_sec=MIX_STEPS / elapsed, pressure_iters_per_step=iters,
+        warn_fraction=warns / MIX_STEPS, spinup_warned_steps=spin_warns,
+        max_abs_div_active=div, loop_counters=d, launches=fwd,
+    )), flush=True)
+    if not finite:
+        fail("mixing layer: non-finite state after the forward path")
+    if warns:
+        fail(f"mixing layer: warn fraction {warns / MIX_STEPS} (must be 0)")
+    # per step: the three pressure gradients, two divergences, explicit_H's
+    # two matvecs, one momentum solve, one Laplace assembly; the pressure
+    # solves' phase kernels and any BiCGSTAB hand-over as the loops count
+    # them; pcg2, the uniform-mask assembly and the periodic kernels stay off
+    S = MIX_STEPS
+    want = dict(loops, grad2m=3 * S, div2m=2 * S, stencil_matvec=2 * S + 2 * d["applies"],
+                jacobi2_solve=S, laplace_assembly=S)
+    for k in fwd:
+        if fwd[k] != want.get(k, 0):
+            fail(f"mixing forward: {k} launched {fwd[k]} times, expected {want.get(k, 0)}")
+    if fwd_T != 2 * d["applies_T"]:
+        fail(f"mixing forward: {fwd_T} transposed matvecs, expected {2 * d['applies_T']}")
+
+    # -- 7c: grad30 from the developed state, the Dirichlet values frozen at
+    # the last forward call's time (bench.py). Per evaluation, U steps,
+    # "outputs" remat (tests/test_torch_mixing.py derives the same counts on
+    # the CPU): grad2m 8U, div2m 4U, gradT2m 3U - 1, matvec 4U + 2U
+    # transposed, jac2 2U, Laplace assembly 2U; the PCG phases and any
+    # BiCGSTAB hand-over as the loops count them (2U warm forward solves,
+    # 2U cold adjoint loops).
+    U = UNROLL
+    frozen = setup.dirichlet_values(setup.perturbation(np.float32(bench_t0(clock[0] - 1,
+                                                                           setup.dt))))
+    step_g = mixing_step_fn(setup, frozen)
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(False, False))
+    evals = []
+    for rep in range(1 + GRAD_REPS):
+        reset()
+        c0 = loop_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step_g, v, p, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = read()
+        loops, d = derived_launches(c0, loop_counters())
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_pcg_iters_per_step=sum(a.iterations for a in p_adj) / U,
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            gated_ratios=[round(a.residual / a.limit, 4) for a in p_adj if a.gated],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            loop_counters=d, launches=counts,
+            matvec_transposed=wrappers["stencil_matvec"].launches_transposed,
+        ))
+        print(json.dumps(dict(mixing_grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"mixing grad30: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"mixing grad30: |grad| = {gnorm} (must be finite and > 0)")
+        want = dict(loops, grad2m=8 * U, div2m=4 * U, gradT2m=3 * U - 1,
+                    stencil_matvec=6 * U + 2 * (d["applies"] + d["applies_T"]),
+                    jacobi2_solve=2 * U, laplace_assembly=2 * U)
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"mixing grad30: {k} launched {counts[k]} times, expected "
+                     f"{want.get(k, 0)}")
+        e = evals[-1]
+        if e["matvec_transposed"] != 2 * U + 2 * d["applies_T"]:
+            fail(f"mixing grad30: {e['matvec_transposed']} transposed matvecs, expected "
+                 f"{2 * U + 2 * d['applies_T']}")
+        if d["pcg_warm_entries"] != 2 * U or d["pcg_loops"] < 2 * U:
+            fail("mixing grad30: the pressure solves did not run 2U warm entries and the 2U "
+                 "cold adjoint loops")
+        if any(e[k] != evals[0][k] for k in ("launches", "loop_counters")):
+            fail("mixing grad30: an evaluation from the same state counted differently")
+    timed = [e for e in evals if e["timed"]]
+    print(json.dumps(dict(
+        workload=f"spatial mixing layer DNS {MIX_RES[0]}x{MIX_RES[1]}, grad{U} (d sum v^2 / d "
+                 f"forcing, Dirichlet values frozen), remat outputs",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_pcg_iters_per_step=sum(e["adjoint_pcg_iters_per_step"] for e in timed)
+        / len(timed),
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        gated_ratios=timed[-1]["gated_ratios"],
+        adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )), flush=True)
+    return fwd, timed[-1]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -721,7 +1302,7 @@ def main() -> int:
     from diffpiso_tpu_torch.ops.laplace_assembly import (
         fused_laplace_assembly, laplace_assembly_plain)
     from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
-    from diffpiso_tpu_torch.solvers import bicg, krylov
+    from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
     from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
@@ -991,6 +1572,9 @@ def main() -> int:
     # -- phase 2b: the cavity path's kernels at the 512 cavity's shapes ------------
     cavity_measured = cavity_kernels(dev, kernels)
 
+    # -- phase 2c: the mixing layer's kernels at 128 x 512 --------------------------
+    mixing_measured = mixing_kernels(dev, kernels)
+
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
     outs = {}
@@ -1042,6 +1626,11 @@ def main() -> int:
         "bicg_phase_p": (bicg.fused_bicg_phase_p, 0),
         "bicg_phase_s": (bicg.fused_bicg_phase_s, 0),
         "bicg_phase_x": (bicg.fused_bicg_phase_x, 0),
+        # the per-iteration PCG phases: only the mixing layer's channel_mm
+        # solves take them; the periodic and cavity paths take pcg2
+        "pcg_residual": (pcgphases.fused_residual, 0),
+        "pcg_apply": (pcgphases.fused_pcg_apply, 0),
+        "pcg_update": (pcgphases.fused_pcg_update, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -1139,6 +1728,7 @@ def main() -> int:
         "div2": 3 * U - 1, "grad2": 3 * U,
         "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
+        "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -1210,14 +1800,22 @@ def main() -> int:
     cavity_small_check(dev)
     cav_fwd, cav_grad = cavity_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
 
-    # each kernel's `launches` come from the path it is checked on: the
-    # cavity's own kernels from its forward run (gradT2m, which only a
-    # backward pass launches, and the BiCGSTAB phases, which only its
-    # adjoint's fallback launches, from its grad30 evaluation), the others
-    # from the turbulence forward run; every path's counts stand beside them
+    # -- phase 7: the spatial mixing layer ------------------------------------------
+    mixing_small_check(dev)
+    mix_fwd, mix_grad = mixing_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+
+    # each kernel's `launches` come from the path it is checked on: the PCG
+    # phases from the mixing layer's forward run; the cavity's own kernels
+    # from its forward run (gradT2m, which only a backward pass launches,
+    # and the BiCGSTAB phases, which only its adjoint's fallback launches,
+    # from its grad30 evaluation), the others from the turbulence forward
+    # run; every path's counts stand beside them
     for entry in kernels:
         name = entry["name"]
-        if name in CAVITY_KERNELS:
+        if name in MIXING_KERNELS:
+            entry["path"] = "mixing forward"
+            entry["launches"] = mix_fwd[name]
+        elif name in CAVITY_KERNELS:
             grad_only = name in CAVITY_GRAD_KERNELS
             entry["path"] = "cavity grad30" if grad_only else "cavity forward"
             entry["launches"] = cav_grad[name] if grad_only else cav_fwd[name]
@@ -1227,8 +1825,12 @@ def main() -> int:
         entry["grad30_launches"] = grad30["launches_per_eval"][name]
         entry["cavity_launches"] = cav_fwd[name]
         entry["cavity_grad30_launches"] = cav_grad[name]
+        entry["mixing_launches"] = mix_fwd[name]
+        entry["mixing_grad30_launches"] = mix_grad[name]
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]
+        if name in mixing_measured:
+            entry["mixing"] = mixing_measured[name]
         if not entry["launches"]:
             fail(f"{name}: never launched on its path")
     measure_device_times(kernels)

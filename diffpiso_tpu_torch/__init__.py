@@ -15,7 +15,11 @@ through the solves' implicit-function-theorem adjoints.
 
 from diffpiso_tpu_torch.core.piso import PisoOutput, SimulationParameters, piso_step
 from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+from diffpiso_tpu_torch.core.setups import (
+    decaying_turbulence_setup,
+    lid_driven_cavity_setup,
+    spatial_mixing_layer_setup,
+)
 from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.box import Box
 from diffpiso_tpu_torch.fields.domain import Domain
@@ -39,4 +43,5 @@ __all__ = [
     "random_solenoidal",
     "resolve_device",
     "rollout_loss_grad",
+    "spatial_mixing_layer_setup",
 ]

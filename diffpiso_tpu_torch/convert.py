@@ -52,10 +52,16 @@ def simulation_parameters(state: dict, device=None) -> SimulationParameters:
     """SimulationParameters from a dict with the reference's field names:
     dirichlet_mask / dirichlet_values (tuples of face arrays),
     active_mask, accessible_mask, no_slip_mask (padded centered arrays or
-    None), viscosity (a scalar), laplace_rank_deficient, bool_periodic, and
+    None), viscosity (a scalar, or a tuple of per-face arrays for a
+    staggered viscosity field), laplace_rank_deficient, bool_periodic, and
     linear_solver / pressure_solver as dicts of their config fields."""
     periodic = tuple(bool(p) for p in state["bool_periodic"])
     ns = state.get("no_slip_mask")
+    nu = state["viscosity"]
+    if isinstance(nu, (tuple, list)):
+        nu = staggered_field([np.asarray(c, np.float32) for c in nu], periodic, device)
+    else:
+        nu = float(nu)
     return SimulationParameters(
         dirichlet_mask=staggered_field(
             [np.asarray(c, bool) for c in state["dirichlet_mask"]], periodic, device),
@@ -64,7 +70,7 @@ def simulation_parameters(state: dict, device=None) -> SimulationParameters:
         active_mask=tensor(np.asarray(state["active_mask"], np.float32), device),
         accessible_mask=tensor(np.asarray(state["accessible_mask"], np.float32), device),
         no_slip_mask=None if ns is None else tensor(np.asarray(ns, bool), device),
-        viscosity=float(state["viscosity"]),
+        viscosity=nu,
         laplace_rank_deficient=bool(state.get("laplace_rank_deficient", False)),
         bool_periodic=periodic,
         linear_solver=_solver_from_dict(AdvectionSolver, state.get("linear_solver")),
@@ -74,13 +80,14 @@ def simulation_parameters(state: dict, device=None) -> SimulationParameters:
 
 def simulation_parameters_to_numpy(sim: SimulationParameters) -> dict:
     """The inverse of `simulation_parameters`."""
+    nu = sim.viscosity
     return dict(
         dirichlet_mask=staggered_to_numpy(sim.dirichlet_mask),
         dirichlet_values=staggered_to_numpy(sim.dirichlet_values),
         active_mask=to_numpy(sim.active_mask),
         accessible_mask=to_numpy(sim.accessible_mask),
         no_slip_mask=None if sim.no_slip_mask is None else to_numpy(sim.no_slip_mask),
-        viscosity=float(sim.viscosity),
+        viscosity=staggered_to_numpy(nu) if isinstance(nu, StaggeredField) else float(nu),
         laplace_rank_deficient=bool(sim.laplace_rank_deficient),
         bool_periodic=tuple(sim.bool_periodic),
         linear_solver=dataclasses.asdict(sim.linear_solver),

@@ -2,9 +2,19 @@
 
 from diffpiso_tpu_torch.core.piso import PisoOutput, SimulationParameters, piso_step
 from diffpiso_tpu_torch.core.rollout import RolloutGrad, rollout_loss_grad
-from diffpiso_tpu_torch.core.masks import lid_driven_cavity_masks, second_order_lid_values
-from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+from diffpiso_tpu_torch.core.masks import (
+    lid_driven_cavity_masks,
+    mixing_layer_masks,
+    second_order_lid_values,
+)
+from diffpiso_tpu_torch.core.setups import (
+    MixingLayerSetup,
+    decaying_turbulence_setup,
+    lid_driven_cavity_setup,
+    spatial_mixing_layer_setup,
+)
 
-__all__ = ["PisoOutput", "RolloutGrad", "SimulationParameters", "decaying_turbulence_setup",
-           "lid_driven_cavity_masks", "lid_driven_cavity_setup", "piso_step",
-           "rollout_loss_grad", "second_order_lid_values"]
+__all__ = ["MixingLayerSetup", "PisoOutput", "RolloutGrad", "SimulationParameters",
+           "decaying_turbulence_setup", "lid_driven_cavity_masks", "lid_driven_cavity_setup",
+           "mixing_layer_masks", "piso_step", "rollout_loss_grad", "second_order_lid_values",
+           "spatial_mixing_layer_setup"]

@@ -1,7 +1,7 @@
-"""Boundary masks of the lid-driven cavity.
+"""Boundary masks of the lid-driven cavity and the spatial mixing layer.
 
-Counterpart of diffpiso_tpu/core/masks.py lid_driven_cavity_masks and
-second_order_lid_values. Mask semantics:
+Counterpart of diffpiso_tpu/core/masks.py lid_driven_cavity_masks,
+second_order_lid_values and mixing_layer_masks. Mask semantics:
 
   dirichlet_mask/values — staggered faces with prescribed velocity
   active_mask           — centered cells carrying momentum (padded by 1)
@@ -60,6 +60,49 @@ def lid_driven_cavity_masks(n: int, lid_velocity: float = 1.0, device=None):
         dev(active),
         dev(accessible),
         dev(no_slip),
+    )
+
+
+def mixing_layer_masks(resolution, inflow_profile, device=None):
+    """Masks of the spatially-evolving mixing layer on a (ny, nx) grid with
+    boundaries ((OPEN, OPEN), (OPEN, CLOSED)): Dirichlet v on the bottom and
+    top face rows (value 0), Dirichlet u on the inflow column x = 0 (the
+    profile of ny + 2 ghost-inclusive points without its two ghosts), an
+    open outflow at x = nx. Accessible: closed in the x = 0 ghost column
+    and both ghost rows, open at the outflow; active: the interior cells.
+    Returns (dirichlet_mask, dirichlet_values, active, accessible, None) on
+    `device` (cuda unless named)."""
+    device = resolve_device(device)
+    ny, nx = resolution
+    inflow = np.asarray(inflow_profile, np.float32).reshape(-1)
+    if inflow.shape[0] != ny + 2:
+        raise ValueError("the inflow profile must cover ny + 2 ghost-inclusive rows")
+
+    dm_v = np.zeros((ny + 1, nx), bool)
+    dm_v[0, :] = True
+    dm_v[-1, :] = True
+    dv_v = np.zeros((ny + 1, nx), np.float32)
+    dm_u = np.zeros((ny, nx + 1), bool)
+    dm_u[:, 0] = True
+    dv_u = np.zeros((ny, nx + 1), np.float32)
+    dv_u[:, 0] = inflow[1:-1]
+
+    accessible = np.ones((ny + 2, nx + 2), np.float32)
+    accessible[:, 0] = 0
+    accessible[0, :] = 0
+    accessible[-1, :] = 0
+    active = np.zeros((ny + 2, nx + 2), np.float32)
+    active[1:-1, 1:-1] = 1
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return (
+        StaggeredField((dev(dm_v), dev(dm_u))),
+        StaggeredField((dev(dv_v), dev(dv_u))),
+        dev(active),
+        dev(accessible),
+        None,
     )
 
 

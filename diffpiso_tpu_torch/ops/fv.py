@@ -76,6 +76,30 @@ def pad_staggered(field: StaggeredField, modes, width: int = 1) -> Tuple[torch.T
     return tuple(out)
 
 
+def centered_to_faces(data: torch.Tensor, axis: int, pad_mode: str = REPLICATE) -> torch.Tensor:
+    """Resample a centered field to the faces normal to `axis` (linear
+    interpolation; the boundary faces take the pad mode, replicate by
+    default). CIRCULAR returns the unique periodic faces."""
+    if pad_mode == CIRCULAR:
+        return 0.5 * (data + torch.roll(data, 1, axis))
+    n = data.shape[axis]
+    padded = torch.cat([_pad_side(data, axis, 1, pad_mode, False), data,
+                        _pad_side(data, axis, 1, pad_mode, True)], axis)
+    return 0.5 * (_slice(padded, axis, 0, n + 1) + _slice(padded, axis, 1, n + 2))
+
+
+def centered_to_staggered(data: torch.Tensor, pad_modes=REPLICATE) -> StaggeredField:
+    """Resample a centered scalar to every staggered face set (the mixing
+    layer's sponge viscosity). pad_modes: one mode, or (lo, hi) per axis;
+    circular axes give unique faces and periodic metadata."""
+    modes = _modes(pad_modes, data.ndim)
+    periodic = tuple(lo == CIRCULAR for lo, _ in modes)
+    return StaggeredField(
+        tuple(centered_to_faces(data, d, modes[d][0]) for d in range(data.ndim)),
+        periodic=periodic,
+    )
+
+
 def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
     """Volume-integrated divergence sum_d (comp_d[+1] - comp_d) prod(dx)/dx_d,
     from the faces the field stores (no padding)."""

@@ -1,6 +1,6 @@
-"""Solvers: Krylov loops, the spectral preconditioner, the two
-whole-solve kernels (jacobi2, pcg2) and the BiCGSTAB phase kernels
-(bicg)."""
+"""Solvers: Krylov loops, the spectral preconditioners, the two
+whole-solve kernels (jacobi2, pcg2), the BiCGSTAB phase kernels (bicg) and
+the per-iteration PCG phase kernels (pcgphases)."""
 
 from diffpiso_tpu_torch.solvers.base import (
     AdvectionSolver,

@@ -6,8 +6,8 @@ implicit-function-theorem adjoints:
 
 * the backward pass is the transposed solve of the cotangent, at
   `_adjoint_tol(tol, g)`: jac2 with transpose=True through `bicgstab` for
-  the momentum system; the same spectral pcg2, cold-started, for the
-  symmetric pressure system;
+  the momentum system; the same spectral PCG (pcg2, or the per-iteration
+  loop), cold-started, for the symmetric pressure system;
 * the operator coefficients, the initial guess and tol get zero gradient
   (Picard linearization, as in the reference);
 * the gradient is gated by (1 - warn_forward) (1 - adjoint_failed); for
@@ -131,10 +131,10 @@ class AdvectionSolver:
 @dataclasses.dataclass(frozen=True)
 class PressureSolver:
     """Config for the pressure-increment solve. The `fft_mm` (periodic
-    boxes) and `dct_mm` (all-Neumann bounded domains) spectral
-    preconditioners are ported; `residual_reset` belongs to the
-    per-iteration PCG tier, which is not; `randomized_restarts` must stay
-    0 (not ported)."""
+    boxes), `dct_mm` (all-Neumann bounded domains) and `channel_mm` (the
+    mixing layer) spectral preconditioners are ported; `residual_reset`
+    acts in the per-iteration PCG loop (`channel_mm`), not in the
+    whole-solve pcg2; `randomized_restarts` must stay 0 (not ported)."""
 
     max_iterations: int = 2000
     residual_reset: int = 50
@@ -229,30 +229,34 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
     return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
 
 
-_MM_KINDS = {"fft_mm": "fourier", "dct_mm": "dct2"}
+# the spectral preconditioners and their per-axis bases (2-D); the first two
+# zero the mean mode, so their solves take the whole-solve pcg2
+_MM_KINDS = {"fft_mm": ("fourier", "fourier"), "dct_mm": ("dct2", "dct2"),
+             "channel_mm": ("dct2", "dct4")}
+_ZERO_MEAN = ("fft_mm", "dct_mm")
 
 
 def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
     """(MatmulSpectralSolver, per-axis weights) of the spectral
     preconditioner: real Fourier bases for `fft_mm` (periodic boxes),
-    DCT-II bases for `dct_mm` (all-Neumann bounded domains), with the
-    mean |off-diagonal| per axis as the constant stencil weights. Both
-    zero the singular mode, so their output is mean-free, the condition
-    under which the JAX package takes its whole-solve PCG."""
-    if kind not in _MM_KINDS:
+    DCT-II bases for `dct_mm` (all-Neumann bounded domains), DCT-II along
+    y by DCT-IV along x for `channel_mm` (the mixing layer: Neumann walls
+    and inflow, Dirichlet outflow; nonsingular), with the mean
+    |off-diagonal| per axis as the constant stencil weights."""
+    if kind not in _MM_KINDS or lap.rank != 2:
         raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
     weights = tuple(torch.mean(torch.abs(l)) for l in lap.lo)
-    solver = MatmulSpectralSolver(kinds=(_MM_KINDS[kind],) * lap.rank,
-                                  shape=tuple(lap.center.shape))
+    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind], shape=tuple(lap.center.shape))
     return solver, weights
 
 
 def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
                          adjoint: bool = False):
-    """One spectral PCG solve of L p = rhs. The adjoint takes the adjoint
-    preconditioner and a cold start."""
+    """One spectral PCG solve of L p = rhs, dispatched as in the JAX package:
+    the adjoint takes the adjoint preconditioner and a cold start, with no
+    residual resets and no early exit (cold and non-trivial)."""
     if cfg.dtype is not None:
-        raise NotImplementedError("the whole-solve PCG runs in float32 only")
+        raise NotImplementedError("the pressure PCG runs in float32 only")
     if cfg.randomized_restarts:
         raise NotImplementedError("randomized restarts are not ported (no ported "
                                   "configuration sets them)")
@@ -263,6 +267,8 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
         lap, rhs, None if adjoint else guess,
         precond_mm=pressure_preconditioner(kind, lap),
         tol=tol, max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean,
+        residual_reset=0 if adjoint else cfg.residual_reset,
+        precond_zero_mean=kind in _ZERO_MEAN, early_exit=not adjoint,
     )
 
 

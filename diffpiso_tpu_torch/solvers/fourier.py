@@ -1,11 +1,13 @@
 """Spectral inverse of the constant-coefficient 5-point Laplacian through
 dense orthonormal eigenbases: real Fourier on periodic axes (the `fft_mm`
 preconditioner), DCT-II on homogeneous-Neumann bounded axes (`dct_mm`,
-the bounded-domain pressure layout of the lid-driven cavity).
+the bounded-domain pressure layout of the lid-driven cavity), and DCT-II
+by DCT-IV for the mixing layer's channel (`channel_mm`: Neumann walls,
+Neumann inflow, Dirichlet outflow; nonsingular).
 
 Counterpart of the matmul parts of diffpiso_tpu/solvers/fourier.py
-(dct2_basis, fourier_basis, _eigs, MatmulSpectralSolver._mats/_symbol,
-_safe_symbol).
+(dct2_basis, dct4_basis, fourier_basis, _eigs,
+MatmulSpectralSolver._mats/_symbol, _safe_symbol).
 The bases are built in numpy float64 and rounded to the working dtype, as
 in the JAX package; this port keeps its own copy of the builders.
 
@@ -35,6 +37,15 @@ def dct2_basis(n: int) -> np.ndarray:
     return v
 
 
+def dct4_basis(n: int) -> np.ndarray:
+    """Orthonormal DCT-IV matrix: V[k, i] = sqrt(2/n) cos(pi (2k+1)(2i+1) / 4n),
+    the eigenvectors of the Neumann-low / Dirichlet-high (face) stencil,
+    eigenvalue 2 cos(pi (k + 1/2) / n) - 2; symmetric and self-inverse."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    return np.sqrt(2.0 / n) * np.cos(np.pi * (2 * k + 1) * (2 * i + 1) / (4 * n))
+
+
 def fourier_basis(n: int) -> np.ndarray:
     """Orthonormal REAL Fourier basis (rows = eigenvectors of the periodic
     second-difference stencil); each cosine row is followed by its sine."""
@@ -48,12 +59,14 @@ def fourier_basis(n: int) -> np.ndarray:
     return np.concatenate(rows, axis=0)
 
 
-_BASIS = {"dct2": dct2_basis, "fourier": fourier_basis}
+_BASIS = {"dct2": dct2_basis, "dct4": dct4_basis, "fourier": fourier_basis}
 
 
 def _eigs(n: int, kind: str) -> np.ndarray:
     if kind == "dct2":
         return 2.0 * np.cos(np.pi * np.arange(n) / n) - 2.0
+    if kind == "dct4":
+        return 2.0 * np.cos(np.pi * (np.arange(n) + 0.5) / n) - 2.0
     if kind != "fourier":
         raise NotImplementedError(f"basis kind {kind!r} is not ported")
     freqs = [0] + [k for k in range(1, (n - 1) // 2 + 1) for _ in (0, 1)]

@@ -3,7 +3,8 @@
 Counterpart of diffpiso_tpu/solvers/krylov.py: `bicgstab` (Jacobi
 preconditioning, the whole-solve Jacobi accelerator in front, the fused
 phase-kernel loop and the generic one, the restart-if-bad policy) and
-`pcg` as far as the whole-solve spectral PCG.
+`pcg` with the spectral preconditioners: the whole-solve kernel, or the
+per-iteration loop with residual resets through the phase kernels.
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
 float32, as in the reference."""
@@ -17,9 +18,10 @@ import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve
+from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 
 
 class SolveResult(NamedTuple):
@@ -243,6 +245,47 @@ bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
 bicgstab.applies = {False: 0, True: 0}
 
 
+def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, early_exit):
+    """The per-iteration PCG loop of the JAX package's `krylov.pcg` with its
+    fused phase kernels (solvers/pcgphases.py); when deflating, the mean is
+    removed from b and from each M^-1 r (this preconditioner's output is
+    not mean-free). Returns (x, true residual norm as a float, iterations)."""
+
+    def project(v):
+        return v - torch.sum(v) / v.numel() if deflate else v
+
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+        r0 = project(b)
+        rnorm0 = r0.abs().max() if early_exit else None
+    else:
+        pcg.warm_entries += 1
+        r0, rnorm0 = fused_residual(lap, b, x0, deflate)
+    if early_exit and float(rnorm0) < tol:
+        # r0 is the true residual of x0: nothing to solve or verify
+        return x0, float(rnorm0), 0
+    pcg.loops += 1
+    z = project(precond(r0))
+    x, r, p, rz = x0, r0, z, torch.sum(r0 * z)
+    k = 0
+    done = False
+    while not done and k < max_iter:
+        if residual_reset > 0 and (k + 1) % residual_reset == 0:
+            # restart from the true residual, steepest descent
+            pcg.resets += 1
+            r, _ = fused_residual(lap, b, x, deflate)
+            p = project(precond(r))
+            rz = torch.sum(r * p)
+        x, r, rnorm, _ = fused_pcg_apply(lap, rz, x, r, p, deflate)
+        p, rz = fused_pcg_update(rz, r, project(precond(r)), p)
+        rn = float(rnorm)
+        done = rn < tol or not np.isfinite(rn)
+        k += 1
+    pcg.iterations += k
+    _, rn = fused_residual(lap, b, x, deflate)
+    return x, float(rn), k
+
+
 def pcg(
     stencil,
     b: torch.Tensor,
@@ -251,23 +294,51 @@ def pcg(
     precond_mm,
     tol=1e-6,
     max_iter: int = 2000,
+    residual_reset: int = 0,
     deflate_mean: bool = False,
+    precond_zero_mean: bool = False,
+    early_exit: bool = True,
 ) -> SolveResult:
-    """Spectrally preconditioned CG on the pressure Laplacian `stencil`:
-    the whole-solve kernel (solvers/pcg2.py), the path the reference takes
-    for a 2-D plane with a mean-free matmul spectral preconditioner over
-    the full grid, periodic or bounded (bounded axes carry zero edge
-    links, so the kernel's wrap is harmless, and the shift and deflation
-    run over the true plane). precond_mm = (MatmulSpectralSolver,
-    weights). The per-iteration loop with residual resets is not ported."""
+    """Spectrally preconditioned CG on the pressure Laplacian `stencil` (a
+    2-D plane), with precond_mm = (MatmulSpectralSolver, weights) over the
+    full grid, dispatched as the JAX package does on the TPU:
+
+    * a preconditioner that zeroes the mean mode (`precond_zero_mean`: the
+      `fft_mm` and `dct_mm` kinds) takes the whole-solve kernel
+      (solvers/pcg2.py), periodic or bounded (bounded axes carry zero edge
+      links, so its wrap is harmless, and the shift and deflation run over
+      the true plane); it ignores `residual_reset` and `early_exit`;
+    * any other (`channel_mm`) takes the per-iteration loop through the
+      phase kernels (solvers/pcgphases.py): a cold start begins from r = b,
+      a warm one from the residual kernel; a warm start that already meets
+      tol is returned as it is when `early_exit` (no preconditioner
+      applied); every `residual_reset`-th iteration restarts from the true
+      residual; M^-1 r (four dense contractions) runs between the apply and
+      the update; the exit check is the residual kernel.
+
+    Each loop reads one norm back per iteration."""
     solver, weights = precond_mm
     if b.ndim != 2 or tuple(solver.shape) != tuple(b.shape):
-        raise NotImplementedError("only the whole-solve spectral PCG on 2-D planes is ported")
+        raise NotImplementedError("only the spectral PCG on 2-D planes is ported")
     (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     sym = safe_symbol(solver, weights, b.dtype, b.device)
-    x, rn, k = fused_pcg2_solve(stencil, b, x0, v0, v0t, v1, v1t, sym, tol,
-                                max_iter, deflate=deflate_mean)
+    tol32 = _f32(tol)
+    if precond_zero_mean:
+        x, rn, k = fused_pcg2_solve(stencil, b, x0, v0, v0t, v1, v1t, sym, tol,
+                                    max_iter, deflate=deflate_mean)
+    else:
+        x, rn, k = _pcg_phases(stencil, b, x0, lambda r: spectral_apply_plain(v0, v1, sym, r),
+                               tol32, max_iter, residual_reset, deflate_mean, early_exit)
     bad_at = float(np.float32(100.0) * np.float32(tol))
     warn = not np.isfinite(rn) or rn > bad_at
     return SolveResult(x=x, iterations=k, residual_norm=rn,
-                       converged=rn < _f32(tol), warn=warn)
+                       converged=rn < tol32, warn=warn)
+
+
+# the per-iteration loop's counters: loops run, warm entries (one residual
+# launch each), resets, iterations; with them every phase kernel's launches
+# follow (residual: warm entries + resets + loops; apply, update: iterations)
+pcg.loops = 0
+pcg.warm_entries = 0
+pcg.resets = 0
+pcg.iterations = 0

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch / CUDA port's main paths goes.
 
-    python3 profile_torch_step.py [--workload turbulence|cavity] [--n 512] [--steps 20] [--trace PATH]
-    python3 profile_torch_step.py [--workload turbulence|cavity] --grad [--trace PATH]
+    python3 profile_torch_step.py [--workload turbulence|cavity|mixing] [--n 512] [--steps 20] [--trace PATH]
+    python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
 decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
-pressure tol 1e-8, 10 warm-up steps) or `cavity` (the lid-driven cavity of
+pressure tol 1e-8, 10 warm-up steps), `cavity` (the lid-driven cavity of
 `lid_driven_cavity_setup`, (n+1) x n cells, dt = 0.2/n, advection and
-pressure tol 1e-6, developed by a 2000-step spin-up from rest), with
-warm-started pressure increments. Then under torch.profiler either
+pressure tol 1e-6, developed by a 2000-step spin-up from rest) or `mixing`
+(the spatial mixing layer of `spatial_mixing_layer_setup` at n/4 x n
+cells, bench.py's DNS workload: max iterations (200, 2000), dt = 0.2 x
+128 / (n/4), tol 1e-6, the inflow perturbation at float32 time k dt
+every step, a 400-step spin-up from its initial state; with --grad the
+Dirichlet values are frozen at the last spin-up time), with warm-started
+pressure increments. Then under torch.profiler either
 `--steps` forward steps or, with --grad, one grad30 evaluation (the
 30-step rollout gradient of sum v^2 with respect to a forcing field,
 "outputs" remat) after one unprofiled evaluation. Prints the card,
@@ -31,12 +36,16 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 UNROLL = 30
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("pcg2_sgemm", "pcg2 GEMM (M^-1 r contractions)"),
     ("pcg2_", "pcg2 elementwise + reductions"),
+    ("pcgp_", "PCG phases (residual / apply / update)"),
+    ("gemm", "M^-1 r contractions (torch.matmul)"),
     ("dp_sum_partials", "laplace assembly"),
     ("laplace_assembly", "laplace assembly"),
     ("jac2_", "jacobi2 sweeps"),
@@ -60,7 +69,7 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("turbulence", "cavity"), default="turbulence")
+    ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing"), default="turbulence")
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
@@ -78,7 +87,11 @@ def main() -> int:
         return 1
     from diffpiso_tpu_torch.core.piso import piso_step
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.core.setups import (
+        decaying_turbulence_setup,
+        lid_driven_cavity_setup,
+        spatial_mixing_layer_setup,
+    )
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.native import build_all
@@ -88,20 +101,41 @@ def main() -> int:
     build_all()
     dev = torch.device("cuda")
     n = args.n
+    mixing = None
     if args.workload == "turbulence":
         domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
         dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 10
         v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
-    else:
+    elif args.workload == "cavity":
         domain, sim, dt = lid_driven_cavity_setup(n, device=dev)
         adv_tol, p_tol, warmup = 1e-6, 1e-6, 2000
         v = domain.staggered_grid(0.0, device=dev)
+    else:
+        ny = n // 4
+        mixing = spatial_mixing_layer_setup(simulation={"HRres": (ny, n), "dt": 0.2 * 128 / ny},
+                                            max_iterations=(200, 2000), device=dev)
+        domain, sim, dt = mixing.domain, mixing.sim, mixing.dt
+        adv_tol, p_tol, warmup = 1e-6, 1e-6, 400
+        v, _ = mixing.initial_state()
     p = domain.centered_grid(0.0, device=dev)
     g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    clock = {"k": 0, "frozen": None}  # the mixing layer's step count and frozen values
+
+    def dirichlet_values():
+        """The mixing layer's inflow values of the next step: the
+        perturbation at float32 time k dt, or the frozen values."""
+        if mixing is None:
+            return None
+        if clock["frozen"] is not None:
+            return clock["frozen"]
+        tm = np.float32(clock["k"]) * np.float32(dt)
+        clock["k"] += 1
+        return mixing.dirichlet_values(mixing.perturbation(tm))
 
     def step(v, p, g1, g2, f=None):
-        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
-                         pressure_inc2_guess=g2, advection_tol=adv_tol, pressure_tol=p_tol)
+        return piso_step(v, p, dt, domain, sim, dirichlet_values=dirichlet_values(),
+                         forcing_term=f, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                         advection_tol=adv_tol, pressure_tol=p_tol)
 
     def run(k):
         nonlocal v, p, g1, g2
@@ -120,6 +154,8 @@ def main() -> int:
 
     run(warmup)
     if args.grad:
+        if mixing is not None:
+            clock["frozen"] = dirichlet_values()
         grad_eval()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

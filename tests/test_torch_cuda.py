@@ -3,9 +3,11 @@ two assemblies, jac2, pcg2, the FV pair forward and VJP, the corrector
 bridge / tail forward; their VJP recomputes the plain chain, so comparing
 it checks only the wiring; the bounded FV trio forward and VJP, the
 stencil matvec in both forms, jac2 and pcg2 at the cavity's unequal
-bounded shapes, the BiCGSTAB phases and the loop they run), the CUDA step and the CUDA rollout gradient against the
-CPU plain path (turbulence and lid-driven cavity), with each adjoint's
-gate decision. Every test here needs a GPU
+bounded shapes, the BiCGSTAB phases and the loop they run; the
+per-iteration PCG phases and the loop they run, and the matvec on the
+mixing layer's (128, 513) u plane), the CUDA step and the CUDA rollout
+gradient against the CPU plain path (turbulence, lid-driven cavity and
+mixing layer), with each adjoint's gate decision. Every test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
@@ -20,7 +22,11 @@ import torch
 from diffpiso_tpu_torch import convert
 from diffpiso_tpu_torch.core.piso import piso_step
 from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+from diffpiso_tpu_torch.core.setups import (
+    decaying_turbulence_setup,
+    lid_driven_cavity_setup,
+    spatial_mixing_layer_setup,
+)
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.noise import random_solenoidal
 from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, matvec
@@ -33,8 +39,8 @@ from diffpiso_tpu_torch.ops.advassembly import (
 from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly, laplace_assembly_plain
 from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
 from diffpiso_tpu_torch.solvers import base as pbase
-from diffpiso_tpu_torch.solvers import bicg
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
@@ -445,6 +451,156 @@ def test_cuda_cavity_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
     assert itc == itp
     for a, b in zip(vc, vp):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    assert decisions[0] == decisions[1]
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
+    den = sum(float(torch.sum(b ** 2)) for b in grads[1])
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+def _mixing_operators(res, dev, steps=5):
+    """The mixing layer's step planes `steps` steps into its run (bench.py's
+    DNS workload): the intermediates of the last step, its first pressure
+    increment, the setup and every step's pressure iterations."""
+    setup = spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.2 * 128 / res[0]},
+                                       max_iterations=(200, 2000), device=dev)
+    v, p = setup.initial_state()
+    g1 = g2 = torch.zeros_like(p)
+    iters = []
+    for k in range(steps):
+        tm = np.float32(k) * np.float32(setup.dt)
+        out = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                        dirichlet_values=setup.dirichlet_values(setup.perturbation(tm)),
+                        pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=1e-6,
+                        pressure_tol=1e-6, full_output=True)
+        assert not out.warn
+        v, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
+        iters.append(out.p_iterations)
+    return out.intermediates, g1, setup, iters
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("deflate", [False, True])
+def test_pcg_phase_kernels_match_plain(deflate, shifted, cuda_device):
+    """The three per-iteration PCG phases at 128 x 512 on a mixing-layer
+    Laplacian: planes within rel 1e-6 of their scale, scalars within rel
+    1e-5 (the kernels' sums run in another order than torch.sum)."""
+    it, g1, _, _ = _mixing_operators((128, 512), cuda_device)
+    lap = it["laplacian"]
+    if shifted:
+        lap = plap.LaplaceStencil(center=lap.center, lo=lap.lo, hi=lap.hi,
+                                  shift=0.1 * lap.center.abs().sum() / lap.center.numel(),
+                                  periodic=lap.periodic)
+    mss, weights = pbase.pressure_preconditioner("channel_mm", lap)
+    (v0, _), (v1, _) = mss.mats(torch.float32, cuda_device)
+    sym = safe_symbol(mss, weights, torch.float32, cuda_device)
+    b, x = it["v1_div"], 0.5 * g1
+    if shifted:
+        # x and p on an exactly summable grid with shift sum(.) near the size
+        # of L(.): on this system's own iterates the shift term outweighs b
+        # by orders or is rounding noise (chip_smoke.py mixing_kernels says
+        # more); on the grid both versions sum exactly
+        from chip_smoke import summable
+
+        x = summable(x, float(b.abs().max() / lap.shift))
+    before = [f.launches for f in (pcgphases.fused_residual, pcgphases.fused_pcg_apply,
+                                   pcgphases.fused_pcg_update)]
+
+    def check(got, want, n_planes):
+        for a, w in zip(got[:n_planes], want[:n_planes]):
+            assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max())
+        for a, w in zip(got[n_planes:], want[n_planes:]):
+            assert float((a - w).abs()) <= 1e-5 * float(w.abs())
+
+    r, _ = pcgphases.residual_plain(lap, b, x, deflate)
+    check(pcgphases.fused_residual(lap, b, x, deflate),
+          pcgphases.residual_plain(lap, b, x, deflate), 1)
+    z = spectral_apply_plain(v0, v1, sym, r)
+    if shifted:
+        z = summable(z, float(pcgphases.lap_matvec(lap, z).abs().max() / lap.shift))
+    rz = torch.sum(r * z)
+    args = (lap, rz, x, r, z, deflate)
+    check(pcgphases.fused_pcg_apply(*args), pcgphases.pcg_apply_plain(*args), 2)
+    r2 = pcgphases.pcg_apply_plain(*args)[1]
+    args = (rz, r2, spectral_apply_plain(v0, v1, sym, r2), z)
+    check(pcgphases.fused_pcg_update(*args), pcgphases.pcg_update_plain(*args), 1)
+    after = [f.launches for f in (pcgphases.fused_residual, pcgphases.fused_pcg_apply,
+                                  pcgphases.fused_pcg_update)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+    with pytest.raises(ValueError):
+        pcgphases.fused_residual(lap, b.double(), x.double(), deflate)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_pcg_loop_through_the_kernels_matches_the_plain_phases(adjoint, cuda_device,
+                                                               monkeypatch):
+    """One whole per-iteration PCG solve at 128 x 512, forward (warm, resets
+    every 50, early exit) and adjoint (cold, neither): the kernels and the
+    plain phases on the card take the same iterations."""
+    it, g1, _, _ = _mixing_operators((128, 512), cuda_device)
+    lap, b = it["laplacian"], it["v1_div"]
+    pre = pbase.pressure_preconditioner("channel_mm", lap)
+
+    def solve():
+        return krylov.pcg(lap, b, None if adjoint else 0.5 * g1, precond_mm=pre, tol=1e-6,
+                          max_iter=2000, residual_reset=0 if adjoint else 50,
+                          precond_zero_mean=False, early_exit=not adjoint)
+
+    before = pcgphases.fused_pcg_apply.launches
+    card = solve()
+    assert pcgphases.fused_pcg_apply.launches - before == card.iterations > 0
+    monkeypatch.setattr(krylov, "fused_residual", pcgphases.residual_plain)
+    monkeypatch.setattr(krylov, "fused_pcg_apply", pcgphases.pcg_apply_plain)
+    monkeypatch.setattr(krylov, "fused_pcg_update", pcgphases.pcg_update_plain)
+    plain = solve()
+    assert card.iterations == plain.iterations and not card.warn
+    torch.testing.assert_close(card.x, plain.x, rtol=0, atol=1e-4 * float(plain.x.abs().max()))
+
+
+def test_matvec_kernel_is_bit_equal_on_the_mixing_u_plane(cuda_device):
+    """The (128, 513) u plane, the TPU's row-tiled matvec case: both forms
+    bit-equal to the plain version."""
+    it, _, _, _ = _mixing_operators((128, 512), cuda_device, steps=2)
+    st = it["stencil"]
+    w = it["velocity_s2"].components[1] - it["velocity_star"].components[1]
+    planes = (st.center[1], st.lo[1][0], st.hi[1][0], st.lo[1][1], st.hi[1][1])
+    assert w.shape == (128, 513)
+    for tr in (False, True):
+        got = matvec.fused_stencil_matvec(planes[0], (planes[1], planes[3]),
+                                          (planes[2], planes[4]), w, tr)
+        torch.testing.assert_close(got, matvec.matvec_plain(*planes, w, tr), rtol=0, atol=0)
+
+
+def test_cuda_mixing_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
+    """32 x 128 (bench's --quick size): 5 steps with equal pressure
+    iteration counts and the velocity within rtol 2e-4 / atol 2e-5, then
+    the 3-step rollout gradient within rel l2 1e-3 with every adjoint's
+    gate decision equal."""
+    res = (32, 128)
+    states, iters, grads, decisions = [], [], [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        it, _, _, its = _mixing_operators(res, dev)
+        states.append(it)
+        iters.append(its)
+    assert iters[0] == iters[1]
+    cpu_it = states[1]
+    for dev in (cuda_device, torch.device("cpu")):
+        setup = spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.8},
+                                           max_iterations=(200, 2000), device=dev)
+        v = StaggeredField(tuple(c.to(dev) for c in cpu_it["velocity_star"].components))
+        frozen = setup.dirichlet_values(setup.perturbation(np.float32(4.0)))
+
+        def step(v, p, g1, g2, f, setup=setup, frozen=frozen):
+            return piso_step(v, p, setup.dt, setup.domain, setup.sim, dirichlet_values=frozen,
+                             forcing_term=f, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                             advection_tol=1e-6, pressure_tol=1e-6)
+
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components))
+        r = rollout_loss_grad(step, v, setup.domain.centered_grid(0.0, device=dev), f, 3)
+        assert r.warns == 0
+        grads.append([c.cpu().double() for c in r.grad.components])
+        decisions.append([(a.system, a.gated) for a in r.adjoints])
+    for a, b in zip(states[0]["velocity_s2"].components, states[1]["velocity_s2"].components):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5)
     assert decisions[0] == decisions[1]
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
     den = sum(float(torch.sum(b ** 2)) for b in grads[1])

@@ -55,6 +55,13 @@ def test_the_scan_covers_the_cavity_slice_modules():
         assert (PKG / "csrc" / f"{name}.cu").exists()
 
 
+def test_the_scan_covers_the_mixing_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/solvers/pcgphases.py", "diffpiso_tpu_torch/solvers/krylov.py",
+            "diffpiso_tpu_torch/solvers/fourier.py", "diffpiso_tpu_torch/ops/fv.py"} <= scanned
+    assert (PKG / "csrc" / "pcgphases.cu").exists()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 
@@ -70,6 +77,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         domain.centered_grid(0.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         p.lid_driven_cavity_setup(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.spatial_mixing_layer_setup(simulation={"HRres": (8, 16)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         domain.staggered_grid(0.0)
     # an explicit CPU request works

@@ -125,8 +125,10 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
         pbase.solve_pressure_system(pbase.PressureSolver(preconditioner=None), pl, t(rhs),
                                     None, 1e-6)
-    # dct_mm is ported (bounded domains); the channel basis is not
-    with pytest.raises(NotImplementedError):
-        pbase.solve_pressure_system(pbase.PressureSolver(preconditioner="channel_mm"), pl,
-                                    t(rhs), None, 1e-6)
+    # the matmul bases are ported (fft_mm, dct_mm, channel_mm); the FFT-based
+    # preconditioners of the JAX package are not
+    for kind in ("fft", "dct", "channel"):
+        with pytest.raises(NotImplementedError):
+            pbase.solve_pressure_system(pbase.PressureSolver(preconditioner=kind), pl,
+                                        t(rhs), None, 1e-6)
 

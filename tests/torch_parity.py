@@ -43,7 +43,8 @@ def jax_sim_to_numpy(sim) -> dict:
         active_mask=np.asarray(sim.active_mask),
         accessible_mask=np.asarray(sim.accessible_mask),
         no_slip_mask=None if sim.no_slip_mask is None else np.asarray(sim.no_slip_mask),
-        viscosity=float(sim.viscosity),
+        viscosity=(tuple(np.asarray(c) for c in sim.viscosity.components)
+                   if hasattr(sim.viscosity, "components") else float(sim.viscosity)),
         laplace_rank_deficient=bool(sim.laplace_rank_deficient),
         bool_periodic=tuple(sim.bool_periodic),
         linear_solver=dataclasses.asdict(sim.linear_solver),
