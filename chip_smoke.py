@@ -83,7 +83,34 @@ Phases, each fatal on failure:
      evaluations, counts checked per evaluation and equal in all four,
      warn 0, finite non-zero gradient, gated adjoints reported with
      residual / limit. The turbulence and cavity paths assert 0 launches
-     of the PCG phase kernels (they take pcg2).
+     of the PCG phase kernels (they take pcg2);
+  2d. the batch-folded jac2 kernel at the batch-8 training shapes (64 x
+     256, 8 frames of a network-free run, the predictor's right-hand
+     sides), forward and transposed, shared and per-sample tolerances:
+     bit-equal x and exit residuals and equal per-sample sweeps against
+     its plain version and against 8 single-sample jac2 kernels;
+  2e. the batch-1 training path's single-sample kernels at its own shapes
+     (pressure 64 x 256, faces 65 x 256 and 64 x 257), on a step of the
+     training setup 20 steps into its run: the checks of 2c plus the
+     bounded FV trio forward and VJP and the BiCGSTAB phases;
+  8. closure training at batch 1 (the JAX package's `bench.py
+     workload_training`: the mixing layer at 64 x 256, dt 0.4, the CNN at
+     its published widths, a 10-step unroll, four losses, Adam 1e-5, tol
+     1e-6, remat "outputs"): (a) the CNN alone at 64 x 256, forward and
+     VJP within rel l2 1e-5 of float64 on the CPU with cuDNN's TF32 switch
+     as PyTorch leaves it (this script never sets it); then 32 x 128 x 3
+     steps at tol 1e-7, card vs the CPU: loss within rtol 1e-4, weight
+     gradient rel l2 <= 1e-3, equal warn and gate decisions; (b) 1 untimed and 5 timed train steps with
+     the counters checked (jac2 and the Laplace assembly 20 per step, the
+     PCG and BiCGSTAB phases as the loops derive, the periodic kernels and
+     the fold 0), no skipped update, then the chunked loop (chunk 10);
+  9. closure training at batch 8 (remat "none"): (a) 8 distinct samples
+     at tol 1e-7, the batched step vs 8 batch-1 runs (per-sample loss
+     within rtol 1e-4, masked-mean weight gradient rel l2 <= 1e-3); (b) 8
+     copies of the sample as bench.py stacks them, 1 untimed and 5 timed
+     train steps: fold kernel launches equal to what the solver's counters
+     derive (2 per solve + the slowest sample's sweeps), every
+     single-sample kernel 0.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -235,6 +262,78 @@ def bicg_second_iteration(st_c, invd, b, transpose) -> dict:
     return args
 
 
+def fv_trio_check(label, fs, per, rep, p1, vs, masks) -> tuple:
+    """The bounded FV trio (grad2m, div2m, gradT2m) against their plain
+    versions on a pressure plane and a face pair: forward, and each VJP
+    against the plain transpose; fails beyond 1e-6 x the planes' scale.
+    Returns the max abs errors (grad2m, div2m, gradT2m)."""
+    import torch
+
+    from diffpiso_tpu_torch.ops import fv2m
+
+    def vjp(fn, leaves, cts):
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, cts)
+
+    def maxerr(pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    nfs = (-fs[0], -fs[1])
+    g_err = max(maxerr(zip(fv2m.grad2m(fs, per, rep, p1, masks),
+                           fv2m.grad2m_plain(fs, per, rep, p1, masks))),
+                maxerr([(vjp(lambda a: fv2m.grad2m(fs, per, rep, a, masks), (p1,), vs)[0],
+                         fv2m.gradT2m_plain(fs, per, rep, vs, masks))]))
+    d_err = max(maxerr([(fv2m.div2m(fs, per, vs), fv2m.div2m_plain(fs, per, vs))]),
+                maxerr(zip(vjp(lambda a, b: fv2m.div2m(fs, per, (a, b)), vs, p1),
+                           fv2m.grad2m_plain(nfs, per, fv2m.NO_REP, p1))))
+    t_err = maxerr([(fv2m.gradT2m(fs, per, rep, vs, masks),
+                     fv2m.gradT2m_plain(fs, per, rep, vs, masks))])
+    scale = max(float(vs[0].abs().max()), float(vs[1].abs().max()),
+                float(p1.abs().max())) * max(fs)
+    print(f"{label} FV trio vs plain at {tuple(p1.shape)} (forward and VJP): max abs err grad2m "
+          f"{g_err:.3e}, div2m {d_err:.3e}, gradT2m {t_err:.3e} (planes up to {scale:.3e})",
+          flush=True)
+    if not max(g_err, d_err, t_err) <= 1e-6 * scale:
+        fail(f"{label} FV trio: kernel vs plain beyond 1e-6 x scale")
+    return g_err, d_err, t_err
+
+
+def bicg_phases_check(label, st, velocity) -> tuple:
+    """The three BiCGSTAB phases against their plain versions on a step's
+    momentum operator, both components and both forms, with the inputs of
+    the loop's second iteration (p and v nonzero) on the cotangent a
+    grad30's last adjoint solves see (2 v): planes bit-equal, scalars
+    within rel 1e-5. Returns (planes max abs err, scalars max rel err, the
+    inputs by (component, transpose))."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import bicg
+
+    st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
+    ph_err, ph_scalar_rel, ph_inputs = 0.0, 0.0, {}
+    for c in range(2):
+        invd = torch.where(st.center[c].abs() > 1e-30, 1.0 / -st.center[c], 1.0)
+        rhs_c = 2.0 * velocity[c]
+        for tr in (True, False):
+            args = bicg_second_iteration(st_cs[c], invd, rhs_c, tr)
+            ph_inputs[(c, tr)] = args
+            for kern, plain, a in ((bicg.fused_bicg_phase_p, bicg.bicg_phase_p_plain, args["p"]),
+                                   (bicg.fused_bicg_phase_s, bicg.bicg_phase_s_plain, args["s"]),
+                                   (bicg.fused_bicg_phase_x, bicg.bicg_phase_x_plain, args["x"])):
+                got, want = kern(*a), plain(*a)
+                ph_err = max(ph_err, *(float((g - w).abs().max())
+                                       for g, w in zip(got[:2], want[:2])))
+                ph_scalar_rel = max(ph_scalar_rel, *(float((g - w).abs() / w.abs().clamp_min(1e-30))
+                                                     for g, w in zip(got[2:], want[2:])))
+    print(f"{label} BiCGSTAB phases vs plain on faces {tuple(velocity[0].shape)} / "
+          f"{tuple(velocity[1].shape)} (both forms): planes max abs err {ph_err:.3e}, scalars max "
+          f"rel err {ph_scalar_rel:.3e}", flush=True)
+    if not (ph_err == 0.0 and ph_scalar_rel <= 1e-5):
+        fail(f"{label} BiCGSTAB phases: planes not bit-equal or scalars beyond rel 1e-5")
+    return ph_err, ph_scalar_rel, ph_inputs
+
+
 def cavity_kernels(dev, kernels: list) -> dict:
     """Phase 2b: the cavity path's kernels against their plain versions at
     the 512 cavity's shapes, on the planes of a step 20 steps from rest.
@@ -271,7 +370,6 @@ def cavity_kernels(dev, kernels: list) -> dict:
     ny, nx = p1.shape
     dx = domain.dx
     fs = (dx[0] * dx[1] / dx[0], dx[0] * dx[1] / dx[1])
-    nfs = (-fs[0], -fs[1])
     per = (False, False)
     rep = tuple((lo != "zero", hi != "zero") for lo, hi in domain.pressure_pad_modes())
     masks = tuple(m.contiguous() for m in fv._face_masks(sim.accessible_mask, per, 2))
@@ -286,21 +384,7 @@ def cavity_kernels(dev, kernels: list) -> dict:
     def maxerr(pairs):
         return max(float((a - b).abs().max()) for a, b in pairs)
 
-    # the FV trio: forward, and each VJP against the plain transpose
-    g_err = max(maxerr(zip(fv2m.grad2m(fs, per, rep, p1, masks),
-                           fv2m.grad2m_plain(fs, per, rep, p1, masks))),
-                maxerr([(vjp(lambda a: fv2m.grad2m(fs, per, rep, a, masks), (p1,), (vs0, vs1))[0],
-                         fv2m.gradT2m_plain(fs, per, rep, (vs0, vs1), masks))]))
-    d_err = max(maxerr([(fv2m.div2m(fs, per, (vs0, vs1)), fv2m.div2m_plain(fs, per, (vs0, vs1)))]),
-                maxerr(zip(vjp(lambda a, b: fv2m.div2m(fs, per, (a, b)), (vs0, vs1), p1),
-                           fv2m.grad2m_plain(nfs, per, fv2m.NO_REP, p1))))
-    t_err = maxerr([(fv2m.gradT2m(fs, per, rep, (vs0, vs1), masks),
-                     fv2m.gradT2m_plain(fs, per, rep, (vs0, vs1), masks))])
-    scale = max(float(vs0.abs().max()), float(vs1.abs().max()), float(p1.abs().max())) * max(fs)
-    print(f"cavity FV trio vs plain (forward and VJP): max abs err grad2m {g_err:.3e}, div2m "
-          f"{d_err:.3e}, gradT2m {t_err:.3e} (planes up to {scale:.3e})", flush=True)
-    if not max(g_err, d_err, t_err) <= 1e-6 * scale:
-        fail("cavity FV trio: kernel vs plain beyond 1e-6 x scale")
+    g_err, d_err, t_err = fv_trio_check("cavity", fs, per, rep, p1, (vs0, vs1), masks)
     n_faces = vs0.numel() + vs1.numel()
     for name, fn, plain, by, fl, err, line in (
         # grad2m: p and the two face masks in, two face planes out; 3 flops a face
@@ -366,24 +450,7 @@ def cavity_kernels(dev, kernels: list) -> dict:
     # both face shapes, with the inputs of the loop's second iteration (p
     # and v nonzero) on the cotangent grad30's last adjoint solves (2 v)
     st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
-    ph_err, ph_scalar_rel, ph_inputs = 0.0, 0.0, {}
-    for c in range(2):
-        invd = torch.where(st.center[c].abs() > 1e-30, 1.0 / -st.center[c], 1.0)
-        rhs_c = 2.0 * o.velocity.components[c]
-        for tr in (True, False):
-            args = bicg_second_iteration(st_cs[c], invd, rhs_c, tr)
-            ph_inputs[(c, tr)] = args
-            for kern, plain, a in ((bicg.fused_bicg_phase_p, bicg.bicg_phase_p_plain, args["p"]),
-                                   (bicg.fused_bicg_phase_s, bicg.bicg_phase_s_plain, args["s"]),
-                                   (bicg.fused_bicg_phase_x, bicg.bicg_phase_x_plain, args["x"])):
-                got, want = kern(*a), plain(*a)
-                ph_err = max(ph_err, maxerr(zip(got[:2], want[:2])))
-                ph_scalar_rel = max(ph_scalar_rel, *(float((g - w).abs() / w.abs().clamp_min(1e-30))
-                                                     for g, w in zip(got[2:], want[2:])))
-    print(f"cavity BiCGSTAB phases vs plain (both components, both forms): planes max abs err "
-          f"{ph_err:.3e}, scalars max rel err {ph_scalar_rel:.3e}", flush=True)
-    if not (ph_err == 0.0 and ph_scalar_rel <= 1e-5):
-        fail("cavity BiCGSTAB phases: planes not bit-equal or scalars beyond rel 1e-5")
+    ph_err, ph_scalar_rel, ph_inputs = bicg_phases_check("cavity", st, o.velocity.components)
     a = ph_inputs[(0, True)]  # grad30's form, on the 514 x 512 faces
     plane = a["x"][0].numel() * 4
     cells = a["x"][0].numel()
@@ -819,20 +886,23 @@ def summable(v, total: float):
     return torch.as_tensor((u / 2.0 ** k).astype(np.float32), device=v.device)
 
 
-def mixing_kernels(dev, kernels: list) -> dict:
-    """Phase 2c: at the mixing layer's 128 x 512, on the operators of a real
-    step 20 steps into its run: the three PCG phase kernels against their
-    plain versions (deflate off and on, shift 0 and 0.1 sum|diag| / n), one
-    whole per-iteration PCG solve forward (warm) and adjoint (cold) with the
-    kernels against the plain phases on the card, the matvec on the
-    (128, 513) u plane (the TPU's row-tiled case) in both forms, jac2 and
-    the Laplace assembly with the mixing layer's masks. Appends the phase
-    kernels' entries to `kernels`; returns the mixing-shape measurements of
-    the matvec, jac2 and the Laplace assembly, keyed by entry name."""
+def mixing_kernels(dev, kernels, setup, label: str) -> dict:
+    """Phase 2c (the mixing layer's 128 x 512) and 2e (the batch-1
+    training's 64 x 256): on the operators of a real step 20 steps into the
+    setup's run, the three PCG phase kernels against their plain versions
+    (deflate off and on, shift 0 and 0.1 sum|diag| / n), one whole
+    per-iteration PCG solve forward (warm) and adjoint (cold) with the
+    kernels against the plain phases on the card, the bounded FV trio
+    forward and VJP, the three BiCGSTAB phases, the matvec on the u plane
+    ((128, 513): the TPU's row-tiled case) in both forms, jac2 and the
+    Laplace assembly with the mixing layer's masks. Appends the PCG phase
+    kernels' entries to `kernels` (a list), or with `kernels` None returns
+    them with the rest; returns the measurements at these shapes keyed by
+    entry name."""
     import torch
 
     from diffpiso_tpu_torch.core.piso import piso_step
-    from diffpiso_tpu_torch.ops import matvec
+    from diffpiso_tpu_torch.ops import fv, matvec
     from diffpiso_tpu_torch.ops.laplace import LaplaceStencil, laplace_mask_planes
     from diffpiso_tpu_torch.ops.laplace_assembly import (
         fused_laplace_assembly, laplace_assembly_plain)
@@ -841,7 +911,6 @@ def mixing_kernels(dev, kernels: list) -> dict:
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
     from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 
-    setup = mixing_setup(MIX_RES, dev)
     step = mixing_step_fn(setup)
     v, p = setup.initial_state()
     g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
@@ -849,7 +918,7 @@ def mixing_kernels(dev, kernels: list) -> dict:
     for k in range(20):
         o = step(v, p, g1, g2, tm=bench_time(k, setup.dt))
         if o.warn:
-            fail("mixing layer: a solve warned in the steps that make phase 2c's planes")
+            fail(f"{label}: a solve warned in the steps that make the kernel checks' planes")
         v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
     o = piso_step(v, p, setup.dt, setup.domain, setup.sim,
                   dirichlet_values=setup.dirichlet_values(setup.perturbation(
@@ -862,7 +931,7 @@ def mixing_kernels(dev, kernels: list) -> dict:
     ny, nx = rhs.shape
     plane = ny * nx * 4
     if not float(lap.shift) == 0.0:
-        fail("mixing layer: the Laplacian carries a shift (its system is full rank)")
+        fail(f"{label}: the Laplacian carries a shift (its system is full rank)")
     mss, weights = pressure_preconditioner("channel_mm", lap)
     (v0, _), (v1, _) = mss.mats(torch.float32, dev)
     sym = safe_symbol(mss, weights, torch.float32, dev)
@@ -914,11 +983,11 @@ def mixing_kernels(dev, kernels: list) -> dict:
                 rel = e / max(scale(want[:n_planes]), 1e-30)
                 srel = max(float((g - w).abs() / w.abs().clamp_min(1e-30))
                            for g, w in zip(got[n_planes:], want[n_planes:]))
-                print(f"mixing {name} ({lab}, deflate={deflate}) vs plain: planes max abs err "
+                print(f"{label} {name} at {ny}x{nx} ({lab}, deflate={deflate}) vs plain: planes max abs err "
                       f"{e:.3e} (rel to scale {rel:.3e}), scalars max rel err {srel:.3e}",
                       flush=True)
                 if not (rel <= 1e-6 and srel <= 1e-5):
-                    fail(f"mixing {name} ({lab}, deflate={deflate}): kernel vs plain beyond "
+                    fail(f"{label} {name} ({lab}, deflate={deflate}): kernel vs plain beyond "
                          f"rel 1e-6 of the planes' scale / rel 1e-5 (scalars)")
                 errs[name] = max(errs[name], e)
                 rels[name] = max(rels[name], srel)
@@ -934,7 +1003,7 @@ def mixing_kernels(dev, kernels: list) -> dict:
     names = ("fused_residual", "fused_pcg_apply", "fused_pcg_update")
     plains = (pcgphases.residual_plain, pcgphases.pcg_apply_plain, pcgphases.pcg_update_plain)
     solves = {}
-    for label, adjoint in (("forward, warm", False), ("adjoint, cold", True)):
+    for how, adjoint in (("forward, warm", False), ("adjoint, cold", True)):
         res_k = solve(adjoint)
         saved = [getattr(krylov, nm) for nm in names]
         for nm, fn in zip(names, plains):
@@ -945,15 +1014,16 @@ def mixing_kernels(dev, kernels: list) -> dict:
             for nm, fn in zip(names, saved):
                 setattr(krylov, nm, fn)
         rel = rel_err(res_k.x, res_p.x)
-        print(f"mixing pressure PCG ({label}): iterations kernels {res_k.iterations} plain "
+        print(f"{label} pressure PCG ({how}): iterations kernels {res_k.iterations} plain "
               f"{res_p.iterations}, residual kernels {res_k.residual_norm:.3e} plain "
               f"{res_p.residual_norm:.3e}, x rel err {rel:.3e}", flush=True)
         if res_k.iterations != res_p.iterations or res_k.iterations == 0:
-            fail(f"mixing pressure PCG ({label}): iteration counts differ or are 0")
+            fail(f"{label} pressure PCG ({how}): iteration counts differ or are 0")
         if res_k.warn or not rel <= 1e-4:
-            fail(f"mixing pressure PCG ({label}): warned or x rel err {rel:.3e} > 1e-4")
-        solves[label] = res_k.iterations
+            fail(f"{label} pressure PCG ({how}): warned or x rel err {rel:.3e} > 1e-4")
+        solves[how] = res_k.iterations
 
+    out = {}
     # bytes per call of the phases (planes in + out): residual 5 + b, x in, r
     # out; apply 5 + x, r, p in, x', r' out; update r, z, p in, p' out.
     # flops per cell: residual 10, apply 15, update 4
@@ -964,17 +1034,36 @@ def mixing_kernels(dev, kernels: list) -> dict:
     ):
         a = inputs[name]
         b_, by_ = bound(planes * plane, flops * ny * nx)
-        kernels.append(dict(
-            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/pcgphases.cu",
-            replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}", max_abs_err=errs[name],
-            scalars_max_rel_err=rels[name],
+        entry = dict(
+            max_abs_err=errs[name], scalars_max_rel_err=rels[name],
             ms=cuda_time_ms(lambda fn=fn, a=a: fn(*a), 200),
             plain_ms=cuda_time_ms(lambda plain=plain, a=a: plain(*a), 50),
             **device_time(lambda fn=fn, a=a: fn(*a)), bound_ms=b_, bound_by=by_,
             library_ms=None, shape=[ny, nx], solve_iterations=solves,
-        ))
+        )
+        if kernels is None:
+            out[name] = entry
+        else:
+            kernels.append(dict(
+                name=name, route="cuda", source="diffpiso_tpu_torch/csrc/pcgphases.cu",
+                replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}", **entry))
 
-    # the matvec on the u plane (128, 513), both forms, on explicit_H's input
+    # the bounded FV trio and the BiCGSTAB phases on the step's planes
+    sim, dx = setup.sim, setup.domain.dx
+    per = tuple(sim.bool_periodic)
+    fs = (dx[0] * dx[1] / dx[0], dx[0] * dx[1] / dx[1])
+    rep = tuple((lo != "zero", hi != "zero") for lo, hi in setup.domain.pressure_pad_modes())
+    fmasks = tuple(m.contiguous() for m in fv._face_masks(sim.accessible_mask, per, 2))
+    vs = tuple(it["velocity_star"].components)
+    trio_errs = fv_trio_check(label, fs, per, rep, o.pressure_inc1, vs, fmasks)
+    for name, e in zip(("grad2m", "div2m", "gradT2m"), trio_errs):
+        out[name] = dict(shape=[ny, nx], max_abs_err=e)
+    ph_err, ph_rel, _ = bicg_phases_check(label, st, o.velocity.components)
+    for name in BICG_PHASES:
+        out[name] = dict(shapes=[list(c.shape) for c in vs], max_abs_err=ph_err,
+                         scalars_max_rel_err=ph_rel)
+
+    # the matvec on the u plane (ny, nx + 1), both forms, on explicit_H's input
     w = it["velocity_s2"].components[1] - it["velocity_star"].components[1]
     planes_u = (st.center[1], st.lo[1][0], st.hi[1][0], st.lo[1][1], st.hi[1][1])
 
@@ -983,18 +1072,19 @@ def mixing_kernels(dev, kernels: list) -> dict:
                                            (planes_u[2], planes_u[4]), w, tr)
 
     mv_err = maxerr([(mv_k(tr), matvec.matvec_plain(*planes_u, w, tr)) for tr in (False, True)])
-    print(f"mixing stencil matvec on the {tuple(w.shape)} u plane vs plain (both forms): max "
+    print(f"{label} stencil matvec on the {tuple(w.shape)} u plane vs plain (both forms): max "
           f"abs err {mv_err:.3e}", flush=True)
     if mv_err != 0.0:
-        fail("mixing stencil matvec: kernel vs plain not bit-equal on the (128, 513) plane")
+        fail(f"{label} stencil matvec: kernel vs plain not bit-equal on the {tuple(w.shape)} "
+             f"plane")
     b_mv, by_mv = bound(7 * w.numel() * 4, 9 * w.numel())
-    out = {"stencil_matvec": dict(
+    out["stencil_matvec"] = dict(
         shape=list(w.shape), max_abs_err=mv_err, ms=cuda_time_ms(mv_k, 200),
         ms_transposed=cuda_time_ms(lambda: mv_k(True), 200),
         plain_ms=cuda_time_ms(lambda: matvec.matvec_plain(*planes_u, w), 50),
-        **device_time(mv_k), bound_ms=b_mv, bound_by=by_mv)}
+        **device_time(mv_k), bound_ms=b_mv, bound_by=by_mv)
 
-    # jac2 on the step's momentum system (faces (129, 512) and (128, 513)), both forms
+    # jac2 on the step's momentum system (faces (ny + 1, nx) and (ny, nx + 1)), both forms
     st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
     b_c = tuple(it["rhs"].components)
     x_c = tuple(v.components)
@@ -1004,10 +1094,10 @@ def mixing_kernels(dev, kernels: list) -> dict:
         pj = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, MIX_TOL, 33)
         j_err = max(j_err, maxerr([(kj[0], pj[0]), (kj[1], pj[1])]))
         rel = max(rel_err(kj[0], pj[0]), rel_err(kj[1], pj[1]))
-        print(f"mixing jac2 transpose={tr}: sweeps kernel {kj[3]} plain {pj[3]}, residual kernel "
+        print(f"{label} jac2 transpose={tr}: sweeps kernel {kj[3]} plain {pj[3]}, residual kernel "
               f"{kj[2]:.3e} plain {pj[2]:.3e}, x rel err {rel:.3e}", flush=True)
         if kj[3] != pj[3] or not rel <= 1e-6:
-            fail(f"mixing jac2 transpose={tr}: sweeps differ or x rel err {rel:.3e} > 1e-6")
+            fail(f"{label} jac2 transpose={tr}: sweeps differ or x rel err {rel:.3e} > 1e-6")
         sweeps[tr] = kj[3]
     faces = sum(c.numel() for c in b_c)
     b_jac, by_jac = bound(8 * faces * 4, faces * (2 + 22 + 13 * sweeps[False]))
@@ -1019,7 +1109,6 @@ def mixing_kernels(dev, kernels: list) -> dict:
         bound_ms=b_jac, bound_by=by_jac)
 
     # the Laplace assembly with the mixing layer's masks (open outflow)
-    sim, dx = setup.sim, setup.domain.dx
     beta = dx[0] * dx[1] / setup.dt
     influence = [(dx[0] * dx[1] / dx[0] ** 2) / (beta - a) for a in st.diag_A]
     lmasks = laplace_mask_planes(sim.active_mask, sim.accessible_mask, (False, False), (ny, nx),
@@ -1029,10 +1118,10 @@ def mixing_kernels(dev, kernels: list) -> dict:
     l_err = maxerr(zip(k_lap[:5], p_lap[:5]))
     l_rel = max(rel_err(a, b) for a, b in zip(k_lap[:5], p_lap[:5]))
     s_rel = rel_err(k_lap[5], p_lap[5])
-    print(f"mixing laplace assembly vs plain: planes max abs err {l_err:.3e}, sum|diag| rel err "
+    print(f"{label} laplace assembly vs plain: planes max abs err {l_err:.3e}, sum|diag| rel err "
           f"{s_rel:.3e}", flush=True)
     if not (l_rel <= 1e-6 and s_rel <= 1e-5):
-        fail("mixing laplace assembly: kernel vs plain beyond rel 1e-6 (planes) / 1e-5 (sum)")
+        fail(f"{label} laplace assembly: kernel vs plain beyond rel 1e-6 (planes) / 1e-5 (sum)")
     b_lap, by_lap = bound(faces * 4 + 13 * plane + 4, 12 * ny * nx)
     out["laplace_assembly"] = dict(
         shape=[ny, nx], max_abs_err=l_err,
@@ -1281,6 +1370,477 @@ def mixing_path(dev, wrappers: dict) -> tuple:
     return fwd, timed[-1]["launches"]
 
 
+# -- the training workload (bench.py workload_training) ------------------------
+TRAIN_RES = (64, 256)
+TRAIN_SMALL = (32, 128)  # VALID padding needs ny >= 19
+TRAIN_TOL = 1e-6  # bench.py's --tol
+TRAIN_STEPS = 10
+TRAIN_BATCH = 8
+TRAIN_REPS = 5  # bench.py: 1 untimed + 5 timed iterations
+TRAIN_CHUNK = 10
+TRAIN_CHUNK_REPS = 2  # timed chunks after one untimed (bench.py takes 4)
+# card-vs-CPU and batched-vs-single checks: at tol 1e-7, where float32
+# solves resolve the weight gradient to 1e-3 (at 1e-5 the JAX package's own
+# two solver paths differ by up to 2.3e-3; tests/test_torch_training.py)
+TRAIN_CHECK_TOL = 1e-7
+
+
+def training_setup(res, dev):
+    from diffpiso_tpu_torch.core.setups import spatial_mixing_layer_setup
+
+    return spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.4},
+                                      max_iterations=(200, 2000), device=dev)
+
+
+def training_cfg(steps=TRAIN_STEPS, tol=TRAIN_TOL, remat="outputs", padding="VALID"):
+    from diffpiso_tpu_torch.learning.training import TrainingConfig
+
+    return TrainingConfig(step_count=steps, loss_influence_range=steps, padding=padding,
+                          advection_tol=tol, pressure_tol=tol, remat=remat)
+
+
+def training_frames(setup, cfg, nb):
+    """`nb` distinct samples as a dataset's frames: sample s starts from the
+    state s steps into a network-free run (perturbations at bench's times
+    550 + i dt), with perturbations from its own start and the
+    network-free rollout from there as its targets. Returns the batch
+    (vel0, p0, targets, perturbations) with a leading axis."""
+    import dataclasses
+
+    import torch
+
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.learning.training import make_rollout_fn
+
+    free = make_rollout_fn(setup, dataclasses.replace(cfg, remat="none",
+                                                      step_count=max(nb - 1, 1)),
+                           with_network=False)
+    v, p = setup.initial_state()
+    times = [550.0 + i * setup.dt for i in range(nb - 1 + cfg.step_count)]
+    pert = torch.stack([setup.perturbation(tm) for tm in times])
+    with torch.no_grad():
+        vw, pw, _ = free(None, v, p, pert[:max(nb - 1, 1)])
+    starts = [(v, p)] + [(StaggeredField(tuple(c[s] for c in vw.components)), pw[s])
+                         for s in range(nb - 1)]
+    roll = make_rollout_fn(setup, dataclasses.replace(cfg, remat="none"), with_network=False)
+    out = []
+    for s, (v0, p0) in enumerate(starts):
+        pe = pert[s:s + cfg.step_count]
+        with torch.no_grad():
+            tg, _, _ = roll(None, v0, p0, pe)
+        out.append((v0, p0, tg, pe))
+    stack = lambda xs: torch.stack(list(xs))
+    return (StaggeredField(tuple(stack(o[0].components[c] for o in out) for c in range(2))),
+            stack(o[1] for o in out),
+            StaggeredField(tuple(stack(o[2].components[c] for o in out) for c in range(2))),
+            stack(o[3] for o in out))
+
+
+def sample(batch, s):
+    """Sample s of a batch (vel0, p0, targets, perturbations)."""
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    v, p, tg, pe = batch
+    return (StaggeredField(tuple(c[s] for c in v.components)), p[s],
+            StaggeredField(tuple(c[s] for c in tg.components)), pe[s])
+
+
+def weight_grad(loss_fn, params, inputs):
+    """(loss, warn, weight gradient as float64 CPU tensors)."""
+    import torch
+
+    leaves = [w.detach().clone().requires_grad_(True) for w in params]
+    loss, (warn, _) = loss_fn(leaves, *inputs)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), warn, [g.double().cpu() for g in grads]
+
+
+def rel_l2_list(a, b) -> float:
+    import torch
+
+    num = sum(float(torch.sum((x.double().cpu() - y.double().cpu()) ** 2)) for x, y in zip(a, b))
+    den = sum(float(torch.sum(y.double().cpu() ** 2)) for y in b)
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def training_kernels(dev, kernels: list) -> dict:
+    """Phase 2d: the batch-folded jac2 kernel at the batch-8 training
+    workload's 64 x 256 shapes (faces 65 x 256 and 64 x 257), on the
+    operators of 8 distinct states (frames of a network-free run) and the
+    predictor's right-hand sides, forward and transposed, with a shared and
+    a per-sample tolerance: against its plain version and against 8 calls
+    of the single-sample jac2 kernel, bit-equal x and exit residuals and
+    equal per-sample sweeps. Appends the kernel's entry."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.ops.fv import fv_gradient
+    from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
+    from diffpiso_tpu_torch.solvers.jacobi2 import (
+        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain)
+
+    setup = training_setup(TRAIN_RES, dev)
+    cfg = training_cfg()
+    vel, p, _, pe = training_frames(setup, cfg, TRAIN_BATCH)
+    dx = setup.domain.dx
+    beta = dx[0] * dx[1] / setup.dt
+    sim = setup.sim
+    st = assemble_advection_stencil(vel, dx, setup.domain.velocity_pad_modes(),
+                                    sim.viscosity, beta, sim.dirichlet_mask, sim.active_mask,
+                                    sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic,
+                                    uniform=False)
+    dv = setup.dirichlet_values(pe[:, 0])
+    rhs = vel * beta - fv_gradient(p, dx, setup.domain.pressure_pad_modes(),
+                                   sim.accessible_mask)
+    b_c = tuple(torch.where(dm, -d, r).contiguous() for dm, d, r in zip(
+        sim.dirichlet_mask.components, dv.components, rhs.components))
+    st_cs = [(st.center[i].contiguous(), tuple(a.contiguous() for a in st.lo[i]),
+              tuple(a.contiguous() for a in st.hi[i])) for i in range(2)]
+    x_c = tuple(c.contiguous() for c in vel.components)
+    per_tol = np.asarray([1e-3, 1e-4, 1e-5, 1e-6, 1e-6, 3e-7, 1e-7, 1e-8], np.float32)
+    err, rows = 0.0, []
+    for transpose in (False, True):
+        for tol in (TRAIN_TOL, per_tol):
+            kx0, kx1, kn, ks = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose,
+                                                          tol, 33)
+            px0, px1, pn, ps = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
+            same = (torch.equal(kx0, px0) and torch.equal(kx1, px1)
+                    and np.array_equal(kn, pn) and np.array_equal(ks, ps))
+            tols = np.broadcast_to(np.asarray(tol, np.float32), (TRAIN_BATCH,))
+            single = True
+            for s in range(TRAIN_BATCH):
+                one = [(c[s], tuple(a[s] for a in lo), tuple(a[s] for a in hi))
+                       for c, lo, hi in st_cs]
+                z0, z1, zn, zs = fused_jacobi2_solve(one, tuple(b[s] for b in b_c),
+                                                     tuple(x[s] for x in x_c), -1.0, transpose,
+                                                     float(tols[s]), 33)
+                single &= (torch.equal(kx0[s], z0) and torch.equal(kx1[s], z1)
+                           and np.float32(kn[s]) == np.float32(zn) and int(ks[s]) == zs)
+            err = max(err, float((kx0 - px0).abs().max()), float((kx1 - px1).abs().max()))
+            rows.append(dict(transpose=transpose, per_sample_tol=not np.isscalar(tol),
+                             sweeps=ks.tolist(), bit_equal_plain=same,
+                             bit_equal_single_sample_kernel=single))
+            print(f"jac2 fold (B={TRAIN_BATCH}, {TRAIN_RES[0]}x{TRAIN_RES[1]}) transpose="
+                  f"{transpose} per-sample tol={not np.isscalar(tol)}: sweeps {ks.tolist()}, "
+                  f"bit-equal to plain {same}, to 8 single-sample kernels {single}", flush=True)
+            if not (same and single):
+                fail(f"jac2 fold transpose={transpose}: not bit-equal to its plain version and "
+                     f"the single-sample kernel per sample")
+    _, _, _, sw = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, False, TRAIN_TOL, 33)
+    cells = [b.numel() for b in b_c]  # B planes per component
+    # 14 planes in and 2 out per sample; per cell and component: the inverse
+    # diagonal (2 flops), the entry and exit residual matvecs (11 each) and
+    # 13 per sweep the sample runs (each sample's own sweeps)
+    bytes_moved = sum(8 * 4 * c for c in cells)
+    flops = sum(c / TRAIN_BATCH * float(np.sum(2 + 22 + 13 * sw)) for c in cells)
+    b_f, by_f = bound(bytes_moved, flops)
+    fn = lambda: fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, False, TRAIN_TOL, 33)
+    kernels.append(dict(
+        name="jacobi2_solve_folded", route="cuda",
+        source="diffpiso_tpu_torch/csrc/jacobi2_fold.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:839",
+        max_abs_err=err, ms=cuda_time_ms(fn, 50), **device_time(fn),
+        plain_ms=cuda_time_ms(lambda: jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, False,
+                                                         TRAIN_TOL, 33), 10),
+        bound_ms=b_f, bound_by=by_f, library_ms=None,
+        launches_count="kernel launches (per solve: entry residual, one per sweep, exit residual)",
+        batch=TRAIN_BATCH, sweeps=sw.tolist(), checks=rows,
+    ))
+    return {}
+
+
+def network_check(dev) -> None:
+    """The closure CNN at its published widths on a 64 x 256 input (VALID,
+    restore_shape): forward and its VJP (input and weights) on the card
+    against float64 on the CPU, rel l2 <= 1e-5, with cuDNN's TF32 switch
+    left as the caller has it (PyTorch's default: on). TF32 in the forward
+    or the backward would miss by ~1e-3."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.models.networks import fullyconv_apply, init_fullyconv
+
+    params = init_fullyconv(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4,) + TRAIN_RES).astype(np.float32)
+    ct = rng.standard_normal((2,) + TRAIN_RES).astype(np.float32)
+    res = {}
+    for key, d, dt in (("cuda", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float64)):
+        leaves = [torch.as_tensor(x, dtype=dt, device=d).requires_grad_(True)]
+        leaves += [w.to(d, dt).requires_grad_(True) for w in params]
+        y = fullyconv_apply(leaves[1:], leaves[0], "VALID", restore_shape=True)
+        g = torch.autograd.grad(y, leaves, torch.as_tensor(ct, dtype=dt, device=d))
+        res[key] = [y.detach()] + list(g)
+    errs = [rel_l2_list([a], [b]) for a, b in zip(res["cuda"], res["cpu"])]
+    print(f"closure CNN {TRAIN_RES[0]}x{TRAIN_RES[1]} (cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}), card vs CPU float64: forward rel l2 {errs[0]:.3e}, "
+          f"input VJP {errs[1]:.3e}, weight VJP max {max(errs[2:]):.3e}", flush=True)
+    if not max(errs) <= 1e-5:
+        fail(f"closure CNN: card vs float64 rel l2 {max(errs):.3e} > 1e-5 (TF32?)")
+
+
+def training_small_check(dev) -> None:
+    """Phase 8a: the closure CNN alone (`network_check`); then the training
+    loss and its weight gradient at 32 x 128 (3 steps, the published
+    network, VALID) on the card against the plain path on the CPU: loss
+    within rtol 1e-4, gradient rel l2 <= 1e-3, equal warn and every
+    adjoint's gate decision."""
+    import torch
+
+    from diffpiso_tpu_torch.learning.training import make_loss_fn, make_rollout_fn
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    network_check(dev)
+    res = {}
+    for key, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        setup = training_setup(TRAIN_SMALL, d)
+        cfg = training_cfg(steps=3, tol=TRAIN_CHECK_TOL)
+        rollout = make_rollout_fn(setup, cfg)
+        loss_fn = make_loss_fn(setup, cfg, rollout)
+        params = init_fullyconv(torch.Generator().manual_seed(0), device=d)
+        inputs = sample(training_frames(setup, cfg, 1), 0)
+        loss, warn, grads = weight_grad(loss_fn, params, inputs)
+        gates = [(a.system, bool(a.gated)) for s in rollout.stashes for a in s.adjoints]
+        res[key] = (loss, bool(warn), grads, gates)
+    lc, lp = res["cuda"][0], res["cpu"][0]
+    g_rel = rel_l2_list(res["cuda"][2], res["cpu"][2])
+    print(f"training {TRAIN_SMALL[0]}x{TRAIN_SMALL[1]} x 3 steps (tol {TRAIN_CHECK_TOL}), card vs "
+          f"CPU plain path: loss {lc:.6e} / {lp:.6e}, weight gradient rel l2 {g_rel:.3e}, warn "
+          f"{res['cuda'][1]} / {res['cpu'][1]}, gated adjoints "
+          f"{sum(g for _, g in res['cuda'][3])} / {sum(g for _, g in res['cpu'][3])} of "
+          f"{len(res['cpu'][3])}", flush=True)
+    if res["cuda"][1] != res["cpu"][1] or res["cuda"][3] != res["cpu"][3]:
+        fail("training card vs CPU: warn or adjoint gate decisions differ")
+    if not abs(lc - lp) <= 1e-4 * abs(lp):
+        fail(f"training card vs CPU: loss {lc} vs {lp} beyond rtol 1e-4")
+    if not g_rel <= 1e-3:
+        fail(f"training card vs CPU: weight gradient rel l2 {g_rel:.3e} > 1e-3")
+
+
+def training_b1_path(dev, wrappers: dict) -> dict:
+    """Phase 8b: bench.py workload_training at batch 1: 64 x 256, 10-step
+    unroll, four losses, Adam 1e-5, remat "outputs", synthetic targets from
+    a network-free rollout; 1 untimed and 5 timed train steps with the
+    launches counted over the timed ones (jac2 and the Laplace assembly 2 x
+    10 per step: forward, adjoint / replay; the PCG phases and any
+    BiCGSTAB hand-over as the loops' counters derive), then the chunked
+    loop (chunk 10). Returns the launches of the 5 timed steps."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.learning.optim import Adam
+    from diffpiso_tpu_torch.learning.training import (
+        make_chunked_train_step, make_loss_fn, make_rollout_fn, make_train_step)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    setup = training_setup(TRAIN_RES, dev)
+    cfg = training_cfg()
+    loss_fn = make_loss_fn(setup, cfg, make_rollout_fn(setup, cfg))
+    opt = Adam(1e-5)
+    params = init_fullyconv(torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = opt.init(params)
+    inputs = sample(training_frames(setup, cfg, 1), 0)
+    step = make_train_step(loss_fn, opt)
+    params, state, loss, parts, warn = step(params, state, *inputs)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    c0 = loop_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warns = 0
+    for _ in range(TRAIN_REPS):
+        params, state, loss, parts, warn = step(params, state, *inputs)
+        warns += int(warn)
+    loss_v = float(loss)
+    per_iter = (time.perf_counter() - t0) / TRAIN_REPS
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    loops, d = derived_launches(c0, loop_counters())
+    stack = lambda x: torch.stack([x] * TRAIN_CHUNK)
+    v0, p0, tg, pe = inputs
+    cin = (StaggeredField(tuple(stack(c) for c in v0.components)), stack(p0),
+           StaggeredField(tuple(stack(c) for c in tg.components)), stack(pe))
+    cstep = make_chunked_train_step(loss_fn, opt, TRAIN_CHUNK)
+    pc, sc, losses, _, cwarns = cstep(params, state, *cin)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CHUNK_REPS):
+        pc, sc, losses, _, cw = cstep(pc, sc, *cin)
+        cwarns = np.concatenate([cwarns, cw])
+    torch.cuda.synchronize()
+    per_chunk_iter = (time.perf_counter() - t0) / (TRAIN_CHUNK_REPS * TRAIN_CHUNK)
+    finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(w).all()) for w in pc)
+    print(json.dumps(dict(
+        workload=f"closure training iteration {TRAIN_RES[0]}x{TRAIN_RES[1]}, "
+                 f"{TRAIN_STEPS}-step unroll, 4 losses, Adam, batch 1",
+        train_iterations_per_sec=1.0 / per_iter, samples_per_sec=1.0 / per_iter,
+        unrolled_steps_per_sec=TRAIN_STEPS / per_iter, loss=loss_v, warn=bool(warns),
+        parts=[float(x) for x in parts], count=int(state.count),
+        chunked_train_iterations_per_sec=1.0 / per_chunk_iter, chunked_scan_chunk=TRAIN_CHUNK,
+        chunked_warn=bool(cwarns.any()), timed_iterations=TRAIN_REPS, launches=counts,
+        loop_counters=d,
+    )), flush=True)
+    if warns or cwarns.any() or not finite:
+        fail("training batch 1: a step warned or its loss / weights are not finite")
+    if int(sc.count) != 1 + TRAIN_REPS + (1 + TRAIN_CHUNK_REPS) * TRAIN_CHUNK:
+        fail(f"training batch 1: Adam count {int(sc.count)}: an update was skipped")
+    # per train step: the mixing layer's kernels (jac2 once per forward step
+    # and per adjoint, the bounded FV trio, the matvec, the Laplace assembly,
+    # the PCG phases) and never the periodic ones, pcg2 or the fold
+    for k in ("jacobi2_solve", "grad2m", "div2m", "gradT2m", "stencil_matvec", "laplace_assembly",
+              "pcg_apply"):
+        if not counts[k]:
+            fail(f"training batch 1: {k} never launched")
+    n_solves = 2 * TRAIN_STEPS * TRAIN_REPS
+    if counts["jacobi2_solve"] != n_solves or counts["laplace_assembly"] != n_solves:
+        fail(f"training batch 1: jac2 {counts['jacobi2_solve']} / Laplace assembly "
+             f"{counts['laplace_assembly']} launches, expected {n_solves} each")
+    for k, want in loops.items():
+        if counts[k] != want:
+            fail(f"training batch 1: {k} launched {counts[k]} times, the loops derive {want}")
+    for k in ("advection_assembly", "pcg2_solve", "div2", "grad2", "corrector1_bridge",
+              "corrector2_tail", "jacobi2_solve_folded"):
+        if counts[k]:
+            fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
+    return counts
+
+
+class GradCapture:
+    """An optimizer whose update is zero and whose new state is the gradient
+    it was given: a train step's state output is its (masked-mean)
+    gradient."""
+
+    def init(self, params):
+        import torch
+
+        return tuple(torch.zeros_like(p) for p in params)
+
+    def update(self, grads, state):
+        import torch
+
+        return [torch.zeros_like(g) for g in grads], tuple(grads)
+
+
+def training_batched_check(dev) -> None:
+    """Phase 9a: 8 distinct samples at 64 x 256 (10 steps, tol 1e-7): the
+    batched train step on the card against 8 batch-1 card runs, per-sample
+    loss within rtol 1e-4 and the masked-mean weight gradient within rel l2
+    1e-3 of the mean of the 8 single-sample gradients."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.learning.training import (
+        make_batched_train_step, make_loss_fn, make_rollout_fn)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    setup = training_setup(TRAIN_RES, dev)
+    cfg = training_cfg(tol=TRAIN_CHECK_TOL, remat="none")
+    loss_fn = make_loss_fn(setup, cfg, make_rollout_fn(setup, cfg))
+    params = init_fullyconv(torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = training_frames(setup, cfg, TRAIN_BATCH)
+    opt = GradCapture()
+    _, mean_g, _, parts, bwarns = make_batched_train_step(loss_fn, opt)(params, opt.init(params),
+                                                                          *batch)
+    losses = parts.sum(-1)
+    single_l, single_g, single_w = [], [], []
+    b1_cfg = training_cfg(tol=TRAIN_CHECK_TOL)
+    b1_loss = make_loss_fn(setup, b1_cfg, make_rollout_fn(setup, b1_cfg))
+    for s in range(TRAIN_BATCH):
+        loss, warn, grads = weight_grad(b1_loss, params, sample(batch, s))
+        single_l.append(loss)
+        single_g.append(grads)
+        single_w.append(bool(warn))
+    want_g = [sum(g[i] for g in single_g) / TRAIN_BATCH for i in range(len(params))]
+    l_rel = max(abs(float(losses[s]) - single_l[s]) / abs(single_l[s]) for s in range(TRAIN_BATCH))
+    g_rel = rel_l2_list(mean_g, want_g)
+    print(f"training batch {TRAIN_BATCH} (distinct samples, tol {TRAIN_CHECK_TOL}) vs "
+          f"{TRAIN_BATCH} batch-1 runs on the card: per-sample loss max rel {l_rel:.3e}, "
+          f"masked-mean weight gradient rel l2 {g_rel:.3e}, warns {np.asarray(bwarns).tolist()} / "
+          f"{single_w}", flush=True)
+    if np.asarray(bwarns).any() or any(single_w):
+        fail("training batch 8 check: a solve warned")
+    if not l_rel <= 1e-4:
+        fail(f"training batch 8 vs batch 1: per-sample loss rel {l_rel:.3e} > 1e-4")
+    if not g_rel <= 1e-3:
+        fail(f"training batch 8 vs batch 1: gradient rel l2 {g_rel:.3e} > 1e-3")
+
+
+def training_b8_path(dev, wrappers: dict) -> dict:
+    """Phase 9b: bench.py workload_training at batch 8 as bench stacks it (8
+    copies of the sample), remat "none": 1 untimed and 5 timed train steps,
+    launches counted over the timed ones. The fold kernel launches exactly
+    as its per-sample sweep counters derive (per solve: entry, one per
+    sweep of its slowest sample, exit), and no single-sample 2-D kernel
+    launches (the batched regime runs the plain formulations elsewhere, as
+    the JAX package's vmapped step does under no_pallas)."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.learning.optim import Adam
+    from diffpiso_tpu_torch.learning.training import (
+        make_batched_train_step, make_loss_fn, make_rollout_fn)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+    from diffpiso_tpu_torch.solvers import krylov
+
+    setup = training_setup(TRAIN_RES, dev)
+    cfg = training_cfg(remat="none")
+    loss_fn = make_loss_fn(setup, cfg, make_rollout_fn(setup, cfg))
+    opt = Adam(1e-5)
+    params = init_fullyconv(torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = opt.init(params)
+    v0, p0, tg, pe = sample(training_frames(setup, cfg, 1), 0)
+    stack = lambda x: torch.stack([x] * TRAIN_BATCH)
+    batch = (StaggeredField(tuple(stack(c) for c in v0.components)), stack(p0),
+             StaggeredField(tuple(stack(c) for c in tg.components)), stack(pe))
+    step = make_batched_train_step(loss_fn, opt)
+    params, state, loss, parts, warns = step(params, state, *batch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    solves0 = krylov.bicgstab_batched.jacobi_solves
+    sweeps0 = krylov.bicgstab_batched.jacobi_sweeps
+    fb0 = krylov.bicgstab_batched.fallbacks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    any_warn = False
+    for _ in range(TRAIN_REPS):
+        params, state, loss, parts, warns = step(params, state, *batch)
+        any_warn |= bool(np.asarray(warns).any())
+    loss_v = float(loss)
+    per_iter = (time.perf_counter() - t0) / TRAIN_REPS
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    solves = krylov.bicgstab_batched.jacobi_solves - solves0
+    sweeps = krylov.bicgstab_batched.jacobi_sweeps - sweeps0
+    derived = 2 * solves + sweeps
+    print(json.dumps(dict(
+        workload=f"closure training iteration {TRAIN_RES[0]}x{TRAIN_RES[1]}, "
+                 f"{TRAIN_STEPS}-step unroll, 4 losses, Adam, batch {TRAIN_BATCH}",
+        train_iterations_per_sec=1.0 / per_iter, samples_per_sec=TRAIN_BATCH / per_iter,
+        unrolled_steps_per_sec=TRAIN_STEPS * TRAIN_BATCH / per_iter, loss=loss_v,
+        warn=any_warn, count=int(state.count), folded_solves=solves,
+        fold_sweeps_per_solve_mean=sweeps / solves if solves else 0,
+        bicgstab_fallback_samples=krylov.bicgstab_batched.fallbacks - fb0,
+        launches=counts,
+    )), flush=True)
+    if any_warn or not np.isfinite(loss_v):
+        fail("training batch 8: a sample warned or the loss is not finite")
+    if int(state.count) != 1 + TRAIN_REPS:
+        fail(f"training batch 8: Adam count {int(state.count)}: an update was skipped")
+    # a forward and an adjoint momentum solve per unrolled step and iteration
+    if solves != 2 * TRAIN_STEPS * TRAIN_REPS:
+        fail(f"training batch 8: {solves} folded solves, expected "
+             f"{2 * TRAIN_STEPS * TRAIN_REPS}")
+    if not (counts["jacobi2_solve_folded"] == derived > 0):
+        fail(f"training batch 8: fold launches {counts['jacobi2_solve_folded']}, the sweep "
+             f"counters derive {derived}")
+    for k, c in counts.items():
+        if k != "jacobi2_solve_folded" and c:
+            fail(f"training batch 8: {k} launched {c} times (the batched regime runs it plain)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1305,11 +1865,11 @@ def main() -> int:
     from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
-    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+    from diffpiso_tpu_torch.solvers.jacobi2 import (
+        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
     from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     # -- phase 1: the card and the build ------------------------------------------
@@ -1412,6 +1972,7 @@ def main() -> int:
         **device_time(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)),
         plain_ms=cuda_time_ms(lambda: jacobi2_plain(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33), 10),
         bound_ms=b_jac, bound_by=by_jac, library_ms=None,
+        launches_count="whole solves (each: entry residual, one launch per sweep, exit residual)",
     ))
 
     kx0, kx1, _, _ = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
@@ -1573,7 +2134,13 @@ def main() -> int:
     cavity_measured = cavity_kernels(dev, kernels)
 
     # -- phase 2c: the mixing layer's kernels at 128 x 512 --------------------------
-    mixing_measured = mixing_kernels(dev, kernels)
+    mixing_measured = mixing_kernels(dev, kernels, mixing_setup(MIX_RES, dev), "mixing")
+
+    # -- phase 2d: the batch-folded jac2 at the batch-8 training shapes ---------------
+    training_kernels(dev, kernels)
+
+    # -- phase 2e: the batch-1 training path's kernels at its 64 x 256 shapes -----------
+    training_measured = mixing_kernels(dev, None, training_setup(TRAIN_RES, dev), "training")
 
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
@@ -1631,6 +2198,8 @@ def main() -> int:
         "pcg_residual": (pcgphases.fused_residual, 0),
         "pcg_apply": (pcgphases.fused_pcg_apply, 0),
         "pcg_update": (pcgphases.fused_pcg_update, 0),
+        # the batch-folded jac2: only the batched training regime takes it
+        "jacobi2_solve_folded": (fused_jacobi2_solve_folded, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -1728,7 +2297,7 @@ def main() -> int:
         "div2": 3 * U - 1, "grad2": 3 * U,
         "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
-        "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0,
+        "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -1804,6 +2373,14 @@ def main() -> int:
     mixing_small_check(dev)
     mix_fwd, mix_grad = mixing_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
 
+    # -- phase 8: closure training at batch 1 (bench.py workload_training) -------------
+    training_small_check(dev)
+    train_b1 = training_b1_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+
+    # -- phase 9: closure training at batch 8 --------------------------------------------
+    training_batched_check(dev)
+    train_b8 = training_b8_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -1812,7 +2389,10 @@ def main() -> int:
     # run; every path's counts stand beside them
     for entry in kernels:
         name = entry["name"]
-        if name in MIXING_KERNELS:
+        if name == "jacobi2_solve_folded":
+            entry["path"] = "training batch 8"
+            entry["launches"] = train_b8[name]
+        elif name in MIXING_KERNELS:
             entry["path"] = "mixing forward"
             entry["launches"] = mix_fwd[name]
         elif name in CAVITY_KERNELS:
@@ -1827,10 +2407,14 @@ def main() -> int:
         entry["cavity_grad30_launches"] = cav_grad[name]
         entry["mixing_launches"] = mix_fwd[name]
         entry["mixing_grad30_launches"] = mix_grad[name]
+        entry["training_b1_launches"] = train_b1[name]
+        entry["training_b8_launches"] = train_b8[name]
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]
         if name in mixing_measured:
             entry["mixing"] = mixing_measured[name]
+        if name in training_measured:
+            entry["training"] = training_measured[name]
         if not entry["launches"]:
             fail(f"{name}: never launched on its path")
     measure_device_times(kernels)

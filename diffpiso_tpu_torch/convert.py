@@ -1,11 +1,12 @@
 """State carried between the reference package and this port, as numpy.
 
-The solver has no learned weights on the forward path: what must match is
-the state (staggered velocity, pressure) and the operator constants
-(SimulationParameters: masks, scalars and solver configs). These functions
+What must match is the state (staggered velocity, pressure), the operator
+constants (SimulationParameters: masks, scalars and solver configs) and,
+for training, the closure's weights and the Adam state. These functions
 take plain numpy arrays / dicts — produced from either package — and build
 the port's objects, and turn the port's objects back into numpy, so tests
-can feed both packages the same inputs and compare outputs."""
+can feed both packages the same inputs and compare outputs. The JAX
+package stores convolution weights HWIO, the port OIHW."""
 
 from __future__ import annotations
 
@@ -92,4 +93,53 @@ def simulation_parameters_to_numpy(sim: SimulationParameters) -> dict:
         bool_periodic=tuple(sim.bool_periodic),
         linear_solver=dataclasses.asdict(sim.linear_solver),
         pressure_solver=dataclasses.asdict(sim.pressure_solver),
+    )
+
+
+def fullyconv_params_from_jax(params, device=None) -> list:
+    """The closure's weights: HWIO arrays (the JAX package) -> OIHW float32
+    tensors."""
+    return [tensor(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)), device)
+            for w in params]
+
+
+def fullyconv_params_to_jax(params) -> list:
+    """OIHW tensors -> HWIO numpy arrays."""
+    return [np.transpose(to_numpy(w), (2, 3, 1, 0)) for w in params]
+
+
+def adam_state_from_jax(state, device=None):
+    """An Adam state given as optax's (its `ScaleByAdamState`, or the tuple
+    `optax.adam` returns, or a dict with count / mu / nu; moments HWIO) ->
+    the port's AdamState (moments OIHW)."""
+    from diffpiso_tpu_torch.learning.optim import AdamState
+
+    if isinstance(state, (tuple, list)) and not hasattr(state, "mu"):
+        state = next(s for s in state if hasattr(s, "mu") or isinstance(s, dict))
+    get = (lambda k: state[k]) if isinstance(state, dict) else (lambda k: getattr(state, k))
+    return AdamState(
+        count=tensor(np.asarray(get("count"), np.int32), device),
+        mu=tuple(fullyconv_params_from_jax(get("mu"), device)),
+        nu=tuple(fullyconv_params_from_jax(get("nu"), device)),
+    )
+
+
+def adam_state_to_numpy(state) -> dict:
+    """The port's AdamState -> dict(count, mu, nu) with HWIO moments."""
+    return dict(count=int(to_numpy(state.count)), mu=fullyconv_params_to_jax(state.mu),
+                nu=fullyconv_params_to_jax(state.nu))
+
+
+def stack_samples(samples, device=None):
+    """Per-sample training inputs -> one batch: `samples` is a sequence of
+    (vel0 components, p0, target components, perturbations) as numpy
+    (targets time-major); returns (vel0, p0, targets, perturbations) with a
+    leading batch axis."""
+    vel0, p0, targets, perts = zip(*samples)
+    stack = lambda arrs: tensor(np.stack([np.asarray(a, np.float32) for a in arrs]), device)
+    return (
+        StaggeredField(tuple(stack([v[c] for v in vel0]) for c in range(len(vel0[0])))),
+        stack(p0),
+        StaggeredField(tuple(stack([tg[c] for tg in targets]) for c in range(len(targets[0])))),
+        stack(perts),
     )

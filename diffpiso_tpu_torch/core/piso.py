@@ -30,7 +30,16 @@ are autograd Functions with implicit-function-theorem adjoints
 the operator coefficients carry no gradient. `warn` and `p_iterations`
 are host values: the solves read their convergence norms back anyway.
 `full_output` returns the intermediates dict of the reference. The
-adjoint warm-start channels (`adjoint_channels`) are not ported."""
+adjoint warm-start channels (`adjoint_channels`) are not ported.
+
+B samples advance at once when the state carries a leading batch axis
+(velocity components (B, ...), pressure (B, ny, nx)); the masks and the
+viscosity are shared, the Dirichlet values, forcing and guesses are per
+sample. That is the batched training regime (learning/training.py), the
+counterpart of the JAX package's `jax.vmap` of this step at small planes:
+everything runs its plain formulation there except the batch-folded
+momentum Jacobi kernel (solvers/jacobi2.py), the solves loop per sample
+(solvers/krylov.py), and warn / p_iterations are (B,) arrays."""
 
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import functools
 import math as _math
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.domain import Domain
@@ -96,9 +106,9 @@ class PisoOutput(NamedTuple):
     pressure: torch.Tensor
     pressure_inc1: torch.Tensor
     pressure_inc2: torch.Tensor
-    warn: bool  # any solve failed (momentum or either pressure corrector)
+    warn: Any  # any solve failed (momentum or either pressure corrector); (B,) when batched
     adv_residual: torch.Tensor
-    p_iterations: Tuple[int, int]  # iterations of the two pressure solves
+    p_iterations: Tuple[Any, Any]  # iterations of the two pressure solves; (B,) each when batched
     intermediates: Any  # dict when full_output else None
 
 
@@ -230,7 +240,8 @@ def piso_step(
         pressure=new_pressure,
         pressure_inc1=p_inc1,
         pressure_inc2=p_inc2,
-        warn=bool(warn or pw1 or pw2),
+        warn=(np.asarray(warn) | np.asarray(pw1) | np.asarray(pw2)) if velocity.batched
+        else bool(warn or pw1 or pw2),
         adv_residual=torch.zeros((), device=pressure.device),
         p_iterations=(iters1, iters2),
         intermediates=intermediates,

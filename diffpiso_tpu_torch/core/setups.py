@@ -164,15 +164,21 @@ class MixingLayerSetup:
 
     def dirichlet_values(self, perturbation=None) -> StaggeredField:
         """The Dirichlet values with the inflow perturbation (ny + 2 points)
-        added to the base profile on the inflow column."""
+        added to the base profile on the inflow column. A perturbation of
+        shape (B, ny + 2) gives B samples' values (a leading batch axis)."""
         base = self.sim.dirichlet_values
         if perturbation is None:
             return base
-        u = base.components[1].clone()
+        v, u = base.components
+        if perturbation.ndim == 2:
+            nb = perturbation.shape[0]
+            v = v.expand(nb, *v.shape).contiguous()
+            u = u.expand(nb, *u.shape)
+        u = u.clone()
         profile = torch.as_tensor(self.inflow_profile, dtype=u.dtype,
-                                  device=u.device)[1:-1] + perturbation[1:-1]
-        u[:, 0] = profile.to(u.dtype)
-        return StaggeredField((base.components[0], u), periodic=base.periodic)
+                                  device=u.device)[1:-1] + perturbation[..., 1:-1]
+        u[..., :, 0] = profile.to(u.dtype)
+        return StaggeredField((v, u), periodic=base.periodic)
 
     def initial_state(self):
         """u = the inflow profile everywhere, v = 0, p = 0."""

@@ -1,6 +1,7 @@
 """Staggered (MAC) velocity container.
 
-Counterpart of diffpiso_tpu/fields/grid.py StaggeredField: arrays are
+Counterpart of diffpiso_tpu/fields/grid.py StaggeredField (with
+`at_centers`): arrays are
 (y, x); component d is the velocity along axis d sampled on the faces
 normal to d, components = (v, u). On periodic axes only the unique faces
 are stored (shape = resolution along d), so wraps are plain rolls."""
@@ -45,10 +46,18 @@ class StaggeredField:
 
     @property
     def resolution(self) -> Tuple[int, ...]:
+        """Cells per axis, read from the trailing `rank` axes (a leading
+        batch axis is not part of the grid)."""
+        rank = self.rank
         return tuple(
-            self.components[d].shape[d] - (0 if self.periodic[d] else 1)
-            for d in range(self.rank)
+            self.components[d].shape[d - rank] - (0 if self.periodic[d] else 1)
+            for d in range(rank)
         )
+
+    @property
+    def batched(self) -> bool:
+        """The components carry a leading batch axis (B samples)."""
+        return self.components[0].ndim == self.rank + 1
 
     @property
     def dtype(self):
@@ -57,6 +66,22 @@ class StaggeredField:
     @property
     def device(self):
         return self.components[0].device
+
+    def at_centers(self) -> torch.Tensor:
+        """Linear interpolation of every component to the cell centers,
+        stacked on a trailing channel axis in component order (v, u):
+        (..., ny, nx, rank). Components act on their trailing `rank` axes,
+        so a leading batch or time axis passes through."""
+        rank = self.rank
+        outs = []
+        for d, comp in enumerate(self.components):
+            ax = d - rank
+            if self.periodic[d]:
+                outs.append(0.5 * (comp + torch.roll(comp, -1, ax)))
+            else:
+                n = comp.shape[ax]
+                outs.append(0.5 * (comp.narrow(ax, 0, n - 1) + comp.narrow(ax, 1, n - 1)))
+        return torch.stack(outs, dim=-1)
 
     def map(self, f: Callable[[torch.Tensor], torch.Tensor]) -> "StaggeredField":
         return StaggeredField(tuple(f(c) for c in self.components), periodic=self.periodic)

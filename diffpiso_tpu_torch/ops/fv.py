@@ -58,16 +58,18 @@ def pad_staggered(field: StaggeredField, modes, width: int = 1) -> Tuple[torch.T
     drops that face before wrapping and pads one more on the high side, so
     the wrap runs over the unique faces (fields marked periodic store
     unique faces already)."""
-    modes = _modes(modes, field.rank)
+    rank = field.rank
+    modes = _modes(modes, rank)
     out = []
     for c, data in enumerate(field.components):
-        for axis in range(field.rank):
-            lo, hi = modes[axis]
+        for d in range(rank):
+            axis = d - rank  # a leading batch axis passes through
+            lo, hi = modes[d]
             w_hi = width
             if lo == CIRCULAR or hi == CIRCULAR:
                 if not lo == hi == CIRCULAR:
                     raise ValueError("periodic axes must wrap on both sides")
-                if axis == c and not field.periodic[axis]:
+                if d == c and not field.periodic[d]:
                     data = _slice(data, axis, 0, data.shape[axis] - 1)
                     w_hi = width + 1
             data = torch.cat([_pad_side(data, axis, width, lo, False), data,
@@ -102,24 +104,29 @@ def centered_to_staggered(data: torch.Tensor, pad_modes=REPLICATE) -> StaggeredF
 
 def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
     """Volume-integrated divergence sum_d (comp_d[+1] - comp_d) prod(dx)/dx_d,
-    from the faces the field stores (no padding)."""
+    from the faces the field stores (no padding). The components may carry
+    a leading batch axis."""
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
     comps = field.components
     fs = tuple(dxprod / d for d in dx)
-    if field.rank == 2 and all(field.periodic) \
-            and fv2.eligible2([c.shape for c in comps], comps[0].dtype):
-        return fv2.div2(fs, comps)
+    # the kernels' gates take 2-D planes only: B samples at once (a leading
+    # batch axis) run the plain formulation below
     if field.rank == 2:
-        out_shape = (comps[1].shape[0], comps[0].shape[1])
+        if all(field.periodic) and fv2.eligible2([c.shape for c in comps], comps[0].dtype):
+            return fv2.div2(fs, comps)
+        out_shape = (comps[1].shape[-2], comps[0].shape[-1])
         if fv2m.eligible2m([c.shape for c in comps], out_shape, field.periodic, comps[0].dtype):
             return fv2m.div2m(fs, field.periodic, comps)
+    rank = field.rank
     total = None
     for d, comp in enumerate(comps):
+        ax = d - rank
         if field.periodic[d]:
-            diff = torch.roll(comp, -1, d) - comp
+            diff = torch.roll(comp, -1, ax) - comp
         else:
-            diff = _slice(comp, d, 1, comp.shape[d]) - _slice(comp, d, 0, comp.shape[d] - 1)
+            n = comp.shape[ax]
+            diff = _slice(comp, ax, 1, n) - _slice(comp, ax, 0, n - 1)
         term = diff * fs[d]
         total = term if total is None else total + term
     return total
@@ -155,19 +162,21 @@ def fv_gradient(
     the pressure pad modes (zero at solid walls, replicate at open
     boundaries; wrap on periodic axes, unique faces). Faces touching an
     inaccessible cell are zeroed when `accessible_mask` (padded, res+2) is
-    given."""
+    given. `pressure` may carry a leading batch axis (B samples)."""
     dx = tuple(float(d) for d in dx)
     dxprod = _math.prod(dx)
-    rank = pressure.ndim
+    rank = len(dx)
     modes = _modes(pad_modes, rank)
     periodic = tuple(lo == CIRCULAR for lo, _ in modes)
     fs = tuple(dxprod / d for d in dx)
+    # the kernels' gates take 2-D planes only: B samples at once (a leading
+    # batch axis) run the plain formulation below
     if rank == 2 and all(periodic) and fv2.eligible2([pressure.shape], pressure.dtype):
         comps = list(fv2.grad2(fs, pressure))
         if accessible_mask is not None:
             comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
         return StaggeredField(tuple(comps), periodic=periodic)
-    if rank == 2 and all(
+    if rank == 2 and pressure.ndim == 2 and all(
             periodic[d] or all(m in (ZERO, REPLICATE, SYMMETRIC) for m in modes[d])
             for d in range(2)):
         shapes = fv2m.face_shapes(pressure.shape, periodic)
@@ -182,12 +191,13 @@ def fv_gradient(
             return StaggeredField(tuple(comps), periodic=periodic)
     comps = []
     for d in range(rank):
+        ax = d - rank  # a leading batch axis passes through
         lo_mode, hi_mode = modes[d]
         if lo_mode == CIRCULAR:
-            grad = pressure - torch.roll(pressure, 1, d)
+            grad = pressure - torch.roll(pressure, 1, ax)
         else:
-            lower = torch.cat([_pad_side(pressure, d, 1, lo_mode, False), pressure], d)
-            upper = torch.cat([pressure, _pad_side(pressure, d, 1, hi_mode, True)], d)
+            lower = torch.cat([_pad_side(pressure, ax, 1, lo_mode, False), pressure], ax)
+            upper = torch.cat([pressure, _pad_side(pressure, ax, 1, hi_mode, True)], ax)
             grad = upper - lower
         comps.append(grad * fs[d])
     if accessible_mask is not None:

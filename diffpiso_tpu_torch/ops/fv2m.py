@@ -52,11 +52,12 @@ def face_shapes(shape, periodic):
 
 
 def eligible2m(comp_shapes, out_shape, periodic, dtype) -> bool:
-    """Gate of the bounded rank-2 trio: float32 planes whose face shapes
-    fit the centered shape and the periodic flags."""
+    """Gate of the bounded rank-2 trio: float32 2-D planes whose face
+    shapes fit the centered shape and the periodic flags."""
     return (
         dtype == torch.float32
         and len(out_shape) == 2
+        and all(len(s) == 2 for s in comp_shapes)
         and tuple(map(tuple, comp_shapes)) == face_shapes(out_shape, periodic)
     )
 

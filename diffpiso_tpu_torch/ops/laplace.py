@@ -27,7 +27,11 @@ import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops import matvec
-from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly
+from diffpiso_tpu_torch.ops.laplace_assembly import (
+    eligible as assembly_eligible,
+    fused_laplace_assembly,
+    laplace_assembly_plain,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +39,17 @@ class LaplaceStencil:
     center: torch.Tensor
     lo: Tuple[torch.Tensor, ...]
     hi: Tuple[torch.Tensor, ...]
-    shift: torch.Tensor  # rank-one shift scale s (0 when full rank)
+    shift: torch.Tensor  # rank-one shift scale s (0 when full rank); (B,) when batched
     periodic: Tuple[bool, ...]
 
     @property
     def rank(self) -> int:
-        return self.center.ndim
+        return len(self.lo)
+
+    @property
+    def batched(self) -> bool:
+        """The planes carry a leading batch axis (B samples)."""
+        return self.center.ndim == len(self.lo) + 1
 
 
 def _nwin(mask, off, res):
@@ -102,9 +111,12 @@ def assemble_pressure_laplacian(
     periodic = tuple(bool(p) for p in periodic)
     dtype = influence.dtype
     masks = laplace_mask_planes(active_mask, accessible_mask, periodic, res, dtype)
-    center, lo_y, hi_y, lo_x, hi_x, sum_abs = fused_laplace_assembly(
-        influence.components[0].detach().contiguous(),
-        influence.components[1].detach().contiguous(),
+    comps = influence.components
+    assemble = (fused_laplace_assembly if assembly_eligible([c.shape for c in comps], dtype)
+                else laplace_assembly_plain)
+    center, lo_y, hi_y, lo_x, hi_x, sum_abs = assemble(
+        comps[0].detach().contiguous(),
+        comps[1].detach().contiguous(),
         masks, periodic,
     )
     n = float(np.prod(res))
@@ -115,9 +127,11 @@ def assemble_pressure_laplacian(
 
 
 def apply_laplacian(st: LaplaceStencil, p: torch.Tensor) -> torch.Tensor:
-    """z = L p + s sum(p)."""
+    """z = L p + s sum(p) (per sample when batched)."""
     if matvec.eligible(p.shape, p.dtype):
         z = matvec.fused_stencil_matvec(st.center, st.lo, st.hi, p)
     else:
         z = matvec.stencil_apply_plain(st.center, st.lo, st.hi, p)
+    if st.batched:
+        return z + st.shift[:, None, None] * torch.sum(p, dim=(-2, -1), keepdim=True)
     return z + st.shift * torch.sum(p)

@@ -29,20 +29,29 @@ _SIGS = {
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
 
 
+def eligible(comp_shapes, dtype) -> bool:
+    """The kernel takes float32 2-D influence planes; B samples at once (a
+    leading batch axis) run the plain version."""
+    return dtype == torch.float32 and all(len(s) == 2 for s in comp_shapes)
+
+
 def laplace_assembly_plain(comp_y, comp_x, masks, periodic):
     """Plain PyTorch version. masks: (8, ny, nx) in the order
     (mdl_y, mdh_y, mdl_x, mdh_x, mll_y, mlh_y, mll_x, mlh_x). Returns
-    (center, lo_y, hi_y, lo_x, hi_x, sum_abs_diag)."""
+    (center, lo_y, hi_y, lo_x, hi_x, sum_abs_diag). The influence planes
+    may carry a leading batch axis; sum |diag| is then one per sample."""
     py, px = periodic
     ny, nx = masks.shape[1:]
-    ilo_y = comp_y[:ny]
-    ihi_y = torch.roll(comp_y, -1, 0) if py else comp_y[1:ny + 1]
-    ilo_x = comp_x[:, :nx]
-    ihi_x = torch.roll(comp_x, -1, 1) if px else comp_x[:, 1:nx + 1]
+    ilo_y = comp_y[..., :ny, :]
+    ihi_y = torch.roll(comp_y, -1, -2) if py else comp_y[..., 1:ny + 1, :]
+    ilo_x = comp_x[..., :nx]
+    ihi_x = torch.roll(comp_x, -1, -1) if px else comp_x[..., 1:nx + 1]
     m = masks
     diag = -(m[0] * ilo_y + m[1] * ihi_y + m[2] * ilo_x + m[3] * ihi_x)
-    return (diag, m[4] * ilo_y, m[5] * ihi_y, m[6] * ilo_x, m[7] * ihi_x,
-            torch.sum(torch.abs(diag)))
+    # a leading batch axis (B samples, shared masks) gives B sums
+    sum_abs = torch.sum(torch.abs(diag)) if diag.ndim == 2 \
+        else torch.sum(torch.abs(diag), dim=(-2, -1))
+    return (diag, m[4] * ilo_y, m[5] * ihi_y, m[6] * ilo_x, m[7] * ihi_x, sum_abs)
 
 
 def fused_laplace_assembly(comp_y, comp_x, masks, periodic):

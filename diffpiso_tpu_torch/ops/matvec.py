@@ -38,15 +38,20 @@ def eligible(shape, dtype) -> bool:
 
 def stencil_apply_plain(center, lo, hi, x, transpose=False):
     """The (2 rank + 1)-point roll matvec on a plane or volume of any rank
-    and dtype: lo[d], hi[d] couple x to its neighbours at -e_d, +e_d."""
+    and dtype: lo[d], hi[d] couple x to its neighbours at -e_d, +e_d. The
+    stencil acts on the trailing len(lo) axes, so a leading batch axis
+    (planes of B samples, each with its own coefficients) never mixes
+    samples."""
+    rank = len(lo)
     z = center * x
-    for d in range(x.ndim):
+    for d in range(rank):
+        ax = d - rank
         if not transpose:
-            z = z + lo[d] * torch.roll(x, 1, d)
-            z = z + hi[d] * torch.roll(x, -1, d)
+            z = z + lo[d] * torch.roll(x, 1, ax)
+            z = z + hi[d] * torch.roll(x, -1, ax)
         else:
-            z = z + torch.roll(lo[d] * x, -1, d)
-            z = z + torch.roll(hi[d] * x, 1, d)
+            z = z + torch.roll(lo[d] * x, -1, ax)
+            z = z + torch.roll(hi[d] * x, 1, ax)
     return z
 
 

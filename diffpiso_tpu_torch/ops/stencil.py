@@ -50,8 +50,9 @@ class AdvectionStencil:
 
 
 def _win(arr, off, size):
-    """Window of a 1-padded array: arr[1+off : 1+off+size] per axis."""
-    return arr[tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, size))]
+    """Window of a 1-padded array: arr[1+off : 1+off+size] per trailing
+    axis (a leading batch axis passes through)."""
+    return arr[(Ellipsis,) + tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, size))]
 
 
 def _interior_masks(shape, d: int, periodic: bool, device):
@@ -77,8 +78,8 @@ def uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
 def advassembly_eligible(velocity, viscosity, periodic, uniform: bool) -> bool:
     """Kernel 1 takes the field: a periodic float32 plane pair of one shape,
     scalar viscosity, and `uniform` masks (`uniform_masks` of the masks)."""
-    if velocity.rank != 2 or tuple(periodic) != (True, True):
-        return False
+    if velocity.rank != 2 or tuple(periodic) != (True, True) or velocity.batched:
+        return False  # 2-D planes only: B samples at once run the general body
     if velocity.components[0].shape != velocity.components[1].shape:
         return False
     if velocity.dtype != torch.float32:
@@ -106,7 +107,10 @@ def assemble_advection_stencil(
     (Picard linearization). Masks are centered and padded by one.
     `uniform` must be `uniform_masks(dirichlet_mask, active_mask,
     no_slip_mask)`: the masks are constants of a simulation, so the caller
-    reads them once (SimulationParameters.uniform_masks), not per step."""
+    reads them once (SimulationParameters.uniform_masks), not per step.
+    The velocity may carry a leading batch axis (B samples sharing the
+    masks and viscosity); B samples take the general body, as the JAX
+    package's vmapped step does."""
     rank = velocity.rank
     dx = tuple(float(v) for v in dx)
     periodic = tuple(bool(p) for p in periodic)
@@ -135,7 +139,7 @@ def assemble_advection_stencil(
 
     centers, los, his, diag_As = [], [], [], []
     for c in range(rank):
-        S = velocity.components[c].shape
+        S = velocity.components[c].shape[-rank:]
         e = [tuple(1 if i == d else 0 for i in range(rank)) for d in range(rank)]
         neg_ec = tuple(-v for v in e[c])
         if isinstance(viscosity, StaggeredField):

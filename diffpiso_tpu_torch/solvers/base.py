@@ -21,23 +21,43 @@ step's adjoint solves (`AdjointSolve`). Under the "outputs" remat protocol
 the backward's replay of the step hands the recorded outputs back instead
 of solving again, so the Krylov loops never re-run; the operators the
 adjoints need are saved tensors, rebuilt by the replay of the assembly.
-The adjoint warm-start channels (`solve_*_ws`) are not ported."""
+The adjoint warm-start channels (`solve_*_ws`) are not ported.
+
+B samples at once (every plane with a leading batch axis: the batched
+training regime) take `_AdvectionSolveBatched` / `_PressureSolveBatched`:
+the same adjoints, decided per sample as `jax.vmap` of the JAX solves
+decides them: each sample's warn, its own adjoint tolerance from its own
+cotangent, its own gate. Their loops are the generic batched ones of
+solvers/krylov.py (`bicgstab_batched` behind the batch-folded Jacobi
+kernel, `pcg_batched`), the formulations the JAX package's vmapped step
+runs; warn and iteration counts are (B,) host arrays."""
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
-from diffpiso_tpu_torch.ops.laplace import LaplaceStencil
+from diffpiso_tpu_torch.ops.laplace import LaplaceStencil, apply_laplacian
 from diffpiso_tpu_torch.ops.stencil import AdvectionStencil, apply_stencil, apply_stencil_transpose
-from diffpiso_tpu_torch.solvers.fourier import MatmulSpectralSolver
-from diffpiso_tpu_torch.solvers.krylov import _tree_max_abs, bicgstab, pcg
+from diffpiso_tpu_torch.solvers.fourier import (
+    MatmulSpectralSolver,
+    safe_symbol,
+    spectral_apply_plain,
+)
+from diffpiso_tpu_torch.solvers.krylov import (
+    _bmax_abs,
+    _tree_max_abs,
+    bicgstab,
+    bicgstab_batched,
+    pcg,
+    pcg_batched,
+)
 
 
 def _adjoint_tol(tol, cotangent):
@@ -50,13 +70,14 @@ def _adjoint_tol(tol, cotangent):
 class AdjointSolve(NamedTuple):
     """One backward solve. `limit` is the residual above which the gate
     zeroes a converged pressure adjoint (100 x adj_tol); None for the
-    momentum adjoint, which the gate judges by its warn alone."""
+    momentum adjoint, which the gate judges by its warn alone. For B
+    samples at once every field but `system` is a (B,) array."""
 
     system: str  # "momentum" or "pressure"
-    iterations: int  # Krylov iterations (momentum: BiCGSTAB's after jac2; 0 if jac2 converged)
-    residual: float
-    limit: Optional[float]
-    gated: bool  # the gate zeroed this adjoint's gradient
+    iterations: Any  # Krylov iterations (momentum: BiCGSTAB's after jac2; 0 if jac2 converged)
+    residual: Any
+    limit: Any
+    gated: Any  # the gate zeroed this adjoint's gradient
 
 
 class SolveStash:
@@ -221,11 +242,11 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
                            rhs: StaggeredField, guess, tol):
     """Solve (-M) v = rhs for the velocity predictor. Returns (v, warn).
     Differentiable in rhs (the IFT adjoint); the stencil, guess and tol get
-    zero gradient."""
+    zero gradient. With a leading batch axis, warn is a (B,) bool array."""
     info = {}
     guess = None if guess is None else guess.map(torch.Tensor.detach)
-    xs = _AdvectionSolve.apply(cfg, stencil, guess, float(tol), rhs.periodic, info,
-                               *rhs.components)
+    fn = _AdvectionSolveBatched if rhs.batched else _AdvectionSolve
+    xs = fn.apply(cfg, stencil, guess, float(tol), rhs.periodic, info, *rhs.components)
     return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
 
 
@@ -308,8 +329,123 @@ class _PressureSolve(torch.autograd.Function):
 def solve_pressure_system(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, guess, tol):
     """Solve L p = rhs. Returns (p, iterations, warn). Differentiable in rhs
     (L is symmetric: the adjoint is the same solve of the cotangent, cold
-    started); the Laplacian, guess and tol get zero gradient."""
+    started); the Laplacian, guess and tol get zero gradient. With a leading
+    batch axis, iterations and warn are (B,) arrays."""
     info = {}
     guess = None if guess is None else guess.detach()
-    x = _PressureSolve.apply(cfg, laplacian, guess, float(tol), info, rhs)
+    fn = _PressureSolveBatched if laplacian.batched else _PressureSolve
+    x = fn.apply(cfg, laplacian, guess, float(tol), info, rhs)
     return x, info["iterations"], info["warn"]
+
+
+# -- B samples at once ------------------------------------------------------------
+
+
+def _batched_adjoint_tol(tol, cotangent) -> np.ndarray:
+    """(B,) float32 adjoint tolerances, each from its sample's cotangent."""
+    return (tol * torch.clamp(_bmax_abs(cotangent), min=1.0)).cpu().numpy().astype(np.float32)
+
+
+def _adv_solve_batched(cfg: AdvectionSolver, stencil: AdvectionStencil, rhs: StaggeredField,
+                       guess, tol, transpose: bool = False):
+    if cfg.dtype is not None:
+        raise NotImplementedError("the batched momentum solve runs in float32 only")
+    apply_fn = apply_stencil_transpose if transpose else apply_stencil
+    diag = StaggeredField(tuple(-c for c in stencil.center), periodic=rhs.periodic)
+    return bicgstab_batched(
+        lambda v: apply_fn(stencil, v, negate=True), rhs, guess,
+        tol=tol, max_iter=cfg.max_iterations,
+        diag=diag if cfg.precondition else None,
+        stencil=stencil, negate=True, transpose=transpose,
+    )
+
+
+class _AdvectionSolveBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, stencil, guess, tol, periodic, info, *rhs):
+        def solve():
+            res = _adv_solve_batched(cfg, stencil, StaggeredField(rhs, periodic), guess, tol)
+            return res.x.components, res.warn
+
+        xs, warn = _run_or_replay(solve)
+        info["warn"] = warn
+        ctx.cfg, ctx.tol, ctx.periodic, ctx.warn = cfg, tol, periodic, warn
+        ctx.rank, ctx.stash = stencil.rank, _STASH.get()
+        ctx.save_for_backward(*_stencil_planes(stencil))
+        return xs
+
+    @staticmethod
+    def backward(ctx, *g):
+        stencil = _stencil_from_planes(ctx.saved_tensors, ctx.rank)
+        ct = StaggeredField(g, periodic=ctx.periodic)
+        adj_tol = _batched_adjoint_tol(ctx.tol, ct)
+        res = _adv_solve_batched(ctx.cfg, stencil, ct, None, adj_tol, transpose=True)
+        gate = (1.0 - ctx.warn.astype(np.float32)) * (1.0 - res.warn.astype(np.float32))
+        _record_adjoint(ctx, AdjointSolve("momentum", res.iterations, res.residual_norm,
+                                          None, gate != 1.0))
+        db = res.x.components
+        if (gate != 1.0).any():
+            gt = torch.as_tensor(gate, dtype=db[0].dtype, device=db[0].device)[:, None, None]
+            db = tuple(d * gt for d in db)
+        return (None,) * 6 + tuple(db)
+
+
+def _pressure_solve_batched(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
+                            adjoint: bool = False):
+    """`_pressure_solve_impl` for B samples: the generic PCG loop with each
+    sample's own spectral preconditioner (its weights are the mean
+    |off-diagonal| of its own Laplacian)."""
+    if cfg.dtype is not None:
+        raise NotImplementedError("the pressure PCG runs in float32 only")
+    if cfg.randomized_restarts:
+        raise NotImplementedError("randomized restarts are not ported (no ported "
+                                  "configuration sets them)")
+    kind = cfg.preconditioner
+    if adjoint and cfg.adjoint_preconditioner != "same":
+        kind = cfg.adjoint_preconditioner
+    if kind not in _MM_KINDS or lap.rank != 2:
+        raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
+    weights = tuple(torch.mean(torch.abs(l), dim=(-2, -1)) for l in lap.lo)
+    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind], shape=tuple(lap.center.shape[-2:]))
+    (v0, _), (v1, _) = solver.mats(rhs.dtype, rhs.device)
+    sym = safe_symbol(solver, weights, rhs.dtype, rhs.device)
+    return pcg_batched(
+        lambda p: apply_laplacian(lap, p), rhs, None if adjoint else guess,
+        precond=lambda r: spectral_apply_plain(v0, v1, sym, r),
+        tol=tol, max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean,
+        residual_reset=0 if adjoint else cfg.residual_reset,
+        precond_zero_mean=kind in _ZERO_MEAN, early_exit=not adjoint,
+    )
+
+
+class _PressureSolveBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, lap, guess, tol, info, rhs):
+        def solve():
+            res = _pressure_solve_batched(cfg, lap, rhs, guess, tol)
+            return (res.x,), (res.iterations, res.warn)
+
+        (x,), (iters, warn) = _run_or_replay(solve)
+        info["iterations"], info["warn"] = iters, warn
+        ctx.cfg, ctx.tol, ctx.warn, ctx.periodic = cfg, tol, warn, lap.periodic
+        ctx.stash = _STASH.get()
+        ctx.save_for_backward(lap.center, *lap.lo, *lap.hi, lap.shift)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        center, *planes, shift = ctx.saved_tensors
+        rank = len(planes) // 2
+        lap = LaplaceStencil(center=center, lo=tuple(planes[:rank]), hi=tuple(planes[rank:]),
+                             shift=shift, periodic=ctx.periodic)
+        adj_tol = _batched_adjoint_tol(ctx.tol, g)
+        res = _pressure_solve_batched(ctx.cfg, lap, g, None, adj_tol, adjoint=True)
+        limit = np.float32(100.0) * adj_tol
+        adj_failed = res.warn | (res.residual_norm > limit)
+        gate = (1.0 - ctx.warn.astype(np.float32)) * (1.0 - adj_failed.astype(np.float32))
+        _record_adjoint(ctx, AdjointSolve("pressure", res.iterations, res.residual_norm,
+                                          limit, gate != 1.0))
+        db = res.x
+        if (gate != 1.0).any():
+            db = db * torch.as_tensor(gate, dtype=db.dtype, device=db.device)[:, None, None]
+        return None, None, None, None, None, db

@@ -98,9 +98,16 @@ class MatmulSpectralSolver:
         return [_basis_tensors(k, n, dtype, str(device)) for k, n in zip(self.kinds, self.shape)]
 
     def symbol(self, weights, dtype, device):
+        """The eigenvalue symbol sum_d w_d eig_d; weights of shape (B,)
+        (one per sample of a batch) give one symbol per sample."""
         rank = len(self.shape)
+
+        def w(d):
+            wd = weights[d]
+            return wd.reshape((-1,) + (1,) * rank) if torch.is_tensor(wd) and wd.ndim == 1 else wd
+
         return sum(
-            weights[d]
+            w(d)
             * torch.as_tensor(_eigs(self.shape[d], self.kinds[d]), dtype=dtype,
                               device=device).reshape(
                 tuple(-1 if i == d else 1 for i in range(rank)))
@@ -117,7 +124,8 @@ def safe_symbol(solver: MatmulSpectralSolver, weights, dtype, device):
 
 def spectral_apply_plain(v0, v1, sym, r):
     """z = V0^T ((V0 r V1^T) / S) V1, the four contractions of the
-    pressure PCG's preconditioner."""
+    pressure PCG's preconditioner. r and S may carry a leading batch axis
+    (B samples, each with its own symbol)."""
     h = v0 @ r
     h = h @ v1.t()
     h = h / sym

@@ -16,7 +16,17 @@ dominate, which a persistent kernel would remove. The kernels round like
 the plain version op for op, so both count the same sweeps.
 
 On a CUDA tensor the wrapper launches the kernels; on a CPU tensor it runs
-`jacobi2_plain`."""
+`jacobi2_plain`.
+
+`fused_jacobi2_solve_folded` is the batch-folded form (the JAX package's
+vmap rule of the same kernel, `_jacobi2_solve_kernel_bf` / `_bfs` around
+`_jacobi2_core_bf`): B samples of the system, each with its own
+coefficients, right-hand side, guess and tolerance, solved together by
+csrc/jacobi2_fold.cu, one launch per sweep for all samples and both
+components. A sample whose residual has reached its tolerance is frozen
+while the others sweep on, as a `while_loop` under `vmap` freezes it, so
+each sample follows the single-sample trajectory exactly: the same x,
+residual and sweeps. Its plain version is `jacobi2_fold_plain`."""
 
 from __future__ import annotations
 
@@ -33,6 +43,13 @@ _SIGS = {
     "jac2_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P],
     "jac2_sweep": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P, _P, _P],
     "jac2_true_residual": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P],
+}
+_I = ctypes.c_int
+_F = ctypes.c_float
+_FOLD_SIGS = {
+    "jac2f_init": [_P, _P, _I, _F, _I, _P, _P, _P, _P],
+    "jac2f_sweep": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "jac2f_true_residual": [_P, _P, _I, _F, _I, _P, _P],
 }
 
 
@@ -130,3 +147,125 @@ def fused_jacobi2_solve(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
 
 
 fused_jacobi2_solve.launches = 0
+
+
+def sample_max_abs(planes) -> torch.Tensor:
+    """(B,) max |.| over the planes (B, ny, nx) of each sample; NaN
+    propagates (like jnp.max)."""
+    out = None
+    for p in planes:
+        m = p.abs().amax(dim=(-2, -1))
+        out = m if out is None else torch.maximum(out, m)
+    return out
+
+
+def sample_tols(tol, nb, device):
+    """(B,) float32 tolerances from one shared value or B values: on
+    `device` and as a host copy."""
+    t = np.broadcast_to(np.asarray(tol, dtype=np.float32), (nb,)).copy()
+    return torch.as_tensor(t, device=device), t
+
+
+def jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
+    """Plain PyTorch version of the batch-folded solve. Every plane carries
+    a leading batch axis (B, ny, nx); `tol` is one value or B values.
+    Returns (x0', x1', per-sample true max-residual (B,) numpy float32,
+    per-sample sweeps (B,) numpy int)."""
+    sgn = float(np.float32(sgn))
+    nb = b_c[0].shape[0]
+    tol_t, _ = sample_tols(tol, nb, b_c[0].device)
+    ivs = []
+    for c, _, _ in st_cs:
+        d = sgn * c
+        ivs.append(torch.where(d.abs() > 1e-30, 1.0 / d, 1.0))
+
+    def mv(k, p):
+        c, lo, hi = st_cs[k]
+        return adv_matvec(c, lo[0], hi[0], lo[1], hi[1], p, transpose, sgn)
+
+    xs = list(x_c)
+    rs = [b_c[k] - mv(k, xs[k]) for k in range(2)]
+    n = sample_max_abs(rs)
+    sweeps = np.zeros(nb, dtype=np.int64)
+    j = 0
+    while j < max_sweeps:
+        active = n > tol_t  # NaN compares false: a non-finite sample stops
+        act = active.cpu().numpy()
+        if not act.any():
+            break
+        sel = active[:, None, None]
+        for k in range(2):
+            dlt = ivs[k] * rs[k]
+            xs[k] = torch.where(sel, xs[k] + dlt, xs[k])
+            rs[k] = torch.where(sel, rs[k] - mv(k, dlt), rs[k])
+        n = sample_max_abs(rs)
+        sweeps += act
+        j += 1
+    nt = sample_max_abs([b_c[k] - mv(k, xs[k]) for k in range(2)])
+    return xs[0], xs[1], nt.cpu().numpy(), sweeps
+
+
+def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
+    """Whole-solve Jacobi-Richardson for B samples of the 2-component 2-D
+    momentum system at once. Planes as in `fused_jacobi2_solve`, each with a
+    leading batch axis (B, ny, nx); `sgn` is shared, `tol` one value or B
+    values (the adjoint solves take each sample's own). Returns (x0', x1',
+    per-sample true max-residual (B,) numpy float32, per-sample sweeps (B,)
+    numpy int). On a CUDA tensor every kernel launch (init, one per sweep,
+    the exit residual) adds one to `launches`, where `fused_jacobi2_solve`
+    counts one per solve; the host reads the B norms once per sweep."""
+    if b_c[0].device.type == "cpu":
+        return jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
+    planes = []
+    dims = []
+    nb = b_c[0].shape[0]
+    for (c, lo, hi), b, x0 in zip(st_cs, b_c, x_c):
+        ops = (c, lo[0], hi[0], lo[1], hi[1], b, x0)
+        native.require_cuda_f32("fused_jacobi2_solve_folded", *ops)
+        if any(t.shape != b.shape for t in ops) or b.ndim != 3 or b.shape[0] != nb:
+            raise ValueError("fused_jacobi2_solve_folded: a component's planes must share one "
+                             "(B, ny, nx) shape")
+        planes.append(ops)
+        dims += list(b.shape[1:])
+    dev = b_c[0].device
+    tol_t, tol_h = sample_tols(tol, nb, dev)
+    xs = [torch.empty_like(b) for b in b_c]
+    ra = [torch.empty_like(b) for b in b_c]
+    rb = [torch.empty_like(b) for b in b_c]
+    norms = torch.zeros((max_sweeps + 2, nb), dtype=torch.float32, device=dev)
+    sweeps = torch.zeros(nb, dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * 16)(*[
+        t.data_ptr() for k in range(2) for t in (*planes[k], xs[k])
+    ])
+    cdims = (ctypes.c_int * 4)(*dims)
+    sgn32 = float(np.float32(sgn))
+    tr = int(bool(transpose))
+    stream = native.stream_of(b_c[0])
+    lib = native.library("jacobi2_fold", _FOLD_SIGS)
+
+    def slot(k):
+        return ctypes.c_void_p(norms.data_ptr() + 4 * nb * k)
+
+    native.check(lib.jac2f_init(ptrs, cdims, nb, sgn32, tr, native.ptr(ra[0]),
+                                native.ptr(ra[1]), slot(0), stream), "jac2f_init")
+    fused_jacobi2_solve_folded.launches += 1
+    n = norms[0].cpu().numpy()
+    j = 0
+    while (n > tol_h).any() and j < max_sweeps:
+        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
+        native.check(lib.jac2f_sweep(
+            ptrs, cdims, nb, sgn32, tr, native.ptr(r_in[0]), native.ptr(r_in[1]),
+            native.ptr(r_out[0]), native.ptr(r_out[1]), slot(j), native.ptr(tol_t),
+            native.ptr(sweeps), slot(j + 1), stream,
+        ), "jac2f_sweep")
+        fused_jacobi2_solve_folded.launches += 1
+        n = norms[j + 1].cpu().numpy()
+        j += 1
+    native.check(lib.jac2f_true_residual(ptrs, cdims, nb, sgn32, tr, slot(max_sweeps + 1),
+                                         stream), "jac2f_true_residual")
+    fused_jacobi2_solve_folded.launches += 1
+    nt = norms[max_sweeps + 1].cpu().numpy()
+    return xs[0], xs[1], nt, sweeps.cpu().numpy().astype(np.int64)
+
+
+fused_jacobi2_solve_folded.launches = 0  # kernel launches: init, each sweep, the exit residual

@@ -19,17 +19,25 @@ import torch
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
-from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve
+from diffpiso_tpu_torch.solvers.jacobi2 import (
+    fused_jacobi2_solve,
+    fused_jacobi2_solve_folded,
+    sample_max_abs,
+    sample_tols,
+)
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 
 
 class SolveResult(NamedTuple):
+    """A solve's result; iterations, residual_norm, converged and warn are
+    (B,) numpy arrays for B samples at once (the batched loops)."""
+
     x: Any
-    iterations: int
-    residual_norm: float
-    converged: bool
-    warn: bool  # solve failed: do not trust the result or its gradient
+    iterations: Any
+    residual_norm: Any
+    converged: Any
+    warn: Any  # solve failed: do not trust the result or its gradient
 
 
 def _f32(v) -> float:
@@ -342,3 +350,265 @@ pcg.loops = 0
 pcg.warm_entries = 0
 pcg.resets = 0
 pcg.iterations = 0
+
+
+# -- B samples at once (the batched training regime) ---------------------------
+#
+# The JAX package batches its step with `jax.vmap`. Under `vmap` a
+# `lax.while_loop` runs until every sample's condition is false and selects
+# the unchanged state for the samples whose condition already is, and a
+# `lax.cond` on a batched predicate becomes a select: each sample follows
+# exactly the trajectory of its own solve. The loops below do the same on
+# planes with a leading batch axis (B, ny, nx): every iteration computes the
+# update for all samples and keeps it only where the sample is still
+# active; scalars are (B,) tensors; each iteration reads the B norms back
+# once. Under its batched regime the JAX package runs the generic
+# formulations (no Pallas kernel but the folded jac2), so these are the
+# generic BiCGSTAB (`_bicgstab_once`) and PCG loops, not the fused ones.
+
+
+def _bcast(s):
+    """(B,) scalars against (B, ny, nx) planes."""
+    return s[:, None, None]
+
+
+def _bvdot(a, b):
+    """(B,) per-sample dot products over every component."""
+    return sum(torch.sum(x * y, dim=(-2, -1)) for x, y in zip(_comps(a), _comps(b)))
+
+
+def _bmax_abs(a):
+    """(B,) per-sample max |.| over every component; NaN propagates."""
+    return sample_max_abs(_comps(a))
+
+
+def _baxpy(alpha, x, y):
+    """alpha x + y with per-sample alpha (B,)."""
+    return _rebuild(y, [_bcast(alpha) * xi + yi for xi, yi in zip(_comps(x), _comps(y))])
+
+
+def _bselect(mask, new, old):
+    """new where the sample is active (mask (B,) bool), else old."""
+    m = _bcast(mask)
+    return _rebuild(old, [torch.where(m, a, b) for a, b in zip(_comps(new), _comps(old))])
+
+
+def _host(*ts):
+    """One device-to-host read of several (B,) tensors, as numpy float64 rows."""
+    return torch.stack([t.to(torch.float64) for t in ts]).cpu().numpy()
+
+
+def _bicgstab_once_batched(apply_A, precond, b, x0, tol_t, tol_h, max_iter, run):
+    """`_bicgstab_once` for the samples where `run` (B,) is true; the others
+    keep x0 and report rnorm NaN and 0 iterations (the caller selects).
+    Returns (x, true residual norms (B,) numpy, iterations (B,) numpy)."""
+    eps = 1e-30
+
+    def guard(v):
+        return torch.where(v.abs() < eps, 1.0, v)
+
+    nb = run.shape[0]
+    r0 = _axpy(-1.0, apply_A(x0), b)
+    rnorm0 = _bmax_abs(r0)
+    rn0 = _host(rnorm0)[0]
+    # the warm start already satisfies the tolerance (r0 is exact)
+    skip = run & (rn0 < tol_h)
+    active = run & ~skip
+    k = np.zeros(nb, dtype=np.int64)
+    x = x0
+    if active.any():
+        rhat = r0
+        dev = rnorm0.device
+        one = torch.ones(nb, dtype=rnorm0.dtype, device=dev)
+        r, p, v = r0, _zeros_like(b), _zeros_like(b)
+        rho, alpha, omega = one, one, one
+        done = ~active
+        while True:
+            act = ~done & (k < max_iter)
+            if not act.any():
+                break
+            act_t = torch.as_tensor(act, device=dev)
+            rho_new = _bvdot(rhat, r)
+            breakdown = rho_new.abs() < eps
+            beta = (rho_new / torch.where(breakdown, 1.0, rho)) * (alpha / guard(omega))
+            p_n = _baxpy(beta, _baxpy(-omega, v, p), r)
+            phat = precond(p_n)
+            v_n = apply_A(phat)
+            alpha_n = rho_new / guard(_bvdot(rhat, v_n))
+            s = _baxpy(-alpha_n, v_n, r)
+            shat = precond(s)
+            t = apply_A(shat)
+            omega_n = _bvdot(t, s) / guard(_bvdot(t, t))
+            x_n = _baxpy(alpha_n, phat, _baxpy(omega_n, shat, x))
+            r_n = _baxpy(-omega_n, t, s)
+            rnorm = _bmax_abs(r_n)
+            x, r = _bselect(act_t, x_n, x), _bselect(act_t, r_n, r)
+            p, v = _bselect(act_t, p_n, p), _bselect(act_t, v_n, v)
+            rho = torch.where(act_t, rho_new, rho)
+            alpha = torch.where(act_t, alpha_n, alpha)
+            omega = torch.where(act_t, omega_n, omega)
+            rn, broke = _host(rnorm, breakdown)
+            stop = (rn < tol_h) | (broke != 0.0) | ~np.isfinite(rn)
+            done = np.where(act, stop, done)
+            k += act
+    rn = np.full(nb, np.nan)
+    if active.any():
+        # true residual (the recurrence residual can drift)
+        rn = _host(_bmax_abs(_axpy(-1.0, apply_A(x), b)))[0]
+    rn = np.where(skip, rn0, rn).astype(np.float32)
+    return x, rn, np.where(skip, 0, k)
+
+
+def bicgstab_batched(apply_A, b, x0=None, *, tol=1e-6, max_iter: int = 1000, diag=None,
+                     stencil=None, negate: bool = False, transpose: bool = False
+                     ) -> SolveResult:
+    """`bicgstab` for B samples at once (planes with a leading batch axis).
+    `tol` is one value or B values (the adjoint solves take each sample's
+    own). With `stencil` and `diag` the batch-folded whole-solve Jacobi
+    kernel (solvers/jacobi2.py fused_jacobi2_solve_folded) runs first, the
+    one kernel of the JAX package's batched regime; a sample it leaves
+    above tol continues in the generic BiCGSTAB loop from its iterate, and a
+    non-finite or > 100 tol residual restarts that sample once from zeros,
+    each decided per sample. `bicgstab_batched.jacobi_solves` counts the
+    folded solves and `jacobi_sweeps` adds each one's slowest sample's
+    sweeps."""
+    if x0 is None:
+        x0 = _zeros_like(b)
+    comps = _comps(b)
+    nb = comps[0].shape[0]
+    dev = comps[0].device
+    tol_t, tol_h = sample_tols(tol, nb, dev)
+    bad_at = np.float32(100.0) * tol_h
+
+    if diag is not None:
+        inv_diag = _rebuild(diag, [torch.where(d.abs() > 1e-30, 1.0 / d, 1.0)
+                                   for d in _comps(diag)])
+
+        def precond(v):
+            return _rebuild(v, [i * c for i, c in zip(_comps(inv_diag), _comps(v))])
+    else:
+        def precond(v):
+            return v
+
+    def counted_apply(v):
+        bicgstab_batched.applies[bool(transpose)] += 1
+        return apply_A(v)
+
+    sgn = -1.0 if negate else 1.0
+    everyone = np.ones(nb, dtype=bool)
+    if stencil is not None and diag is not None and len(comps) == 2:
+        st_cs = [(stencil.center[i].contiguous(), tuple(t.contiguous() for t in stencil.lo[i]),
+                  tuple(t.contiguous() for t in stencil.hi[i])) for i in range(2)]
+        xo0, xo1, jn, sweeps = fused_jacobi2_solve_folded(
+            st_cs, tuple(c.contiguous() for c in comps),
+            tuple(c.contiguous() for c in _comps(x0)), sgn, transpose, tol_h, 1 + 8 * 4)
+        bicgstab_batched.jacobi_solves += 1
+        bicgstab_batched.jacobi_sweeps += int(sweeps.max())
+        x0 = _rebuild(b, [xo0, xo1])
+        miss = ~(jn < tol_h)
+        bicgstab_batched.fallbacks += int(miss.sum())
+        x, rnorm, k = x0, jn.astype(np.float32), np.zeros(nb, dtype=np.int64)
+        if miss.any():
+            xb, rb, kb = _bicgstab_once_batched(counted_apply, precond, b, x0, tol_t, tol_h,
+                                                max_iter, miss)
+            x, rnorm, k = xb, np.where(miss, rb, rnorm), np.where(miss, kb, k)
+    else:
+        x, rnorm, k = _bicgstab_once_batched(counted_apply, precond, b, x0, tol_t, tol_h,
+                                             max_iter, everyone)
+
+    bad = ~np.isfinite(rnorm) | (rnorm > bad_at)
+    if bad.any():
+        xr, rr, kr = _bicgstab_once_batched(counted_apply, precond, b, _zeros_like(b), tol_t,
+                                            tol_h, max_iter, bad)
+        x = _bselect(torch.as_tensor(bad, device=dev), xr, x)
+        rnorm = np.where(bad, rr, rnorm)
+        k = np.where(bad, k + kr, k)  # the total work of both attempts
+    warn = ~np.isfinite(rnorm) | (rnorm > bad_at)
+    bicgstab_batched.iterations += int(k.sum())
+    return SolveResult(x=x, iterations=k, residual_norm=rnorm.astype(np.float32),
+                       converged=rnorm < tol_h, warn=warn)
+
+
+bicgstab_batched.fallbacks = 0  # samples whose folded Jacobi missed tol
+bicgstab_batched.iterations = 0  # BiCGSTAB iterations, summed over samples
+bicgstab_batched.applies = {False: 0, True: 0}  # batched operator applications
+bicgstab_batched.jacobi_solves = 0  # folded Jacobi solves
+bicgstab_batched.jacobi_sweeps = 0  # their slowest sample's sweeps, summed over solves
+
+
+def pcg_batched(apply_A, b, x0=None, *, precond, tol=1e-6, max_iter: int = 2000,
+                residual_reset: int = 0, deflate_mean: bool = False,
+                precond_zero_mean: bool = False, early_exit: bool = True
+                ) -> SolveResult:
+    """The generic preconditioned CG loop of the JAX package's `krylov.pcg`
+    for B samples at once: a cold start begins from r = b, a warm one from
+    b - A x0; with `early_exit` a sample already at tol is returned as it
+    is; every `residual_reset`-th iteration of a sample (its own count)
+    restarts it from its true residual; the exit residual is recomputed.
+    `tol` is one value or B values. Returns per-sample iterations and
+    residuals."""
+    nb = b.shape[0]
+    dev = b.device
+    tol_t, tol_h = sample_tols(tol, nb, dev)
+    eps = 1e-30
+
+    def project(v):
+        return v - v.mean(dim=(-2, -1), keepdim=True) if deflate_mean else v
+
+    project_z = (lambda v: v) if (precond_zero_mean or not deflate_mean) else project
+    cold = x0 is None
+    if cold:
+        x0 = torch.zeros_like(b)
+        r0 = project(b)
+    else:
+        r0 = project(b - apply_A(x0))
+    rn0 = _host(_bmax_abs(r0))[0]
+    skip = (rn0 < tol_h) if early_exit else np.zeros(nb, dtype=bool)
+    k = np.zeros(nb, dtype=np.int64)
+    x = x0
+    run = ~skip
+    if run.any():
+        z0 = project_z(precond(r0))
+        r, p, rz = r0, z0, _bvdot(r0, z0)
+        done = ~run
+        while True:
+            act = ~done & (k < max_iter)
+            if not act.any():
+                break
+            act_t = torch.as_tensor(act, device=dev)
+            if residual_reset > 0:
+                rs = act & ((k + 1) % residual_reset == 0)
+                if rs.any():
+                    pcg_batched.resets += int(rs.sum())
+                    rs_t = torch.as_tensor(rs, device=dev)
+                    rr = project(b - apply_A(x))
+                    zz = project_z(precond(rr))
+                    r, p = _bselect(rs_t, rr, r), _bselect(rs_t, zz, p)
+                    rz = torch.where(rs_t, _bvdot(rr, zz), rz)
+            q = apply_A(p)
+            pq = _bvdot(p, q)
+            alpha = torch.where(pq.abs() > eps, rz / pq, 0.0)
+            x_n = _baxpy(alpha, p, x)
+            r_n = project(_baxpy(-alpha, q, r))
+            rnorm = _bmax_abs(r_n)
+            z = project_z(precond(r_n))
+            rz_n = _bvdot(r_n, z)
+            beta = torch.where(rz.abs() > eps, rz_n / rz, 0.0)
+            p_n = _baxpy(beta, p, z)
+            x, r, p = _bselect(act_t, x_n, x), _bselect(act_t, r_n, r), _bselect(act_t, p_n, p)
+            rz = torch.where(act_t, rz_n, rz)
+            rn = _host(rnorm)[0]
+            done = np.where(act, (rn < tol_h) | ~np.isfinite(rn), done)
+            k += act
+        pcg_batched.iterations += int(k.sum())
+        rt = _host(_bmax_abs(project(b - apply_A(x))))[0]
+    else:
+        rt = rn0
+    rn = np.where(skip, rn0, rt).astype(np.float32)
+    warn = ~np.isfinite(rn) | (rn > np.float32(100.0) * tol_h)
+    return SolveResult(x=x, iterations=np.where(skip, 0, k), residual_norm=rn,
+                       converged=rn < tol_h, warn=warn)
+
+
+pcg_batched.resets = 0  # resets, summed over samples
+pcg_batched.iterations = 0  # iterations, summed over samples

@@ -3,6 +3,7 @@
 
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] [--n 512] [--steps 20] [--trace PATH]
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
+    python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
 decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
@@ -14,7 +15,12 @@ cells, bench.py's DNS workload: max iterations (200, 2000), dt = 0.2 x
 128 / (n/4), tol 1e-6, the inflow perturbation at float32 time k dt
 every step, a 400-step spin-up from its initial state; with --grad the
 Dirichlet values are frozen at the last spin-up time), with warm-started
-pressure increments. Then under torch.profiler either
+pressure increments, or `training` (bench.py's workload_training: the
+mixing layer at n/4 x n cells, default 64 x 256, dt 0.4, the closure CNN,
+a 10-step unroll, four losses, Adam 1e-5, tol 1e-6, targets from a
+network-free rollout; batch 1 with "outputs" remat, or --batch B copies
+of the sample with remat "none", the batched regime), which profiles one
+train step after one unprofiled step. Otherwise, under torch.profiler, either
 `--steps` forward steps or, with --grad, one grad30 evaluation (the
 30-step rollout gradient of sum v^2 with respect to a forcing field,
 "outputs" remat) after one unprofiled evaluation. Prints the card,
@@ -43,6 +49,13 @@ UNROLL = 30
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("pcg2_sgemm", "pcg2 GEMM (M^-1 r contractions)"),
+    ("convolve", "CNN convolutions (cuDNN)"),
+    ("fprop", "CNN convolutions (cuDNN)"),
+    ("dgrad", "CNN convolutions (cuDNN)"),
+    ("wgrad", "CNN convolutions (cuDNN)"),
+    ("cudnn", "CNN convolutions (cuDNN)"),
+    ("fft", "FFTs (spectral loss)"),
+    ("jac2f_", "jacobi2 fold sweeps (batched)"),
     ("pcg2_", "pcg2 elementwise + reductions"),
     ("pcgp_", "PCG phases (residual / apply / update)"),
     ("gemm", "M^-1 r contractions (torch.matmul)"),
@@ -69,15 +82,21 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing"), default="turbulence")
-    ap.add_argument("--n", type=int, default=512)
+    ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training"),
+                    default="turbulence")
+    ap.add_argument("--n", type=int, default=None, help="512; 256 for training")
+    ap.add_argument("--batch", type=int, default=1, help="training only: samples per step")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
                     help="profile one rollout-gradient evaluation instead of forward steps")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    if args.n is None:
+        args.n = 256 if args.workload == "training" else 512
     if args.trace is None:
-        args.trace = f"traces/profile_torch_{args.workload}_{'grad' if args.grad else 'step'}.json"
+        mode = f"b{args.batch}" if args.workload == "training" else (
+            "grad" if args.grad else "step")
+        args.trace = f"traces/profile_torch_{args.workload}_{mode}.json"
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -101,6 +120,8 @@ def main() -> int:
     build_all()
     dev = torch.device("cuda")
     n = args.n
+    if args.workload == "training":
+        return profile_training(args, dev, profile, ProfilerActivity)
     mixing = None
     if args.workload == "turbulence":
         domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
@@ -169,6 +190,17 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
     prof.export_chrome_trace(args.trace)
 
+    steps = UNROLL if args.grad else args.steps
+    return report(prof, wall, steps, dict(
+        workload=args.workload, n=n,
+        mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward", steps=steps))
+
+
+def report(prof, wall: float, steps: int, head: dict) -> int:
+    """Print the JSON line: host and device time per step, idle share, and
+    device time and launches per step by kernel family."""
+    import torch
+
     by_family = collections.Counter()
     launches = collections.Counter()
     for evt in prof.events():
@@ -181,11 +213,8 @@ def main() -> int:
     if busy_us <= 0:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
-    steps = UNROLL if args.grad else args.steps
     print(json.dumps(dict(
-        workload=args.workload, n=n,
-        mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward",
-        steps=steps, host_ms_per_step=wall * 1e3 / steps,
+        **head, host_ms_per_step=wall * 1e3 / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_idle_share=1.0 - busy_us / 1e6 / wall,
         device_ms_per_step={k: v / 1e3 / steps for k, v in by_family.most_common()},
@@ -193,6 +222,58 @@ def main() -> int:
         device=torch.cuda.get_device_name(0),
     )))
     return 0
+
+
+def profile_training(args, dev, profile, ProfilerActivity) -> int:
+    """One train step of bench.py's workload_training under the profiler,
+    after one unprofiled step; "steps" in the report are unrolled steps
+    (10 per train step)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.setups import spatial_mixing_layer_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.learning.optim import Adam
+    from diffpiso_tpu_torch.learning.training import (
+        TrainingConfig, make_batched_train_step, make_loss_fn, make_rollout_fn, make_train_step)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    setup = spatial_mixing_layer_setup(simulation={"HRres": (args.n // 4, args.n), "dt": 0.4},
+                                       max_iterations=(200, 2000), device=dev)
+    cfg = TrainingConfig(step_count=10, loss_influence_range=10, padding="VALID",
+                         advection_tol=1e-6, pressure_tol=1e-6,
+                         remat="outputs" if args.batch == 1 else "none")
+    loss_fn = make_loss_fn(setup, cfg, make_rollout_fn(setup, cfg))
+    opt = Adam(1e-5)
+    params = init_fullyconv(torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = opt.init(params)
+    v0, p0 = setup.initial_state()
+    perts = torch.stack([setup.perturbation(550.0 + i * setup.dt) for i in range(10)])
+    with torch.no_grad():
+        targets, _, _ = make_rollout_fn(setup, cfg, with_network=False)(None, v0, p0, perts)
+    inputs = (v0, p0, targets, perts)
+    if args.batch == 1:
+        step = make_train_step(loss_fn, opt)
+    else:
+        step = make_batched_train_step(loss_fn, opt)
+        stack = lambda x: torch.stack([x] * args.batch)
+        inputs = (StaggeredField(tuple(stack(c) for c in v0.components)), stack(p0),
+                  StaggeredField(tuple(stack(c) for c in targets.components)), stack(perts))
+    params, state, _, _, _ = step(params, state, *inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss, _, warn = step(params, state, *inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if bool(np.asarray(warn).any()):
+        raise RuntimeError("a solve warned during profiling")
+    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    return report(prof, wall, 10, dict(
+        workload="training", n=args.n, batch=args.batch,
+        mode=f"one train step (10 unrolled steps, batch {args.batch})", steps=10,
+        train_step_host_ms=wall * 1e3, loss=float(loss)))
 
 
 if __name__ == "__main__":

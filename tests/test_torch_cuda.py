@@ -7,7 +7,12 @@ bounded shapes, the BiCGSTAB phases and the loop they run; the
 per-iteration PCG phases and the loop they run, and the matvec on the
 mixing layer's (128, 513) u plane), the CUDA step and the CUDA rollout
 gradient against the CPU plain path (turbulence, lid-driven cavity and
-mixing layer), with each adjoint's gate decision. Every test here needs a GPU
+mixing layer), with each adjoint's gate decision; the batch-folded jac2
+kernel against its plain version and against the single-sample jac2
+kernel per sample (bit-equal, equal sweeps), the closure CNN's forward
+and VJP in full float32 with cuDNN's TF32 switch at PyTorch's default,
+and the batched training step (loss and weight gradient) on the card
+against the CPU. Every test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
@@ -605,3 +610,169 @@ def test_cuda_mixing_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(*grads))
     den = sum(float(torch.sum(b ** 2)) for b in grads[1])
     assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+def _fold_system(dev, nb=4, res=(64, 256), seed=0):
+    """nb samples of the mixing layer's momentum system at `res`, each from
+    its own noisy velocity, on `dev`."""
+    from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
+
+    ps = spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.4}, device=dev)
+    v, _ = ps.initial_state()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    comps = tuple(torch.stack([c + 0.05 * (s + 1) * torch.randn(c.shape, generator=g, device=dev)
+                               for s in range(nb)]) for c in v.components)
+    dx = ps.domain.dx
+    beta = dx[0] * dx[1] / ps.dt
+    st = assemble_advection_stencil(StaggeredField(comps), dx, ps.domain.velocity_pad_modes(),
+                                    ps.sim.viscosity, beta, ps.sim.dirichlet_mask,
+                                    ps.sim.active_mask, ps.sim.accessible_mask, None,
+                                    (False, False), uniform=False)
+    st_cs = [(st.center[i].contiguous(), tuple(a.contiguous() for a in st.lo[i]),
+              tuple(a.contiguous() for a in st.hi[i])) for i in range(2)]
+    b_c = tuple((c * beta).contiguous() for c in comps)
+    return st_cs, b_c, tuple(torch.zeros_like(c) for c in b_c)
+
+
+@pytest.mark.parametrize("per_sample_tol", [False, True])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_jacobi2_fold_kernel_is_bit_equal_to_plain_and_to_single_sample_kernels(
+        transpose, per_sample_tol, cuda_device):
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve_folded, jacobi2_fold_plain
+
+    st_cs, b_c, x_c = _fold_system(cuda_device)
+    tol = (3e-3, 1e-4, 1e-5, 1e-6) if per_sample_tol else 1e-6
+    before = fused_jacobi2_solve_folded.launches
+    x0, x1, nt, sweeps = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
+    assert fused_jacobi2_solve_folded.launches - before == 2 + int(sweeps.max())
+    y0, y1, yn, ys = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
+    assert torch.equal(x0, y0) and torch.equal(x1, y1)
+    np.testing.assert_array_equal(nt, yn)
+    np.testing.assert_array_equal(sweeps, ys)
+    if per_sample_tol:
+        assert len(set(sweeps.tolist())) > 1
+    tols = np.broadcast_to(np.asarray(tol, np.float32), (4,))
+    for s in range(4):
+        one = [(c[s], tuple(a[s] for a in lo), tuple(a[s] for a in hi)) for c, lo, hi in st_cs]
+        z0, z1, zn, zs = fused_jacobi2_solve(one, tuple(b[s] for b in b_c),
+                                             tuple(x[s] for x in x_c), -1.0, transpose,
+                                             float(tols[s]), 33)
+        assert torch.equal(x0[s], z0) and torch.equal(x1[s], z1)
+        assert np.float32(nt[s]) == np.float32(zn) and sweeps[s] == zs
+
+
+def test_cuda_batched_training_step_matches_the_cpu_plain_path(cuda_device):
+    """Two distinct samples at 32 x 128 (SAME padding, 2 steps): the batched
+    train step on the card (the folded jac2 kernel, plain PyTorch
+    elsewhere) against the same step on the CPU, and the single-sample 2-D
+    kernels stay off its path."""
+    from diffpiso_tpu_torch.learning import training as pt
+    from diffpiso_tpu_torch.learning.optim import Adam
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve_folded
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ps = spatial_mixing_layer_setup(simulation={"HRres": (32, 128), "dt": 0.4}, device=dev)
+        cfg = pt.TrainingConfig(step_count=2, loss_influence_range=2, padding="SAME",
+                                advection_tol=1e-5, pressure_tol=1e-5, remat="none")
+        loss_fn = pt.make_loss_fn(ps, cfg, pt.make_rollout_fn(ps, cfg))
+        params = init_fullyconv(torch.Generator().manual_seed(0), device=dev)
+        opt = Adam(1e-5)
+        v0, p0 = ps.initial_state()
+        perts = torch.stack([torch.stack([ps.perturbation(550.0 + 3.3 * s + i * ps.dt)
+                                          for i in range(2)]) for s in range(2)])
+        vel0 = StaggeredField(tuple(torch.stack([c, c]) for c in v0.components))
+        p0b = torch.stack([p0, p0])
+        tg, _, _ = pt.make_rollout_fn(ps, cfg, with_network=False)(None, vel0, p0b, perts)
+        f0, j0 = fused_jacobi2_solve_folded.launches, fused_jacobi2_solve.launches
+        step = pt.make_batched_train_step(loss_fn, opt)
+        new_p, _, loss, parts, warns = step(params, opt.init(params), vel0, p0b, tg, perts)
+        if dev.type == "cuda":
+            assert fused_jacobi2_solve_folded.launches > f0
+            assert fused_jacobi2_solve.launches == j0
+        out[dev.type] = (float(loss), parts.cpu(), warns, [w.cpu() for w in new_p])
+    assert not out["cuda"][2].any() and not out["cpu"][2].any()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=0)
+
+
+def _rel_l2(a, b):
+    num = sum(float(torch.sum((x.double().cpu() - y.double().cpu()) ** 2)) for x, y in zip(a, b))
+    den = sum(float(torch.sum(y.double().cpu() ** 2)) for y in b)
+    return (num / den) ** 0.5
+
+
+def test_fullyconv_forward_and_vjp_run_in_full_float32(cuda_device):
+    """The closure CNN at its published widths on a 64 x 256 input (VALID,
+    restore_shape) with `cudnn.allow_tf32` at PyTorch's default (True):
+    forward, input VJP and weight VJP on the card within rel l2 1e-5 of
+    float64 on the CPU. TF32 anywhere, the backward included, misses by
+    ~1e-3."""
+    from diffpiso_tpu_torch.models.networks import fullyconv_apply, init_fullyconv
+
+    params = init_fullyconv(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 64, 256)).astype(np.float32)
+    ct = rng.standard_normal((2, 64, 256)).astype(np.float32)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = {}
+        for key, dev, dt in (("card", cuda_device, torch.float32),
+                             ("cpu", torch.device("cpu"), torch.float64)):
+            leaves = [torch.as_tensor(x, dtype=dt, device=dev).requires_grad_(True)]
+            leaves += [w.to(dev, dt).requires_grad_(True) for w in params]
+            y = fullyconv_apply(leaves[1:], leaves[0], "VALID", restore_shape=True)
+            g = torch.autograd.grad(y, leaves, torch.as_tensor(ct, dtype=dt, device=dev))
+            out[key] = [y.detach()] + list(g)
+        assert torch.backends.cudnn.allow_tf32  # the library restores the caller's setting
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for a, b in zip(out["card"], out["cpu"]):
+        assert _rel_l2([a], [b]) <= 1e-5
+
+
+class _GradCapture:
+    """An optimizer whose update is zero and whose new state is the gradient
+    it was given: the train step's state output is its masked-mean
+    gradient."""
+
+    def init(self, params):
+        return tuple(torch.zeros_like(p) for p in params)
+
+    def update(self, grads, state):
+        return [torch.zeros_like(g) for g in grads], tuple(grads)
+
+
+def test_cuda_batched_training_gradient_matches_the_cpu_plain_path(cuda_device):
+    """Two distinct samples at 32 x 128 (SAME, 2 steps) at tol 1e-7, where
+    float32 solves resolve the weight gradient to ~1e-3 (at 1e-5 they do
+    not; tests/test_torch_training.py): the batched step's masked-mean
+    weight gradient on the card within rel l2 1e-3 of the CPU's, the
+    per-sample loss parts within rtol 1e-4, no warn. cuDNN's TF32 switch
+    stays at PyTorch's default."""
+    from diffpiso_tpu_torch.learning import training as pt
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    assert torch.backends.cudnn.allow_tf32
+    out = {}
+    for key, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        ps = spatial_mixing_layer_setup(simulation={"HRres": (32, 128), "dt": 0.4}, device=dev)
+        cfg = pt.TrainingConfig(step_count=2, loss_influence_range=2, padding="SAME",
+                                advection_tol=1e-7, pressure_tol=1e-7, remat="none")
+        loss_fn = pt.make_loss_fn(ps, cfg, pt.make_rollout_fn(ps, cfg))
+        params = init_fullyconv(torch.Generator().manual_seed(0), device=dev)
+        v0, p0 = ps.initial_state()
+        perts = torch.stack([torch.stack([ps.perturbation(550.0 + 3.3 * s + i * ps.dt)
+                                          for i in range(2)]) for s in range(2)])
+        vel0 = StaggeredField(tuple(torch.stack([c, c]) for c in v0.components))
+        p0b = torch.stack([p0, p0])
+        tg, _, _ = pt.make_rollout_fn(ps, cfg, with_network=False)(None, vel0, p0b, perts)
+        opt = _GradCapture()
+        _, grads, loss, parts, warns = pt.make_batched_train_step(loss_fn, opt)(
+            params, opt.init(params), vel0, p0b, tg, perts)
+        out[key] = (parts.cpu(), warns, [g.cpu() for g in grads])
+    assert not out["card"][1].any() and not out["cpu"][1].any()
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-4, atol=0)
+    assert _rel_l2(out["card"][2], out["cpu"][2]) <= 1e-3

@@ -62,6 +62,15 @@ def test_the_scan_covers_the_mixing_slice_modules():
     assert (PKG / "csrc" / "pcgphases.cu").exists()
 
 
+def test_the_scan_covers_the_training_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/models/networks.py", "diffpiso_tpu_torch/eval/spectra.py",
+            "diffpiso_tpu_torch/learning/losses.py", "diffpiso_tpu_torch/learning/optim.py",
+            "diffpiso_tpu_torch/learning/training.py", "diffpiso_tpu_torch/solvers/jacobi2.py",
+            "diffpiso_tpu_torch/fields/grid.py", "diffpiso_tpu_torch/convert.py"} <= scanned
+    assert (PKG / "csrc" / "jacobi2_fold.cu").exists()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 
@@ -81,6 +90,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         p.spatial_mixing_layer_setup(simulation={"HRres": (8, 16)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         domain.staggered_grid(0.0)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_fullyconv(torch.Generator().manual_seed(0))
     # an explicit CPU request works
     v = p.random_solenoidal(domain, torch.Generator().manual_seed(0), device="cpu")
     assert v.components[0].device.type == "cpu"
