@@ -110,7 +110,31 @@ Phases, each fatal on failure:
      copies of the sample as bench.py stacks them, 1 untimed and 5 timed
      train steps: fold kernel launches equal to what the solver's counters
      derive (2 per solve + the slowest sample's sweeps), every
-     single-sample kernel 0.
+     single-sample kernel 0;
+  2f. the large tier's two kernels (bench.py's turb_1024 and dns_512x2048
+     rows, where the JAX package's size tiers switch: solvers/tiers.py) at
+     1024^2 on the operators of the turbulence run's first step: jac1
+     forward and transposed on both components (equal sweeps, x within rel
+     1e-6) and the PCG update with M^-1 folded in, on the loop's first
+     call and on a mid-loop call (p' within rel 1e-6 of its scale, rz'
+     within rel 1e-5); then jac1 on the 512 x 2048 mixing layer's faces
+     (513 x 2048, 512 x 2049) 20 steps into its run;
+  10. turbulence at 1024^2 (bench.py turb_1024: phase 4's configuration at
+     n = 1024): (a) 2 steps and the 2-step rollout gradient on the card
+     against the plain path on the CPU at full size, at phase 3's pressure
+     tol 1e-7 (at 1e-8 a solve can stop within rounding of tol; equal pressure
+     iterations, solver loop counters and adjoint gate decisions; velocity
+     rtol 2e-4 / atol 2e-5; gradient rel l2 <= 1e-3); (b) 10 warm-up and
+     200 timed forward steps, counters reset before them (jac1 twice per
+     momentum solve, jac2 and pcg2 never, the folded update once per PCG
+     loop, reset and iteration, the other kernels as phase 4's, warn 0);
+     (c) grad30 ("outputs" remat, 1 untimed and 3 timed evaluations,
+     counts checked per evaluation, gated adjoints reported);
+  11. the 512 x 2048 mixing-layer DNS (bench.py dns_512x2048) with phase
+     7b-c's protocol: the 400-step spin-up, 400 timed steps, grad30; jac1
+     on the faces, the PCG phase kernels with the update (channel_mm
+     takes no fold), the BiCGSTAB phases after a jac1 miss, jac2 and pcg2
+     never. The earlier paths assert 0 launches of jac1 and the fold.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -161,7 +185,7 @@ def rel_err(a, b) -> float:
 
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
-               "matvec_kernel", "pcg2", "bicg_", "pcgp_")
+               "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -852,17 +876,21 @@ def loop_counters() -> dict:
     return dict(pcg_loops=p.loops, pcg_warm_entries=p.warm_entries, pcg_resets=p.resets,
                 pcg_iterations=p.iterations, bicgstab_fallbacks=b.fallbacks,
                 bicgstab_iterations=b.iterations, applies=b.applies[False],
-                applies_T=b.applies[True])
+                applies_T=b.applies[True], jacobi_sweeps=b.jacobi_sweeps)
 
 
-def derived_launches(c0: dict, c1: dict) -> tuple:
+def derived_launches(c0: dict, c1: dict, fold: bool = False) -> tuple:
     """(launches the loops derive, counter deltas): the PCG residual once per
-    warm entry, reset and finished loop; apply and update once per
-    iteration; after a jac2 miss, each BiCGSTAB phase once per component
-    and iteration, the matvec once per component and operator apply."""
+    warm entry, reset and finished loop; apply once per iteration; the
+    update once per iteration or, where M^-1 is folded into it (`fold`:
+    the large tier), the folded update once per loop, reset and iteration;
+    after a Jacobi miss, each BiCGSTAB phase once per component and
+    iteration, the matvec once per component and operator apply."""
     d = {k: c1[k] - c0[k] for k in c0}
+    update = ({"pcg_mm_update": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]} if fold
+              else {"pcg_update": d["pcg_iterations"]})
     return ({"pcg_residual": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
-             "pcg_apply": d["pcg_iterations"], "pcg_update": d["pcg_iterations"],
+             "pcg_apply": d["pcg_iterations"], **update,
              **{k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES}}, d)
 
 
@@ -1200,12 +1228,16 @@ def mixing_small_check(dev) -> None:
         fail(f"{MIX_SMALL} mixing gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
 
 
-def mixing_path(dev, wrappers: dict) -> tuple:
-    """Phases 7b and 7c: the 128 x 512 mixing layer (bench.py workload_dns)
-    from its initial state, the 400-step spin-up, 400 timed forward steps
-    and grad30, every launch counter checked against what the steps and the
-    solver loops' counters derive. Returns (forward launches, grad30
-    launches per evaluation)."""
+def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
+                jacobi=("jacobi2_solve", 1)) -> tuple:
+    """Phases 7b and 7c (the 128 x 512 mixing layer, bench.py workload_dns)
+    and 11 (its dns_512x2048 row, `resolution` (512, 2048)): from its initial
+    state, the 400-step spin-up, 400 timed forward steps and grad30, every
+    launch counter checked against what the steps and the solver loops'
+    counters derive. `jacobi` names the whole-solve Jacobi kernel that the
+    momentum solves must take and its launches per solve: jac2 once, or
+    past its budget jac1 once per component. Returns (forward launches,
+    grad30 launches per evaluation)."""
     import torch
 
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
@@ -1225,10 +1257,11 @@ def mixing_path(dev, wrappers: dict) -> tuple:
     def read():
         return {k: fn.launches for k, fn in wrappers.items()}
 
-    setup = mixing_setup(MIX_RES, dev)
+    setup = mixing_setup(resolution, dev)
     step = mixing_step_fn(setup)
     v, p = setup.initial_state()
     g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    jac, per_solve = jacobi
     clock = [0]
 
     def advance(k):
@@ -1250,7 +1283,7 @@ def mixing_path(dev, wrappers: dict) -> tuple:
     spin_warns, spin_iters = advance(MIX_SPINUP)
     torch.cuda.synchronize()
     spin_s = time.perf_counter() - t0
-    print(f"mixing layer {MIX_RES}: {MIX_SPINUP}-step spin-up in {spin_s:.1f} s, warned steps "
+    print(f"{name} {resolution}: {MIX_SPINUP}-step spin-up in {spin_s:.1f} s, warned steps "
           f"{spin_warns}, pressure iterations per step {spin_iters}", flush=True)
 
     # -- 7b: the forward path
@@ -1269,28 +1302,28 @@ def mixing_path(dev, wrappers: dict) -> tuple:
     active_int = setup.sim.active_mask[1:-1, 1:-1]
     div = float((fv_divergence(v, setup.domain.dx) * active_int).abs().max())
     print(json.dumps(dict(
-        workload=f"spatial mixing layer DNS {MIX_RES[0]}x{MIX_RES[1]} ({MIX_SPINUP}-step "
+        workload=f"spatial mixing layer DNS {resolution[0]}x{resolution[1]} ({MIX_SPINUP}-step "
                  f"spin-up), forward",
         steps=MIX_STEPS, steps_per_sec=MIX_STEPS / elapsed, pressure_iters_per_step=iters,
         warn_fraction=warns / MIX_STEPS, spinup_warned_steps=spin_warns,
         max_abs_div_active=div, loop_counters=d, launches=fwd,
     )), flush=True)
     if not finite:
-        fail("mixing layer: non-finite state after the forward path")
+        fail(f"{name}: non-finite state after the forward path")
     if warns:
-        fail(f"mixing layer: warn fraction {warns / MIX_STEPS} (must be 0)")
+        fail(f"{name}: warn fraction {warns / MIX_STEPS} (must be 0)")
     # per step: the three pressure gradients, two divergences, explicit_H's
     # two matvecs, one momentum solve, one Laplace assembly; the pressure
     # solves' phase kernels and any BiCGSTAB hand-over as the loops count
     # them; pcg2, the uniform-mask assembly and the periodic kernels stay off
     S = MIX_STEPS
     want = dict(loops, grad2m=3 * S, div2m=2 * S, stencil_matvec=2 * S + 2 * d["applies"],
-                jacobi2_solve=S, laplace_assembly=S)
+                laplace_assembly=S, **{jac: per_solve * S})
     for k in fwd:
         if fwd[k] != want.get(k, 0):
-            fail(f"mixing forward: {k} launched {fwd[k]} times, expected {want.get(k, 0)}")
+            fail(f"{name} forward: {k} launched {fwd[k]} times, expected {want.get(k, 0)}")
     if fwd_T != 2 * d["applies_T"]:
-        fail(f"mixing forward: {fwd_T} transposed matvecs, expected {2 * d['applies_T']}")
+        fail(f"{name} forward: {fwd_T} transposed matvecs, expected {2 * d['applies_T']}")
 
     # -- 7c: grad30 from the developed state, the Dirichlet values frozen at
     # the last forward call's time (bench.py). Per evaluation, U steps,
@@ -1331,31 +1364,31 @@ def mixing_path(dev, wrappers: dict) -> tuple:
             loop_counters=d, launches=counts,
             matvec_transposed=wrappers["stencil_matvec"].launches_transposed,
         ))
-        print(json.dumps(dict(mixing_grad_eval=rep, **evals[-1])), flush=True)
+        print(json.dumps({f"{name}_grad_eval": rep, **evals[-1]}), flush=True)
         if res.warns:
-            fail(f"mixing grad30: warn fraction {res.warns / U} (must be 0)")
+            fail(f"{name} grad30: warn fraction {res.warns / U} (must be 0)")
         if not (gnorm > 0 and gnorm < float("inf")):
-            fail(f"mixing grad30: |grad| = {gnorm} (must be finite and > 0)")
+            fail(f"{name} grad30: |grad| = {gnorm} (must be finite and > 0)")
         want = dict(loops, grad2m=8 * U, div2m=4 * U, gradT2m=3 * U - 1,
                     stencil_matvec=6 * U + 2 * (d["applies"] + d["applies_T"]),
-                    jacobi2_solve=2 * U, laplace_assembly=2 * U)
+                    laplace_assembly=2 * U, **{jac: per_solve * 2 * U})
         for k in counts:
             if counts[k] != want.get(k, 0):
-                fail(f"mixing grad30: {k} launched {counts[k]} times, expected "
+                fail(f"{name} grad30: {k} launched {counts[k]} times, expected "
                      f"{want.get(k, 0)}")
         e = evals[-1]
         if e["matvec_transposed"] != 2 * U + 2 * d["applies_T"]:
-            fail(f"mixing grad30: {e['matvec_transposed']} transposed matvecs, expected "
+            fail(f"{name} grad30: {e['matvec_transposed']} transposed matvecs, expected "
                  f"{2 * U + 2 * d['applies_T']}")
         if d["pcg_warm_entries"] != 2 * U or d["pcg_loops"] < 2 * U:
-            fail("mixing grad30: the pressure solves did not run 2U warm entries and the 2U "
+            fail(f"{name} grad30: the pressure solves did not run 2U warm entries and the 2U "
                  "cold adjoint loops")
         if any(e[k] != evals[0][k] for k in ("launches", "loop_counters")):
-            fail("mixing grad30: an evaluation from the same state counted differently")
+            fail(f"{name} grad30: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
     print(json.dumps(dict(
-        workload=f"spatial mixing layer DNS {MIX_RES[0]}x{MIX_RES[1]}, grad{U} (d sum v^2 / d "
-                 f"forcing, Dirichlet values frozen), remat outputs",
+        workload=f"spatial mixing layer DNS {resolution[0]}x{resolution[1]}, grad{U} "
+                 f"(d sum v^2 / d forcing, Dirichlet values frozen), remat outputs",
         evaluations=len(timed),
         unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
         pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
@@ -1700,7 +1733,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
         if counts[k] != want:
             fail(f"training batch 1: {k} launched {counts[k]} times, the loops derive {want}")
     for k in ("advection_assembly", "pcg2_solve", "div2", "grad2", "corrector1_bridge",
-              "corrector2_tail", "jacobi2_solve_folded"):
+              "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve", "pcg_mm_update"):
         if counts[k]:
             fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
     return counts
@@ -1841,6 +1874,393 @@ def training_b8_path(dev, wrappers: dict) -> dict:
     return counts
 
 
+# -- the large-plane tier (bench.py turb_1024 and dns_512x2048) ----------------
+LARGE_N = 1024  # bench.py turb_1024: workload_turbulence at n = 1024
+LARGE_CHECK_STEPS = 2  # phase 10a: steps and rollout-gradient depth, card vs CPU
+# phase 10a's pressure tol: at the main path's 1e-8 a 1024^2 corrector can end
+# its solve with a residual within rounding of tol, so the iteration it stops
+# at depends on the summation order (the second step's first corrector: 2
+# iterations on the card, 1 on the CPU, measured on the H100); phase 3's 1e-7
+# keeps the counts the algorithm's. The timed paths keep 1e-8.
+LARGE_CHECK_P_TOL = 1e-7
+DNS_RES = (512, 2048)  # bench.py dns_512x2048: workload_dns at HRres (512, 2048)
+# kernels only the large tier runs; their `launches` come from the 1024^2 forward path
+LARGE_KERNELS = ("jacobi1_solve", "pcg_mm_update")
+
+
+def turbulence_step_fn(domain, sim, dt, p_tol=P_TOL):
+    """bench.py build_turbulence's step: advection tol 1e-6, pressure tol
+    1e-8, warm-started pressure increments."""
+    from diffpiso_tpu_torch.core.piso import piso_step
+
+    def step(v, p, g1, g2, f=None, full_output=False):
+        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=ADV_TOL, pressure_tol=p_tol,
+                         full_output=full_output)
+
+    return step
+
+
+def jacobi1_check(label, st, b_c, x_c) -> tuple:
+    """jac1 against its plain version on each component, forward and
+    transposed: equal sweeps, x within rel 1e-6 (bit-equal by design).
+    Returns (sweeps of each (component, transpose), max abs err)."""
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
+
+    sweeps, err = {}, 0.0
+    for c in range(len(b_c)):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for transpose in (False, True):
+            args = (st_c, b_c[c], x_c[c], -1.0, transpose, ADV_TOL, 33)
+            kx, kn, ks = fused_jacobi1_solve(*args)
+            px, pn, ps = jacobi1_plain(*args)
+            rel = rel_err(kx, px)
+            err = max(err, float((kx - px).abs().max()))
+            print(f"{label} jac1 component {c} {tuple(b_c[c].shape)} transpose={transpose}: "
+                  f"sweeps kernel {ks} plain {ps}, residual kernel {kn:.3e} plain {pn:.3e}, "
+                  f"x rel err {rel:.3e}", flush=True)
+            if ks != ps:
+                fail(f"{label} jac1 component {c} transpose={transpose}: sweep counts differ "
+                     f"({ks} vs {ps})")
+            if not rel <= 1e-6:
+                fail(f"{label} jac1 component {c} transpose={transpose}: x rel err {rel:.3e} "
+                     f"> 1e-6")
+            sweeps[(c, transpose)] = ks
+    return sweeps, err
+
+
+def jacobi1_entry(st_c, b, x, sweeps: int, err: float) -> dict:
+    """Times and bound of one forward jac1 solve of one component (st_c =
+    (center, lo, hi)) that takes `sweeps` sweeps: 7 planes in (5
+    coefficients, b, x0), x out; per cell the inverse diagonal (2 flops),
+    the entry and exit residuals (2 x 11) and 13 per sweep."""
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
+
+    args = (st_c, b, x, -1.0, False, ADV_TOL, 33)
+    cells = b.numel()
+    b_ms, b_by = bound(8 * cells * 4, cells * (2 + 22 + 13 * sweeps))
+    return dict(max_abs_err=err, sweeps=sweeps,
+                ms=cuda_time_ms(lambda: fused_jacobi1_solve(*args), 20),
+                **device_time(lambda: fused_jacobi1_solve(*args), 5),
+                plain_ms=cuda_time_ms(lambda: jacobi1_plain(*args), 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def large_kernels(dev, kernels: list) -> dict:
+    """Phase 2f: the large tier's two kernels against their plain versions
+    on the card. At 1024^2, on the operators of the first step of the
+    turbulence run (bench.py turb_1024): jac1 forward and transposed on
+    both components (equal sweeps, x within rel 1e-6), and the folded PCG
+    update on the loop's first call (p = 0, rz_old = 1, r the deflated
+    divergence) and on the call after one apply (p' within rel 1e-6 of its
+    scale, rz' within rel 1e-5: the hand-written GEMM sums in another order
+    than torch.matmul); then jac1 on the 512 x 2048 mixing layer's faces
+    (513 x 2048, 512 x 2049), on the operators of a step 20 steps into its
+    run. Appends both kernels' entries (times at 1024^2) to `kernels`;
+    returns jac1's measurements on the DNS faces."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.solvers import pcgphases
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm
+    from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
+
+    n = LARGE_N
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=VISCOSITY, device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = turbulence_step_fn(domain, sim, 0.4 / n)(v, zero, zero, zero,
+                                                   full_output=True).intermediates
+    st, b_c, x_c = it["stencil"], it["rhs"].components, v.components
+    sweeps, err = jacobi1_check(f"{n}^2", st, b_c, x_c)
+    kernels.append(dict(
+        name="jacobi1_solve", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi1.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:989",
+        launches_count="whole solves of one component (each: entry residual, one launch per "
+                       "sweep, exit residual)",
+        **jacobi1_entry((st.center[0], st.lo[0], st.hi[0]), b_c[0], x_c[0], sweeps[(0, False)],
+                        err)))
+
+    lap = it["laplacian"]
+    mss, weights = pressure_preconditioner("fft_mm", lap)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, dev)
+    sym = safe_symbol(mss, weights, torch.float32, dev)
+    r0 = it["v1_div"] - torch.sum(it["v1_div"]) / (n * n)  # the deflated cold start
+    zeros = torch.zeros_like(r0)
+    first = (torch.ones((), device=dev), r0, zeros)
+    p1, rz1 = pcg_mm_update_plain(v0, v1, sym, *first)
+    _, r1, _, _ = pcgphases.pcg_apply_plain(lap, rz1, zeros, r0, p1, True)
+    mid = (rz1, r1, p1)
+    mm_err, f64_rel = 0.0, {}
+    for label, args in (("first call", first), ("mid-loop", mid)):
+        kp, krz = fused_pcg_mm_update(v0, v0t, v1, v1t, sym, *args)
+        pp, prz = pcg_mm_update_plain(v0, v1, sym, *args)
+        p64, _ = pcg_mm_update_plain(*(a.double() for a in (v0, v1, sym, *args)))
+        e = float((kp - pp).abs().max())
+        scale = float(pp.abs().max())
+        p_rel = e / scale
+        rz_rel = abs(float(krz) - float(prz)) / abs(float(prz))
+        mm_err = max(mm_err, e)
+        # each float32 version against float64, in units of the scale
+        f64_rel[label] = [float((x.double() - p64).abs().max()) / scale for x in (kp, pp)]
+        print(f"{n}^2 mm_update ({label}) vs plain: p' max abs err {e:.3e} (rel to scale "
+              f"{p_rel:.3e}), rz' rel err {rz_rel:.3e}; vs float64: kernel "
+              f"{f64_rel[label][0]:.3e}, plain {f64_rel[label][1]:.3e}", flush=True)
+        if not (p_rel <= 1e-6 and rz_rel <= 1e-5):
+            fail(f"{n}^2 mm_update ({label}): kernel vs plain beyond rel 1e-6 of p's scale / "
+                 f"rel 1e-5 (rz')")
+    # v0, v1, the symbol, r and p in, p' out; four contractions of 2 n^3
+    # flops each (in general 4 n0 n1 (n0 + n1)), r.z and the update
+    b_mm, by_mm = bound((2 * n * n + 4 * n * n) * 4, 4 * n * n * (2 * n) + 4 * n * n)
+    kernels.append(dict(
+        name="pcg_mm_update", route="cuda", source="diffpiso_tpu_torch/csrc/pcg_mm_update.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:1966", max_abs_err=mm_err,
+        ms=cuda_time_ms(lambda: fused_pcg_mm_update(v0, v0t, v1, v1t, sym, *mid), 50),
+        **device_time(lambda: fused_pcg_mm_update(v0, v0t, v1, v1t, sym, *mid), 10),
+        plain_ms=cuda_time_ms(lambda: pcg_mm_update_plain(v0, v1, sym, *mid), 50),
+        bound_ms=b_mm, bound_by=by_mm, p_rel_err_vs_float64_kernel_plain=f64_rel,
+        # yardstick: one 1024^3 fp32 contraction through cuBLAS (the op needs
+        # four); the port never calls it
+        library_ms=cuda_time_ms(lambda: torch.matmul(v0, r1), 200),
+        gemm_ms=cuda_time_ms(lambda: gemm(v0, r1), 200),
+    ))
+
+    setup = mixing_setup(DNS_RES, dev)
+    step = mixing_step_fn(setup)
+    v, p = setup.initial_state()
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    for k in range(20):
+        o = step(v, p, g1, g2, tm=bench_time(k, setup.dt))
+        if o.warn:
+            fail("dns: a solve warned in the steps that make the kernel checks' planes")
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    it = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                   dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                       bench_time(20, setup.dt))),
+                   pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=MIX_TOL,
+                   pressure_tol=MIX_TOL, full_output=True).intermediates
+    st, b_c = it["stencil"], it["rhs"].components
+    sweeps, err = jacobi1_check(f"dns {DNS_RES}", st, b_c, v.components)
+    out = {}
+    for c in range(2):
+        shape = "x".join(map(str, b_c[c].shape))
+        out[f"dns_{shape}"] = jacobi1_entry((st.center[c], st.lo[c], st.hi[c]), b_c[c],
+                                            v.components[c], sweeps[(c, False)], err)
+    return {"jacobi1_solve": out}
+
+
+def large_small_check(dev) -> None:
+    """Phase 10a: turbulence at 1024^2 from one seeded solenoidal state, 2
+    steps and then the 2-step rollout gradient (from the same state), at
+    pressure tol 1e-7 (LARGE_CHECK_P_TOL), on the card against the plain
+    path on the CPU at full size: equal
+    pressure iterations per step, equal solver loop counters (PCG loops,
+    warm entries, resets, iterations; jac1 sweeps; BiCGSTAB hand-overs and
+    iterations) for the steps and for the gradient, equal adjoint gate
+    decisions, the velocity within rtol 2e-4 / atol 2e-5, the gradient
+    within rel l2 1e-3."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+
+    n = LARGE_N
+    res = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        domain, sim = decaying_turbulence_setup((n, n), viscosity=VISCOSITY, device=d)
+        v0 = random_solenoidal(domain, torch.Generator().manual_seed(1), device=d)
+        p0 = domain.centered_grid(0.0, device=d)
+        step = turbulence_step_fn(domain, sim, 0.4 / n, LARGE_CHECK_P_TOL)
+        v, p, g1, g2 = v0, p0, torch.zeros_like(p0), torch.zeros_like(p0)
+        c0, iters = loop_counters(), []
+        for _ in range(LARGE_CHECK_STEPS):
+            o = step(v, p, g1, g2)
+            if o.warn:
+                fail(f"{n}^2 steps on {d.type}: a solve warned")
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters.append(list(o.p_iterations))
+        c1 = loop_counters()
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components), periodic=(True, True))
+        r = rollout_loss_grad(step, v0, p0, f, LARGE_CHECK_STEPS)
+        c2 = loop_counters()
+        if r.warns:
+            fail(f"{n}^2 rollout gradient on {d.type}: {r.warns} steps warned")
+        res[key] = dict(
+            v=[c.cpu() for c in v.components], iters=iters,
+            steps={k: c1[k] - c0[k] for k in c0}, grad_counters={k: c2[k] - c1[k] for k in c0},
+            grad=[c.cpu().double() for c in r.grad.components],
+            decisions=[(a.system, a.gated) for a in r.adjoints],
+            ratios=[round(a.residual / a.limit, 3) for a in r.adjoints if a.limit is not None],
+            seconds=time.perf_counter() - t0)
+    card, cpu = res["card"], res["cpu"]
+    err = max(float((a - b).abs().max() - 2e-4 * b.abs().max())
+              for a, b in zip(card["v"], cpu["v"]))
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(card["grad"], cpu["grad"]))
+    den = sum(float(torch.sum(b ** 2)) for b in cpu["grad"])
+    g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    print(json.dumps(dict(
+        check=f"{n}^2 x {LARGE_CHECK_STEPS} steps and rollout gradient, card vs CPU plain path",
+        pressure_iters=[card["iters"], cpu["iters"]], step_counters=[card["steps"], cpu["steps"]],
+        grad_counters=[card["grad_counters"], cpu["grad_counters"]],
+        velocity_excess=err, grad_rel_l2=g_rel,
+        gated=[sum(g for _, g in card["decisions"]), sum(g for _, g in cpu["decisions"]),
+               len(cpu["decisions"])],
+        pressure_adjoint_ratios=[card["ratios"], cpu["ratios"]],
+        seconds=[card["seconds"], cpu["seconds"]])), flush=True)
+    for key in ("iters", "steps", "grad_counters", "decisions"):
+        if card[key] != cpu[key]:
+            fail(f"{n}^2 card vs CPU: {key} differ, card {card[key]} vs CPU {cpu[key]}")
+    if not err <= 2e-5:
+        fail(f"{n}^2 card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
+    if not g_rel <= 1e-3:
+        fail(f"{n}^2 rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def large_turbulence_path(dev, wrappers: dict) -> tuple:
+    """Phases 10b and 10c: turbulence at 1024^2 (bench.py turb_1024) from a
+    seeded solenoidal state: 10 warm-up steps, then 200 timed forward
+    steps, then grad30 ("outputs" remat; 1 untimed and 3 timed
+    evaluations), every launch counter reset before each and checked
+    after: jac1 twice per momentum solve, jac2 and pcg2 never, the folded
+    update once per PCG loop, reset and iteration, the other PCG phases and
+    any BiCGSTAB hand-over as the loops' counters derive, the periodic
+    kernels once per step (grad30: phase 5b's counts). Returns (forward
+    launches, grad30 launches per evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 matmul is on: the pressure solves must contract in full float32")
+    n = LARGE_N
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=VISCOSITY, device=dev)
+    step = turbulence_step_fn(domain, sim, 0.4 / n)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p = domain.centered_grid(0.0, device=dev)
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def check(what, counts, want):
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"{n}^2 {what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
+
+    for _ in range(WARMUP_STEPS):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    reset()
+    c0 = loop_counters()
+    warns, iters = 0, [0, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        warns += int(o.warn)
+        iters[0] += o.p_iterations[0]
+        iters[1] += o.p_iterations[1]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    loops, d = derived_launches(c0, loop_counters(), fold=True)
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    print(json.dumps(dict(
+        workload=f"decaying turbulence {n}^2 (periodic, random solenoidal IC), forward",
+        steps=TIMED_STEPS, steps_per_sec=TIMED_STEPS / elapsed,
+        pressure_iters_per_step=[iters[0] / TIMED_STEPS, iters[1] / TIMED_STEPS],
+        warn_fraction=warns / TIMED_STEPS,
+        max_abs_div=float(fv_divergence(v, domain.dx).abs().max()),
+        loop_counters=d, launches=fwd)), flush=True)
+    if not finite:
+        fail(f"{n}^2: non-finite state after the forward path")
+    if warns:
+        fail(f"{n}^2: warn fraction {warns / TIMED_STEPS} (must be 0)")
+    S = TIMED_STEPS
+    check("forward", fwd, dict(
+        loops, advection_assembly=S, laplace_assembly=S, jacobi1_solve=2 * S, div2=S, grad2=S,
+        corrector1_bridge=S, corrector2_tail=S,
+        stencil_matvec=2 * (d["applies"] + d["applies_T"])))
+
+    # grad30 from the developed state: phase 5b's counts with jac1 twice per
+    # momentum solve and the pressure solves' loops derived (2U warm forward
+    # solves, 2U cold adjoint loops)
+    U = UNROLL
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(True, True))
+    evals = []
+    for rep in range(1 + GRAD_REPS):
+        reset()
+        c0 = loop_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = read()
+        loops, d = derived_launches(c0, loop_counters(), fold=True)
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_pcg_iters_per_step=sum(a.iterations for a in p_adj) / U,
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
+                                        default=None),
+            loop_counters=d, launches=counts))
+        print(json.dumps(dict(turb1024_grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"{n}^2 grad30: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"{n}^2 grad30: |grad| = {gnorm} (must be finite and > 0)")
+        check("grad30", counts, dict(
+            loops, advection_assembly=2 * U, laplace_assembly=2 * U, jacobi1_solve=4 * U,
+            div2=3 * U - 1, grad2=3 * U, corrector1_bridge=2 * U, corrector2_tail=2 * U,
+            stencil_matvec=2 * (d["applies"] + d["applies_T"])))
+        if d["pcg_warm_entries"] != 2 * U or d["pcg_loops"] < 2 * U:
+            fail(f"{n}^2 grad30: the pressure solves did not run 2U warm entries and the 2U "
+                 "cold adjoint loops")
+        if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
+            fail(f"{n}^2 grad30: an evaluation from the same state counted differently")
+    timed = [e for e in evals if e["timed"]]
+    print(json.dumps(dict(
+        workload=f"decaying turbulence {n}^2, grad{U} (d sum v^2 / d forcing), remat outputs",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_pcg_iters_per_step=sum(e["adjoint_pcg_iters_per_step"] for e in timed)
+        / len(timed),
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
+        adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )), flush=True)
+    return fwd, timed[-1]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1865,9 +2285,11 @@ def main() -> int:
     from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
     from diffpiso_tpu_torch.solvers.jacobi2 import (
         fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
     from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
+    from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2142,6 +2564,9 @@ def main() -> int:
     # -- phase 2e: the batch-1 training path's kernels at its 64 x 256 shapes -----------
     training_measured = mixing_kernels(dev, None, training_setup(TRAIN_RES, dev), "training")
 
+    # -- phase 2f: the large tier's kernels at 1024^2 and the 512 x 2048 DNS faces -------
+    large_measured = large_kernels(dev, kernels)
+
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
     outs = {}
@@ -2200,6 +2625,9 @@ def main() -> int:
         "pcg_update": (pcgphases.fused_pcg_update, 0),
         # the batch-folded jac2: only the batched training regime takes it
         "jacobi2_solve_folded": (fused_jacobi2_solve_folded, 0),
+        # the large tier's kernels: only planes past jac2's and pcg2's budgets
+        "jacobi1_solve": (fused_jacobi1_solve, 0),
+        "pcg_mm_update": (fused_pcg_mm_update, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -2298,6 +2726,7 @@ def main() -> int:
         "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
         "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
+        "jacobi1_solve": 0, "pcg_mm_update": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -2381,15 +2810,28 @@ def main() -> int:
     training_batched_check(dev)
     train_b8 = training_b8_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
 
+    # -- phase 10: turbulence at 1024^2 (bench.py turb_1024) -----------------------------
+    large_small_check(dev)
+    turb1024_fwd, turb1024_grad = large_turbulence_path(
+        dev, {k: fn for k, (fn, _) in wrappers.items()})
+
+    # -- phase 11: the 512 x 2048 mixing-layer DNS (bench.py dns_512x2048) ---------------
+    dns_fwd, dns_grad = mixing_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, DNS_RES,
+                                    "dns", ("jacobi1_solve", 2))
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
     # and the BiCGSTAB phases, which only its adjoint's fallback launches,
-    # from its grad30 evaluation), the others from the turbulence forward
+    # from its grad30 evaluation); the large tier's from the 1024^2
+    # turbulence forward run, the others from the 512^2 turbulence forward
     # run; every path's counts stand beside them
     for entry in kernels:
         name = entry["name"]
-        if name == "jacobi2_solve_folded":
+        if name in LARGE_KERNELS:
+            entry["path"] = "turbulence 1024 forward"
+            entry["launches"] = turb1024_fwd[name]
+        elif name == "jacobi2_solve_folded":
             entry["path"] = "training batch 8"
             entry["launches"] = train_b8[name]
         elif name in MIXING_KERNELS:
@@ -2409,6 +2851,11 @@ def main() -> int:
         entry["mixing_grad30_launches"] = mix_grad[name]
         entry["training_b1_launches"] = train_b1[name]
         entry["training_b8_launches"] = train_b8[name]
+        entry["turb1024_launches"] = turb1024_fwd[name]
+        entry["turb1024_grad30_launches"] = turb1024_grad[name]
+        entry["dns_launches"] = dns_fwd[name]
+        entry["dns_grad30_launches"] = dns_grad[name]
+        entry.update(large_measured.get(name, {}))
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]
         if name in mixing_measured:

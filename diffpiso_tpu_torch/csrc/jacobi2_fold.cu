@@ -13,8 +13,9 @@
 // with A = sgn * M (or sgn * M^T when `transpose`), M the 5-point roll
 // stencil of each sample's own coefficient planes.
 //
-// Design: the single-sample kernel of csrc/jacobi2.cu with a third grid
-// axis for the sample. The host runs the sweep loop and reads the B norms
+// Design: the single-sample kernel of csrc/jacobi2.cu (its matvec and
+// inverse diagonal from jacobi.cuh) with a third grid axis for the sample.
+// The host runs the sweep loop and reads the B norms
 // of each sweep; each block reads whether its sample is still active from
 // the previous sweep's norm and tol (NaN compares false, so a non-finite
 // sample stops as the single-sample loop does), so the active flags never
@@ -29,7 +30,7 @@
 // Bound on the H100: bytes (14 planes in, 2 out per sample). At 64 x 256
 // and B = 8 the 9 x B planes per sweep (about 5 MB) stay in the 50 MB L2,
 // so launch and the per-sweep read dominate.
-#include "common.cuh"
+#include "jacobi.cuh"
 
 struct FoldComp {
   const float *c, *ly, *hy, *lx, *hx, *b, *x0;  // B planes each, contiguous
@@ -42,35 +43,6 @@ struct FoldArgs {
   float sgn;
   int nb;  // samples
 };
-
-__device__ __forceinline__ float fold_inv_diag(float c, float sgn) {
-  const float d = sgn * c;
-  return fabsf(d) > 1e-30f ? 1.0f / d : 1.0f;
-}
-
-// sgn * (M v)[i,j] (or M^T) on one sample's planes (pointers already offset)
-template <bool TRANSPOSE, typename F>
-__device__ __forceinline__ float fold_matvec(const float* c, const float* ly,
-                                             const float* hy, const float* lx,
-                                             const float* hx, int ny, int nx,
-                                             float sgn, int i, int j, F v) {
-  const int im = dp_wrap_dec(i, ny), ip = dp_wrap_inc(i, ny);
-  const int jm = dp_wrap_dec(j, nx), jp = dp_wrap_inc(j, nx);
-  const size_t k = (size_t)i * nx + j;
-  float q = c[k] * v(i, j);
-  if (!TRANSPOSE) {
-    q = q + ly[k] * v(im, j);
-    q = q + hy[k] * v(ip, j);
-    q = q + lx[k] * v(i, jm);
-    q = q + hx[k] * v(i, jp);
-  } else {
-    q = q + ly[(size_t)ip * nx + j] * v(ip, j);
-    q = q + hy[(size_t)im * nx + j] * v(im, j);
-    q = q + lx[(size_t)i * nx + jp] * v(i, jp);
-    q = q + hx[(size_t)i * nx + jm] * v(i, jm);
-  }
-  return sgn * q;
-}
 
 // mode 0: init  (x = x0; r_out = b - A x0)
 // mode 1: sweep (active: x += iv r_in, r_out = r_in - A (iv r_in);
@@ -113,7 +85,7 @@ __global__ void jac2f_kernel(FoldArgs a, const float* __restrict__ r_in0,
       const float* x0 = s.x0 + off;
       x[idx] = x0[idx];
       res = s.b[off + idx] -
-            fold_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, a.sgn, i, j,
+            dp_jac_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, a.sgn, i, j,
                                    [&](int y, int xx) { return x0[(size_t)y * nx + xx]; });
       r_out[idx] = res;
     } else if constexpr (MODE == 1) {
@@ -121,17 +93,17 @@ __global__ void jac2f_kernel(FoldArgs a, const float* __restrict__ r_in0,
         const float sgn = a.sgn;
         auto dlt = [&](int y, int xx) {
           const size_t q = (size_t)y * nx + xx;
-          return fold_inv_diag(c[q], sgn) * r_in[q];
+          return dp_jac_inv_diag(c[q], sgn) * r_in[q];
         };
         x[idx] = x[idx] + dlt(i, j);
-        res = r_in[idx] - fold_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, sgn, i, j, dlt);
+        res = r_in[idx] - dp_jac_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, sgn, i, j, dlt);
       } else {
         res = r_in[idx];
       }
       r_out[idx] = res;
     } else {
       res = s.b[off + idx] -
-            fold_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, a.sgn, i, j,
+            dp_jac_matvec<TRANSPOSE>(c, ly, hy, lx, hx, ny, nx, a.sgn, i, j,
                                    [&](int y, int xx) { return x[(size_t)y * nx + xx]; });
     }
   }

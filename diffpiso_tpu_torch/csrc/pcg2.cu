@@ -17,8 +17,8 @@
 //
 // Design: the host runs the iteration loop and reads one 4-byte norm per
 // iteration. M^-1 r is four dense fp32 contractions, done by the
-// hand-written tiled GEMM below (32x64 output tiles, 16-deep k slices in
-// shared memory, 4x4 outputs per thread, explicit fmaf, fixed k order),
+// hand-written tiled GEMM of gemm.cuh (32x64 output tiles, 16-deep k slices
+// in shared memory, 4x4 outputs per thread, explicit fmaf, fixed k order),
 // with the divide by S fused into the second product's epilogue; the
 // bases' transposes are stored once so every product is row-major NN.
 // Dot products, sums and the deflation mean are block partial sums plus a
@@ -33,71 +33,10 @@
 // state (~20 planes of 1 MiB at 512^2) fits the 50 MB L2, so the
 // elementwise passes run from L2 after the first touch.
 #include "common.cuh"
+#include "gemm.cuh"
 
 enum { S_RZ = 0, S_BETA = 1, S_SUMP = 2, S_ALPHA = 3, S_MEAN = 4, S_SUMX = 5 };
 enum { OP_SUMX = 0, OP_MEAN = 1, OP_RZ = 2, OP_SUMP = 3, OP_PQ = 4 };
-
-#define GBM 32
-#define GBN 64
-#define GBK 16
-#define GTHREADS 128
-
-// C[M,N] = A[M,K] @ B[K,N] (row-major), optionally divided elementwise by S.
-template <bool DIV>
-__global__ void __launch_bounds__(GTHREADS)
-    pcg2_sgemm_nn(int M, int N, int K, const float* __restrict__ A,
-                  const float* __restrict__ B, float* __restrict__ C,
-                  const float* __restrict__ S) {
-  __shared__ float As[GBK][GBM + 4];
-  __shared__ float Bs[GBK][GBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * GBM, col0 = blockIdx.x * GBN;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    for (int l = tid; l < GBM * GBK; l += GTHREADS) {
-      const int m = l / GBK, k = l % GBK;
-      const int gm = row0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.0f;
-    }
-    for (int l = tid; l < GBK * GBN; l += GTHREADS) {
-      const int k = l / GBN, n = l % GBN;
-      const int gk = k0 + k, gn = col0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GBK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[k][ty + 8 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[k][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = row0 + ty + 8 * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int n = col0 + tx + 16 * b;
-      if (m < M && n < N) {
-        float v = acc[a][b];
-        if (DIV) v = v / S[(size_t)m * N + n];
-        C[(size_t)m * N + n] = v;
-      }
-    }
-  }
-}
 
 struct Lap {
   const float *c, *ly, *hy, *lx, *hx, *shift;
@@ -294,17 +233,8 @@ extern "C" int pcg2_precondition(const float* v0, const float* v0t,
                                  const float* sym, const float* r, float* z,
                                  float* h1, float* h2, int ny, int nx,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((nx + GBN - 1) / GBN, (ny + GBM - 1) / GBM);
-  pcg2_sgemm_nn<false><<<grid, GTHREADS, 0, st>>>(ny, nx, ny, v0, r, h1, nullptr);
-  DP_CHECK();
-  pcg2_sgemm_nn<true><<<grid, GTHREADS, 0, st>>>(ny, nx, nx, h1, v1t, h2, sym);
-  DP_CHECK();
-  pcg2_sgemm_nn<false><<<grid, GTHREADS, 0, st>>>(ny, nx, ny, v0t, h2, h1, nullptr);
-  DP_CHECK();
-  pcg2_sgemm_nn<false><<<grid, GTHREADS, 0, st>>>(ny, nx, nx, h1, v1, z, nullptr);
-  DP_CHECK();
-  return 0;
+  return dp_spectral_apply(v0, v0t, v1, v1t, sym, r, z, h1, h2, ny, nx,
+                           (cudaStream_t)stream);
 }
 
 // One PCG iteration after z = M^-1 r: updates p, q, x, r and writes
@@ -343,10 +273,6 @@ extern "C" int pcg2_update(const void* const* planes, const float* z, float* p,
 // The GEMM alone, for timing and testing the contraction: C = A @ B (/ S).
 extern "C" int pcg2_gemm(const float* A, const float* B, float* C,
                          const float* S, int M, int N, int K, void* stream) {
-  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  if (S)
-    pcg2_sgemm_nn<true><<<grid, GTHREADS, 0, (cudaStream_t)stream>>>(M, N, K, A, B, C, S);
-  else
-    pcg2_sgemm_nn<false><<<grid, GTHREADS, 0, (cudaStream_t)stream>>>(M, N, K, A, B, C, nullptr);
+  dp_sgemm(M, N, K, A, B, C, S, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("advassembly", "laplace_assembly", "jacobi2", "pcg2", "fv2", "corrector", "fv2m",
-           "matvec", "bicg", "pcgphases", "jacobi2_fold")
+           "matvec", "bicg", "pcgphases", "jacobi2_fold", "jacobi1", "pcg_mm_update")
 # --fmad=false: no contraction of a*b+c into one FMA, so the elementwise
 # kernels round exactly like their plain PyTorch versions (the GEMM in
 # pcg2.cu calls fmaf explicitly)

@@ -1,6 +1,7 @@
-"""Solvers: Krylov loops, the spectral preconditioners, the two
-whole-solve kernels (jacobi2, pcg2), the BiCGSTAB phase kernels (bicg) and
-the per-iteration PCG phase kernels (pcgphases)."""
+"""Solvers: Krylov loops, the spectral preconditioners, the whole-solve
+kernels (jacobi2, jacobi1, pcg2), the BiCGSTAB phase kernels (bicg), the
+per-iteration PCG phase kernels (pcgphases) with the folded update
+(pcgmm), and the size tiers that choose among them (tiers)."""
 
 from diffpiso_tpu_torch.solvers.base import (
     AdvectionSolver,

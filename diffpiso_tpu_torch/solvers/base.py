@@ -251,7 +251,10 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
 
 
 # the spectral preconditioners and their per-axis bases (2-D); the first two
-# zero the mean mode, so their solves take the whole-solve pcg2
+# zero the mean mode, so their solves take the whole-solve pcg2 within its
+# budget (and the loop folds M^-1 into its update past it, all-`fourier`
+# bases): solvers/tiers.py pressure_tier, fed the kinds, the Laplacian's
+# periodic flags and this mean-free flag
 _MM_KINDS = {"fft_mm": ("fourier", "fourier"), "dct_mm": ("dct2", "dct2"),
              "channel_mm": ("dct2", "dct4")}
 _ZERO_MEAN = ("fft_mm", "dct_mm")
@@ -273,8 +276,9 @@ def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
 
 def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
                          adjoint: bool = False):
-    """One spectral PCG solve of L p = rhs, dispatched as in the JAX package:
-    the adjoint takes the adjoint preconditioner and a cold start, with no
+    """One spectral PCG solve of L p = rhs, dispatched as in the JAX package
+    (`krylov.pcg` picks pcg2 or the per-iteration loop by size tier): the
+    adjoint takes the adjoint preconditioner and a cold start, with no
     residual resets and no early exit (cold and non-trivial)."""
     if cfg.dtype is not None:
         raise NotImplementedError("the pressure PCG runs in float32 only")

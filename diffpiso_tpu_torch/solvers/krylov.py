@@ -1,10 +1,13 @@
 """Krylov solvers on staggered fields and pressure planes.
 
 Counterpart of diffpiso_tpu/solvers/krylov.py: `bicgstab` (Jacobi
-preconditioning, the whole-solve Jacobi accelerator in front, the fused
+preconditioning, the whole-solve Jacobi accelerators in front, the fused
 phase-kernel loop and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
-per-iteration loop with residual resets through the phase kernels.
+per-iteration loop with residual resets through the phase kernels, M^-1
+folded into its update in the large tier. Which accelerator and which
+pressure path a shape takes follows the JAX package's size tiers
+(solvers/tiers.py).
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
 float32, as in the reference."""
@@ -17,8 +20,10 @@ import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
+from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
 from diffpiso_tpu_torch.solvers.jacobi2 import (
     fused_jacobi2_solve,
     fused_jacobi2_solve_folded,
@@ -26,6 +31,7 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
     sample_tols,
 )
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve
+from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 
 
@@ -178,11 +184,17 @@ def bicgstab(
 ) -> SolveResult:
     """Jacobi-preconditioned BiCGSTAB on a staggered system.
 
-    With `stencil` (the advection stencil behind apply_A) and `diag`, the
-    whole-solve Jacobi-Richardson kernel (solvers/jacobi2.py) runs first:
-    the advection system is diagonally dominant by beta, so it usually
-    reaches tol alone and the Krylov loop never runs; otherwise BiCGSTAB
-    continues from the Jacobi iterate. On float32 planes its loop runs the
+    With `stencil` (the advection stencil behind apply_A) and `diag`, a
+    whole-solve Jacobi-Richardson kernel runs first, by the size tier of
+    the components' planes (solvers/tiers.py momentum_tier): both
+    components in one solve (solvers/jacobi2.py), or one solve per
+    component (solvers/jacobi1.py: each stops at its own residual, and the
+    hand-over reads the largest exit residual); planes up to 8 MiB past
+    jac1's budget would take the k-sweep launches, which are not ported
+    (raises); past that, as in the JAX package, no Jacobi runs. The
+    advection system is diagonally dominant by beta, so the Jacobi solve
+    usually reaches tol alone and the Krylov loop never runs; otherwise
+    BiCGSTAB continues from the Jacobi iterate. On float32 planes its loop runs the
     three phase kernels per component (solvers/bicg.py), as the JAX
     package's fused loop does; the generic loop serves the rest. A
     non-finite or > 100 tol final residual restarts once from zeros; warn
@@ -224,11 +236,27 @@ def bicgstab(
                                         max_iter, sgn, transpose)
         return _bicgstab_once(counted_apply, precond, b, x_init, tol32, max_iter)
 
-    if structured and len(comps) == 2:
-        xo0, xo1, jn, _ = fused_jacobi2_solve(
-            st_cs, tuple(comps), tuple(_comps(x0)), sgn, transpose, tol32, 1 + 8 * 4,
-        )
-        x0 = _rebuild(b, [xo0, xo1])
+    tier = tiers.momentum_tier([tuple(c.shape) for c in stencil.center],
+                               stencil.center[0].dtype) if structured else "none"
+    if tier == "sweeps":
+        raise NotImplementedError(
+            "momentum planes past jac1's budget but within 8 MiB take the JAX package's "
+            "k-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweeps), which are not "
+            "ported")
+    if tier in ("jac2", "jac1"):
+        x0_c = tuple(_comps(x0))
+        if tier == "jac2":
+            xo0, xo1, jn, sweeps = fused_jacobi2_solve(st_cs, tuple(comps), x0_c, sgn,
+                                                       transpose, tol32, 1 + 8 * 4)
+            xs = [xo0, xo1]
+        else:
+            outs = [fused_jacobi1_solve(st_cs[i], comps[i], x0_c[i], sgn, transpose, tol32,
+                                        1 + 8 * 4) for i in range(len(comps))]
+            xs = [o[0] for o in outs]
+            jn = float(np.max([o[1] for o in outs]))  # NaN propagates
+            sweeps = sum(o[2] for o in outs)
+        bicgstab.jacobi_sweeps += sweeps
+        x0 = _rebuild(b, xs)
         if jn < tol32:
             x, rnorm, k = x0, jn, 0
         else:
@@ -248,19 +276,43 @@ def bicgstab(
 
 bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGSTAB
 bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
+bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1: summed over components)
 # operator applications inside the BiCGSTAB loop, by transpose flag (each
 # applies the matvec once per component)
 bicgstab.applies = {False: 0, True: 0}
 
 
-def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, early_exit):
+def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, early_exit,
+                mm=None):
     """The per-iteration PCG loop of the JAX package's `krylov.pcg` with its
     fused phase kernels (solvers/pcgphases.py); when deflating, the mean is
-    removed from b and from each M^-1 r (this preconditioner's output is
-    not mean-free). Returns (x, true residual norm as a float, iterations)."""
+    removed from b and from each residual (`precond` returns M^-1 r already
+    projected where the preconditioner's output is not mean-free). With
+    `mm` = (v0, v0t, v1, v1t, symbol) M^-1 is folded into the update
+    (solvers/pcgmm.py) and `precond` is unused, as the JAX package's large
+    tier runs it: (z0, rz0) and each reset's (p, rz) come from the fold
+    with p = 0 and rz_old = 1, each iteration's update from the fold.
+    Returns (x, true residual norm as a float, iterations)."""
 
     def project(v):
         return v - torch.sum(v) / v.numel() if deflate else v
+
+    if mm is not None:
+        zeros = torch.zeros_like(b)
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+
+        def update(rz, r, p):
+            return fused_pcg_mm_update(*mm, rz, r, p)
+
+        def restart(r):
+            return update(one, r, zeros)
+    else:
+        def update(rz, r, p):
+            return fused_pcg_update(rz, r, precond(r), p)
+
+        def restart(r):
+            z = precond(r)
+            return z, torch.sum(r * z)
 
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -273,8 +325,8 @@ def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, ear
         # r0 is the true residual of x0: nothing to solve or verify
         return x0, float(rnorm0), 0
     pcg.loops += 1
-    z = project(precond(r0))
-    x, r, p, rz = x0, r0, z, torch.sum(r0 * z)
+    p, rz = restart(r0)
+    x, r = x0, r0
     k = 0
     done = False
     while not done and k < max_iter:
@@ -282,10 +334,9 @@ def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, ear
             # restart from the true residual, steepest descent
             pcg.resets += 1
             r, _ = fused_residual(lap, b, x, deflate)
-            p = project(precond(r))
-            rz = torch.sum(r * p)
+            p, rz = restart(r)
         x, r, rnorm, _ = fused_pcg_apply(lap, rz, x, r, p, deflate)
-        p, rz = fused_pcg_update(rz, r, project(precond(r)), p)
+        p, rz = update(rz, r, p)
         rn = float(rnorm)
         done = rn < tol or not np.isfinite(rn)
         k += 1
@@ -309,20 +360,25 @@ def pcg(
 ) -> SolveResult:
     """Spectrally preconditioned CG on the pressure Laplacian `stencil` (a
     2-D plane), with precond_mm = (MatmulSpectralSolver, weights) over the
-    full grid, dispatched as the JAX package does on the TPU:
+    full grid, dispatched by the JAX package's size tiers on the TPU
+    (solvers/tiers.py pressure_tier):
 
     * a preconditioner that zeroes the mean mode (`precond_zero_mean`: the
-      `fft_mm` and `dct_mm` kinds) takes the whole-solve kernel
+      `fft_mm` and `dct_mm` kinds) on a plane within pcg2's budget (512^2,
+      the 513 x 512 cavity) takes the whole-solve kernel
       (solvers/pcg2.py), periodic or bounded (bounded axes carry zero edge
       links, so its wrap is harmless, and the shift and deflation run over
       the true plane); it ignores `residual_reset` and `early_exit`;
-    * any other (`channel_mm`) takes the per-iteration loop through the
-      phase kernels (solvers/pcgphases.py): a cold start begins from r = b,
-      a warm one from the residual kernel; a warm start that already meets
+    * every other solve takes the per-iteration loop through the phase
+      kernels (solvers/pcgphases.py): a cold start begins from r = b, a
+      warm one from the residual kernel; a warm start that already meets
       tol is returned as it is when `early_exit` (no preconditioner
       applied); every `residual_reset`-th iteration restarts from the true
-      residual; M^-1 r (four dense contractions) runs between the apply and
-      the update; the exit check is the residual kernel.
+      residual; the exit check is the residual kernel. With all-`fourier`
+      bases on planes up to 8 MiB (1024^2) M^-1 is folded into the update
+      (solvers/pcgmm.py); otherwise (`channel_mm`; any plane past 8 MiB)
+      M^-1 r runs as four dense contractions between the apply and the
+      update.
 
     Each loop reads one norm back per iteration."""
     solver, weights = precond_mm
@@ -331,12 +387,24 @@ def pcg(
     (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     sym = safe_symbol(solver, weights, b.dtype, b.device)
     tol32 = _f32(tol)
-    if precond_zero_mean:
+    tier = tiers.pressure_tier(tuple(b.shape), solver.kinds, stencil.periodic, precond_zero_mean,
+                               deflate_mean, b.dtype)
+    if tier == "pcg2":
         x, rn, k = fused_pcg2_solve(stencil, b, x0, v0, v0t, v1, v1t, sym, tol,
                                     max_iter, deflate=deflate_mean)
+    elif tier == "mm_update":
+        x, rn, k = _pcg_phases(stencil, b, x0, None, tol32, max_iter, residual_reset,
+                               deflate_mean, early_exit, (v0, v0t, v1, v1t, sym))
     else:
-        x, rn, k = _pcg_phases(stencil, b, x0, lambda r: spectral_apply_plain(v0, v1, sym, r),
-                               tol32, max_iter, residual_reset, deflate_mean, early_exit)
+        # a mean-free preconditioner's output needs no projection
+        project_z = deflate_mean and not precond_zero_mean
+
+        def precond(r):
+            z = spectral_apply_plain(v0, v1, sym, r)
+            return z - torch.sum(z) / z.numel() if project_z else z
+
+        x, rn, k = _pcg_phases(stencil, b, x0, precond, tol32, max_iter, residual_reset,
+                               deflate_mean, early_exit)
     bad_at = float(np.float32(100.0) * np.float32(tol))
     warn = not np.isfinite(rn) or rn > bad_at
     return SolveResult(x=x, iterations=k, residual_norm=rn,
@@ -345,7 +413,9 @@ def pcg(
 
 # the per-iteration loop's counters: loops run, warm entries (one residual
 # launch each), resets, iterations; with them every phase kernel's launches
-# follow (residual: warm entries + resets + loops; apply, update: iterations)
+# follow (residual: warm entries + resets + loops; apply: iterations;
+# update: iterations, or in the large tier the folded update: loops +
+# resets + iterations)
 pcg.loops = 0
 pcg.warm_entries = 0
 pcg.resets = 0

@@ -3,6 +3,7 @@
 
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] [--n 512] [--steps 20] [--trace PATH]
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
+    python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
@@ -29,7 +30,11 @@ then one JSON line: host wall time per step (per unrolled step with
 stream, so they do not overlap), the device idle share, and device time
 and launches per step grouped by kernel family, largest first. Writes the
 Chrome trace to --trace (default traces/profile_torch_<workload>_<step or
-grad>.json). Needs a GPU.
+grad>.json). `turb1024` is `turbulence` at n = 1024 and `dns512x2048`
+`mixing` at n = 2048: bench.py's large-plane rows (turb_1024,
+dns_512x2048), where the solves take the large tiers (jac1, the PCG loop
+with M^-1 folded into the update or, on the DNS, the PCG phases). Needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ UNROLL = 30
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
-    ("pcg2_sgemm", "pcg2 GEMM (M^-1 r contractions)"),
+    ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update)"),
+    ("pcgmm_", "mm_update elementwise + reductions"),
     ("convolve", "CNN convolutions (cuDNN)"),
     ("fprop", "CNN convolutions (cuDNN)"),
     ("dgrad", "CNN convolutions (cuDNN)"),
@@ -61,7 +67,7 @@ FAMILIES = (
     ("gemm", "M^-1 r contractions (torch.matmul)"),
     ("dp_sum_partials", "laplace assembly"),
     ("laplace_assembly", "laplace assembly"),
-    ("jac2_", "jacobi2 sweeps"),
+    ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
     ("advassembly", "advection assembly"),
     ("fv2_", "FV div2 / grad2"),
     ("fv2m_", "FV div2m / grad2m / gradT2m"),
@@ -82,7 +88,8 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training"),
+    ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training",
+                                           "turb1024", "dns512x2048"),
                     default="turbulence")
     ap.add_argument("--n", type=int, default=None, help="512; 256 for training")
     ap.add_argument("--batch", type=int, default=1, help="training only: samples per step")
@@ -91,6 +98,12 @@ def main() -> int:
                     help="profile one rollout-gradient evaluation instead of forward steps")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    large = {"turb1024": ("turbulence", 1024), "dns512x2048": ("mixing", 2048)}
+    if args.workload in large:
+        label = args.workload
+        args.workload, args.n = large[label]
+        if args.trace is None:
+            args.trace = f"traces/profile_torch_{label}_{'grad' if args.grad else 'step'}.json"
     if args.n is None:
         args.n = 256 if args.workload == "training" else 512
     if args.trace is None:

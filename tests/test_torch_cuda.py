@@ -46,8 +46,10 @@ from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
+from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
+from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
 
 pytestmark = pytest.mark.cuda
@@ -776,3 +778,101 @@ def test_cuda_batched_training_gradient_matches_the_cpu_plain_path(cuda_device):
     assert not out["card"][1].any() and not out["cpu"][1].any()
     torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-4, atol=0)
     assert _rel_l2(out["card"][2], out["cpu"][2]) <= 1e-3
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", [(513, 2048), (512, 2049), (7, 5)])
+def test_jacobi1_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+    """The per-component whole solve on the 512 x 2048 mixing layer's two
+    face shapes and a small odd plane: the same sweeps, the same exit
+    residual and the same x, bit for bit (one thread per cell,
+    --fmad=false), and bit-equal to jac2's component when both components
+    converge together."""
+    c = _rand(shape, 40, 0.3, -10.0).to(cuda_device)
+    lo = tuple(_rand(shape, 40 + k, 0.4).to(cuda_device) for k in (1, 2))
+    hi = tuple(_rand(shape, 40 + k, 0.4).to(cuda_device) for k in (3, 4))
+    b = _rand(shape, 45).to(cuda_device)
+    x0 = torch.zeros(shape, device=cuda_device)
+    before = fused_jacobi1_solve.launches
+    kx, kn, ks = fused_jacobi1_solve((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
+    assert fused_jacobi1_solve.launches == before + 1
+    px, pn, ps = jacobi1_plain((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
+    assert ks == ps > 0 and kn == pn
+    torch.testing.assert_close(kx, px, rtol=0, atol=0)
+    # jac2 on two copies of the component sweeps exactly as far
+    j0, j1, jn, js = fused_jacobi2_solve([(c, lo, hi)] * 2, (b, b), (x0, x0), -1.0, transpose,
+                                         1e-6, 33)
+    assert js == ks and jn == kn
+    torch.testing.assert_close(j0, kx, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        fused_jacobi1_solve((c, lo, hi), b.double(), x0, -1.0, transpose, 1e-6, 33)
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_pcg_mm_update_kernel_matches_plain(first, cuda_device):
+    """The folded update at 1024^2 on a periodic fft_mm symbol (the
+    singular mean mode at +inf), on the loop's first call (p = 0, rz_old =
+    1) and a mid-loop call, with white-noise r: p' within 5e-6 of its
+    scale of the plain version (cuBLAS) and of float64, rz' within rel
+    1e-5. Four chained float32 contractions over 1024 terms, summed in
+    another order by the hand-written GEMM than by torch.matmul: on the
+    H100 the two lie 1.4e-6 of the scale apart on such an r."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (1024, 1024)
+    rng = np.random.RandomState(12)
+    comps = tuple(t(rng.rand(*shape) + 0.5).to(cuda_device) for _ in range(2))
+    ones = torch.ones(shape[0] + 2, shape[1] + 2, device=cuda_device)
+    lap = plap.assemble_pressure_laplacian(StaggeredField(comps, (True, True)), ones, ones,
+                                           (True, True), True)
+    mss, weights = pbase.pressure_preconditioner("fft_mm", lap)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, cuda_device)
+    sym = safe_symbol(mss, weights, torch.float32, cuda_device)
+    r = _rand(shape, 13).to(cuda_device)
+    p = torch.zeros_like(r) if first else _rand(shape, 14).to(cuda_device)
+    rz_old = torch.ones((), device=cuda_device) if first else \
+        1.7 * torch.sum(r * spectral_apply_plain(v0, v1, sym, r))
+    before = fused_pcg_mm_update.launches
+    kp, krz = fused_pcg_mm_update(v0, v0t, v1, v1t, sym, rz_old, r, p)
+    assert fused_pcg_mm_update.launches == before + 1
+    pp, prz = pcg_mm_update_plain(v0, v1, sym, rz_old, r, p)
+    p64, rz64 = pcg_mm_update_plain(*(a.double() for a in (v0, v1, sym, rz_old, r, p)))
+    scale = float(pp.abs().max())
+    torch.testing.assert_close(kp, pp, rtol=0, atol=5e-6 * scale)
+    torch.testing.assert_close(kp.double(), p64, rtol=0, atol=5e-6 * scale)
+    assert float(krz) == pytest.approx(float(prz), rel=1e-5)
+    assert float(krz) == pytest.approx(float(rz64), rel=1e-5)
+    with pytest.raises(ValueError):
+        fused_pcg_mm_update(v0, v0t, v1, v1t, sym, rz_old, r, p[:, :-1].contiguous())
+
+
+def test_pcg_loop_with_the_fold_matches_the_plain_fold(cuda_device, monkeypatch):
+    """One whole large-tier pressure solve at 1024^2 (periodic, shift,
+    deflation, fft_mm; warm, resets every 50, early exit) through the
+    kernels and through the plain versions on the card: the same
+    iterations."""
+    shape = (1024, 1024)
+    rng = np.random.RandomState(15)
+    comps = tuple(t(rng.rand(*shape) + 0.5).to(cuda_device) for _ in range(2))
+    ones = torch.ones(shape[0] + 2, shape[1] + 2, device=cuda_device)
+    lap = plap.assemble_pressure_laplacian(StaggeredField(comps, (True, True)), ones, ones,
+                                           (True, True), True)
+    rhs = rng.randn(*shape)
+    b = t(rhs - rhs.mean()).to(cuda_device)
+    pre = pbase.pressure_preconditioner("fft_mm", lap)
+
+    def solve():
+        return krylov.pcg(lap, b, 0.01 * _rand(shape, 16).to(cuda_device), precond_mm=pre,
+                          tol=1e-4, max_iter=300, residual_reset=50, deflate_mean=True,
+                          precond_zero_mean=True, early_exit=True)
+
+    before = fused_pcg_mm_update.launches
+    card = solve()
+    assert fused_pcg_mm_update.launches - before == card.iterations + 1 > 1
+    monkeypatch.setattr(krylov, "fused_residual", pcgphases.residual_plain)
+    monkeypatch.setattr(krylov, "fused_pcg_apply", pcgphases.pcg_apply_plain)
+    monkeypatch.setattr(krylov, "fused_pcg_mm_update",
+                        lambda v0, v0t, v1, v1t, sym, rz, r, p:
+                        pcg_mm_update_plain(v0, v1, sym, rz, r, p))
+    plain = solve()
+    assert card.iterations == plain.iterations and not card.warn
+    torch.testing.assert_close(card.x, plain.x, rtol=0, atol=1e-3 * float(plain.x.abs().max()))

@@ -71,6 +71,14 @@ def test_the_scan_covers_the_training_slice_modules():
     assert (PKG / "csrc" / "jacobi2_fold.cu").exists()
 
 
+def test_the_scan_covers_the_large_tier_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/solvers/tiers.py", "diffpiso_tpu_torch/solvers/jacobi1.py",
+            "diffpiso_tpu_torch/solvers/pcgmm.py"} <= scanned
+    for name in ("jacobi1.cu", "pcg_mm_update.cu", "jacobi.cuh", "gemm.cuh"):
+        assert (PKG / "csrc" / name).exists()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 

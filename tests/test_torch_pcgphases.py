@@ -197,7 +197,7 @@ def test_pressure_solves_dispatch_by_preconditioner(monkeypatch):
     real = pkrylov._pcg_phases
 
     def spy(*a):
-        calls.append(a[6:])  # residual_reset, deflate, early_exit
+        calls.append(a[6:9])  # residual_reset, deflate, early_exit
         return real(*a)
 
     monkeypatch.setattr(pkrylov, "_pcg_phases", spy)
