@@ -135,6 +135,30 @@ Phases, each fatal on failure:
      on the faces, the PCG phase kernels with the update (channel_mm
      takes no fold), the BiCGSTAB phases after a jac1 miss, jac2 and pcg2
      never. The earlier paths assert 0 launches of jac1 and the fold.
+  2g. the 3-D path's four kernels at 128^3 on the operators of a step from
+     the state after bench.py workload_turb3d's spin-up (2 calls of 50
+     steps from a seeded 0.5 N(0, 1) state): the rank-3 advection
+     assembly, div3 / grad3 forward and VJP, the 7-point matvec in both
+     forms and its VJP (and on the pressure Laplacian; yardstick: one
+     cuSPARSE CSR SpMV), the whole-solve 3-D Jacobi forward and transposed
+     on all three components: elementwise volumes within rel 1e-6 of their
+     scale (bit-equal by design; reported), the Jacobi bit-equal with
+     equal sweeps;
+  12. 3-D decaying turbulence (bench.py workload_turb3d: viscosity 1e-3,
+     dt 0.4/n, tol 1e-6 / 1e-8, fft_mm on all three axes): (a) 32^3, 3
+     steps and the 3-step rollout gradient (remat "none") on the card
+     against the plain path on the CPU (equal pressure iterations, loop
+     counters and gate decisions; velocity rtol 2e-4 / atol 2e-5;
+     gradient rel l2 <= 1e-3); (b) at 128^3 from phase 2g's state, 3 timed
+     calls of 50 steps (pressure guesses from zeros each call), counters
+     reset before them: the assembly once per step, grad3 3 and div3 2 per
+     step, the whole-solve Jacobi (2 + sweeps per component solve) and the
+     7-point matvec (explicit_H's 3 per step, one per PCG operator apply,
+     3 per BiCGSTAB apply) as the loops' counters derive, every 2-D kernel
+     0; warn 0; steps/s, iterations, sweeps per solve, hand-overs and peak
+     memory reported; (c) grad10 with remat "none" (1 untimed and 4 timed
+     evaluations), counts checked per evaluation, gated adjoints reported.
+     The earlier paths assert 0 launches of the 3-D kernels.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -185,7 +209,8 @@ def rel_err(a, b) -> float:
 
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
-               "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_")
+               "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
+               "fv3_", "matvec3_kernel", "jac13d_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -1733,7 +1758,8 @@ def training_b1_path(dev, wrappers: dict) -> dict:
         if counts[k] != want:
             fail(f"training batch 1: {k} launched {counts[k]} times, the loops derive {want}")
     for k in ("advection_assembly", "pcg2_solve", "div2", "grad2", "corrector1_bridge",
-              "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve", "pcg_mm_update"):
+              "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve", "pcg_mm_update",
+              *T3_KERNELS):
         if counts[k]:
             fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
     return counts
@@ -2261,6 +2287,556 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
     return fwd, timed[-1]["launches"]
 
 
+# -- 3-D decaying turbulence (bench.py workload_turb3d) ----------------------------
+T3_N = 128  # bench.py workload_turb3d: min(n, 128) at the default n
+T3_SMALL = 32  # phase 12a: card vs CPU (bench.py --quick's n)
+T3_VISCOSITY = 1e-3  # build_turbulence_3d's default
+T3_CALL = 50  # steps per bench.py call
+T3_SPINUP_CALLS = 2
+T3_TIMED_CALLS = 3
+T3_UNROLL = 10  # grad10, remat "none" (bench.py remats from n >= 192 only)
+T3_GRAD_REPS = 4
+# the 3-D path's kernels; their `launches` come from its forward run
+T3_KERNELS = ("advection_assembly3", "div3", "grad3", "stencil_matvec3d", "jacobi1_solve_3d")
+
+
+def turb3d_state(n, dev, seed=0):
+    """bench.py build_turbulence_3d's initial state: 0.5 N(0, 1) per
+    component from a seeded generator (not solenoidal: the spin-up projects
+    it), zero pressure."""
+    import torch
+
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    comps = tuple(0.5 * torch.randn((n,) * 3, generator=gen, device=dev) for _ in range(3))
+    return StaggeredField(comps, periodic=(True,) * 3), torch.zeros((n,) * 3, device=dev)
+
+
+def turb3d_step(n, dev):
+    """bench.py build_turbulence_3d(n, 1e-6, p_tol=1e-8): the periodic box
+    at viscosity 1e-3, dt 0.4/n, advection tol 1e-6, pressure tol 1e-8."""
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+
+    domain, sim = decaying_turbulence_setup((n,) * 3, viscosity=T3_VISCOSITY, device=dev)
+    return domain, turbulence_step_fn(domain, sim, 0.4 / n)
+
+
+def turb3d_call(step, v, p):
+    """One bench.py call: T3_CALL steps, the pressure increments carried as
+    guesses from zeros. Returns (v, p, pressure iterations summed, warned
+    steps)."""
+    import torch
+
+    g1 = g2 = torch.zeros_like(p)
+    iters, warns = [0, 0], 0
+    for _ in range(T3_CALL):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        iters[0] += o.p_iterations[0]
+        iters[1] += o.p_iterations[1]
+        warns += int(o.warn)
+    return v, p, iters, warns
+
+
+def turb3d_kernels(dev, kernels: list) -> tuple:
+    """Phase 2g: the 3-D path's four kernels against their plain versions on
+    the card at 128^3, on the operators of a step from the state after
+    bench.py's spin-up (2 calls of 50 steps, which phase 12 then times
+    from): the advection assembly on that state; div3 of v* and grad3 of
+    the first pressure increment, forward and VJP; the 7-point matvec in
+    both forms and its VJP on the momentum operator of component 0, and
+    forward on the pressure Laplacian; the whole-solve Jacobi forward and
+    transposed on all three components (equal sweeps). Each must be
+    bit-equal or within the stated bound: elementwise volumes within rel
+    1e-6 of their scale (8 ulps), Jacobi bit-equal x and residual. Appends
+    the four kernels' entries (div3 and grad3 apart) to `kernels`; returns
+    the developed state."""
+    import torch
+
+    from diffpiso_tpu_torch.ops import fv3, matvec
+    from diffpiso_tpu_torch.ops.advassembly import assembly_scalars
+    from diffpiso_tpu_torch.ops.advassembly3 import (
+        advection_assembly3_plain, fused_advection_assembly3)
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve_3d, jacobi1_3d_plain
+
+    n = T3_N
+    domain, step = turb3d_step(n, dev)
+    v, p = turb3d_state(n, dev)
+    for call in range(T3_SPINUP_CALLS):
+        v, p, _, warns = turb3d_call(step, v, p)
+        if warns:
+            fail(f"{n}^3 spin-up call {call}: {warns} steps warned")
+    o = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True)
+    it, p1 = o.intermediates, o.pressure_inc1
+    vol = n ** 3 * 4
+    dx = domain.dx
+    beta = dx[0] * dx[1] * dx[2] / (0.4 / n)
+    scal = assembly_scalars(dx, T3_VISCOSITY, beta)
+    w = v.components
+    report = {}
+
+    def compare(name, got, want, bound_rel=1e-6):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        bit = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        rel = max(rel_err(a, b) for a, b in zip(got, want))
+        report.setdefault(name, []).append(dict(bit_equal=bit, max_abs_err=err, rel_err=rel))
+        if not rel <= bound_rel:
+            fail(f"{n}^3 {name}: kernel vs plain rel err {rel:.3e} > {bound_rel:g}")
+        return err
+
+    # 15a: 3 volumes in, 24 out; ~138 flops per cell
+    adv_err = compare("advection_assembly3", fused_advection_assembly3(*w, *scal),
+                      advection_assembly3_plain(*w, *scal))
+    b_adv, by_adv = bound(27 * vol, 138 * n ** 3)
+    kernels.append(dict(
+        name="advection_assembly3", route="cuda", source="diffpiso_tpu_torch/csrc/advassembly3.cu",
+        replaces="diffpiso_tpu/ops/pallas_advassembly.py:539", max_abs_err=adv_err,
+        ms=cuda_time_ms(lambda: fused_advection_assembly3(*w, *scal), 50),
+        **device_time(lambda: fused_advection_assembly3(*w, *scal)),
+        plain_ms=cuda_time_ms(lambda: advection_assembly3_plain(*w, *scal), 10),
+        bound_ms=b_adv, bound_by=by_adv, library_ms=None))
+
+    # 15b on the step's v* and first pressure increment; VJPs: the other
+    # kernel with negated factors
+    fs = tuple(dx[0] * dx[1] * dx[2] / d for d in dx)
+    nfs = tuple(-f for f in fs)
+    vs = it["velocity_star"].components
+
+    def vjp(fn, leaves, cts):
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, cts)
+
+    div_err = max(compare("div3", fv3.div3(fs, vs), fv3.div3_plain(fs, vs)),
+                  compare("div3", vjp(lambda *a: fv3.div3(fs, a), vs, p1),
+                          fv3.grad3_plain(nfs, p1)))
+    grad_err = max(compare("grad3", fv3.grad3(fs, p1), fv3.grad3_plain(fs, p1)),
+                   compare("grad3", vjp(lambda a: fv3.grad3(fs, a), (p1,), vs),
+                           fv3.div3_plain(nfs, vs)))
+    # div: 3 volumes in, 1 out, 8 flops per cell; grad: 1 in, 3 out, 6 flops
+    for name, fn, plain, fl, err, line in (
+            ("div3", lambda: fv3.div3(fs, vs), lambda: fv3.div3_plain(fs, vs), 8, div_err, 128),
+            ("grad3", lambda: fv3.grad3(fs, p1), lambda: fv3.grad3_plain(fs, p1), 6, grad_err,
+             162)):
+        b_fv, by_fv = bound(4 * vol, fl * n ** 3)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/fv3.cu",
+            replaces=f"diffpiso_tpu/ops/pallas_fv.py:{line}", max_abs_err=err,
+            ms=cuda_time_ms(fn, 100), **device_time(fn), plain_ms=cuda_time_ms(plain, 20),
+            bound_ms=b_fv, bound_by=by_fv, library_ms=None))
+
+    # 15c: the momentum operator of component 0 on v** - v* (as explicit_H
+    # applies it), both forms and the VJP; the Laplacian on p1 (as the PCG
+    # applies it)
+    st, lap = it["stencil"], it["laplacian"]
+    c0, lo0, hi0 = st.center[0], st.lo[0], st.hi[0]
+    x0 = (it["velocity_s2"].components[0] - vs[0]).contiguous()
+    mv_err = 0.0
+    for transpose in (False, True):
+        args = (c0, lo0[0], hi0[0], lo0[1], hi0[1], lo0[2], hi0[2], x0)
+        mv_err = max(mv_err, compare("stencil_matvec3d",
+                                     matvec.fused_stencil_matvec3d(c0, lo0, hi0, x0, transpose),
+                                     matvec.matvec3_plain(*args, transpose)))
+        leaves = vjp(lambda x: matvec.fused_stencil_matvec3d(c0, lo0, hi0, x, transpose), (x0,),
+                     p1)
+        mv_err = max(mv_err, compare("stencil_matvec3d", leaves,
+                                     matvec.matvec3_plain(*args[:7], p1, not transpose)))
+    lap_args = (lap.center, lap.lo[0], lap.hi[0], lap.lo[1], lap.hi[1], lap.lo[2], lap.hi[2], p1)
+    mv_err = max(mv_err, compare("stencil_matvec3d",
+                                 matvec.fused_stencil_matvec3d(lap.center, lap.lo, lap.hi, p1),
+                                 matvec.matvec3_plain(*lap_args)))
+    b_mv, by_mv = bound(9 * vol, 13 * n ** 3)
+    csr = csr_of_stencil3(*lap_args[:7])
+    pv = p1.reshape(-1, 1)
+    kernels.append(dict(
+        name="stencil_matvec3d", route="cuda", source="diffpiso_tpu_torch/csrc/matvec3.cu",
+        replaces="diffpiso_tpu/ops/pallas_stencil.py:371", max_abs_err=mv_err,
+        ms=cuda_time_ms(lambda: matvec.fused_stencil_matvec3d(lap.center, lap.lo, lap.hi, p1),
+                        100),
+        **device_time(lambda: matvec.fused_stencil_matvec3d(lap.center, lap.lo, lap.hi, p1)),
+        plain_ms=cuda_time_ms(lambda: matvec.matvec3_plain(*lap_args), 20),
+        bound_ms=b_mv, bound_by=by_mv,
+        # yardstick: one cuSPARSE CSR SpMV of the same operator; the port never calls it
+        library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, pv), 50)))
+    del csr
+
+    # 15d on the step's right-hand sides from the developed velocity, each
+    # component forward and transposed
+    sweeps, jac_err = {}, 0.0
+    b_c = it["rhs"].components
+    for c in range(3):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for transpose in (False, True):
+            a = (st_c, b_c[c], w[c], -1.0, transpose, ADV_TOL, 33)
+            kx, kn, ks = fused_jacobi1_solve_3d(*a)
+            px, pn, ps = jacobi1_3d_plain(*a)
+            bit = torch.equal(kx, px) and kn == pn
+            jac_err = max(jac_err, float((kx - px).abs().max()))
+            print(f"{n}^3 jac13d component {c} transpose={transpose}: sweeps kernel {ks} plain "
+                  f"{ps}, residual kernel {kn:.3e} plain {pn:.3e}, bit-equal {bit}", flush=True)
+            if ks != ps or not bit:
+                fail(f"{n}^3 jac13d component {c} transpose={transpose}: kernel and plain "
+                     f"differ (sweeps {ks} vs {ps}; bit-equal {bit})")
+            sweeps[(c, transpose)] = ks
+    st0 = (st.center[0], st.lo[0], st.hi[0])
+    a0 = (st0, b_c[0], w[0], -1.0, False, ADV_TOL, 33)
+    sw = sweeps[(0, False)]
+    # 9 volumes in (7 coefficients, b, x0), x out; per cell the entry and exit
+    # residuals (2 x 15 flops), the inverse diagonal (2) and 18 per sweep
+    b_jac, by_jac = bound(10 * vol, n ** 3 * (32 + 18 * sw))
+    kernels.append(dict(
+        name="jacobi1_solve_3d", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi1_3d.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:1173", max_abs_err=jac_err,
+        sweeps=sw, sweeps_per_component={f"{c}{'T' if tr else ''}": s
+                                         for (c, tr), s in sweeps.items()},
+        launches_count="kernel launches (per component solve: entry residual, one per sweep, "
+                       "exit residual)",
+        ms=cuda_time_ms(lambda: fused_jacobi1_solve_3d(*a0), 20),
+        **device_time(lambda: fused_jacobi1_solve_3d(*a0), 5),
+        plain_ms=cuda_time_ms(lambda: jacobi1_3d_plain(*a0), 5),
+        bound_ms=b_jac, bound_by=by_jac, library_ms=None))
+    print(json.dumps(dict(check=f"{n}^3 3-D kernels vs plain", results=report)), flush=True)
+    return v, p
+
+
+def csr_of_stencil3(c, lz, hz, ly, hy, lx, hx):
+    """The 7-point stencil (roll wrap) as one CSR matrix, for the library
+    yardstick of the 7-point matvec (cuSPARSE SpMV); built once, outside
+    timing."""
+    import torch
+
+    nz, ny, nx = c.shape
+    dev = c.device
+    idx = torch.arange(nz * ny * nx, device=dev).reshape(nz, ny, nx)
+    cols = [idx, torch.roll(idx, 1, 0), torch.roll(idx, -1, 0), torch.roll(idx, 1, 1),
+            torch.roll(idx, -1, 1), torch.roll(idx, 1, 2), torch.roll(idx, -1, 2)]
+    vals = torch.stack([v.reshape(-1) for v in (c, lz, hz, ly, hy, lx, hx)], 1)
+    col = torch.stack([k.reshape(-1) for k in cols], 1)
+    crow = torch.arange(0, 7 * idx.numel() + 1, 7, device=dev)
+    return torch.sparse_csr_tensor(crow, col.reshape(-1), vals.reshape(-1),
+                                   size=(idx.numel(), idx.numel()))
+
+
+def turb3d_counters() -> dict:
+    """The loop counters of the 3-D path: the generic PCG loop's, the
+    BiCGSTAB hand-overs and applies, and the Jacobi sweeps and whole
+    component solves."""
+    from diffpiso_tpu_torch.solvers import krylov
+
+    return dict(loop_counters(), jacobi_solves_3d=krylov.bicgstab.jacobi_solves)
+
+
+def turb3d_derived(c0: dict, c1: dict) -> tuple:
+    """(the 3-D launches the loops derive, counter deltas): the whole-solve
+    Jacobi 2 launches per component solve plus one per sweep; the 7-point
+    matvec once per PCG operator apply (warm entry, reset, iteration, exit
+    residual of each loop) and three times per BiCGSTAB operator apply
+    (one per component)."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    return dict(
+        jacobi1_solve_3d=2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"],
+        stencil_matvec3d=(d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_iterations"]
+                          + d["pcg_loops"] + 3 * (d["applies"] + d["applies_T"]))), d
+
+
+# BiCGSTAB's counters: they move only when a Jacobi solve hands over
+HANDOVER_COUNTERS = ("bicgstab_fallbacks", "bicgstab_iterations", "applies", "applies_T")
+
+
+def less_records(counters: dict, records: list, step_solves: int, skip: set,
+                 steps: bool) -> dict:
+    """`counters` with BiCGSTAB's sums less the records (one value per
+    HANDOVER_COUNTERS entry) of the momentum solves in `skip` that fall in
+    the steps (`steps`) or in the gradient."""
+    out = dict(counters)
+    for i in skip:
+        if (i < step_solves) == steps:
+            for k, v in zip(HANDOVER_COUNTERS, records[i]):
+                out[k] -= v
+    return out
+
+
+def turb3d_small_check(dev) -> None:
+    """Phase 12a: the 3-D turbulence at 32^3 from one seeded 0.5 N(0, 1)
+    state, 3 steps and then the 3-step rollout gradient (remat "none", from
+    the same state), on the card against the plain path on the CPU at the
+    main path's tolerances: equal pressure iterations per step, equal loop
+    counters (PCG loops, warm entries, resets, iterations; Jacobi solves and
+    sweeps; BiCGSTAB hand-overs and iterations) for the steps and for the
+    gradient, equal adjoint gate decisions, the velocity within rtol 2e-4 /
+    atol 2e-5, the gradient within rel l2 1e-3.
+
+    Each momentum solve is also recorded on both devices (its Jacobi
+    hand-over residual, and what it added to BiCGSTAB's counters: hand-over,
+    iterations, applies in both forms), and the records must be equal solve
+    by solve. One exception, bounded: a momentum solve whose Jacobi exit
+    residual (the largest over its components, the hand-over test) lies
+    within 8 ulps of its right-hand side's scale of tol on both devices is
+    decided by rounding, and card and CPU may then differ in that hand-over;
+    that solve alone leaves the record comparison, and BiCGSTAB's summed
+    counters are compared less its records. The adjoint solves sit there by
+    construction: their tol is tol x max|g| and their b is g, so tol is 8-17
+    ulps of b's scale, and the exit residual b - A x is formed at that
+    scale (measured on the H100: one transposed solve at 32^3 handed over on
+    the CPU and not on the card, with equal sweeps)."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.solvers import base, krylov
+
+    n = T3_SMALL
+    rng = np.random.RandomState(1)
+    comps = [(0.5 * rng.randn(n, n, n)).astype(np.float32) for _ in range(3)]
+    res = {}
+    real, real_bi = krylov.fused_jacobi1_solve_3d, base.bicgstab
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        jac, bi = [], []
+
+        def recorded(st_c, b, x, sgn, transpose, tol, max_sweeps, jac=jac):
+            out = real(st_c, b, x, sgn, transpose, tol, max_sweeps)
+            jac.append((out[1], float(b.abs().max()), tol))
+            return out
+
+        def recorded_bi(*args, bi=bi, **kwargs):
+            b0 = loop_counters()
+            out = real_bi(*args, **kwargs)
+            b1 = loop_counters()
+            bi.append(tuple(b1[k] - b0[k] for k in HANDOVER_COUNTERS))
+            return out
+
+        krylov.fused_jacobi1_solve_3d, base.bicgstab = recorded, recorded_bi
+        try:
+            t0 = time.perf_counter()
+            domain, step = turb3d_step(n, d)
+            v0 = StaggeredField(tuple(torch.as_tensor(c, device=d) for c in comps),
+                                periodic=(True,) * 3)
+            p0 = torch.zeros((n,) * 3, device=d)
+            v, p, g1, g2 = v0, p0, torch.zeros_like(p0), torch.zeros_like(p0)
+            c0, iters = turb3d_counters(), []
+            for _ in range(3):
+                o = step(v, p, g1, g2)
+                if o.warn:
+                    fail(f"{n}^3 steps on {key}: a solve warned")
+                v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+                iters.append(list(o.p_iterations))
+            c1, step_solves = turb3d_counters(), len(bi)
+            f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components),
+                               periodic=(True,) * 3)
+            r = rollout_loss_grad(step, v0, p0, f, 3, remat="none")
+            c2 = turb3d_counters()
+        finally:
+            krylov.fused_jacobi1_solve_3d, base.bicgstab = real, real_bi
+        if r.warns:
+            fail(f"{n}^3 rollout gradient on {key}: {r.warns} steps warned")
+        # one momentum solve = three component solves: (its hand-over
+        # residual, its b's scale, tol)
+        solves = [(max(j[0] for j in jac[i:i + 3]), max(j[1] for j in jac[i:i + 3]), jac[i][2])
+                  for i in range(0, len(jac), 3)]
+        if len(solves) != len(bi):
+            fail(f"{n}^3 on {key}: {len(bi)} momentum solves ran {len(jac)} Jacobi component "
+                 "solves, expected 3 each")
+        res[key] = dict(
+            records=bi, step_solves=step_solves, v=[c.cpu() for c in v.components], iters=iters,
+            steps={k: c1[k] - c0[k] for k in c0}, grad_counters={k: c2[k] - c1[k] for k in c0},
+            grad=[c.cpu().double() for c in r.grad.components],
+            decisions=[(a.system, a.gated) for a in r.adjoints], solves=solves,
+            seconds=time.perf_counter() - t0)
+    card, cpu = res["card"], res["cpu"]
+    err = max(float((a - b).abs().max() - 2e-4 * b.abs().max())
+              for a, b in zip(card["v"], cpu["v"]))
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(card["grad"], cpu["grad"]))
+    den = sum(float(torch.sum(b ** 2)) for b in cpu["grad"])
+    g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    if len(card["solves"]) != len(cpu["solves"]):
+        fail(f"{n}^3 card vs CPU: {len(card['solves'])} vs {len(cpu['solves'])} momentum solves")
+    # hand-overs that differ, each with its residual's distance from tol in
+    # ulps of b's scale on both devices
+    differing = []
+    for i, (a, b) in enumerate(zip(card["solves"], cpu["solves"])):
+        if (a[0] < a[2]) != (b[0] < b[2]):
+            differing.append(dict(solve=i, ulps=[abs(x[0] - x[2]) / float(np.spacing(
+                np.float32(x[1]))) for x in (a, b)]))
+    print(json.dumps(dict(
+        check=f"{n}^3 x 3 steps and rollout gradient, card vs CPU plain path",
+        pressure_iters=[card["iters"], cpu["iters"]], step_counters=[card["steps"], cpu["steps"]],
+        grad_counters=[card["grad_counters"], cpu["grad_counters"]],
+        handovers_decided_by_rounding=differing, velocity_excess=err, grad_rel_l2=g_rel,
+        gated=[sum(g for _, g in card["decisions"]), sum(g for _, g in cpu["decisions"]),
+               len(cpu["decisions"])],
+        seconds=[card["seconds"], cpu["seconds"]])), flush=True)
+    for x in differing:
+        if not max(x["ulps"]) <= 8:
+            fail(f"{n}^3 card vs CPU: momentum solve {x['solve']} hands over on one device "
+                 f"only, {x['ulps']} ulps from tol (more than 8)")
+    # every other momentum solve: the same hand-over, BiCGSTAB iterations and
+    # applies in both forms on both devices
+    skip = {x["solve"] for x in differing}
+    for i, (a, b) in enumerate(zip(card["records"], cpu["records"])):
+        if i not in skip and a != b:
+            fail(f"{n}^3 card vs CPU: momentum solve {i} differs, "
+                 f"({', '.join(HANDOVER_COUNTERS)}) card {a} vs CPU {b}")
+    for key in ("iters", "steps", "grad_counters", "decisions"):
+        a, b = card[key], cpu[key]
+        if isinstance(a, dict):
+            # BiCGSTAB's sums less the differing solves' records
+            a, b = (less_records(x[key], x["records"], x["step_solves"], skip, key == "steps")
+                    for x in (card, cpu))
+        if a != b:
+            fail(f"{n}^3 card vs CPU: {key} differ, card {card[key]} vs CPU {cpu[key]}")
+    if not card["steps"]["jacobi_solves_3d"] == 9:
+        fail(f"{n}^3: {card['steps']['jacobi_solves_3d']} whole Jacobi solves in 3 steps, "
+             "expected 3 per step (the jac13d tier)")
+    if not err <= 2e-5:
+        fail(f"{n}^3 card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
+    if not g_rel <= 1e-3:
+        fail(f"{n}^3 rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def turb3d_path(dev, wrappers: dict, state) -> tuple:
+    """Phases 12b and 12c: bench.py workload_turb3d at 128^3 from the state
+    phase 2g's spin-up (2 calls of 50 steps) left: 3 timed calls of 50
+    forward steps, then grad10 (remat "none"; 1 untimed and 4 timed
+    evaluations), every launch counter reset before each and checked
+    after: the 3-D assembly once per step, grad3 three and div3 two times,
+    the whole-solve Jacobi and the 7-point matvec as the loops' counters
+    derive (plus the matvec's three explicit_H applies per step), every 2-D
+    kernel never. Returns (forward launches, grad10 launches per
+    evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 matmul is on: the pressure solves must contract in full float32")
+    n = T3_N
+    domain, step = turb3d_step(n, dev)
+    v, p = state
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def check(what, counts, want):
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"{n}^3 {what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
+
+    reset()
+    c0 = turb3d_counters()
+    torch.cuda.reset_peak_memory_stats()
+    warns, iters = 0, [0, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(T3_TIMED_CALLS):
+        v, p, it, w = turb3d_call(step, v, p)
+        iters = [iters[0] + it[0], iters[1] + it[1]]
+        warns += w
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    derived, d = turb3d_derived(c0, turb3d_counters())
+    S = T3_TIMED_CALLS * T3_CALL
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    print(json.dumps(dict(
+        workload=f"3-D decaying turbulence {n}^3 (periodic, random IC projected by spin-up), "
+                 "forward",
+        steps=S, steps_per_sec=S / elapsed,
+        pressure_iters_per_step=[iters[0] / S, iters[1] / S], warn_fraction=warns / S,
+        jacobi_sweeps_per_solve=d["jacobi_sweeps"] / d["jacobi_solves_3d"],
+        bicgstab_fallbacks=d["bicgstab_fallbacks"],
+        max_abs_div=float(fv_divergence(v, domain.dx).abs().max()),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        loop_counters=d, launches=fwd)), flush=True)
+    if not finite:
+        fail(f"{n}^3: non-finite state after the forward path")
+    if warns:
+        fail(f"{n}^3: warn fraction {warns / S} (must be 0)")
+    if d["jacobi_solves_3d"] != 3 * S:
+        fail(f"{n}^3: {d['jacobi_solves_3d']} whole Jacobi solves, expected 3 per step")
+    # per step: the assembly, three gradients (predictor, both correctors),
+    # two divergences, explicit_H's three matvecs
+    check("forward", fwd, dict(advection_assembly3=S, grad3=3 * S, div3=2 * S,
+                               jacobi1_solve_3d=derived["jacobi1_solve_3d"],
+                               stencil_matvec3d=3 * S + derived["stencil_matvec3d"]))
+
+    # grad10 from the developed state, remat "none". Per evaluation, U steps:
+    # the assembly U; grad3 3U forward + 2U (the div3 VJPs); div3 2U forward +
+    # 2U (the correctors' grad3 VJPs) + U - 1 (the predictor's: the initial
+    # pressure carries no gradient); the matvec's explicit_H 3U forward + 3U
+    # transposed (its VJP); U forward and U transposed momentum solves, 2U
+    # warm forward and 2U cold adjoint pressure loops, as the counters derive
+    U = T3_UNROLL
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(True,) * 3)
+    evals = []
+    for rep in range(1 + T3_GRAD_REPS):
+        reset()
+        c0 = turb3d_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step, v, p, forcing, U, remat="none")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = read()
+        derived, d = turb3d_derived(c0, turb3d_counters())
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_pcg_iters_per_step=sum(a.iterations for a in p_adj) / U,
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
+                                        default=None),
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            loop_counters=d, launches=counts))
+        print(json.dumps(dict(turb3d_grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"{n}^3 grad{U}: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"{n}^3 grad{U}: |grad| = {gnorm} (must be finite and > 0)")
+        if d["jacobi_solves_3d"] != 6 * U or d["pcg_loops"] < 2 * U:
+            fail(f"{n}^3 grad{U}: not 6U whole Jacobi solves and the 2U cold adjoint loops")
+        check(f"grad{U}", counts, dict(
+            advection_assembly3=U, grad3=5 * U, div3=5 * U - 1,
+            jacobi1_solve_3d=derived["jacobi1_solve_3d"],
+            stencil_matvec3d=6 * U + derived["stencil_matvec3d"]))
+        if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
+            fail(f"{n}^3 grad{U}: an evaluation from the same state counted differently")
+    timed = [e for e in evals if e["timed"]]
+    print(json.dumps(dict(
+        workload=f"3-D decaying turbulence {n}^3, grad{U} (d sum v^2 / d forcing), remat none",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_pcg_iters_per_step=sum(e["adjoint_pcg_iters_per_step"] for e in timed)
+        / len(timed),
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
+        adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
+        max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )), flush=True)
+    return fwd, timed[-1]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2285,7 +2861,9 @@ def main() -> int:
     from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
-    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
+    from diffpiso_tpu_torch.ops import fv3
+    from diffpiso_tpu_torch.ops.advassembly3 import fused_advection_assembly3
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, fused_jacobi1_solve_3d
     from diffpiso_tpu_torch.solvers.jacobi2 import (
         fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
     from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
@@ -2567,6 +3145,9 @@ def main() -> int:
     # -- phase 2f: the large tier's kernels at 1024^2 and the 512 x 2048 DNS faces -------
     large_measured = large_kernels(dev, kernels)
 
+    # -- phase 2g: the 3-D kernels at 128^3, on the state after bench.py's spin-up --------
+    turb3d_state_dev = turb3d_kernels(dev, kernels)
+
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
     outs = {}
@@ -2628,6 +3209,12 @@ def main() -> int:
         # the large tier's kernels: only planes past jac2's and pcg2's budgets
         "jacobi1_solve": (fused_jacobi1_solve, 0),
         "pcg_mm_update": (fused_pcg_mm_update, 0),
+        # the 3-D kernels: only the 3-D turbulence takes them
+        "advection_assembly3": (fused_advection_assembly3, 0),
+        "div3": (fv3.div3, 0),
+        "grad3": (fv3.grad3, 0),
+        "stencil_matvec3d": (matvec.fused_stencil_matvec3d, 0),
+        "jacobi1_solve_3d": (fused_jacobi1_solve_3d, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -2726,7 +3313,7 @@ def main() -> int:
         "corrector1_bridge": 2 * U, "corrector2_tail": 2 * U,
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
         "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
-        "jacobi1_solve": 0, "pcg_mm_update": 0,
+        "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -2819,16 +3406,25 @@ def main() -> int:
     dns_fwd, dns_grad = mixing_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, DNS_RES,
                                     "dns", ("jacobi1_solve", 2))
 
+    # -- phase 12: 3-D decaying turbulence (bench.py workload_turb3d) ---------------------
+    turb3d_small_check(dev)
+    turb3d_fwd, turb3d_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()},
+                                          turb3d_state_dev)
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
     # and the BiCGSTAB phases, which only its adjoint's fallback launches,
     # from its grad30 evaluation); the large tier's from the 1024^2
-    # turbulence forward run, the others from the 512^2 turbulence forward
-    # run; every path's counts stand beside them
+    # turbulence forward run, the 3-D kernels from the 128^3 forward run, the
+    # others from the 512^2 turbulence forward run; every path's counts
+    # stand beside them
     for entry in kernels:
         name = entry["name"]
-        if name in LARGE_KERNELS:
+        if name in T3_KERNELS:
+            entry["path"] = "turbulence 128^3 forward"
+            entry["launches"] = turb3d_fwd[name]
+        elif name in LARGE_KERNELS:
             entry["path"] = "turbulence 1024 forward"
             entry["launches"] = turb1024_fwd[name]
         elif name == "jacobi2_solve_folded":
@@ -2855,6 +3451,8 @@ def main() -> int:
         entry["turb1024_grad30_launches"] = turb1024_grad[name]
         entry["dns_launches"] = dns_fwd[name]
         entry["dns_grad30_launches"] = dns_grad[name]
+        entry["turb3d_launches"] = turb3d_fwd[name]
+        entry["turb3d_grad10_launches"] = turb3d_grad[name]
         entry.update(large_measured.get(name, {}))
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]

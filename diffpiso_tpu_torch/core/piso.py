@@ -20,7 +20,9 @@ advection-diffusion solve) and two pressure correctors, matrix-free.
 On periodic float32 planes of one shape with all-one active / accessible
 masks the corrector glue runs as kernel 6 (ops/corrector.py
 corrector1_bridge and corrector2_tail), the JAX package's gate; every
-other case keeps the unfused branch: on a bounded domain (the lid-driven
+other case keeps the unfused branch: in 3-D (periodic decaying turbulence)
+its gradients and divergences run kernel 15b (ops/fv3.py) and explicit_H
+the 7-point matvec (kernel 15c); on a bounded domain (the lid-driven
 cavity) its gradients and divergences run the bounded FV kernels
 (ops/fv2m.py, through ops/fv.py) with the accessible mask's face masks,
 the rhs takes the Dirichlet select, the divergences are masked to active
@@ -162,7 +164,8 @@ def piso_step(
     velocity_star, warn = solve_advection_system(
         sim.linear_solver, stencil, rhs, velocity, advection_tol)
 
-    # -- corrector 1 (dx_factor assumes dx == dy, like the reference)
+    # -- corrector 1 (dx_factor = prod(dx) / dx_0^2 assumes equal spacing on
+    # every axis, like the reference, in 2-D and 3-D)
     dx_factor = dxprod / (dx[0] ** 2)
     beta_minus_A = StaggeredField(tuple(beta - a for a in stencil.diag_A),
                                   periodic=velocity.periodic)
@@ -170,7 +173,7 @@ def piso_step(
                                periodic=velocity.periodic)
     laplacian = assemble_pressure_laplacian(
         influence, sim.active_mask, sim.accessible_mask, sim.bool_periodic,
-        sim.laplace_rank_deficient,
+        sim.laplace_rank_deficient, masks_all_one=sim.masks_all_one,
     )
     # the pressure systems are defined on active cells only
     active_int = sim.active_mask[tuple(slice(1, -1) for _ in range(len(dx)))]

@@ -63,11 +63,14 @@ def rollout_loss_grad(
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
     per = vel.periodic
+    ncomp = vel.rank
     f_leaves = tuple(c.detach().requires_grad_(True) for c in forcing.components)
     forcing_g = StaggeredField(f_leaves, periodic=forcing.periodic)
 
-    def run(v0, v1, p, g1, g2, *f):
-        out = step(StaggeredField((v0, v1), periodic=per), p, g1, g2,
+    def run(*args):
+        # the velocity components (2 or 3), p, g1, g2, the forcing components
+        v, (p, g1, g2), f = args[:ncomp], args[ncomp:ncomp + 3], args[ncomp + 3:]
+        out = step(StaggeredField(v, periodic=per), p, g1, g2,
                    StaggeredField(f, periodic=forcing.periodic))
         return (*out.velocity.components, out.pressure, out.pressure_inc1,
                 out.pressure_inc2, out.p_iterations, out.warn)

@@ -1,0 +1,71 @@
+// Periodic 3-D cell addressing and the 7-point stencil matvec: the device
+// code that the 7-point matvec (matvec3.cu) and the 3-D whole-solve Jacobi
+// (jacobi1_3d.cu) share.
+//
+// Volumes are contiguous (nz, ny, nx) float32; every axis wraps. The matvec
+// adds its terms in the order of the plain PyTorch version
+// (`stencil_apply_plain` in ops/matvec.py: center, then lo / hi along z, y,
+// x), so with --fmad=false each cell rounds exactly like it:
+//   S x   = c x + sum_d lo_d roll(x, 1, d) + hi_d roll(x, -1, d)
+//   S^T x = c x + sum_d roll(lo_d x, -1, d) + roll(hi_d x, 1, d)
+#pragma once
+
+#include "common.cuh"
+
+// flat indices of a cell and its six periodic neighbours
+struct Nbr3 {
+  size_t c, zm, zp, ym, yp, xm, xp;
+};
+
+__device__ __forceinline__ Nbr3 dp3_nbr(size_t idx, int nz, int ny, int nx) {
+  const size_t plane = (size_t)ny * nx;
+  const int k = (int)(idx / plane);
+  const size_t rem = idx - (size_t)k * plane;
+  const int i = (int)(rem / nx);
+  const int j = (int)(rem - (size_t)i * nx);
+  const size_t base = (size_t)k * plane;
+  Nbr3 n;
+  n.c = idx;
+  n.zm = (size_t)dp_wrap_dec(k, nz) * plane + rem;
+  n.zp = (size_t)dp_wrap_inc(k, nz) * plane + rem;
+  n.ym = base + (size_t)dp_wrap_dec(i, ny) * nx + j;
+  n.yp = base + (size_t)dp_wrap_inc(i, ny) * nx + j;
+  n.xm = base + (size_t)i * nx + dp_wrap_dec(j, nx);
+  n.xp = base + (size_t)i * nx + dp_wrap_inc(j, nx);
+  return n;
+}
+
+// the seven coefficient volumes of one 7-point operator
+struct Stencil7 {
+  const float *c, *lz, *hz, *ly, *hy, *lx, *hx;
+};
+
+// (S v) or (S^T v) at cell n, v a functor of a flat index
+template <bool TRANSPOSE, typename F>
+__device__ __forceinline__ float dp3_matvec(const Stencil7& s, const Nbr3& n, F v) {
+  float q = s.c[n.c] * v(n.c);
+  if (!TRANSPOSE) {
+    q = q + s.lz[n.c] * v(n.zm);
+    q = q + s.hz[n.c] * v(n.zp);
+    q = q + s.ly[n.c] * v(n.ym);
+    q = q + s.hy[n.c] * v(n.yp);
+    q = q + s.lx[n.c] * v(n.xm);
+    q = q + s.hx[n.c] * v(n.xp);
+  } else {
+    q = q + s.lz[n.zp] * v(n.zp);
+    q = q + s.hz[n.zm] * v(n.zm);
+    q = q + s.ly[n.yp] * v(n.yp);
+    q = q + s.hy[n.ym] * v(n.ym);
+    q = q + s.lx[n.xp] * v(n.xp);
+    q = q + s.hx[n.xm] * v(n.xm);
+  }
+  return q;
+}
+
+__device__ __forceinline__ size_t dp3_thread_index() {
+  return (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+static inline unsigned dp3_blocks(size_t cells) {
+  return (unsigned)((cells + DP_THREADS - 1) / DP_THREADS);
+}

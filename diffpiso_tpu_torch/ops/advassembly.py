@@ -30,39 +30,43 @@ _SIGS = {
 
 
 def assembly_scalars(dx, viscosity, beta):
-    """(beta, area_y, area_x, visc_y, visc_x) rounded to float32 the way the
-    JAX wrapper stacks them: visc_d = f32(nu) * f32(area_d / dx_d)."""
+    """(beta, area_d per axis, visc_d per axis), rounded to float32 the way
+    the JAX wrappers stack them: visc_d = f32(nu) * f32(area_d / dx_d). In
+    2-D (beta, area_y, area_x, visc_y, visc_x); in 3-D the z, y, x values
+    (the scalars of kernel 15a, ops/advassembly3.py)."""
     dxt = tuple(float(v) for v in dx)
     dxprod = _math.prod(dxt)
-    area = tuple(dxprod / dxt[d] for d in range(2))
+    area = tuple(dxprod / d for d in dxt)
     f = np.float32
-    return (
-        float(f(beta)), float(f(area[0])), float(f(area[1])),
-        float(f(viscosity) * f(area[0] / dxt[0])),
-        float(f(viscosity) * f(area[1] / dxt[1])),
-    )
+    return (float(f(beta)), *(float(f(a)) for a in area),
+            *(float(f(viscosity) * f(a / d)) for a, d in zip(area, dxt)))
+
+
+def uniform_assembly_plain(w, beta, area, visc):
+    """The uniform periodic assembly on the rank-d components w (d = 2 or 3)
+    with per-axis area and viscosity: per component c the center, lo / hi
+    along each axis, and diag_A, in that order. Kernels 1 and 15a repeat its
+    arithmetic op for op."""
+    rank = len(w)
+    out = []
+    for c in range(rank):
+        diag = None
+        links = []
+        for d in range(rank):
+            wd = w[d]
+            flux_lo = 0.5 * (wd + torch.roll(wd, 1, c)) * area[d]
+            flux_hi = torch.roll(flux_lo, -1, d)
+            links += [0.5 * flux_lo + visc[d], -0.5 * flux_hi + visc[d]]
+            contrib = 0.5 * (flux_lo - flux_hi) - 2.0 * visc[d]
+            diag = contrib if diag is None else diag + contrib
+        out += [diag - beta, *links, diag]
+    return tuple(out)
 
 
 def advection_assembly_plain(w0, w1, beta, area0, area1, visc0, visc1):
     """Plain PyTorch version: returns the 12 planes
     (c0, lo0y, hi0y, lo0x, hi0x, a0, c1, lo1y, hi1y, lo1x, hi1x, a1)."""
-    w = (w0, w1)
-    area = (area0, area1)
-    visc = (visc0, visc1)
-    out = []
-    for c in range(2):
-        diag = None
-        los, his = [], []
-        for d in range(2):
-            wd = w[d]
-            flux_lo = 0.5 * (wd + torch.roll(wd, 1, c)) * area[d]
-            flux_hi = torch.roll(flux_lo, -1, d)
-            los.append(0.5 * flux_lo + visc[d])
-            his.append(-0.5 * flux_hi + visc[d])
-            contrib = 0.5 * (flux_lo - flux_hi) - 2.0 * visc[d]
-            diag = contrib if diag is None else diag + contrib
-        out += [diag - beta, los[0], his[0], los[1], his[1], diag]
-    return tuple(out)
+    return uniform_assembly_plain((w0, w1), beta, (area0, area1), (visc0, visc1))
 
 
 def fused_advection_assembly(w0, w1, beta, area0, area1, visc0, visc1):

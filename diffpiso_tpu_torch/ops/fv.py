@@ -1,12 +1,13 @@
 """Finite-volume operators on staggered grids.
 
-Counterpart of diffpiso_tpu/ops/fv.py. Rank-2 float32 planes go to the FV
+Counterpart of diffpiso_tpu/ops/fv.py. Float32 fields go to the FV
 kernels as the JAX package sends them to pallas_fv: fully periodic planes
 of one shape to kernel 5 (ops/fv2.py div2 / grad2), bounded and mixed
 ones, whose faces carry the duplicated boundary entries, to kernels 7-9
-(ops/fv2m.py div2m / grad2m, with gradT2m as grad2m's VJP). Everything
-else runs the plain formulation, the branch the JAX package takes when
-those gates are closed. All results are volume-integrated (factors
+(ops/fv2m.py div2m / grad2m, with gradT2m as grad2m's VJP), fully
+periodic volumes of one shape to kernel 15b (ops/fv3.py div3 / grad3).
+Everything else runs the plain formulation, the branch the JAX package
+takes when those gates are closed. All results are volume-integrated (factors
 prod(dx)/dx_d baked in)."""
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.material import CIRCULAR, REPLICATE, SYMMETRIC, ZERO
-from diffpiso_tpu_torch.ops import fv2, fv2m
+from diffpiso_tpu_torch.ops import fv2, fv2m, fv3
 
 
 def _modes(pad_modes, rank):
@@ -110,8 +111,11 @@ def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
     dxprod = _math.prod(dx)
     comps = field.components
     fs = tuple(dxprod / d for d in dx)
-    # the kernels' gates take 2-D planes only: B samples at once (a leading
-    # batch axis) run the plain formulation below
+    # the kernels' gates take unbatched planes and volumes only: B samples
+    # at once (a leading batch axis) run the plain formulation below
+    if field.rank == 3 and all(field.periodic) and fv3.eligible3([c.shape for c in comps],
+                                                                   comps[0].dtype):
+        return fv3.div3(fs, comps)
     if field.rank == 2:
         if all(field.periodic) and fv2.eligible2([c.shape for c in comps], comps[0].dtype):
             return fv2.div2(fs, comps)
@@ -169,8 +173,13 @@ def fv_gradient(
     modes = _modes(pad_modes, rank)
     periodic = tuple(lo == CIRCULAR for lo, _ in modes)
     fs = tuple(dxprod / d for d in dx)
-    # the kernels' gates take 2-D planes only: B samples at once (a leading
-    # batch axis) run the plain formulation below
+    # the kernels' gates take unbatched planes and volumes only: B samples
+    # at once (a leading batch axis) run the plain formulation below
+    if rank == 3 and all(periodic) and fv3.eligible3([pressure.shape], pressure.dtype):
+        comps = list(fv3.grad3(fs, pressure))
+        if accessible_mask is not None:
+            comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
+        return StaggeredField(tuple(comps), periodic=periodic)
     if rank == 2 and all(periodic) and fv2.eligible2([pressure.shape], pressure.dtype):
         comps = list(fv2.grad2(fs, pressure))
         if accessible_mask is not None:

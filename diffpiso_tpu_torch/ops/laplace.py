@@ -13,9 +13,13 @@ and axis d, neighbour n in {lo, hi}:
 The rank-deficient (all-Neumann) case solves (L + s 1 1^T) with
 s = 0.1 sum|diag| / n. The mask planes are built here exactly as in the
 JAX package; the combination with the influence and sum|diag| run in
-kernel 2 (ops/laplace_assembly.py). The 5-point matvec in
-`apply_laplacian` is kernel 10 (ops/matvec.py) for float32 planes, as in
-the JAX package (the pressure solves themselves run pcg2's own)."""
+kernel 2 (ops/laplace_assembly.py). A rank-3 Laplacian is ported for the
+JAX package's unmasked all-periodic path (the 3-D turbulence class: every
+mask 1, so the links are the raw face influences; plain PyTorch, as in
+the JAX package). The matvec in `apply_laplacian` is kernel 10
+(ops/matvec.py) for float32 planes and kernel 15c for float32 volumes,
+as in the JAX package (the 2-D pressure solves run pcg2's own where they
+take pcg2)."""
 
 from __future__ import annotations
 
@@ -98,15 +102,29 @@ def assemble_pressure_laplacian(
     accessible_mask: torch.Tensor,
     periodic: Sequence[bool],
     rank_deficient,
+    masks_all_one: bool | None = None,
 ) -> LaplaceStencil:
-    """Build the 5-point pressure-increment Laplacian (rank 2).
+    """Build the 5-point (rank 2) or 7-point (rank 3) pressure-increment
+    Laplacian.
 
     influence        — per-face weights 1/(beta - A) * dx_factor
     active/accessible — centered masks padded by one (resolution + 2)
     rank_deficient   — all-Neumann singular system: add the rank-one shift
+    masks_all_one    — every active / accessible entry is 1 (read from the
+                       masks when not given; SimulationParameters caches it)
     """
+    if influence.rank == 3:
+        periodic = tuple(bool(p) for p in periodic)
+        if masks_all_one is None:
+            masks_all_one = bool(torch.all(active_mask == 1)) and bool(
+                torch.all(accessible_mask == 1))
+        if not (all(periodic) and masks_all_one):
+            raise NotImplementedError(
+                "3-D pressure Laplacians are ported for all-periodic domains with all-one "
+                "masks only (the masked rank-3 assembly is not ported)")
+        return _unmasked_periodic_laplacian(influence, rank_deficient)
     if influence.rank != 2:
-        raise NotImplementedError("only 2-D pressure Laplacians are ported")
+        raise NotImplementedError("only 2-D and 3-D pressure Laplacians are ported")
     res = influence.resolution
     periodic = tuple(bool(p) for p in periodic)
     dtype = influence.dtype
@@ -126,10 +144,33 @@ def assemble_pressure_laplacian(
     )
 
 
+def _unmasked_periodic_laplacian(influence: StaggeredField, rank_deficient) -> LaplaceStencil:
+    """The JAX package's unmasked all-periodic assembly
+    (ops/laplace.py:99-135): every mask plane folds to true, so per axis the
+    links are the face influences (lo: face i, hi: face i + 1, wrapped) and
+    diag = -(sum of both faces per axis)."""
+    rank = influence.rank
+    diag = torch.zeros(influence.resolution, dtype=influence.dtype, device=influence.device)
+    lo, hi = [], []
+    for d in range(rank):
+        comp = influence.components[d].detach()
+        infl_hi = torch.roll(comp, -1, d)
+        diag = diag - comp - infl_hi
+        lo.append(comp)
+        hi.append(infl_hi)
+    sum_abs = torch.sum(torch.abs(diag))
+    n = float(np.prod(influence.resolution))
+    shift = 0.1 * sum_abs / n if bool(rank_deficient) else torch.zeros_like(sum_abs)
+    return LaplaceStencil(center=diag, lo=tuple(lo), hi=tuple(hi), shift=shift,
+                          periodic=(True,) * rank)
+
+
 def apply_laplacian(st: LaplaceStencil, p: torch.Tensor) -> torch.Tensor:
     """z = L p + s sum(p) (per sample when batched)."""
     if matvec.eligible(p.shape, p.dtype):
         z = matvec.fused_stencil_matvec(st.center, st.lo, st.hi, p)
+    elif st.rank == 3 and matvec.eligible3(p.shape, p.dtype):
+        z = matvec.fused_stencil_matvec3d(st.center, st.lo, st.hi, p)
     else:
         z = matvec.stencil_apply_plain(st.center, st.lo, st.hi, p)
     if st.batched:

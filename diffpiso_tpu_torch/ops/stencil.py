@@ -6,13 +6,15 @@ operator is five dense coefficient planes (center, lo/hi per axis) on the
 component's own face grid; applying it is five shift-multiply-adds.
 
 `assemble_advection_stencil` sends the uniform-mask periodic case (the
-decaying-turbulence configuration) to kernel 1 (ops/advassembly.py) and
-runs the general masked body otherwise (bounded domains such as the
-lid-driven cavity; plain PyTorch, as the JAX package's masked-assembly
-kernel is off by default there). The 5-point matvec behind
-`apply_stencil`, `apply_stencil_transpose` and `explicit_H` is kernel 10
-(ops/matvec.py) for float32 rank-2 planes, as the JAX package sends them
-to its stencil-matvec kernel, and the plain roll formulation otherwise."""
+decaying-turbulence configuration) to kernel 1 (ops/advassembly.py) in
+2-D and kernel 15a (ops/advassembly3.py) in 3-D, and runs the general
+masked body otherwise (bounded domains such as the lid-driven cavity;
+plain PyTorch, as the JAX package's masked-assembly kernel is off by
+default there). The matvec behind `apply_stencil`,
+`apply_stencil_transpose` and `explicit_H` is kernel 10 (ops/matvec.py)
+for float32 rank-2 planes and kernel 15c (the 7-point matvec, same
+module) for float32 rank-3 volumes, as the JAX package sends them to its
+stencil-matvec kernels, and the plain roll formulation otherwise."""
 
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ import torch
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops import matvec
 from diffpiso_tpu_torch.ops.advassembly import assembly_scalars, fused_advection_assembly
+from diffpiso_tpu_torch.ops.advassembly3 import (
+    VOLUMES_PER_COMPONENT,
+    advassembly3_eligible,
+    fused_advection_assembly3,
+)
 from diffpiso_tpu_torch.ops.fv import pad_staggered
 
 
@@ -127,6 +134,14 @@ def assemble_advection_stencil(
             center=(c0, c1), lo=((lo0y, lo0x), (lo1y, lo1x)),
             hi=((hi0y, hi0x), (hi1y, hi1x)), diag_A=(a0, a1),
         )
+    if advassembly3_eligible(velocity, viscosity, uniform):
+        vols = fused_advection_assembly3(
+            *velocity.components, *assembly_scalars(dx, float(viscosity), beta))
+        per = [vols[c * VOLUMES_PER_COMPONENT:(c + 1) * VOLUMES_PER_COMPONENT] for c in range(3)]
+        return AdvectionStencil(
+            center=tuple(v[0] for v in per), lo=tuple((v[1], v[3], v[5]) for v in per),
+            hi=tuple((v[2], v[4], v[6]) for v in per), diag_A=tuple(v[7] for v in per),
+        )
 
     dxprod = _math.prod(dx)
     area = tuple(dxprod / dx[d] for d in range(rank))
@@ -197,17 +212,13 @@ def assemble_advection_stencil(
     )
 
 
-def _apply_component(center, lo, hi, x):
-    if matvec.eligible(x.shape, x.dtype):
-        return matvec.fused_stencil_matvec(center, lo, hi, x)
-    return matvec.stencil_apply_plain(center, lo, hi, x)
-
-
-def _apply_component_T(center, lo, hi, x):
+def _apply_component(center, lo, hi, x, transpose=False):
     # (M^T x)[i] = center[i] x[i] + sum_d lo[i+e_d] x[i+e_d] + hi[i-e_d] x[i-e_d]
     if matvec.eligible(x.shape, x.dtype):
-        return matvec.fused_stencil_matvec(center, lo, hi, x, transpose=True)
-    return matvec.stencil_apply_plain(center, lo, hi, x, transpose=True)
+        return matvec.fused_stencil_matvec(center, lo, hi, x, transpose=transpose)
+    if len(lo) == 3 and matvec.eligible3(x.shape, x.dtype):  # (not B planes of a 2-D stencil)
+        return matvec.fused_stencil_matvec3d(center, lo, hi, x, transpose=transpose)
+    return matvec.stencil_apply_plain(center, lo, hi, x, transpose=transpose)
 
 
 def apply_stencil(st: AdvectionStencil, field: StaggeredField, negate: bool = False) -> StaggeredField:
@@ -224,7 +235,7 @@ def apply_stencil_transpose(st: AdvectionStencil, field: StaggeredField,
     """y = M^T v (or -M^T v) — the adjoint operator."""
     outs = []
     for c in range(st.rank):
-        y = _apply_component_T(st.center[c], st.lo[c], st.hi[c], field.components[c])
+        y = _apply_component(st.center[c], st.lo[c], st.hi[c], field.components[c], True)
         outs.append(-y if negate else y)
     return StaggeredField(tuple(outs), periodic=field.periodic)
 

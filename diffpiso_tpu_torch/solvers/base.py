@@ -5,8 +5,9 @@ Counterpart of diffpiso_tpu/solvers/base.py. `solve_advection_system` and
 implicit-function-theorem adjoints:
 
 * the backward pass is the transposed solve of the cotangent, at
-  `_adjoint_tol(tol, g)`: jac2 with transpose=True through `bicgstab` for
-  the momentum system; the same spectral PCG (pcg2, or the per-iteration
+  `_adjoint_tol(tol, g)`: the transposed Jacobi solve of the momentum
+  system's tier (jac2, jac1 or, on volumes, jac13d) with transpose=True
+  through `bicgstab`; the same spectral PCG (pcg2, or the per-iteration
   loop), cold-started, for the symmetric pressure system;
 * the operator coefficients, the initial guess and tol get zero gradient
   (Picard linearization, as in the reference);
@@ -250,27 +251,32 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
     return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
 
 
-# the spectral preconditioners and their per-axis bases (2-D); the first two
-# zero the mean mode, so their solves take the whole-solve pcg2 within its
-# budget (and the loop folds M^-1 into its update past it, all-`fourier`
-# bases): solvers/tiers.py pressure_tier, fed the kinds, the Laplacian's
-# periodic flags and this mean-free flag
-_MM_KINDS = {"fft_mm": ("fourier", "fourier"), "dct_mm": ("dct2", "dct2"),
-             "channel_mm": ("dct2", "dct4")}
+# the spectral preconditioners and their per-axis bases, as the JAX
+# package builds them for any rank (`_make_pressure_precond`): `fourier` on
+# every axis for `fft_mm`, `dct2` for `dct_mm`, `dct2` then `dct4` on the
+# last axis for `channel_mm`. The first two zero the mean mode, so their 2-D
+# solves take the whole-solve pcg2 within its budget (and the loop folds
+# M^-1 into its update past it, all-`fourier` bases): solvers/tiers.py
+# pressure_tier, fed the kinds, the Laplacian's periodic flags and this
+# mean-free flag. Volumes take the generic loop (krylov.pcg).
+_MM_KINDS = {"fft_mm": lambda rank: ("fourier",) * rank,
+             "dct_mm": lambda rank: ("dct2",) * rank,
+             "channel_mm": lambda rank: ("dct2",) * (rank - 1) + ("dct4",)}
 _ZERO_MEAN = ("fft_mm", "dct_mm")
 
 
 def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
     """(MatmulSpectralSolver, per-axis weights) of the spectral
-    preconditioner: real Fourier bases for `fft_mm` (periodic boxes),
-    DCT-II bases for `dct_mm` (all-Neumann bounded domains), DCT-II along
-    y by DCT-IV along x for `channel_mm` (the mixing layer: Neumann walls
-    and inflow, Dirichlet outflow; nonsingular), with the mean
+    preconditioner: real Fourier bases for `fft_mm` (periodic boxes, 2-D or
+    3-D), DCT-II bases for `dct_mm` (all-Neumann bounded domains), DCT-II
+    along y by DCT-IV along x for `channel_mm` (the mixing layer: Neumann
+    walls and inflow, Dirichlet outflow; nonsingular), with the mean
     |off-diagonal| per axis as the constant stencil weights."""
-    if kind not in _MM_KINDS or lap.rank != 2:
+    if kind not in _MM_KINDS or lap.rank not in (2, 3) or lap.batched:
         raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
     weights = tuple(torch.mean(torch.abs(l)) for l in lap.lo)
-    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind], shape=tuple(lap.center.shape))
+    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](lap.rank),
+                                  shape=tuple(lap.center.shape))
     return solver, weights
 
 
@@ -410,7 +416,7 @@ def _pressure_solve_batched(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess
     if kind not in _MM_KINDS or lap.rank != 2:
         raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
     weights = tuple(torch.mean(torch.abs(l), dim=(-2, -1)) for l in lap.lo)
-    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind], shape=tuple(lap.center.shape[-2:]))
+    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](2), shape=tuple(lap.center.shape[-2:]))
     (v0, _), (v1, _) = solver.mats(rhs.dtype, rhs.device)
     sym = safe_symbol(solver, weights, rhs.dtype, rhs.device)
     return pcg_batched(

@@ -11,6 +11,12 @@ MatmulSpectralSolver._mats/_symbol, _safe_symbol).
 The bases are built in numpy float64 and rounded to the working dtype, as
 in the JAX package; this port keeps its own copy of the builders.
 
+Rank-3 volumes (the 3-D turbulence's `fft_mm` on all three axes) apply the
+same inverse as the JAX package's `_mm_solve_xla`: one contraction per
+axis in axis order, the divide by the symbol, one transposed contraction
+per axis (`spectral_apply3_plain`), as plain products outside any kernel,
+where the JAX package leaves them to XLA.
+
 The JAX package contracts at Precision.HIGH (3 bf16 passes on the TPU);
 the port contracts in full fp32 — the TPU's pass count is not part of the
 specification."""
@@ -131,3 +137,22 @@ def spectral_apply_plain(v0, v1, sym, r):
     h = h / sym
     h = v0.t() @ h
     return h @ v1
+
+
+def _contract3(mats, h):
+    """h contracted with mats[d] along axis d of a (nz, ny, nx) volume, in
+    axis order: z as one (nz, nz) x (nz, ny nx) product, y batched over z,
+    x as a product on the right."""
+    nz = h.shape[0]
+    h = (mats[0] @ h.reshape(nz, -1)).reshape(h.shape)
+    h = mats[1] @ h
+    return h @ mats[2].t()
+
+
+def spectral_apply3_plain(mats, sym, r):
+    """z = M^-1 r on a volume: r contracted with V_d along each axis d, the
+    symbol divide (singular modes carry +inf, so they come out 0), then
+    V_d^T along each axis. mats = [(V_d, V_d^T)] per axis."""
+    h = _contract3([v for v, _ in mats], r)
+    h = h / sym
+    return _contract3([vt for _, vt in mats], h)

@@ -5,9 +5,9 @@ preconditioning, the whole-solve Jacobi accelerators in front, the fused
 phase-kernel loop and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
 per-iteration loop with residual resets through the phase kernels, M^-1
-folded into its update in the large tier. Which accelerator and which
-pressure path a shape takes follows the JAX package's size tiers
-(solvers/tiers.py).
+folded into its update in the large tier; on volumes, the generic
+per-iteration loop. Which accelerator and which pressure path a shape
+takes follows the JAX package's size tiers (solvers/tiers.py).
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
 float32, as in the reference."""
@@ -20,10 +20,15 @@ import numpy as np
 import torch
 
 from diffpiso_tpu_torch.fields.grid import StaggeredField
+from diffpiso_tpu_torch.ops.laplace import apply_laplacian
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
-from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
+from diffpiso_tpu_torch.solvers.fourier import (
+    safe_symbol,
+    spectral_apply3_plain,
+    spectral_apply_plain,
+)
+from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, fused_jacobi1_solve_3d
 from diffpiso_tpu_torch.solvers.jacobi2 import (
     fused_jacobi2_solve,
     fused_jacobi2_solve_folded,
@@ -191,12 +196,16 @@ def bicgstab(
     component (solvers/jacobi1.py: each stops at its own residual, and the
     hand-over reads the largest exit residual); planes up to 8 MiB past
     jac1's budget would take the k-sweep launches, which are not ported
-    (raises); past that, as in the JAX package, no Jacobi runs. The
+    (raises); past that, as in the JAX package, no Jacobi runs. Volumes
+    take the 3-D tiers (tiers.momentum_tier_3d): one whole solve per
+    component (kernel 15d) within its budget (128^3); the z-block and
+    plane-sweep tiers past it are not ported (raise). The
     advection system is diagonally dominant by beta, so the Jacobi solve
     usually reaches tol alone and the Krylov loop never runs; otherwise
     BiCGSTAB continues from the Jacobi iterate. On float32 planes its loop runs the
     three phase kernels per component (solvers/bicg.py), as the JAX
-    package's fused loop does; the generic loop serves the rest. A
+    package's fused loop does; the generic loop serves the rest (volumes
+    among them: the fused loop is rank-2 in the JAX package too). A
     non-finite or > 100 tol final residual restarts once from zeros; warn
     is set when even that fails."""
     if x0 is None:
@@ -222,13 +231,15 @@ def bicgstab(
 
     comps = _comps(b)
     sgn = -1.0 if negate else 1.0
-    structured = (stencil is not None and inv_diag is not None
-                  and all(c.ndim == 2 for c in stencil.center))
+    structured = stencil is not None and inv_diag is not None
+    # the grid's rank is its number of axes; the centers' ndim must agree
+    rank = len(stencil.lo[0]) if structured else 0
+    structured = structured and all(c.ndim == rank for c in stencil.center) and rank in (2, 3)
     st_cs = [(stencil.center[i], stencil.lo[i], stencil.hi[i])
              for i in range(len(comps))] if structured else None
     # the JAX gate of the fused loop: rank-2 planes of at most 4-byte floats
     # (its cap of 8 MiB per plane is the TPU's VMEM, not the function's)
-    fused = structured and all(c.dtype == torch.float32 for c in stencil.center)
+    fused = structured and rank == 2 and all(c.dtype == torch.float32 for c in stencil.center)
 
     def once(x_init):
         if fused:
@@ -236,26 +247,41 @@ def bicgstab(
                                         max_iter, sgn, transpose)
         return _bicgstab_once(counted_apply, precond, b, x_init, tol32, max_iter)
 
-    tier = tiers.momentum_tier([tuple(c.shape) for c in stencil.center],
-                               stencil.center[0].dtype) if structured else "none"
+    tier = "none"
+    if structured:
+        shapes = [tuple(c.shape) for c in stencil.center]
+        tier = (tiers.momentum_tier_3d if rank == 3 else tiers.momentum_tier)(
+            shapes, stencil.center[0].dtype)
     if tier == "sweeps":
         raise NotImplementedError(
             "momentum planes past jac1's budget but within 8 MiB take the JAX package's "
             "k-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweeps), which are not "
             "ported")
-    if tier in ("jac2", "jac1"):
+    if tier == "zblock":
+        raise NotImplementedError(
+            "momentum volumes past the whole-solve budget (15 x cells x 4 B > 120 MiB, the "
+            "256^3 class) take the JAX package's z-block Jacobi launches "
+            "(pallas_krylov.py fused_jacobi_zblock_3d), which are not ported")
+    if tier == "plane":
+        raise NotImplementedError(
+            "momentum volumes past the whole-solve and z-block budgets take the JAX "
+            "package's plane-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweep_3d), "
+            "which are not ported")
+    if tier in ("jac2", "jac1", "jac13d"):
         x0_c = tuple(_comps(x0))
         if tier == "jac2":
             xo0, xo1, jn, sweeps = fused_jacobi2_solve(st_cs, tuple(comps), x0_c, sgn,
                                                        transpose, tol32, 1 + 8 * 4)
             xs = [xo0, xo1]
         else:
-            outs = [fused_jacobi1_solve(st_cs[i], comps[i], x0_c[i], sgn, transpose, tol32,
-                                        1 + 8 * 4) for i in range(len(comps))]
+            solve1 = fused_jacobi1_solve_3d if tier == "jac13d" else fused_jacobi1_solve
+            outs = [solve1(st_cs[i], comps[i].contiguous(), x0_c[i].contiguous(), sgn,
+                           transpose, tol32, 1 + 8 * 4) for i in range(len(comps))]
             xs = [o[0] for o in outs]
             jn = float(np.max([o[1] for o in outs]))  # NaN propagates
             sweeps = sum(o[2] for o in outs)
         bicgstab.jacobi_sweeps += sweeps
+        bicgstab.jacobi_solves += 1 if tier == "jac2" else len(comps)
         x0 = _rebuild(b, xs)
         if jn < tol32:
             x, rnorm, k = x0, jn, 0
@@ -276,26 +302,77 @@ def bicgstab(
 
 bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGSTAB
 bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
-bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1: summed over components)
+bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1 / jac13d: summed over components)
+bicgstab.jacobi_solves = 0  # whole Jacobi solves (jac2: one joint solve; jac1 / jac13d: one per component)
 # operator applications inside the BiCGSTAB loop, by transpose flag (each
 # applies the matvec once per component)
 bicgstab.applies = {False: 0, True: 0}
 
 
+def _pcg_loop(ops, b, x0, tol, max_iter, residual_reset, early_exit):
+    """The per-iteration PCG loop of the JAX package's `krylov.pcg`, around
+    its operations `ops` = (project, residual, restart, apply, update):
+    project(v) removes the mean when deflating; residual(x) gives
+    (project(b - A x), its max norm); restart(r) gives (p, rz) = (z, r.z)
+    with z = M^-1 r; apply(rz, x, r, p) gives (x + alpha p, project(r -
+    alpha A p), its max norm) with alpha = rz / p.Ap; update(rz, r, p) gives
+    (z + (r.z / rz) p, r.z). A cold start begins from r = project(b), a
+    warm one from residual(x0); a start already at tol is returned as it is
+    when `early_exit`; every `residual_reset`-th iteration restarts from the
+    true residual; the exit residual is recomputed. Counts into `pcg`'s
+    counters. Returns (x, true residual norm as a float, iterations)."""
+    project, residual, restart, apply, update = ops
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+        r0 = project(b)
+        rnorm0 = r0.abs().max() if early_exit else None
+    else:
+        pcg.warm_entries += 1
+        r0, rnorm0 = residual(x0)
+    if early_exit and float(rnorm0) < tol:
+        # r0 is the true residual of x0: nothing to solve or verify
+        return x0, float(rnorm0), 0
+    pcg.loops += 1
+    p, rz = restart(r0)
+    x, r = x0, r0
+    k = 0
+    done = False
+    while not done and k < max_iter:
+        if residual_reset > 0 and (k + 1) % residual_reset == 0:
+            # restart from the true residual, steepest descent
+            pcg.resets += 1
+            r, _ = residual(x)
+            p, rz = restart(r)
+        x, r, rnorm = apply(rz, x, r, p)
+        p, rz = update(rz, r, p)
+        rn = float(rnorm)
+        done = rn < tol or not np.isfinite(rn)
+        k += 1
+    pcg.iterations += k
+    _, rn = residual(x)
+    return x, float(rn), k
+
+
 def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, early_exit,
                 mm=None):
-    """The per-iteration PCG loop of the JAX package's `krylov.pcg` with its
-    fused phase kernels (solvers/pcgphases.py); when deflating, the mean is
-    removed from b and from each residual (`precond` returns M^-1 r already
-    projected where the preconditioner's output is not mean-free). With
-    `mm` = (v0, v0t, v1, v1t, symbol) M^-1 is folded into the update
-    (solvers/pcgmm.py) and `precond` is unused, as the JAX package's large
-    tier runs it: (z0, rz0) and each reset's (p, rz) come from the fold
-    with p = 0 and rz_old = 1, each iteration's update from the fold.
-    Returns (x, true residual norm as a float, iterations)."""
+    """`_pcg_loop` with the fused phase kernels (solvers/pcgphases.py) on
+    planes; when deflating, the mean is removed from b and from each
+    residual (`precond` returns M^-1 r already projected where the
+    preconditioner's output is not mean-free). With `mm` = (v0, v0t, v1,
+    v1t, symbol) M^-1 is folded into the update (solvers/pcgmm.py) and
+    `precond` is unused, as the JAX package's large tier runs it: (z0, rz0)
+    and each reset's (p, rz) come from the fold with p = 0 and rz_old = 1,
+    each iteration's update from the fold. Returns (x, true residual norm as
+    a float, iterations)."""
 
     def project(v):
         return v - torch.sum(v) / v.numel() if deflate else v
+
+    def residual(x):
+        return fused_residual(lap, b, x, deflate)
+
+    def apply(rz, x, r, p):
+        return fused_pcg_apply(lap, rz, x, r, p, deflate)[:3]
 
     if mm is not None:
         zeros = torch.zeros_like(b)
@@ -314,35 +391,48 @@ def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, ear
             z = precond(r)
             return z, torch.sum(r * z)
 
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-        r0 = project(b)
-        rnorm0 = r0.abs().max() if early_exit else None
-    else:
-        pcg.warm_entries += 1
-        r0, rnorm0 = fused_residual(lap, b, x0, deflate)
-    if early_exit and float(rnorm0) < tol:
-        # r0 is the true residual of x0: nothing to solve or verify
-        return x0, float(rnorm0), 0
-    pcg.loops += 1
-    p, rz = restart(r0)
-    x, r = x0, r0
-    k = 0
-    done = False
-    while not done and k < max_iter:
-        if residual_reset > 0 and (k + 1) % residual_reset == 0:
-            # restart from the true residual, steepest descent
-            pcg.resets += 1
-            r, _ = fused_residual(lap, b, x, deflate)
-            p, rz = restart(r)
-        x, r, rnorm, _ = fused_pcg_apply(lap, rz, x, r, p, deflate)
-        p, rz = update(rz, r, p)
-        rn = float(rnorm)
-        done = rn < tol or not np.isfinite(rn)
-        k += 1
-    pcg.iterations += k
-    _, rn = fused_residual(lap, b, x, deflate)
-    return x, float(rn), k
+    return _pcg_loop((project, residual, restart, apply, update), b, x0, tol, max_iter,
+                     residual_reset, early_exit)
+
+
+def _generic_ops(apply_A, b, precond, deflate, zero_mean):
+    """`_pcg_loop`'s operations as the JAX package's generic loop forms them
+    (its `fused` gate closed, the path of rank-3 volumes), from the operator
+    `apply_A` and the preconditioner `precond`: the mean is removed from
+    each residual when deflating, and from M^-1 r unless the preconditioner
+    is mean-free. The operator applications are warm entries + resets +
+    iterations + loops."""
+    eps = 1e-30
+
+    def project(v):
+        return v - torch.mean(v) if deflate else v
+
+    def precond_p(r):
+        z = precond(r)
+        return project(z) if not zero_mean else z
+
+    def residual(x):
+        r = project(b - apply_A(x))
+        return r, r.abs().max()
+
+    def restart(r):
+        z = precond_p(r)
+        return z, torch.sum(r * z)
+
+    def apply(rz, x, r, p):
+        q = apply_A(p)
+        pq = torch.sum(p * q)
+        alpha = torch.where(pq.abs() > eps, rz / pq, 0.0)
+        r = project(-alpha * q + r)
+        return alpha * p + x, r, r.abs().max()
+
+    def update(rz, r, p):
+        z = precond_p(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(rz.abs() > eps, rz_new / rz, 0.0)
+        return beta * p + z, rz_new
+
+    return project, residual, restart, apply, update
 
 
 def pcg(
@@ -359,9 +449,9 @@ def pcg(
     early_exit: bool = True,
 ) -> SolveResult:
     """Spectrally preconditioned CG on the pressure Laplacian `stencil` (a
-    2-D plane), with precond_mm = (MatmulSpectralSolver, weights) over the
-    full grid, dispatched by the JAX package's size tiers on the TPU
-    (solvers/tiers.py pressure_tier):
+    2-D plane or a 3-D volume), with precond_mm = (MatmulSpectralSolver,
+    weights) over the full grid, dispatched by the JAX package's size tiers
+    on the TPU (solvers/tiers.py pressure_tier):
 
     * a preconditioner that zeroes the mean mode (`precond_zero_mean`: the
       `fft_mm` and `dct_mm` kinds) on a plane within pcg2's budget (512^2,
@@ -378,15 +468,29 @@ def pcg(
       bases on planes up to 8 MiB (1024^2) M^-1 is folded into the update
       (solvers/pcgmm.py); otherwise (`channel_mm`; any plane past 8 MiB)
       M^-1 r runs as four dense contractions between the apply and the
-      update.
+      update;
+    * a volume takes the generic per-iteration loop (`_generic_ops`: the
+      JAX package's rank-3 kernels, pcg3, the rank-3 phases and the fused
+      spectral apply, are closed by default), A p through the 7-point
+      matvec kernel, M^-1 r as six dense contractions.
 
     Each loop reads one norm back per iteration."""
     solver, weights = precond_mm
-    if b.ndim != 2 or tuple(solver.shape) != tuple(b.shape):
-        raise NotImplementedError("only the spectral PCG on 2-D planes is ported")
-    (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
-    sym = safe_symbol(solver, weights, b.dtype, b.device)
+    if b.ndim not in (2, 3) or tuple(solver.shape) != tuple(b.shape):
+        raise NotImplementedError("only the spectral PCG on 2-D planes and 3-D volumes is ported")
     tol32 = _f32(tol)
+    sym = safe_symbol(solver, weights, b.dtype, b.device)
+    if b.ndim == 3:
+        mats = solver.mats(b.dtype, b.device)
+        ops = _generic_ops(lambda p: apply_laplacian(stencil, p), b,
+                           lambda r: spectral_apply3_plain(mats, sym, r), deflate_mean,
+                           precond_zero_mean)
+        x, rn, k = _pcg_loop(ops, b, x0, tol32, max_iter, residual_reset, early_exit)
+        bad_at = float(np.float32(100.0) * np.float32(tol))
+        warn = not np.isfinite(rn) or rn > bad_at
+        return SolveResult(x=x, iterations=k, residual_norm=rn,
+                           converged=rn < tol32, warn=warn)
+    (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     tier = tiers.pressure_tier(tuple(b.shape), solver.kinds, stencil.periodic, precond_zero_mean,
                                deflate_mean, b.dtype)
     if tier == "pcg2":
@@ -415,7 +519,9 @@ def pcg(
 # launch each), resets, iterations; with them every phase kernel's launches
 # follow (residual: warm entries + resets + loops; apply: iterations;
 # update: iterations, or in the large tier the folded update: loops +
-# resets + iterations)
+# resets + iterations); in the generic loop on volumes, the operator
+# applications (the 7-point matvec): warm entries + resets + iterations +
+# loops
 pcg.loops = 0
 pcg.warm_entries = 0
 pcg.resets = 0

@@ -17,12 +17,20 @@ and basis kinds:
                                              `fourier`, a plane <= 8 MiB,
                                              2 (n0^2 + n1^2) x 4 B + 8
                                              planes + 2 MiB <= 127 MiB
+  jac13d_eligible     `jac13d_eligible:1194` a rank-3 volume,
+                                             15 x cells x 4 B <= 120 MiB
+  zblock_eligible     `zblock_eligible:1468` the largest divisor bz >= 4
+                                             of nz with 36 bz planes
+                                             <= 110 MiB (`_zblock_size`)
+  eligible_3d         `eligible_3d:1222`     13 (ny, nx) planes <= 13 MiB
 
 The budgets are the TPU's VMEM, but the tiers they pick are not
 interchangeable, so the port follows them: jac1 decides convergence per
 component where jac2 decides it jointly (other sweeps, other iterates),
 and the per-iteration PCG loop applies residual resets and the warm early
-exit, which pcg2 ignores. Budgets that only change the layout are not
+exit, which pcg2 ignores. In 3-D the three Jacobi tiers differ in their
+sweeps: the whole solve (jac13d) couples z within each sweep, the z-block
+tier only inside a block, the plane tier freezes z within a launch. Budgets that only change the layout are not
 copied (see ROADMAP.md, rules for the port). One clause is left out on
 purpose: pcg2's adjoint alignment exclusion (`pallas_krylov.py:2394-2403`)
 is the cost of Mosaic re-padding an unaligned periodic plane. Adjoint
@@ -107,6 +115,58 @@ def mm_update_eligible(shape, kinds, dtype="float32") -> bool:
     if plane > _LARGE_PLANE_BYTES:
         return False
     return 2 * (n0 * n0 + n1 * n1) * item + 8 * plane + 2 * MIB <= 127 * MIB
+
+
+def jac13d_eligible(shape, dtype="float32") -> bool:
+    """The 3-D whole-solve momentum kernel: 15 volumes of one rank-3
+    component within 120 MiB (128^3 meets it exactly)."""
+    item = _itemsize(dtype)
+    return len(shape) == 3 and item <= 4 and 15 * _volume(shape) * item <= 120 * MIB
+
+
+def _zblock_size(shape, dtype="float32", budget_bytes=110 * MIB):
+    """The largest divisor bz >= 4 of nz whose 36 resident z blocks of bz
+    planes fit the budget; None if none does."""
+    nz = int(shape[0])
+    plane = int(shape[1]) * int(shape[2]) * _itemsize(dtype)
+    best = None
+    for bz in range(4, nz + 1):
+        if nz % bz == 0 and 36 * bz * plane <= budget_bytes:
+            best = bz
+    return best
+
+
+def zblock_eligible(shape, dtype="float32"):
+    """The z-block tier (the 256^3 class): the block size bz, or None."""
+    if len(shape) != 3 or _itemsize(dtype) > 4:
+        return None
+    return _zblock_size(shape, dtype)
+
+
+def eligible_3d(shape, dtype="float32") -> bool:
+    """The z-plane sweep tier: 13 (ny, nx) planes within 13 MiB."""
+    item = _itemsize(dtype)
+    return len(shape) == 3 and item <= 4 and 13 * int(shape[1]) * int(shape[2]) * item <= 13 * MIB
+
+
+def _volume(shape) -> int:
+    return int(shape[0]) * int(shape[1]) * int(shape[2])
+
+
+def momentum_tier_3d(shapes, dtype="float32") -> str:
+    """What a structured momentum solve on rank-3 components runs first, in
+    the order of the JAX package's `krylov.bicgstab` (krylov.py:340-360):
+    'jac13d' (one whole solve per component, every component within its
+    budget), 'zblock' (k full 3-D sweeps per z block, every component with
+    a block size), 'plane' (k in-plane sweeps with z frozen) or 'none'
+    (BiCGSTAB from the guess, no Jacobi)."""
+    if all(jac13d_eligible(s, dtype) for s in shapes):
+        return "jac13d"
+    if all(zblock_eligible(s, dtype) for s in shapes):
+        return "zblock"
+    if all(eligible_3d(s, dtype) for s in shapes):
+        return "plane"
+    return "none"
 
 
 def momentum_tier(shapes, dtype="float32") -> str:

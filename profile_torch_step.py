@@ -5,6 +5,7 @@
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
+    python3 profile_torch_step.py --workload turb3d [--n 128] [--grad] [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
 decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
@@ -33,8 +34,11 @@ Chrome trace to --trace (default traces/profile_torch_<workload>_<step or
 grad>.json). `turb1024` is `turbulence` at n = 1024 and `dns512x2048`
 `mixing` at n = 2048: bench.py's large-plane rows (turb_1024,
 dns_512x2048), where the solves take the large tiers (jac1, the PCG loop
-with M^-1 folded into the update or, on the DNS, the PCG phases). Needs a
-GPU.
+with M^-1 folded into the update or, on the DNS, the PCG phases).
+`turb3d` is bench.py's workload_turb3d at n^3 (default 128^3: viscosity
+1e-3, dt 0.4/n, tol 1e-6 / 1e-8, a seeded 0.5 N(0, 1) state developed by
+the 100-step spin-up, 2 calls of 50 steps); its --grad profiles one grad10
+evaluation with remat "none", bench.py's protocol at 128^3. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -68,10 +72,13 @@ FAMILIES = (
     ("dp_sum_partials", "laplace assembly"),
     ("laplace_assembly", "laplace assembly"),
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
+    ("jac13d_", "jacobi 3-D whole-solve sweeps"),
     ("advassembly", "advection assembly"),
     ("fv2_", "FV div2 / grad2"),
     ("fv2m_", "FV div2m / grad2m / gradT2m"),
+    ("fv3_", "FV div3 / grad3"),
     ("matvec_kernel", "stencil matvec"),
+    ("matvec3_kernel", "7-point stencil matvec"),
     ("bicg_", "BiCGSTAB phases"),
     ("corrector_", "corrector bridge / tail"),
     ("Memcpy", "copies"),
@@ -89,9 +96,9 @@ def family(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training",
-                                           "turb1024", "dns512x2048"),
+                                           "turb1024", "dns512x2048", "turb3d"),
                     default="turbulence")
-    ap.add_argument("--n", type=int, default=None, help="512; 256 for training")
+    ap.add_argument("--n", type=int, default=None, help="512; 256 for training, 128 for turb3d")
     ap.add_argument("--batch", type=int, default=1, help="training only: samples per step")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
@@ -105,7 +112,7 @@ def main() -> int:
         if args.trace is None:
             args.trace = f"traces/profile_torch_{label}_{'grad' if args.grad else 'step'}.json"
     if args.n is None:
-        args.n = 256 if args.workload == "training" else 512
+        args.n = {"training": 256, "turb3d": 128}.get(args.workload, 512)
     if args.trace is None:
         mode = f"b{args.batch}" if args.workload == "training" else (
             "grad" if args.grad else "step")
@@ -136,7 +143,15 @@ def main() -> int:
     if args.workload == "training":
         return profile_training(args, dev, profile, ProfilerActivity)
     mixing = None
-    if args.workload == "turbulence":
+    unroll, remat = UNROLL, "outputs"
+    if args.workload == "turb3d":
+        domain, sim = decaying_turbulence_setup((n,) * 3, viscosity=1e-3, device=dev)
+        dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 100
+        gen = torch.Generator(device=dev).manual_seed(0)
+        v = StaggeredField(tuple(0.5 * torch.randn((n,) * 3, generator=gen, device=dev)
+                                 for _ in range(3)), periodic=(True,) * 3)
+        unroll, remat = 10, "none"
+    elif args.workload == "turbulence":
         domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
         dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 10
         v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -182,7 +197,7 @@ def main() -> int:
     def grad_eval():
         forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                                  periodic=v.periodic)
-        res = rollout_loss_grad(step, v, p, forcing, UNROLL, remat="outputs")
+        res = rollout_loss_grad(step, v, p, forcing, unroll, remat=remat)
         if res.warns:
             raise RuntimeError("a solve warned during profiling")
 
@@ -203,10 +218,11 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
     prof.export_chrome_trace(args.trace)
 
-    steps = UNROLL if args.grad else args.steps
+    steps = unroll if args.grad else args.steps
     return report(prof, wall, steps, dict(
         workload=args.workload, n=n,
-        mode=f"grad{UNROLL}, one evaluation" if args.grad else "forward", steps=steps))
+        mode=f"grad{unroll} (remat {remat}), one evaluation" if args.grad else "forward",
+        steps=steps))
 
 
 def report(prof, wall: float, steps: int, head: dict) -> int:

@@ -12,7 +12,12 @@ kernel against its plain version and against the single-sample jac2
 kernel per sample (bit-equal, equal sweeps), the closure CNN's forward
 and VJP in full float32 with cuDNN's TF32 switch at PyTorch's default,
 and the batched training step (loss and weight gradient) on the card
-against the CPU. Every test here needs a GPU
+against the CPU; the four 3-D kernels (the rank-3 advection assembly,
+div3 / grad3 forward and VJP, the 7-point matvec in both forms and its
+VJP, the whole-solve 3-D Jacobi forward and transposed) against their
+plain versions, and 3 steps and the 3-step rollout gradient of the 3-D
+turbulence at 16^3 on the card against the CPU plain path. Every test here
+needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
@@ -34,7 +39,11 @@ from diffpiso_tpu_torch.core.setups import (
 )
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.noise import random_solenoidal
-from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, matvec
+from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, fv3, matvec
+from diffpiso_tpu_torch.ops.advassembly3 import (
+    advection_assembly3_plain,
+    fused_advection_assembly3,
+)
 from diffpiso_tpu_torch.ops import laplace as plap
 from diffpiso_tpu_torch.ops.advassembly import (
     advection_assembly_plain,
@@ -46,7 +55,12 @@ from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
-from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
+from diffpiso_tpu_torch.solvers.jacobi1 import (
+    fused_jacobi1_solve,
+    fused_jacobi1_solve_3d,
+    jacobi1_3d_plain,
+    jacobi1_plain,
+)
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
@@ -876,3 +890,108 @@ def test_pcg_loop_with_the_fold_matches_the_plain_fold(cuda_device, monkeypatch)
     plain = solve()
     assert card.iterations == plain.iterations and not card.warn
     torch.testing.assert_close(card.x, plain.x, rtol=0, atol=1e-3 * float(plain.x.abs().max()))
+
+
+VOLUMES = [(32, 48, 64), (5, 7, 9)]
+
+
+@pytest.mark.parametrize("shape", VOLUMES)
+def test_advassembly3_kernel_is_bit_equal_to_plain(shape, cuda_device):
+    w = [_rand(shape, 40 + i).to(cuda_device) for i in range(3)]
+    scal = assembly_scalars((0.7, 1.3, 0.9), 2e-3, 1.7)
+    before = fused_advection_assembly3.launches
+    got = fused_advection_assembly3(*w, *scal)
+    assert fused_advection_assembly3.launches == before + 1
+    for a, b in zip(got, advection_assembly3_plain(*w, *scal)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", VOLUMES)
+def test_fv3_kernels_are_bit_equal_to_plain_forward_and_vjp(shape, cuda_device):
+    fs = (0.25, 0.5, 0.125)
+    w, v, u, p = (_rand(shape, 50 + i).to(cuda_device) for i in range(4))
+    assert torch.equal(fv3.div3(fs, (w, v, u)), fv3.div3_plain(fs, (w, v, u)))
+    for a, b in zip(fv3.grad3(fs, p), fv3.grad3_plain(fs, p)):
+        assert torch.equal(a, b)
+    leaves = [x.clone().requires_grad_(True) for x in (w, v, u)]
+    got = torch.autograd.grad(fv3.div3(fs, leaves), leaves, p)
+    for a, b in zip(got, fv3.grad3_plain(fs, p)):
+        assert torch.equal(a, -b)
+    tp = p.clone().requires_grad_(True)
+    (gp,) = torch.autograd.grad(fv3.grad3(fs, tp), tp, (w, v, u))
+    assert torch.equal(gp, -fv3.div3_plain(fs, (w, v, u)))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", VOLUMES)
+def test_matvec3_kernel_is_bit_equal_to_plain_and_its_vjp(shape, transpose, cuda_device):
+    args = [_rand(shape, 60 + i).to(cuda_device) for i in range(8)]
+    c, lz, hz, ly, hy, lx, hx, x = args
+    before = matvec.fused_stencil_matvec3d.launches
+    got = matvec.fused_stencil_matvec3d(c, (lz, ly, lx), (hz, hy, hx), x, transpose)
+    assert matvec.fused_stencil_matvec3d.launches == before + 1
+    assert torch.equal(got, matvec.matvec3_plain(*args, transpose))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    g = _rand(shape, 70).to(cuda_device)
+    z = matvec.fused_stencil_matvec3d(leaves[0], tuple(leaves[1:7:2]), tuple(leaves[2:7:2]),
+                                      leaves[7], transpose)
+    got = torch.autograd.grad(z, leaves, g)
+    plain_leaves = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(matvec.matvec3_plain(*plain_leaves, transpose), plain_leaves, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", VOLUMES)
+def test_jacobi13d_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+    rng = np.random.RandomState(80)
+    c = t(-10.0 + 0.3 * rng.randn(*shape)).to(cuda_device)
+    lo = tuple(t(0.4 * rng.randn(*shape)).to(cuda_device) for _ in range(3))
+    hi = tuple(t(0.4 * rng.randn(*shape)).to(cuda_device) for _ in range(3))
+    b = t(0.1 * rng.randn(*shape)).to(cuda_device)
+    x0 = torch.zeros_like(b)
+    before = fused_jacobi1_solve_3d.launches
+    kx, kn, ks = fused_jacobi1_solve_3d((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
+    px, pn, ps = jacobi1_3d_plain((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
+    assert ks == ps > 0 and kn == pn and torch.equal(kx, px)
+    assert fused_jacobi1_solve_3d.launches - before == 2 + ks
+
+
+def test_cuda_turb3d_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
+    """16^3, viscosity 1e-3, dt 0.4/16, tol 1e-6 / 1e-8: 3 steps and the
+    3-step rollout gradient ("none" remat) on the card against the plain
+    path on the CPU: equal pressure iterations and gate decisions, the
+    velocity within rtol 2e-4 / atol 2e-5, the gradient within rel l2
+    1e-3."""
+    n = 16
+    rng = np.random.RandomState(90)
+    comps = [(0.5 * rng.randn(n, n, n)).astype(np.float32) for _ in range(3)]
+    out = {}
+    for d in (cuda_device, torch.device("cpu")):
+        domain, sim = decaying_turbulence_setup((n,) * 3, viscosity=1e-3, device=d)
+
+        def step(v, p, g1, g2, f=None, domain=domain, sim=sim):
+            return piso_step(v, p, 0.4 / n, domain, sim, forcing_term=f,
+                             pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                             advection_tol=1e-6, pressure_tol=1e-8)
+
+        v0 = convert.staggered_field(comps, (True,) * 3, device=d)
+        p0 = domain.centered_grid(0.0, device=d)
+        v, p, g1, g2, iters = v0, p0, torch.zeros_like(p0), torch.zeros_like(p0), []
+        for _ in range(3):
+            o = step(v, p, g1, g2)
+            assert not o.warn
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters.append(o.p_iterations)
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components), (True,) * 3)
+        r = rollout_loss_grad(step, v0, p0, f, 3, remat="none")
+        out[d.type] = ([c.cpu() for c in v.components], iters, [c.cpu() for c in r.grad.components],
+                       [(a.system, a.gated) for a in r.adjoints])
+    (cv, ci, cg, cd), (pv, pi, pg, pd) = out["cuda"], out["cpu"]
+    assert ci == pi and cd == pd
+    for a, b in zip(cv, pv):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    num = sum(float(torch.sum((a.double() - b.double()) ** 2)) for a, b in zip(cg, pg))
+    den = sum(float(torch.sum(b.double() ** 2)) for b in pg)
+    assert (num / den) ** 0.5 <= 1e-3

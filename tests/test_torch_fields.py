@@ -140,3 +140,41 @@ def test_domain_geometry_matches_jax():
     assert dom.periodic == jdom.periodic
     np.testing.assert_array_equal(n(dom.centered_grid(0.5, device="cpu")),
                                   np.asarray(jdom.centered_grid(0.5)))
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_rank3_fields_pads_and_state_match_jax(periodic):
+    """The rank-3 branches of the containers: the 3-D domain's geometry and
+    face shapes, `at_centers`, `pad_staggered` (periodic wrap, or zero /
+    replicate / symmetric on bounded axes) and the numpy state bridge, on
+    the same numpy inputs as the JAX package (exact)."""
+    from diffpiso_tpu.fields.domain import Domain as JDomain
+    from diffpiso_tpu.fields.material import OPEN as JOPEN
+    from diffpiso_tpu.fields.material import PERIODIC as JPERIODIC
+    from diffpiso_tpu_torch.fields.domain import Domain
+    from diffpiso_tpu_torch.fields.material import OPEN, PERIODIC
+
+    res = (4, 6, 8)
+    jdom = JDomain(res, boundaries=JPERIODIC if periodic else JOPEN)
+    dom = Domain(res, boundaries=PERIODIC if periodic else OPEN)
+    assert dom.dx == pytest.approx(jdom.dx) and dom.periodic == jdom.periodic
+    shapes = [dom.staggered_component_shape(d) for d in range(3)]
+    assert shapes == [jdom.staggered_component_shape(d) for d in range(3)]
+    rng = np.random.RandomState(4)
+    comps = [rng.randn(*s).astype(np.float32) for s in shapes]
+    per = (periodic,) * 3
+    jf = JField(tuple(map(jnp.asarray, comps)), periodic=per)
+    pf = convert.staggered_field(comps, per, device="cpu")
+    assert pf.rank == 3 and pf.resolution == res
+    np.testing.assert_array_equal(n(pf.at_centers()), np.asarray(jf.at_centers()))
+    modes = (("circular", "circular"),) * 3 if periodic else (
+        ("zero", "zero"), ("replicate", "replicate"), ("symmetric", "symmetric"))
+    for a, b in zip(fv.pad_staggered(pf, modes, 1), jax_fv.pad_staggered(jf, modes, 1)):
+        np.testing.assert_array_equal(n(a), n(b))
+    for a, b in zip(convert.staggered_to_numpy(pf), comps):
+        np.testing.assert_array_equal(a, b)
+    if periodic:
+        _, jsim = jax_setup(res, viscosity=1e-3)
+        sim = convert.simulation_parameters(jax_sim_to_numpy(jsim), device="cpu")
+        assert sim.bool_periodic == (True,) * 3 and sim.active_mask.shape == (6, 8, 10)
+        assert sim.masks_all_one and sim.uniform_masks

@@ -79,6 +79,16 @@ def test_the_scan_covers_the_large_tier_modules():
         assert (PKG / "csrc" / name).exists()
 
 
+def test_the_scan_covers_the_3d_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/ops/fv3.py", "diffpiso_tpu_torch/ops/advassembly3.py",
+            "diffpiso_tpu_torch/ops/matvec.py", "diffpiso_tpu_torch/ops/laplace.py",
+            "diffpiso_tpu_torch/solvers/jacobi1.py", "diffpiso_tpu_torch/solvers/tiers.py",
+            "diffpiso_tpu_torch/solvers/fourier.py", "diffpiso_tpu_torch/core/rollout.py"} <= scanned
+    for name in ("fv3.cu", "advassembly3.cu", "matvec3.cu", "jacobi1_3d.cu", "stencil3.cuh"):
+        assert (PKG / "csrc" / name).exists()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     import diffpiso_tpu_torch as p
 

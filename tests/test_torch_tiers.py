@@ -5,7 +5,9 @@ condition of the JAX gates patched open (the gates themselves are pure
 shape arithmetic). Also the dispatch the tiers drive in solvers/krylov.py:
 the k-sweep tier raises at 1024 x 2048, 2048^2 runs BiCGSTAB with no
 Jacobi, and the one clause left out on purpose (pcg2's adjoint alignment
-exclusion) keeps small periodic adjoints on pcg2."""
+exclusion) keeps small periodic adjoints on pcg2. The 3-D gates (jac13d,
+the z-block size, the plane sweeps) against the JAX ones at 32^3 to 256^3
+and past them, and the raises of the two 3-D tiers that are not ported."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +23,8 @@ F32 = jnp.float32
 FOURIER, DCT, CHANNEL = ("fourier", "fourier"), ("dct2", "dct2"), ("dct2", "dct4")
 GATE_ENV = ("DIFFPISO_FUSED_KRYLOV", "DIFFPISO_FUSED_KRYLOV_LARGE", "DIFFPISO_FUSED_JAC1",
             "DIFFPISO_FUSED_JAC2", "DIFFPISO_FUSED_PCG2", "DIFFPISO_PCG2_MIB",
-            "DIFFPISO_FUSED_SPECTRAL", "DIFFPISO_DISABLE_PALLAS")
+            "DIFFPISO_FUSED_SPECTRAL", "DIFFPISO_DISABLE_PALLAS", "DIFFPISO_FUSED_JAC13D",
+            "DIFFPISO_FUSED_JACZB")
 
 # (label, momentum face shapes, tier): bench.py's 2-D rows and the classes past them
 MOMENTUM = [
@@ -163,3 +166,69 @@ def test_2048_squared_runs_bicgstab_with_no_jacobi(monkeypatch):
     res = krylov.bicgstab(lambda v: v, b, tol=1e-6, diag=StaggeredField(st.center, (True, True)),
                           stencil=st, negate=True)
     assert calls == [[True, True]] and res.iterations == 0
+
+
+# (label, volume shape, tier): bench.py's --n3d sizes and the classes past them
+MOMENTUM_3D = [
+    ("turb3d 32^3", (32, 32, 32), "jac13d"),
+    ("turb3d 64^3", (64, 64, 64), "jac13d"),
+    ("turb3d 128^3", (128, 128, 128), "jac13d"),  # 15 x cells x 4 B = 120 MiB exactly
+    ("turb3d 192^3", (192, 192, 192), "zblock"),
+    ("turb3d 256^3", (256, 256, 256), "zblock"),
+    ("131 x 256^2", (131, 256, 256), "plane"),  # nz prime: no z block of 4 or more fits
+    ("131 x 1024^2", (131, 1024, 1024), "none"),
+]
+
+
+def jax_momentum_tier_3d(shapes):
+    """krylov.bicgstab's choice on rank-3 components (krylov.py:340-360)."""
+    if all(pk.jac13d_eligible(s, F32) for s in shapes):
+        return "jac13d"
+    if all(pk.zblock_eligible(s, F32) for s in shapes):
+        return "zblock"
+    if all(pk.eligible_3d(s, F32) for s in shapes):
+        return "plane"
+    return "none"
+
+
+@pytest.mark.parametrize("label,shape,want", MOMENTUM_3D, ids=[m[0] for m in MOMENTUM_3D])
+def test_3d_momentum_tier_matches_the_jax_gates(label, shape, want, tpu_gates):
+    assert jax_momentum_tier_3d([shape] * 3) == want
+    assert tiers.momentum_tier_3d([shape] * 3) == want
+    assert tiers.jac13d_eligible(shape) == pk.jac13d_eligible(shape, F32)
+    assert tiers.zblock_eligible(shape) == pk.zblock_eligible(shape, F32)
+    assert tiers.eligible_3d(shape) == pk.eligible_3d(shape, F32)
+
+
+def test_3d_gate_boundaries(tpu_gates):
+    # 128^3 sits exactly on the whole-solve budget; one more plane is past it
+    assert 15 * 128 ** 3 * 4 == 120 * 1024 * 1024
+    for shape in ((128, 128, 128), (129, 128, 128)):
+        assert tiers.jac13d_eligible(shape) == pk.jac13d_eligible(shape, F32)
+    assert not tiers.jac13d_eligible((129, 128, 128))
+    assert tiers.zblock_eligible((256,) * 3) == pk.zblock_eligible((256,) * 3, F32) == 8
+    assert tiers.zblock_eligible((192,) * 3) == pk.zblock_eligible((192,) * 3, F32) == 16
+    # float64 closes every 3-D tier, in both packages
+    assert tiers.momentum_tier_3d([(32,) * 3] * 3, torch.float64) == "none"
+    assert not pk.jac13d_eligible((32,) * 3, jnp.float64)
+
+
+def _momentum_system_3d(shape):
+    """A periodic three-component stencil of one broadcast zero and one
+    broadcast center value: the raises come before any arithmetic, so no
+    256^3 volume is allocated."""
+    z = torch.zeros(1).expand(shape)
+    c = torch.full((1,), -4.0).expand(shape)
+    st = AdvectionStencil(center=(c,) * 3, lo=((z,) * 3,) * 3, hi=((z,) * 3,) * 3,
+                          diag_A=(z,) * 3)
+    b = StaggeredField((z,) * 3, periodic=(True,) * 3)
+    return st, b
+
+
+@pytest.mark.parametrize("shape,kernel", [((256, 256, 256), "fused_jacobi_zblock_3d"),
+                                          ((131, 256, 256), "fused_jacobi_sweep_3d")])
+def test_the_unported_3d_tiers_raise_naming_their_kernel(shape, kernel):
+    st, b = _momentum_system_3d(shape)
+    with pytest.raises(NotImplementedError, match=kernel):
+        krylov.bicgstab(lambda v: v, b, tol=1e-6,
+                        diag=StaggeredField(st.center, (True,) * 3), stencil=st, negate=True)

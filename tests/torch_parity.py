@@ -120,3 +120,29 @@ def force_jax_cavity_kernels(monkeypatch):
     monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "pcg2_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "eligible", lambda *a, **k: True)
+
+
+def force_jax_turb3d_kernels(monkeypatch):
+    """Run the JAX kernels the 3-D periodic turbulence path takes on the TPU
+    in interpret mode on the CPU: the rank-3 advection assembly (its gate
+    with the TPU's (8, 128) tiling clause left out, so small volumes take
+    it), the periodic FV pair div3 / grad3, the 7-point stencil matvec
+    (`pallas_eligible` has no interpret escape: opened for volumes) and the
+    whole-solve 3-D Jacobi (jac13d). The rank-3 PCG kernels stay closed, as
+    their gates default to on the TPU."""
+    import jax.numpy as jnp
+
+    from diffpiso_tpu.ops import pallas_advassembly, pallas_fv, pallas_stencil
+    from diffpiso_tpu.solvers import pallas_krylov
+
+    def roll(a, s, ax):
+        return jnp.roll(a, s, ax)
+
+    for mod in (pallas_advassembly, pallas_fv, pallas_stencil, pallas_krylov):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+    for mod in (pallas_fv, pallas_stencil, pallas_krylov):
+        monkeypatch.setattr(mod, "_roll", roll)
+    monkeypatch.setattr(pallas_advassembly, "_rollp", roll)
+    monkeypatch.setattr(pallas_advassembly, "advassembly3_eligible",
+                        lambda velocity, *a, **k: velocity.rank == 3 and all(velocity.periodic))
+    monkeypatch.setattr(pallas_stencil, "pallas_eligible", lambda shape, dtype: len(shape) == 3)
