@@ -159,6 +159,48 @@ Phases, each fatal on failure:
      memory reported; (c) grad10 with remat "none" (1 untimed and 4 timed
      evaluations), counts checked per evaluation, gated adjoints reported.
      The earlier paths assert 0 launches of the 3-D kernels.
+  13. the batched "auto" regime (the JAX package's `batched_safe_pallas()`
+     trace of a vmapped step, from 512^2 per-sample planes: the
+     grid-over-batch whole solves and the plane kernels with a batch axis;
+     `make_batched_train_step`, `runs/ab_batched_512.py`): (a) on the
+     operators of a step of (b)'s batch, the advection and Laplace
+     assemblies, div2 / grad2 and the matvec (both forms) with a batch axis,
+     bit-equal per sample to their single-sample launches; the joint Jacobi
+     kernel (csrc/jacobi2_fold.cu) as the grid rule's counterpart at 512^2,
+     B = 4, and on (e)'s 257 x 1024 / 256 x 1025 faces, B = 2 (forward /
+     transposed, shared / per-sample tol), bit-equal to its plain version
+     and per sample to the single-sample jac2 kernel with equal sweeps;
+     pcg2 batched at 512^2, B = 4, on right-hand sides of O(dx) content,
+     forward (shared tol) and cold adjoint (per-sample tols): equal
+     iterations and x within rel 1e-4 of its plain
+     version, bit-equal per sample to the single-sample pcg2 kernel
+     (yardstick: one batched torch.bmm of the first contraction), and
+     again on per-sample variable-coefficient Laplacians at per-sample tols
+     where the samples must stop at different iterations; jac1
+     batched at 1024^2, B = 2, bit-equal to its plain version and per sample
+     to the single-sample jac1 kernel; the bounded FV trio (grad2m, div2m,
+     gradT2m) with a batch axis on (e)'s planes, shared face masks,
+     bit-equal per sample to the single-sample launches and to plain; (b) runs/ab_batched_512.py's forward
+     (bench.py build_turbulence(512, 1e-6), seeds 0-3): 1 untimed and 3
+     timed calls of 50 steps, sample-steps/s, per-sample pressure
+     iterations, max |div v|, the launches the loops' counters derive, 0 of
+     the corrector, the PCG and BiCGSTAB phases, the folded update and every
+     single-sample whole solve; (c) grad10 of sum_c mean(v_c^2) over the
+     batch with respect to the initial velocity (remat "none"), 1 untimed
+     and 3 timed evaluations, peak memory, gated adjoints per sample; then
+     batch 2 at 128^2 in "auto" card vs the CPU plain path (3 steps, the
+     path's loss and sum_c sum(v_c^2), under which pressure adjoints gate:
+     equal gate decisions, gradient rel l2 <= 1e-3); (d)
+     batch 2 at 1024^2: 10 + 50 forward steps and grad5 (jac1 batched per
+     component, the generic PCG loop; no pcg2, fold or folded update); (e)
+     make_batched_train_step in "auto" at HRres 256 x 1024, B = 2 (bench.py
+     workload_training's configuration, dt 0.4 x 64 / 256 = 0.1: bench's
+     CFL; at dt 0.4 the solves fail and the state blows up): each sample's loss and weight
+     gradient against the sample alone through make_train_step at tol 1e-7
+     (phase 9a's bars: rtol 1e-4, rel l2 1e-3), then 1 untimed and 3 timed
+     train steps, warn 0, the Adam count, the joint Jacobi kernel, the
+     Laplace assembly, the matvec and the bounded FV trio as counted,
+     nothing else.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -210,7 +252,7 @@ def rel_err(a, b) -> float:
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "jac13d_")
+               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -1443,10 +1485,10 @@ TRAIN_CHUNK_REPS = 2  # timed chunks after one untimed (bench.py takes 4)
 TRAIN_CHECK_TOL = 1e-7
 
 
-def training_setup(res, dev):
+def training_setup(res, dev, dt=0.4):
     from diffpiso_tpu_torch.core.setups import spatial_mixing_layer_setup
 
-    return spatial_mixing_layer_setup(simulation={"HRres": res, "dt": 0.4},
+    return spatial_mixing_layer_setup(simulation={"HRres": res, "dt": dt},
                                       max_iterations=(200, 2000), device=dev)
 
 
@@ -2837,6 +2879,893 @@ def turb3d_path(dev, wrappers: dict, state) -> tuple:
     return fwd, timed[-1]["launches"]
 
 
+# -- the batched "auto" regime (runs/ab_batched_512.py; make_batched_train_step) ----------
+BAT_N = 512  # runs/ab_batched_512.py: bench.py build_turbulence(512, 1e-6)
+BAT_SEEDS = (0, 1, 2, 3)  # batch 4: initial_state(seed=s) for s in range(4)
+BAT_CALL = 50  # steps per call
+BAT_TIMED_CALLS = 3
+BAT_UNROLL = 10  # grad10, remat "none" (the vmapped JAX trace's)
+BAT_GRAD_REPS = 3
+BAT_PCG_TOL = 1e-7  # 13a: pcg2 batched forward, on right-hand sides of O(dx) content
+BAT_SMALL = 128  # 13c: card vs CPU, batch 2, in "auto" forced
+BAT_SMALL_STEPS = 3
+BAT_LARGE_N = 1024  # 13d: batch 2 of bench.py's turb_1024 planes
+BAT_LARGE_SEEDS = (0, 1)
+BAT_LARGE_WARMUP = 10
+BAT_LARGE_STEPS = 50
+BAT_LARGE_UNROLL = 5  # the depth that keeps phase 13 within a few minutes
+BAT_LARGE_GRAD_REPS = 2
+BAT_TRAIN_RES = (256, 1024)  # 13e: the 257 x 1024 face crosses the 512^2 gate
+# 13e's dt: bench.py's 0.4 at 64 x 256 scaled with the grid (its CFL). At dt
+# 0.4 the 256 x 1024 layer's pressure solves run to their 2000 iterations and
+# the state blows up within 3 steps (|v| 37 -> 5e10, the plain path on the CPU)
+BAT_TRAIN_DT = 0.4 * TRAIN_RES[0] / BAT_TRAIN_RES[0]
+BAT_TRAIN_B = 2
+BAT_TRAIN_REPS = 3
+# the batched entries of the kernels line; their `launches` come from 13b's
+# forward run (jacobi1_solve_batched: 13d's)
+BAT_ENTRIES = ("pcg2_solve_batched", "jacobi2_solve_folded_grid", "advection_assembly_batched",
+               "laplace_assembly_batched", "div2_batched", "grad2_batched",
+               "stencil_matvec_batched")
+# the bounded FV trio's batched entries; their `launches` come from 13e's
+# timed train steps
+BAT_TRAIN_ENTRIES = ("grad2m_batched", "div2m_batched", "gradT2m_batched")
+BAT_WRAPPER = {"jacobi2_solve_folded_grid": "jacobi2_solve_folded",
+               "grad2m_batched": "grad2m", "div2m_batched": "div2m",
+               "gradT2m_batched": "gradT2m",
+               "advection_assembly_batched": "advection_assembly",
+               "laplace_assembly_batched": "laplace_assembly", "div2_batched": "div2",
+               "grad2_batched": "grad2", "stencil_matvec_batched": "stencil_matvec"}
+
+
+def batched_turbulence(n, seeds, dev):
+    """runs/ab_batched_512.py's batch: bench.py build_turbulence(n, 1e-6)
+    (viscosity 1e-4, dt 0.4/n, pressure tol 1e-8, fft_mm) and one seeded
+    solenoidal state per sample. Returns (domain, step, velocity, pressure)."""
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_batch, decaying_turbulence_setup
+
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=VISCOSITY, device=dev)
+    vel, p = decaying_turbulence_batch(domain, seeds, device=dev)
+    return domain, turbulence_step_fn(domain, sim, 0.4 / n), vel, p
+
+
+def batched_counters() -> dict:
+    """The batched loops' counters, from which the batched kernels'
+    launches follow."""
+    from diffpiso_tpu_torch.solvers import krylov
+
+    b = krylov.bicgstab_batched
+    return dict(jacobi_solves=b.jacobi_solves, jacobi_sweeps=b.jacobi_sweeps,
+                fallbacks=b.fallbacks, bicgstab_iterations=b.iterations,
+                applies=b.applies[False] + b.applies[True], pcg2_solves=krylov.pcg2_batched.solves,
+                pcg2_loops=krylov.pcg2_batched.loops, pcg_applies=krylov.pcg_batched.applies,
+                pcg_iterations=krylov.pcg_batched.iterations)
+
+
+def batched_derived(c0: dict, c1: dict, jac: str) -> tuple:
+    """(the batched whole-solve kernels' launches the loops derive, counter
+    deltas): per Jacobi solve (`jac`: the joint kernel, or jac1 per
+    component) and per pcg2 solve, the entry and exit launches plus one per
+    sweep / iteration of its slowest sample; the matvec kernel once per
+    component and BiCGSTAB operator apply and once per generic-PCG
+    operator apply."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    return ({jac: 2 * d["jacobi_solves"] + d["jacobi_sweeps"],
+             "pcg2_solve_batched": 2 * d["pcg2_solves"] + d["pcg2_loops"],
+             "stencil_matvec": 2 * d["applies"] + d["pcg_applies"]}, d)
+
+
+def sample_iters(its) -> list:
+    """Per-sample pressure iterations per step, (corrector 1, corrector 2)."""
+    return [[float(x) for x in row] for row in its.mean(axis=0).T]
+
+
+def same_bits(a, b) -> bool:
+    """Bit-equal float32 tensors or scalars (a NaN equals the same NaN: a
+    diverging Jacobi sample overflows alike in both)."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                                  b.contiguous().view(torch.int32))
+    return np.asarray(a, np.float32).view(np.int32).tolist() == \
+        np.asarray(b, np.float32).view(np.int32).tolist()
+
+
+def batched_check(label, got, want_fn, nb) -> None:
+    """Every sample of the batched outputs `got` (tensors or arrays with a
+    leading batch axis) bit-equal to `want_fn(s)`, the single-sample
+    outputs."""
+    import numpy as np
+    import torch
+
+    for s in range(nb):
+        for a, b in zip(got, want_fn(s)):
+            if not same_bits(a[s], b):
+                fail(f"{label}: sample {s} is not bit-equal to the single-sample launch")
+
+
+def batched_kernels(dev, kernels: list) -> dict:
+    """Phase 13a: the batched kernels on the card against their plain
+    versions and the single-sample kernels, on the operators of a step of
+    13b's batch (512^2, B = 4, the first step from the seeded states): rows
+    1, 2, 5 and 7 with a batch axis (bit-equal per sample to the
+    single-sample launch), the joint Jacobi kernel as the grid rule's
+    counterpart (forward / transposed, shared / per-sample tol: bit-equal to
+    its plain version and per sample to jacobi2.cu, equal sweeps), pcg2
+    batched forward (shared tol) and cold adjoint (per-sample tols: equal
+    iterations and x within rel 1e-4 of its plain version, bit-equal per
+    sample to pcg2.cu); jac1 batched at 1024^2, B = 2 (bit-equal to its
+    plain version and to jacobi1.cu per sample, equal sweeps); the joint
+    kernel on 13e's 257 x 1024 / 256 x 1025 faces, B = 2; pcg2 batched
+    also on variable-coefficient Laplacians at per-sample tols where the
+    samples stop at different iterations; the bounded FV trio with a batch
+    axis on 13e's planes (bit-equal per sample and to plain). Appends the
+    entries; returns the faces' measurements."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops import fv, fv2, fv2m, matvec
+    from diffpiso_tpu_torch.ops.advassembly import (
+        advection_assembly_plain, assembly_scalars, fused_advection_assembly)
+    from diffpiso_tpu_torch.ops.fv import fv_gradient
+    from diffpiso_tpu_torch.ops.laplace import assemble_pressure_laplacian, laplace_mask_planes
+    from diffpiso_tpu_torch.ops.laplace_assembly import (
+        fused_laplace_assembly, laplace_assembly_plain)
+    from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
+    from diffpiso_tpu_torch.solvers.fourier import MatmulSpectralSolver, safe_symbol
+    from diffpiso_tpu_torch.solvers.jacobi1 import (
+        fused_jacobi1_solve, fused_jacobi1_solve_batched, jacobi1_batched_plain)
+    from diffpiso_tpu_torch.solvers.jacobi2 import (
+        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain)
+    from diffpiso_tpu_torch.solvers.pcg2 import (
+        SampleLap, fused_pcg2_solve, fused_pcg2_solve_batched, gemm_batched, pcg2_batched_plain)
+
+    n, nb = BAT_N, len(BAT_SEEDS)
+    domain, step, vel, p = batched_turbulence(n, BAT_SEEDS, dev)
+    zero = torch.zeros_like(p)
+    with regime.batched_regime("auto"):
+        it = step(vel, p, zero, zero, full_output=True).intermediates
+    dx = domain.dx
+    beta = dx[0] * dx[1] / (0.4 / n)
+    plane = n * n * 4
+
+    def one(t, s):
+        return t[s].contiguous()
+
+    # row 1: the advection assembly
+    scal = assembly_scalars(dx, VISCOSITY, beta)
+    w0, w1 = vel.components
+    k_adv = fused_advection_assembly(w0, w1, *scal)
+    batched_check("batched advection assembly", k_adv,
+                  lambda s: fused_advection_assembly(one(w0, s), one(w1, s), *scal), nb)
+    p_adv = advection_assembly_plain(w0, w1, *scal)
+    adv_err = max(float((a - b).abs().max()) for a, b in zip(k_adv, p_adv))
+    b_adv, by_adv = bound(nb * 14 * plane, nb * 62 * n * n)
+    kernels.append(dict(
+        name="advection_assembly_batched", route="cuda",
+        source="diffpiso_tpu_torch/csrc/advassembly.cu",
+        replaces="diffpiso_tpu/ops/pallas_advassembly.py:189", max_abs_err=adv_err,
+        ms=cuda_time_ms(lambda: fused_advection_assembly(w0, w1, *scal), 100),
+        **device_time(lambda: fused_advection_assembly(w0, w1, *scal)),
+        plain_ms=cuda_time_ms(lambda: advection_assembly_plain(w0, w1, *scal), 20),
+        bound_ms=b_adv, bound_by=by_adv, library_ms=None, batch=nb))
+
+    # row 2: the Laplace assembly (masks shared)
+    st = it["stencil"]
+    sim_masks = laplace_mask_planes(torch.ones(n + 2, n + 2, device=dev),
+                                    torch.ones(n + 2, n + 2, device=dev), (True, True), (n, n),
+                                    torch.float32)
+    infl = [((dx[0] * dx[1] / dx[0] ** 2) / (beta - a)).contiguous() for a in st.diag_A]
+    k_lap = fused_laplace_assembly(infl[0], infl[1], sim_masks, (True, True))
+    batched_check("batched Laplace assembly", k_lap,
+                  lambda s: fused_laplace_assembly(one(infl[0], s), one(infl[1], s), sim_masks,
+                                                   (True, True)), nb)
+    p_lap = laplace_assembly_plain(infl[0], infl[1], sim_masks, (True, True))
+    lap_err = max(float((a - b).abs().max()) for a, b in zip(k_lap[:5], p_lap[:5]))
+    b_lap, by_lap = bound(nb * 15 * plane + 4 * nb, nb * 12 * n * n)
+    kernels.append(dict(
+        name="laplace_assembly_batched", route="cuda",
+        source="diffpiso_tpu_torch/csrc/laplace_assembly.cu",
+        replaces="diffpiso_tpu/ops/pallas_assembly.py:136", max_abs_err=lap_err,
+        ms=cuda_time_ms(lambda: fused_laplace_assembly(infl[0], infl[1], sim_masks,
+                                                       (True, True)), 100),
+        **device_time(lambda: fused_laplace_assembly(infl[0], infl[1], sim_masks,
+                                                     (True, True))),
+        plain_ms=cuda_time_ms(lambda: laplace_assembly_plain(infl[0], infl[1], sim_masks,
+                                                             (True, True)), 20),
+        bound_ms=b_lap, bound_by=by_lap, library_ms=None, batch=nb))
+
+    # row 5: div2 / grad2 on v* and on the divergence plane
+    fs = (dx[0] * dx[1] / dx[0], dx[0] * dx[1] / dx[1])
+    vs0, vs1 = (c.contiguous() for c in it["velocity_star"].components)
+    pp = it["v1_div"].contiguous()
+    k_div, k_grad = fv2.div2(fs, (vs0, vs1)), fv2.grad2(fs, pp)
+    batched_check("batched div2", (k_div,), lambda s: (fv2.div2(fs, (one(vs0, s), one(vs1, s))),),
+                  nb)
+    batched_check("batched grad2", k_grad, lambda s: fv2.grad2(fs, one(pp, s)), nb)
+    div_err = float((k_div - fv2.div2_plain(fs, (vs0, vs1))).abs().max())
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(k_grad, fv2.grad2_plain(fs, pp)))
+    for name, fn, plain, fl, err in (
+        ("div2_batched", lambda: fv2.div2(fs, (vs0, vs1)),
+         lambda: fv2.div2_plain(fs, (vs0, vs1)), 5, div_err),
+        ("grad2_batched", lambda: fv2.grad2(fs, pp), lambda: fv2.grad2_plain(fs, pp), 4,
+         grad_err),
+    ):
+        b_fv, by_fv = bound(nb * 3 * plane, nb * fl * n * n)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/fv2.cu",
+            replaces=("diffpiso_tpu/ops/pallas_fv.py:225" if name == "div2_batched"
+                      else "diffpiso_tpu/ops/pallas_fv.py:260"),
+            max_abs_err=err, ms=cuda_time_ms(fn, 100), plain_ms=cuda_time_ms(plain, 20),
+            **device_time(fn), bound_ms=b_fv, bound_by=by_fv, library_ms=None, batch=nb))
+
+    # row 7: the matvec on the x-velocity's operator, both forms
+    st0 = (st.center[0].contiguous(), tuple(a.contiguous() for a in st.lo[0]),
+           tuple(a.contiguous() for a in st.hi[0]))
+    mv_err = 0.0
+    for transpose in (False, True):
+        k_mv = matvec.fused_stencil_matvec(*st0, vs0, transpose)
+        batched_check(f"batched matvec transpose={transpose}", (k_mv,),
+                      lambda s: (matvec.fused_stencil_matvec(
+                          one(st0[0], s), tuple(one(a, s) for a in st0[1]),
+                          tuple(one(a, s) for a in st0[2]), one(vs0, s), transpose),), nb)
+        mv_err = max(mv_err, float((k_mv - matvec.matvec_plain(
+            st0[0], st0[1][0], st0[2][0], st0[1][1], st0[2][1], vs0, transpose)).abs().max()))
+    b_mv, by_mv = bound(nb * 7 * plane, nb * 9 * n * n)
+    kernels.append(dict(
+        name="stencil_matvec_batched", route="cuda", source="diffpiso_tpu_torch/csrc/matvec.cu",
+        replaces="diffpiso_tpu/ops/pallas_stencil.py:188", max_abs_err=mv_err,
+        ms=cuda_time_ms(lambda: matvec.fused_stencil_matvec(*st0, vs0), 100),
+        **device_time(lambda: matvec.fused_stencil_matvec(*st0, vs0)),
+        plain_ms=cuda_time_ms(lambda: matvec.matvec_plain(st0[0], st0[1][0], st0[2][0],
+                                                          st0[1][1], st0[2][1], vs0), 20),
+        bound_ms=b_mv, bound_by=by_mv, library_ms=None, batch=nb))
+    print(f"batched plane kernels (B={nb}, {n}^2): advection assembly, Laplace assembly, "
+          f"div2 / grad2, matvec both forms bit-equal per sample to their single-sample "
+          f"launches; max abs err vs plain {adv_err:.3e}, {lap_err:.3e}, {div_err:.3e} / "
+          f"{grad_err:.3e}, {mv_err:.3e}", flush=True)
+    if max(adv_err, div_err, grad_err, mv_err) != 0.0:
+        fail("a batched elementwise kernel differs from its plain version")
+
+    def fold_checks(label, st_cs, b_c, x_c, per_tol, tol):
+        """The joint kernel on B samples against its plain version and the
+        single-sample jac2 kernel per sample, forward and transposed,
+        shared and per-sample tol. Returns (max abs err, rows)."""
+        nbs = b_c[0].shape[0]
+        err, rows = 0.0, []
+        for transpose in (False, True):
+            for tl in (tol, per_tol):
+                kx0, kx1, kn, ks = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose,
+                                                              tl, 33)
+                px0, px1, pn, ps = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tl, 33)
+                same = (same_bits(kx0, px0) and same_bits(kx1, px1) and same_bits(kn, pn)
+                        and np.array_equal(ks, ps))
+                tols = np.broadcast_to(np.asarray(tl, np.float32), (nbs,))
+                single = True
+                for s in range(nbs):
+                    o = [(c[s], tuple(a[s] for a in lo), tuple(a[s] for a in hi))
+                         for c, lo, hi in st_cs]
+                    z0, z1, zn, zs = fused_jacobi2_solve(o, tuple(b[s] for b in b_c),
+                                                         tuple(x[s] for x in x_c), -1.0,
+                                                         transpose, float(tols[s]), 33)
+                    single &= (same_bits(kx0[s], z0) and same_bits(kx1[s], z1)
+                               and same_bits(kn[s], zn) and int(ks[s]) == zs)
+                for k, q in ((kx0, px0), (kx1, px1)):  # over the finite cells
+                    d = (k - q)[torch.isfinite(k) & torch.isfinite(q)]
+                    err = max(err, float(d.abs().max()) if d.numel() else 0.0)
+                rows.append(dict(transpose=transpose, per_sample_tol=not np.isscalar(tl),
+                                 sweeps=ks.tolist(), bit_equal_plain=same,
+                                 bit_equal_single_sample_kernel=single))
+                print(f"jac2 grid rule ({label}) transpose={transpose} per-sample tol="
+                      f"{not np.isscalar(tl)}: sweeps {ks.tolist()}, bit-equal to plain "
+                      f"{same}, to {nbs} single-sample kernels {single}", flush=True)
+                if not (same and single):
+                    fail(f"jac2 grid rule ({label}) transpose={transpose}: not bit-equal to "
+                         f"its plain version and the single-sample kernel per sample")
+        return err, rows
+
+    def fold_entry(label, st_cs, b_c, x_c, err, rows):
+        _, _, _, sw = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
+        nbs = b_c[0].shape[0]
+        cells = [b.numel() for b in b_c]
+        flops = sum(c / nbs * float(np.sum(2 + 22 + 13 * sw)) for c in cells)
+        b_f, by_f = bound(sum(8 * 4 * c for c in cells), flops)
+        fn = lambda: fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
+        return dict(max_abs_err=err, ms=cuda_time_ms(fn, 20), **device_time(fn, 5),
+                    plain_ms=cuda_time_ms(lambda: jacobi2_fold_plain(st_cs, b_c, x_c, -1.0,
+                                                                     False, ADV_TOL, 33), 5),
+                    bound_ms=b_f, bound_by=by_f, library_ms=None, batch=nbs,
+                    sweeps=sw.tolist(), checks=rows, shapes=label)
+
+    st_cs = [(st.center[i].contiguous(), tuple(a.contiguous() for a in st.lo[i]),
+              tuple(a.contiguous() for a in st.hi[i])) for i in range(2)]
+    b_c = tuple(c.contiguous() for c in it["rhs"].components)
+    x_c = tuple(c.contiguous() for c in vel.components)
+    per_tol = np.asarray([1e-4, 1e-5, 1e-6, 3e-7], np.float32)
+    err, rows = fold_checks(f"{n}^2, B={nb}", st_cs, b_c, x_c, per_tol, ADV_TOL)
+    kernels.append(dict(
+        name="jacobi2_solve_folded_grid", route="cuda",
+        source="diffpiso_tpu_torch/csrc/jacobi2_fold.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:861",
+        launches_count="kernel launches (per solve: entry residual, one per sweep, exit residual)",
+        **fold_entry(f"{n}x{n}", st_cs, b_c, x_c, err, rows)))
+
+    # pcg2 batched: forward (shared tol, cold) and cold adjoint (per-sample
+    # tols), on the step's Laplacians with right-hand sides of O(dx) content:
+    # the divergence of each state plus seeded noise (the step's own is at
+    # rounding level from solenoidal states, where the iteration a solve
+    # stops at depends on the summation order, as at 1024^2, phase 10a)
+    lap = it["laplacian"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noisy = tuple(c + 0.1 * torch.randn(c.shape, generator=gen, device=dev)
+                  for c in vel.components)
+    rhs = fv2.div2_plain(fs, noisy).contiguous()
+    mss = MatmulSpectralSolver(kinds=("fourier", "fourier"), shape=(n, n))
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, dev)
+    weights = tuple(torch.mean(torch.abs(a), dim=(-2, -1)) for a in lap.lo)
+    sym = safe_symbol(mss, weights, torch.float32, dev).contiguous()
+    # The step's Laplacians are so near constant-coefficient that the
+    # spectral preconditioner solves them in one iteration; so a third case
+    # runs per-sample variable-coefficient Laplacians (seeded influence
+    # planes in [0.5, 1.5)) with O(1) mean-free right-hand sides and
+    # per-sample tols, where the samples stop at different iterations and
+    # the loop exits per sample and freezes the finished ones
+    vgen = torch.Generator(device=dev).manual_seed(17)
+    ones = torch.ones(n + 2, n + 2, device=dev)
+    lap_v = assemble_pressure_laplacian(
+        StaggeredField(tuple(0.5 + torch.rand((nb, n, n), generator=vgen, device=dev)
+                             for _ in range(2)), (True, True)), ones, ones, (True, True), True)
+    rhs_v = torch.randn((nb, n, n), generator=vgen, device=dev)
+    rhs_v = (rhs_v - rhs_v.mean(dim=(1, 2), keepdim=True)).contiguous()
+    sym_v = safe_symbol(mss, tuple(torch.mean(torch.abs(a), dim=(-2, -1)) for a in lap_v.lo),
+                        torch.float32, dev).contiguous()
+    pcg_rows, pcg_err, kk_fwd = [], 0.0, None
+    for mode, lp, rh, sy, tol in (
+            ("forward", lap, rhs, sym, BAT_PCG_TOL),
+            ("adjoint", lap, rhs, sym, np.asarray([3e-5, 1e-5, 3e-6, 1e-6], np.float32)),
+            ("adjoint, variable coefficients", lap_v, rhs_v, sym_v,
+             np.asarray([3e-3, 1e-3, 3e-4, 1e-4], np.float32))):
+        kx, krn, kk = fused_pcg2_solve_batched(lp, rh, None, v0, v0t, v1, v1t, sy, tol, 1000)
+        px, prn, pk = pcg2_batched_plain(lp, rh, None, v0, v1, sy, tol, 1000)
+        rel = max(rel_err(kx[s], px[s]) for s in range(nb))
+        tols = np.broadcast_to(np.asarray(tol, np.float32), (nb,))
+        single = True
+        for s in range(nb):
+            sx, srn, sk = fused_pcg2_solve(SampleLap(lp, s), one(rh, s), None, v0, v0t, v1,
+                                           v1t, one(sy, s), float(tols[s]), 1000)
+            single &= same_bits(kx[s], sx) and same_bits(krn[s], srn) and int(kk[s]) == sk
+        pcg_err = max(pcg_err, float((kx - px).abs().max()))
+        pcg_rows.append(dict(mode=mode, iterations=kk.tolist(), plain_iterations=pk.tolist(),
+                             x_rel_err=rel, bit_equal_single_sample_kernel=single))
+        print(f"pcg2 batched ({mode}, B={nb}, {n}^2): iterations kernel {kk.tolist()} plain "
+              f"{pk.tolist()}, x rel err {rel:.3e}, bit-equal to {nb} single-sample kernels "
+              f"{single}", flush=True)
+        if not np.array_equal(kk, pk):
+            fail(f"pcg2 batched ({mode}): iteration counts differ from the plain version")
+        if not rel <= 1e-4:
+            fail(f"pcg2 batched ({mode}): x rel err {rel:.3e} > 1e-4")
+        if not single:
+            fail(f"pcg2 batched ({mode}): not bit-equal to the single-sample kernel per sample")
+        if mode == "forward":
+            kk_fwd = kk
+    if len(set(pcg_rows[-1]["iterations"])) < 2:
+        fail("pcg2 batched (variable coefficients): every sample stopped at the same iteration, "
+             "so the per-sample exit and freeze went unchecked")
+    g_rel = max(rel_err(gemm_batched(v0, rhs)[s], v0 @ rhs[s]) for s in range(nb))
+    if not g_rel <= 1e-5:
+        fail(f"batched GEMM vs torch.matmul: rel err {g_rel:.3e} > 1e-5")
+    # operations: each sample's iterations of 4 n^3 GEMMs (8 n^3 flops) and
+    # ~30 flops a cell, 24 a cell for the entry and exit residuals; bytes:
+    # 11 planes a sample
+    b_pcg, by_pcg = bound(nb * 11 * plane, float(np.sum(kk_fwd)) * (8.0 * n ** 3 + 30 * n * n)
+                          + nb * 24 * n * n)
+    fwd = lambda: fused_pcg2_solve_batched(lap, rhs, None, v0, v0t, v1, v1t, sym, BAT_PCG_TOL,
+                                           1000)
+    v0b = v0.expand(nb, n, n)
+    kernels.append(dict(
+        name="pcg2_solve_batched", route="cuda", source="diffpiso_tpu_torch/csrc/pcg2.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:2333",
+        launches_count="host-loop launches (per solve: entry residual, one per iteration of "
+                       "the slowest sample, exit residual)",
+        max_abs_err=pcg_err, ms=cuda_time_ms(fwd, 10), **device_time(fwd, 3),
+        plain_ms=cuda_time_ms(lambda: pcg2_batched_plain(lap, rhs, None, v0, v1, sym,
+                                                         BAT_PCG_TOL, 1000), 3),
+        single_sample_ms_x_batch=nb * cuda_time_ms(
+            lambda: fused_pcg2_solve(SampleLap(lap, 0), one(rhs, 0), None, v0, v0t, v1, v1t,
+                                     one(sym, 0), BAT_PCG_TOL, 1000), 5),
+        bound_ms=b_pcg, bound_by=by_pcg,
+        # yardstick: one batched cuBLAS product of the first contraction over
+        # the batch; the port never calls it
+        library_ms=cuda_time_ms(lambda: torch.bmm(v0b, rhs), 100),
+        gemm_batched_ms=cuda_time_ms(lambda: gemm_batched(v0, rhs), 100),
+        batch=nb, iterations=kk_fwd.tolist(), checks=pcg_rows))
+
+    # jac1 batched at 1024^2, B = 2
+    nl = BAT_LARGE_N
+    _, step_l, vel_l, p_l = batched_turbulence(nl, BAT_LARGE_SEEDS, dev)
+    zl = torch.zeros_like(p_l)
+    with regime.batched_regime("auto"):
+        itl = step_l(vel_l, p_l, zl, zl, full_output=True).intermediates
+    stl, b_l = itl["stencil"], itl["rhs"].components
+    nbl = len(BAT_LARGE_SEEDS)
+    j1_err, j1_rows, j1_sweeps = 0.0, [], None
+    for c in range(2):
+        stc = (stl.center[c].contiguous(), tuple(a.contiguous() for a in stl.lo[c]),
+               tuple(a.contiguous() for a in stl.hi[c]))
+        bc, xc = b_l[c].contiguous(), vel_l.components[c].contiguous()
+        for transpose in (False, True):
+            for tl in (ADV_TOL, np.asarray([1e-5, 1e-6], np.float32)):
+                kx, kn, ks = fused_jacobi1_solve_batched(stc, bc, xc, -1.0, transpose, tl, 33)
+                px, pn, ps = jacobi1_batched_plain(stc, bc, xc, -1.0, transpose, tl, 33)
+                same = same_bits(kx, px) and same_bits(kn, pn) and np.array_equal(ks, ps)
+                tols = np.broadcast_to(np.asarray(tl, np.float32), (nbl,))
+                single = True
+                for s in range(nbl):
+                    o = (stc[0][s], tuple(a[s] for a in stc[1]), tuple(a[s] for a in stc[2]))
+                    zx, zn, zs = fused_jacobi1_solve(o, bc[s], xc[s], -1.0, transpose,
+                                                     float(tols[s]), 33)
+                    single &= same_bits(kx[s], zx) and same_bits(kn[s], zn) and int(ks[s]) == zs
+                j1_err = max(j1_err, float((kx - px).abs().max()))
+                j1_rows.append(dict(component=c, transpose=transpose,
+                                    per_sample_tol=not np.isscalar(tl), sweeps=ks.tolist(),
+                                    bit_equal_plain=same, bit_equal_single_sample_kernel=single))
+                print(f"jac1 batched ({nl}^2, B={nbl}) component {c} transpose={transpose} "
+                      f"per-sample tol={not np.isscalar(tl)}: sweeps {ks.tolist()}, bit-equal "
+                      f"to plain {same}, to {nbl} single-sample kernels {single}", flush=True)
+                if not (same and single):
+                    fail(f"jac1 batched component {c} transpose={transpose}: not bit-equal to "
+                         f"its plain version and the single-sample kernel per sample")
+                if c == 0 and not transpose and np.isscalar(tl):
+                    j1_sweeps = ks
+    stc = (stl.center[0].contiguous(), tuple(a.contiguous() for a in stl.lo[0]),
+           tuple(a.contiguous() for a in stl.hi[0]))
+    j1 = (stc, b_l[0].contiguous(), vel_l.components[0].contiguous(), -1.0, False, ADV_TOL, 33)
+    cells = nl * nl
+    b_j1, by_j1 = bound(nbl * 8 * cells * 4, cells * float(np.sum(2 + 22 + 13 * j1_sweeps)))
+    kernels.append(dict(
+        name="jacobi1_solve_batched", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi1.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:1012",
+        launches_count="kernel launches (per component solve: entry residual, one per sweep "
+                       "of the slowest sample, exit residual)",
+        max_abs_err=j1_err, ms=cuda_time_ms(lambda: fused_jacobi1_solve_batched(*j1), 20),
+        **device_time(lambda: fused_jacobi1_solve_batched(*j1), 5),
+        plain_ms=cuda_time_ms(lambda: jacobi1_batched_plain(*j1), 5),
+        bound_ms=b_j1, bound_by=by_j1, library_ms=None, batch=nbl, sweeps=j1_sweeps.tolist(),
+        checks=j1_rows))
+
+    # the joint kernel on 13e's faces (257 x 1024, 256 x 1025), B = 2
+    setup = training_setup(BAT_TRAIN_RES, dev, BAT_TRAIN_DT)
+    cfg = training_cfg(remat="none")
+    tvel, tp, _, tpe = training_frames(setup, cfg, BAT_TRAIN_B)
+    tdx = setup.domain.dx
+    tbeta = tdx[0] * tdx[1] / setup.dt
+    sim = setup.sim
+    tst = assemble_advection_stencil(tvel, tdx, setup.domain.velocity_pad_modes(),
+                                     sim.viscosity, tbeta, sim.dirichlet_mask, sim.active_mask,
+                                     sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic,
+                                     uniform=False)
+    dv = setup.dirichlet_values(tpe[:, 0])
+    trhs = tvel * tbeta - fv_gradient(tp, tdx, setup.domain.pressure_pad_modes(),
+                                      sim.accessible_mask)
+    tb_c = tuple(torch.where(dm, -d, r).contiguous() for dm, d, r in zip(
+        sim.dirichlet_mask.components, dv.components, trhs.components))
+    tst_cs = [(tst.center[i].contiguous(), tuple(a.contiguous() for a in tst.lo[i]),
+               tuple(a.contiguous() for a in tst.hi[i])) for i in range(2)]
+    tx_c = tuple(c.contiguous() for c in tvel.components)
+    err, rows = fold_checks(f"{BAT_TRAIN_RES}, B={BAT_TRAIN_B}", tst_cs, tb_c, tx_c,
+                            np.asarray([1e-5, 1e-7], np.float32), TRAIN_TOL)
+    faces = "x".join(map(str, tb_c[0].shape[1:])) + "," + "x".join(map(str, tb_c[1].shape[1:]))
+    measured = {"jacobi2_solve_folded_grid": {"training_faces": fold_entry(
+        faces, tst_cs, tb_c, tx_c, err, rows)}}
+
+    # row 12: the bounded FV trio with a batch axis on 13e's planes (the
+    # pressure (B, 256, 1024), its 257 x 1024 / 256 x 1025 faces, the face
+    # masks shared), bit-equal per sample to the single-sample launch and
+    # to the plain version
+    nb_t = BAT_TRAIN_B
+    per = tuple(sim.bool_periodic)
+    tfs = (tdx[0] * tdx[1] / tdx[0], tdx[0] * tdx[1] / tdx[1])
+    rep = tuple((lo != "zero", hi != "zero") for lo, hi in setup.domain.pressure_pad_modes())
+    fmasks = tuple(m.to(torch.float32).contiguous()
+                   for m in fv._face_masks(sim.accessible_mask, per, 2))
+    tpc = tp.contiguous()
+    nyc, nxc = tpc.shape[-2:]
+    cell, fcells = nyc * nxc, tx_c[0][0].numel() + tx_c[1][0].numel()
+    trio_errs = []
+    for name, key, fn, plain, by, fl, line in (
+        # p and the two shared face masks in, two face planes out; 3 flops a face
+        ("grad2m_batched", "grad2m", lambda p, c: fv2m.grad2m(tfs, per, rep, p, fmasks),
+         lambda p, c: fv2m.grad2m_plain(tfs, per, rep, p, fmasks),
+         4 * (nb_t * (cell + fcells) + fcells), 3 * nb_t * fcells, 376),
+        # two face planes in, one cell plane out; 5 flops a cell
+        ("div2m_batched", "div2m", lambda p, c: (fv2m.div2m(tfs, per, c),),
+         lambda p, c: (fv2m.div2m_plain(tfs, per, c),), 4 * nb_t * (fcells + cell),
+         5 * nb_t * cell, 333),
+        # two cotangent planes and the two shared masks in, one cell plane out; 7 flops a cell
+        ("gradT2m_batched", "gradT2m", lambda p, c: (fv2m.gradT2m(tfs, per, rep, c, fmasks),),
+         lambda p, c: (fv2m.gradT2m_plain(tfs, per, rep, c, fmasks),),
+         4 * (nb_t * (fcells + cell) + fcells), 7 * nb_t * cell, 417),
+    ):
+        got = fn(tpc, tx_c)
+        batched_check(f"batched {key}", got,
+                      lambda s, fn=fn: fn(one(tpc, s), tuple(one(c, s) for c in tx_c)), nb_t)
+        e = max(float((a - b).abs().max()) for a, b in zip(got, plain(tpc, tx_c)))
+        trio_errs.append(e)
+        b_t, by_t = bound(by, fl)
+        kernels.append(dict(
+            name=name, route="cuda", source="diffpiso_tpu_torch/csrc/fv2m.cu",
+            replaces=f"diffpiso_tpu/ops/pallas_fv.py:{line}", max_abs_err=e,
+            ms=cuda_time_ms(lambda fn=fn: fn(tpc, tx_c), 100),
+            **device_time(lambda fn=fn: fn(tpc, tx_c)),
+            plain_ms=cuda_time_ms(lambda plain=plain: plain(tpc, tx_c), 20),
+            bound_ms=b_t, bound_by=by_t, library_ms=None, batch=nb_t, shape=[nyc, nxc]))
+    print(f"batched bounded FV trio (B={nb_t}, {nyc}x{nxc}, shared face masks): grad2m, div2m, "
+          f"gradT2m bit-equal per sample to their single-sample launches; max abs err vs plain "
+          f"{trio_errs}", flush=True)
+    if max(trio_errs) != 0.0:
+        fail("a batched bounded FV kernel differs from its plain version")
+    return measured
+
+
+def batched_paths(dev, wrappers: dict) -> dict:
+    """Phases 13b-13d: the batched turbulence rows in the "auto" regime the
+    size rule picks. 13b: runs/ab_batched_512.py's forward at 512^2, B = 4
+    (seeds 0-3): one untimed and 3 timed calls of 50 steps (guesses from
+    zeros each call), counters reset before the timed ones: the plane
+    kernels with a batch axis once (assemblies), 3 (grad2) and 2 (div2)
+    times per step, the matvec 2 per step (explicit_H) plus its hand-over
+    and loop applies, the joint Jacobi kernel (the grid rule) and pcg2
+    batched as the loops' counters derive; 0 launches of the corrector,
+    the PCG and BiCGSTAB phases, the folded update and every single-sample
+    whole solve. 13c: grad10 of sum_c mean(v_c^2) over the batch with
+    respect to the batched initial velocity (remat "none"), 1 untimed and 3
+    timed evaluations, counts per evaluation; then batch 2 at 128^2 in
+    "auto" card vs the CPU plain path (3 steps, the path's loss and
+    sum_c sum(v_c^2), under which pressure adjoints gate: equal gate
+    decisions, gradient rel l2 <= 1e-3). 13d: batch 2 at 1024^2: 10 warm-up and 50
+    timed forward steps and grad5 (1 untimed and 2 timed): jac1 batched per
+    component, the generic PCG loop (matvec applies), no pcg2, no fold, no
+    folded update. Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.core.rollout import batched_rollout, batched_rollout_loss_grad
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def check(what, counts, want):
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"{what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
+
+    def forward(label, step, domain, vel, p, calls, steps, jac):
+        nb = p.shape[0]
+        reset()
+        c0 = batched_counters()
+        torch.cuda.reset_peak_memory_stats()
+        its, warns = [], np.zeros(nb, dtype=np.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = batched_rollout(step, vel, p, steps)
+            vel, p = out.velocity, out.pressure
+            its.append(out.p_iterations)
+            warns += out.warns
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read()
+        derived, d = batched_derived(c0, batched_counters(), jac)
+        S = calls * steps
+        finite = all(bool(torch.isfinite(c).all()) for c in vel.components) \
+            and bool(torch.isfinite(p).all())
+        with regime.batched_regime("auto"):
+            div = float(fv_divergence(vel, domain.dx).abs().max())
+        print(json.dumps(dict(
+            workload=f"{label}, forward", batch=nb, steps=S,
+            sample_steps_per_sec=S * nb / elapsed, steps_per_sec=S / elapsed,
+            pressure_iters_per_step_per_sample=sample_iters(np.concatenate(its)),
+            warn_steps_per_sample=warns.tolist(), bicgstab_fallback_samples=d["fallbacks"],
+            jacobi_sweeps_per_solve=d["jacobi_sweeps"] / max(d["jacobi_solves"], 1),
+            max_abs_div=div, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            loop_counters=d, launches=counts)), flush=True)
+        if not finite:
+            fail(f"{label}: non-finite state after the forward path")
+        if warns.any():
+            fail(f"{label}: a sample warned ({warns.tolist()} steps)")
+        return vel, p, counts, derived, d, S
+
+    def grad(label, step, vel, p, unroll, reps, want_fn):
+        nb = p.shape[0]
+        evals = []
+        for rep in range(1 + reps):
+            reset()
+            c0 = batched_counters()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = batched_rollout_loss_grad(step, vel, p, unroll)
+            torch.cuda.synchronize()
+            elapsed_g = time.perf_counter() - t0
+            counts = read()
+            derived, d = batched_derived(c0, batched_counters(), want_fn.jac)
+            p_adj = [a for a in res.adjoints if a.system == "pressure"]
+            gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+            evals.append(dict(
+                timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+                warn_steps_per_sample=res.warns.tolist(),
+                pressure_iters_per_step_per_sample=sample_iters(res.p_iterations),
+                adjoint_pcg_iters_per_step_per_sample=(
+                    np.sum([a.iterations for a in p_adj], axis=0) / unroll).tolist(),
+                adjoint_gated_per_sample=[np.sum([a.gated for a in res.adjoints
+                                                  if a.system == s], axis=0).tolist()
+                                          for s in ("momentum", "pressure")],
+                adjoint_ratio_passed_max=max((float(r / l) for a in p_adj
+                                              for r, l, g in zip(a.residual, a.limit, a.gated)
+                                              if not g), default=None),
+                adjoint_ratio_gated_min=min((float(r / l) for a in p_adj
+                                             for r, l, g in zip(a.residual, a.limit, a.gated)
+                                             if g), default=None),
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                loop_counters=d, launches=counts))
+            print(json.dumps(dict(grad_eval=rep, workload=label, **evals[-1])), flush=True)
+            if res.warns.any():
+                fail(f"{label}: a sample warned")
+            if not (gnorm > 0 and gnorm < float("inf")):
+                fail(f"{label}: |grad| = {gnorm} (must be finite and > 0)")
+            check(label, counts, want_fn(derived, d))
+            if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
+                fail(f"{label}: an evaluation from the same state counted differently")
+        timed = [e for e in evals if e["timed"]]
+        print(json.dumps(dict(
+            workload=label, batch=nb, evaluations=len(timed),
+            sample_steps_per_sec=unroll * nb * len(timed) / sum(e["seconds"] for e in timed),
+            unrolled_steps_per_sec=unroll * len(timed) / sum(e["seconds"] for e in timed),
+            pressure_iters_per_step_per_sample=timed[-1]["pressure_iters_per_step_per_sample"],
+            adjoint_pcg_iters_per_step_per_sample=timed[-1][
+                "adjoint_pcg_iters_per_step_per_sample"],
+            adjoint_gated_per_sample=timed[-1]["adjoint_gated_per_sample"],
+            max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
+            grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"])), flush=True)
+        return timed[-1]["launches"]
+
+    out = {}
+    # 13b: batch-4 512^2 forward
+    n = BAT_N
+    domain, step, vel, p = batched_turbulence(n, BAT_SEEDS, dev)
+    if regime.batched_pallas_mode(vel) != "auto":
+        fail(f"{n}^2 batch: the size rule does not pick the auto regime")
+    first = batched_rollout(step, vel, p, BAT_CALL)  # the untimed call
+    vel, p, fwd, derived, d, S = forward(
+        f"batched turbulence {n}^2 x {len(BAT_SEEDS)} (runs/ab_batched_512.py)", step, domain,
+        first.velocity, first.pressure, BAT_TIMED_CALLS, BAT_CALL, "jacobi2_solve_folded")
+    if d["jacobi_solves"] != S or d["pcg2_solves"] != 2 * S:
+        fail(f"{n}^2 batch: {d['jacobi_solves']} joint Jacobi and {d['pcg2_solves']} pcg2 "
+             f"solves in {S} steps (expected 1 and 2 per step)")
+    check(f"{n}^2 batch forward", fwd, dict(
+        advection_assembly=S, laplace_assembly=S, grad2=3 * S, div2=2 * S,
+        stencil_matvec=2 * S + derived["stencil_matvec"],
+        jacobi2_solve_folded=derived["jacobi2_solve_folded"],
+        pcg2_solve_batched=derived["pcg2_solve_batched"]))
+    out["batched512"] = fwd
+
+    # 13c: grad10 from that state. Per evaluation, U steps: the assemblies
+    # U; grad2 3U forward + 2U (the div2 VJPs); div2 2U forward + 2U (the
+    # correctors' grad2 VJPs) + U - 1 (the predictor's: the initial pressure
+    # carries no gradient); the matvec 2U (explicit_H) + 2U transposed (its
+    # VJP); U forward and U transposed momentum solves; 2U forward and 2U
+    # adjoint pcg2 solves
+    U = BAT_UNROLL
+
+    def want512(derived, d):
+        if d["jacobi_solves"] != 2 * U or d["pcg2_solves"] != 4 * U:
+            fail(f"{n}^2 batch grad{U}: not 2U joint Jacobi and 4U pcg2 solves")
+        return dict(advection_assembly=U, laplace_assembly=U, grad2=5 * U, div2=5 * U - 1,
+                    stencil_matvec=4 * U + derived["stencil_matvec"],
+                    jacobi2_solve_folded=derived["jacobi2_solve_folded"],
+                    pcg2_solve_batched=derived["pcg2_solve_batched"])
+
+    want512.jac = "jacobi2_solve_folded"
+    out["batched512_grad10"] = grad(
+        f"batched turbulence {n}^2 x {len(BAT_SEEDS)}, grad{U} (d sum_c mean v_c^2 / d v0), "
+        "remat none", step, vel, p, U, BAT_GRAD_REPS, want512)
+
+    # 13c, card vs CPU: batch 2 at 128^2 in the auto regime, with the path's
+    # loss and with sum_c sum(v_c^2): under the mean the cotangents stay
+    # below 1, so every adjoint tol is the bare 1e-8 and no adjoint is
+    # gated; under the sum most pressure adjoints end above the gate's limit
+    # (100 x adj_tol), so the per-sample gate decisions are held card vs CPU
+    ns = BAT_SMALL
+
+    def sum_square(v):
+        return sum(torch.sum(c * c) for c in v.components)
+
+    for loss_name, loss_fn in (("sum_c mean(v_c^2)", None), ("sum_c sum(v_c^2)", sum_square)):
+        grads, decisions, iters = {}, {}, {}
+        for where, dv in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            _, step_s, vel_s, p_s = batched_turbulence(ns, (0, 1), dv)
+            with regime.batched_regime("auto"):
+                r = batched_rollout_loss_grad(step_s, vel_s, p_s, BAT_SMALL_STEPS,
+                                              *(() if loss_fn is None else (loss_fn,)))
+            if r.warns.any():
+                fail(f"{ns}^2 batch 2 gradient on {where}: a sample warned")
+            grads[where] = [c.cpu().double() for c in r.grad.components]
+            decisions[where] = [(a.system, np.asarray(a.gated).tolist()) for a in r.adjoints]
+            iters[where] = r.p_iterations.tolist()
+        g_rel = rel_l2_list(grads["cuda"], grads["cpu"])
+        n_gated = sum(sum(g) for _, g in decisions["cpu"])
+        # the pressure iterations are reported, not required equal: from
+        # solenoidal states the first corrector's right-hand side sits at
+        # rounding level, so where a solve stops at tol 1e-8 depends on the
+        # summation order (phase 10a)
+        print(f"{ns}^2 batch 2 x {BAT_SMALL_STEPS}-step gradient of {loss_name} in the auto "
+              f"regime, card vs CPU plain path: rel l2 {g_rel:.3e}; gated adjoints card "
+              f"{sum(sum(g) for _, g in decisions['cuda'])} / CPU {n_gated} of "
+              f"{2 * len(decisions['cpu'])}; pressure iterations card {iters['cuda']} / CPU "
+              f"{iters['cpu']}", flush=True)
+        if decisions["cuda"] != decisions["cpu"]:
+            fail(f"{ns}^2 batch 2 gradient of {loss_name}: gate decisions differ, card "
+                 f"{decisions['cuda']} vs CPU {decisions['cpu']}")
+        if loss_fn is not None and not n_gated:
+            fail(f"{ns}^2 batch 2 gradient of {loss_name}: no adjoint gated, so this check "
+                 "does not cover the gate")
+        if not g_rel <= 1e-3:
+            fail(f"{ns}^2 batch 2 gradient of {loss_name}: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+    # 13d: batch 2 at 1024^2
+    nl = BAT_LARGE_N
+    domain_l, step_l, vel_l, p_l = batched_turbulence(nl, BAT_LARGE_SEEDS, dev)
+    warm = batched_rollout(step_l, vel_l, p_l, BAT_LARGE_WARMUP)
+    vel_l, p_l, fwd_l, derived, d, S = forward(
+        f"batched turbulence {nl}^2 x {len(BAT_LARGE_SEEDS)}", step_l, domain_l, warm.velocity,
+        warm.pressure, 1, BAT_LARGE_STEPS, "jacobi1_solve_batched")
+    if d["jacobi_solves"] != 2 * S or d["pcg2_solves"]:
+        fail(f"{nl}^2 batch: {d['jacobi_solves']} jac1 component solves (expected 2 per step), "
+             f"{d['pcg2_solves']} pcg2 solves (expected none)")
+    check(f"{nl}^2 batch forward", fwd_l, dict(
+        advection_assembly=S, laplace_assembly=S, grad2=3 * S, div2=2 * S,
+        stencil_matvec=2 * S + derived["stencil_matvec"],
+        jacobi1_solve_batched=derived["jacobi1_solve_batched"]))
+    out["batched1024"] = fwd_l
+    Ul = BAT_LARGE_UNROLL
+
+    def want1024(derived, d):
+        if d["jacobi_solves"] != 4 * Ul or d["pcg2_solves"]:
+            fail(f"{nl}^2 batch grad{Ul}: not 4U jac1 component solves and no pcg2")
+        return dict(advection_assembly=Ul, laplace_assembly=Ul, grad2=5 * Ul, div2=5 * Ul - 1,
+                    stencil_matvec=4 * Ul + derived["stencil_matvec"],
+                    jacobi1_solve_batched=derived["jacobi1_solve_batched"])
+
+    want1024.jac = "jacobi1_solve_batched"
+    out["batched1024_grad"] = grad(
+        f"batched turbulence {nl}^2 x {len(BAT_LARGE_SEEDS)}, grad{Ul}, remat none", step_l,
+        vel_l, p_l, Ul, BAT_LARGE_GRAD_REPS, want1024)
+    return out
+
+
+def batched_training_path(dev, wrappers: dict) -> dict:
+    """Phase 13e: make_batched_train_step in the "auto" regime: bench.py
+    workload_training's configuration (the mixing layer, max iterations
+    (200, 2000), the fullyconv CNN at its published widths, a 10-step
+    unroll, four losses, Adam 1e-5, tol 1e-6, remat "none") at HRres
+    256 x 1024, whose 257 x 1024 face crosses the 512^2 gate, at dt 0.1
+    (bench's dt 0.4 at 64 x 256 scaled with the grid), batch 2 (two frames
+    of a run): first each sample's loss and weight gradient
+    (the batched loss's per-sample gradient, the train step's own) against
+    that sample run alone through make_train_step, at phase 9a's tol 1e-7
+    and bars (loss rtol 1e-4, gradient rel l2 1e-3), and the batched step's
+    masked-mean gradient against their mean; then 1 untimed and 3 timed
+    train steps: warn 0, the Adam count, the joint Jacobi kernel (the grid
+    rule) as its counters derive, the Laplace assembly 10 times per step,
+    the matvec (explicit_H forward and transposed) plus the loops' applies,
+    the bounded FV trio with a batch axis (per step of U = 10: grad2m 3U
+    forward + 2U div2m VJPs, div2m 2U, gradT2m 3U - 1: the initial
+    pressure carries no gradient), nothing else (the pressure takes
+    channel_mm's generic loop)."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.learning.optim import Adam
+    from diffpiso_tpu_torch.learning.training import (
+        make_batched_train_step, make_loss_fn, make_rollout_fn, make_train_step)
+    from diffpiso_tpu_torch.models.networks import init_fullyconv
+
+    nb = BAT_TRAIN_B
+    setup = training_setup(BAT_TRAIN_RES, dev, BAT_TRAIN_DT)
+    params = init_fullyconv(torch.Generator(device=dev).manual_seed(0), device=dev)
+    # the checks at tol 1e-7
+    ccfg = training_cfg(tol=TRAIN_CHECK_TOL, remat="none")
+    closs = make_loss_fn(setup, ccfg, make_rollout_fn(setup, ccfg))
+    batch = training_frames(setup, ccfg, nb)
+    if regime.resolve_regime(batch[0]) != "auto":
+        fail(f"training {BAT_TRAIN_RES}: the size rule does not pick the auto regime")
+    per = [w.detach().unsqueeze(0).expand(nb, *w.shape).clone().requires_grad_(True)
+           for w in params]
+    with regime.batched_regime("auto"):
+        losses, (bwarns, _) = closs(per, *batch)
+        pgrads = torch.autograd.grad(losses.sum(), per)
+    opt = GradCapture()
+    _, mean_g, _, _, _ = make_batched_train_step(closs, opt)(params, opt.init(params), *batch)
+    b1_cfg = training_cfg(tol=TRAIN_CHECK_TOL)
+    b1_step = make_train_step(make_loss_fn(setup, b1_cfg, make_rollout_fn(setup, b1_cfg)), opt)
+    l_rel, g_rels, singles, single_w = [], [], [], []
+    for s in range(nb):
+        _, g1, loss1, _, w1 = b1_step(params, opt.init(params), *sample(batch, s))
+        singles.append(g1)
+        single_w.append(bool(w1))
+        l_rel.append(abs(float(losses[s].detach()) - float(loss1)) / abs(float(loss1)))
+        g_rels.append(rel_l2_list([g[s] for g in pgrads], g1))
+    want_g = [sum(g[i] for g in singles) / nb for i in range(len(params))]
+    m_rel = rel_l2_list(mean_g, want_g)
+    print(f"training {BAT_TRAIN_RES[0]}x{BAT_TRAIN_RES[1]} batch {nb} in the auto regime (tol "
+          f"{TRAIN_CHECK_TOL}) vs each sample alone through make_train_step: loss rel "
+          f"{[f'{x:.3e}' for x in l_rel]}, weight gradient rel l2 {[f'{x:.3e}' for x in g_rels]}, "
+          f"masked mean vs the mean {m_rel:.3e}; warns {np.asarray(bwarns).tolist()} / "
+          f"{single_w}", flush=True)
+    if np.asarray(bwarns).any() or any(single_w):
+        fail("training auto regime check: a solve warned")
+    if not max(l_rel) <= 1e-4:
+        fail(f"training auto regime: per-sample loss rel {max(l_rel):.3e} > 1e-4")
+    if not max(g_rels + [m_rel]) <= 1e-3:
+        fail(f"training auto regime: weight gradient rel l2 {max(g_rels + [m_rel]):.3e} > 1e-3")
+
+    from diffpiso_tpu_torch.solvers import krylov
+
+    cfg = training_cfg(remat="none")
+    loss_fn = make_loss_fn(setup, cfg, make_rollout_fn(setup, cfg))
+    adam = Adam(1e-5)
+    state = adam.init(params)
+    batch = training_frames(setup, cfg, nb)
+    step = make_batched_train_step(loss_fn, adam)
+    params, state, loss, parts, warns = step(params, state, *batch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    c0 = batched_counters()
+    t0 = time.perf_counter()
+    any_warn = False
+    for _ in range(BAT_TRAIN_REPS):
+        params, state, loss, parts, warns = step(params, state, *batch)
+        any_warn |= bool(np.asarray(warns).any())
+    loss_v = float(loss)
+    per_iter = (time.perf_counter() - t0) / BAT_TRAIN_REPS
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    derived, d = batched_derived(c0, batched_counters(), "jacobi2_solve_folded")
+    print(json.dumps(dict(
+        workload=f"closure training iteration {BAT_TRAIN_RES[0]}x{BAT_TRAIN_RES[1]} (dt "
+                 f"{BAT_TRAIN_DT}), {TRAIN_STEPS}-step unroll, 4 losses, Adam, batch {nb}, "
+                 "auto regime",
+        train_iterations_per_sec=1.0 / per_iter, samples_per_sec=nb / per_iter,
+        unrolled_steps_per_sec=TRAIN_STEPS * nb / per_iter, loss=loss_v, warn=any_warn,
+        count=int(state.count), loop_counters=d, launches=counts)), flush=True)
+    if any_warn or not np.isfinite(loss_v):
+        fail("training auto regime: a sample warned or the loss is not finite")
+    if int(state.count) != 1 + BAT_TRAIN_REPS:
+        fail(f"training auto regime: Adam count {int(state.count)}: an update was skipped")
+    R = TRAIN_STEPS * BAT_TRAIN_REPS
+    if d["jacobi_solves"] != 2 * R or d["pcg2_solves"]:
+        fail(f"training auto regime: {d['jacobi_solves']} joint Jacobi solves (expected "
+             f"{2 * R}), {d['pcg2_solves']} pcg2 solves (expected none)")
+    want = dict(laplace_assembly=R, stencil_matvec=4 * R + derived["stencil_matvec"],
+                jacobi2_solve_folded=derived["jacobi2_solve_folded"], grad2m=5 * R,
+                div2m=2 * R, gradT2m=3 * R - BAT_TRAIN_REPS)
+    for k, c in counts.items():
+        if c != want.get(k, 0):
+            fail(f"training auto regime: {k} launched {c} times, expected {want.get(k, 0)}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2863,10 +3792,12 @@ def main() -> int:
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
     from diffpiso_tpu_torch.ops import fv3
     from diffpiso_tpu_torch.ops.advassembly3 import fused_advection_assembly3
-    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, fused_jacobi1_solve_3d
+    from diffpiso_tpu_torch.solvers.jacobi1 import (
+        fused_jacobi1_solve, fused_jacobi1_solve_3d, fused_jacobi1_solve_batched)
     from diffpiso_tpu_torch.solvers.jacobi2 import (
         fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
-    from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
+    from diffpiso_tpu_torch.solvers.pcg2 import (
+        fused_pcg2_solve, fused_pcg2_solve_batched, gemm, pcg2_plain)
     from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3215,6 +4146,10 @@ def main() -> int:
         "grad3": (fv3.grad3, 0),
         "stencil_matvec3d": (matvec.fused_stencil_matvec3d, 0),
         "jacobi1_solve_3d": (fused_jacobi1_solve_3d, 0),
+        # the batched "auto" regime's whole solves: only batches of 512^2-class
+        # planes take them (phase 13)
+        "pcg2_solve_batched": (fused_pcg2_solve_batched, 0),
+        "jacobi1_solve_batched": (fused_jacobi1_solve_batched, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -3314,6 +4249,7 @@ def main() -> int:
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
         "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
         "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
+        "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -3411,6 +4347,12 @@ def main() -> int:
     turb3d_fwd, turb3d_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()},
                                           turb3d_state_dev)
 
+    # -- phase 13: the batched "auto" regime (per-sample planes from 512^2) -----------------
+    batched_measured = batched_kernels(dev, kernels)
+    bat = batched_paths(dev, {k: fn for k, (fn, _) in wrappers.items()})
+    bat["batched_training"] = batched_training_path(
+        dev, {k: fn for k, (fn, _) in wrappers.items()})
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -3421,7 +4363,17 @@ def main() -> int:
     # stand beside them
     for entry in kernels:
         name = entry["name"]
-        if name in T3_KERNELS:
+        key = BAT_WRAPPER.get(name, name)  # a batched entry's wrapper counter
+        if name in BAT_ENTRIES:
+            entry["path"] = "batched turbulence 512^2 x 4 forward"
+            entry["launches"] = bat["batched512"][key]
+        elif name in BAT_TRAIN_ENTRIES:
+            entry["path"] = "batched training 256x1024 x 2, auto regime"
+            entry["launches"] = bat["batched_training"][key]
+        elif name == "jacobi1_solve_batched":
+            entry["path"] = "batched turbulence 1024^2 x 2 forward"
+            entry["launches"] = bat["batched1024"][name]
+        elif name in T3_KERNELS:
             entry["path"] = "turbulence 128^3 forward"
             entry["launches"] = turb3d_fwd[name]
         elif name in LARGE_KERNELS:
@@ -3440,20 +4392,23 @@ def main() -> int:
         else:
             entry["path"] = "turbulence forward"
             entry["launches"] = launches[name]
-        entry["grad30_launches"] = grad30["launches_per_eval"][name]
-        entry["cavity_launches"] = cav_fwd[name]
-        entry["cavity_grad30_launches"] = cav_grad[name]
-        entry["mixing_launches"] = mix_fwd[name]
-        entry["mixing_grad30_launches"] = mix_grad[name]
-        entry["training_b1_launches"] = train_b1[name]
-        entry["training_b8_launches"] = train_b8[name]
-        entry["turb1024_launches"] = turb1024_fwd[name]
-        entry["turb1024_grad30_launches"] = turb1024_grad[name]
-        entry["dns_launches"] = dns_fwd[name]
-        entry["dns_grad30_launches"] = dns_grad[name]
-        entry["turb3d_launches"] = turb3d_fwd[name]
-        entry["turb3d_grad10_launches"] = turb3d_grad[name]
+        entry["grad30_launches"] = grad30["launches_per_eval"][key]
+        entry["cavity_launches"] = cav_fwd[key]
+        entry["cavity_grad30_launches"] = cav_grad[key]
+        entry["mixing_launches"] = mix_fwd[key]
+        entry["mixing_grad30_launches"] = mix_grad[key]
+        entry["training_b1_launches"] = train_b1[key]
+        entry["training_b8_launches"] = train_b8[key]
+        entry["turb1024_launches"] = turb1024_fwd[key]
+        entry["turb1024_grad30_launches"] = turb1024_grad[key]
+        entry["dns_launches"] = dns_fwd[key]
+        entry["dns_grad30_launches"] = dns_grad[key]
+        entry["turb3d_launches"] = turb3d_fwd[key]
+        entry["turb3d_grad10_launches"] = turb3d_grad[key]
+        for path, counts in bat.items():
+            entry[f"{path}_launches"] = counts[key]
         entry.update(large_measured.get(name, {}))
+        entry.update(batched_measured.get(name, {}))
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]
         if name in mixing_measured:

@@ -17,15 +17,30 @@ recorded outputs, so no Krylov loop runs twice. Per step
 the momentum solve runs twice (forward, transposed adjoint) and the
 pressure solve four times (two correctors, forward and adjoint).
 remat="none" keeps every intermediate; it is the reference that "outputs"
-is held against."""
+is held against.
+
+B samples at once (every state tensor with a leading batch axis):
+`batched_rollout` advances them n steps, the pressure increments carried
+per sample as the next step's guesses from zeros, and
+`batched_rollout_loss_grad` differentiates sum_c mean(v_c^2) over the
+batch after `unroll` steps with respect to the batched initial velocity,
+keeping every intermediate (remat "none", the vmapped JAX trace's own).
+Both run in the batched regime that the JAX package's size rule picks for
+the state's planes (diffpiso_tpu_torch/regime.py `resolve_regime`: "auto" from 512^2
+per-sample planes, the grid-over-batch whole solves and the plane kernels
+with a batch axis; "fold" below; an enclosing `batched_regime` overrides
+it), entered around the steps and the backward pass, as the JAX
+package's `runs/ab_batched_512.py` traces them."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.solvers.base import AdjointSolve, SolveStash
 
@@ -98,3 +113,86 @@ def rollout_loss_grad(
                        grad=StaggeredField(grads, periodic=forcing.periodic),
                        p_iterations=iters, warns=warns,
                        adjoints=[a for s in stashes for a in s.adjoints])
+
+
+# -- B samples at once ------------------------------------------------------------
+
+
+class BatchedRollout(NamedTuple):
+    velocity: StaggeredField  # (B, ...) components
+    pressure: torch.Tensor  # (B, ny, nx)
+    p_iterations: np.ndarray  # (steps, 2, B): each step's two pressure solves, per sample
+    warns: np.ndarray  # (B,): steps in which any forward solve of the sample warned
+
+
+def _regime(vel: StaggeredField) -> str:
+    mode = regime.resolve_regime(vel)
+    if mode == "never":
+        raise NotImplementedError("batched 3-D volumes are not ported (ROADMAP.md queue 1 item 7)")
+    return mode
+
+
+def batched_rollout(step: Callable[..., Any], vel: StaggeredField, p: torch.Tensor,
+                    steps: int) -> BatchedRollout:
+    """`steps` steps of B samples. `step(vel, p, g1, g2)` advances one step
+    (piso_step with the caller's domain, parameters and tolerances bound);
+    the pressure increments of each step warm-start the next one's solves,
+    per sample, from zeros."""
+    g1 = g2 = torch.zeros_like(p)
+    iters, warns = [], np.zeros(p.shape[0], dtype=np.int64)
+    with regime.batched_regime(_regime(vel)):
+        for _ in range(steps):
+            out = step(vel, p, g1, g2)
+            vel, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
+            iters.append(np.stack([np.asarray(i) for i in out.p_iterations]))
+            warns += np.asarray(out.warn, dtype=np.int64)
+    return BatchedRollout(velocity=vel, pressure=p, p_iterations=np.stack(iters),
+                          warns=warns)
+
+
+def mean_square(vel: StaggeredField) -> torch.Tensor:
+    """sum_c mean(v_c^2), the mean over the batch too
+    (`runs/ab_batched_512.py`'s loss)."""
+    return sum(torch.mean(c * c) for c in vel.components)
+
+
+class BatchedRolloutGrad(NamedTuple):
+    loss: float
+    grad: StaggeredField  # d loss / d initial velocity, (B, ...) components
+    p_iterations: np.ndarray  # (unroll, 2, B)
+    warns: np.ndarray  # (B,)
+    # the adjoint solves, step by step in the order the backward pass ran
+    # them; each field but `system` is a (B,) array
+    adjoints: List[AdjointSolve]
+
+
+def batched_rollout_loss_grad(step: Callable[..., Any], vel: StaggeredField, p: torch.Tensor,
+                              unroll: int,
+                              loss_fn: Callable[[StaggeredField], torch.Tensor] = mean_square
+                              ) -> BatchedRolloutGrad:
+    """Gradient of loss_fn(velocity after `unroll` steps of B samples) with
+    respect to the batched initial velocity, with remat "none": every step
+    keeps its intermediates (a `SolveStash` records its solves and, after
+    the backward pass, its adjoints). `step` as in `batched_rollout`; the
+    pressure increments start from zeros."""
+    per = vel.periodic
+    leaves = tuple(c.detach().requires_grad_(True) for c in vel.components)
+    v = StaggeredField(leaves, periodic=per)
+    p = p.detach()
+    g1 = g2 = torch.zeros_like(p)
+    iters, warns, stashes = [], np.zeros(p.shape[0], dtype=np.int64), []
+    with regime.batched_regime(_regime(vel)):
+        for _ in range(unroll):
+            stash = SolveStash()
+            stashes.append(stash)
+            with stash.recording():
+                out = step(v, p, g1, g2)
+            v, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
+            iters.append(np.stack([np.asarray(i) for i in out.p_iterations]))
+            warns += np.asarray(out.warn, dtype=np.int64)
+        loss = loss_fn(v)
+        grads = torch.autograd.grad(loss, leaves)
+    return BatchedRolloutGrad(loss=float(loss.detach()),
+                              grad=StaggeredField(grads, periodic=per),
+                              p_iterations=np.stack(iters), warns=warns,
+                              adjoints=[a for s in stashes for a in s.adjoints])

@@ -3,7 +3,8 @@
 Counterpart of diffpiso_tpu/core/setups.py decaying_turbulence_setup,
 spatial_mixing_layer_setup and MixingLayerSetup, and of the lid-driven
 cavity of the JAX package's benchmark (`bench.py build`, the
-`workload_cavity` configuration)."""
+`workload_cavity` configuration); `decaying_turbulence_batch` makes B
+seeded turbulence states for the batched rows."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from diffpiso_tpu_torch.fields.box import Box
 from diffpiso_tpu_torch.fields.domain import Domain
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.fields.material import CLOSED, OPEN, PERIODIC
+from diffpiso_tpu_torch.fields.noise import random_solenoidal
 from diffpiso_tpu_torch.ops.fv import centered_to_staggered
 from diffpiso_tpu_torch.solvers.base import AdvectionSolver, PressureSolver
 
@@ -76,6 +78,22 @@ def decaying_turbulence_setup(
         ),
     )
     return domain, sim
+
+
+def decaying_turbulence_batch(domain, seeds, device=None):
+    """B seeded initial states of a periodic 2-D box (the batched rows'
+    inputs: `runs/ab_batched_512.py` stacks `initial_state(seed=s)` for
+    s in range(B)): each sample a `random_solenoidal` field drawn from its
+    own CPU `torch.Generator` seeded with its seed (so every device gets
+    the same draw), the pressure zero. Returns (velocity with components
+    (B, ny, nx), pressure (B, ny, nx)); runs on `cuda` unless `device`
+    names another."""
+    device = resolve_device(device)
+    vels = [random_solenoidal(domain, torch.Generator().manual_seed(int(s)), device=device)
+            for s in seeds]
+    vel = StaggeredField(tuple(torch.stack([v.components[c] for v in vels]) for c in range(2)),
+                         periodic=(True, True))
+    return vel, torch.zeros((len(vels), *domain.resolution), dtype=torch.float32, device=device)
 
 
 def lid_driven_cavity_setup(n: int = 512, device=None):

@@ -9,8 +9,14 @@
 //   lo_d = 0.5 flux_lo + visc_d      hi_d = -0.5 flux_hi + visc_d
 //   diag = sum_d 0.5 (flux_lo - flux_hi) - 2 visc_d
 //   center = diag - beta             diag_A = diag
-// Output layout: one (12, ny, nx) buffer, planes
-//   c0 lo0y hi0y lo0x hi0x a0  c1 lo1y hi1y lo1x hi1x a1.
+// Output layout: one (12, B, ny, nx) buffer, planes
+//   c0 lo0y hi0y lo0x hi0x a0  c1 lo1y hi1y lo1x hi1x a1,
+// each holding the B samples' planes (B = 1 for one velocity).
+//
+// B samples at once (the "auto" batched regime: the JAX kernel batches
+// natively under vmap, a grid axis per sample): grid axis z is the sample,
+// the velocity planes are (B, ny, nx); each sample's cells compute exactly
+// the single-sample arithmetic.
 //
 // Bound on the H100: bytes (2 planes in, 12 out, a handful of flops per
 // output). Neighbour reads hit L1/L2 (each input value is read by up to 4
@@ -29,6 +35,10 @@ __global__ void advassembly_kernel(const float* __restrict__ w0,
   const int i = blockIdx.y;
   if (j >= nx || i >= ny) return;
   const size_t plane = (size_t)ny * nx;
+  const size_t soff = (size_t)blockIdx.z * plane;
+  const size_t pstride = (size_t)gridDim.z * plane;  // between output planes
+  w0 += soff;
+  w1 += soff;
   const int im = dp_wrap_dec(i, ny), jm = dp_wrap_dec(j, nx);
   const int ip = dp_wrap_inc(i, ny), jp = dp_wrap_inc(j, nx);
   const float* w[2] = {w0, w1};
@@ -53,22 +63,23 @@ __global__ void advassembly_kernel(const float* __restrict__ w0,
       const float contrib = 0.5f * (flux_lo - flux_hi) - 2.0f * visc[d];
       diag = d == 0 ? contrib : diag + contrib;
     }
-    float* o = out + (size_t)(6 * c) * plane + (size_t)i * nx + j;
+    float* o = out + (size_t)(6 * c) * pstride + soff + (size_t)i * nx + j;
     o[0] = diag - beta;
-    o[plane] = lo[0];
-    o[2 * plane] = hi[0];
-    o[3 * plane] = lo[1];
-    o[4 * plane] = hi[1];
-    o[5 * plane] = diag;
+    o[pstride] = lo[0];
+    o[2 * pstride] = hi[0];
+    o[3 * pstride] = lo[1];
+    o[4 * pstride] = hi[1];
+    o[5 * pstride] = diag;
   }
 }
 
+// w0, w1: (nb, ny, nx); out: (12, nb, ny, nx)
 extern "C" int advassembly_launch(const float* w0, const float* w1, float* out,
-                                  int ny, int nx, float beta, float area0,
+                                  int ny, int nx, int nb, float beta, float area0,
                                   float area1, float visc0, float visc1,
                                   void* stream) {
   dim3 block(DP_THREADS);
-  dim3 grid((nx + DP_THREADS - 1) / DP_THREADS, ny);
+  dim3 grid((nx + DP_THREADS - 1) / DP_THREADS, ny, nb);
   advassembly_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       w0, w1, out, ny, nx, beta, area0, area1, visc0, visc1);
   return (int)cudaGetLastError();

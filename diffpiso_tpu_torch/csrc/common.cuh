@@ -41,10 +41,13 @@ __device__ __forceinline__ void dp_block_max_abs(float v, unsigned int* sh,
 __device__ __forceinline__ int dp_wrap_dec(int i, int n) { return i == 0 ? n - 1 : i - 1; }
 __device__ __forceinline__ int dp_wrap_inc(int i, int n) { return i == n - 1 ? 0 : i + 1; }
 
-// Sum of `n` block partials in a fixed order (one block), written to *out.
+// Sum of `n` block partials in a fixed order (one block), written to *out;
+// launched with B blocks, block b sums partials[b n : (b + 1) n] into out[b].
 __global__ void dp_sum_partials(const float* __restrict__ partials, int n,
                                 float* __restrict__ out) {
   __shared__ float sh[DP_THREADS];
+  partials += (size_t)blockIdx.x * n;
+  out += blockIdx.x;
   float acc = 0.0f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partials[i];
   const float s = dp_block_sum(acc, sh);

@@ -15,6 +15,12 @@
 // The autograd Functions in ops/fv2m.py run div's VJP as grad with ZERO
 // ghosts, no masks and negated factors (exact), grad's as gradT.
 //
+// B samples at once (the "auto" batched regime; the JAX kernels batch
+// natively under vmap): grid axis z is the sample, every plane but the
+// face masks carries a leading axis of nb; the masks are shared (read at
+// stride 0: the batched mixing layer's accessible mask is one plane). Each
+// sample is computed exactly as alone.
+//
 // One thread per face (grad) or cell (div, gradT), the same operations in
 // the same order as the plain versions (built with --fmad=false), so
 // kernel and plain agree bit for bit. The TPU kernels held whole planes in
@@ -36,6 +42,10 @@ __global__ void fv2m_div_kernel(const float* __restrict__ v,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= nx || i >= ny) return;
   const int nxu = per1 ? nx : nx + 1;
+  const size_t s = blockIdx.z;
+  v += s * (per0 ? ny : ny + 1) * nx;
+  u += s * ny * nxu;
+  out += s * ny * nx;
   const int ip = per0 ? dp_wrap_inc(i, ny) : i + 1;
   const int jp = per1 ? dp_wrap_inc(j, nx) : j + 1;
   const float t0 = (v[(size_t)ip * nx + j] - v[(size_t)i * nx + j]) * f0;
@@ -65,6 +75,10 @@ __global__ void fv2m_grad_kernel(const float* __restrict__ p,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int nyv = per0 ? ny : ny + 1;
   const int nxu = per1 ? nx : nx + 1;
+  const size_t s = blockIdx.z;
+  p += s * ny * nx;
+  outv += s * nyv * nx;
+  outu += s * ny * nxu;
   if (i < nyv && j < nx) {  // v-face i between cells i-1 and i
     const size_t k = (size_t)i * nx + j;
     float g;
@@ -105,7 +119,12 @@ __global__ void fv2m_gradT_kernel(const float* __restrict__ ctv,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= nx || i >= ny) return;
+  const int nyv = per0 ? ny : ny + 1;
   const int nxu = per1 ? nx : nx + 1;
+  const size_t s = blockIdx.z;
+  ctv += s * nyv * nx;
+  ctu += s * ny * nxu;
+  out += s * ny * nx;
   // masked cotangent at a v-face row / u-face column
   auto m0 = [&](int r) {
     const size_t k = (size_t)r * nx + j;
@@ -133,40 +152,43 @@ __global__ void fv2m_gradT_kernel(const float* __restrict__ ctv,
   out[(size_t)i * nx + j] = t0 + t1;
 }
 
-static dim3 fv2m_grid(int rows, int cols) {
-  return dim3((cols + FV_BX - 1) / FV_BX, (rows + FV_BY - 1) / FV_BY);
+static dim3 fv2m_grid(int rows, int cols, int nb) {
+  return dim3((cols + FV_BX - 1) / FV_BX, (rows + FV_BY - 1) / FV_BY, nb);
 }
 
+// every plane with a leading axis of nb samples:
 // v: (ny+1 | ny, nx), u: (ny, nx+1 | nx), out: (ny, nx)
 extern "C" int fv2m_div_launch(const float* v, const float* u, float* out,
-                               int ny, int nx, int per0, int per1, float f0,
-                               float f1, void* stream) {
-  fv2m_div_kernel<<<fv2m_grid(ny, nx), dim3(FV_BX, FV_BY), 0,
+                               int ny, int nx, int nb, int per0, int per1,
+                               float f0, float f1, void* stream) {
+  fv2m_div_kernel<<<fv2m_grid(ny, nx, nb), dim3(FV_BX, FV_BY), 0,
                     (cudaStream_t)stream>>>(v, u, out, ny, nx, per0, per1, f0,
                                             f1);
   return (int)cudaGetLastError();
 }
 
-// p: (ny, nx); mv / mu: face masks or null; outv / outu: the face planes
+// p: (ny, nx); mv / mu: face masks (shared by the samples) or null;
+// outv / outu: the face planes
 extern "C" int fv2m_grad_launch(const float* p, const float* mv,
                                 const float* mu, float* outv, float* outu,
-                                int ny, int nx, int per0, int per1, int r0lo,
-                                int r0hi, int r1lo, int r1hi, float f0,
-                                float f1, void* stream) {
-  fv2m_grad_kernel<<<fv2m_grid(ny + 1, nx + 1), dim3(FV_BX, FV_BY), 0,
+                                int ny, int nx, int nb, int per0, int per1,
+                                int r0lo, int r0hi, int r1lo, int r1hi,
+                                float f0, float f1, void* stream) {
+  fv2m_grad_kernel<<<fv2m_grid(ny + 1, nx + 1, nb), dim3(FV_BX, FV_BY), 0,
                      (cudaStream_t)stream>>>(p, mv, mu, outv, outu, ny, nx,
                                              per0, per1, r0lo, r0hi, r1lo,
                                              r1hi, f0, f1);
   return (int)cudaGetLastError();
 }
 
-// ctv / ctu: face cotangents; mv / mu: face masks or null; out: (ny, nx)
+// ctv / ctu: face cotangents; mv / mu: face masks (shared by the samples)
+// or null; out: (ny, nx)
 extern "C" int fv2m_gradT_launch(const float* ctv, const float* ctu,
                                  const float* mv, const float* mu, float* out,
-                                 int ny, int nx, int per0, int per1, int r0lo,
-                                 int r0hi, int r1lo, int r1hi, float f0,
-                                 float f1, void* stream) {
-  fv2m_gradT_kernel<<<fv2m_grid(ny, nx), dim3(FV_BX, FV_BY), 0,
+                                 int ny, int nx, int nb, int per0, int per1,
+                                 int r0lo, int r0hi, int r1lo, int r1hi,
+                                 float f0, float f1, void* stream) {
+  fv2m_gradT_kernel<<<fv2m_grid(ny, nx, nb), dim3(FV_BX, FV_BY), 0,
                       (cudaStream_t)stream>>>(ctv, ctu, mv, mu, out, ny, nx,
                                               per0, per1, r0lo, r0hi, r1lo,
                                               r1hi, f0, f1);

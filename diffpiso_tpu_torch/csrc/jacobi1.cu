@@ -49,3 +49,33 @@ extern "C" int jac1_true_residual(const void* const* ptrs, const int* dims,
   return dp_jac_launch<2>(ptrs, dims, 1, sgn, transpose, nullptr, nullptr,
                           nullptr, nullptr, norm, stream);
 }
+
+// -- B samples (the grid-over-batch rule `_jacobi1_solve_kernel_b`) -----------------
+// jacobi.cuh's batched kernel with one component: every plane (B, ny, nx),
+// each sample with its own tol[b]; a finished sample is frozen while the
+// others sweep on, so each follows the single-sample solve above exactly.
+// The entry points take jacobi2_fold.cu's arguments (the second
+// component's residual buffers are unused). ptrs: (c, ly, hy, lx, hx, b,
+// x0, x); dims: (ny, nx). Every norm slot must point at B zeroed floats;
+// `sweeps` at B zeroed ints.
+extern "C" int jac1b_init(const void* const* ptrs, const int* dims, int nb, float sgn,
+                          int transpose, float* r_out0, float* r_out1, float* norm_out,
+                          void* stream) {
+  return dp_jacb_launch<0>(ptrs, dims, 1, nb, sgn, transpose, nullptr, nullptr, r_out0,
+                           nullptr, nullptr, nullptr, nullptr, norm_out, stream);
+}
+
+extern "C" int jac1b_sweep(const void* const* ptrs, const int* dims, int nb, float sgn,
+                           int transpose, const float* r_in0, const float* r_in1,
+                           float* r_out0, float* r_out1, const float* norm_prev,
+                           const float* tol, int* sweeps, float* norm_out, void* stream) {
+  return dp_jacb_launch<1>(ptrs, dims, 1, nb, sgn, transpose, r_in0, nullptr, r_out0,
+                           nullptr, norm_prev, tol, sweeps, norm_out, stream);
+}
+
+extern "C" int jac1b_true_residual(const void* const* ptrs, const int* dims, int nb,
+                                   float sgn, int transpose, float* norm_out,
+                                   void* stream) {
+  return dp_jacb_launch<2>(ptrs, dims, 1, nb, sgn, transpose, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, norm_out, stream);
+}

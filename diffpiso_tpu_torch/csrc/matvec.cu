@@ -11,6 +11,10 @@
 // The autograd Function in ops/matvec.py runs the VJP to x as the other
 // form.
 //
+// B samples at once (the "auto" batched regime; the JAX kernel batches
+// natively under vmap): grid axis z is the sample, the coefficient planes,
+// x and z all (B, ny, nx), each sample computed exactly as alone.
+//
 // One thread per cell, the transpose a template flag; the terms are added
 // in the plain version's order (built with --fmad=false), so kernel and
 // plain agree bit for bit. The TPU kernel staged the whole plane in VMEM
@@ -34,6 +38,14 @@ __global__ void matvec_kernel(const float* __restrict__ c,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= nx || i >= ny) return;
+  const size_t soff = (size_t)blockIdx.z * ny * nx;
+  c += soff;
+  ly += soff;
+  hy += soff;
+  lx += soff;
+  hx += soff;
+  x += soff;
+  z += soff;
   const size_t k = (size_t)i * nx + j;
   const size_t km = (size_t)dp_wrap_dec(i, ny) * nx + j;  // row i-1
   const size_t kp = (size_t)dp_wrap_inc(i, ny) * nx + j;  // row i+1
@@ -54,12 +66,12 @@ __global__ void matvec_kernel(const float* __restrict__ c,
   z[k] = q;
 }
 
-// all planes (ny, nx), contiguous float32
+// all planes (nb, ny, nx), contiguous float32
 extern "C" int matvec_launch(const float* c, const float* ly, const float* hy,
                              const float* lx, const float* hx, const float* x,
-                             float* z, int ny, int nx, int transpose,
+                             float* z, int ny, int nx, int nb, int transpose,
                              void* stream) {
-  const dim3 grid((nx + MV_BX - 1) / MV_BX, (ny + MV_BY - 1) / MV_BY);
+  const dim3 grid((nx + MV_BX - 1) / MV_BX, (ny + MV_BY - 1) / MV_BY, nb);
   const dim3 block(MV_BX, MV_BY);
   cudaStream_t st = (cudaStream_t)stream;
   if (transpose)

@@ -28,19 +28,21 @@ copy of the weights (a grouped convolution per layer), so one backward
 pass gives each sample's own gradient. Samples whose solve warned or
 whose loss or gradient is not finite are masked out of the mean
 gradient; the update is skipped only if no sample is valid. The regime
-follows the JAX package's size rule (`_batched_pallas_mode`): below 512^2
-per-sample planes the JAX package traces this step with every Pallas
-kernel off except the batch-folded whole-solve momentum Jacobi ("fold"),
-its measured choice at small planes. The port does the same: all plain
-PyTorch (on the card too) except that one kernel (solvers/jacobi2.py
-`fused_jacobi2_solve_folded`, csrc/jacobi2_fold.cu). That is a regime
-picked by a size gate, not a fallback from a failed kernel, and it
-follows from the planes' shape alone: every single-sample kernel's gate
-takes 2-D planes, so planes with a batch axis run its plain formulation,
-and the batched solves (solvers/base.py) run the generic loops with the
-folded Jacobi in front of BiCGSTAB. The "auto"
-regime (planes of 512^2 and more: the grid-over-batch solve kernels) is
-not ported and raises.
+follows the JAX package's size rule (`_batched_pallas_mode`, kept in
+diffpiso_tpu_torch/regime.py as `batched_pallas_mode`), entered as
+`regime.batched_regime` around the rollout and the backward pass. Below
+512^2 per-sample planes ("fold") the JAX package traces this step with
+every Pallas kernel off except the batch-folded whole-solve momentum
+Jacobi, its measured choice at small planes; the port does the same: all
+plain PyTorch (on the card too) except that one kernel (solvers/jacobi2.py
+`fused_jacobi2_solve_folded`, csrc/jacobi2_fold.cu). From 512^2 ("auto",
+the JAX package's `batched_safe_pallas()` trace) the whole solves run
+per sample on their grid-over-batch kernels (jac2 or jac1 by the
+per-sample tier, pcg2 within its budget, the generic loops otherwise) and
+the plane kernels take a batch axis, while the corrector glue and the
+iteration-phase kernels stay plain (core/piso.py). That is a regime
+picked by a size gate, not a fallback from a failed kernel. Batched 3-D
+volumes ("never") are not ported and raise.
 
 Entry points run on the device of the tensors they are given; the
 training workload's setup (core/setups.py) runs on `cuda` unless told
@@ -55,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.core.piso import piso_step
 from diffpiso_tpu_torch.core.setups import MixingLayerSetup
 from diffpiso_tpu_torch.fields.grid import StaggeredField
@@ -261,17 +264,8 @@ def make_chunked_train_step(loss_fn, optimizer, chunk: int):
     return train_chunk
 
 
-def _batched_pallas_mode(vel0: StaggeredField, threshold: int = 512 * 512) -> str:
-    """The JAX package's regime gate of the batched step, its size rule:
-    "fold" below 512^2 per-sample planes, "auto" from there; batched 3-D
-    volumes resolve to "never"."""
-    elems = 0
-    for a in vel0.components:
-        if a.ndim > 3:
-            return "never"
-        if a.ndim == 3:
-            elems = max(elems, int(np.prod(a.shape[-2:])))
-    return "auto" if elems >= threshold else "fold"
+# the JAX package's regime gate of the batched step, its size rule
+_batched_pallas_mode = regime.batched_pallas_mode
 
 
 def make_batched_train_step(loss_fn, optimizer):
@@ -280,21 +274,22 @@ def make_batched_train_step(loss_fn, optimizer):
     (the mean over valid samples), parts (B, 4), warns (B,)). Each sample's
     gradient is its own; samples that warned or whose loss or gradient is
     not finite are masked out of the mean; no valid sample skips the
-    update."""
+    update. The rollout and its backward pass run in the regime of the
+    size rule (`_batched_pallas_mode`: "fold" below 512^2 per-sample
+    planes, "auto" from there) unless an enclosing
+    `regime.batched_regime` names one (diffpiso_tpu_torch/regime.py `resolve_regime`)."""
 
     def train_step(params, opt_state, vel0, p0, targets, perturbations):
-        mode = _batched_pallas_mode(vel0)
-        if mode == "auto":
-            raise NotImplementedError(
-                "the batched regime of 512^2 and larger planes (grid-over-batch solve kernels) "
-                "is not ported (ROADMAP.md queue 1 item 10)")
+        mode = regime.resolve_regime(vel0)
         if mode == "never":
-            raise NotImplementedError("batched 3-D training is not ported (ROADMAP.md queue 1)")
+            raise NotImplementedError(
+                "batched 3-D training is not ported (ROADMAP.md queue 1 item 7)")
         nb = vel0.components[0].shape[0]
         per_sample = [p.detach().unsqueeze(0).expand(nb, *p.shape).clone().requires_grad_(True)
                       for p in params]
-        losses, (warns, parts) = loss_fn(per_sample, vel0, p0, targets, perturbations)
-        grads = torch.autograd.grad(losses.sum(), per_sample)
+        with regime.batched_regime(mode):
+            losses, (warns, parts) = loss_fn(per_sample, vel0, p0, targets, perturbations)
+            grads = torch.autograd.grad(losses.sum(), per_sample)
         g_finite = torch.stack([torch.isfinite(g).flatten(1).all(1) for g in grads]).all(0)
         valid = torch.as_tensor(~np.asarray(warns), device=losses.device) \
             & torch.isfinite(losses) & g_finite

@@ -10,6 +10,10 @@ neighbour reads so HBM sees close to the 14-plane minimum.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 `advection_assembly_plain`, which repeats the kernel's arithmetic op for op.
+The velocity planes may carry a leading batch axis (B, ny, nx): the
+"auto" batched regime, where the JAX kernel batches natively under vmap;
+the kernel then runs every sample in one launch (a grid axis per sample),
+each sample exactly as alone.
 The gradient is zero, as in the reference (assembly carries no gradient;
 piso_step detaches its input), so nothing here is differentiable."""
 
@@ -24,7 +28,7 @@ import torch
 from diffpiso_tpu_torch import native
 
 _SIGS = {
-    "advassembly_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    "advassembly_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 5 + [ctypes.c_void_p],
 }
 
@@ -54,8 +58,9 @@ def uniform_assembly_plain(w, beta, area, visc):
         links = []
         for d in range(rank):
             wd = w[d]
-            flux_lo = 0.5 * (wd + torch.roll(wd, 1, c)) * area[d]
-            flux_hi = torch.roll(flux_lo, -1, d)
+            # axes counted from the end: a leading batch axis passes through
+            flux_lo = 0.5 * (wd + torch.roll(wd, 1, c - rank)) * area[d]
+            flux_hi = torch.roll(flux_lo, -1, d - rank)
             links += [0.5 * flux_lo + visc[d], -0.5 * flux_hi + visc[d]]
             contrib = 0.5 * (flux_lo - flux_hi) - 2.0 * visc[d]
             diag = contrib if diag is None else diag + contrib
@@ -70,19 +75,22 @@ def advection_assembly_plain(w0, w1, beta, area0, area1, visc0, visc1):
 
 
 def fused_advection_assembly(w0, w1, beta, area0, area1, visc0, visc1):
-    """The 12 stencil planes of the uniform periodic advection operator.
-    CUDA tensors launch csrc/advassembly.cu; CPU tensors run the plain
-    version. Scalars are Python floats (see `assembly_scalars`)."""
+    """The 12 stencil planes of the uniform periodic advection operator, of
+    two equal (ny, nx) planes or of B samples' (B, ny, nx) planes. CUDA
+    tensors launch csrc/advassembly.cu; CPU tensors run the plain version.
+    Scalars are Python floats (see `assembly_scalars`)."""
     if w0.device.type == "cpu":
         return advection_assembly_plain(w0, w1, beta, area0, area1, visc0, visc1)
     native.require_cuda_f32("fused_advection_assembly", w0, w1)
-    if w0.ndim != 2 or w0.shape != w1.shape:
-        raise ValueError("fused_advection_assembly takes two equal (ny, nx) planes")
-    ny, nx = w0.shape
-    out = torch.empty((12, ny, nx), dtype=w0.dtype, device=w0.device)
+    if w0.ndim not in (2, 3) or w0.shape != w1.shape:
+        raise ValueError("fused_advection_assembly takes two equal (ny, nx) or (B, ny, nx) "
+                         "planes")
+    ny, nx = w0.shape[-2:]
+    nb = w0.shape[0] if w0.ndim == 3 else 1
+    out = torch.empty((12, *w0.shape), dtype=w0.dtype, device=w0.device)
     lib = native.library("advassembly", _SIGS)
     native.check(lib.advassembly_launch(
-        native.ptr(w0), native.ptr(w1), native.ptr(out), ny, nx,
+        native.ptr(w0), native.ptr(w1), native.ptr(out), ny, nx, nb,
         beta, area0, area1, visc0, visc1, native.stream_of(w0),
     ), "advassembly_launch")
     fused_advection_assembly.launches += 1

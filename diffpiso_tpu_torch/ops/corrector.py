@@ -34,9 +34,7 @@ import torch
 
 from diffpiso_tpu_torch import native
 
-# kernel gate: every plane 2-D and of one shape, float32 (the FV pair's);
-# whether the step's masks allow the fused branch is core/piso.py's call
-from diffpiso_tpu_torch.ops.fv2 import eligible2 as eligible
+from diffpiso_tpu_torch.ops.fv2 import eligible2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +43,15 @@ _SIGS = {
     "corrector_bridge_launch": [_P, _I, _I, _F, _F, _F, _F, _P],
     "corrector_tail_launch": [_P, _I, _I, _F, _F, _F, _P],
 }
+
+
+def eligible(shapes, dtype) -> bool:
+    """The kernels' gate: every plane 2-D and of one shape, float32 (the FV
+    pair's); whether the step's masks allow the fused branch is
+    core/piso.py's call. Never B samples at once: under the JAX package's
+    batched regime the corrector kernels bow out (`pallas_corrector.py:95`,
+    `_BATCHED_SAFE_DEPTH`), and the step keeps its unfused branch."""
+    return all(len(s) == 2 for s in shapes) and eligible2(shapes, dtype)
 
 
 def _factors(dx):

@@ -111,8 +111,9 @@ def fv_divergence(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
     dxprod = _math.prod(dx)
     comps = field.components
     fs = tuple(dxprod / d for d in dx)
-    # the kernels' gates take unbatched planes and volumes only: B samples
-    # at once (a leading batch axis) run the plain formulation below
+    # B samples at once (a leading batch axis) take the periodic pair's
+    # kernel or the bounded trio's in the "auto" batched regime (their gates
+    # read it) and the plain formulation below otherwise
     if field.rank == 3 and all(field.periodic) and fv3.eligible3([c.shape for c in comps],
                                                                    comps[0].dtype):
         return fv3.div3(fs, comps)
@@ -173,8 +174,9 @@ def fv_gradient(
     modes = _modes(pad_modes, rank)
     periodic = tuple(lo == CIRCULAR for lo, _ in modes)
     fs = tuple(dxprod / d for d in dx)
-    # the kernels' gates take unbatched planes and volumes only: B samples
-    # at once (a leading batch axis) run the plain formulation below
+    # B samples at once (a leading batch axis) take the periodic pair's
+    # kernel or the bounded trio's in the "auto" batched regime (their gates
+    # read it) and the plain formulation below otherwise
     if rank == 3 and all(periodic) and fv3.eligible3([pressure.shape], pressure.dtype):
         comps = list(fv3.grad3(fs, pressure))
         if accessible_mask is not None:
@@ -185,11 +187,12 @@ def fv_gradient(
         if accessible_mask is not None:
             comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
         return StaggeredField(tuple(comps), periodic=periodic)
-    if rank == 2 and pressure.ndim == 2 and all(
+    if rank == 2 and all(
             periodic[d] or all(m in (ZERO, REPLICATE, SYMMETRIC) for m in modes[d])
             for d in range(2)):
-        shapes = fv2m.face_shapes(pressure.shape, periodic)
-        if fv2m.eligible2m(shapes, pressure.shape, periodic, pressure.dtype):
+        lead = tuple(pressure.shape[:-2])
+        shapes = [lead + s for s in fv2m.face_shapes(pressure.shape[-2:], periodic)]
+        if fv2m.eligible2m(shapes, pressure.shape[-2:], periodic, pressure.dtype):
             # SYMMETRIC at pad width 1 is REPLICATE
             rep = tuple((modes[d][0] != ZERO, modes[d][1] != ZERO) for d in range(2))
             masks = None

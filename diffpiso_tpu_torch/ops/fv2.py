@@ -14,7 +14,10 @@ Conventions (unique periodic faces, volume-integrated, fs = prod(dx)/dx_d):
 `div2` and `grad2` are autograd Functions: each one's VJP is the other,
 negated, run as the other kernel with negated factors (exact), as in the
 JAX package's custom VJPs. On a CUDA tensor the wrappers launch the
-kernels; on a CPU tensor they run `div2_plain` / `grad2_plain`."""
+kernels; on a CPU tensor they run `div2_plain` / `grad2_plain`. The planes
+may carry a leading batch axis (B, ny, nx) in the "auto" batched regime
+(the JAX kernels batch natively under vmap): one launch then covers every
+sample, each exactly as alone."""
 
 from __future__ import annotations
 
@@ -23,21 +26,24 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.regime import batched_mode
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "fv2_div_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
-    "fv2_grad_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
+    "fv2_div_launch": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "fv2_grad_launch": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
 }
 
 
 def eligible2(shapes, dtype) -> bool:
-    """Gate of the rank-2 pair: every plane 2-D and of one shape, float32."""
+    """Gate of the rank-2 pair: every plane 2-D (or, in the "auto" batched
+    regime, (B, ny, nx): diffpiso_tpu_torch/regime.py) and of one shape, float32."""
+    rank = 3 if batched_mode() == "auto" else 2
     return (
         dtype == torch.float32
-        and all(len(s) == 2 for s in shapes)
+        and all(len(s) in (2, rank) for s in shapes)
         and all(tuple(s) == tuple(shapes[0]) for s in shapes)
     )
 
@@ -45,25 +51,26 @@ def eligible2(shapes, dtype) -> bool:
 def div2_plain(fs, comps):
     """Plain PyTorch version of the divergence of (v, u)."""
     v, u = comps
-    d = (torch.roll(v, -1, 0) - v) * fs[0]
-    return d + (torch.roll(u, -1, 1) - u) * fs[1]
+    d = (torch.roll(v, -1, -2) - v) * fs[0]
+    return d + (torch.roll(u, -1, -1) - u) * fs[1]
 
 
 def grad2_plain(fs, p):
     """Plain PyTorch version of the gradient components of p."""
-    return ((p - torch.roll(p, 1, 0)) * fs[0], (p - torch.roll(p, 1, 1)) * fs[1])
+    return ((p - torch.roll(p, 1, -2)) * fs[0], (p - torch.roll(p, 1, -1)) * fs[1])
 
 
 def _div(fs, v, u):
     if v.device.type == "cpu":
         return div2_plain(fs, (v, u))
     native.require_cuda_f32("div2", v, u)
-    if v.ndim != 2 or v.shape != u.shape:
-        raise ValueError("div2 takes two equal (ny, nx) planes")
-    ny, nx = v.shape
+    if v.ndim not in (2, 3) or v.shape != u.shape:
+        raise ValueError("div2 takes two equal (ny, nx) or (B, ny, nx) planes")
+    ny, nx = v.shape[-2:]
     out = torch.empty_like(v)
     lib = native.library("fv2", _SIGS)
     native.check(lib.fv2_div_launch(native.ptr(v), native.ptr(u), native.ptr(out), ny, nx,
+                                    v.shape[0] if v.ndim == 3 else 1,
                                     float(fs[0]), float(fs[1]), native.stream_of(v)),
                  "fv2_div_launch")
     div2.launches += 1
@@ -74,12 +81,13 @@ def _grad(fs, p):
     if p.device.type == "cpu":
         return grad2_plain(fs, p)
     native.require_cuda_f32("grad2", p)
-    if p.ndim != 2:
-        raise ValueError("grad2 takes one (ny, nx) plane")
-    ny, nx = p.shape
+    if p.ndim not in (2, 3):
+        raise ValueError("grad2 takes one (ny, nx) or (B, ny, nx) plane")
+    ny, nx = p.shape[-2:]
     out0, out1 = torch.empty_like(p), torch.empty_like(p)
     lib = native.library("fv2", _SIGS)
     native.check(lib.fv2_grad_launch(native.ptr(p), native.ptr(out0), native.ptr(out1), ny, nx,
+                                     p.shape[0] if p.ndim == 3 else 1,
                                      float(fs[0]), float(fs[1]), native.stream_of(p)),
                  "fv2_grad_launch")
     grad2.launches += 1

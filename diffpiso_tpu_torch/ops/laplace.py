@@ -167,7 +167,7 @@ def _unmasked_periodic_laplacian(influence: StaggeredField, rank_deficient) -> L
 
 def apply_laplacian(st: LaplaceStencil, p: torch.Tensor) -> torch.Tensor:
     """z = L p + s sum(p) (per sample when batched)."""
-    if matvec.eligible(p.shape, p.dtype):
+    if matvec.eligible(p.shape, p.dtype, batched=st.rank == 2 and st.batched):
         z = matvec.fused_stencil_matvec(st.center, st.lo, st.hi, p)
     elif st.rank == 3 and matvec.eligible3(p.shape, p.dtype):
         z = matvec.fused_stencil_matvec3d(st.center, st.lo, st.hi, p)

@@ -11,7 +11,10 @@ What bounds it on the H100 is bytes: 10 planes in, 5 out (15.7 MB at
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 `laplace_assembly_plain`. The rank-one shift formula stays in the caller
-(ops/laplace.py)."""
+(ops/laplace.py). The influence planes may carry a leading batch axis (B
+samples sharing the masks: the "auto" batched regime, where the JAX kernel
+batches natively under vmap); one launch then assembles every sample,
+each exactly as alone, with one sum |diag| per sample."""
 
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.regime import batched_mode
 
 _SIGS = {
-    "laplace_assembly_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    "laplace_assembly_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -30,9 +34,11 @@ _THREADS = 256  # DP_THREADS in csrc/common.cuh
 
 
 def eligible(comp_shapes, dtype) -> bool:
-    """The kernel takes float32 2-D influence planes; B samples at once (a
-    leading batch axis) run the plain version."""
-    return dtype == torch.float32 and all(len(s) == 2 for s in comp_shapes)
+    """The kernel takes float32 2-D influence planes, and B samples at once
+    (a leading batch axis) in the "auto" batched regime; under "fold" they
+    run the plain version (diffpiso_tpu_torch/regime.py)."""
+    rank = 3 if batched_mode() == "auto" else 2
+    return dtype == torch.float32 and all(len(s) in (2, rank) for s in comp_shapes)
 
 
 def laplace_assembly_plain(comp_y, comp_x, masks, periodic):
@@ -55,24 +61,28 @@ def laplace_assembly_plain(comp_y, comp_x, masks, periodic):
 
 
 def fused_laplace_assembly(comp_y, comp_x, masks, periodic):
-    """The five Laplacian planes and sum |diag|. CUDA tensors launch
-    csrc/laplace_assembly.cu; CPU tensors run the plain version."""
+    """The five Laplacian planes and sum |diag| (B sums for B samples'
+    influence planes). CUDA tensors launch csrc/laplace_assembly.cu; CPU
+    tensors run the plain version."""
     if comp_y.device.type == "cpu":
         return laplace_assembly_plain(comp_y, comp_x, masks, periodic)
     native.require_cuda_f32("fused_laplace_assembly", comp_y, comp_x, masks)
     py, px = (bool(p) for p in periodic)
     ny, nx = masks.shape[1:]
-    if masks.shape[0] != 8 or comp_y.shape != (ny + (0 if py else 1), nx) \
-            or comp_x.shape != (ny, nx + (0 if px else 1)):
+    batch = comp_y.shape[:-2]
+    if masks.shape[0] != 8 or len(batch) > 1 \
+            or comp_y.shape != (*batch, ny + (0 if py else 1), nx) \
+            or comp_x.shape != (*batch, ny, nx + (0 if px else 1)):
         raise ValueError("fused_laplace_assembly: inconsistent operand shapes")
+    nb = batch[0] if batch else 1
     blocks = (ny * nx + _THREADS - 1) // _THREADS
-    out = torch.empty((5, ny, nx), dtype=comp_y.dtype, device=comp_y.device)
-    partials = torch.empty(blocks, dtype=comp_y.dtype, device=comp_y.device)
-    sum_abs = torch.empty((), dtype=comp_y.dtype, device=comp_y.device)
+    out = torch.empty((5, *batch, ny, nx), dtype=comp_y.dtype, device=comp_y.device)
+    partials = torch.empty((nb, blocks), dtype=comp_y.dtype, device=comp_y.device)
+    sum_abs = torch.empty(batch, dtype=comp_y.dtype, device=comp_y.device)
     lib = native.library("laplace_assembly", _SIGS)
     native.check(lib.laplace_assembly_launch(
         native.ptr(comp_y), native.ptr(comp_x), native.ptr(masks), native.ptr(out),
-        native.ptr(partials), native.ptr(sum_abs), ny, nx, int(py), int(px),
+        native.ptr(partials), native.ptr(sum_abs), ny, nx, nb, int(py), int(px),
         native.stream_of(comp_y),
     ), "laplace_assembly_launch")
     fused_laplace_assembly.launches += 1

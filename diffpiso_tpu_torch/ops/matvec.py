@@ -14,7 +14,10 @@ template flag; it takes any plane shape (the cavity's 514 x 512 and
 
 `fused_stencil_matvec` is an autograd Function with the JAX package's
 custom VJP (`_Matvec`). On a CUDA tensor the wrapper launches the kernel;
-on a CPU tensor it runs `matvec_plain`.
+on a CPU tensor it runs `matvec_plain`. The planes and x may carry a
+leading batch axis (B, ny, nx), each sample with its own coefficients: the
+"auto" batched regime, where the JAX kernel batches natively under vmap;
+one launch then covers every sample, each exactly as alone.
 
 Kernel 15c replaces pallas_stencil.py `_pallas_matvec_3d` (TPU kernels
 `_stencil3d_kernel` / `_stencil3d_kernel_T`, one z plane per program, with
@@ -31,16 +34,23 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.regime import batched_mode
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGS = {"matvec_launch": [_P] * 7 + [_I, _I, _I, _P]}
+_SIGS = {"matvec_launch": [_P] * 7 + [_I, _I, _I, _I, _P]}
 _SIGS3 = {"matvec3_launch": [_P, _P, _I, _P]}
 
 
-def eligible(shape, dtype) -> bool:
-    """The kernel takes float32 rank-2 planes of any shape."""
-    return len(shape) == 2 and dtype == torch.float32
+def eligible(shape, dtype, batched: bool = False) -> bool:
+    """The kernel takes float32 rank-2 planes of any shape, and B samples'
+    planes (`batched`: a leading batch axis on a 2-D stencil) in the "auto"
+    batched regime; under "fold" those run plain (diffpiso_tpu_torch/regime.py)."""
+    if dtype != torch.float32:
+        return False
+    if batched:
+        return len(shape) == 3 and batched_mode() == "auto"
+    return len(shape) == 2
 
 
 def eligible3(shape, dtype) -> bool:
@@ -100,14 +110,15 @@ def _matvec(planes, x, transpose):
     if x.device.type == "cpu":
         return matvec_plain(*planes, x, transpose)
     native.require_cuda_f32("fused_stencil_matvec", *planes, x)
-    if x.ndim != 2 or any(p.shape != x.shape for p in planes):
-        raise ValueError("fused_stencil_matvec: the planes and x must share one 2-D shape")
-    ny, nx = x.shape
+    if x.ndim not in (2, 3) or any(p.shape != x.shape for p in planes):
+        raise ValueError("fused_stencil_matvec: the planes and x must share one (ny, nx) or "
+                         "(B, ny, nx) shape")
+    ny, nx = x.shape[-2:]
     z = torch.empty_like(x)
     lib = native.library("matvec", _SIGS)
     native.check(lib.matvec_launch(*(native.ptr(p) for p in planes), native.ptr(x),
-                                   native.ptr(z), ny, nx, int(bool(transpose)),
-                                   native.stream_of(x)), "matvec_launch")
+                                   native.ptr(z), ny, nx, x.shape[0] if x.ndim == 3 else 1,
+                                   int(bool(transpose)), native.stream_of(x)), "matvec_launch")
     fused_stencil_matvec.launches += 1
     if transpose:
         fused_stencil_matvec.launches_transposed += 1
@@ -138,8 +149,9 @@ class _Matvec(torch.autograd.Function):
         if any(need[:-1]):
             a, b = (x, dz) if ctx.transpose else (dz, x)
             shifted = [b]
-            for d in range(x.ndim):
-                shifted += [torch.roll(b, 1, d), torch.roll(b, -1, d)]
+            rank = len(coeffs) // 2  # the stencil's axes: the trailing ones
+            for d in range(rank):
+                shifted += [torch.roll(b, 1, d - rank), torch.roll(b, -1, d - rank)]
             dcoeffs = [a * sh if n else None for n, sh in zip(need, shifted)]
         return (None, None, *dcoeffs, dx)
 

@@ -33,6 +33,7 @@ from diffpiso_tpu_torch.ops.advassembly3 import (
     fused_advection_assembly3,
 )
 from diffpiso_tpu_torch.ops.fv import pad_staggered
+from diffpiso_tpu_torch.regime import batched_mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +85,13 @@ def uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
 
 def advassembly_eligible(velocity, viscosity, periodic, uniform: bool) -> bool:
     """Kernel 1 takes the field: a periodic float32 plane pair of one shape,
-    scalar viscosity, and `uniform` masks (`uniform_masks` of the masks)."""
-    if velocity.rank != 2 or tuple(periodic) != (True, True) or velocity.batched:
-        return False  # 2-D planes only: B samples at once run the general body
+    scalar viscosity, and `uniform` masks (`uniform_masks` of the masks);
+    B samples at once only in the "auto" batched regime (diffpiso_tpu_torch/regime.py),
+    under "fold" they run the general body."""
+    if velocity.rank != 2 or tuple(periodic) != (True, True):
+        return False
+    if velocity.batched and batched_mode() != "auto":
+        return False
     if velocity.components[0].shape != velocity.components[1].shape:
         return False
     if velocity.dtype != torch.float32:
@@ -116,8 +121,9 @@ def assemble_advection_stencil(
     no_slip_mask)`: the masks are constants of a simulation, so the caller
     reads them once (SimulationParameters.uniform_masks), not per step.
     The velocity may carry a leading batch axis (B samples sharing the
-    masks and viscosity); B samples take the general body, as the JAX
-    package's vmapped step does."""
+    masks and viscosity); B samples take the general body in the "fold"
+    regime, as the JAX package's vmapped step does under `no_pallas`, and
+    kernel 1 with a batch axis in "auto"."""
     rank = velocity.rank
     dx = tuple(float(v) for v in dx)
     periodic = tuple(bool(p) for p in periodic)
@@ -214,7 +220,7 @@ def assemble_advection_stencil(
 
 def _apply_component(center, lo, hi, x, transpose=False):
     # (M^T x)[i] = center[i] x[i] + sum_d lo[i+e_d] x[i+e_d] + hi[i-e_d] x[i-e_d]
-    if matvec.eligible(x.shape, x.dtype):
+    if matvec.eligible(x.shape, x.dtype, batched=len(lo) == 2 and x.ndim == 3):
         return matvec.fused_stencil_matvec(center, lo, hi, x, transpose=transpose)
     if len(lo) == 3 and matvec.eligible3(x.shape, x.dtype):  # (not B planes of a 2-D stencil)
         return matvec.fused_stencil_matvec3d(center, lo, hi, x, transpose=transpose)

@@ -28,10 +28,12 @@ B samples at once (every plane with a leading batch axis: the batched
 training regime) take `_AdvectionSolveBatched` / `_PressureSolveBatched`:
 the same adjoints, decided per sample as `jax.vmap` of the JAX solves
 decides them: each sample's warn, its own adjoint tolerance from its own
-cotangent, its own gate. Their loops are the generic batched ones of
-solvers/krylov.py (`bicgstab_batched` behind the batch-folded Jacobi
-kernel, `pcg_batched`), the formulations the JAX package's vmapped step
-runs; warn and iteration counts are (B,) host arrays."""
+cotangent, its own gate. Their loops are the batched ones of
+solvers/krylov.py, by the batched regime (diffpiso_tpu_torch/regime.py): in "fold"
+`bicgstab_batched` behind the batch-folded Jacobi kernel and the generic
+`pcg_batched`; in "auto" the whole-solve kernels per sample (jac2 or
+jac1 in front of `bicgstab_batched`, `pcg2_batched` within pcg2's budget,
+`pcg_batched` past it); warn and iteration counts are (B,) host arrays."""
 
 from __future__ import annotations
 
@@ -51,12 +53,15 @@ from diffpiso_tpu_torch.solvers.fourier import (
     safe_symbol,
     spectral_apply_plain,
 )
+from diffpiso_tpu_torch import regime
+from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.krylov import (
     _bmax_abs,
     _tree_max_abs,
     bicgstab,
     bicgstab_batched,
     pcg,
+    pcg2_batched,
     pcg_batched,
 )
 
@@ -381,6 +386,9 @@ class _AdvectionSolveBatched(torch.autograd.Function):
         info["warn"] = warn
         ctx.cfg, ctx.tol, ctx.periodic, ctx.warn = cfg, tol, periodic, warn
         ctx.rank, ctx.stash = stencil.rank, _STASH.get()
+        # the backward pass of CUDA tensors runs on the autograd engine's
+        # device thread, outside the caller's context: it re-enters this regime
+        ctx.regime = regime.batched_mode()
         ctx.save_for_backward(*_stencil_planes(stencil))
         return xs
 
@@ -389,7 +397,8 @@ class _AdvectionSolveBatched(torch.autograd.Function):
         stencil = _stencil_from_planes(ctx.saved_tensors, ctx.rank)
         ct = StaggeredField(g, periodic=ctx.periodic)
         adj_tol = _batched_adjoint_tol(ctx.tol, ct)
-        res = _adv_solve_batched(ctx.cfg, stencil, ct, None, adj_tol, transpose=True)
+        with regime.batched_regime(ctx.regime):
+            res = _adv_solve_batched(ctx.cfg, stencil, ct, None, adj_tol, transpose=True)
         gate = (1.0 - ctx.warn.astype(np.float32)) * (1.0 - res.warn.astype(np.float32))
         _record_adjoint(ctx, AdjointSolve("momentum", res.iterations, res.residual_norm,
                                           None, gate != 1.0))
@@ -402,9 +411,12 @@ class _AdvectionSolveBatched(torch.autograd.Function):
 
 def _pressure_solve_batched(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
                             adjoint: bool = False):
-    """`_pressure_solve_impl` for B samples: the generic PCG loop with each
-    sample's own spectral preconditioner (its weights are the mean
-    |off-diagonal| of its own Laplacian)."""
+    """`_pressure_solve_impl` for B samples, each with its own spectral
+    preconditioner (its weights are the mean |off-diagonal| of its own
+    Laplacian): in the "auto" batched regime a mean-free preconditioner
+    within pcg2's budget (per-sample plane) takes the batched whole solve
+    (`pcg2_batched`), as the JAX package's pcg2 rule does under vmap;
+    every other solve, and every solve in "fold", the generic PCG loop."""
     if cfg.dtype is not None:
         raise NotImplementedError("the pressure PCG runs in float32 only")
     if cfg.randomized_restarts:
@@ -417,8 +429,14 @@ def _pressure_solve_batched(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess
         raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
     weights = tuple(torch.mean(torch.abs(l), dim=(-2, -1)) for l in lap.lo)
     solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](2), shape=tuple(lap.center.shape[-2:]))
-    (v0, _), (v1, _) = solver.mats(rhs.dtype, rhs.device)
+    (v0, v0t), (v1, v1t) = solver.mats(rhs.dtype, rhs.device)
     sym = safe_symbol(solver, weights, rhs.dtype, rhs.device)
+    if regime.batched_mode() == "auto" and tiers.batched_pressure_tier(
+            tuple(rhs.shape[-2:]), lap.periodic, kind in _ZERO_MEAN, rhs.dtype) == "pcg2":
+        x0 = None if adjoint or guess is None else guess.contiguous()
+        return pcg2_batched(lap, rhs.contiguous(), x0,
+                            mats=(v0, v0t, v1, v1t, sym.contiguous()), tol=tol,
+                            max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean)
     return pcg_batched(
         lambda p: apply_laplacian(lap, p), rhs, None if adjoint else guess,
         precond=lambda r: spectral_apply_plain(v0, v1, sym, r),
@@ -439,6 +457,7 @@ class _PressureSolveBatched(torch.autograd.Function):
         info["iterations"], info["warn"] = iters, warn
         ctx.cfg, ctx.tol, ctx.warn, ctx.periodic = cfg, tol, warn, lap.periodic
         ctx.stash = _STASH.get()
+        ctx.regime = regime.batched_mode()  # re-entered by the backward (see above)
         ctx.save_for_backward(lap.center, *lap.lo, *lap.hi, lap.shift)
         return x
 
@@ -449,7 +468,8 @@ class _PressureSolveBatched(torch.autograd.Function):
         lap = LaplaceStencil(center=center, lo=tuple(planes[:rank]), hi=tuple(planes[rank:]),
                              shift=shift, periodic=ctx.periodic)
         adj_tol = _batched_adjoint_tol(ctx.tol, g)
-        res = _pressure_solve_batched(ctx.cfg, lap, g, None, adj_tol, adjoint=True)
+        with regime.batched_regime(ctx.regime):
+            res = _pressure_solve_batched(ctx.cfg, lap, g, None, adj_tol, adjoint=True)
         limit = np.float32(100.0) * adj_tol
         adj_failed = res.warn | (res.residual_norm > limit)
         gate = (1.0 - ctx.warn.astype(np.float32)) * (1.0 - adj_failed.astype(np.float32))

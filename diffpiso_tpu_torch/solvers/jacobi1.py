@@ -20,6 +20,18 @@ like the plain version op for op, so both count the same sweeps.
 On a CUDA tensor the wrapper launches the kernels; on a CPU tensor it runs
 `jacobi1_plain`.
 
+`fused_jacobi1_solve_batched` is the same solve for B samples at once,
+the JAX kernel's grid-over-batch rule (`_jacobi1_solve_kernel_b` around
+`_jacobi1_core`, the "auto" batched regime past jac2's budget): every
+plane (B, ny, nx), each sample with its own coefficients, b, guess and
+tolerance (shared, or per sample for the adjoints). csrc/jacobi1.cu's
+`jac1b_*` launch jacobi.cuh's batched sweep kernel with one component:
+one launch per sweep for all samples, the host reading the B norms; each
+block reads its sample's active flag from the previous sweep's norms, so a
+converged sample stays frozen while the others sweep on, and each sample
+is bit-equal to a single-sample solve (the same x, exit residual and
+sweeps). Its plain version is `jacobi1_batched_plain`.
+
 Kernel 15d, `fused_jacobi1_solve_3d`, is the same solve for one component
 of a periodic 3-D momentum system (the 7-point stencil). It replaces
 pallas_krylov.py fused_jacobi1_solve_3d (TPU kernel `_jacobi1_3d_kernel`,
@@ -47,13 +59,21 @@ import torch
 
 from diffpiso_tpu_torch import native
 from diffpiso_tpu_torch.ops.matvec import stencil_apply_plain
-from diffpiso_tpu_torch.solvers.jacobi2 import adv_matvec
+from diffpiso_tpu_torch.solvers.jacobi2 import (
+    _FOLD_SIGS,
+    adv_matvec,
+    batched_sweep_loop,
+    sample_max_abs,
+    sample_tols,
+)
 
 _P = ctypes.c_void_p
 _SIGS = {
     "jac1_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P],
     "jac1_sweep": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P],
     "jac1_true_residual": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P],
+    # the batched entry points take jacobi2_fold.cu's arguments
+    **{name.replace("jac2f", "jac1b"): args for name, args in _FOLD_SIGS.items()},
 }
 _SIGS3 = {
     "jac13d_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P],
@@ -145,6 +165,68 @@ def fused_jacobi1_solve(st_c, b, x, sgn, transpose, tol, max_sweeps):
 
 
 fused_jacobi1_solve.launches = 0  # whole solves (each: init, one launch per sweep, exit residual)
+
+
+def jacobi1_batched_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):
+    """Plain PyTorch version of the batched solve: every plane (B, ny, nx),
+    `tol` one value or B values; a sample stops at its own residual and
+    stays frozen while the others sweep. Returns (x', per-sample true
+    max-residual (B,) numpy float32, per-sample sweeps (B,) numpy int)."""
+    sgn = float(np.float32(sgn))
+    nb = b.shape[0]
+    tol_t, _ = sample_tols(tol, nb, b.device)
+    c, lo, hi = st_c
+    d = sgn * c
+    iv = torch.where(d.abs() > 1e-30, 1.0 / d, 1.0)
+
+    def mv(p):
+        return adv_matvec(c, lo[0], hi[0], lo[1], hi[1], p, transpose, sgn)
+
+    r = b - mv(x)
+    n = sample_max_abs([r])
+    sweeps = np.zeros(nb, dtype=np.int64)
+    j = 0
+    while j < max_sweeps:
+        active = n > tol_t  # NaN compares false: a non-finite sample stops
+        act = active.cpu().numpy()
+        if not act.any():
+            break
+        sel = active[:, None, None]
+        dlt = iv * r
+        x = torch.where(sel, x + dlt, x)
+        r = torch.where(sel, r - mv(dlt), r)
+        n = sample_max_abs([r])
+        sweeps += act
+        j += 1
+    return x, sample_max_abs([b - mv(x)]).cpu().numpy(), sweeps
+
+
+def fused_jacobi1_solve_batched(st_c, b, x, sgn, transpose, tol, max_sweeps):
+    """Whole-solve Jacobi-Richardson for one component of B samples' 2-D
+    momentum systems at once. st_c = (center, (lo_y, lo_x), (hi_y, hi_x))
+    and b, x, every plane (B, ny, nx); `tol` one value or B values. Returns
+    (x', per-sample true max-residual (B,) numpy float32, per-sample sweeps
+    (B,) numpy int). On a CUDA tensor every kernel launch (init, one per
+    sweep, the exit residual) adds one to `launches`."""
+    if b.device.type == "cpu":
+        return jacobi1_batched_plain(st_c, b, x, sgn, transpose, tol, max_sweeps)
+    c, lo, hi = st_c
+    ops = (c, lo[0], hi[0], lo[1], hi[1], b, x)
+    native.require_cuda_f32("fused_jacobi1_solve_batched", *ops)
+    if any(t.shape != b.shape for t in ops) or b.ndim != 3:
+        raise ValueError("fused_jacobi1_solve_batched: the planes must share one (B, ny, nx) "
+                         "shape")
+    (xo,), nt, sweeps = batched_sweep_loop(native.library("jacobi1", _SIGS), "jac1b", [ops],
+                                           (b,), sgn, transpose, tol, max_sweeps,
+                                           _count_jac1b_launch)
+    return xo, nt, sweeps
+
+
+def _count_jac1b_launch():
+    fused_jacobi1_solve_batched.launches += 1
+
+
+fused_jacobi1_solve_batched.launches = 0  # kernel launches: init, each sweep, the exit residual
 
 
 def jacobi1_3d_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):

@@ -18,15 +18,23 @@ the plain version op for op, so both count the same sweeps.
 On a CUDA tensor the wrapper launches the kernels; on a CPU tensor it runs
 `jacobi2_plain`.
 
-`fused_jacobi2_solve_folded` is the batch-folded form (the JAX package's
-vmap rule of the same kernel, `_jacobi2_solve_kernel_bf` / `_bfs` around
-`_jacobi2_core_bf`): B samples of the system, each with its own
-coefficients, right-hand side, guess and tolerance, solved together by
-csrc/jacobi2_fold.cu, one launch per sweep for all samples and both
-components. A sample whose residual has reached its tolerance is frozen
-while the others sweep on, as a `while_loop` under `vmap` freezes it, so
-each sample follows the single-sample trajectory exactly: the same x,
-residual and sweeps. Its plain version is `jacobi2_fold_plain`."""
+`fused_jacobi2_solve_folded` is the batched form: B samples of the
+system, each with its own coefficients, right-hand side, guess and
+tolerance, solved together by csrc/jacobi2_fold.cu, one launch per sweep
+for all samples and both components. A sample whose residual has reached
+its tolerance is frozen while the others sweep on, as a `while_loop` under
+`vmap` freezes it, so each sample follows the single-sample trajectory
+exactly: the same x, residual and sweeps. Its plain version is
+`jacobi2_fold_plain`. It is the counterpart of both forms of the JAX
+package's vmap rule of this kernel: the fold (`_jacobi2_solve_kernel_bf` /
+`_bfs` around `_jacobi2_core_bf`, below 1 MiB planes: the "fold" batched
+regime) and the grid over the batch (`_jacobi2_solve_kernel_b` around
+`_jacobi2_core`, from 1 MiB planes: the 512^2 class of the "auto"
+regime). On the TPU they differ in residency (one VMEM program for every
+sample, or one program per sample); both compute each sample's
+single-sample solve exactly, and on the H100, where a sweep is one launch
+from HBM either way, one kernel with a sample grid axis computes it at any
+plane size."""
 
 from __future__ import annotations
 
@@ -205,6 +213,60 @@ def jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
     return xs[0], xs[1], nt.cpu().numpy(), sweeps
 
 
+def batched_sweep_loop(lib, prefix, planes, b_c, sgn, transpose, tol, max_sweeps,
+                       on_launch):
+    """The host loop of B samples' whole Jacobi solves of one or two
+    components, around the library's `<prefix>_init`, `_sweep` and
+    `_true_residual` launches of jacobi.cuh's batched kernel: the entry
+    residual, one launch per sweep while any sample is above its tol (the
+    host reads the B norms of each sweep; a finished sample stays frozen on
+    the device), then the exit residual. `planes` are each component's
+    (c, ly, hy, lx, hx, b, x0), every plane (B, ny, nx); `on_launch` is
+    called right after each launch. Returns (the components' x, per-sample
+    true max-residual (B,) numpy float32, per-sample sweeps (B,) numpy
+    int)."""
+    nb = b_c[0].shape[0]
+    dev = b_c[0].device
+    tol_t, tol_h = sample_tols(tol, nb, dev)
+    xs = [torch.empty_like(b) for b in b_c]
+    ra = [torch.empty_like(b) for b in b_c]
+    rb = [torch.empty_like(b) for b in b_c]
+    norms = torch.zeros((max_sweeps + 2, nb), dtype=torch.float32, device=dev)
+    sweeps = torch.zeros(nb, dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * (8 * len(b_c)))(*[
+        t.data_ptr() for k in range(len(b_c)) for t in (*planes[k], xs[k])])
+    cdims = (ctypes.c_int * (2 * len(b_c)))(*[d for b in b_c for d in b.shape[1:]])
+    sgn32 = float(np.float32(sgn))
+    tr = int(bool(transpose))
+    stream = native.stream_of(b_c[0])
+    init, sweep, resid = (getattr(lib, f"{prefix}_{k}") for k in ("init", "sweep",
+                                                                    "true_residual"))
+
+    def two(rs):  # the second component's buffer, or none
+        return [native.ptr(r) for r in rs] + [None] * (2 - len(rs))
+
+    def slot(k):
+        return ctypes.c_void_p(norms.data_ptr() + 4 * nb * k)
+
+    native.check(init(ptrs, cdims, nb, sgn32, tr, *two(ra), slot(0), stream), f"{prefix}_init")
+    on_launch()
+    n = norms[0].cpu().numpy()
+    j = 0
+    while (n > tol_h).any() and j < max_sweeps:
+        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
+        native.check(sweep(ptrs, cdims, nb, sgn32, tr, *two(r_in), *two(r_out), slot(j),
+                           native.ptr(tol_t), native.ptr(sweeps), slot(j + 1), stream),
+                     f"{prefix}_sweep")
+        on_launch()
+        n = norms[j + 1].cpu().numpy()
+        j += 1
+    native.check(resid(ptrs, cdims, nb, sgn32, tr, slot(max_sweeps + 1), stream),
+                 f"{prefix}_true_residual")
+    on_launch()
+    out = torch.cat([norms[max_sweeps + 1], sweeps.to(torch.float32)]).cpu().numpy()
+    return xs, out[:nb].astype(np.float32), out[nb:].astype(np.int64)
+
+
 def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
     """Whole-solve Jacobi-Richardson for B samples of the 2-component 2-D
     momentum system at once. Planes as in `fused_jacobi2_solve`, each with a
@@ -217,7 +279,6 @@ def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
     if b_c[0].device.type == "cpu":
         return jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
     planes = []
-    dims = []
     nb = b_c[0].shape[0]
     for (c, lo, hi), b, x0 in zip(st_cs, b_c, x_c):
         ops = (c, lo[0], hi[0], lo[1], hi[1], b, x0)
@@ -226,46 +287,14 @@ def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
             raise ValueError("fused_jacobi2_solve_folded: a component's planes must share one "
                              "(B, ny, nx) shape")
         planes.append(ops)
-        dims += list(b.shape[1:])
-    dev = b_c[0].device
-    tol_t, tol_h = sample_tols(tol, nb, dev)
-    xs = [torch.empty_like(b) for b in b_c]
-    ra = [torch.empty_like(b) for b in b_c]
-    rb = [torch.empty_like(b) for b in b_c]
-    norms = torch.zeros((max_sweeps + 2, nb), dtype=torch.float32, device=dev)
-    sweeps = torch.zeros(nb, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * 16)(*[
-        t.data_ptr() for k in range(2) for t in (*planes[k], xs[k])
-    ])
-    cdims = (ctypes.c_int * 4)(*dims)
-    sgn32 = float(np.float32(sgn))
-    tr = int(bool(transpose))
-    stream = native.stream_of(b_c[0])
-    lib = native.library("jacobi2_fold", _FOLD_SIGS)
+    xs, nt, sweeps = batched_sweep_loop(native.library("jacobi2_fold", _FOLD_SIGS), "jac2f",
+                                        planes, b_c, sgn, transpose, tol, max_sweeps,
+                                        _count_fold_launch)
+    return xs[0], xs[1], nt, sweeps
 
-    def slot(k):
-        return ctypes.c_void_p(norms.data_ptr() + 4 * nb * k)
 
-    native.check(lib.jac2f_init(ptrs, cdims, nb, sgn32, tr, native.ptr(ra[0]),
-                                native.ptr(ra[1]), slot(0), stream), "jac2f_init")
+def _count_fold_launch():
     fused_jacobi2_solve_folded.launches += 1
-    n = norms[0].cpu().numpy()
-    j = 0
-    while (n > tol_h).any() and j < max_sweeps:
-        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
-        native.check(lib.jac2f_sweep(
-            ptrs, cdims, nb, sgn32, tr, native.ptr(r_in[0]), native.ptr(r_in[1]),
-            native.ptr(r_out[0]), native.ptr(r_out[1]), slot(j), native.ptr(tol_t),
-            native.ptr(sweeps), slot(j + 1), stream,
-        ), "jac2f_sweep")
-        fused_jacobi2_solve_folded.launches += 1
-        n = norms[j + 1].cpu().numpy()
-        j += 1
-    native.check(lib.jac2f_true_residual(ptrs, cdims, nb, sgn32, tr, slot(max_sweeps + 1),
-                                         stream), "jac2f_true_residual")
-    fused_jacobi2_solve_folded.launches += 1
-    nt = norms[max_sweeps + 1].cpu().numpy()
-    return xs[0], xs[1], nt, sweeps.cpu().numpy().astype(np.int64)
 
 
 fused_jacobi2_solve_folded.launches = 0  # kernel launches: init, each sweep, the exit residual

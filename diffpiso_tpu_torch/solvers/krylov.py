@@ -19,6 +19,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops.laplace import apply_laplacian
 from diffpiso_tpu_torch.solvers import tiers
@@ -28,14 +29,18 @@ from diffpiso_tpu_torch.solvers.fourier import (
     spectral_apply3_plain,
     spectral_apply_plain,
 )
-from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, fused_jacobi1_solve_3d
+from diffpiso_tpu_torch.solvers.jacobi1 import (
+    fused_jacobi1_solve,
+    fused_jacobi1_solve_3d,
+    fused_jacobi1_solve_batched,
+)
 from diffpiso_tpu_torch.solvers.jacobi2 import (
     fused_jacobi2_solve,
     fused_jacobi2_solve_folded,
     sample_max_abs,
     sample_tols,
 )
-from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve
+from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_batched
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 
@@ -538,9 +543,12 @@ pcg.iterations = 0
 # planes with a leading batch axis (B, ny, nx): every iteration computes the
 # update for all samples and keeps it only where the sample is still
 # active; scalars are (B,) tensors; each iteration reads the B norms back
-# once. Under its batched regime the JAX package runs the generic
-# formulations (no Pallas kernel but the folded jac2), so these are the
-# generic BiCGSTAB (`_bicgstab_once`) and PCG loops, not the fused ones.
+# once. Under both of its batched regimes the JAX package runs the generic
+# BiCGSTAB (`_bicgstab_once`) and PCG loops, not the fused ones: the phase
+# kernels bow out. In front of them, by the regime (diffpiso_tpu_torch/regime.py): in
+# "fold" the batch-folded jac2 alone; in "auto" the whole-solve kernels'
+# grid-over-batch rules per sample (jac2 or jac1 by the per-sample tier,
+# pcg2 within its budget, `pcg2_batched`).
 
 
 def _bcast(s):
@@ -640,14 +648,20 @@ def bicgstab_batched(apply_A, b, x0=None, *, tol=1e-6, max_iter: int = 1000, dia
                      ) -> SolveResult:
     """`bicgstab` for B samples at once (planes with a leading batch axis).
     `tol` is one value or B values (the adjoint solves take each sample's
-    own). With `stencil` and `diag` the batch-folded whole-solve Jacobi
-    kernel (solvers/jacobi2.py fused_jacobi2_solve_folded) runs first, the
-    one kernel of the JAX package's batched regime; a sample it leaves
-    above tol continues in the generic BiCGSTAB loop from its iterate, and a
-    non-finite or > 100 tol residual restarts that sample once from zeros,
-    each decided per sample. `bicgstab_batched.jacobi_solves` counts the
-    folded solves and `jacobi_sweeps` adds each one's slowest sample's
-    sweeps."""
+    own). With `stencil` and `diag` a whole-solve Jacobi kernel runs first,
+    by the batched regime (diffpiso_tpu_torch/regime.py): in "fold" the batch-folded
+    joint solve (solvers/jacobi2.py fused_jacobi2_solve_folded); in "auto"
+    the per-sample tier (`tiers.batched_momentum_tier`): the same kernel as
+    the joint solve's grid-over-batch rule, or past jac2's budget one
+    batched per-component solve each (solvers/jacobi1.py
+    fused_jacobi1_solve_batched), or past jac1's no Jacobi. A sample it
+    leaves above tol continues in the generic BiCGSTAB loop from its
+    iterate (its operator applications launch the batched matvec kernel in
+    "auto"), and a non-finite or > 100 tol residual restarts that sample
+    once from zeros, each decided per sample.
+    `bicgstab_batched.jacobi_solves` counts the whole Jacobi solves (one
+    joint solve, or one per component) and `jacobi_sweeps` adds each one's
+    slowest sample's sweeps."""
     if x0 is None:
         x0 = _zeros_like(b)
     comps = _comps(b)
@@ -672,15 +686,28 @@ def bicgstab_batched(apply_A, b, x0=None, *, tol=1e-6, max_iter: int = 1000, dia
 
     sgn = -1.0 if negate else 1.0
     everyone = np.ones(nb, dtype=bool)
+    tier = "none"
     if stencil is not None and diag is not None and len(comps) == 2:
+        # the fold regime folds at every size (its planes are small)
+        tier = "jac2" if regime.batched_mode() == "fold" else tiers.batched_momentum_tier(
+            [tuple(c.shape[1:]) for c in stencil.center], stencil.center[0].dtype)
+    if tier != "none":
         st_cs = [(stencil.center[i].contiguous(), tuple(t.contiguous() for t in stencil.lo[i]),
                   tuple(t.contiguous() for t in stencil.hi[i])) for i in range(2)]
-        xo0, xo1, jn, sweeps = fused_jacobi2_solve_folded(
-            st_cs, tuple(c.contiguous() for c in comps),
-            tuple(c.contiguous() for c in _comps(x0)), sgn, transpose, tol_h, 1 + 8 * 4)
-        bicgstab_batched.jacobi_solves += 1
-        bicgstab_batched.jacobi_sweeps += int(sweeps.max())
-        x0 = _rebuild(b, [xo0, xo1])
+        b_c = tuple(c.contiguous() for c in comps)
+        x_c = tuple(c.contiguous() for c in _comps(x0))
+        if tier == "jac2":
+            xo0, xo1, jn, sweeps = fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose,
+                                                              tol_h, 1 + 8 * 4)
+            xs, slowest = [xo0, xo1], [sweeps.max()]
+        else:
+            outs = [fused_jacobi1_solve_batched(st_cs[i], b_c[i], x_c[i], sgn, transpose, tol_h,
+                                                1 + 8 * 4) for i in range(2)]
+            xs, slowest = [o[0] for o in outs], [o[2].max() for o in outs]
+            jn = np.maximum(outs[0][1], outs[1][1])  # NaN propagates
+        bicgstab_batched.jacobi_solves += len(slowest)
+        bicgstab_batched.jacobi_sweeps += int(sum(slowest))
+        x0 = _rebuild(b, xs)
         miss = ~(jn < tol_h)
         bicgstab_batched.fallbacks += int(miss.sum())
         x, rnorm, k = x0, jn.astype(np.float32), np.zeros(nb, dtype=np.int64)
@@ -705,10 +732,10 @@ def bicgstab_batched(apply_A, b, x0=None, *, tol=1e-6, max_iter: int = 1000, dia
                        converged=rnorm < tol_h, warn=warn)
 
 
-bicgstab_batched.fallbacks = 0  # samples whose folded Jacobi missed tol
+bicgstab_batched.fallbacks = 0  # samples whose batched Jacobi solve missed tol
 bicgstab_batched.iterations = 0  # BiCGSTAB iterations, summed over samples
 bicgstab_batched.applies = {False: 0, True: 0}  # batched operator applications
-bicgstab_batched.jacobi_solves = 0  # folded Jacobi solves
+bicgstab_batched.jacobi_solves = 0  # batched Jacobi solves (joint: one; jac1: one per component)
 bicgstab_batched.jacobi_sweeps = 0  # their slowest sample's sweeps, summed over solves
 
 
@@ -727,6 +754,11 @@ def pcg_batched(apply_A, b, x0=None, *, precond, tol=1e-6, max_iter: int = 2000,
     dev = b.device
     tol_t, tol_h = sample_tols(tol, nb, dev)
     eps = 1e-30
+    plain_apply = apply_A
+
+    def apply_A(v):
+        pcg_batched.applies += 1
+        return plain_apply(v)
 
     def project(v):
         return v - v.mean(dim=(-2, -1), keepdim=True) if deflate_mean else v
@@ -788,3 +820,30 @@ def pcg_batched(apply_A, b, x0=None, *, precond, tol=1e-6, max_iter: int = 2000,
 
 pcg_batched.resets = 0  # resets, summed over samples
 pcg_batched.iterations = 0  # iterations, summed over samples
+# batched operator applications (each the batched matvec kernel in "auto")
+pcg_batched.applies = 0
+
+
+def pcg2_batched(stencil, b, x0, *, mats, tol=1e-6, max_iter: int = 2000,
+                 deflate_mean: bool = False) -> SolveResult:
+    """B whole-solve spectral PCGs at once, the grid-over-batch rule of the
+    JAX package's pcg2 (the "auto" batched regime, `tiers.batched_pressure_tier`):
+    solvers/pcg2.py fused_pcg2_solve_batched on the batched Laplacian
+    `stencil`, b and x0 (None: cold) (B, n0, n1), with mats = (v0, v0t, v1,
+    v1t, sym) (the bases shared, the symbol shared or per sample). As pcg2
+    alone, it ignores residual resets and early exit. `tol` is one value or
+    B values. `pcg2_batched.solves` counts the calls, `loops` adds each
+    one's slowest sample's iterations."""
+    v0, v0t, v1, v1t, sym = mats
+    nb = b.shape[0]
+    _, tol_h = sample_tols(tol, nb, b.device)
+    x, rn, k = fused_pcg2_solve_batched(stencil, b, x0, v0, v0t, v1, v1t, sym, tol_h, max_iter,
+                                        deflate=deflate_mean)
+    pcg2_batched.solves += 1
+    pcg2_batched.loops += int(k.max())
+    warn = ~np.isfinite(rn) | (rn > np.float32(100.0) * tol_h)
+    return SolveResult(x=x, iterations=k, residual_norm=rn, converged=rn < tol_h, warn=warn)
+
+
+pcg2_batched.solves = 0  # batched pcg2 calls
+pcg2_batched.loops = 0  # their slowest sample's iterations, summed over calls

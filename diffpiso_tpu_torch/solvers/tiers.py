@@ -38,7 +38,12 @@ solves run with no residual reset and no early exit in both tiers, so it
 changes no decision of the algorithm, only rounding; without it the
 port's small periodic planes (64^2, 128^2) stay on pcg2 for their adjoints
 too. The environment switches of the JAX gates are not copied either: the
-port has no knob that selects a tier."""
+port has no knob that selects a tier.
+
+B samples at once in the "auto" batched regime (diffpiso_tpu_torch/regime.py)
+run their whole solves per sample by `batched_momentum_tier` /
+`batched_pressure_tier`, the rules of the JAX kernels' grid-over-batch
+`custom_vmap` rules."""
 
 from __future__ import annotations
 
@@ -197,4 +202,35 @@ def pressure_tier(shape, kinds, periodic, zero_mean: bool, deflate: bool,
     if (phase_tier(shape, kinds, dtype) and mm_update_eligible(shape, kinds, dtype)
             and (zero_mean or not deflate)):
         return "mm_update"
+    return "loop"
+
+
+# -- B samples at once: the per-sample tiers of the "auto" regime -------------------
+
+
+def batched_momentum_tier(shapes, dtype="float32") -> str:
+    """What a batched momentum solve on rank-2 components runs first, per
+    sample, under "auto" (the vmapped `krylov.bicgstab` under
+    `batched_safe_pallas`): 'jac2' (the grid-over-batch rule of the joint
+    solve, or its fold below 1 MiB planes: one kernel here), 'jac1' (the
+    per-component grid rule past jac2's budget) or 'none' (BiCGSTAB from
+    the guess: the k-sweep tier's gate is closed under
+    `batched_safe_pallas`, so no Jacobi runs past jac1's budget). `shapes`
+    are the per-sample component shapes."""
+    if jac2_eligible(shapes, dtype):
+        return "jac2"
+    if all(jac1_eligible(s, dtype) for s in shapes):
+        return "jac1"
+    return "none"
+
+
+def batched_pressure_tier(shape, periodic, zero_mean: bool, dtype="float32") -> str:
+    """What a batched spectral pressure solve runs under "auto", per sample:
+    'pcg2' (the whole solve's grid-over-batch rule, a mean-free
+    preconditioner within pcg2's budget) or 'loop' (the generic
+    per-iteration loop with resets and early exit; the phase kernels and
+    the folded update bow out under `batched_safe_pallas`). `shape` is the
+    per-sample plane."""
+    if zero_mean and pcg2_eligible(shape, periodic, dtype):
+        return "pcg2"
     return "loop"

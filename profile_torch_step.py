@@ -6,6 +6,7 @@
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
     python3 profile_torch_step.py --workload turb3d [--n 128] [--grad] [--trace PATH]
+    python3 profile_torch_step.py --workload batched512 [--batch 4] [--grad] [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
 decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
@@ -38,7 +39,14 @@ with M^-1 folded into the update or, on the DNS, the PCG phases).
 `turb3d` is bench.py's workload_turb3d at n^3 (default 128^3: viscosity
 1e-3, dt 0.4/n, tol 1e-6 / 1e-8, a seeded 0.5 N(0, 1) state developed by
 the 100-step spin-up, 2 calls of 50 steps); its --grad profiles one grad10
-evaluation with remat "none", bench.py's protocol at 128^3. Needs a GPU.
+evaluation with remat "none", bench.py's protocol at 128^3.
+`batched512` is the batched "auto" regime of runs/ab_batched_512.py:
+`--batch` (default 4) seeded samples of `turbulence` at 512^2 (or --n)
+stepped at once, the grid-over-batch whole solves and the plane kernels
+with a batch axis, after one unprofiled call of 50 steps; "steps" in its
+report are batched steps (each `--batch` sample-steps), and its --grad
+profiles one grad10 evaluation of sum_c mean(v_c^2) with respect to the
+batched initial velocity, remat "none". Needs a GPU.
 """
 
 from __future__ import annotations
@@ -65,8 +73,9 @@ FAMILIES = (
     ("wgrad", "CNN convolutions (cuDNN)"),
     ("cudnn", "CNN convolutions (cuDNN)"),
     ("fft", "FFTs (spectral loss)"),
-    ("jac2f_", "jacobi2 fold sweeps (batched)"),
+    ("dp_jacb_", "batched jacobi2 / jacobi1 sweeps (the fold and grid rules)"),
     ("pcg2_", "pcg2 elementwise + reductions"),
+    ("pcg2b_", "pcg2 elementwise + reductions"),
     ("pcgp_", "PCG phases (residual / apply / update)"),
     ("gemm", "M^-1 r contractions (torch.matmul)"),
     ("dp_sum_partials", "laplace assembly"),
@@ -96,10 +105,12 @@ def family(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training",
-                                           "turb1024", "dns512x2048", "turb3d"),
+                                           "turb1024", "dns512x2048", "turb3d",
+                                           "batched512"),
                     default="turbulence")
     ap.add_argument("--n", type=int, default=None, help="512; 256 for training, 128 for turb3d")
-    ap.add_argument("--batch", type=int, default=1, help="training only: samples per step")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="samples per step: training (default 1), batched512 (default 4)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
                     help="profile one rollout-gradient evaluation instead of forward steps")
@@ -113,6 +124,8 @@ def main() -> int:
             args.trace = f"traces/profile_torch_{label}_{'grad' if args.grad else 'step'}.json"
     if args.n is None:
         args.n = {"training": 256, "turb3d": 128}.get(args.workload, 512)
+    if args.batch is None:
+        args.batch = 4 if args.workload == "batched512" else 1
     if args.trace is None:
         mode = f"b{args.batch}" if args.workload == "training" else (
             "grad" if args.grad else "step")
@@ -142,6 +155,8 @@ def main() -> int:
     n = args.n
     if args.workload == "training":
         return profile_training(args, dev, profile, ProfilerActivity)
+    if args.workload == "batched512":
+        return profile_batched(args, dev, profile, ProfilerActivity)
     mixing = None
     unroll, remat = UNROLL, "outputs"
     if args.workload == "turb3d":
@@ -251,6 +266,54 @@ def report(prof, wall: float, steps: int, head: dict) -> int:
         device=torch.cuda.get_device_name(0),
     )))
     return 0
+
+
+def profile_batched(args, dev, profile, ProfilerActivity) -> int:
+    """runs/ab_batched_512.py's batch under the profiler: `--steps` batched
+    forward steps, or one grad10 evaluation (remat "none"), after one
+    unprofiled call of 50 steps (and, with --grad, one unprofiled
+    evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.rollout import batched_rollout, batched_rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_batch, decaying_turbulence_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, unroll = args.n, 10
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
+    vel, p = decaying_turbulence_batch(domain, range(args.batch), device=dev)
+
+    def step(v, p, g1, g2):
+        return piso_step(v, p, 0.4 / n, domain, sim, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-8)
+
+    def run():
+        if args.grad:
+            res = batched_rollout_loss_grad(step, vel, p, unroll)
+        else:
+            res = batched_rollout(step, vel, p, args.steps)
+        if res.warns.any():
+            raise RuntimeError("a solve warned during profiling")
+
+    out = batched_rollout(step, vel, p, 50)
+    vel, p = out.velocity, out.pressure
+    if args.grad:
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    steps = unroll if args.grad else args.steps
+    return report(prof, wall, steps, dict(
+        workload="batched512", n=n, batch=args.batch, regime=regime.batched_pallas_mode(vel),
+        mode=(f"grad{unroll} (remat none), one evaluation" if args.grad else "forward")
+        + f"; a step is {args.batch} sample-steps", steps=steps))
 
 
 def profile_training(args, dev, profile, ProfilerActivity) -> int:

@@ -328,6 +328,36 @@ def test_fv2m_kernels_match_plain_forward_and_vjp(shape, cuda_device):
         (before[0] + 1, before[1] + 2, before[2] + 1)
 
 
+@pytest.mark.parametrize("per", [(False, False), (True, False)])
+def test_fv2m_batched_kernels_are_bit_equal_to_single_sample_launches(per, cuda_device):
+    """The bounded trio with a batch axis (the "auto" batched regime), B = 3
+    on unaligned planes, the face masks shared: one launch each, every
+    sample bit-equal to its single-sample launch and to the plain version,
+    forward and VJP."""
+    nb, shape, rep = 3, (17, 40), ((True, True), (True, False))
+    fs = (0.013, 0.021)
+    vs, us = fv2m.face_shapes(shape, per)
+    v, u = (_rand((nb, *s_), k).to(cuda_device) for s_, k in ((vs, 90), (us, 91)))
+    p = _rand((nb, *shape), 92).to(cuda_device).requires_grad_(True)
+    masks = tuple(_rand(s_, k).gt(0).float().to(cuda_device) for s_, k in ((vs, 93), (us, 94)))
+    before = (fv2m.div2m.launches, fv2m.grad2m.launches, fv2m.gradT2m.launches)
+    d = fv2m.div2m(fs, per, (v, u))
+    g = fv2m.grad2m(fs, per, rep, p, masks)
+    (gp,) = torch.autograd.grad(g, (p,), (v, u))
+    assert (fv2m.div2m.launches, fv2m.grad2m.launches, fv2m.gradT2m.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    torch.testing.assert_close(d, fv2m.div2m_plain(fs, per, (v, u)), rtol=0, atol=0)
+    for a, b in zip(g, fv2m.grad2m_plain(fs, per, rep, p.detach(), masks)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(gp, fv2m.gradT2m_plain(fs, per, rep, (v, u), masks),
+                               rtol=0, atol=0)
+    for s in range(nb):
+        assert torch.equal(d[s], fv2m.div2m(fs, per, (v[s], u[s])))
+        for a, b in zip(g, fv2m.grad2m(fs, per, rep, p[s].detach(), masks)):
+            assert torch.equal(a[s], b)
+        assert torch.equal(gp[s], fv2m.gradT2m(fs, per, rep, (v[s], u[s]), masks))
+
+
 @pytest.mark.parametrize("shape", [(514, 512), (513, 513), (7, 5)])
 def test_matvec_kernel_matches_plain_both_forms_and_vjp(shape, cuda_device):
     planes = [_rand(shape, 80 + k).to(cuda_device) for k in range(5)]
@@ -990,6 +1020,200 @@ def test_cuda_turb3d_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
                        [(a.system, a.gated) for a in r.adjoints])
     (cv, ci, cg, cd), (pv, pi, pg, pd) = out["cuda"], out["cpu"]
     assert ci == pi and cd == pd
+    for a, b in zip(cv, pv):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    num = sum(float(torch.sum((a.double() - b.double()) ** 2)) for a, b in zip(cg, pg))
+    den = sum(float(torch.sum(b.double() ** 2)) for b in pg)
+    assert (num / den) ** 0.5 <= 1e-3
+
+
+# -- the batched "auto" regime: the grid-over-batch whole solves and the plane
+# kernels with a batch axis (chip_smoke.py phase 13a at small sizes) ----------------
+
+
+def _batched_laplacian(dev, nb, shape, seed, periodic=(True, True)):
+    """nb samples' pressure Laplacians (each from its own influence planes),
+    mean-free right-hand sides, and the fft_mm / dct_mm preconditioner's
+    bases with each sample's own symbol."""
+    ny, nx = shape
+    rng = np.random.RandomState(seed)
+    infl = StaggeredField((t(rng.rand(nb, ny + (0 if periodic[0] else 1), nx) + 0.5).to(dev),
+                           t(rng.rand(nb, ny, nx + (0 if periodic[1] else 1)) + 0.5).to(dev)),
+                          periodic)
+    ones = torch.ones(ny + 2, nx + 2, device=dev)
+    lap = plap.assemble_pressure_laplacian(infl, ones, ones, periodic, True)
+    rhs = rng.randn(nb, ny, nx)
+    b = t(rhs - rhs.mean(axis=(1, 2), keepdims=True)).to(dev)
+    from diffpiso_tpu_torch.solvers.fourier import MatmulSpectralSolver
+
+    kinds = ("fourier",) * 2 if all(periodic) else ("dct2",) * 2
+    mss = MatmulSpectralSolver(kinds=kinds, shape=shape)
+    weights = tuple(torch.mean(torch.abs(a), dim=(-2, -1)) for a in lap.lo)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, dev)
+    sym = safe_symbol(mss, weights, torch.float32, dev).contiguous()
+    return lap, b, (v0, v0t, v1, v1t, sym)
+
+
+class _OneLap:
+    def __init__(self, lap, s):
+        self.center, self.shift, self.periodic = lap.center[s], lap.shift[s], lap.periodic
+        self.lo, self.hi = tuple(a[s] for a in lap.lo), tuple(a[s] for a in lap.hi)
+
+
+@pytest.mark.parametrize("mode", ["forward", "adjoint"])
+def test_pcg2_batched_kernel_is_bit_equal_to_single_sample_kernels(mode, cuda_device):
+    """Shared tol with a warm start (forward), per-sample tols from cold
+    (adjoint): each sample bit-equal to a single-sample pcg2 kernel (x,
+    residual, iterations) and at the plain version's iterations."""
+    from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve_batched, pcg2_batched_plain
+
+    nb, shape = 3, (128, 128)
+    lap, b, (v0, v0t, v1, v1t, sym) = _batched_laplacian(cuda_device, nb, shape, 21)
+    if mode == "forward":
+        x0, tol = (0.01 * _rand((nb, *shape), 22)).to(cuda_device), 1e-4
+        x0[1] = 0.0  # a cold sample beside warm ones
+    else:
+        x0, tol = None, np.asarray([3e-3, 1e-4, 3e-5], np.float32)
+    before = fused_pcg2_solve_batched.launches
+    kx, krn, kk = fused_pcg2_solve_batched(lap, b, x0, v0, v0t, v1, v1t, sym, tol, 200)
+    assert fused_pcg2_solve_batched.launches - before == 2 + int(kk.max())
+    px, prn, pk = pcg2_batched_plain(lap, b, x0, v0, v1, sym, tol, 200)
+    np.testing.assert_array_equal(kk, pk)
+    tols = np.broadcast_to(np.asarray(tol, np.float32), (nb,))
+    for s in range(nb):
+        sx, srn, sk = fused_pcg2_solve(_OneLap(lap, s), b[s].contiguous(),
+                                       None if x0 is None else x0[s].contiguous(), v0, v0t,
+                                       v1, v1t, sym[s].contiguous(), float(tols[s]), 200)
+        assert torch.equal(kx[s], sx) and np.float32(krn[s]) == np.float32(srn) and kk[s] == sk
+        torch.testing.assert_close(kx[s], px[s], rtol=0, atol=1e-3 * float(px[s].abs().max()))
+    if mode == "adjoint":
+        assert len(set(kk.tolist())) > 1  # the samples stop at different iterations
+
+
+def test_gemm_batched_matches_the_single_sample_gemm(cuda_device):
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_batched
+
+    a = _rand((150, 150), 1).to(cuda_device)  # shared
+    b = _rand((3, 150, 130), 2).to(cuda_device)
+    s = (_rand((3, 150, 130), 3).abs() + 0.5).to(cuda_device)
+    c = gemm_batched(a, b, s)
+    for i in range(3):
+        assert torch.equal(c[i], gemm(a, b[i].contiguous(), s[i].contiguous()))
+
+
+@pytest.mark.parametrize("per_sample_tol", [False, True])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_jacobi1_batched_kernel_is_bit_equal_to_plain_and_single_sample_kernels(
+        transpose, per_sample_tol, cuda_device):
+    from diffpiso_tpu_torch.solvers.jacobi1 import (
+        fused_jacobi1_solve_batched,
+        jacobi1_batched_plain,
+    )
+
+    st_cs, b_c, x_c = _fold_system(cuda_device, nb=3)
+    tol = (3e-3, 1e-4, 1e-6) if per_sample_tol else 1e-6
+    for comp in range(2):
+        st, b, x = st_cs[comp], b_c[comp], x_c[comp]
+        before = fused_jacobi1_solve_batched.launches
+        kx, kn, ks = fused_jacobi1_solve_batched(st, b, x, -1.0, transpose, tol, 33)
+        assert fused_jacobi1_solve_batched.launches - before == 2 + int(ks.max())
+        px, pn, ps = jacobi1_batched_plain(st, b, x, -1.0, transpose, tol, 33)
+        assert torch.equal(kx, px)
+        np.testing.assert_array_equal(kn, pn)
+        np.testing.assert_array_equal(ks, ps)
+        tols = np.broadcast_to(np.asarray(tol, np.float32), (3,))
+        for s in range(3):
+            one = (st[0][s], tuple(a[s] for a in st[1]), tuple(a[s] for a in st[2]))
+            zx, zn, zs = fused_jacobi1_solve(one, b[s], x[s], -1.0, transpose, float(tols[s]), 33)
+            assert torch.equal(kx[s], zx) and np.float32(kn[s]) == np.float32(zn) and ks[s] == zs
+
+
+def test_plane_kernels_with_a_batch_axis_equal_their_single_sample_launches(cuda_device):
+    """Rows 1, 2, 5 and 7 with a sample axis: each sample bit-equal to the
+    kernel's launch on that sample alone (and to the plain version)."""
+    nb, shape = 3, (64, 96)
+    w0, w1 = (_rand((nb, *shape), s).to(cuda_device) for s in (40, 41))
+    scal = assembly_scalars((0.7, 1.3), 1e-3, 2.5)
+    got = fused_advection_assembly(w0, w1, *scal)
+    want = advection_assembly_plain(w0, w1, *scal)
+    for s in range(nb):
+        one = fused_advection_assembly(w0[s], w1[s], *scal)
+        for a, b, c in zip(got, one, want):
+            assert torch.equal(a[s], b) and torch.equal(a[s], c[s])
+    for periodic in ((True, True), (False, False)):
+        ny, nx = shape
+        rng = np.random.RandomState(42)
+        cy = t(rng.rand(nb, ny + (0 if periodic[0] else 1), nx) + 0.1).to(cuda_device)
+        cx = t(rng.rand(nb, ny, nx + (0 if periodic[1] else 1)) + 0.1).to(cuda_device)
+        act = t(rng.randint(0, 2, (ny + 2, nx + 2))).to(cuda_device)
+        planes = plap.laplace_mask_planes(act, act, periodic, shape, torch.float32)
+        got = fused_laplace_assembly(cy, cx, planes, periodic)
+        assert got[5].shape == (nb,)
+        for s in range(nb):
+            one = fused_laplace_assembly(cy[s].contiguous(), cx[s].contiguous(), planes, periodic)
+            for a, b in zip(got, one):
+                assert torch.equal(a[s], b)
+    fs = (0.9, 1.1)
+    v, u, p = (_rand((nb, *shape), s).to(cuda_device) for s in (43, 44, 45))
+    d = fv2.div2(fs, (v, u))
+    g0, g1 = fv2.grad2(fs, p)
+    for s in range(nb):
+        assert torch.equal(d[s], fv2.div2(fs, (v[s], u[s])))
+        assert torch.equal(g0[s], fv2.grad2(fs, p[s])[0])
+        assert torch.equal(g1[s], fv2.grad2(fs, p[s])[1])
+    assert torch.equal(d, fv2.div2_plain(fs, (v, u)))
+    coeffs = [_rand((nb, *shape), 50 + k).to(cuda_device) for k in range(5)]
+    x = _rand((nb, *shape), 56).to(cuda_device)
+    for transpose in (False, True):
+        z = matvec.fused_stencil_matvec(coeffs[0], coeffs[1:3], coeffs[3:5], x, transpose)
+        assert torch.equal(z, matvec.matvec_plain(coeffs[0], coeffs[1], coeffs[3], coeffs[2],
+                                                  coeffs[4], x, transpose))
+        for s in range(nb):
+            one = matvec.fused_stencil_matvec(coeffs[0][s], tuple(c[s] for c in coeffs[1:3]),
+                                              tuple(c[s] for c in coeffs[3:5]), x[s], transpose)
+            assert torch.equal(z[s], one)
+
+
+def test_cuda_batched_auto_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
+    """The batched rollout in the "auto" regime at 64^2, B = 2 (random
+    states, viscosity 1e-3, tol 1e-6: tests/test_torch_gradient.py's
+    setting): 3 steps and the 3-step gradient of sum_c mean(v_c^2) with
+    respect to the initial velocity on the card against the CPU plain path
+    (equal pressure iterations and gate decisions; velocity rtol 2e-4 /
+    atol 2e-5; gradient rel l2 <= 1e-3), with the batched kernels launched
+    on the card."""
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.core.rollout import batched_rollout, batched_rollout_loss_grad
+    from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve_batched
+
+    n = 64
+    rng = np.random.RandomState(91)
+    # non-solenoidal states: the first correctors' right-hand sides are O(1),
+    # so the iterations are the algorithm's (from solenoidal states they sit
+    # at rounding level and a solve can stop one iteration apart)
+    comps = [(0.3 * rng.randn(2, n, n)).astype(np.float32) for _ in range(2)]
+    out = {}
+    for d in (cuda_device, torch.device("cpu")):
+        domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-3, device=d)
+        vel = convert.staggered_field(comps, (True, True), device=d)
+        p = torch.zeros(2, n, n, device=d)
+
+        def step(v, p, g1, g2, domain=domain, sim=sim):
+            return piso_step(v, p, 0.4 / n, domain, sim, pressure_inc1_guess=g1,
+                             pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-6)
+
+        before = fused_pcg2_solve_batched.launches
+        with regime.batched_regime("auto"):
+            fwd = batched_rollout(step, vel, p, 3)
+            g = batched_rollout_loss_grad(step, vel, p, 3)
+        if d.type == "cuda":
+            assert fused_pcg2_solve_batched.launches > before
+        out[d.type] = ([c.cpu() for c in fwd.velocity.components], fwd.p_iterations,
+                       [c.cpu() for c in g.grad.components],
+                       [(a.system, a.gated.tolist()) for a in g.adjoints], fwd.warns)
+    (cv, ci, cg, cd, cw), (pv, pi, pg, pd, pw) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(ci, pi)
+    assert cd == pd and not cw.any() and not pw.any()
     for a, b in zip(cv, pv):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
     num = sum(float(torch.sum((a.double() - b.double()) ** 2)) for a, b in zip(cg, pg))

@@ -73,7 +73,8 @@ def test_the_scan_covers_the_training_slice_modules():
 
 def test_the_scan_covers_the_large_tier_modules():
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
-    assert {"diffpiso_tpu_torch/solvers/tiers.py", "diffpiso_tpu_torch/solvers/jacobi1.py",
+    assert {"diffpiso_tpu_torch/regime.py", "diffpiso_tpu_torch/solvers/tiers.py",
+            "diffpiso_tpu_torch/solvers/jacobi1.py",
             "diffpiso_tpu_torch/solvers/pcgmm.py"} <= scanned
     for name in ("jacobi1.cu", "pcg_mm_update.cu", "jacobi.cuh", "gemm.cuh"):
         assert (PKG / "csrc" / name).exists()
@@ -137,3 +138,18 @@ def test_build_names_every_kernel_source():
     assert "arch=compute_90a,code=sm_90a" in native.FLAGS
     # the build directory is git-ignored
     assert "diffpiso_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_the_scan_covers_the_batched_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/solvers/tiers.py", "diffpiso_tpu_torch/solvers/pcg2.py",
+            "diffpiso_tpu_torch/solvers/jacobi1.py", "diffpiso_tpu_torch/solvers/jacobi2.py",
+            "diffpiso_tpu_torch/solvers/krylov.py", "diffpiso_tpu_torch/solvers/base.py",
+            "diffpiso_tpu_torch/ops/advassembly.py", "diffpiso_tpu_torch/ops/laplace_assembly.py",
+            "diffpiso_tpu_torch/ops/fv2.py", "diffpiso_tpu_torch/ops/matvec.py",
+            "diffpiso_tpu_torch/core/piso.py", "diffpiso_tpu_torch/core/rollout.py",
+            "diffpiso_tpu_torch/core/setups.py",
+            "diffpiso_tpu_torch/learning/training.py"} <= scanned
+    for name in ("pcg2.cu", "gemm.cuh", "jacobi1.cu", "jacobi.cuh", "jacobi2_fold.cu",
+                 "advassembly.cu", "laplace_assembly.cu", "fv2.cu", "matvec.cu"):
+        assert (PKG / "csrc" / name).exists()

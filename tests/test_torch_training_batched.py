@@ -19,8 +19,8 @@ perturbations), 3 steps, tol 1e-7:
   BiCGSTAB against `jax.vmap` of the JAX loops, with tolerances at which
   the samples stop at different iterations (equal iteration counts per
   sample);
-* the regime gate's size rule ("auto" from 512^2 planes is not ported and
-  raises)."""
+* the regime gate's size rule: the regime the step runs in, "fold" below
+  512^2 planes and "auto" from there; batched 3-D volumes raise."""
 
 import dataclasses
 
@@ -337,10 +337,27 @@ def test_batched_bicgstab_freezes_finished_samples_like_vmap():
 
 
 def test_regime_gate_follows_the_size_rule():
+    """The size rule picks the regime the step runs in ("auto" is ported
+    since the grid-over-batch solve kernels are: tests/test_torch_batched_auto.py);
+    batched 3-D volumes ("never") still raise, naming the 3-D queue item."""
+    from diffpiso_tpu_torch import regime
+
     small = StaggeredField((torch.zeros(2, 65, 256), torch.zeros(2, 64, 257)))
     big = StaggeredField((torch.zeros(2, 513, 512), torch.zeros(2, 512, 513)))
+    vol = StaggeredField(tuple(torch.zeros(2, 8, 8, 8) for _ in range(3)))
     assert pt._batched_pallas_mode(small) == "fold"
     assert pt._batched_pallas_mode(big) == "auto"
-    step = pt.make_batched_train_step(lambda *a: None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        step([], None, big, None, None, None)
+    assert pt._batched_pallas_mode(vol) == "never"
+    seen = []
+
+    def loss_fn(*a):
+        seen.append(regime.batched_mode())
+        raise StopIteration
+
+    step = pt.make_batched_train_step(loss_fn, None)
+    for vel, want in ((small, "fold"), (big, "auto")):
+        with pytest.raises(StopIteration):
+            step([], None, vel, None, None, None)
+        assert seen[-1] == want
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        step([], None, vol, None, None, None)

@@ -146,3 +146,32 @@ def force_jax_turb3d_kernels(monkeypatch):
     monkeypatch.setattr(pallas_advassembly, "advassembly3_eligible",
                         lambda velocity, *a, **k: velocity.rank == 3 and all(velocity.periodic))
     monkeypatch.setattr(pallas_stencil, "pallas_eligible", lambda shape, dtype: len(shape) == 3)
+
+
+def force_jax_batched_kernels(monkeypatch):
+    """Run the JAX kernels that stay on in its batched "auto" regime
+    (`batched_safe_pallas()`) in interpret mode on the CPU: the advection
+    and Laplace assemblies and the periodic FV pair (which batch natively
+    under vmap) and the whole solves jac2 and pcg2 through their
+    grid-over-batch rules (`jac2_fold_eligible` closed, so jac2 takes the
+    grid form `_jacobi2_solve_kernel_b`). The corrector and the iteration
+    phase kernels keep their own gates, which close under
+    `batched_safe_pallas`; the stencil matvec's gate has no interpret
+    escape, so explicit_H keeps its jnp branch (the same function)."""
+    import jax.numpy as jnp
+
+    from diffpiso_tpu.ops import pallas_advassembly, pallas_assembly, pallas_fv
+    from diffpiso_tpu.solvers import pallas_krylov
+
+    for mod in (pallas_advassembly, pallas_assembly, pallas_krylov, pallas_fv):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+    for mod in (pallas_krylov, pallas_fv):
+        monkeypatch.setattr(mod, "_roll", lambda a, s, ax: jnp.roll(a, s, ax))
+    monkeypatch.setattr(pallas_advassembly, "pltpu", FakePltpu())
+    monkeypatch.setattr(pallas_assembly, "pltpu", FakePltpu())
+    monkeypatch.setattr(pallas_fv, "eligible2", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_advassembly, "advassembly_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_assembly, "assembly_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "pcg2_eligible", lambda *a, **k: True)
+    monkeypatch.setattr(pallas_krylov, "jac2_fold_eligible", lambda *a, **k: False)
