@@ -201,6 +201,28 @@ Phases, each fatal on failure:
      train steps, warn 0, the Adam count, the joint Jacobi kernel, the
      Laplace assembly, the matvec and the bounded FV trio as counted,
      nothing else.
+  14. 3-D decaying turbulence past the whole-solve budget, where the
+     momentum solve runs the trip loop of the JAX package's bicgstab (up
+     to 8 trips of 4 sweeps per component while the largest entry
+     residual is above tol): (a) 64^3 with the z-block tier forced (bz 16),
+     3 steps and the 3-step rollout gradient under "outputs" remat, card
+     vs the CPU plain path (12a's gates and hand-over allowance); 2h at
+     256^3 (bench.py --n3d 256, the JAX gate's bz 8) on the operators of
+     the first step after bench.py's spin-up (2 calls of 50 steps): the
+     z-block kernel (15e) forward and transposed on all three components,
+     the trip loop's first two calls, bit-equal to its plain version with
+     equal per-block sweeps; (b) 3 timed calls of 50 forward steps (the
+     assembly once, grad3 3 and div3 2 per step, the z-block kernel as the
+     trip counters derive, jac13d and the plane kernel 0, warn 0; steps/s,
+     trips, sweeps, hand-overs, peak memory); (c) grad10 under "outputs"
+     remat, 1 untimed and 3 timed evaluations (the replay doubles the
+     assembly, the FV pair and explicit_H, never a solve), counts checked
+     per evaluation, gated adjoints reported; 2h at 512^3 (the plane tier:
+     no z block of 4 or more fits) after one spin-up call of 20 steps: the
+     plane kernel (15f) the same way, bit-equal; (d) bench.py's --n3d 512
+     --fwd-only, cut for time to one timed call of 20 steps: the plane
+     kernel as derived, the z-block kernel and jac13d 0, warn 0, peak
+     memory. The earlier paths assert 0 launches of both.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -208,6 +230,7 @@ package next to it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -252,7 +275,7 @@ def rel_err(a, b) -> float:
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb")
+               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -1801,7 +1824,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
             fail(f"training batch 1: {k} launched {counts[k]} times, the loops derive {want}")
     for k in ("advection_assembly", "pcg2_solve", "div2", "grad2", "corrector1_bridge",
               "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve", "pcg_mm_update",
-              *T3_KERNELS):
+              *T3_KERNELS, *T3_TIER_KERNELS.values()):
         if counts[k]:
             fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
     return counts
@@ -2340,6 +2363,17 @@ T3_UNROLL = 10  # grad10, remat "none" (bench.py remats from n >= 192 only)
 T3_GRAD_REPS = 4
 # the 3-D path's kernels; their `launches` come from its forward run
 T3_KERNELS = ("advection_assembly3", "div3", "grad3", "stencil_matvec3d", "jacobi1_solve_3d")
+# phase 14: the 3-D momentum tiers past the whole solve's budget
+T3_BIG = 256  # bench.py workload_turb3d --n3d 256: the z-block tier (bz 8)
+T3_BIG_REMAT = "outputs"  # bench.py remats its gradient from 192^3 on
+T3_BIG_GRAD_REPS = 3  # bench.py's 4 evaluations: 1 untimed, 3 timed
+T3_ZB_SMALL = 64  # 14a: card vs CPU with the z-block tier forced
+T3_ZB_SMALL_BZ = 16
+T3_HUGE = 512  # 14d: bench.py --n3d 512 --fwd-only, the plane tier
+T3_HUGE_CALL = 20  # cut for time: bench.py's calls are 50 steps, 2 spin-up and 3 timed
+JAC_K = 4  # sweeps per tier-kernel call (krylov.bicgstab's trip loop)
+# the tier kernels (z block, plane), by the tier that runs them
+T3_TIER_KERNELS = {"zblock": "jacobi_zblock_3d", "plane": "jacobi_sweep_3d"}
 
 
 def turb3d_state(n, dev, seed=0):
@@ -2364,15 +2398,15 @@ def turb3d_step(n, dev):
     return domain, turbulence_step_fn(domain, sim, 0.4 / n)
 
 
-def turb3d_call(step, v, p):
-    """One bench.py call: T3_CALL steps, the pressure increments carried as
+def turb3d_call(step, v, p, steps=T3_CALL):
+    """One bench.py call: `steps` steps, the pressure increments carried as
     guesses from zeros. Returns (v, p, pressure iterations summed, warned
     steps)."""
     import torch
 
     g1 = g2 = torch.zeros_like(p)
     iters, warns = [0, 0], 0
-    for _ in range(T3_CALL):
+    for _ in range(steps):
         o = step(v, p, g1, g2)
         v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
         iters[0] += o.p_iterations[0]
@@ -2564,24 +2598,58 @@ def csr_of_stencil3(c, lz, hz, ly, hy, lx, hx):
 
 def turb3d_counters() -> dict:
     """The loop counters of the 3-D path: the generic PCG loop's, the
-    BiCGSTAB hand-overs and applies, and the Jacobi sweeps and whole
-    component solves."""
+    BiCGSTAB hand-overs and applies, the whole-solve Jacobi's sweeps and
+    component solves, and the trip loop's trips and sweeps (the z-block
+    and plane tiers)."""
     from diffpiso_tpu_torch.solvers import krylov
 
-    return dict(loop_counters(), jacobi_solves_3d=krylov.bicgstab.jacobi_solves)
+    b = krylov.bicgstab
+    return dict(loop_counters(), jacobi_solves_3d=b.jacobi_solves, jacobi_trips=b.jacobi_trips,
+                jacobi_block_sweeps=b.jacobi_block_sweeps)
 
 
-def turb3d_derived(c0: dict, c1: dict) -> tuple:
-    """(the 3-D launches the loops derive, counter deltas): the whole-solve
-    Jacobi 2 launches per component solve plus one per sweep; the 7-point
-    matvec once per PCG operator apply (warm entry, reset, iteration, exit
-    residual of each loop) and three times per BiCGSTAB operator apply
-    (one per component)."""
+def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
+    """(the 3-D launches the loops derive, counter deltas): the momentum
+    tier's kernel (the whole-solve Jacobi 2 launches per component solve
+    plus one per sweep; per trip one call per component, the z-block
+    kernel 1 + JAC_K launches a call, the plane kernel JAC_K); the 7-point
+    matvec once per PCG operator apply
+    (warm entry, reset, iteration, exit residual of each loop) and three
+    times per BiCGSTAB operator apply (one per component)."""
     d = {k: c1[k] - c0[k] for k in c0}
-    return dict(
-        jacobi1_solve_3d=2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"],
-        stencil_matvec3d=(d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_iterations"]
-                          + d["pcg_loops"] + 3 * (d["applies"] + d["applies_T"]))), d
+    jac = {"jac13d": ("jacobi1_solve_3d", 2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"]),
+           "zblock": (T3_TIER_KERNELS["zblock"], 3 * (1 + JAC_K) * d["jacobi_trips"]),
+           "plane": (T3_TIER_KERNELS["plane"], 3 * JAC_K * d["jacobi_trips"])}[tier]
+    return {jac[0]: jac[1],
+            "stencil_matvec3d": (d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_iterations"]
+                                 + d["pcg_loops"] + 3 * (d["applies"] + d["applies_T"]))}, d
+
+
+def tier_solves_ok(d: dict, tier: str, solves: int) -> bool:
+    """Whether the counter deltas `d` show `solves` momentum solves of three
+    components in `tier`: one whole solve per component (jac13d), or the
+    trip loop (at least one trip a solve) and no whole solve."""
+    if tier == "jac13d":
+        return d["jacobi_solves_3d"] == 3 * solves and d["jacobi_trips"] == 0
+    return d["jacobi_solves_3d"] == 0 and d["jacobi_trips"] >= solves
+
+
+@contextlib.contextmanager
+def forced_zblock(bz):
+    """The z-block tier at block size bz on every volume (as the CPU tests
+    force it: there is no knob), or nothing when bz is None."""
+    from diffpiso_tpu_torch.solvers import tiers
+
+    if bz is None:
+        yield
+        return
+    real = tiers.momentum_tier_3d, tiers.zblock_eligible
+    tiers.momentum_tier_3d = lambda shapes, dtype="float32": "zblock"
+    tiers.zblock_eligible = lambda shape, dtype="float32": bz
+    try:
+        yield
+    finally:
+        tiers.momentum_tier_3d, tiers.zblock_eligible = real
 
 
 # BiCGSTAB's counters: they move only when a Jacobi solve hands over
@@ -2601,19 +2669,24 @@ def less_records(counters: dict, records: list, step_solves: int, skip: set,
     return out
 
 
-def turb3d_small_check(dev) -> None:
-    """Phase 12a: the 3-D turbulence at 32^3 from one seeded 0.5 N(0, 1)
-    state, 3 steps and then the 3-step rollout gradient (remat "none", from
-    the same state), on the card against the plain path on the CPU at the
-    main path's tolerances: equal pressure iterations per step, equal loop
-    counters (PCG loops, warm entries, resets, iterations; Jacobi solves and
-    sweeps; BiCGSTAB hand-overs and iterations) for the steps and for the
+def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
+    """Phase 12a (and 14a): the 3-D turbulence at n^3 (32^3) from one seeded
+    0.5 N(0, 1) state, 3 steps and then the 3-step rollout gradient (under
+    `remat`, from the same state), on the card against the plain path on
+    the CPU at the main path's tolerances, in the tier the volume takes or,
+    with `bz`, in the z-block tier at that block size (14a: 64^3, bz 16,
+    remat "outputs"; the caller forces the tier, `forced_zblock`): equal
+    pressure iterations per step, equal loop counters (PCG loops, warm
+    entries, resets, iterations; Jacobi solves, sweeps and trips; BiCGSTAB
+    hand-overs and iterations) for the steps and for the
     gradient, equal adjoint gate decisions, the velocity within rtol 2e-4 /
     atol 2e-5, the gradient within rel l2 1e-3.
 
     Each momentum solve is also recorded on both devices (its Jacobi
-    hand-over residual, and what it added to BiCGSTAB's counters: hand-over,
-    iterations, applies in both forms), and the records must be equal solve
+    hand-over residual: the largest exit residual of its component solves,
+    or the trip loop's last entry residual; and what it added to
+    BiCGSTAB's counters: hand-over, iterations, applies in both forms), and
+    the records must be equal solve
     by solve. One exception, bounded: a momentum solve whose Jacobi exit
     residual (the largest over its components, the hand-over test) lies
     within 8 ulps of its right-hand side's scale of tol on both devices is
@@ -2631,17 +2704,24 @@ def turb3d_small_check(dev) -> None:
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.solvers import base, krylov
 
-    n = T3_SMALL
+    label = f"{n}^3" if bz is None else f"{n}^3 z-block bz {bz}"
+    tier = "jac13d" if bz is None else "zblock"
     rng = np.random.RandomState(1)
     comps = [(0.5 * rng.randn(n, n, n)).astype(np.float32) for _ in range(3)]
     res = {}
     real, real_bi = krylov.fused_jacobi1_solve_3d, base.bicgstab
+    real_trips = krylov._jacobi_trips
     for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        jac, bi = [], []
+        jac, trips, bi = [], [], []
 
         def recorded(st_c, b, x, sgn, transpose, tol, max_sweeps, jac=jac):
             out = real(st_c, b, x, sgn, transpose, tol, max_sweeps)
             jac.append((out[1], float(b.abs().max()), tol))
+            return out
+
+        def recorded_trips(tier_, st_cs, rhs, x0_c, sgn, transpose, tol, trips=trips):
+            out = real_trips(tier_, st_cs, rhs, x0_c, sgn, transpose, tol)
+            trips.append((out[1], max(float(c.abs().max()) for c in rhs), tol))
             return out
 
         def recorded_bi(*args, bi=bi, **kwargs):
@@ -2652,6 +2732,7 @@ def turb3d_small_check(dev) -> None:
             return out
 
         krylov.fused_jacobi1_solve_3d, base.bicgstab = recorded, recorded_bi
+        krylov._jacobi_trips = recorded_trips
         try:
             t0 = time.perf_counter()
             domain, step = turb3d_step(n, d)
@@ -2663,25 +2744,27 @@ def turb3d_small_check(dev) -> None:
             for _ in range(3):
                 o = step(v, p, g1, g2)
                 if o.warn:
-                    fail(f"{n}^3 steps on {key}: a solve warned")
+                    fail(f"{label} steps on {key}: a solve warned")
                 v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
                 iters.append(list(o.p_iterations))
             c1, step_solves = turb3d_counters(), len(bi)
             f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components),
                                periodic=(True,) * 3)
-            r = rollout_loss_grad(step, v0, p0, f, 3, remat="none")
+            r = rollout_loss_grad(step, v0, p0, f, 3, remat=remat)
             c2 = turb3d_counters()
         finally:
             krylov.fused_jacobi1_solve_3d, base.bicgstab = real, real_bi
+            krylov._jacobi_trips = real_trips
         if r.warns:
-            fail(f"{n}^3 rollout gradient on {key}: {r.warns} steps warned")
-        # one momentum solve = three component solves: (its hand-over
-        # residual, its b's scale, tol)
-        solves = [(max(j[0] for j in jac[i:i + 3]), max(j[1] for j in jac[i:i + 3]), jac[i][2])
-                  for i in range(0, len(jac), 3)]
-        if len(solves) != len(bi):
-            fail(f"{n}^3 on {key}: {len(bi)} momentum solves ran {len(jac)} Jacobi component "
-                 "solves, expected 3 each")
+            fail(f"{label} rollout gradient on {key}: {r.warns} steps warned")
+        # one momentum solve: (its hand-over residual, its b's scale, tol);
+        # in jac13d the largest of its three component solves
+        solves = trips if bz is not None else [
+            (max(j[0] for j in jac[i:i + 3]), max(j[1] for j in jac[i:i + 3]), jac[i][2])
+            for i in range(0, len(jac), 3)]
+        if len(solves) != len(bi) or (bz is not None and jac):
+            fail(f"{label} on {key}: {len(bi)} momentum solves ran {len(jac)} Jacobi component "
+                 f"solves and {len(trips)} trip loops, expected 3 each or one loop each")
         res[key] = dict(
             records=bi, step_solves=step_solves, v=[c.cpu() for c in v.components], iters=iters,
             steps={k: c1[k] - c0[k] for k in c0}, grad_counters={k: c2[k] - c1[k] for k in c0},
@@ -2695,7 +2778,8 @@ def turb3d_small_check(dev) -> None:
     den = sum(float(torch.sum(b ** 2)) for b in cpu["grad"])
     g_rel = (num / den) ** 0.5 if den > 0 else float("inf")
     if len(card["solves"]) != len(cpu["solves"]):
-        fail(f"{n}^3 card vs CPU: {len(card['solves'])} vs {len(cpu['solves'])} momentum solves")
+        fail(f"{label} card vs CPU: {len(card['solves'])} vs {len(cpu['solves'])} momentum "
+             "solves")
     # hand-overs that differ, each with its residual's distance from tol in
     # ulps of b's scale on both devices
     differing = []
@@ -2704,7 +2788,7 @@ def turb3d_small_check(dev) -> None:
             differing.append(dict(solve=i, ulps=[abs(x[0] - x[2]) / float(np.spacing(
                 np.float32(x[1]))) for x in (a, b)]))
     print(json.dumps(dict(
-        check=f"{n}^3 x 3 steps and rollout gradient, card vs CPU plain path",
+        check=f"{label} x 3 steps and rollout gradient (remat {remat}), card vs CPU plain path",
         pressure_iters=[card["iters"], cpu["iters"]], step_counters=[card["steps"], cpu["steps"]],
         grad_counters=[card["grad_counters"], cpu["grad_counters"]],
         handovers_decided_by_rounding=differing, velocity_excess=err, grad_rel_l2=g_rel,
@@ -2713,14 +2797,14 @@ def turb3d_small_check(dev) -> None:
         seconds=[card["seconds"], cpu["seconds"]])), flush=True)
     for x in differing:
         if not max(x["ulps"]) <= 8:
-            fail(f"{n}^3 card vs CPU: momentum solve {x['solve']} hands over on one device "
+            fail(f"{label} card vs CPU: momentum solve {x['solve']} hands over on one device "
                  f"only, {x['ulps']} ulps from tol (more than 8)")
     # every other momentum solve: the same hand-over, BiCGSTAB iterations and
     # applies in both forms on both devices
     skip = {x["solve"] for x in differing}
     for i, (a, b) in enumerate(zip(card["records"], cpu["records"])):
         if i not in skip and a != b:
-            fail(f"{n}^3 card vs CPU: momentum solve {i} differs, "
+            fail(f"{label} card vs CPU: momentum solve {i} differs, "
                  f"({', '.join(HANDOVER_COUNTERS)}) card {a} vs CPU {b}")
     for key in ("iters", "steps", "grad_counters", "decisions"):
         a, b = card[key], cpu[key]
@@ -2729,26 +2813,148 @@ def turb3d_small_check(dev) -> None:
             a, b = (less_records(x[key], x["records"], x["step_solves"], skip, key == "steps")
                     for x in (card, cpu))
         if a != b:
-            fail(f"{n}^3 card vs CPU: {key} differ, card {card[key]} vs CPU {cpu[key]}")
-    if not card["steps"]["jacobi_solves_3d"] == 9:
-        fail(f"{n}^3: {card['steps']['jacobi_solves_3d']} whole Jacobi solves in 3 steps, "
-             "expected 3 per step (the jac13d tier)")
+            fail(f"{label} card vs CPU: {key} differ, card {card[key]} vs CPU {cpu[key]}")
+    if not tier_solves_ok(card["steps"], tier, 3):
+        fail(f"{label}: the 3 steps' counters {card['steps']} do not show 3 momentum solves "
+             f"in the {tier} tier")
     if not err <= 2e-5:
-        fail(f"{n}^3 card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
+        fail(f"{label} card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
     if not g_rel <= 1e-3:
-        fail(f"{n}^3 rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+        fail(f"{label} rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
 
 
-def turb3d_path(dev, wrappers: dict, state) -> tuple:
-    """Phases 12b and 12c: bench.py workload_turb3d at 128^3 from the state
-    phase 2g's spin-up (2 calls of 50 steps) left: 3 timed calls of 50
-    forward steps, then grad10 (remat "none"; 1 untimed and 4 timed
-    evaluations), every launch counter reset before each and checked
-    after: the 3-D assembly once per step, grad3 three and div3 two times,
-    the whole-solve Jacobi and the 7-point matvec as the loops' counters
-    derive (plus the matvec's three explicit_H applies per step), every 2-D
-    kernel never. Returns (forward launches, grad10 launches per
-    evaluation)."""
+def turb3d_tier_kernels(dev, kernels: list, n: int, tier: str, spinup_calls: int,
+                        call_steps: int) -> tuple:
+    """Phase 2h: the tier kernel of the momentum solve at n^3 (15e, the z
+    block at 256^3 with the JAX gate's bz; 15f, the plane sweeps at 512^3)
+    against its plain version on the card, on the operators of the first
+    step after bench.py's spin-up (`spinup_calls` calls of `call_steps`
+    steps from the seeded 0.5 N(0, 1) state; 14b and 14d time from that
+    state): each component forward and transposed, the trip loop's first
+    two calls (the second from the first's x, where the z blocks already
+    at tol sweep zero times). Each must be bit-equal (x and the entry
+    residual; 15e also every block's sweeps). Appends the kernel's entry to
+    `kernels`; returns the developed state."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import tiers
+    from diffpiso_tpu_torch.solvers.jacobi3d import (
+        fused_jacobi_sweep_3d, fused_jacobi_zblock_3d, jacobi_plane3_plain,
+        jacobi_zblock3_plain)
+
+    shape = (n,) * 3
+    if tiers.momentum_tier_3d([shape] * 3) != tier:
+        fail(f"{n}^3: the momentum tier is {tiers.momentum_tier_3d([shape] * 3)}, not {tier}")
+    bz = tiers.zblock_eligible(shape)
+    domain, step = turb3d_step(n, dev)
+    v, p = turb3d_state(n, dev)
+    for call in range(spinup_calls):
+        v, p, _, warns = turb3d_call(step, v, p, call_steps)
+        if warns:
+            fail(f"{n}^3 spin-up call {call}: {warns} steps warned")
+    o = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True)
+    st, b_c = o.intermediates["stencil"], o.intermediates["rhs"].components
+    del o
+    if tier == "zblock":
+        def kernel(st_c, b, x, tr):
+            return fused_jacobi_zblock_3d(st_c, b, x, -1.0, tr, ADV_TOL, JAC_K, bz)
+
+        def plain(st_c, b, x, tr):
+            return jacobi_zblock3_plain(st_c, b, x, -1.0, tr, ADV_TOL, JAC_K, bz)
+    else:
+        def kernel(st_c, b, x, tr):
+            return fused_jacobi_sweep_3d(st_c, b, x, -1.0, tr, JAC_K)
+
+        def plain(st_c, b, x, tr):
+            return jacobi_plane3_plain(st_c, b, x, -1.0, tr, JAC_K)
+
+    name = T3_TIER_KERNELS[tier]
+    report, err, block_sweeps = [], 0.0, None
+    for c in range(3):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for transpose in (False, True):
+            x = v.components[c].contiguous()
+            for trip in (1, 2):
+                kout, pout = kernel(st_c, b_c[c], x, transpose), plain(st_c, b_c[c], x, transpose)
+                bit = torch.equal(kout[0], pout[0]) and float(kout[1]) == float(pout[1])
+                sweeps = [o_[2].tolist() for o_ in (kout, pout)] if tier == "zblock" else None
+                err = max(err, float((kout[0] - pout[0]).abs().max()))
+                report.append(dict(component=c, transpose=transpose, trip=trip, bit_equal=bit,
+                                   entry_residual=[float(kout[1]), float(pout[1])],
+                                   block_sweeps=sweeps))
+                if not bit or (sweeps and sweeps[0] != sweeps[1]):
+                    fail(f"{n}^3 {name} component {c} transpose={transpose} trip {trip}: kernel "
+                         f"and plain differ (bit-equal {bit}; sweeps {sweeps})")
+                if (c, transpose, trip) == (0, False, 1) and sweeps:
+                    block_sweeps = sweeps[0]
+                x = kout[0]
+                del kout, pout
+    print(json.dumps(dict(check=f"{n}^3 {name} vs plain (bz {bz})", results=report)),
+          flush=True)
+    # timed on component 0's forward first trip; its operands copied, so the
+    # step's buffers are freed before the timed path
+    ops0 = [t_.clone() for t_ in (st.center[0], *st.lo[0], *st.hi[0], b_c[0])]
+    st0 = (ops0[0], tuple(ops0[1:4]), tuple(ops0[4:7]))
+    b0, x0 = ops0[7], v.components[0].contiguous().clone()
+    del st, b_c
+    vol = n ** 3 * 4
+    cells = n ** 3
+    if tier == "zblock":
+        # 9 volumes in (7 coefficients, b, x), x out; per cell the entry
+        # residual (15 flops) and per sweep of its block 18 (dlt 2, the
+        # update 1, the matvec 13, the residual update 2): this call's sweeps
+        swept = sum(block_sweeps) * bz * n * n
+        b_k, by_k = bound(10 * vol, 15 * cells + 18 * swept)
+        extra = dict(bz=bz, block_sweeps=block_sweeps,
+                     launches_count=f"kernel launches (per call: init, then {JAC_K} sweeps)")
+    else:
+        # 9 volumes in, x out; per cell the z terms and rhs (6 flops), then
+        # per sweep the in-plane residual (11) and the update (2)
+        b_k, by_k = bound(10 * vol, cells * (6 + 13 * JAC_K))
+        extra = dict(launches_count=f"kernel launches (per call: {JAC_K}, one per sweep)")
+    src, line = ("jacobi_zblock3", 1443) if tier == "zblock" else ("jacobi_plane3", 1315)
+    kernels.append(dict(
+        name=name, route="cuda", source=f"diffpiso_tpu_torch/csrc/{src}.cu",
+        replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}",
+        max_abs_err=err, shape=list(shape), **extra,
+        ms=cuda_time_ms(lambda: kernel(st0, b0, x0, False), 10),
+        **device_time(lambda: kernel(st0, b0, x0, False), 5),
+        plain_ms=cuda_time_ms(lambda: plain(st0, b0, x0, False), 3),
+        bound_ms=b_k, bound_by=by_k, library_ms=None))
+    return v, p
+
+
+def turb3d_grad_expected(U: int, remat: str, derived: dict) -> dict:
+    """The 3-D kernels' launches per grad evaluation of U steps. Remat
+    "none": the assembly U; grad3 3U forward + 2U (the div3 VJPs); div3 2U
+    forward + 2U (the correctors' grad3 VJPs) + U - 1 (the predictor's: the
+    initial pressure carries no gradient); the matvec's explicit_H 3U
+    forward + 3U transposed (its VJP). Remat "outputs" replays each step's
+    forward but its solves in the backward pass: the assembly 2U, grad3 8U,
+    div3 7U - 1, explicit_H 9U. The solves' kernels as the loops' counters
+    derive (`derived`: U forward and U transposed momentum solves, 2U warm
+    forward and 2U cold adjoint pressure loops, none replayed)."""
+    replay = remat == "outputs"
+    out = dict(derived, advection_assembly3=(2 if replay else 1) * U,
+               grad3=(8 if replay else 5) * U, div3=(7 if replay else 5) * U - 1)
+    out["stencil_matvec3d"] = (9 if replay else 6) * U + derived["stencil_matvec3d"]
+    return out
+
+
+def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
+                calls=T3_TIMED_CALLS, call_steps=T3_CALL, unroll=T3_UNROLL,
+                grad_reps=T3_GRAD_REPS) -> tuple:
+    """Phases 12b and 12c (and 14b-d): bench.py workload_turb3d at n^3
+    (128^3) from the state the spin-up (2 calls of 50 steps) left, in the
+    momentum tier the volume takes (`tier`, asserted): `calls` timed calls
+    of `call_steps` forward steps, then grad{unroll} under `remat` (1
+    untimed and `grad_reps` timed evaluations; none when `grad_reps` is 0),
+    every launch counter reset before each and checked after: the 3-D
+    assembly once per step, grad3 three and div3 two times, the tier's
+    Jacobi kernel and the 7-point matvec as the loops' counters derive
+    (plus the matvec's three explicit_H applies per step), every other
+    kernel never. Returns (forward launches, grad launches per evaluation
+    or None)."""
     import torch
 
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
@@ -2757,7 +2963,6 @@ def turb3d_path(dev, wrappers: dict, state) -> tuple:
 
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         fail("TF32 matmul is on: the pressure solves must contract in full float32")
-    n = T3_N
     domain, step = turb3d_step(n, dev)
     v, p = state
 
@@ -2776,63 +2981,69 @@ def turb3d_path(dev, wrappers: dict, state) -> tuple:
     reset()
     c0 = turb3d_counters()
     torch.cuda.reset_peak_memory_stats()
+    # live before the run: the state, and the operands earlier phases keep
+    # for their device-time measurement at the end
+    held = torch.cuda.memory_allocated()
     warns, iters = 0, [0, 0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(T3_TIMED_CALLS):
-        v, p, it, w = turb3d_call(step, v, p)
+    for _ in range(calls):
+        v, p, it, w = turb3d_call(step, v, p, call_steps)
         iters = [iters[0] + it[0], iters[1] + it[1]]
         warns += w
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     fwd = read()
-    derived, d = turb3d_derived(c0, turb3d_counters())
-    S = T3_TIMED_CALLS * T3_CALL
+    derived, d = turb3d_derived(c0, turb3d_counters(), tier)
+    S = calls * call_steps
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
+    jacobi = (dict(jacobi_sweeps_per_solve=d["jacobi_sweeps"] / d["jacobi_solves_3d"])
+              if tier == "jac13d" else
+              dict(momentum_tier=tier, trips_per_solve=d["jacobi_trips"] / S,
+                   sweeps_per_trip=d["jacobi_block_sweeps"] / max(d["jacobi_trips"], 1)))
     print(json.dumps(dict(
         workload=f"3-D decaying turbulence {n}^3 (periodic, random IC projected by spin-up), "
                  "forward",
         steps=S, steps_per_sec=S / elapsed,
         pressure_iters_per_step=[iters[0] / S, iters[1] / S], warn_fraction=warns / S,
-        jacobi_sweeps_per_solve=d["jacobi_sweeps"] / d["jacobi_solves_3d"],
-        bicgstab_fallbacks=d["bicgstab_fallbacks"],
+        **jacobi, bicgstab_fallbacks=d["bicgstab_fallbacks"],
         max_abs_div=float(fv_divergence(v, domain.dx).abs().max()),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        loop_counters=d, launches=fwd)), flush=True)
+        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd)), flush=True)
     if not finite:
         fail(f"{n}^3: non-finite state after the forward path")
     if warns:
         fail(f"{n}^3: warn fraction {warns / S} (must be 0)")
-    if d["jacobi_solves_3d"] != 3 * S:
-        fail(f"{n}^3: {d['jacobi_solves_3d']} whole Jacobi solves, expected 3 per step")
+    if not tier_solves_ok(d, tier, S):
+        fail(f"{n}^3: the counters {d} do not show one momentum solve per step in the {tier} "
+             "tier")
     # per step: the assembly, three gradients (predictor, both correctors),
     # two divergences, explicit_H's three matvecs
-    check("forward", fwd, dict(advection_assembly3=S, grad3=3 * S, div3=2 * S,
-                               jacobi1_solve_3d=derived["jacobi1_solve_3d"],
+    check("forward", fwd, dict(derived, advection_assembly3=S, grad3=3 * S, div3=2 * S,
                                stencil_matvec3d=3 * S + derived["stencil_matvec3d"]))
+    if not grad_reps:
+        return fwd, None
 
-    # grad10 from the developed state, remat "none". Per evaluation, U steps:
-    # the assembly U; grad3 3U forward + 2U (the div3 VJPs); div3 2U forward +
-    # 2U (the correctors' grad3 VJPs) + U - 1 (the predictor's: the initial
-    # pressure carries no gradient); the matvec's explicit_H 3U forward + 3U
-    # transposed (its VJP); U forward and U transposed momentum solves, 2U
-    # warm forward and 2U cold adjoint pressure loops, as the counters derive
-    U = T3_UNROLL
+    # grad{U} from the developed state; per evaluation U forward and U
+    # transposed momentum solves, 2U warm forward and 2U cold adjoint
+    # pressure loops (turb3d_grad_expected)
+    U = unroll
     forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                              periodic=(True,) * 3)
     evals = []
-    for rep in range(1 + T3_GRAD_REPS):
+    for rep in range(1 + grad_reps):
         reset()
         c0 = turb3d_counters()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = rollout_loss_grad(step, v, p, forcing, U, remat="none")
+        res = rollout_loss_grad(step, v, p, forcing, U, remat=remat)
         torch.cuda.synchronize()
         elapsed_g = time.perf_counter() - t0
         counts = read()
-        derived, d = turb3d_derived(c0, turb3d_counters())
+        derived, d = turb3d_derived(c0, turb3d_counters(), tier)
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -2847,23 +3058,21 @@ def turb3d_path(dev, wrappers: dict, state) -> tuple:
             adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
                                         default=None),
             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-            loop_counters=d, launches=counts))
-        print(json.dumps(dict(turb3d_grad_eval=rep, **evals[-1])), flush=True)
+            memory_allocated_before_bytes=held, loop_counters=d, launches=counts))
+        print(json.dumps(dict(turb3d_grad_eval=rep, n=n, **evals[-1])), flush=True)
         if res.warns:
             fail(f"{n}^3 grad{U}: warn fraction {res.warns / U} (must be 0)")
         if not (gnorm > 0 and gnorm < float("inf")):
             fail(f"{n}^3 grad{U}: |grad| = {gnorm} (must be finite and > 0)")
-        if d["jacobi_solves_3d"] != 6 * U or d["pcg_loops"] < 2 * U:
-            fail(f"{n}^3 grad{U}: not 6U whole Jacobi solves and the 2U cold adjoint loops")
-        check(f"grad{U}", counts, dict(
-            advection_assembly3=U, grad3=5 * U, div3=5 * U - 1,
-            jacobi1_solve_3d=derived["jacobi1_solve_3d"],
-            stencil_matvec3d=6 * U + derived["stencil_matvec3d"]))
+        if not tier_solves_ok(d, tier, 2 * U) or d["pcg_loops"] < 2 * U:
+            fail(f"{n}^3 grad{U}: not 2U momentum solves in the {tier} tier and the 2U cold "
+                 "adjoint loops")
+        check(f"grad{U}", counts, turb3d_grad_expected(U, remat, derived))
         if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
             fail(f"{n}^3 grad{U}: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
     print(json.dumps(dict(
-        workload=f"3-D decaying turbulence {n}^3, grad{U} (d sum v^2 / d forcing), remat none",
+        workload=f"3-D decaying turbulence {n}^3, grad{U} (d sum v^2 / d forcing), remat {remat}",
         evaluations=len(timed),
         unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
         pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
@@ -2874,6 +3083,7 @@ def turb3d_path(dev, wrappers: dict, state) -> tuple:
         adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
         adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
         max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
+        memory_allocated_before_bytes=timed[-1]["memory_allocated_before_bytes"],
         grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
     )), flush=True)
     return fwd, timed[-1]["launches"]
@@ -3796,6 +4006,7 @@ def main() -> int:
         fused_jacobi1_solve, fused_jacobi1_solve_3d, fused_jacobi1_solve_batched)
     from diffpiso_tpu_torch.solvers.jacobi2 import (
         fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
+    from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
     from diffpiso_tpu_torch.solvers.pcg2 import (
         fused_pcg2_solve, fused_pcg2_solve_batched, gemm, pcg2_plain)
     from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
@@ -4146,6 +4357,10 @@ def main() -> int:
         "grad3": (fv3.grad3, 0),
         "stencil_matvec3d": (matvec.fused_stencil_matvec3d, 0),
         "jacobi1_solve_3d": (fused_jacobi1_solve_3d, 0),
+        # the 3-D tiers past the whole solve's budget: only 3-D turbulence at
+        # 256^3 (the z block) and 512^3 (the plane sweeps) takes them (phase 14)
+        "jacobi_zblock_3d": (fused_jacobi_zblock_3d, 0),
+        "jacobi_sweep_3d": (fused_jacobi_sweep_3d, 0),
         # the batched "auto" regime's whole solves: only batches of 512^2-class
         # planes take them (phase 13)
         "pcg2_solve_batched": (fused_pcg2_solve_batched, 0),
@@ -4249,6 +4464,7 @@ def main() -> int:
         "grad2m": 0, "div2m": 0, "gradT2m": 0, "stencil_matvec": 0,
         "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
         "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
+        **{k: 0 for k in T3_TIER_KERNELS.values()},
         "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
@@ -4353,12 +4569,33 @@ def main() -> int:
     bat["batched_training"] = batched_training_path(
         dev, {k: fn for k, (fn, _) in wrappers.items()})
 
+    # -- phase 14: 3-D turbulence past the whole solve's budget (bench.py --n3d 256, 512) -----
+    # (a) 64^3 card vs CPU in the z-block tier, forced at bz 16
+    with forced_zblock(T3_ZB_SMALL_BZ):
+        turb3d_small_check(dev, T3_ZB_SMALL, T3_ZB_SMALL_BZ, T3_BIG_REMAT)
+    # 2h at 256^3 (the z block) on the state after bench.py's spin-up, then
+    # (b) the forward and (c) grad10 under "outputs" remat from it
+    state_big = turb3d_tier_kernels(dev, kernels, T3_BIG, "zblock", T3_SPINUP_CALLS, T3_CALL)
+    big_fwd, big_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_big,
+                                    T3_BIG, "zblock", T3_BIG_REMAT,
+                                    grad_reps=T3_BIG_GRAD_REPS)
+    del state_big
+    torch.cuda.empty_cache()
+    # 2h at 512^3 (the plane sweeps) after one spin-up call of 20 steps,
+    # then (d) one timed call of 20 forward steps (bench.py --fwd-only,
+    # cut for time)
+    state_huge = turb3d_tier_kernels(dev, kernels, T3_HUGE, "plane", 1, T3_HUGE_CALL)
+    huge_fwd, _ = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_huge,
+                              T3_HUGE, "plane", calls=1, call_steps=T3_HUGE_CALL, grad_reps=0)
+    del state_huge
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
     # and the BiCGSTAB phases, which only its adjoint's fallback launches,
     # from its grad30 evaluation); the large tier's from the 1024^2
     # turbulence forward run, the 3-D kernels from the 128^3 forward run, the
+    # z-block and plane kernels from the 256^3 and 512^3 forward runs, the
     # others from the 512^2 turbulence forward run; every path's counts
     # stand beside them
     for entry in kernels:
@@ -4376,6 +4613,12 @@ def main() -> int:
         elif name in T3_KERNELS:
             entry["path"] = "turbulence 128^3 forward"
             entry["launches"] = turb3d_fwd[name]
+        elif name == T3_TIER_KERNELS["zblock"]:
+            entry["path"] = f"turbulence {T3_BIG}^3 forward"
+            entry["launches"] = big_fwd[name]
+        elif name == T3_TIER_KERNELS["plane"]:
+            entry["path"] = f"turbulence {T3_HUGE}^3 forward"
+            entry["launches"] = huge_fwd[name]
         elif name in LARGE_KERNELS:
             entry["path"] = "turbulence 1024 forward"
             entry["launches"] = turb1024_fwd[name]
@@ -4405,6 +4648,9 @@ def main() -> int:
         entry["dns_grad30_launches"] = dns_grad[key]
         entry["turb3d_launches"] = turb3d_fwd[key]
         entry["turb3d_grad10_launches"] = turb3d_grad[key]
+        entry[f"turb3d{T3_BIG}_launches"] = big_fwd[key]
+        entry[f"turb3d{T3_BIG}_grad10_launches"] = big_grad[key]
+        entry[f"turb3d{T3_HUGE}_launches"] = huge_fwd[key]
         for path, counts in bat.items():
             entry[f"{path}_launches"] = counts[key]
         entry.update(large_measured.get(name, {}))

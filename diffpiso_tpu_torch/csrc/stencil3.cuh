@@ -1,6 +1,6 @@
 // Periodic 3-D cell addressing and the 7-point stencil matvec: the device
-// code that the 7-point matvec (matvec3.cu) and the 3-D whole-solve Jacobi
-// (jacobi1_3d.cu) share.
+// code that the 7-point matvec (matvec3.cu) and the 3-D Jacobi kernels
+// (jacobi1_3d.cu, jacobi_zblock3.cu, jacobi_plane3.cu) share.
 //
 // Volumes are contiguous (nz, ny, nx) float32; every axis wraps. The matvec
 // adds its terms in the order of the plain PyTorch version
@@ -40,26 +40,36 @@ struct Stencil7 {
   const float *c, *lz, *hz, *ly, *hy, *lx, *hx;
 };
 
-// (S v) or (S^T v) at cell n, v a functor of a flat index
+// (S v) or (S^T v) at cell n, v a functor of a flat index, with the values
+// at the two z neighbours given apart (vzm at n.zm, vzp at n.zp): the
+// z-block Jacobi (jacobi_zblock3.cu) passes zeros where they lie outside
+// its block. The coefficients are always read at the neighbour indices.
 template <bool TRANSPOSE, typename F>
-__device__ __forceinline__ float dp3_matvec(const Stencil7& s, const Nbr3& n, F v) {
+__device__ __forceinline__ float dp3_matvec_z(const Stencil7& s, const Nbr3& n, F v,
+                                              float vzm, float vzp) {
   float q = s.c[n.c] * v(n.c);
   if (!TRANSPOSE) {
-    q = q + s.lz[n.c] * v(n.zm);
-    q = q + s.hz[n.c] * v(n.zp);
+    q = q + s.lz[n.c] * vzm;
+    q = q + s.hz[n.c] * vzp;
     q = q + s.ly[n.c] * v(n.ym);
     q = q + s.hy[n.c] * v(n.yp);
     q = q + s.lx[n.c] * v(n.xm);
     q = q + s.hx[n.c] * v(n.xp);
   } else {
-    q = q + s.lz[n.zp] * v(n.zp);
-    q = q + s.hz[n.zm] * v(n.zm);
+    q = q + s.lz[n.zp] * vzp;
+    q = q + s.hz[n.zm] * vzm;
     q = q + s.ly[n.yp] * v(n.yp);
     q = q + s.hy[n.ym] * v(n.ym);
     q = q + s.lx[n.xp] * v(n.xp);
     q = q + s.hx[n.xm] * v(n.xm);
   }
   return q;
+}
+
+// (S v) or (S^T v) at cell n, v a functor of a flat index
+template <bool TRANSPOSE, typename F>
+__device__ __forceinline__ float dp3_matvec(const Stencil7& s, const Nbr3& n, F v) {
+  return dp3_matvec_z<TRANSPOSE>(s, n, v, v(n.zm), v(n.zp));
 }
 
 __device__ __forceinline__ size_t dp3_thread_index() {

@@ -1,7 +1,8 @@
 """Krylov solvers on staggered fields and pressure planes.
 
 Counterpart of diffpiso_tpu/solvers/krylov.py: `bicgstab` (Jacobi
-preconditioning, the whole-solve Jacobi accelerators in front, the fused
+preconditioning, the Jacobi accelerators in front: whole solves, or the
+trip loop of the 3-D z-block and plane tiers; the fused
 phase-kernel loop and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
 per-iteration loop with residual resets through the phase kernels, M^-1
@@ -40,6 +41,7 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
     sample_max_abs,
     sample_tols,
 )
+from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_batched
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
@@ -203,8 +205,15 @@ def bicgstab(
     jac1's budget would take the k-sweep launches, which are not ported
     (raises); past that, as in the JAX package, no Jacobi runs. Volumes
     take the 3-D tiers (tiers.momentum_tier_3d): one whole solve per
-    component (kernel 15d) within its budget (128^3); the z-block and
-    plane-sweep tiers past it are not ported (raise). The
+    component (kernel 15d) within its budget (128^3); past it the trip
+    loop of the JAX package's `krylov.bicgstab` (krylov.py:385-477), up to
+    8 trips while the residual n is above tol, each trip 4 sweeps on every
+    component: per z block of the JAX gate's bz (kernel 15e, 192^3 and
+    256^3), else per z plane with the z coupling frozen (kernel 15f,
+    planes up to 1 MiB: 512^3). Both report the residual of the iterate
+    they were given, so n is the largest entry residual of the last trip
+    (one host read per trip), and the loop hands over unless it is below
+    tol. The
     advection system is diagonally dominant by beta, so the Jacobi solve
     usually reaches tol alone and the Krylov loop never runs; otherwise
     BiCGSTAB continues from the Jacobi iterate. On float32 planes its loop runs the
@@ -262,31 +271,24 @@ def bicgstab(
             "momentum planes past jac1's budget but within 8 MiB take the JAX package's "
             "k-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweeps), which are not "
             "ported")
-    if tier == "zblock":
-        raise NotImplementedError(
-            "momentum volumes past the whole-solve budget (15 x cells x 4 B > 120 MiB, the "
-            "256^3 class) take the JAX package's z-block Jacobi launches "
-            "(pallas_krylov.py fused_jacobi_zblock_3d), which are not ported")
-    if tier == "plane":
-        raise NotImplementedError(
-            "momentum volumes past the whole-solve and z-block budgets take the JAX "
-            "package's plane-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweep_3d), "
-            "which are not ported")
-    if tier in ("jac2", "jac1", "jac13d"):
+    if tier in ("jac2", "jac1", "jac13d", "zblock", "plane"):
         x0_c = tuple(_comps(x0))
-        if tier == "jac2":
+        if tier in ("zblock", "plane"):
+            xs, jn = _jacobi_trips(tier, st_cs, comps, x0_c, sgn, transpose, tol32)
+        elif tier == "jac2":
             xo0, xo1, jn, sweeps = fused_jacobi2_solve(st_cs, tuple(comps), x0_c, sgn,
                                                        transpose, tol32, 1 + 8 * 4)
             xs = [xo0, xo1]
+            bicgstab.jacobi_sweeps += sweeps
+            bicgstab.jacobi_solves += 1
         else:
             solve1 = fused_jacobi1_solve_3d if tier == "jac13d" else fused_jacobi1_solve
             outs = [solve1(st_cs[i], comps[i].contiguous(), x0_c[i].contiguous(), sgn,
                            transpose, tol32, 1 + 8 * 4) for i in range(len(comps))]
             xs = [o[0] for o in outs]
             jn = float(np.max([o[1] for o in outs]))  # NaN propagates
-            sweeps = sum(o[2] for o in outs)
-        bicgstab.jacobi_sweeps += sweeps
-        bicgstab.jacobi_solves += 1 if tier == "jac2" else len(comps)
+            bicgstab.jacobi_sweeps += sum(o[2] for o in outs)
+            bicgstab.jacobi_solves += len(comps)
         x0 = _rebuild(b, xs)
         if jn < tol32:
             x, rnorm, k = x0, jn, 0
@@ -305,10 +307,45 @@ def bicgstab(
                        converged=rnorm < tol32, warn=warn)
 
 
+def _jacobi_trips(tier, st_cs, comps, x0_c, sgn, transpose, tol, max_trips=8, k=4):
+    """The trip loop of the z-block and plane tiers: while the largest
+    entry residual n of the last trip is above tol and trips remain, one
+    call of the tier's kernel per component (k sweeps each). Returns (the
+    iterates, n)."""
+    if tier == "zblock":
+        bzs = [tiers.zblock_eligible(tuple(c.shape), c.dtype) for c, _, _ in st_cs]
+    xs = [x.contiguous() for x in x0_c]
+    n = float("inf")
+    trips = 0
+    while n > tol and trips < max_trips:
+        if tier == "zblock":
+            outs = [fused_jacobi_zblock_3d(st_cs[i], comps[i].contiguous(), xs[i], sgn,
+                                           transpose, tol, k, bzs[i])
+                    for i in range(len(comps))]
+            sweeps = [o[2].sum().to(o[1].dtype) for o in outs]
+        else:
+            outs = [fused_jacobi_sweep_3d(st_cs[i], comps[i].contiguous(), xs[i], sgn,
+                                          transpose, k) for i in range(len(comps))]
+            sweeps = []
+        # one host read: the entry residuals and the z blocks' sweeps
+        vals = torch.stack([o[1] for o in outs] + sweeps).tolist()
+        n = float(np.max(vals[:len(outs)]))  # NaN propagates
+        xs = [o[0] for o in outs]
+        trips += 1
+        bicgstab.jacobi_block_sweeps += int(sum(vals[len(outs):])) if sweeps else k * len(outs)
+    bicgstab.jacobi_trips += trips
+    return xs, n
+
+
 bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGSTAB
 bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
 bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1 / jac13d: summed over components)
 bicgstab.jacobi_solves = 0  # whole Jacobi solves (jac2: one joint solve; jac1 / jac13d: one per component)
+# the z-block and plane tiers' trip loop (each trip: one kernel call per
+# component): trips, and sweeps (z-block: summed over blocks and
+# components, each block's own count; plane: k per call)
+bicgstab.jacobi_trips = 0
+bicgstab.jacobi_block_sweeps = 0
 # operator applications inside the BiCGSTAB loop, by transpose flag (each
 # applies the matvec once per component)
 bicgstab.applies = {False: 0, True: 0}

@@ -5,7 +5,7 @@
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
-    python3 profile_torch_step.py --workload turb3d [--n 128] [--grad] [--trace PATH]
+    python3 profile_torch_step.py --workload turb3d [--n 128|256] [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload batched512 [--batch 4] [--grad] [--trace PATH]
 
 Runs one workload of the port: `turbulence` (the default; 2-D periodic
@@ -39,7 +39,9 @@ with M^-1 folded into the update or, on the DNS, the PCG phases).
 `turb3d` is bench.py's workload_turb3d at n^3 (default 128^3: viscosity
 1e-3, dt 0.4/n, tol 1e-6 / 1e-8, a seeded 0.5 N(0, 1) state developed by
 the 100-step spin-up, 2 calls of 50 steps); its --grad profiles one grad10
-evaluation with remat "none", bench.py's protocol at 128^3.
+evaluation with remat "none" below 192^3 and "outputs" from 192^3 on
+(bench.py's protocol: at --n 256 the momentum solve takes the z-block
+tier).
 `batched512` is the batched "auto" regime of runs/ab_batched_512.py:
 `--batch` (default 4) seeded samples of `turbulence` at 512^2 (or --n)
 stepped at once, the grid-over-batch whole solves and the plane kernels
@@ -82,6 +84,8 @@ FAMILIES = (
     ("laplace_assembly", "laplace assembly"),
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
     ("jac13d_", "jacobi 3-D whole-solve sweeps"),
+    ("zb_", "jacobi 3-D z-block sweeps"),
+    ("pl3_", "jacobi 3-D plane sweeps"),
     ("advassembly", "advection assembly"),
     ("fv2_", "FV div2 / grad2"),
     ("fv2m_", "FV div2m / grad2m / gradT2m"),
@@ -129,7 +133,8 @@ def main() -> int:
     if args.trace is None:
         mode = f"b{args.batch}" if args.workload == "training" else (
             "grad" if args.grad else "step")
-        args.trace = f"traces/profile_torch_{args.workload}_{mode}.json"
+        label = f"turb3d{args.n}" if args.workload == "turb3d" else args.workload
+        args.trace = f"traces/profile_torch_{label}_{mode}.json"
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -165,7 +170,8 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(0)
         v = StaggeredField(tuple(0.5 * torch.randn((n,) * 3, generator=gen, device=dev)
                                  for _ in range(3)), periodic=(True,) * 3)
-        unroll, remat = 10, "none"
+        # bench.py workload_turb3d remats from 192^3 on
+        unroll, remat = 10, "outputs" if n >= 192 else "none"
     elif args.workload == "turbulence":
         domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
         dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 10

@@ -62,6 +62,12 @@ from diffpiso_tpu_torch.solvers.jacobi1 import (
     jacobi1_plain,
 )
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+from diffpiso_tpu_torch.solvers.jacobi3d import (
+    fused_jacobi_sweep_3d,
+    fused_jacobi_zblock_3d,
+    jacobi_plane3_plain,
+    jacobi_zblock3_plain,
+)
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
@@ -986,6 +992,48 @@ def test_jacobi13d_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
     px, pn, ps = jacobi1_3d_plain((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
     assert ks == ps > 0 and kn == pn and torch.equal(kx, px)
     assert fused_jacobi1_solve_3d.launches - before == 2 + ks
+
+
+def _system3(shape, seed, device, plane_scale=None):
+    rng = np.random.RandomState(seed)
+    c = t(-20.0 + 0.3 * rng.randn(*shape)).to(device)
+    lo = tuple(t(0.4 * rng.randn(*shape)).to(device) for _ in range(3))
+    hi = tuple(t(0.4 * rng.randn(*shape)).to(device) for _ in range(3))
+    b = 0.1 * rng.randn(*shape)
+    if plane_scale is not None:
+        b = b * plane_scale[:, None, None]
+    return (c, lo, hi), t(b).to(device)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape,bz", [((12, 12, 16), 3), ((32, 48, 64), 8)])
+def test_jacobi_zblock3d_kernel_is_bit_equal_to_plain(shape, bz, transpose, cuda_device):
+    """Kernel 15e: x, the entry residual and every block's sweeps equal; a
+    block at tol (its b near zero) sweeps zero times, one stops early."""
+    scale = np.ones(shape[0], np.float32)
+    scale[:bz] = 1e-7
+    scale[-bz:] = 1e-3
+    st, b = _system3(shape, 90, cuda_device, scale)
+    x0 = torch.zeros_like(b)
+    before = fused_jacobi_zblock_3d.launches
+    kx, kn, ks = fused_jacobi_zblock_3d(st, b, x0, -1.0, transpose, 1e-6, 4, bz)
+    px, pn, ps = jacobi_zblock3_plain(st, b, x0, -1.0, transpose, 1e-6, 4, bz)
+    assert torch.equal(kx, px) and float(kn) == float(pn)
+    assert ks.tolist() == ps.tolist() and ps[0] == 0 and int(ps.max()) == 4
+    assert fused_jacobi_zblock_3d.launches - before == 5
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape", VOLUMES)
+def test_jacobi_plane3d_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+    st, b = _system3(shape, 91, cuda_device)
+    x0 = 0.004 * _rand(shape, 92).to(cuda_device)
+    for k in (1, 4):
+        before = fused_jacobi_sweep_3d.launches
+        kx, kn = fused_jacobi_sweep_3d(st, b, x0, -1.0, transpose, k)
+        px, pn = jacobi_plane3_plain(st, b, x0, -1.0, transpose, k)
+        assert torch.equal(kx, px) and float(kn) == float(pn)
+        assert fused_jacobi_sweep_3d.launches - before == k
 
 
 def test_cuda_turb3d_steps_and_gradient_match_the_cpu_plain_path(cuda_device):

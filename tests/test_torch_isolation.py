@@ -153,3 +153,11 @@ def test_the_scan_covers_the_batched_slice_modules():
     for name in ("pcg2.cu", "gemm.cuh", "jacobi1.cu", "jacobi.cuh", "jacobi2_fold.cu",
                  "advassembly.cu", "laplace_assembly.cu", "fv2.cu", "matvec.cu"):
         assert (PKG / "csrc" / name).exists()
+
+
+def test_the_scan_covers_the_3d_tier_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/solvers/jacobi3d.py", "diffpiso_tpu_torch/solvers/krylov.py",
+            "diffpiso_tpu_torch/solvers/tiers.py", "diffpiso_tpu_torch/core/rollout.py"} <= scanned
+    for name in ("jacobi_zblock3.cu", "jacobi_plane3.cu", "stencil3.cuh"):
+        assert (PKG / "csrc" / name).exists()

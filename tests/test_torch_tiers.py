@@ -7,10 +7,12 @@ the k-sweep tier raises at 1024 x 2048, 2048^2 runs BiCGSTAB with no
 Jacobi, and the one clause left out on purpose (pcg2's adjoint alignment
 exclusion) keeps small periodic adjoints on pcg2. The 3-D gates (jac13d,
 the z-block size, the plane sweeps) against the JAX ones at 32^3 to 256^3
-and past them, and the raises of the two 3-D tiers that are not ported."""
+and past them, and the dispatch of the z-block and plane tiers to their
+kernels (15e with the JAX block size, 15f; k = 4)."""
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -215,8 +217,8 @@ def test_3d_gate_boundaries(tpu_gates):
 
 def _momentum_system_3d(shape):
     """A periodic three-component stencil of one broadcast zero and one
-    broadcast center value: the raises come before any arithmetic, so no
-    256^3 volume is allocated."""
+    broadcast center value, so no operator volume of the full shape is
+    allocated (the wrappers are replaced by spies that do no arithmetic)."""
     z = torch.zeros(1).expand(shape)
     c = torch.full((1,), -4.0).expand(shape)
     st = AdvectionStencil(center=(c,) * 3, lo=((z,) * 3,) * 3, hi=((z,) * 3,) * 3,
@@ -227,8 +229,33 @@ def _momentum_system_3d(shape):
 
 @pytest.mark.parametrize("shape,kernel", [((256, 256, 256), "fused_jacobi_zblock_3d"),
                                           ((131, 256, 256), "fused_jacobi_sweep_3d")])
-def test_the_unported_3d_tiers_raise_naming_their_kernel(shape, kernel):
+def test_the_3d_tiers_dispatch_to_their_kernel(shape, kernel, tpu_gates, monkeypatch):
+    """Past the whole-solve budget `bicgstab` runs the tier's kernel once per
+    component and trip, with k = 4 and, in the z-block tier, the JAX gate's
+    block size (8 at 256^3); the other 3-D kernels never run. The spies
+    report an entry residual of 0, so one trip ends the loop and the solve
+    keeps the iterate."""
     st, b = _momentum_system_3d(shape)
-    with pytest.raises(NotImplementedError, match=kernel):
-        krylov.bicgstab(lambda v: v, b, tol=1e-6,
-                        diag=StaggeredField(st.center, (True,) * 3), stencil=st, negate=True)
+    calls = []
+
+    def spy(st_c, rhs, x, sgn, transpose, *args):
+        calls.append((kernel, tuple(rhs.shape), sgn, transpose, args))
+        n0 = torch.zeros(())
+        return (x, n0, torch.zeros(shape[0] // args[2], dtype=torch.int32)) \
+            if kernel == "fused_jacobi_zblock_3d" else (x, n0)
+
+    def never(*a, **k):
+        pytest.fail("another 3-D kernel ran")
+
+    for name in ("fused_jacobi_zblock_3d", "fused_jacobi_sweep_3d", "fused_jacobi1_solve_3d"):
+        monkeypatch.setattr(krylov, name, spy if name == kernel else never)
+    trips = krylov.bicgstab.jacobi_trips
+    res = krylov.bicgstab(lambda v: v, b, tol=1e-6, diag=StaggeredField(st.center, (True,) * 3),
+                          stencil=st, negate=True)
+    bz = pk.zblock_eligible(shape, F32)
+    assert bz == tiers.zblock_eligible(shape) == (8 if kernel == "fused_jacobi_zblock_3d" else None)
+    # after (st_c, b, x, sgn, transpose): the z-block kernel's (tol, k, bz), the plane one's k
+    want = (float(np.float32(1e-6)), 4, 8) if bz else (4,)
+    assert calls == [(kernel, shape, -1.0, False, want)] * 3
+    assert krylov.bicgstab.jacobi_trips - trips == 1
+    assert res.iterations == 0 and res.residual_norm == 0.0 and not res.warn
