@@ -223,6 +223,30 @@ Phases, each fatal on failure:
      --fwd-only, cut for time to one timed call of 20 steps: the plane
      kernel as derived, the z-block kernel and jac13d 0, warn 0, peak
      memory. The earlier paths assert 0 launches of both.
+  2i. (after phase 6) row 10d, the CG iteration, against its plain version
+     on the 513 x 512 cavity's Laplacian in the reference's configuration
+     (plain CG, one step from phase 6's state) with deflation on and off,
+     and on phase 4's periodic 512^2 Laplacian: planes within 1e-6 of their
+     scale, rnorm / p.q / alpha / beta within rel 1e-5 (the block sums run
+     in another order); host ms, device us per launch, the bound, the plain
+     version, one cuSPARSE SpMV of the same Laplacian.
+  15. the JAX package's default pressure solver (plain CG) and the function
+     preconditioners: (a) the 64^2 cavity under CG, 5 steps and the 5-step
+     gradient, card vs the CPU plain path (equal warn and gate decisions,
+     iterations within 2, velocity rel l2 1e-4, gradient 1e-3); (b) path A,
+     the 512 cavity under CG (bench.py build(512, 1e-6), preconditioner
+     None) from phase 6's state: 200 forward steps (warn 0) and grad30
+     ("outputs" remat, 1 untimed and 3 timed), the CG iteration once per
+     iteration and the residual once per warm entry, reset and loop (from
+     krylov.cg's counters), no pcg2 or PCG apply / update; (c) one step of
+     fft, mg (64^2 turbulence), channel (32 x 128) and dct (64 cavity) card
+     vs CPU, then 20 steps of fft and mg from phase 4's 512^2 state and of
+     channel from phase 7's 128 x 512 state beside their _mm kinds, the PCG
+     phases as the loop counters derive, fft and channel warn 0; (d) path
+     B, examples/validate_ghia.py at its defaults (128^2, Re 1000, dct,
+     dt 0.01, tol 3e-6, 10 000 steps): correlation > 0.999, rms < 0.06,
+     |u_min + 0.338| < 0.02, the distance from the JAX TPU fixture. The
+     earlier paths assert 0 launches of the CG iteration.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -275,7 +299,7 @@ def rel_err(a, b) -> float:
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_")
+               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -791,6 +815,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     elapsed = time.perf_counter() - t0
     fwd = read()
     fallbacks = krylov.bicgstab.fallbacks - fb0
+    STATES["cavity"] = (v, p, g1, g2)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     active_int = sim.active_mask[1:-1, 1:-1]
@@ -985,15 +1010,17 @@ def derived_launches(c0: dict, c1: dict, fold: bool = False) -> tuple:
 
 
 def summable(v, total: float):
-    """`v` rounded to a grid of 2^-k with at most 100 steps a cell, and its
-    sum moved to the grid point nearest `total` (at most 11 more steps a
-    cell): a plane of n <= 2^17 cells then sums exactly in float32 in any
-    order (every partial sum is under 2^24 steps)."""
+    """`v` rounded to a grid of 2^-k with at most 2s steps a cell (s = 50,
+    or less on planes past 2^17 cells), and its sum moved to the grid point
+    nearest `total` (at most 11 more steps a cell): the plane then sums
+    exactly in float32 in any order (every partial sum is under 2^24
+    steps)."""
     import numpy as np
     import torch
 
     a = v.double().cpu().numpy()
-    k = np.floor(np.log2(50.0 / np.abs(a).max()))
+    s = min(50.0, (2.0 ** 24 / a.size - 12) / 2)
+    k = np.floor(np.log2(s / np.abs(a).max()))
     u = np.rint(a * 2.0 ** k)
     u -= np.rint(u.mean())
     n = u.size
@@ -1386,6 +1413,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     elapsed = time.perf_counter() - t0
     fwd = read()
     fwd_T = wrappers["stencil_matvec"].launches_transposed
+    STATES[name] = (setup, v, p, g1, g2, clock[0])
     loops, d = derived_launches(c0, loop_counters())
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
@@ -3976,6 +4004,530 @@ def batched_training_path(dev, wrappers: dict) -> dict:
     return counts
 
 
+# -- the default pressure solver (CG, row 10d) and the function preconditioners -----------
+# final states of earlier paths, which phases 2i and 15 start from: "cavity"
+# (v, p, g1, g2) after phase 6b; "mixing" (setup, v, p, g1, g2, step clock)
+# after phase 7b; "turbulence" (v, p, g1, g2) after phase 4
+STATES = {}
+CG_STEPS = 200  # 15b: forward steps of the 512 cavity under CG (bench.py's protocol)
+CG_SMALL_STEPS = 5  # 15a: steps and rollout-gradient depth at 64^2, card vs CPU
+KIND_STEPS = 20  # 15c: forward steps of each function kind at full size
+GHIA_N = 128  # 15d: examples/validate_ghia.py at its defaults
+GHIA_FIXTURE = "tests/fixtures/ldc_re1000_N128_t100_centerline_u.npz"
+GHIA_U_MIN = -0.338  # tests/test_ghia_fixture.py's bar, +- 0.02
+
+
+def cg_cavity(n, dev):
+    """(domain, sim, dt) of the n cavity in the reference's configuration:
+    bench.py build(n, 1e-6) with preconditioner None (plain CG) forward and
+    adjoint."""
+    from diffpiso_tpu_torch.core.setups import lid_driven_cavity_setup
+
+    return lid_driven_cavity_setup(n, dev, preconditioner=None, adjoint_preconditioner="same")
+
+
+def cg_counters() -> dict:
+    from diffpiso_tpu_torch.solvers import krylov
+
+    c = krylov.cg
+    return dict(cg_loops=c.loops, cg_warm_entries=c.warm_entries, cg_resets=c.resets,
+                cg_iterations=c.iterations)
+
+
+def cg_derived(c0: dict, c1: dict) -> tuple:
+    """(launches CG's counters derive, counter deltas): the iteration kernel
+    once per iteration, the residual kernel once per warm entry, reset and
+    finished loop."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    return ({"cg_iteration": d["cg_iterations"],
+             "pcg_residual": d["cg_warm_entries"] + d["cg_resets"] + d["cg_loops"]}, d)
+
+
+def cg_kernels(dev, kernels: list) -> None:
+    """Phase 2i: row 10d against its plain version on the card, on the
+    513 x 512 cavity's Laplacian in the reference's configuration (one CG
+    step from phase 6's developed state) and the (x, r, p) of that solve's
+    third iteration, with the kernel's deflation on and off, and on the
+    periodic 512^2 Laplacian of phase 4's state. The inputs come from the
+    deflated recurrence (mean-free r and p, as the solver hands them over):
+    on this shifted all-Neumann system an undeflated recurrence feeds the
+    indefinite shift direction (measured on the H100: beta 4.2e3 by the
+    third iteration), where every rounding difference is amplified. The
+    kernel's block sums run in another order than torch.sum's, so rnorm,
+    p.q, alpha and beta must agree within rel 1e-5, and each plane within
+    1e-6 of its scale plus what the two versions' measured scalar
+    difference carries into it, the elementwise arithmetic being the same
+    (`--fmad=false`): x' = x + alpha p takes |d alpha| max|p|, r' = proj(r
+    - alpha q) |d alpha| max|q| (the deflation removes the constant that a
+    rounding difference of sum p adds to q), p' = r' + beta p both r''s and
+    |d beta| max|p|. Without deflation a rounding difference in sum p (a
+    cancelling sum of a mean-free p) reaches r' undamped as shift x that
+    difference (measured on the H100: r' 3e-5 of its scale apart), so that
+    case takes p on an exactly summable grid whose sum makes shift sum p
+    as large as L p (`summable`, as phase 2c's shifted PCG checks): then
+    both versions sum it exactly and the shift term is exercised. Appends
+    the kernel's entry."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    domain, sim, dt = cg_cavity(CAV_N, dev)
+    v, p, g1, g2 = STATES["cavity"]
+    o = piso_step(v, p, dt, domain, sim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                  advection_tol=CAV_TOL, pressure_tol=CAV_TOL, full_output=True)
+    cav_lap, b = o.intermediates["laplacian"], o.intermediates["v1_div"]
+    # the periodic 512^2 Laplacian of phase 4's state
+    tdomain, tsim = STATES["turbulence_setup"]
+    tv, tp, tg1, tg2 = STATES["turbulence"]
+    to = piso_step(tv, tp, 0.4 / N, tdomain, tsim, pressure_inc1_guess=tg1,
+                   pressure_inc2_guess=tg2, advection_tol=ADV_TOL, pressure_tol=P_TOL,
+                   full_output=True)
+    cases = (("cavity", cav_lap, b, g1, True), ("cavity", cav_lap, b, g1, False),
+             ("turbulence", to.intermediates["laplacian"], to.intermediates["v1_div"],
+              tg1, True))
+    err, rel_planes, rel_scalars, inputs = 0.0, 0.0, 0.0, None
+    for label, lap, rhs, x0, deflate in cases:
+        r, _ = pcgphases.residual_plain(lap, rhs, x0, True)
+        x, pp = x0, r
+        for _ in range(2):  # the deflated recurrence to the third iteration's inputs
+            x, r, pp, _ = cgk.cg_iteration_plain(lap, x, r, pp, True)
+        if not deflate:
+            pp = summable(pp, float(pcgphases.lap_matvec(lap, pp).abs().max())
+                          / float(lap.shift))
+        got = cgk.fused_cg_iteration(lap, x, r, pp, deflate, with_scalars=True)
+        want = cgk.cg_iteration_plain(lap, x, r, pp, deflate, with_scalars=True)
+        rs = max(float((a - w).abs() / w.abs().clamp_min(1e-30))
+                 for a, w in zip((got[3], *got[4]), (want[3], *want[4])))
+        d_alpha = float((got[4][1] - want[4][1]).abs())
+        d_beta = float((got[4][2] - want[4][2]).abs())
+        p_max = float(pp.abs().max())
+        q_max = float(pcgphases.lap_matvec(lap, pp).abs().max())
+        carried = (d_alpha * p_max, d_alpha * q_max, d_alpha * q_max + d_beta * p_max)
+        e, rp, readings = 0.0, 0.0, []
+        for name, a, w, c in zip(("x'", "r'", "p'"), got[:3], want[:3], carried):
+            scale = float(w.abs().max())
+            ea = float((a - w).abs().max())
+            bar = 1e-6 * scale + c
+            readings.append(f"{name} {ea / scale:.3e} of scale (bar {bar / scale:.3e})")
+            e, rp = max(e, ea), max(rp, ea / scale)
+            if not ea <= bar:
+                fail(f"cg_iteration {label} deflate={deflate}: {name} {ea:.3e} apart, above "
+                     f"1e-6 of its scale {scale:.3e} + the scalars' carried {c:.3e}")
+        print(f"cg_iteration {label} {tuple(x.shape)} deflate={deflate}: planes max abs err "
+              f"{e:.3e}: {', '.join(readings)}; rnorm / p.q / alpha / beta max rel err "
+              f"{rs:.3e} (|d alpha| {d_alpha:.3e}, |d beta| {d_beta:.3e}); rnorm "
+              f"{float(want[3]):.4e}, alpha {float(want[4][1]):.4e}, beta "
+              f"{float(want[4][2]):.4e}", flush=True)
+        if not rs <= 1e-5:
+            fail(f"cg_iteration {label} deflate={deflate}: scalars rel {rs:.3e} > 1e-5 "
+                 f"against the plain version")
+        err, rel_planes, rel_scalars = max(err, e), max(rel_planes, rp), max(rel_scalars, rs)
+        if label == "cavity" and deflate:
+            inputs = (lap, x, r, pp, deflate)
+    lap, x, r, pp, deflate = inputs
+    ny, nx = x.shape
+    csr = csr_of_stencil(lap.center, lap.lo[0], lap.hi[0], lap.lo[1], lap.hi[1])
+    pf = pp.reshape(-1, 1)
+    # least traffic: 5 stencil planes, x, r, p in; x', r', p' out. Operations
+    # per cell: the matvec 9 and its shift 2, three dot products 6, two axpys
+    # and p' 6, the deflation 2, max 1
+    b_, by_ = bound(11 * ny * nx * 4, 26 * ny * nx)
+    kernels.append(dict(
+        name="cg_iteration", route="cuda", source="diffpiso_tpu_torch/csrc/cg.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:350", shape=[ny, nx],
+        max_abs_err=err, planes_max_rel_err=rel_planes, scalars_max_rel_err=rel_scalars,
+        ms=cuda_time_ms(lambda: cgk.fused_cg_iteration(*inputs), 200),
+        plain_ms=cuda_time_ms(lambda: cgk.cg_iteration_plain(*inputs), 50),
+        **device_time(lambda: cgk.fused_cg_iteration(*inputs)),
+        bound_ms=b_, bound_by=by_,
+        library_ms=cuda_time_ms(lambda: csr @ pf, 200),
+        library_call="one cuSPARSE CSR SpMV of the same Laplacian (the matvec part)"))
+
+
+def cg_small_check(dev) -> None:
+    """Phase 15a: the 64^2 cavity under CG, 5 steps from rest and the 5-step
+    rollout gradient from the CPU's state, on the card against the plain
+    path on the CPU: equal warn flags and gate decisions; per-solve
+    iterations within 2 (float32 CG stops where max|r| crosses tol, which
+    rounding can move by an iteration or two over tens of iterations; each
+    difference is reported); velocity rel l2 <= 1e-4, gradient rel l2 <=
+    1e-3."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    cpu = torch.device("cpu")
+    states, iters, warns = {}, {}, {}
+    for d in (dev, cpu):
+        domain, sim, dt = cg_cavity(CAV_SMALL, d)
+        step = cavity_step_fn(domain, sim, dt)
+        v, p = domain.staggered_grid(0.0, device=d), domain.centered_grid(0.0, device=d)
+        g1 = g2 = torch.zeros_like(p)
+        iters[d.type], warns[d.type] = [], []
+        for _ in range(CG_SMALL_STEPS):
+            o = step(v, p, g1, g2)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters[d.type].extend(o.p_iterations)
+            warns[d.type].append(bool(o.warn))
+        states[d.type] = (v, p)
+    diffs = [a - b for a, b in zip(iters["cuda"], iters["cpu"])]
+    v_rel = rel_l2([c.cpu() for c in states["cuda"][0].components],
+                   list(states["cpu"][0].components))
+    print(f"{CAV_SMALL}^2 cavity under CG x {CG_SMALL_STEPS} steps, card vs CPU plain path: "
+          f"pressure iterations card {iters['cuda']} / CPU {iters['cpu']} (differences "
+          f"{diffs}), warn card {warns['cuda']} / CPU {warns['cpu']}, velocity rel l2 "
+          f"{v_rel:.3e}", flush=True)
+    if warns["cuda"] != warns["cpu"] or any(warns["cpu"]):
+        fail(f"{CAV_SMALL}^2 cavity under CG: warn flags differ or a step warned")
+    if any(abs(x) > 2 for x in diffs):
+        fail(f"{CAV_SMALL}^2 cavity under CG: iterations differ by more than 2: {diffs}")
+    if not v_rel <= 1e-4:
+        fail(f"{CAV_SMALL}^2 cavity under CG: velocity rel l2 {v_rel:.3e} > 1e-4")
+    v_cpu, p_cpu = states["cpu"]
+    grads, decisions, ratios, adj_iters = {}, {}, {}, {}
+    for d in (dev, cpu):
+        domain, sim, dt = cg_cavity(CAV_SMALL, d)
+        v = StaggeredField(tuple(c.to(d) for c in v_cpu.components), periodic=(False, False))
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components), periodic=(False, False))
+        r = rollout_loss_grad(cavity_step_fn(domain, sim, dt), v, p_cpu.to(d), f, CG_SMALL_STEPS)
+        if r.warns:
+            fail(f"{CAV_SMALL}^2 cavity CG gradient on {d.type}: {r.warns} steps warned")
+        grads[d.type] = [c.cpu().double() for c in r.grad.components]
+        decisions[d.type] = [(a.system, bool(a.gated)) for a in r.adjoints]
+        ratios[d.type] = [round(a.residual / a.limit, 4) for a in r.adjoints
+                          if a.limit is not None]
+        adj_iters[d.type] = [a.iterations for a in r.adjoints if a.system == "pressure"]
+    g_rel = rel_l2(grads["cuda"], grads["cpu"])
+    print(f"{CAV_SMALL}^2 cavity under CG, {CG_SMALL_STEPS}-step rollout gradient, card vs CPU: "
+          f"rel l2 {g_rel:.3e}; gated adjoints card {sum(g for _, g in decisions['cuda'])} / "
+          f"CPU {sum(g for _, g in decisions['cpu'])} of {len(decisions['cpu'])}; pressure "
+          f"adjoint iterations card {adj_iters['cuda']} / CPU {adj_iters['cpu']}; residual / "
+          f"gate limit card {ratios['cuda']}, CPU {ratios['cpu']}", flush=True)
+    if decisions["cuda"] != decisions["cpu"]:
+        fail(f"{CAV_SMALL}^2 cavity CG gradient: adjoint gate decisions differ, card "
+             f"{decisions['cuda']} vs CPU {decisions['cpu']}")
+    if not g_rel <= 1e-3:
+        fail(f"{CAV_SMALL}^2 cavity CG gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    num = sum(float(torch.sum((x.double() - y.double()) ** 2)) for x, y in zip(a, b))
+    den = sum(float(torch.sum(y.double() ** 2)) for y in b)
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def cg_cavity_path(dev, wrappers: dict) -> tuple:
+    """Phase 15b, path A: the 513 x 512 cavity in the reference's
+    configuration (plain CG forward and adjoint, tol 1e-6, at most 600
+    iterations, resets every 50) from the state phase 6 leaves: 200 forward
+    steps, then grad30 under "outputs" remat (1 untimed and 3 timed
+    evaluations). The launch counts are asserted from the loops' counters:
+    the iteration kernel once per CG iteration, the residual kernel once per
+    warm entry, reset and loop, none of pcg2, the PCG apply / update or the
+    folded update; the other kernels as phase 6's. Returns (forward launches,
+    grad30 launches per evaluation)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+    from diffpiso_tpu_torch.solvers import krylov
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    domain, sim, dt = cg_cavity(CAV_N, dev)
+    step = cavity_step_fn(domain, sim, dt)
+    v, p, g1, g2 = STATES["cavity"]
+    reset()
+    c0, b0 = cg_counters(), loop_counters()
+    warns, iters, div = 0, [[], []], 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CG_STEPS):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        warns += int(o.warn)
+        iters[0].append(o.p_iterations[0])
+        iters[1].append(o.p_iterations[1])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    derived, d = cg_derived(c0, cg_counters())
+    bd = {k: loop_counters()[k] - b0[k] for k in b0}
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    active_int = sim.active_mask[1:-1, 1:-1]
+    div = float((fv_divergence(v, domain.dx) * active_int).abs().max())
+    print(json.dumps(dict(
+        workload=f"lid-driven cavity {CAV_N}^2 ({CAV_N + 1} x {CAV_N} cells) under plain CG (the "
+                 f"reference's configuration), from phase 6's developed state, forward",
+        steps=CG_STEPS, steps_per_sec=CG_STEPS / elapsed,
+        pressure_iters_per_step=[sum(i) / CG_STEPS for i in iters],
+        pressure_iters_max=[max(i) for i in iters], resets_per_step=d["cg_resets"] / CG_STEPS,
+        cg_counters=d, warn_fraction=warns / CG_STEPS, bicgstab_fallbacks=bd["bicgstab_fallbacks"],
+        max_abs_div_active=div,
+        host_us_per_cg_iteration=elapsed / max(d["cg_iterations"], 1) * 1e6, launches=fwd,
+    )), flush=True)
+    if not finite:
+        fail("cavity under CG: non-finite state after the forward path")
+    if warns:
+        fail(f"cavity under CG: warn fraction {warns / CG_STEPS} (must be 0)")
+    per_step = {"grad2m": 3, "div2m": 2, "stencil_matvec": 2, "jacobi2_solve": 1,
+                "laplace_assembly": 1}
+    want = {k: per_step.get(k, 0) * CG_STEPS for k in fwd}
+    want.update(derived)
+    want["stencil_matvec"] += 2 * (bd["applies"] + bd["applies_T"])
+    want.update({k: 2 * bd["bicgstab_iterations"] for k in BICG_PHASES})
+    for k in fwd:
+        if fwd[k] != want[k]:
+            fail(f"cavity under CG forward: {k} launched {fwd[k]} times, expected {want[k]}")
+    if not fwd["cg_iteration"]:
+        fail("cavity under CG forward: no CG iteration ran")
+
+    # grad30 ("outputs" remat, bench.py's protocol) from the state the
+    # forward run leaves; phase 6c's counts for every kernel but the
+    # pressure solves', which CG's counters derive
+    U = UNROLL
+    expected = {"grad2m": 8 * U, "div2m": 4 * U, "gradT2m": 3 * U - 1, "stencil_matvec": 6 * U,
+                "jacobi2_solve": 2 * U, "laplace_assembly": 2 * U}
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(False, False))
+    evals = []
+    for rep in range(1 + GRAD_REPS):
+        reset()
+        c0, b0 = cg_counters(), loop_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        elapsed_g = time.perf_counter() - t0
+        counts = read()
+        derived, d = cg_derived(c0, cg_counters())
+        bd = {k: loop_counters()[k] - b0[k] for k in b0}
+        p_adj = [a for a in res.adjoints if a.system == "pressure"]
+        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+        evals.append(dict(
+            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+            warn_fraction=res.warns / U,
+            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+            adjoint_cg_iters=[a.iterations for a in p_adj],
+            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                           for s in ("momentum", "pressure")],
+            gated_ratios=[round(a.residual / a.limit, 4) for a in p_adj if a.gated],
+            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
+                                         default=None),
+            cg_counters=d, bicgstab_fallbacks=bd["bicgstab_fallbacks"],
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+        ))
+        print(json.dumps(dict(cavity_cg_grad_eval=rep, **evals[-1])), flush=True)
+        if res.warns:
+            fail(f"cavity under CG grad30: warn fraction {res.warns / U} (must be 0)")
+        if not (gnorm > 0 and gnorm < float("inf")):
+            fail(f"cavity under CG grad30: |grad| = {gnorm} (must be finite and > 0)")
+        want = dict(expected, **derived)
+        want["stencil_matvec"] += 2 * (bd["applies"] + bd["applies_T"])
+        want.update({k: 2 * bd["bicgstab_iterations"] for k in BICG_PHASES})
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"cavity under CG grad30: {k} launched {counts[k]} times, expected "
+                     f"{want.get(k, 0)}")
+        if any(evals[-1][k] != evals[0][k] for k in ("launches", "cg_counters")):
+            fail("cavity under CG grad30: an evaluation from the same state counted differently")
+    timed = [e for e in evals if e["timed"]]
+    print(json.dumps(dict(
+        workload=f"lid-driven cavity {CAV_N}^2 under plain CG, grad{U} (d sum v^2 / d forcing), "
+                 f"remat outputs",
+        evaluations=len(timed),
+        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+        adjoint_cg_iters_per_step=sum(timed[-1]["adjoint_cg_iters"]) / U,
+        warn_fraction=max(e["warn_fraction"] for e in timed),
+        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+        gated_ratios=timed[-1]["gated_ratios"],
+        max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
+        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+    )), flush=True)
+    return fwd, timed[-1]["launches"]
+
+
+def kind_sim(sim, kind):
+    """`sim` with the pressure preconditioner of `kind`, forward and adjoint."""
+    import dataclasses
+
+    return dataclasses.replace(sim, pressure_solver=dataclasses.replace(
+        sim.pressure_solver, preconditioner=kind, adjoint_preconditioner=kind))
+
+
+def kinds_small_check(dev) -> None:
+    """Phase 15c's checks: one step of each function kind on the card
+    against the CPU plain path (fft and mg on the 64^2 turbulence, channel
+    on the 32 x 128 mixing layer, dct on the 64 cavity): equal warn,
+    iterations within 1, velocity rel l2 <= 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+
+    for kind in ("fft", "mg", "channel", "dct"):
+        outs = {}
+        for d in (dev, torch.device("cpu")):
+            if kind == "channel":
+                setup = mixing_setup(MIX_SMALL, d)
+                setup = dataclasses.replace(setup, sim=kind_sim(setup.sim, kind))
+                v, p = setup.initial_state()
+                o = mixing_step_fn(setup)(v, p, torch.zeros_like(p), torch.zeros_like(p),
+                                          tm=bench_time(0, setup.dt))
+            elif kind == "dct":
+                domain, sim, dt = lid_driven_cavity_setup(CAV_SMALL, d, preconditioner=kind,
+                                                          adjoint_preconditioner=kind)
+                o = cavity_step_fn(domain, sim, dt)(domain.staggered_grid(0.0, device=d),
+                                                    domain.centered_grid(0.0, device=d),
+                                                    None, None)
+            else:
+                domain, sim = decaying_turbulence_setup((64, 64), viscosity=1e-3, device=d)
+                v = random_solenoidal(domain, torch.Generator().manual_seed(1), device=d)
+                o = piso_step(v, domain.centered_grid(0.0, device=d), 0.4 / 64, domain,
+                              kind_sim(sim, kind), advection_tol=ADV_TOL, pressure_tol=1e-7)
+            outs[d.type] = (bool(o.warn), list(o.p_iterations),
+                            [c.cpu() for c in o.velocity.components])
+        rel = rel_l2(outs["cuda"][2], outs["cpu"][2])
+        print(f"{kind}: one step, card vs CPU plain path: warn {outs['cuda'][0]} / "
+              f"{outs['cpu'][0]}, pressure iterations {outs['cuda'][1]} / {outs['cpu'][1]}, "
+              f"velocity rel l2 {rel:.3e}", flush=True)
+        if outs["cuda"][0] != outs["cpu"][0] or outs["cpu"][0]:
+            fail(f"{kind}: one step warned or warn differs card vs CPU")
+        if any(abs(a - b) > 1 for a, b in zip(outs["cuda"][1], outs["cpu"][1])):
+            fail(f"{kind}: pressure iterations differ by more than 1 card vs CPU")
+        if not rel <= 1e-5:
+            fail(f"{kind}: velocity rel l2 {rel:.3e} > 1e-5 card vs CPU")
+
+
+def kinds_path(dev, wrappers: dict) -> dict:
+    """Phase 15c: a short run of each function kind at full size, from the
+    states earlier phases leave: 20 forward steps of `fft` and of `mg` from
+    phase 4's 512^2 turbulence state, 20 of `channel` from phase 7's 128 x
+    512 mixing-layer state, each beside 20 steps of the `_mm` kind that path
+    runs, from the same state; the PCG phase kernels' launches against the
+    loop counters (residual: warm entries + resets + loops; apply and
+    update: iterations), pcg2, the folded update and CG's kernel 0. `fft` and
+    `channel` must warn 0. Returns the launches of each run."""
+    import dataclasses
+
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+
+    out = {}
+    tdomain, tsim = STATES["turbulence_setup"]
+    setup, mv, mp, mg1, mg2, clock = STATES["mixing"]
+    for kind, base in (("fft", "fft_mm"), ("mg", "fft_mm"), ("channel", "channel_mm")):
+        rows = {}
+        for k in (base, kind):
+            if kind == "channel":
+                st = dataclasses.replace(setup, sim=kind_sim(setup.sim, k))
+                stepper = mixing_step_fn(st)
+                v, p, g1, g2 = mv, mp, mg1, mg2
+
+                def step(v, p, g1, g2, i, stepper=stepper, st=st):
+                    return stepper(v, p, g1, g2, tm=bench_time(clock + i, st.dt))
+            else:
+                sim = kind_sim(tsim, k)
+                v, p, g1, g2 = STATES["turbulence"]
+
+                def step(v, p, g1, g2, i, sim=sim):
+                    return piso_step(v, p, 0.4 / N, tdomain, sim, pressure_inc1_guess=g1,
+                                     pressure_inc2_guess=g2, advection_tol=ADV_TOL,
+                                     pressure_tol=P_TOL)
+            for fn in wrappers.values():
+                fn.launches = 0
+            c0 = loop_counters()
+            warns, iters = 0, [0, 0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(KIND_STEPS):
+                o = step(v, p, g1, g2, i)
+                v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+                warns += int(o.warn)
+                iters[0] += o.p_iterations[0]
+                iters[1] += o.p_iterations[1]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = {n_: fn.launches for n_, fn in wrappers.items()}
+            derived, d = derived_launches(c0, loop_counters())
+            rows[k] = dict(steps_per_sec=KIND_STEPS / elapsed,
+                           pressure_iters_per_step=[i / KIND_STEPS for i in iters],
+                           warn_fraction=warns / KIND_STEPS, pcg_counters={
+                               x: d[x] for x in ("pcg_loops", "pcg_warm_entries", "pcg_resets",
+                                                 "pcg_iterations")},
+                           finite=all(bool(torch.isfinite(c).all()) for c in v.components))
+            if k == kind:
+                for n_ in ("pcg_residual", "pcg_apply", "pcg_update"):
+                    if launches[n_] != derived[n_]:
+                        fail(f"{kind}: {n_} launched {launches[n_]} times, the loops derive "
+                             f"{derived[n_]}")
+                for n_ in ("pcg2_solve", "pcg_mm_update", "cg_iteration"):
+                    if launches[n_]:
+                        fail(f"{kind}: {n_} launched {launches[n_]} times (must be 0)")
+                rows[k]["launches"] = {n_: launches[n_] for n_ in (
+                    "pcg_residual", "pcg_apply", "pcg_update", "stencil_matvec")}
+                out[kind] = launches
+        path = "mixing 128 x 512" if kind == "channel" else f"turbulence {N}^2"
+        print(json.dumps(dict(workload=f"{path}, {KIND_STEPS} forward steps, `{kind}` beside "
+                                       f"`{base}` from the same state", **rows)), flush=True)
+        if not rows[kind]["finite"]:
+            fail(f"{kind}: non-finite state")
+        if kind in ("fft", "channel") and rows[kind]["warn_fraction"]:
+            fail(f"{kind}: warn fraction {rows[kind]['warn_fraction']} (must be 0)")
+    return out
+
+
+def ghia_path(dev) -> dict:
+    """Phase 15d, path B: examples/validate_ghia.py at its defaults on the
+    card (128 x 128 + the lid row, Re 1000, `dct` forward and adjoint, dt
+    0.01, tol 3e-6, to t = 100: 10 000 steps in chunks of 500, first-order
+    lid). Passes at correlation > 0.999 and rms < 0.06 against the Ghia
+    table (the example's bar) and |u_min - (-0.338)| < 0.02 (the bar of
+    tests/test_ghia_fixture.py, whose fixture is the JAX package's TPU
+    result); reports the largest difference from that fixture."""
+    import numpy as np
+
+    from diffpiso_tpu_torch.eval.ghia import validate_ghia
+
+    res = validate_ghia(GHIA_N, device=dev, log=lambda s: print(f"ghia {s}", flush=True))
+    fix = np.load(GHIA_FIXTURE)
+    line = dict(
+        workload=f"Ghia validation, lid-driven cavity {GHIA_N}^2 at Re 1000 (dct, dt 0.01, "
+                 f"tol 3e-6, t = 100)",
+        steps=res["steps"], seconds=res["seconds"], steps_per_sec=res["steps_per_sec"],
+        correlation=res["correlation"], rms=res["rms"], u_min=res["u_min"],
+        max_abs_diff_from_jax_fixture=float(np.abs(res["u"] - fix["u"]).max()),
+        warned_steps=res["warned_steps"], pressure_iters_per_step=res["pressure_iters_per_step"],
+        u_at_ghia_y=[float(u) for u in res["u_at_ghia_y"]])
+    print(json.dumps(line), flush=True)
+    if not res["finite"]:
+        fail("Ghia validation: non-finite state")
+    if not (res["correlation"] > 0.999 and res["rms"] < 0.06):
+        fail(f"Ghia validation: correlation {res['correlation']:.5f} (bar > 0.999) or rms "
+             f"{res['rms']:.4f} (bar < 0.06)")
+    if not abs(res["u_min"] - GHIA_U_MIN) < 0.02:
+        fail(f"Ghia validation: u_min {res['u_min']:+.4f}, bar {GHIA_U_MIN} +- 0.02")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -4010,6 +4562,7 @@ def main() -> int:
     from diffpiso_tpu_torch.solvers.pcg2 import (
         fused_pcg2_solve, fused_pcg2_solve_batched, gemm, pcg2_plain)
     from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
+    from diffpiso_tpu_torch.solvers.cg import fused_cg_iteration
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4365,6 +4918,9 @@ def main() -> int:
         # planes take them (phase 13)
         "pcg2_solve_batched": (fused_pcg2_solve_batched, 0),
         "jacobi1_solve_batched": (fused_jacobi1_solve_batched, 0),
+        # the CG iteration: only pressure solves with no preconditioner (the
+        # reference's configuration, phase 15b) take it
+        "cg_iteration": (fused_cg_iteration, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -4397,6 +4953,8 @@ def main() -> int:
         fail("non-finite state after the main path")
     if warns:
         fail(f"warn fraction {warns / TIMED_STEPS} (must be 0)")
+    STATES["turbulence"] = (v, pressure, g1, g2)
+    STATES["turbulence_setup"] = (domain, sim)
     for k, (_, per_step) in wrappers.items():
         if launches[k] != per_step * TIMED_STEPS:
             fail(f"{k}: {launches[k]} wrapper launches, expected {per_step * TIMED_STEPS}")
@@ -4537,6 +5095,9 @@ def main() -> int:
     cavity_small_check(dev)
     cav_fwd, cav_grad = cavity_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
 
+    # -- phase 2i: row 10d (the CG iteration) at the 513 x 512 cavity's shapes ------
+    cg_kernels(dev, kernels)
+
     # -- phase 7: the spatial mixing layer ------------------------------------------
     mixing_small_check(dev)
     mix_fwd, mix_grad = mixing_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
@@ -4588,6 +5149,19 @@ def main() -> int:
     huge_fwd, _ = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_huge,
                               T3_HUGE, "plane", calls=1, call_steps=T3_HUGE_CALL, grad_reps=0)
     del state_huge
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the default pressure solver (plain CG) and the function kinds -------
+    # (a) 64^2 card vs CPU under CG; (b) path A: the 512 cavity under CG
+    # from phase 6's state, forward and grad30
+    cg_small_check(dev)
+    cga_fwd, cga_grad = cg_cavity_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+    # (c) fft, mg on the 512^2 turbulence and channel on the 128 x 512 mixing
+    # layer, after one step of each card vs CPU
+    kinds_small_check(dev)
+    kinds = kinds_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+    # (d) path B: the Ghia validation at 128^2, Re 1000, to t = 100
+    ghia_path(dev)
 
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
@@ -4619,6 +5193,9 @@ def main() -> int:
         elif name == T3_TIER_KERNELS["plane"]:
             entry["path"] = f"turbulence {T3_HUGE}^3 forward"
             entry["launches"] = huge_fwd[name]
+        elif name == "cg_iteration":
+            entry["path"] = f"cavity {CAV_N} under CG forward"
+            entry["launches"] = cga_fwd[name]
         elif name in LARGE_KERNELS:
             entry["path"] = "turbulence 1024 forward"
             entry["launches"] = turb1024_fwd[name]
@@ -4653,6 +5230,10 @@ def main() -> int:
         entry[f"turb3d{T3_HUGE}_launches"] = huge_fwd[key]
         for path, counts in bat.items():
             entry[f"{path}_launches"] = counts[key]
+        entry["cavity_cg_launches"] = cga_fwd[key]
+        entry["cavity_cg_grad30_launches"] = cga_grad[key]
+        for kind, counts in kinds.items():
+            entry[f"{kind}_launches"] = counts[key]
         entry.update(large_measured.get(name, {}))
         entry.update(batched_measured.get(name, {}))
         if name in cavity_measured:

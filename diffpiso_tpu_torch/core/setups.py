@@ -96,15 +96,25 @@ def decaying_turbulence_batch(domain, seeds, device=None):
     return vel, torch.zeros((len(vels), *domain.resolution), dtype=torch.float32, device=device)
 
 
-def lid_driven_cavity_setup(n: int = 512, device=None):
-    """The lid-driven cavity of the JAX package's benchmark: an (n+1, n)
-    grid with OPEN boundaries over a (1 + 1/n, 1) box (the extra top row of
-    cells is inactive and carries the lid, speed 1, as a Dirichlet value),
-    viscosity 1e-3, an all-Neumann rank-deficient pressure system with mean
-    deflation and the `dct_mm` preconditioner (forward and adjoint),
-    momentum solves capped at 100 iterations, pressure solves at 600.
-    Returns (domain, sim, dt) with dt = 0.2/n.
-    The benchmark runs its advection and pressure solves at tol 1e-6.
+def lid_driven_cavity_setup(n: int = 512, device=None, *,
+                            preconditioner: str | None = "dct_mm",
+                            adjoint_preconditioner: str | None = "dct_mm",
+                            max_pressure_iterations: int = 600):
+    """The lid-driven cavity: an (n+1, n) grid with OPEN boundaries over a
+    (1 + 1/n, 1) box (the extra top row of cells is inactive and carries
+    the lid, speed 1, as a Dirichlet value), an all-Neumann rank-deficient
+    pressure system with mean deflation. Returns (domain, sim, dt) with
+    dt = 0.2/n.
+
+    The defaults are the JAX package's benchmark (`bench.py build`):
+    viscosity 1e-3, the `dct_mm` preconditioner forward and adjoint,
+    momentum solves capped at 100 iterations, pressure solves at 600; it
+    runs its advection and pressure solves at tol 1e-6. The keywords build
+    its other cavities: `preconditioner=None, adjoint_preconditioner="same"`
+    is the reference's own configuration (unpreconditioned CG), and
+    `preconditioner="dct", adjoint_preconditioner="dct",
+    max_pressure_iterations=1000` the Ghia validation's at Re 1000
+    (`examples/lid_driven_cavity.py build(n, 1000)`, stepped at its own dt).
 
     Runs on `cuda` unless `device` names another; raises without a card."""
     device = resolve_device(device)
@@ -121,10 +131,10 @@ def lid_driven_cavity_setup(n: int = 512, device=None):
         bool_periodic=(False, False),
         linear_solver=AdvectionSolver(max_iterations=100),
         pressure_solver=PressureSolver(
-            max_iterations=600,
+            max_iterations=max_pressure_iterations,
             deflate_mean=True,
-            preconditioner="dct_mm",
-            adjoint_preconditioner="dct_mm",
+            preconditioner=preconditioner,
+            adjoint_preconditioner=adjoint_preconditioner,
         ),
     )
     return domain, sim, 0.2 / n

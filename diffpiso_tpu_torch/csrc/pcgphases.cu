@@ -43,41 +43,11 @@
 // move 9, 14 and 5 planes (the x and p pre-passes, the q scratch plane, z
 // read twice); at this size the launches and the one-block passes
 // dominate.
-#include "common.cuh"
-
-struct PcgLap {
-  const float *c, *ly, *hy, *lx, *hx, *shift;
-  int ny, nx;
-};
+#include "pcg.cuh"
 
 // slots of the per-call scalar output array (8 floats)
 enum { O_NORM = 0, O_PQ = 1, O_ALPHA = 2, O_SUM = 3, O_MEAN = 4, O_RZ = 5, O_BETA = 6 };
 enum { F_SUMX = 0, F_APPLY = 1, F_MEAN = 2, F_UPDATE = 3 };
-
-// (L v)[idx] without the shift term, in the reference's summation order
-__device__ __forceinline__ float pcgp_stencil(const PcgLap& L, const float* v, size_t idx) {
-  const int nx = L.nx;
-  const int i = (int)(idx / nx), j = (int)(idx % nx);
-  const int im = dp_wrap_dec(i, L.ny), ip = dp_wrap_inc(i, L.ny);
-  const int jm = dp_wrap_dec(j, nx), jp = dp_wrap_inc(j, nx);
-  float q = L.c[idx] * v[idx];
-  q = q + L.ly[idx] * v[(size_t)im * nx + j];
-  q = q + L.hy[idx] * v[(size_t)ip * nx + j];
-  q = q + L.lx[idx] * v[(size_t)i * nx + jm];
-  q = q + L.hx[idx] * v[(size_t)i * nx + jp];
-  return q;
-}
-
-// partials[block] = sum of a (or of a*b when b is given)
-__global__ void pcgp_partial_sum(const float* __restrict__ a, const float* __restrict__ b,
-                                 size_t n, float* __restrict__ partials) {
-  __shared__ float sh[DP_THREADS];
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float v = 0.0f;
-  if (idx < n) v = b ? a[idx] * b[idx] : a[idx];
-  const float s = dp_block_sum(v, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
-}
 
 // One block: the fixed-order sum of `nb` partials, then the scalars it
 // feeds. F_SUMX zeroes the norm slot ahead of the max passes.
@@ -196,27 +166,6 @@ __global__ void pcgp_pupdate_kernel(const float* __restrict__ z, const float* __
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < n) po[idx] = z[idx] + beta * p[idx];
 }
-
-static PcgLap pcgp_lap(const void* const* lap, int ny, int nx) {
-  PcgLap L;
-  L.c = (const float*)lap[0];
-  L.ly = (const float*)lap[1];
-  L.hy = (const float*)lap[2];
-  L.lx = (const float*)lap[3];
-  L.hx = (const float*)lap[4];
-  L.shift = (const float*)lap[5];
-  L.ny = ny;
-  L.nx = nx;
-  return L;
-}
-
-static int pcgp_blocks(size_t n) { return (int)((n + DP_THREADS - 1) / DP_THREADS); }
-
-#define PCGP_CHECK()                          \
-  do {                                        \
-    cudaError_t e_ = cudaGetLastError();      \
-    if (e_ != cudaSuccess) return (int)e_;    \
-  } while (0)
 
 // lap: (c, ly, hy, lx, hx, shift) device pointers, the planes (ny, nx).
 // partials: ceil(n / 256) floats of scratch; out: 8 floats, of which

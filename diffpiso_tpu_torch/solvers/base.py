@@ -7,8 +7,9 @@ implicit-function-theorem adjoints:
 * the backward pass is the transposed solve of the cotangent, at
   `_adjoint_tol(tol, g)`: the transposed Jacobi solve of the momentum
   system's tier (jac2, jac1 or, on volumes, jac13d) with transpose=True
-  through `bicgstab`; the same spectral PCG (pcg2, or the per-iteration
-  loop), cold-started, for the symmetric pressure system;
+  through `bicgstab`; the same pressure solve (CG, or the spectral or
+  multigrid PCG: pcg2 or the per-iteration loop), cold-started, for the
+  symmetric pressure system;
 * the operator coefficients, the initial guess and tol get zero gradient
   (Picard linearization, as in the reference);
 * the gradient is gated by (1 - warn_forward) (1 - adjoint_failed); for
@@ -49,10 +50,14 @@ from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops.laplace import LaplaceStencil, apply_laplacian
 from diffpiso_tpu_torch.ops.stencil import AdvectionStencil, apply_stencil, apply_stencil_transpose
 from diffpiso_tpu_torch.solvers.fourier import (
+    ChannelSpectralSolver,
+    FourierPressureSolver,
     MatmulSpectralSolver,
+    NeumannSpectralSolver,
     safe_symbol,
     spectral_apply_plain,
 )
+from diffpiso_tpu_torch.solvers.multigrid import build_mg_hierarchy, v_cycle
 from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.krylov import (
@@ -60,6 +65,7 @@ from diffpiso_tpu_torch.solvers.krylov import (
     _tree_max_abs,
     bicgstab,
     bicgstab_batched,
+    cg,
     pcg,
     pcg2_batched,
     pcg_batched,
@@ -157,11 +163,18 @@ class AdvectionSolver:
 
 @dataclasses.dataclass(frozen=True)
 class PressureSolver:
-    """Config for the pressure-increment solve. The `fft_mm` (periodic
-    boxes), `dct_mm` (all-Neumann bounded domains) and `channel_mm` (the
-    mixing layer) spectral preconditioners are ported; `residual_reset`
-    acts in the per-iteration PCG loop (`channel_mm`), not in the
-    whole-solve pcg2; `randomized_restarts` must stay 0 (not ported)."""
+    """Config for the pressure-increment solve, with every 2-D kind of the
+    JAX package: `preconditioner=None` (the default) runs plain CG, the
+    reference's own solver (`krylov.cg`, the iteration kernel of row 10d);
+    `fft`, `dct`, `channel` (FFT-based spectral inverses) and `mg` (an
+    aggregation-multigrid V-cycle) run PCG with the preconditioner as a
+    function; `fft_mm`, `dct_mm`, `channel_mm` (the same inverses through
+    dense eigenbases) take the whole-solve pcg2 or the per-iteration loop
+    by size tier. `residual_reset` acts in CG (forward and adjoint) and in
+    the per-iteration PCG loop's forward solves, not in pcg2. Limits that
+    stay: the solves run in float32 only (`dtype` must be None), and
+    `randomized_restarts` must stay 0 (not ported); B samples at once take
+    the `_mm` kinds only."""
 
     max_iterations: int = 2000
     residual_reset: int = 50
@@ -267,42 +280,81 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
 _MM_KINDS = {"fft_mm": lambda rank: ("fourier",) * rank,
              "dct_mm": lambda rank: ("dct2",) * rank,
              "channel_mm": lambda rank: ("dct2",) * (rank - 1) + ("dct4",)}
-_ZERO_MEAN = ("fft_mm", "dct_mm")
+# the kinds applied as a function r -> M^-1 r (krylov.pcg's `precond`)
+_FUNCTION_KINDS = ("fft", "dct", "channel", "mg")
+# kinds whose output is mean-free (the spectral ones zero the k = 0 mode)
+_ZERO_MEAN = ("fft", "dct", "fft_mm", "dct_mm")
 
 
 def pressure_preconditioner(kind: str | None, lap: LaplaceStencil):
-    """(MatmulSpectralSolver, per-axis weights) of the spectral
-    preconditioner: real Fourier bases for `fft_mm` (periodic boxes, 2-D or
-    3-D), DCT-II bases for `dct_mm` (all-Neumann bounded domains), DCT-II
-    along y by DCT-IV along x for `channel_mm` (the mixing layer: Neumann
-    walls and inflow, Dirichlet outflow; nonsingular), with the mean
-    |off-diagonal| per axis as the constant stencil weights."""
-    if kind not in _MM_KINDS or lap.rank not in (2, 3) or lap.batched:
-        raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
+    """The preconditioner of kind `kind`, as the JAX package builds it
+    (`_make_pressure_precond`), with the mean |off-diagonal| per axis as the
+    constant stencil weights:
+
+    * `fft_mm`, `dct_mm`, `channel_mm`: (MatmulSpectralSolver, weights) —
+      real Fourier bases (periodic boxes, 2-D or 3-D), DCT-II bases
+      (all-Neumann bounded domains), DCT-II along y by DCT-IV along x (the
+      mixing layer: Neumann walls and inflow, Dirichlet outflow);
+    * `fft`, `dct`, `channel`: a function r -> M^-1 r through `torch.fft`
+      (solvers/fourier.py: the periodic FFT inverse, the Neumann DCT-II
+      inverse on the largest smooth corner block, the channel DCT-II x
+      DCT-IV inverse on it);
+    * `mg`: a function r -> one V-cycle of the Galerkin hierarchy of `lap`
+      (solvers/multigrid.py, min_size 32; 2-D)."""
+    if lap.batched:
+        raise NotImplementedError(
+            f"pressure preconditioner {kind!r} is not ported for B samples at once (the "
+            f"batched solves take the _mm kinds only)")
     weights = tuple(torch.mean(torch.abs(l)) for l in lap.lo)
-    solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](lap.rank),
-                                  shape=tuple(lap.center.shape))
-    return solver, weights
+    if kind in _MM_KINDS and lap.rank in (2, 3):
+        solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](lap.rank),
+                                      shape=tuple(lap.center.shape))
+        return solver, weights
+    if kind == "fft":
+        fps = FourierPressureSolver()
+        return lambda r: fps.solve(weights, r)
+    if kind == "dct":
+        nss = NeumannSpectralSolver()
+        return lambda r: nss.precondition(weights, r)
+    if kind in ("channel", "mg") and lap.rank != 2:
+        raise NotImplementedError(f"pressure preconditioner {kind!r} is ported for 2-D planes")
+    if kind == "channel":
+        css = ChannelSpectralSolver()
+        return lambda r: css.precondition(weights, r)
+    if kind == "mg":
+        hier = build_mg_hierarchy(lap, min_size=32)
+        return lambda r: v_cycle(hier, r)
+    raise ValueError(f"unknown preconditioner {kind!r}")
 
 
 def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, tol,
                          adjoint: bool = False):
-    """One spectral PCG solve of L p = rhs, dispatched as in the JAX package
-    (`krylov.pcg` picks pcg2 or the per-iteration loop by size tier): the
-    adjoint takes the adjoint preconditioner and a cold start, with no
-    residual resets and no early exit (cold and non-trivial)."""
+    """One pressure solve of L p = rhs, dispatched as the JAX package's
+    `_pressure_solve_once`: no preconditioner runs CG (`krylov.cg`), with
+    `residual_reset` forward and adjoint alike; a preconditioner runs PCG
+    (`krylov.pcg` picks pcg2 or the per-iteration loop by size tier for the
+    `_mm` kinds, the loop for the function kinds) with resets and early
+    exit in the forward solve only. The adjoint takes the adjoint
+    preconditioner and a cold start."""
     if cfg.dtype is not None:
-        raise NotImplementedError("the pressure PCG runs in float32 only")
+        raise NotImplementedError("the pressure solves run in float32 only")
     if cfg.randomized_restarts:
         raise NotImplementedError("randomized restarts are not ported (no ported "
                                   "configuration sets them)")
     kind = cfg.preconditioner
     if adjoint and cfg.adjoint_preconditioner != "same":
         kind = cfg.adjoint_preconditioner
+    x0 = None if adjoint else guess
+    if kind is None:
+        return cg(lap, rhs, x0, tol=tol, max_iter=cfg.max_iterations,
+                  residual_reset=cfg.residual_reset, deflate_mean=cfg.deflate_mean)
+    pre = pressure_preconditioner(kind, lap)
+    fn = kind in _FUNCTION_KINDS
     return pcg(
-        lap, rhs, None if adjoint else guess,
-        precond_mm=pressure_preconditioner(kind, lap),
+        lap, rhs, x0,
+        precond_mm=None if fn else pre, precond=pre if fn else None,
         tol=tol, max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean,
+        # adjoint solves are cold and non-trivial: no resets, no early exit
         residual_reset=0 if adjoint else cfg.residual_reset,
         precond_zero_mean=kind in _ZERO_MEAN, early_exit=not adjoint,
     )
@@ -426,7 +478,10 @@ def _pressure_solve_batched(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess
     if adjoint and cfg.adjoint_preconditioner != "same":
         kind = cfg.adjoint_preconditioner
     if kind not in _MM_KINDS or lap.rank != 2:
-        raise NotImplementedError(f"pressure preconditioner {kind!r} is not ported")
+        raise NotImplementedError(
+            f"pressure preconditioner {kind!r} is not ported for B samples at once: the batched "
+            f"solves take the _mm kinds only (CG and the fft, dct, channel and mg kinds run "
+            f"one sample at a time)")
     weights = tuple(torch.mean(torch.abs(l), dim=(-2, -1)) for l in lap.lo)
     solver = MatmulSpectralSolver(kinds=_MM_KINDS[kind](2), shape=tuple(lap.center.shape[-2:]))
     (v0, v0t), (v1, v1t) = solver.mats(rhs.dtype, rhs.device)

@@ -7,7 +7,10 @@ phase-kernel loop and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
 per-iteration loop with residual resets through the phase kernels, M^-1
 folded into its update in the large tier; on volumes, the generic
-per-iteration loop. Which accelerator and which pressure path a shape
+per-iteration loop; with a preconditioner given as a function (the FFT
+kinds, the multigrid V-cycle), the per-iteration loop; and `cg`, the
+unpreconditioned CG of the JAX package's default pressure solver, one
+iteration kernel a step. Which accelerator and which pressure path a shape
 takes follows the JAX package's size tiers (solvers/tiers.py).
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
@@ -25,6 +28,7 @@ from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops.laplace import apply_laplacian
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
+from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
 from diffpiso_tpu_torch.solvers.fourier import (
     safe_symbol,
     spectral_apply3_plain,
@@ -482,7 +486,8 @@ def pcg(
     b: torch.Tensor,
     x0=None,
     *,
-    precond_mm,
+    precond_mm=None,
+    precond=None,
     tol=1e-6,
     max_iter: int = 2000,
     residual_reset: int = 0,
@@ -516,7 +521,20 @@ def pcg(
       spectral apply, are closed by default), A p through the 7-point
       matvec kernel, M^-1 r as six dense contractions.
 
+    A preconditioner given as a function `precond` (r -> M^-1 r: the `fft`,
+    `dct`, `channel` and `mg` kinds) instead of `precond_mm` takes the
+    per-iteration loop through the phase kernels on planes where the JAX
+    gate opens with no kinds (`tiers.cg_tier`: the JAX `krylov.pcg` passes
+    no kinds without `precond_mm`), else the generic loop; M^-1 r is
+    projected when deflating unless `precond_zero_mean`. pcg2 and the
+    folded update take only `precond_mm`, as in the JAX package.
+
     Each loop reads one norm back per iteration."""
+    if (precond_mm is None) == (precond is None):
+        raise ValueError("pcg takes exactly one of precond_mm and precond")
+    if precond is not None:
+        return _pcg_function(stencil, b, x0, precond, tol, max_iter, residual_reset,
+                             deflate_mean, precond_zero_mean, early_exit)
     solver, weights = precond_mm
     if b.ndim not in (2, 3) or tuple(solver.shape) != tuple(b.shape):
         raise NotImplementedError("only the spectral PCG on 2-D planes and 3-D volumes is ported")
@@ -528,10 +546,7 @@ def pcg(
                            lambda r: spectral_apply3_plain(mats, sym, r), deflate_mean,
                            precond_zero_mean)
         x, rn, k = _pcg_loop(ops, b, x0, tol32, max_iter, residual_reset, early_exit)
-        bad_at = float(np.float32(100.0) * np.float32(tol))
-        warn = not np.isfinite(rn) or rn > bad_at
-        return SolveResult(x=x, iterations=k, residual_norm=rn,
-                           converged=rn < tol32, warn=warn)
+        return _result(x, rn, k, tol)
     (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     tier = tiers.pressure_tier(tuple(b.shape), solver.kinds, stencil.periodic, precond_zero_mean,
                                deflate_mean, b.dtype)
@@ -551,10 +566,35 @@ def pcg(
 
         x, rn, k = _pcg_phases(stencil, b, x0, precond, tol32, max_iter, residual_reset,
                                deflate_mean, early_exit)
+    return _result(x, rn, k, tol)
+
+
+def _result(x, rn, k, tol) -> SolveResult:
+    """A solve's result from its true residual norm: warn on a non-finite
+    norm or one above 100 tol (both in float32)."""
     bad_at = float(np.float32(100.0) * np.float32(tol))
     warn = not np.isfinite(rn) or rn > bad_at
-    return SolveResult(x=x, iterations=k, residual_norm=rn,
-                       converged=rn < tol32, warn=warn)
+    return SolveResult(x=x, iterations=k, residual_norm=rn, converged=rn < _f32(tol), warn=warn)
+
+
+def _pcg_function(stencil, b, x0, precond, tol, max_iter, residual_reset, deflate, zero_mean,
+                  early_exit) -> SolveResult:
+    """`pcg` with M^-1 r = precond(r): the phase kernels on planes within
+    `tiers.cg_tier`, else the generic loop."""
+    tol32 = _f32(tol)
+    if b.ndim == 2 and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases":
+        project_z = deflate and not zero_mean
+
+        def precond_p(r):
+            z = precond(r).contiguous()  # the phase kernels take dense planes
+            return z - torch.sum(z) / z.numel() if project_z else z
+
+        x, rn, k = _pcg_phases(stencil, b, x0, precond_p, tol32, max_iter, residual_reset,
+                               deflate, early_exit)
+    else:
+        ops = _generic_ops(lambda p: apply_laplacian(stencil, p), b, precond, deflate, zero_mean)
+        x, rn, k = _pcg_loop(ops, b, x0, tol32, max_iter, residual_reset, early_exit)
+    return _result(x, rn, k, tol)
 
 
 # the per-iteration loop's counters: loops run, warm entries (one residual
@@ -568,6 +608,90 @@ pcg.loops = 0
 pcg.warm_entries = 0
 pcg.resets = 0
 pcg.iterations = 0
+
+
+# -- CG (the JAX package's default pressure solver) ------------------------------
+
+
+def cg(
+    stencil,
+    b: torch.Tensor,
+    x0=None,
+    *,
+    tol=1e-6,
+    max_iter: int = 2000,
+    residual_reset: int = 0,
+    deflate_mean: bool = False,
+) -> SolveResult:
+    """Conjugate gradients on the pressure Laplacian `stencil` in the
+    reference CG's exact recurrence (pressure_solve_op.cu.cc:257-357), as
+    the JAX package's `krylov.cg` runs it:
+
+      q = A p;  alpha = (p.r)/(p.q);  x += alpha p;  r -= alpha q (proj)
+      beta = -(r.q)/(p.q);  p = r + beta p
+
+    A cold start takes r0 = proj(b) with no residual; a warm one the
+    residual of x0; a start whose max|r0| is already below tol is returned
+    as it is. Every `residual_reset`-th iteration restarts from the true
+    residual with p = r; the loop stops at max|r| < tol or a non-finite
+    norm; the exit residual is recomputed. Planes within `tiers.cg_tier`
+    run one iteration kernel a step (solvers/cg.py, row 10d) and the
+    residual kernel (solvers/pcgphases.py); others (volumes, planes past 8
+    MiB) plain ops with A p through the matvec kernels. warn: a non-finite
+    residual or one above 100 tol. Reads one norm back per iteration."""
+    tol32 = _f32(tol)
+    fused = b.ndim == 2 and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases"
+
+    def project(v):
+        return v - torch.sum(v) / v.numel() if deflate_mean else v
+
+    def residual(x):
+        if fused:
+            return fused_residual(stencil, b, x, deflate_mean)
+        r = project(b - apply_laplacian(stencil, x))
+        return r, r.abs().max()
+
+    def iterate(x, r, p):
+        if fused:
+            return fused_cg_iteration(stencil, x, r, p, deflate_mean)
+        return cg_iteration_plain(stencil, x, r, p, deflate_mean, matvec=apply_laplacian)
+
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+        r0 = project(b)
+        rnorm0 = r0.abs().max()
+    else:
+        cg.warm_entries += 1
+        r0, rnorm0 = residual(x0)
+    if float(rnorm0) < tol32:
+        # r0 is the true residual of x0: nothing to solve or verify
+        return _result(x0, float(rnorm0), 0, tol)
+    cg.loops += 1
+    x, r, p = x0, r0, r0
+    k = 0
+    done = False
+    while not done and k < max_iter:
+        if residual_reset > 0 and (k + 1) % residual_reset == 0:
+            cg.resets += 1
+            r, _ = residual(x)
+            p = r
+        x, r, p, rnorm = iterate(x, r, p)
+        rn = float(rnorm)
+        done = rn < tol32 or not np.isfinite(rn)
+        k += 1
+    cg.iterations += k
+    _, rn = residual(x)
+    return _result(x, float(rn), k, tol)
+
+
+# the CG loop's counters: loops run, warm entries, resets, iterations; on the
+# phase tier the iteration kernel launches once per iteration and the
+# residual kernel warm entries + resets + loops times; on the generic tier
+# the matvec runs as many times as both together
+cg.loops = 0
+cg.warm_entries = 0
+cg.resets = 0
+cg.iterations = 0
 
 
 # -- B samples at once (the batched training regime) ---------------------------

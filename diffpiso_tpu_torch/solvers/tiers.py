@@ -11,6 +11,8 @@ and basis kinds:
   phase_tier          `eligible:86`          12 planes <= 13 MiB, else a
                                              plane <= 8 MiB with every
                                              kind `fourier` (or no kinds)
+  cg_tier             `eligible:86`, no kinds  `krylov.cg`'s phase kernel
+                                             (row 10d) or its generic loop
   pcg2_eligible       `pcg2_eligible:2369`   `_pcg2_plane_bytes` of the
                                              padded plane <= 24 MiB
   mm_update_eligible  `mm_update_large_eligible:1980`  every kind
@@ -89,6 +91,19 @@ def phase_tier(shape, kinds=None, dtype="float32") -> bool:
     if plane > _LARGE_PLANE_BYTES:
         return False
     return kinds is None or all(k == "fourier" for k in kinds)
+
+
+def cg_tier(shape, dtype="float32") -> str:
+    """What an unpreconditioned CG solve (and a PCG solve whose
+    preconditioner is a function: `fft`, `dct`, `channel`, `mg`) runs:
+    'phases' (one CG iteration kernel a step, the residual kernel at the
+    warm start, each reset and the exit; for PCG the apply / update
+    phases), where the JAX gate `eligible` opens with no kinds (12 planes
+    within 13 MiB, or any 2-D plane up to 8 MiB); otherwise 'generic' (plain
+    ops around the matvec kernels: volumes, whose rank-3 phases are off by
+    default in the JAX package, and planes past 8 MiB). Both follow the
+    same recurrence, with the same resets and exit test."""
+    return "phases" if phase_tier(shape, None, dtype) else "generic"
 
 
 def _pcg2_plane_bytes(shape, item) -> int:

@@ -3,6 +3,7 @@
 
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] [--n 512] [--steps 20] [--trace PATH]
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
+    python3 profile_torch_step.py --workload cavity --kind cg|dct_mm [--grad]
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
     python3 profile_torch_step.py --workload turb3d [--n 128|256] [--grad] [--trace PATH]
@@ -12,7 +13,12 @@ Runs one workload of the port: `turbulence` (the default; 2-D periodic
 decaying turbulence, viscosity 1e-4, dt = 0.4/n, advection tol 1e-6,
 pressure tol 1e-8, 10 warm-up steps), `cavity` (the lid-driven cavity of
 `lid_driven_cavity_setup`, (n+1) x n cells, dt = 0.2/n, advection and
-pressure tol 1e-6, developed by a 2000-step spin-up from rest) or `mixing`
+pressure tol 1e-6, developed by a 2000-step spin-up from rest; `--kind`
+sets its pressure preconditioner forward and adjoint: `dct_mm`, bench.py's
+and the default, or `cg` for none, the reference's plain CG (the
+iteration kernel of row 10d); the spin-up runs under
+`dct_mm`, as chip_smoke.py's phase 6, and the profiled steps under the
+kind) or `mixing`
 (the spatial mixing layer of `spatial_mixing_layer_setup` at n/4 x n
 cells, bench.py's DNS workload: max iterations (200, 2000), dt = 0.2 x
 128 / (n/4), tol 1e-6, the inflow perturbation at float32 time k dt
@@ -93,6 +99,7 @@ FAMILIES = (
     ("matvec_kernel", "stencil matvec"),
     ("matvec3_kernel", "7-point stencil matvec"),
     ("bicg_", "BiCGSTAB phases"),
+    ("cg_", "CG iteration (row 10d; its sum-p pass is in the PCG phases' family)"),
     ("corrector_", "corrector bridge / tail"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
@@ -118,6 +125,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--grad", action="store_true",
                     help="profile one rollout-gradient evaluation instead of forward steps")
+    ap.add_argument("--kind", choices=("dct_mm", "cg"), default="dct_mm",
+                    help="the cavity's pressure preconditioner (cg: none, plain CG)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     large = {"turb1024": ("turbulence", 1024), "dns512x2048": ("mixing", 2048)}
@@ -134,6 +143,8 @@ def main() -> int:
         mode = f"b{args.batch}" if args.workload == "training" else (
             "grad" if args.grad else "step")
         label = f"turb3d{args.n}" if args.workload == "turb3d" else args.workload
+        if args.workload == "cavity" and args.kind == "cg":
+            label = "cavity_cg"
         args.trace = f"traces/profile_torch_{label}_{mode}.json"
 
     import torch
@@ -162,7 +173,7 @@ def main() -> int:
         return profile_training(args, dev, profile, ProfilerActivity)
     if args.workload == "batched512":
         return profile_batched(args, dev, profile, ProfilerActivity)
-    mixing = None
+    mixing = sim_run = None
     unroll, remat = UNROLL, "outputs"
     if args.workload == "turb3d":
         domain, sim = decaying_turbulence_setup((n,) * 3, viscosity=1e-3, device=dev)
@@ -178,6 +189,9 @@ def main() -> int:
         v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
     elif args.workload == "cavity":
         domain, sim, dt = lid_driven_cavity_setup(n, device=dev)
+        if args.kind == "cg":
+            sim_run = lid_driven_cavity_setup(n, device=dev, preconditioner=None,
+                                              adjoint_preconditioner="same")[1]
         adv_tol, p_tol, warmup = 1e-6, 1e-6, 2000
         v = domain.staggered_grid(0.0, device=dev)
     else:
@@ -223,6 +237,8 @@ def main() -> int:
             raise RuntimeError("a solve warned during profiling")
 
     run(warmup)
+    if sim_run is not None:
+        sim = sim_run  # the profiled steps' pressure kind (step reads it at each call)
     if args.grad:
         if mixing is not None:
             clock["frozen"] = dirichlet_values()
@@ -242,6 +258,7 @@ def main() -> int:
     steps = unroll if args.grad else args.steps
     return report(prof, wall, steps, dict(
         workload=args.workload, n=n,
+        **({"kind": args.kind} if args.workload == "cavity" else {}),
         mode=f"grad{unroll} (remat {remat}), one evaluation" if args.grad else "forward",
         steps=steps))
 

@@ -16,14 +16,19 @@ against the CPU; the four 3-D kernels (the rank-3 advection assembly,
 div3 / grad3 forward and VJP, the 7-point matvec in both forms and its
 VJP, the whole-solve 3-D Jacobi forward and transposed) against their
 plain versions, and 3 steps and the 3-step rollout gradient of the 3-D
-turbulence at 16^3 on the card against the CPU plain path. Every test here
-needs a GPU
+turbulence at 16^3 on the card against the CPU plain path; the CG
+iteration kernel (row 10d) against its plain version, the 32^2 cavity
+under CG (3 steps and the 3-step gradient) and one step with each
+function preconditioner (fft, dct, channel, mg) against the CPU. Every
+test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 (`--noconftest` skips the repository conftest, which configures JAX.)"""
+
+from dataclasses import replace as dataclasses_replace
 
 import numpy as np
 import pytest
@@ -1267,3 +1272,130 @@ def test_cuda_batched_auto_steps_and_gradient_match_the_cpu_plain_path(cuda_devi
     num = sum(float(torch.sum((a.double() - b.double()) ** 2)) for a, b in zip(cg, pg))
     den = sum(float(torch.sum(b.double() ** 2)) for b in pg)
     assert (num / den) ** 0.5 <= 1e-3
+
+
+def _cavity_cg_laplacian(dev, n=64, steps=3):
+    """The pressure Laplacian, rhs and guess of the n cavity's first
+    corrector after `steps` CG steps from rest (the reference's
+    configuration)."""
+    domain, sim, dt = lid_driven_cavity_setup(n, device=dev, preconditioner=None,
+                                              adjoint_preconditioner="same")
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(steps):
+        out = piso_step(v, p, dt, domain, sim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                        advection_tol=1e-6, pressure_tol=1e-6, full_output=True)
+        v, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
+    return out.intermediates, g1
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+def test_cg_iteration_kernel_matches_plain(deflate, cuda_device):
+    """Row 10d at the 64 cavity's (65, 64) plane, on the second iteration
+    of a real solve: rnorm, p.q, alpha and beta within rel 1e-5 (the
+    kernel's sums run in another order than torch.sum), x', r', p' within
+    1e-6 of their scale plus what the measured alpha / beta difference
+    carries into them (as chip_smoke.py's phase 2i); one launch counted;
+    float64 refused."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+
+    it, g1 = _cavity_cg_laplacian(cuda_device)
+    lap, b = it["laplacian"], it["v1_div"]
+    r, _ = pcgphases.residual_plain(lap, b, g1, deflate)
+    x, r, p, _ = cgk.cg_iteration_plain(lap, g1, r, r, deflate)  # the first iteration
+    before = cgk.fused_cg_iteration.launches
+    got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True)
+    want = cgk.cg_iteration_plain(lap, x, r, p, deflate, with_scalars=True)
+    assert cgk.fused_cg_iteration.launches - before == 1
+    d_alpha, d_beta = (float((got[4][i] - want[4][i]).abs()) for i in (1, 2))
+    p_max = float(p.abs().max())
+    q_max = float(pcgphases.lap_matvec(lap, p).abs().max())
+    carried = (d_alpha * p_max, d_alpha * q_max, d_alpha * q_max + d_beta * p_max)
+    for a, w, c in zip(got[:3], want[:3], carried):
+        assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max()) + c
+    for a, w in zip((got[3], *got[4]), (want[3], *want[4])):
+        assert float((a - w).abs()) <= 1e-5 * float(w.abs())
+    with pytest.raises(ValueError):
+        cgk.fused_cg_iteration(lap, x.double(), r.double(), p.double(), deflate)
+
+
+def test_cuda_cg_cavity_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
+    """The 32^2 cavity under CG (the reference's configuration): 3 steps
+    and the 3-step rollout gradient on the card against the CPU plain path;
+    per-solve iterations within 2 (float32 CG stops where max|r| crosses
+    tol, which rounding can move), equal warn flags and gate decisions; the
+    iteration kernel launched once per CG iteration."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+
+    n, states, iters, grads, decisions = 32, {}, {}, {}, {}
+    for d in (cuda_device, torch.device("cpu")):
+        domain, sim, dt = lid_driven_cavity_setup(n, device=d, preconditioner=None,
+                                                  adjoint_preconditioner="same")
+
+        def step(v, p, g1, g2, f=None, domain=domain, sim=sim, dt=dt):
+            return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                             pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-6)
+
+        v, p = domain.staggered_grid(0.0, device=d), domain.centered_grid(0.0, device=d)
+        g1 = g2 = torch.zeros_like(p)
+        iters[d.type] = []
+        k0, l0 = krylov.cg.iterations, cgk.fused_cg_iteration.launches
+        for _ in range(3):
+            o = step(v, p, g1, g2)
+            assert not o.warn
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            iters[d.type].extend(o.p_iterations)
+        launched = cgk.fused_cg_iteration.launches - l0
+        assert launched == ((krylov.cg.iterations - k0) if d.type == "cuda" else 0)
+        states[d.type] = [c.cpu() for c in v.components]
+        f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components), (False, False))
+        r = rollout_loss_grad(step, v, p, f, 3)
+        assert r.warns == 0
+        grads[d.type] = [c.cpu().double() for c in r.grad.components]
+        decisions[d.type] = [(a.system, a.gated) for a in r.adjoints]
+    assert all(abs(a - b) <= 2 for a, b in zip(iters["cuda"], iters["cpu"]))
+    for a, b in zip(states["cuda"], states["cpu"]):
+        assert float((a - b).abs().max()) <= 2e-5 + 2e-4 * float(b.abs().max())
+    assert decisions["cuda"] == decisions["cpu"]
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(grads["cuda"], grads["cpu"]))
+    den = sum(float(torch.sum(b ** 2)) for b in grads["cpu"])
+    assert (num / den) ** 0.5 <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["fft", "dct", "channel", "mg"])
+def test_cuda_function_kinds_match_the_cpu_plain_path(kind, cuda_device):
+    """One step with each function preconditioner on the card against the
+    CPU (fft: the 64^2 periodic box; dct and mg: the 64 cavity; channel: the
+    32 x 128 mixing layer): equal warn, iterations within 1, fields within
+    rel 1e-5."""
+    outs = {}
+    for d in (cuda_device, torch.device("cpu")):
+        if kind == "channel":
+            setup = spatial_mixing_layer_setup(simulation={"HRres": (32, 128), "dt": 0.8},
+                                               max_iterations=(200, 2000), device=d)
+            sim = dataclasses_replace(setup.sim, pressure_solver=dataclasses_replace(
+                setup.sim.pressure_solver, preconditioner="channel",
+                adjoint_preconditioner="channel"))
+            v, p = setup.initial_state()
+            o = piso_step(v, p, setup.dt, setup.domain, sim,
+                          dirichlet_values=setup.dirichlet_values(setup.perturbation(0.0)),
+                          advection_tol=1e-6, pressure_tol=1e-6)
+        elif kind == "fft":
+            domain, sim = decaying_turbulence_setup((64, 64), viscosity=1e-3, device=d)
+            sim = dataclasses_replace(sim, pressure_solver=dataclasses_replace(
+                sim.pressure_solver, preconditioner="fft", adjoint_preconditioner="fft"))
+            v = random_solenoidal(domain, torch.Generator().manual_seed(1), device=d)
+            o = piso_step(v, domain.centered_grid(0.0, device=d), 0.4 / 64, domain, sim,
+                          advection_tol=1e-6, pressure_tol=1e-6)
+        else:
+            domain, sim, dt = lid_driven_cavity_setup(64, device=d, preconditioner=kind,
+                                                      adjoint_preconditioner=kind)
+            o = piso_step(domain.staggered_grid(0.0, device=d),
+                          domain.centered_grid(0.0, device=d), dt, domain, sim,
+                          advection_tol=1e-6, pressure_tol=1e-6)
+        outs[d.type] = (bool(o.warn), list(o.p_iterations), [c.cpu() for c in o.velocity.components])
+    assert outs["cuda"][0] == outs["cpu"][0]
+    assert all(abs(a - b) <= 1 for a, b in zip(outs["cuda"][1], outs["cpu"][1]))
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(outs["cuda"][2], outs["cpu"][2]))
+    den = sum(float(torch.sum(b ** 2)) for b in outs["cpu"][2])
+    assert (num / den) ** 0.5 <= 1e-5

@@ -121,14 +121,26 @@ def test_pressure_solve_matches_jax_default_path():
 
 
 def test_unported_configurations_raise():
+    """Every 2-D kind of the JAX package now solves one sample at a time
+    (CG for `preconditioner=None`; `fft`, `dct`, `channel` and `mg` as
+    functions: tests/test_torch_cg.py, tests/test_torch_fft_kinds.py); what
+    stays unported raises: those kinds on B samples at once (the batched
+    solves take the _mm kinds only), float64 solves, unknown kinds."""
     _, pl, rhs = _system((8, 8))
-    with pytest.raises(NotImplementedError):
-        pbase.solve_pressure_system(pbase.PressureSolver(preconditioner=None), pl, t(rhs),
+    for kind in (None, "fft", "dct", "channel", "mg"):
+        x, iters, warn = pbase.solve_pressure_system(
+            pbase.PressureSolver(preconditioner=kind, deflate_mean=True), pl, t(rhs), None, 1e-4)
+        assert iters > 0 and not warn, kind
+    two = lambda a: torch.stack([a, a])
+    bl = plap.LaplaceStencil(center=two(pl.center), lo=tuple(map(two, pl.lo)),
+                             hi=tuple(map(two, pl.hi)), shift=two(pl.shift), periodic=pl.periodic)
+    for kind in (None, "fft", "dct", "channel", "mg"):
+        with pytest.raises(NotImplementedError, match="B samples at once"):
+            pbase.solve_pressure_system(pbase.PressureSolver(preconditioner=kind), bl,
+                                        two(t(rhs)), None, 1e-6)
+    with pytest.raises(NotImplementedError, match="float32"):
+        pbase.solve_pressure_system(pbase.PressureSolver(dtype="float64"), pl, t(rhs), None,
+                                    1e-6)
+    with pytest.raises(ValueError, match="unknown preconditioner"):
+        pbase.solve_pressure_system(pbase.PressureSolver(preconditioner="ilu"), pl, t(rhs),
                                     None, 1e-6)
-    # the matmul bases are ported (fft_mm, dct_mm, channel_mm); the FFT-based
-    # preconditioners of the JAX package are not
-    for kind in ("fft", "dct", "channel"):
-        with pytest.raises(NotImplementedError):
-            pbase.solve_pressure_system(pbase.PressureSolver(preconditioner=kind), pl,
-                                        t(rhs), None, 1e-6)
-

@@ -122,6 +122,37 @@ def test_each_gate_matches_its_jax_counterpart(tpu_gates):
     assert not pk.jac1_eligible((64, 64), jnp.float64)
 
 
+# (label, pressure shape, tier) of `krylov.cg` and of PCG with a function
+# preconditioner: the path A cavity, the Ghia cavity, the checks' planes,
+# the large planes up to 8 MiB, and past them; volumes
+CG = [
+    ("cavity 513 x 512", (513, 512), "phases"),
+    ("Ghia 129 x 128", (129, 128), "phases"),
+    ("cavity 65 x 64", (65, 64), "phases"),
+    ("cavity 33 x 32", (33, 32), "phases"),
+    ("turbulence 512^2", (512, 512), "phases"),
+    ("mixing 128 x 512", (128, 512), "phases"),
+    ("turbulence 1024^2", (1024, 1024), "phases"),
+    ("mixing 512 x 2048", (512, 2048), "phases"),
+    ("turbulence 1024 x 2048 (8 MiB)", (1024, 2048), "phases"),
+    ("turbulence 2048^2", (2048, 2048), "generic"),
+    ("volume 64^3", (64, 64, 64), "generic"),
+    ("volume 128^3", (128, 128, 128), "generic"),
+]
+
+
+@pytest.mark.parametrize("label,shape,want", CG, ids=[c[0] for c in CG])
+def test_cg_tier_matches_the_jax_gate(label, shape, want, tpu_gates):
+    """`krylov.cg` fuses where `eligible` (no kinds) or `eligible3` opens;
+    `krylov.pcg` without `precond_mm` (the `fft`, `dct`, `channel`, `mg`
+    kinds) passes no kinds, so the same shape-only rule decides its phase
+    kernels."""
+    jax_fused = pk.eligible(shape, F32) or pk.eligible3(shape, F32)
+    assert jax_fused == pk.eligible(shape, F32, large_kinds=None) or len(shape) == 3
+    assert ("phases" if jax_fused else "generic") == want
+    assert tiers.cg_tier(shape) == want
+
+
 @pytest.mark.parametrize("n", [32, 64])
 def test_small_periodic_adjoints_stay_on_pcg2(n, tpu_gates):
     """The one clause not copied: the JAX package sends a cold adjoint on a
