@@ -62,8 +62,9 @@ Phases, each fatal on failure:
      with the counters checked per evaluation and equal in all four (a
      momentum adjoint whose jac2 misses its tol hands over to BiCGSTAB, as
      in the JAX package on the TPU: its iterations launch the three phase
-     kernels per component, its residuals the matvec; such fallbacks are
-     reported), warn 0, finite non-zero gradient, the gated adjoints
+     kernels per component, its entry and exit residuals the fused stencil
+     residual, row 14; such fallbacks are reported), warn 0, finite
+     non-zero gradient, the gated adjoints
      reported with residual / limit;
   7. the spatial mixing layer (the JAX package's `bench.py workload_dns`:
      `spatial_mixing_layer_setup`, max iterations (200, 2000), dt = 0.2 x
@@ -247,6 +248,39 @@ Phases, each fatal on failure:
      dt 0.01, tol 3e-6, 10 000 steps): correlation > 0.999, rms < 0.06,
      |u_min + 0.338| < 0.02, the distance from the JAX TPU fixture. The
      earlier paths assert 0 launches of the CG iteration.
+  2j. rows 8b (the k-sweep Jacobi, csrc/jacobi_sweeps.cu) and 14 (the
+     fused stencil residual, csrc/stencil_residual.cu) on the operators of
+     the first step of phase 16's 1024 x 2048 run: row 8b at k = 1 (the
+     probe) and k = 4 (a trip from the probe's iterate), forward and
+     transposed, both components, x_k and the norm bit-equal to the plain
+     version, k + 1 launches a call; row 14 forward and transposed, negate
+     and not, both components, bit-equal to the plain version and to the
+     chain it replaces (row 7's matvec kernel, its negation, b - A x), and
+     the same on the mixing layer's (129, 512) / (128, 513) faces at phase
+     7's state; host ms, device us per launch, the bound, the plain
+     version, row 14's cuSPARSE CSR addmm (b + M x).
+  16. periodic decaying turbulence at 1024 x 2048 in a (2 pi, 4 pi) box
+     (phase 10's configuration, square cells, dt = 0.4/1024), where the
+     momentum solve takes the k-sweep tier (a k = 1 probe per component,
+     then up to 8 trips of k = 4 while the largest norm after the sweeps is
+     above tol; after a miss the fused BiCGSTAB with row 14 at its entry
+     and exit) and the pressure solve the loop with M^-1 folded into the
+     update at the 1024^2 / 2048^2 bases: (a) 32 x 64 with both tiers
+     forced (`forced_sweeps`), 3 steps and the 3-step rollout gradient
+     ("outputs" remat) on the card against the CPU plain path (equal warn
+     and gate decisions, equal probe / trip / hand-over counts, the other
+     loop counts reported, velocity rel l2 <= 1e-5, gradient rel l2 <=
+     1e-3); (b) 10
+     warm-up and 200 timed forward steps, counters reset before them (row
+     8b = 2 x (2 probes + 5 trips), row 14 = 2 per entry or exit residual,
+     jac1, jac2 and pcg2 0, the fold and the PCG phases as phase 10b
+     derives them; warn 0, max |div v|, sweeps per solve, hand-overs);
+     (c) grad30 under "outputs" remat, 1 untimed and 3 timed evaluations,
+     counts checked per evaluation, gated adjoints and peak memory
+     reported. Every earlier path asserts 0 launches of row 8b; row 14's
+     launches follow each path's BiCGSTAB residual counters (its
+     `launches` in the kernels line are the mixing layer's forward, where
+     hand-overs occur).
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
@@ -256,6 +290,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -299,7 +334,8 @@ def rel_err(a, b) -> float:
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_")
+               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
+               "sres_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -853,9 +889,9 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     # over to BiCGSTAB, as the JAX package does on the TPU (the last step's
     # adjoint, on this state): each of its iterations launches the three
     # phase kernels once per component, and its residuals at entry and exit
-    # (the operator applies) one matvec per component each, in the solve's
-    # form. Every evaluation runs from the same state, so every evaluation
-    # must count the same.
+    # the fused stencil residual once per component each (row 14; the
+    # structured loop applies no matvec of its own). Every evaluation runs
+    # from the same state, so every evaluation must count the same.
     U = UNROLL
     expected = {"grad2m": 8 * U, "div2m": 4 * U, "gradT2m": 3 * U - 1, "stencil_matvec": 6 * U,
                 "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U, "laplace_assembly": 2 * U}
@@ -867,6 +903,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         wrappers["stencil_matvec"].launches_transposed = 0
         fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
         ap0 = dict(krylov.bicgstab.applies)
+        rs0 = dict(krylov.bicgstab.residuals)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
@@ -888,6 +925,8 @@ def cavity_path(dev, wrappers: dict) -> tuple:
             bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0,
             bicgstab_iterations=krylov.bicgstab.iterations - it0,
             bicgstab_applies={str(t): krylov.bicgstab.applies[t] - ap0[t] for t in (False, True)},
+            bicgstab_residuals={str(t): krylov.bicgstab.residuals[t] - rs0[t]
+                                for t in (False, True)},
             # (unrolled step, BiCGSTAB iterations, true residual) of each
             # momentum adjoint that needed BiCGSTAB iterations after jac2
             momentum_adjoints_past_jac2=[
@@ -903,7 +942,9 @@ def cavity_path(dev, wrappers: dict) -> tuple:
             fail(f"cavity grad30: |grad| = {gnorm} (must be finite and > 0)")
         e = evals[-1]
         applies, iters = e["bicgstab_applies"], e["bicgstab_iterations"]
+        resid = e["bicgstab_residuals"]
         want = dict(expected, stencil_matvec=6 * U + 2 * (applies["False"] + applies["True"]),
+                    stencil_residual=2 * (resid["False"] + resid["True"]),
                     **{k: 2 * iters for k in BICG_PHASES})
         for k in counts:
             if counts[k] != want.get(k, 0):
@@ -912,7 +953,8 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         if e["matvec_transposed"] != 2 * U + 2 * applies["True"]:
             fail(f"cavity grad30: {e['matvec_transposed']} transposed matvecs, "
                  f"expected {2 * U + 2 * applies['True']}")
-        same = ("launches", "bicgstab_fallbacks", "bicgstab_iterations", "bicgstab_applies")
+        same = ("launches", "bicgstab_fallbacks", "bicgstab_iterations", "bicgstab_applies",
+                "bicgstab_residuals")
         if any(e[k] != evals[0][k] for k in same):
             fail("cavity grad30: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
@@ -991,7 +1033,9 @@ def loop_counters() -> dict:
     return dict(pcg_loops=p.loops, pcg_warm_entries=p.warm_entries, pcg_resets=p.resets,
                 pcg_iterations=p.iterations, bicgstab_fallbacks=b.fallbacks,
                 bicgstab_iterations=b.iterations, applies=b.applies[False],
-                applies_T=b.applies[True], jacobi_sweeps=b.jacobi_sweeps)
+                applies_T=b.applies[True], residuals=b.residuals[False],
+                residuals_T=b.residuals[True], jacobi_sweeps=b.jacobi_sweeps,
+                jacobi_probes=b.jacobi_probes, jacobi_trips=b.jacobi_trips)
 
 
 def derived_launches(c0: dict, c1: dict, fold: bool = False) -> tuple:
@@ -999,13 +1043,18 @@ def derived_launches(c0: dict, c1: dict, fold: bool = False) -> tuple:
     warm entry, reset and finished loop; apply once per iteration; the
     update once per iteration or, where M^-1 is folded into it (`fold`:
     the large tier), the folded update once per loop, reset and iteration;
-    after a Jacobi miss, each BiCGSTAB phase once per component and
-    iteration, the matvec once per component and operator apply."""
+    the k-sweep tier's kernel (row 8b) 2 launches (a sweep, the residual)
+    per component and probe and JAC_K + 1 per component and trip; after a
+    Jacobi miss, each BiCGSTAB phase once per component and iteration, the
+    fused stencil residual (row 14) once per component and entry or exit
+    residual, the matvec once per component and generic operator apply."""
     d = {k: c1[k] - c0[k] for k in c0}
     update = ({"pcg_mm_update": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]} if fold
               else {"pcg_update": d["pcg_iterations"]})
     return ({"pcg_residual": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
              "pcg_apply": d["pcg_iterations"], **update,
+             "jacobi_sweeps": 2 * (2 * d["jacobi_probes"] + (JAC_K + 1) * d["jacobi_trips"]),
+             "stencil_residual": 2 * (d["residuals"] + d["residuals_T"]),
              **{k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES}}, d)
 
 
@@ -2242,15 +2291,19 @@ def large_small_check(dev) -> None:
         fail(f"{n}^2 rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
 
 
-def large_turbulence_path(dev, wrappers: dict) -> tuple:
-    """Phases 10b and 10c: turbulence at 1024^2 (bench.py turb_1024) from a
-    seeded solenoidal state: 10 warm-up steps, then 200 timed forward
-    steps, then grad30 ("outputs" remat; 1 untimed and 3 timed
-    evaluations), every launch counter reset before each and checked
-    after: jac1 twice per momentum solve, jac2 and pcg2 never, the folded
-    update once per PCG loop, reset and iteration, the other PCG phases and
-    any BiCGSTAB hand-over as the loops' counters derive, the periodic
-    kernels once per step (grad30: phase 5b's counts). Returns (forward
+def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None) -> tuple:
+    """Phases 10b-c (1024^2, bench.py turb_1024) and 16b-c (1024 x 2048 in
+    the (2 pi, 4 pi) box): periodic turbulence at `res` (dt = 0.4 / ny, the
+    cells square) from a seeded solenoidal state: 10 warm-up steps, then
+    200 timed forward steps, then grad30 ("outputs" remat; 1 untimed and 3
+    timed evaluations), every launch counter reset before each and checked
+    after: the momentum solve in its tier (1024^2: jac1 twice per solve;
+    1024 x 2048: the k-sweep kernel as the probe and trip counters derive),
+    jac2 and pcg2 never, the folded update once per PCG loop, reset and
+    iteration, the other PCG phases and any BiCGSTAB hand-over (its phases,
+    the fused stencil residual) as the loops' counters derive, the periodic
+    kernels once per step (grad30: phase 5b's counts). Reports steps/s,
+    sweeps per solve, hand-overs and peak memory. Returns (forward
     launches, grad30 launches per evaluation)."""
     import torch
 
@@ -2259,12 +2312,19 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.ops.fv import fv_divergence
+    from diffpiso_tpu_torch.solvers import tiers
 
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         fail("TF32 matmul is on: the pressure solves must contract in full float32")
-    n = LARGE_N
-    domain, sim = decaying_turbulence_setup((n, n), viscosity=VISCOSITY, device=dev)
-    step = turbulence_step_fn(domain, sim, 0.4 / n)
+    res = tuple(res)
+    n = f"{res[0]}^2" if res[0] == res[1] else f"{res[0]}x{res[1]}"
+    label = "turb" + (str(res[0]) if res[0] == res[1] else f"{res[0]}x{res[1]}")
+    tier = tiers.momentum_tier([res, res])
+    # whole momentum solves per solve: jac1 one per component; the k-sweep
+    # tier's launches follow from its counters (derived_launches)
+    per_solve = {"jac1": {"jacobi1_solve": 2}, "sweeps": {}}[tier]
+    domain, sim = decaying_turbulence_setup(res, box_size=box, viscosity=VISCOSITY, device=dev)
+    step = turbulence_step_fn(domain, sim, 0.4 / res[0])
     v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
     p = domain.centered_grid(0.0, device=dev)
     g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
@@ -2279,7 +2339,7 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
     def check(what, counts, want):
         for k in counts:
             if counts[k] != want.get(k, 0):
-                fail(f"{n}^2 {what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
+                fail(f"{n} {what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
 
     for _ in range(WARMUP_STEPS):
         o = step(v, p, g1, g2)
@@ -2302,21 +2362,25 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     print(json.dumps(dict(
-        workload=f"decaying turbulence {n}^2 (periodic, random solenoidal IC), forward",
+        workload=f"decaying turbulence {n} (periodic, random solenoidal IC), forward",
         steps=TIMED_STEPS, steps_per_sec=TIMED_STEPS / elapsed,
         pressure_iters_per_step=[iters[0] / TIMED_STEPS, iters[1] / TIMED_STEPS],
         warn_fraction=warns / TIMED_STEPS,
-        max_abs_div=float(fv_divergence(v, domain.dx).abs().max()),
-        loop_counters=d, launches=fwd)), flush=True)
+        max_abs_div=float(fv_divergence(v, domain.dx).abs().max()), momentum_tier=tier,
+        **sweep_stats(d, TIMED_STEPS), loop_counters=d, launches=fwd)), flush=True)
     if not finite:
-        fail(f"{n}^2: non-finite state after the forward path")
+        fail(f"{n}: non-finite state after the forward path")
     if warns:
-        fail(f"{n}^2: warn fraction {warns / TIMED_STEPS} (must be 0)")
+        fail(f"{n}: warn fraction {warns / TIMED_STEPS} (must be 0)")
     S = TIMED_STEPS
     check("forward", fwd, dict(
-        loops, advection_assembly=S, laplace_assembly=S, jacobi1_solve=2 * S, div2=S, grad2=S,
+        loops, advection_assembly=S, laplace_assembly=S, div2=S, grad2=S,
         corrector1_bridge=S, corrector2_tail=S,
-        stencil_matvec=2 * (d["applies"] + d["applies_T"])))
+        stencil_matvec=2 * (d["applies"] + d["applies_T"]),
+        **{k: c * S for k, c in per_solve.items()}))
+    if tier == "sweeps" and d["jacobi_probes"] != S:
+        fail(f"{n} forward: {d['jacobi_probes']} k-sweep probes, expected one per momentum "
+             f"solve ({S})")
 
     # grad30 from the developed state: phase 5b's counts with jac1 twice per
     # momentum solve and the pressure solves' loops derived (2U warm forward
@@ -2329,6 +2393,7 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
         reset()
         c0 = loop_counters()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
         torch.cuda.synchronize()
@@ -2348,24 +2413,29 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
                                          default=None),
             adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
                                         default=None),
+            **sweep_stats(d, 2 * U), max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
             loop_counters=d, launches=counts))
-        print(json.dumps(dict(turb1024_grad_eval=rep, **evals[-1])), flush=True)
+        print(json.dumps({f"{label}_grad_eval": rep, **evals[-1]}), flush=True)
         if res.warns:
-            fail(f"{n}^2 grad30: warn fraction {res.warns / U} (must be 0)")
+            fail(f"{n} grad30: warn fraction {res.warns / U} (must be 0)")
         if not (gnorm > 0 and gnorm < float("inf")):
-            fail(f"{n}^2 grad30: |grad| = {gnorm} (must be finite and > 0)")
+            fail(f"{n} grad30: |grad| = {gnorm} (must be finite and > 0)")
         check("grad30", counts, dict(
-            loops, advection_assembly=2 * U, laplace_assembly=2 * U, jacobi1_solve=4 * U,
+            loops, advection_assembly=2 * U, laplace_assembly=2 * U,
             div2=3 * U - 1, grad2=3 * U, corrector1_bridge=2 * U, corrector2_tail=2 * U,
-            stencil_matvec=2 * (d["applies"] + d["applies_T"])))
+            stencil_matvec=2 * (d["applies"] + d["applies_T"]),
+            **{k: c * 2 * U for k, c in per_solve.items()}))
         if d["pcg_warm_entries"] != 2 * U or d["pcg_loops"] < 2 * U:
-            fail(f"{n}^2 grad30: the pressure solves did not run 2U warm entries and the 2U "
+            fail(f"{n} grad30: the pressure solves did not run 2U warm entries and the 2U "
                  "cold adjoint loops")
+        if tier == "sweeps" and d["jacobi_probes"] != 2 * U:
+            fail(f"{n} grad30: {d['jacobi_probes']} k-sweep probes, expected one per forward "
+                 f"and adjoint momentum solve ({2 * U})")
         if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
-            fail(f"{n}^2 grad30: an evaluation from the same state counted differently")
+            fail(f"{n} grad30: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
     print(json.dumps(dict(
-        workload=f"decaying turbulence {n}^2, grad{U} (d sum v^2 / d forcing), remat outputs",
+        workload=f"decaying turbulence {n}, grad{U} (d sum v^2 / d forcing), remat outputs",
         evaluations=len(timed),
         unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
         pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
@@ -2376,9 +2446,283 @@ def large_turbulence_path(dev, wrappers: dict) -> tuple:
         adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
         adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
         grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+        max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
     )), flush=True)
     return fwd, timed[-1]["launches"]
 
+
+def sweep_stats(d: dict, solves: int) -> dict:
+    """The k-sweep tier's work per momentum solve from the loop counters'
+    deltas `d` over `solves` solves (empty where the tier did not run):
+    probes and trips, sweeps per component (1 a probe, JAC_K a trip) and
+    the hand-overs to BiCGSTAB."""
+    if not d["jacobi_probes"]:
+        return {}
+    return dict(sweep_trips_per_solve=d["jacobi_trips"] / solves,
+                sweeps_per_solve=(d["jacobi_probes"] + JAC_K * d["jacobi_trips"]) / solves,
+                handovers=d["bicgstab_fallbacks"], bicgstab_iterations=d["bicgstab_iterations"])
+
+
+
+# -- the k-sweep momentum tier: periodic turbulence at 1024 x 2048 ----------------------
+SWEEP_RES = (1024, 2048)  # phase 16: planes past jac1's budget within 8 MiB
+SWEEP_BOX = (2 * math.pi, 4 * math.pi)  # square cells: dx = dy = 2 pi / 1024
+SWEEP_SMALL = (32, 64)  # 16a: card vs CPU with the tiers forced
+SWEEP_SMALL_STEPS = 3
+SWEEP_SMALL_P_TOL = 1e-7  # phase 3's and 10a's: decisions away from rounding of tol
+# kernels only the k-sweep tier (and, for row 14, a BiCGSTAB hand-over) runs
+SWEEP_KERNELS = ("jacobi_sweeps", "stencil_residual")
+
+
+@contextlib.contextmanager
+def forced_sweeps():
+    """The k-sweep momentum tier and the folded-update pressure tier on
+    every plane (tiers.jac2_eligible, jac1_eligible and pcg2_eligible
+    closed, as the CPU tests force them: there is no knob)."""
+    from diffpiso_tpu_torch.solvers import tiers
+
+    names = ("jac2_eligible", "jac1_eligible", "pcg2_eligible")
+    real = [getattr(tiers, k) for k in names]
+    for k in names:
+        setattr(tiers, k, lambda *a, **kw: False)
+    try:
+        yield
+    finally:
+        for k, fn in zip(names, real):
+            setattr(tiers, k, fn)
+
+
+def residual_check(label, st, b_c, x_c) -> float:
+    """Row 14 against its plain version and against the chain it replaces
+    (row 7's matvec kernel, the negation of the '-M' operator when negating,
+    b - A x through `krylov._axpy`) on each component, forward and
+    transposed, negate and not: r and max |r| bit-equal. Returns the max
+    abs error."""
+    import torch
+
+    from diffpiso_tpu_torch.ops import matvec
+    from diffpiso_tpu_torch.ops.stencil_residual import (
+        fused_stencil_residual, stencil_residual_plain)
+    from diffpiso_tpu_torch.solvers import krylov
+
+    err = 0.0
+    for c in range(len(b_c)):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for transpose in (False, True):
+            m = matvec.fused_stencil_matvec(*st_c, x_c[c], transpose)
+            for negate in (False, True):
+                kr, kn = fused_stencil_residual(*st_c, b_c[c], x_c[c], negate, transpose)
+                pr, pn = stencil_residual_plain(*st_c, b_c[c], x_c[c], negate, transpose)
+                chain = krylov._axpy(-1.0, -m if negate else m, b_c[c])
+                err = max(err, float((kr - pr).abs().max()), float((kr - chain).abs().max()))
+                if not (torch.equal(kr, pr) and torch.equal(kr, chain)
+                        and float(kn) == float(pn) == float(chain.abs().max())):
+                    fail(f"{label} row 14 component {c} transpose={transpose} "
+                         f"negate={negate}: not bit-equal to the plain version and the chain")
+    print(f"{label} row 14 (fused stencil residual) on faces {[tuple(b.shape) for b in b_c]}, "
+          f"both forms, negate and not: bit-equal to plain and to the matvec chain", flush=True)
+    return err
+
+
+def sweeps_kernels(dev, kernels: list) -> dict:
+    """Phase 2j: rows 8b and 14 on the card, on the operators of the first
+    step of phase 16's run (1024 x 2048 in the (2 pi, 4 pi) box from its
+    seeded solenoidal state; b the momentum right-hand side, x0 the
+    velocity, the solve's guess): row 8b at k = 1 (the probe) and k = JAC_K
+    (a trip from the probe's iterate), forward and transposed, on both
+    components, x_k and the norm bit-equal to the plain version; row 14 by
+    `residual_check`, then the same on the mixing layer's (129, 512) /
+    (128, 513) faces at phase 7's state. At 1024 x 2048: host ms per call,
+    device us per launch and launches per call, the bound, the plain
+    version and, for row 14, one cuSPARSE CSR addmm (b + M x). Appends
+    both kernels' entries to `kernels`; returns row 14's measurements on
+    the mixing faces."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.ops.stencil_residual import (
+        fused_stencil_residual, stencil_residual_plain)
+    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps, jacobi_sweeps_plain
+
+    domain, sim = decaying_turbulence_setup(SWEEP_RES, box_size=SWEEP_BOX, viscosity=VISCOSITY,
+                                            device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = turbulence_step_fn(domain, sim, 0.4 / SWEEP_RES[0])(v, zero, zero, zero,
+                                                              full_output=True).intermediates
+    st, b_c, x_c = it["stencil"], it["rhs"].components, v.components
+    sw_err, norms = 0.0, {}
+    for c in range(2):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for transpose in (False, True):
+            x = x_c[c]
+            for k in (1, JAC_K):
+                before = fused_jacobi_sweeps.launches
+                kx, kn = fused_jacobi_sweeps(st_c, b_c[c], x, k, -1.0, transpose)
+                if fused_jacobi_sweeps.launches - before != k + 1:
+                    fail(f"row 8b k={k}: {fused_jacobi_sweeps.launches - before} launches, "
+                         f"expected {k + 1}")
+                px, pn = jacobi_sweeps_plain(st_c, b_c[c], x, k, -1.0, transpose)
+                sw_err = max(sw_err, float((kx - px).abs().max()))
+                norms[f"c{c}_T{int(transpose)}_k{k}"] = float(kn)
+                if not (torch.equal(kx, px) and float(kn) == float(pn)):
+                    fail(f"row 8b component {c} transpose={transpose} k={k}: x_k or the norm "
+                         f"not bit-equal to the plain version ({float(kn)!r} vs {float(pn)!r})")
+                x = kx  # the trip continues from the probe's iterate
+    print(f"{SWEEP_RES} row 8b (k-sweep Jacobi) k = 1 and {JAC_K}, both forms, both components: "
+          f"bit-equal to plain; norms after the sweeps {norms}", flush=True)
+    res_err = residual_check(f"{SWEEP_RES}", st, b_c, x_c)
+
+    cells = b_c[0].numel()
+    st0 = (st.center[0], st.lo[0], st.hi[0])
+    # row 8b: 7 planes in (5 coefficients, b, x0), x_k out; per cell the
+    # inverse diagonal (2 flops), 13 a sweep, 10 for the exit residual
+    probe_b = bound(8 * cells * 4, cells * (2 + 13 + 10))
+    trip_b = bound(8 * cells * 4, cells * (2 + 13 * JAC_K + 10))
+
+    def sweeps(k):
+        return lambda: fused_jacobi_sweeps(st0, b_c[0], x_c[0], k, -1.0, False)
+
+    def sweeps_plain(k):
+        return lambda: jacobi_sweeps_plain(st0, b_c[0], x_c[0], k, -1.0, False)
+
+    kernels.append(dict(
+        name="jacobi_sweeps", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi_sweeps.cu",
+        replaces="diffpiso_tpu/solvers/pallas_krylov.py:558", max_abs_err=sw_err,
+        launches_count=f"kernel launches (k sweeps and one residual a call: 2 a probe, "
+                       f"{JAC_K + 1} a trip)",
+        shape=list(SWEEP_RES), k=JAC_K, ms=cuda_time_ms(sweeps(JAC_K), 50),
+        **device_time(sweeps(JAC_K), 10), plain_ms=cuda_time_ms(sweeps_plain(JAC_K), 10),
+        bound_ms=trip_b[0], bound_by=trip_b[1], library_ms=None,
+        probe=dict(k=1, ms=cuda_time_ms(sweeps(1), 50), **device_time(sweeps(1), 10),
+                   plain_ms=cuda_time_ms(sweeps_plain(1), 10), bound_ms=probe_b[0],
+                   bound_by=probe_b[1])))
+
+    # row 14: 7 planes in, r out; per cell 9 flops of the stencil, 1 the
+    # subtraction, 1 the |.| max
+    b_r, by_r = bound(8 * cells * 4, 11 * cells)
+    csr = csr_of_stencil(st0[0], st0[1][0], st0[2][0], st0[1][1], st0[2][1])
+    bcol, xcol = b_c[0].reshape(-1, 1), x_c[0].reshape(-1, 1)
+    lib = torch.addmm(bcol, csr, xcol).reshape(b_c[0].shape)
+    lib_rel = rel_err(lib, stencil_residual_plain(*st0, b_c[0], x_c[0], True)[0])
+
+    def resid():
+        return fused_stencil_residual(*st0, b_c[0], x_c[0], True, False)
+
+    kernels.append(dict(
+        name="stencil_residual", route="cuda",
+        source="diffpiso_tpu_torch/csrc/stencil_residual.cu",
+        replaces="diffpiso_tpu/ops/pallas_stencil.py:487", max_abs_err=res_err,
+        shape=list(SWEEP_RES), ms=cuda_time_ms(resid, 200), **device_time(resid),
+        plain_ms=cuda_time_ms(lambda: stencil_residual_plain(*st0, b_c[0], x_c[0], True), 50),
+        bound_ms=b_r, bound_by=by_r,
+        # yardstick: b + M x as one cuSPARSE CSR addmm, without the max; the
+        # port never calls it
+        library_ms=cuda_time_ms(lambda: torch.addmm(bcol, csr, xcol), 50),
+        library_rel_err=lib_rel))
+    del csr
+
+    # row 14 on the mixing layer's faces, on the operators of a step from
+    # phase 7's state
+    setup, mv, mp, g1, g2, clock = STATES["mixing"]
+    it = piso_step(mv, mp, setup.dt, setup.domain, setup.sim,
+                   dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                       bench_time(clock, setup.dt))),
+                   pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=MIX_TOL,
+                   pressure_tol=MIX_TOL, full_output=True).intermediates
+    mst, mb_c = it["stencil"], it["rhs"].components
+    err = residual_check(f"mixing {MIX_RES}", mst, mb_c, mv.components)
+    out = {}
+    for c in range(2):
+        args = ((mst.center[c], mst.lo[c], mst.hi[c]), mb_c[c], mv.components[c])
+        n_c = mb_c[c].numel()
+        b_m, by_m = bound(8 * n_c * 4, 11 * n_c)
+
+        def fn(args=args):
+            return fused_stencil_residual(*args[0], *args[1:], True, False)
+
+        out["mixing_" + "x".join(map(str, mb_c[c].shape))] = dict(
+            max_abs_err=err, ms=cuda_time_ms(fn, 200), **device_time(fn),
+            plain_ms=cuda_time_ms(lambda args=args: stencil_residual_plain(
+                *args[0], *args[1:], True), 50),
+            bound_ms=b_m, bound_by=by_m)
+    return {"stencil_residual": out}
+
+
+def sweeps_small_check(dev) -> None:
+    """Phase 16a: periodic turbulence at 32 x 64 in the (2 pi, 4 pi) box with
+    the k-sweep and folded-update tiers forced (`forced_sweeps`), from one
+    seeded solenoidal state: 3 steps and then the 3-step rollout gradient
+    ("outputs" remat, from the same state), at pressure tol 1e-7, on the
+    card against the plain path on the CPU: equal warn and adjoint gate
+    decisions, equal k-sweep probes, trips and hand-overs for the steps and
+    for the gradient, the k-sweep kernel launched on the card, the velocity
+    within rel l2 1e-5, the gradient within rel l2 1e-3. The other loop
+    counters are reported, not compared: the folded update's GEMM sums in
+    another order than torch.matmul, so a pressure solve can stop one
+    iteration apart within rounding of tol (on the H100: 6 against 7 PCG
+    iterations over the 3 steps, velocity 6.3e-8 apart)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
+
+    res, U = SWEEP_SMALL, SWEEP_SMALL_STEPS
+    out = {}
+    with forced_sweeps():
+        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            domain, sim = decaying_turbulence_setup(res, box_size=SWEEP_BOX,
+                                                    viscosity=VISCOSITY, device=d)
+            v0 = random_solenoidal(domain, torch.Generator().manual_seed(1), device=d)
+            p0 = domain.centered_grid(0.0, device=d)
+            step = turbulence_step_fn(domain, sim, 0.4 / res[0], SWEEP_SMALL_P_TOL)
+            v, p, g1, g2 = v0, p0, torch.zeros_like(p0), torch.zeros_like(p0)
+            launches0, c0, warns = fused_jacobi_sweeps.launches, loop_counters(), []
+            for _ in range(U):
+                o = step(v, p, g1, g2)
+                v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+                warns.append(bool(o.warn))
+            c1 = loop_counters()
+            f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components),
+                               periodic=(True, True))
+            r = rollout_loss_grad(step, v0, p0, f, U, remat="outputs")
+            c2 = loop_counters()
+            out[key] = dict(
+                v=[c.cpu() for c in v.components], warns=warns + [r.warns],
+                steps={k: c1[k] - c0[k] for k in c0}, grad_counters={k: c2[k] - c1[k] for k in c0},
+                grad=[c.cpu() for c in r.grad.components],
+                decisions=[(a.system, a.gated) for a in r.adjoints],
+                launches=fused_jacobi_sweeps.launches - launches0)
+    card, cpu = out["card"], out["cpu"]
+    v_rel, g_rel = rel_l2(card["v"], cpu["v"]), rel_l2(card["grad"], cpu["grad"])
+    print(json.dumps(dict(
+        check=f"{res[0]}x{res[1]} x {U} steps and rollout gradient in the k-sweep tier (forced), "
+              "card vs CPU plain path",
+        step_counters=[card["steps"], cpu["steps"]],
+        grad_counters=[card["grad_counters"], cpu["grad_counters"]],
+        velocity_rel_l2=v_rel, grad_rel_l2=g_rel, row_8b_launches_card=card["launches"],
+        gated=[sum(g for _, g in card["decisions"]), sum(g for _, g in cpu["decisions"]),
+               len(cpu["decisions"])])), flush=True)
+    sweep_keys = ("jacobi_probes", "jacobi_trips", "bicgstab_fallbacks")
+    for key in ("warns", "steps", "grad_counters", "decisions"):
+        a, b = card[key], cpu[key]
+        if key in ("steps", "grad_counters"):
+            a, b = ({k: c[k] for k in sweep_keys} for c in (a, b))
+        if a != b:
+            fail(f"{res} k-sweep tier card vs CPU: {key} differ, card {a} vs CPU {b}")
+    if any(card["warns"]):
+        fail(f"{res} k-sweep tier: a step or the gradient warned")
+    if not (card["steps"]["jacobi_probes"] == U and card["launches"] > 0):
+        fail(f"{res} k-sweep tier: the tier did not run on the card")
+    if not v_rel <= 1e-5:
+        fail(f"{res} k-sweep tier: card vs CPU velocity rel l2 {v_rel:.3e} > 1e-5")
+    if not g_rel <= 1e-3:
+        fail(f"{res} k-sweep tier: card vs CPU gradient rel l2 {g_rel:.3e} > 1e-3")
 
 # -- 3-D decaying turbulence (bench.py workload_turb3d) ----------------------------
 T3_N = 128  # bench.py workload_turb3d: min(n, 128) at the default n
@@ -4287,6 +4631,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     want = {k: per_step.get(k, 0) * CG_STEPS for k in fwd}
     want.update(derived)
     want["stencil_matvec"] += 2 * (bd["applies"] + bd["applies_T"])
+    want["stencil_residual"] = 2 * (bd["residuals"] + bd["residuals_T"])
     want.update({k: 2 * bd["bicgstab_iterations"] for k in BICG_PHASES})
     for k in fwd:
         if fwd[k] != want[k]:
@@ -4337,6 +4682,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
             fail(f"cavity under CG grad30: |grad| = {gnorm} (must be finite and > 0)")
         want = dict(expected, **derived)
         want["stencil_matvec"] += 2 * (bd["applies"] + bd["applies_T"])
+        want["stencil_residual"] = 2 * (bd["residuals"] + bd["residuals_T"])
         want.update({k: 2 * bd["bicgstab_iterations"] for k in BICG_PHASES})
         for k in counts:
             if counts[k] != want.get(k, 0):
@@ -4563,6 +4909,8 @@ def main() -> int:
         fused_pcg2_solve, fused_pcg2_solve_batched, gemm, pcg2_plain)
     from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
     from diffpiso_tpu_torch.solvers.cg import fused_cg_iteration
+    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
+    from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4921,6 +5269,12 @@ def main() -> int:
         # the CG iteration: only pressure solves with no preconditioner (the
         # reference's configuration, phase 15b) take it
         "cg_iteration": (fused_cg_iteration, 0),
+        # the k-sweep momentum tier: only planes past jac1's budget within 8
+        # MiB (phase 16: 1024 x 2048) take it
+        "jacobi_sweeps": (fused_jacobi_sweeps, 0),
+        # the fused stencil residual: the entry and exit of a BiCGSTAB
+        # hand-over (none on this path)
+        "stencil_residual": (fused_stencil_residual, 0),
     }
     for fn, _ in wrappers.values():
         fn.launches = 0
@@ -5023,7 +5377,7 @@ def main() -> int:
         "pcg_residual": 0, "pcg_apply": 0, "pcg_update": 0, "jacobi2_solve_folded": 0,
         "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
         **{k: 0 for k in T3_TIER_KERNELS.values()},
-        "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0,
+        "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0, "jacobi_sweeps": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -5038,6 +5392,7 @@ def main() -> int:
             fn.launches = 0
         fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
         ap0 = sum(krylov.bicgstab.applies.values())
+        rs0 = sum(krylov.bicgstab.residuals.values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step_g, v, pressure, forcing, U, remat="outputs")
@@ -5070,9 +5425,11 @@ def main() -> int:
             fail(f"grad30: warn fraction {res.warns / U} (must be 0)")
         if not (gnorm > 0 and gnorm < float("inf")):
             fail(f"grad30: |grad| = {gnorm} (must be finite and > 0)")
-        # a BiCGSTAB fallback, should one occur, runs its phases and matvecs
+        # a BiCGSTAB fallback, should one occur, runs its phases and the
+        # fused stencil residual at its entry and exit
         applies = sum(krylov.bicgstab.applies.values()) - ap0
-        want_all = dict(expected, stencil_matvec=2 * applies,
+        resid = sum(krylov.bicgstab.residuals.values()) - rs0
+        want_all = dict(expected, stencil_matvec=2 * applies, stencil_residual=2 * resid,
                         **{k: 2 * evals[-1]["bicgstab_iterations"] for k in BICG_PHASES})
         for k, want in want_all.items():
             if counts[k] != want:
@@ -5163,6 +5520,16 @@ def main() -> int:
     # (d) path B: the Ghia validation at 128^2, Re 1000, to t = 100
     ghia_path(dev)
 
+    # -- phase 2j: rows 8b and 14 at 1024 x 2048, row 14 on the mixing faces ---------------
+    sweeps_measured = sweeps_kernels(dev, kernels)
+
+    # -- phase 16: periodic turbulence at 1024 x 2048, the k-sweep tier -------------------
+    # (a) 32 x 64 card vs CPU with the tiers forced; (b) the forward and (c)
+    # grad30 at full size
+    sweeps_small_check(dev)
+    sweep_fwd, sweep_grad = large_turbulence_path(
+        dev, {k: fn for k, (fn, _) in wrappers.items()}, SWEEP_RES, SWEEP_BOX)
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -5196,6 +5563,14 @@ def main() -> int:
         elif name == "cg_iteration":
             entry["path"] = f"cavity {CAV_N} under CG forward"
             entry["launches"] = cga_fwd[name]
+        elif name == "jacobi_sweeps":
+            entry["path"] = "turbulence 1024x2048 forward"
+            entry["launches"] = sweep_fwd[name]
+        elif name == "stencil_residual":
+            # a hand-over's entry and exit residual: the mixing layer's forward
+            # hands over; the 1024 x 2048 run's counts stand beside it
+            entry["path"] = "mixing forward"
+            entry["launches"] = mix_fwd[name]
         elif name in LARGE_KERNELS:
             entry["path"] = "turbulence 1024 forward"
             entry["launches"] = turb1024_fwd[name]
@@ -5232,10 +5607,13 @@ def main() -> int:
             entry[f"{path}_launches"] = counts[key]
         entry["cavity_cg_launches"] = cga_fwd[key]
         entry["cavity_cg_grad30_launches"] = cga_grad[key]
+        entry["turb1024x2048_launches"] = sweep_fwd[key]
+        entry["turb1024x2048_grad30_launches"] = sweep_grad[key]
         for kind, counts in kinds.items():
             entry[f"{kind}_launches"] = counts[key]
         entry.update(large_measured.get(name, {}))
         entry.update(batched_measured.get(name, {}))
+        entry.update(sweeps_measured.get(name, {}))
         if name in cavity_measured:
             entry["cavity"] = cavity_measured[name]
         if name in mixing_measured:

@@ -1,6 +1,7 @@
 """Operators: FV divergence/gradient (with the periodic FV kernel pair,
-fv2.py, and the bounded trio, fv2m.py), advection stencil and its matvec
-kernel (matvec.py), pressure Laplacian, the two assembly kernels and the
+fv2.py, and the bounded trio, fv2m.py), advection stencil, its matvec
+kernel (matvec.py) and its fused residual (stencil_residual.py), pressure
+Laplacian, the two assembly kernels and the
 corrector bridge / tail kernels (corrector.py)."""
 
 from diffpiso_tpu_torch.ops.fv import fv_divergence, fv_gradient

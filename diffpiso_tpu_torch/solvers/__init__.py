@@ -1,5 +1,6 @@
 """Solvers: Krylov loops, the spectral preconditioners, the whole-solve
-kernels (jacobi2, jacobi1, pcg2), the BiCGSTAB phase kernels (bicg), the
+kernels (jacobi2, jacobi1, pcg2), the k-sweep momentum kernel
+(jacobi_sweeps), the BiCGSTAB phase kernels (bicg), the
 per-iteration PCG phase kernels (pcgphases) with the folded update
 (pcgmm), and the size tiers that choose among them (tiers)."""
 

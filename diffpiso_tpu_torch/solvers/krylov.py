@@ -2,8 +2,9 @@
 
 Counterpart of diffpiso_tpu/solvers/krylov.py: `bicgstab` (Jacobi
 preconditioning, the Jacobi accelerators in front: whole solves, or the
-trip loop of the 3-D z-block and plane tiers; the fused
-phase-kernel loop and the generic one, the restart-if-bad policy) and
+trip loop of the 2-D k-sweep tier and the 3-D z-block and plane tiers; the
+fused phase-kernel loop with the fused stencil residual at its entry and
+exit, and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
 per-iteration loop with residual resets through the phase kernels, M^-1
 folded into its update in the large tier; on volumes, the generic
@@ -26,6 +27,7 @@ import torch
 from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops.laplace import apply_laplacian
+from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
@@ -46,6 +48,7 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
     sample_tols,
 )
 from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
+from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_batched
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
@@ -137,11 +140,27 @@ def _bicgstab_once(apply_A, precond, b, x0, tol, max_iter):
     return x, float(_tree_max_abs(_axpy(-1.0, apply_A(x), b))), k
 
 
-def _bicgstab_once_fused(st_cs, inv_diag, apply_A, b, x0, tol, max_iter, sgn, transpose):
+def _fused_residual(st_cs, b, x, sgn, transpose):
+    """The true residual b - A x of A = sgn M (or sgn M^T) through the
+    fused stencil residual (ops/stencil_residual.py, row 14), one launch per
+    component, and its joint max as a 0-d tensor (NaN propagates), as the
+    JAX package's `_make_adv_residual_fn` forms it; bit for bit the chain
+    b - apply_A(x)."""
+    bicgstab.residuals[bool(transpose)] += 1
+    outs = [fused_stencil_residual(c, lo, hi, bc, xc, sgn < 0, transpose)
+            for (c, lo, hi), bc, xc in zip(st_cs, _comps(b), _comps(x))]
+    n = outs[0][1]
+    for o in outs[1:]:
+        n = torch.maximum(n, o[1])
+    return tuple(o[0] for o in outs), n
+
+
+def _bicgstab_once_fused(st_cs, inv_diag, b, x0, tol, max_iter, sgn, transpose):
     """The BiCGSTAB loop of `_bicgstab_once` through the three phase
     kernels per component (solvers/bicg.py), in the JAX package's fused
     recurrence: the x-phase also returns rhat . r' for the next iteration,
-    and the scalars stay on the device; one host read per iteration."""
+    and the scalars stay on the device; one host read per iteration. The
+    entry and the true exit residual take the fused stencil residual."""
     eps = 1e-30
 
     def guard(v):
@@ -149,11 +168,10 @@ def _bicgstab_once_fused(st_cs, inv_diag, apply_A, b, x0, tol, max_iter, sgn, tr
 
     ncomp = len(st_cs)
     invd = _comps(inv_diag)
-    r0 = _axpy(-1.0, apply_A(x0), b)
-    rnorm0 = float(_tree_max_abs(r0))
+    rhat, rnorm0 = _fused_residual(st_cs, b, x0, sgn, transpose)
+    rnorm0 = float(rnorm0)
     if rnorm0 < tol:
         return x0, rnorm0, 0
-    rhat = _comps(r0)
     one = torch.ones((), dtype=rhat[0].dtype, device=rhat[0].device)
     x_c, r_c = _comps(x0), rhat
     p_c = v_c = tuple(torch.zeros_like(c) for c in rhat)
@@ -183,7 +201,7 @@ def _bicgstab_once_fused(st_cs, inv_diag, apply_A, b, x0, tol, max_iter, sgn, tr
         k += 1
     x = _rebuild(b, x_c)
     # true residual (the recurrence residual can drift)
-    return x, float(_tree_max_abs(_axpy(-1.0, apply_A(x), b))), k
+    return x, float(_fused_residual(st_cs, b, x, sgn, transpose)[1]), k
 
 
 def bicgstab(
@@ -206,8 +224,11 @@ def bicgstab(
     components in one solve (solvers/jacobi2.py), or one solve per
     component (solvers/jacobi1.py: each stops at its own residual, and the
     hand-over reads the largest exit residual); planes up to 8 MiB past
-    jac1's budget would take the k-sweep launches, which are not ported
-    (raises); past that, as in the JAX package, no Jacobi runs. Volumes
+    jac1's budget (1024 x 2048) take the k-sweep tier (solvers/
+    jacobi_sweeps.py, row 8b): a k = 1 probe per component, then up to 8
+    trips of 4 sweeps on every component while the largest norm after the
+    sweeps is above tol, one host read a trip; past 8 MiB, as in the JAX
+    package, no Jacobi runs. Volumes
     take the 3-D tiers (tiers.momentum_tier_3d): one whole solve per
     component (kernel 15d) within its budget (128^3); past it the trip
     loop of the JAX package's `krylov.bicgstab` (krylov.py:385-477), up to
@@ -222,8 +243,11 @@ def bicgstab(
     usually reaches tol alone and the Krylov loop never runs; otherwise
     BiCGSTAB continues from the Jacobi iterate. On float32 planes its loop runs the
     three phase kernels per component (solvers/bicg.py), as the JAX
-    package's fused loop does; the generic loop serves the rest (volumes
-    among them: the fused loop is rank-2 in the JAX package too). A
+    package's fused loop does, and its entry and true exit residuals the
+    fused stencil residual (ops/stencil_residual.py, row 14, one launch per
+    component; `bicgstab.residuals` counts them); the generic loop serves
+    the rest (volumes among them: the fused loop is rank-2 in the JAX
+    package too; `bicgstab.applies` counts its operator applications). A
     non-finite or > 100 tol final residual restarts once from zeros; warn
     is set when even that fails."""
     if x0 is None:
@@ -261,8 +285,8 @@ def bicgstab(
 
     def once(x_init):
         if fused:
-            return _bicgstab_once_fused(st_cs, inv_diag, counted_apply, b, x_init, tol32,
-                                        max_iter, sgn, transpose)
+            return _bicgstab_once_fused(st_cs, inv_diag, b, x_init, tol32, max_iter, sgn,
+                                        transpose)
         return _bicgstab_once(counted_apply, precond, b, x_init, tol32, max_iter)
 
     tier = "none"
@@ -270,14 +294,9 @@ def bicgstab(
         shapes = [tuple(c.shape) for c in stencil.center]
         tier = (tiers.momentum_tier_3d if rank == 3 else tiers.momentum_tier)(
             shapes, stencil.center[0].dtype)
-    if tier == "sweeps":
-        raise NotImplementedError(
-            "momentum planes past jac1's budget but within 8 MiB take the JAX package's "
-            "k-sweep Jacobi launches (pallas_krylov.py fused_jacobi_sweeps), which are not "
-            "ported")
-    if tier in ("jac2", "jac1", "jac13d", "zblock", "plane"):
+    if tier in ("jac2", "jac1", "jac13d", "sweeps", "zblock", "plane"):
         x0_c = tuple(_comps(x0))
-        if tier in ("zblock", "plane"):
+        if tier in ("sweeps", "zblock", "plane"):
             xs, jn = _jacobi_trips(tier, st_cs, comps, x0_c, sgn, transpose, tol32)
         elif tier == "jac2":
             xo0, xo1, jn, sweeps = fused_jacobi2_solve(st_cs, tuple(comps), x0_c, sgn,
@@ -312,31 +331,49 @@ def bicgstab(
 
 
 def _jacobi_trips(tier, st_cs, comps, x0_c, sgn, transpose, tol, max_trips=8, k=4):
-    """The trip loop of the z-block and plane tiers: while the largest
-    entry residual n of the last trip is above tol and trips remain, one
-    call of the tier's kernel per component (k sweeps each). Returns (the
-    iterates, n)."""
+    """The trip loop of the JAX package's `krylov.bicgstab` (krylov.py:
+    408-499): while n is above tol and trips remain, one call of the tier's
+    kernel per component (k sweeps each, every component, even one already
+    below tol), n then the largest norm of the trip (one host read). Where
+    n starts differs by the kernels' norms: the 3-D z-block and plane
+    kernels report the residual of the iterate they were given (the entry
+    residual), so n starts at inf and ends as the last trip's entry
+    residual; the 2-D k-sweep kernel (row 8b, tier "sweeps") reports the
+    residual after its sweeps, so a k = 1 probe per component from x0 comes
+    first, n starting at its largest norm. Returns (the iterates, n)."""
     if tier == "zblock":
         bzs = [tiers.zblock_eligible(tuple(c.shape), c.dtype) for c, _, _ in st_cs]
-    xs = [x.contiguous() for x in x0_c]
-    n = float("inf")
-    trips = 0
-    while n > tol and trips < max_trips:
-        if tier == "zblock":
+    ncomp = len(comps)
+
+    def call(xs, kk):
+        """One kernel call per component from the iterates xs (one host
+        read: the norms and the z blocks' sweeps). Returns (the new
+        iterates, their largest norm; NaN propagates)."""
+        if tier == "sweeps":
+            outs = [fused_jacobi_sweeps(st_cs[i], comps[i].contiguous(), xs[i], kk, sgn,
+                                        transpose) for i in range(ncomp)]
+            sweeps = []
+        elif tier == "zblock":
             outs = [fused_jacobi_zblock_3d(st_cs[i], comps[i].contiguous(), xs[i], sgn,
-                                           transpose, tol, k, bzs[i])
-                    for i in range(len(comps))]
+                                           transpose, tol, kk, bzs[i]) for i in range(ncomp)]
             sweeps = [o[2].sum().to(o[1].dtype) for o in outs]
         else:
             outs = [fused_jacobi_sweep_3d(st_cs[i], comps[i].contiguous(), xs[i], sgn,
-                                          transpose, k) for i in range(len(comps))]
+                                          transpose, kk) for i in range(ncomp)]
             sweeps = []
-        # one host read: the entry residuals and the z blocks' sweeps
         vals = torch.stack([o[1] for o in outs] + sweeps).tolist()
-        n = float(np.max(vals[:len(outs)]))  # NaN propagates
-        xs = [o[0] for o in outs]
+        bicgstab.jacobi_block_sweeps += int(sum(vals[ncomp:])) if sweeps else kk * ncomp
+        return [o[0] for o in outs], float(np.max(vals[:ncomp]))
+
+    xs = [x.contiguous() for x in x0_c]
+    n = float("inf")
+    if tier == "sweeps":
+        xs, n = call(xs, 1)
+        bicgstab.jacobi_probes += 1
+    trips = 0
+    while n > tol and trips < max_trips:
+        xs, n = call(xs, k)
         trips += 1
-        bicgstab.jacobi_block_sweeps += int(sum(vals[len(outs):])) if sweeps else k * len(outs)
     bicgstab.jacobi_trips += trips
     return xs, n
 
@@ -345,14 +382,21 @@ bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGS
 bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
 bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1 / jac13d: summed over components)
 bicgstab.jacobi_solves = 0  # whole Jacobi solves (jac2: one joint solve; jac1 / jac13d: one per component)
-# the z-block and plane tiers' trip loop (each trip: one kernel call per
-# component): trips, and sweeps (z-block: summed over blocks and
-# components, each block's own count; plane: k per call)
+# the trip loop of the 2-D k-sweep tier and the 3-D z-block and plane
+# tiers (each trip: one kernel call per component): the k-sweep tier's
+# probes (one k = 1 call per component each), trips, and sweeps (z-block:
+# summed over blocks and components, each block's own count; plane and
+# k-sweep: k per call)
+bicgstab.jacobi_probes = 0
 bicgstab.jacobi_trips = 0
 bicgstab.jacobi_block_sweeps = 0
-# operator applications inside the BiCGSTAB loop, by transpose flag (each
-# applies the matvec once per component)
+# operator applications of the generic BiCGSTAB loop (volumes; a
+# structured 2-D solve applies its operator inside the phase kernels), by
+# transpose flag (each applies the matvec once per component)
 bicgstab.applies = {False: 0, True: 0}
+# the fused loop's entry and true exit residuals, by transpose flag (each
+# launches the fused stencil residual once per component)
+bicgstab.residuals = {False: 0, True: 0}
 
 
 def _pcg_loop(ops, b, x0, tol, max_iter, residual_reset, early_exit):

@@ -5,6 +5,7 @@
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
     python3 profile_torch_step.py --workload cavity --kind cg|dct_mm [--grad]
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
+    python3 profile_torch_step.py --workload turb_1024x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload training [--batch 8] [--n 256] [--trace PATH]
     python3 profile_torch_step.py --workload turb3d [--n 128|256] [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload batched512 [--batch 4] [--grad] [--trace PATH]
@@ -42,6 +43,10 @@ grad>.json). `turb1024` is `turbulence` at n = 1024 and `dns512x2048`
 `mixing` at n = 2048: bench.py's large-plane rows (turb_1024,
 dns_512x2048), where the solves take the large tiers (jac1, the PCG loop
 with M^-1 folded into the update or, on the DNS, the PCG phases).
+`turb_1024x2048` is `turbulence` at 1024 x 2048 in a (2 pi, 4 pi) box
+(square cells, dt = 0.4/1024): the momentum solve in the k-sweep tier (row
+8b, the fused stencil residual behind a miss), the pressure solve in the
+PCG loop with M^-1 folded into the update at the 1024^2 / 2048^2 bases.
 `turb3d` is bench.py's workload_turb3d at n^3 (default 128^3: viscosity
 1e-3, dt 0.4/n, tol 1e-6 / 1e-8, a seeded 0.5 N(0, 1) state developed by
 the 100-step spin-up, 2 calls of 50 steps); its --grad profiles one grad10
@@ -90,6 +95,8 @@ FAMILIES = (
     ("laplace_assembly", "laplace assembly"),
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
     ("jac13d_", "jacobi 3-D whole-solve sweeps"),
+    ("jsw_", "k-sweep Jacobi (row 8b: sweeps and residual)"),
+    ("sres_", "fused stencil residual (row 14)"),
     ("zb_", "jacobi 3-D z-block sweeps"),
     ("pl3_", "jacobi 3-D plane sweeps"),
     ("advassembly", "advection assembly"),
@@ -116,8 +123,8 @@ def family(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("turbulence", "cavity", "mixing", "training",
-                                           "turb1024", "dns512x2048", "turb3d",
-                                           "batched512"),
+                                           "turb1024", "dns512x2048", "turb_1024x2048",
+                                           "turb3d", "batched512"),
                     default="turbulence")
     ap.add_argument("--n", type=int, default=None, help="512; 256 for training, 128 for turb3d")
     ap.add_argument("--batch", type=int, default=None,
@@ -129,7 +136,9 @@ def main() -> int:
                     help="the cavity's pressure preconditioner (cg: none, plain CG)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
-    large = {"turb1024": ("turbulence", 1024), "dns512x2048": ("mixing", 2048)}
+    large = {"turb1024": ("turbulence", 1024), "dns512x2048": ("mixing", 2048),
+             "turb_1024x2048": ("turbulence", 1024)}
+    shape = (1024, 2048) if args.workload == "turb_1024x2048" else None
     if args.workload in large:
         label = args.workload
         args.workload, args.n = large[label]
@@ -184,7 +193,10 @@ def main() -> int:
         # bench.py workload_turb3d remats from 192^3 on
         unroll, remat = 10, "outputs" if n >= 192 else "none"
     elif args.workload == "turbulence":
-        domain, sim = decaying_turbulence_setup((n, n), viscosity=1e-4, device=dev)
+        # a (ny, 2 ny) plane in a (2 pi, 4 pi) box keeps the cells square
+        box = (2 * np.pi, 2 * np.pi * shape[1] / shape[0]) if shape else None
+        domain, sim = decaying_turbulence_setup(shape or (n, n), box_size=box, viscosity=1e-4,
+                                                device=dev)
         dt, adv_tol, p_tol, warmup = 0.4 / n, 1e-6, 1e-8, 10
         v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
     elif args.workload == "cavity":
@@ -257,7 +269,7 @@ def main() -> int:
 
     steps = unroll if args.grad else args.steps
     return report(prof, wall, steps, dict(
-        workload=args.workload, n=n,
+        workload=args.workload, n=n, **({"shape": list(shape)} if shape else {}),
         **({"kind": args.kind} if args.workload == "cavity" else {}),
         mode=f"grad{unroll} (remat {remat}), one evaluation" if args.grad else "forward",
         steps=steps))

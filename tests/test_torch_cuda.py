@@ -19,7 +19,11 @@ plain versions, and 3 steps and the 3-step rollout gradient of the 3-D
 turbulence at 16^3 on the card against the CPU plain path; the CG
 iteration kernel (row 10d) against its plain version, the 32^2 cavity
 under CG (3 steps and the 3-step gradient) and one step with each
-function preconditioner (fft, dct, channel, mg) against the CPU. Every
+function preconditioner (fft, dct, channel, mg) against the CPU; the
+k-sweep Jacobi kernel (row 8b) and the fused stencil residual (row 14)
+bit-equal to their plain versions (row 14 also to the chain it replaces),
+the folded PCG update at the non-square 1024 x 2048 plane, and a momentum
+solve in the k-sweep tier on the card against the CPU. Every
 test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
@@ -56,7 +60,12 @@ from diffpiso_tpu_torch.ops.advassembly import (
     fused_advection_assembly,
 )
 from diffpiso_tpu_torch.ops.laplace_assembly import fused_laplace_assembly, laplace_assembly_plain
-from diffpiso_tpu_torch.ops.stencil import AdvectionStencil
+from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual, stencil_residual_plain
+from diffpiso_tpu_torch.ops.stencil import (
+    AdvectionStencil,
+    apply_stencil,
+    apply_stencil_transpose,
+)
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
@@ -73,6 +82,7 @@ from diffpiso_tpu_torch.solvers.jacobi3d import (
     jacobi_plane3_plain,
     jacobi_zblock3_plain,
 )
+from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps, jacobi_sweeps_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
@@ -1399,3 +1409,126 @@ def test_cuda_function_kinds_match_the_cpu_plain_path(kind, cuda_device):
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(outs["cuda"][2], outs["cpu"][2]))
     den = sum(float(torch.sum(b ** 2)) for b in outs["cpu"][2])
     assert (num / den) ** 0.5 <= 1e-5
+
+
+def _momentum_planes(shape, seed, dev):
+    c = _rand(shape, seed, 0.3, -10.0).to(dev)
+    lo = tuple(_rand(shape, seed + k, 0.4).to(dev) for k in (1, 2))
+    hi = tuple(_rand(shape, seed + k, 0.4).to(dev) for k in (3, 4))
+    return c, lo, hi
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("shape", [(1024, 2048), (7, 5)])
+def test_jacobi_sweeps_kernel_is_bit_equal_to_plain(shape, k, transpose, cuda_device):
+    """Row 8b at the 1024 x 2048 tier's plane and a small odd one: x_k and
+    the exit norm bit for bit (one thread per cell, --fmad=false), k + 1
+    launches a call, x0 untouched."""
+    st = _momentum_planes(shape, 60, cuda_device)
+    b = _rand(shape, 65).to(cuda_device)
+    x0 = _rand(shape, 66, 0.1).to(cuda_device)
+    keep = x0.clone()
+    before = fused_jacobi_sweeps.launches
+    kx, kn = fused_jacobi_sweeps(st, b, x0, k, -1.0, transpose)
+    assert fused_jacobi_sweeps.launches == before + k + 1
+    px, pn = jacobi_sweeps_plain(st, b, x0, k, -1.0, transpose)
+    torch.testing.assert_close(kx, px, rtol=0, atol=0)
+    assert kn.ndim == 0 and float(kn) == float(pn) > 0
+    assert torch.equal(x0, keep)
+    with pytest.raises(ValueError):
+        fused_jacobi_sweeps(st, b.double(), x0, k, -1.0, transpose)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 2048), (129, 512), (128, 513), (7, 5)])
+def test_stencil_residual_kernel_is_bit_equal_to_plain_and_the_chain(shape, negate, transpose,
+                                                                     cuda_device):
+    """Row 14 on the 1024 x 2048 plane, the mixing layer's two face shapes
+    and a small odd plane: r and max |r| bit for bit against the plain
+    version and against the chain it replaces (row 7's matvec kernel, its
+    negation, b - A x)."""
+    c, lo, hi = _momentum_planes(shape, 70, cuda_device)
+    b = _rand(shape, 75).to(cuda_device)
+    x = _rand(shape, 76).to(cuda_device)
+    before = fused_stencil_residual.launches
+    kr, kn = fused_stencil_residual(c, lo, hi, b, x, negate, transpose)
+    assert fused_stencil_residual.launches == before + 1
+    pr, pn = stencil_residual_plain(c, lo, hi, b, x, negate, transpose)
+    torch.testing.assert_close(kr, pr, rtol=0, atol=0)
+    assert kn.ndim == 0 and float(kn) == float(pn)
+    m = matvec.fused_stencil_matvec(c, lo, hi, x, transpose)
+    a = -m if negate else m
+    chain = -1.0 * a + b
+    torch.testing.assert_close(kr, chain, rtol=0, atol=0)
+    assert float(kn) == float(chain.abs().max())
+
+
+def test_pcg_mm_update_kernel_matches_plain_on_a_non_square_plane(cuda_device):
+    """The folded update at 1024 x 2048 (bases 1024^2 and 2048^2 with their
+    stored transposes) on a mid-loop call: p' within 5e-6 of its scale of
+    the plain version (cuBLAS), both within 1e-5 of it of float64 (four
+    chained float32 contractions, two of them over 2048 terms: on the H100
+    the kernel lay 6.0e-6 of the scale from float64), rz' within rel 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (1024, 2048)
+    rng = np.random.RandomState(15)
+    comps = tuple(t(rng.rand(*shape) + 0.5).to(cuda_device) for _ in range(2))
+    ones = torch.ones(shape[0] + 2, shape[1] + 2, device=cuda_device)
+    lap = plap.assemble_pressure_laplacian(StaggeredField(comps, (True, True)), ones, ones,
+                                           (True, True), True)
+    mss, weights = pbase.pressure_preconditioner("fft_mm", lap)
+    (v0, v0t), (v1, v1t) = mss.mats(torch.float32, cuda_device)
+    assert v0.shape == (1024, 1024) and v1.shape == (2048, 2048)
+    sym = safe_symbol(mss, weights, torch.float32, cuda_device)
+    r, p = _rand(shape, 16).to(cuda_device), _rand(shape, 17).to(cuda_device)
+    rz_old = 1.7 * torch.sum(r * spectral_apply_plain(v0, v1, sym, r))
+    kp, krz = fused_pcg_mm_update(v0, v0t, v1, v1t, sym, rz_old, r, p)
+    pp, prz = pcg_mm_update_plain(v0, v1, sym, rz_old, r, p)
+    p64, rz64 = pcg_mm_update_plain(*(a.double() for a in (v0, v1, sym, rz_old, r, p)))
+    scale = float(pp.abs().max())
+    torch.testing.assert_close(kp, pp, rtol=0, atol=5e-6 * scale)
+    for got in (kp, pp):
+        torch.testing.assert_close(got.double(), p64, rtol=0, atol=1e-5 * scale)
+    assert float(krz) == pytest.approx(float(prz), rel=1e-5)
+    assert float(krz) == pytest.approx(float(rz64), rel=1e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_cuda_momentum_solve_in_the_k_sweep_tier_matches_the_cpu(transpose, cuda_device,
+                                                                 monkeypatch):
+    """bicgstab in the k-sweep tier (forced at 64 x 128) on a weakly
+    dominant component pair, card against the CPU plain path: the same
+    probes, trips and hand-over, the Jacobi kernels bit-equal, so the
+    BiCGSTAB after the hand-over (row 14 at its entry and exit) takes the
+    same iterations; x within 1e-5 of its scale (the phases' sums run in
+    another order on the card)."""
+    monkeypatch.setattr(krylov.tiers, "jac2_eligible", lambda *a, **k: False)
+    monkeypatch.setattr(krylov.tiers, "jac1_eligible", lambda *a, **k: False)
+    shape = (64, 128)
+    out = {}
+    for key, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        comps = [_momentum_planes(shape, 80, dev), _momentum_planes(shape, 85, dev)]
+        comps[1] = (comps[1][0] * 0.16, comps[1][1], comps[1][2])  # |center| ~ 1.6
+        st = AdvectionStencil(center=tuple(c[0] for c in comps), lo=tuple(c[1] for c in comps),
+                              hi=tuple(c[2] for c in comps), diag_A=tuple(c[0] for c in comps))
+        per = (True, True)
+        b = StaggeredField((_rand(shape, 90).to(dev), _rand(shape, 91).to(dev)), per)
+        op = apply_stencil_transpose if transpose else apply_stencil
+        keys = ("jacobi_probes", "jacobi_trips", "fallbacks")
+        c0 = {k: getattr(krylov.bicgstab, k) for k in keys}
+        l0 = (fused_jacobi_sweeps.launches, fused_stencil_residual.launches)
+        res = krylov.bicgstab(lambda v: op(st, v, negate=True), b, tol=1e-6, max_iter=400,
+                              diag=StaggeredField(tuple(-c for c in st.center), per),
+                              stencil=st, negate=True, transpose=transpose)
+        d = {k: getattr(krylov.bicgstab, k) - c0[k] for k in keys}
+        launches = (fused_jacobi_sweeps.launches - l0[0], fused_stencil_residual.launches - l0[1])
+        out[key] = (d, res.iterations, res.warn, [c.cpu() for c in res.x.components], launches)
+    card, cpu = out["card"], out["cpu"]
+    assert card[:3] == cpu[:3] and not card[2]
+    assert card[0] == {"jacobi_probes": 1, "jacobi_trips": 8, "fallbacks": 1}
+    assert card[4] == (2 * (2 + 5 * 8), 4) and cpu[4] == (0, 0)
+    for a, w in zip(card[3], cpu[3]):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+

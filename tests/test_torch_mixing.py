@@ -495,6 +495,7 @@ class _Counts:
         wrap(fv2m, "_div", "div2m")
         wrap(fv2m, "gradT2m", "gradT2m")
         wrap(matvec, "_matvec", None, lambda a, k: "matvec_T" if a[2] else "matvec")
+        wrap(krylov, "fused_stencil_residual", "stencil_residual")
         wrap(krylov, "fused_jacobi2_solve", "jacobi2")
         wrap(krylov, "fused_pcg2_solve", "pcg2")
         wrap(krylov, "fused_residual", "pcg_residual")
@@ -509,7 +510,8 @@ class _Counts:
         p, b = self.krylov.pcg, self.krylov.bicgstab
         return dict(loops=p.loops, warm_entries=p.warm_entries, resets=p.resets,
                     iterations=p.iterations, bicg_iterations=b.iterations,
-                    applies=b.applies[False], applies_T=b.applies[True])
+                    applies=b.applies[False], applies_T=b.applies[True],
+                    residuals=b.residuals[False], residuals_T=b.residuals[True])
 
 
 def _derived(c0, c1):
@@ -517,13 +519,15 @@ def _derived(c0, c1):
     phase kernels (residual: one per warm entry, reset and finished loop;
     apply and update: one per iteration) and, after a jac2 solve that
     missed its tol, the BiCGSTAB phases (one per component and iteration)
-    and the matvecs of its residuals (one per component and operator
-    apply)."""
+    and the fused stencil residual of its entry and exit (one per
+    component and residual)."""
     d = {k: c1[k] - c0[k] for k in c0}
     out = {"pcg_residual": d["warm_entries"] + d["resets"] + d["loops"],
            "pcg_apply": d["iterations"], "pcg_update": d["iterations"]}
     if d["bicg_iterations"]:
         out.update({f"bicg_phase_{k}": 2 * d["bicg_iterations"] for k in ("p", "s", "x")})
+    if d["residuals"] + d["residuals_T"]:
+        out["stencil_residual"] = 2 * (d["residuals"] + d["residuals_T"])
     return out, d
 
 
@@ -532,7 +536,9 @@ def test_mixing_launch_counts_per_step_and_per_rollout_gradient(monkeypatch):
     the matvec 2 (explicit_H), jac2 1, the Laplace assembly 1, pcg2 0; the
     pressure solves' phase kernels as the loop's counters derive them
     (residual: one per warm entry, reset and finished loop; apply and
-    update: one per iteration), the BiCGSTAB hand-overs by theirs. Per
+    update: one per iteration), the BiCGSTAB hand-overs by theirs (the
+    fused stencil residual at their entry and exit; the structured loop
+    applies no matvec of its own). Per
     rollout gradient of U steps ("outputs" remat) grad2m 8U, div2m 4U,
     gradT2m 3U - 1, matvec 4U plus 2U transposed, jac2 2U, Laplace assembly
     2U; the 2U cold pressure adjoints run a loop each with no entry
@@ -550,8 +556,9 @@ def test_mixing_launch_counts_per_step_and_per_rollout_gradient(monkeypatch):
     assert d["warm_entries"] == 4 and d["loops"] == 4 and d["resets"] == 0
     # from rest with the inflow switched on, jac2 misses tol in the first
     # steps and hands over to BiCGSTAB (forward form only)
-    assert d["applies"] > 0 and d["applies_T"] == 0
-    assert counts.n == {"grad2m": 6, "div2m": 4, "matvec": 4 + 2 * d["applies"], "jacobi2": 2,
+    assert d["residuals"] > 0 and d["residuals_T"] == 0
+    assert d["applies"] == d["applies_T"] == 0
+    assert counts.n == {"grad2m": 6, "div2m": 4, "matvec": 4, "jacobi2": 2,
                         "laplace_assembly": 2, **phases}
     counts.n.clear()
     u = 3

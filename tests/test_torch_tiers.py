@@ -3,9 +3,10 @@ functions (diffpiso_tpu/solvers/pallas_krylov.py), for the 2-D shapes of
 bench.py's workloads and the classes past them, with the TPU backend
 condition of the JAX gates patched open (the gates themselves are pure
 shape arithmetic). Also the dispatch the tiers drive in solvers/krylov.py:
-the k-sweep tier raises at 1024 x 2048, 2048^2 runs BiCGSTAB with no
-Jacobi, and the one clause left out on purpose (pcg2's adjoint alignment
-exclusion) keeps small periodic adjoints on pcg2. The 3-D gates (jac13d,
+the k-sweep tier at 1024 x 2048 runs its probe and then its trips (the
+kernel stubbed), 2048^2 runs BiCGSTAB with no Jacobi, and the one clause
+left out on purpose (pcg2's adjoint alignment exclusion) keeps small
+periodic adjoints on pcg2. The 3-D gates (jac13d,
 the z-block size, the plane sweeps) against the JAX ones at 32^3 to 256^3
 and past them, and the dispatch of the z-block and plane tiers to their
 kernels (15e with the JAX block size, 15f; k = 4)."""
@@ -175,11 +176,51 @@ def _momentum_system(shape):
     return st, b
 
 
-def test_the_k_sweep_tier_raises_at_1024_x_2048():
+@pytest.mark.parametrize("hand_over", [False, True])
+def test_the_k_sweep_tier_runs_the_probe_then_trips_at_1024_x_2048(hand_over, monkeypatch):
+    """At 1024 x 2048 the momentum solve takes the k-sweep tier
+    (krylov.py:478-499 of the JAX package): one k = 1 probe per component,
+    then trips of k = 4 on both components while the largest norm after
+    the sweeps is above tol (here: the probe misses, the second trip meets
+    tol; or every norm misses, so 8 trips run and the solve hands the last
+    iterate to the fused BiCGSTAB), never jac1 or jac2. The kernel is
+    stubbed: it adds 1 to x and reports the scripted norms."""
     st, b = _momentum_system((1024, 2048))
-    with pytest.raises(NotImplementedError, match="fused_jacobi_sweeps"):
-        krylov.bicgstab(lambda v: v, b, tol=1e-6, diag=StaggeredField(st.center, (True, True)),
-                        stencil=st, negate=True)
+    calls, handed = [], []
+    # the largest norm after the probe, trip 1, trip 2 (per component)
+    script = {0: (1.0, 0.5), 1: (0.1, 1e-3), 2: (1e-7, 5e-7)}
+
+    def sweeps(st_c, rhs, x, k, sgn, transpose):
+        calls.append(k)
+        trip = (len(calls) - 1) // 2
+        norm = 1.0 if hand_over else script[trip][(len(calls) - 1) % 2]
+        return x + 1.0, torch.tensor(norm)
+
+    def no_whole_solve(*a, **k):
+        pytest.fail("the k-sweep tier runs no whole Jacobi solve")
+
+    def loop(st_cs, inv_diag, rhs, x0, *a):
+        handed.append([float(c.max()) for c in x0.components])
+        return x0, 0.0, 3
+
+    monkeypatch.setattr(krylov, "fused_jacobi_sweeps", sweeps)
+    monkeypatch.setattr(krylov, "fused_jacobi1_solve", no_whole_solve)
+    monkeypatch.setattr(krylov, "fused_jacobi2_solve", no_whole_solve)
+    monkeypatch.setattr(krylov, "_bicgstab_once_fused", loop)
+    keys = ("jacobi_probes", "jacobi_trips", "jacobi_block_sweeps", "fallbacks")
+    before = {k: getattr(krylov.bicgstab, k) for k in keys}
+    res = krylov.bicgstab(lambda v: v, b, tol=1e-6, diag=StaggeredField(st.center, (True, True)),
+                          stencil=st, negate=True)
+    d = {k: getattr(krylov.bicgstab, k) - before[k] for k in keys}
+    trips = 8 if hand_over else 2
+    assert calls == [1, 1] + [4, 4] * trips
+    assert d == {"jacobi_probes": 1, "jacobi_trips": trips,
+                 "jacobi_block_sweeps": 2 * (1 + 4 * trips), "fallbacks": int(hand_over)}
+    if hand_over:
+        assert handed == [[1.0 + trips] * 2] and res.iterations == 3
+    else:
+        assert handed == [] and res.iterations == 0 and res.residual_norm == np.float32(5e-7)
+        assert [float(c.max()) for c in res.x.components] == [1.0 + trips] * 2
 
 
 def test_2048_squared_runs_bicgstab_with_no_jacobi(monkeypatch):
@@ -189,7 +230,7 @@ def test_2048_squared_runs_bicgstab_with_no_jacobi(monkeypatch):
     def no_jacobi(*a, **k):
         pytest.fail("no Jacobi solve runs past the 8 MiB planes")
 
-    def loop(st_cs, inv_diag, apply_A, rhs, x0, *a):
+    def loop(st_cs, inv_diag, rhs, x0, *a):
         calls.append([torch.equal(c, torch.zeros_like(c)) for c in x0.components])
         return x0, 0.0, 0
 
