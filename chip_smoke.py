@@ -281,7 +281,40 @@ Phases, each fatal on failure:
      launches follow each path's BiCGSTAB residual counters (its
      `launches` in the kernels line are the mixing layer's forward, where
      hand-overs occur).
+  2k. row 13 (the masked advection assembly, csrc/advassembly_masked.cu,
+     one launch for both components) bit-equal to its plain version at the
+     512 cavity's faces (514 x 512 / 513 x 513, phase 6's state), the
+     mixing layer's (phase 7's state at a scalar viscosity: a shape check,
+     the mixing path itself assembles in the general body), the pipe's
+     32 x 64 (x periodic) and, with a batch axis in "auto", 13e's 257 x
+     1024 / 256 x 1025 planes x 2 (each sample equal to the single-sample
+     kernel); 17b checks the Kármán shape (513 x 1536 / 512 x 1537) on its
+     spun-up state; host ms, device us per launch, the bound, the plain
+     version. Every earlier path asserts row 13's launches: once per
+     assembly on the cavity paths (6b-c, 15b, 15d), 0 where row 1 takes the
+     field or the viscosity is per face (the mixing layers, training, the
+     DNS: the general body assembles there).
+  17. the channel flows (examples/pipe.py, examples/karman_street.py, the
+     temporal mixing layer): (a) card vs the CPU plain path at small sizes:
+     the obstacle channel at 32 x 96 (3 steps, then the 3-step gradient of
+     sum v^2 with respect to the initial velocity: rel l2 <= 1e-3, equal
+     gate decisions), the temporal mixing layer at 32 x 32 (3 steps), the
+     pipe at 16 x 16 (10 steps): every solve's order and warn, the momentum
+     loop counters equal; pressure iterations equal (plain CG: within 2,
+     reported); velocity rel l2 <= 1e-4; (b) the Kármán street at 512 x 1536
+     (aspect 3, Re 200, tol 1e-5, caps 100 / 800, `channel`, dt 0.3/512,
+     from u = 1): a 400-step spin-up, row 13 on its state (2k), then 2 timed
+     calls of 200 steps: steps/s, peak memory, warn 0 on the timed steps
+     (the spin-up's warned steps and solves reported), max |div v| over
+     fluid cells, the obstacle's faces exactly 0, finite vorticity and the
+     wake asymmetry, jac1 2 a step, the PCG phases as the loops derive,
+     row 13 1 a step, row 1 and every bypassed kernel 0; (c) the pipe at 32
+     x 64 for 3300 steps (steps x dt past 0.8 H^2 / nu; the example's
+     float64 momentum solve, diffpiso_tpu_torch/examples/pipe.py):
+     Poiseuille rel l2 < 0.05, x-invariance and |v| < 1e-5, warn 0,
+     steps/s and CG iterations a step, its launches derived likewise.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
+
 Exits non-zero, printing no result, without a CUDA device or without the
 package next to it.
 """
@@ -335,7 +368,7 @@ def rel_err(a, b) -> float:
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
                "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
-               "sres_")
+               "sres_", "advm_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -871,9 +904,10 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         fail(f"cavity: {fallbacks} BiCGSTAB fallbacks (must be 0)")
     # per step: the three pressure gradients, two divergences, explicit_H's
     # two matvecs, one momentum and two pressure solves, one Laplace
-    # assembly; the periodic kernels stay off the bounded path
+    # assembly, one masked advection assembly (row 13); the periodic
+    # kernels (row 1 among them) stay off the bounded path
     per_step = {"grad2m": 3, "div2m": 2, "stencil_matvec": 2, "jacobi2_solve": 1,
-                "pcg2_solve": 2, "laplace_assembly": 1}
+                "pcg2_solve": 2, "laplace_assembly": 1, "advection_assembly_masked": 1}
     for k in fwd:
         if fwd[k] != per_step.get(k, 0) * CAV_STEPS:
             fail(f"cavity forward: {k} launched {fwd[k]} times, expected "
@@ -885,7 +919,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     # matvecs each; the backward adds 2U grad2m (the div2m VJPs), 3U - 1
     # gradT2m (the initial pressure carries no gradient) and 2U transposed
     # matvecs; the solves run 2U (momentum) and 4U (pressure) times, the
-    # Laplace assembly 2U. A momentum solve whose jac2 misses its tol hands
+    # Laplace assembly and the masked advection assembly 2U. A momentum solve whose jac2 misses its tol hands
     # over to BiCGSTAB, as the JAX package does on the TPU (the last step's
     # adjoint, on this state): each of its iterations launches the three
     # phase kernels once per component, and its residuals at entry and exit
@@ -894,7 +928,8 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     # from the same state, so every evaluation must count the same.
     U = UNROLL
     expected = {"grad2m": 8 * U, "div2m": 4 * U, "gradT2m": 3 * U - 1, "stencil_matvec": 6 * U,
-                "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U, "laplace_assembly": 2 * U}
+                "jacobi2_solve": 2 * U, "pcg2_solve": 4 * U, "laplace_assembly": 2 * U,
+                "advection_assembly_masked": 2 * U}
     forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                              periodic=(False, False))
     evals = []
@@ -1482,7 +1517,9 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     # per step: the three pressure gradients, two divergences, explicit_H's
     # two matvecs, one momentum solve, one Laplace assembly; the pressure
     # solves' phase kernels and any BiCGSTAB hand-over as the loops count
-    # them; pcg2, the uniform-mask assembly and the periodic kernels stay off
+    # them; pcg2, both advection assembly kernels (row 1: the masks are not
+    # uniform; row 13: the sponge viscosity is per face, so the general body
+    # assembles) and the periodic kernels stay off
     S = MIX_STEPS
     want = dict(loops, grad2m=3 * S, div2m=2 * S, stencil_matvec=2 * S + 2 * d["applies"],
                 laplace_assembly=S, **{jac: per_solve * S})
@@ -1899,9 +1936,11 @@ def training_b1_path(dev, wrappers: dict) -> dict:
     for k, want in loops.items():
         if counts[k] != want:
             fail(f"training batch 1: {k} launched {counts[k]} times, the loops derive {want}")
-    for k in ("advection_assembly", "pcg2_solve", "div2", "grad2", "corrector1_bridge",
-              "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve", "pcg_mm_update",
-              *T3_KERNELS, *T3_TIER_KERNELS.values()):
+    # (both advection assembly kernels: the layer's sponge viscosity is per
+    # face, so the general body assembles)
+    for k in ("advection_assembly", "advection_assembly_masked", "pcg2_solve", "div2", "grad2",
+              "corrector1_bridge", "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve",
+              "pcg_mm_update", *T3_KERNELS, *T3_TIER_KERNELS.values()):
         if counts[k]:
             fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
     return counts
@@ -4309,6 +4348,7 @@ def batched_training_path(dev, wrappers: dict) -> dict:
     adam = Adam(1e-5)
     state = adam.init(params)
     batch = training_frames(setup, cfg, nb)
+    STATES["batched_training"] = (setup, batch[0])
     step = make_batched_train_step(loss_fn, adam)
     params, state, loss, parts, warns = step(params, state, *batch)
     torch.cuda.synchronize()
@@ -4627,7 +4667,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     if warns:
         fail(f"cavity under CG: warn fraction {warns / CG_STEPS} (must be 0)")
     per_step = {"grad2m": 3, "div2m": 2, "stencil_matvec": 2, "jacobi2_solve": 1,
-                "laplace_assembly": 1}
+                "laplace_assembly": 1, "advection_assembly_masked": 1}
     want = {k: per_step.get(k, 0) * CG_STEPS for k in fwd}
     want.update(derived)
     want["stencil_matvec"] += 2 * (bd["applies"] + bd["applies_T"])
@@ -4644,7 +4684,8 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     # pressure solves', which CG's counters derive
     U = UNROLL
     expected = {"grad2m": 8 * U, "div2m": 4 * U, "gradT2m": 3 * U - 1, "stencil_matvec": 6 * U,
-                "jacobi2_solve": 2 * U, "laplace_assembly": 2 * U}
+                "jacobi2_solve": 2 * U, "laplace_assembly": 2 * U,
+                "advection_assembly_masked": 2 * U}
     forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                              periodic=(False, False))
     evals = []
@@ -4825,7 +4866,10 @@ def kinds_path(dev, wrappers: dict) -> dict:
                     if launches[n_] != derived[n_]:
                         fail(f"{kind}: {n_} launched {launches[n_]} times, the loops derive "
                              f"{derived[n_]}")
-                for n_ in ("pcg2_solve", "pcg_mm_update", "cg_iteration"):
+                # row 13 stays off both: the turbulence is uniform periodic
+                # (row 1), the mixing layer's viscosity per face
+                for n_ in ("pcg2_solve", "pcg_mm_update", "cg_iteration",
+                           "advection_assembly_masked"):
                     if launches[n_]:
                         fail(f"{kind}: {n_} launched {launches[n_]} times (must be 0)")
                 rows[k]["launches"] = {n_: launches[n_] for n_ in (
@@ -4852,8 +4896,13 @@ def ghia_path(dev) -> dict:
     import numpy as np
 
     from diffpiso_tpu_torch.eval.ghia import validate_ghia
+    from diffpiso_tpu_torch.ops.advassembly_masked import fused_advection_assembly_masked
 
+    fused_advection_assembly_masked.launches = 0
     res = validate_ghia(GHIA_N, device=dev, log=lambda s: print(f"ghia {s}", flush=True))
+    if fused_advection_assembly_masked.launches != res["steps"]:
+        fail(f"Ghia validation: row 13 launched {fused_advection_assembly_masked.launches} "
+             f"times in {res['steps']} steps (one assembly a step)")
     fix = np.load(GHIA_FIXTURE)
     line = dict(
         workload=f"Ghia validation, lid-driven cavity {GHIA_N}^2 at Re 1000 (dct, dt 0.01, "
@@ -4862,6 +4911,7 @@ def ghia_path(dev) -> dict:
         correlation=res["correlation"], rms=res["rms"], u_min=res["u_min"],
         max_abs_diff_from_jax_fixture=float(np.abs(res["u"] - fix["u"]).max()),
         warned_steps=res["warned_steps"], pressure_iters_per_step=res["pressure_iters_per_step"],
+        advection_assembly_masked_launches=fused_advection_assembly_masked.launches,
         u_at_ghia_y=[float(u) for u in res["u_at_ghia_y"]])
     print(json.dumps(line), flush=True)
     if not res["finite"]:
@@ -4872,6 +4922,563 @@ def ghia_path(dev) -> dict:
     if not abs(res["u_min"] - GHIA_U_MIN) < 0.02:
         fail(f"Ghia validation: u_min {res['u_min']:+.4f}, bar {GHIA_U_MIN} +- 0.02")
     return line
+
+
+# -- the channel flows: row 13 (the masked advection assembly), the obstacle channel
+# (examples/karman_street.py), the temporal mixing layer, the pipe ---------------------------
+KARMAN_NY = 512  # 512 x 1536 cells: the cylinder (diameter 0.15) spans 77 cells
+KARMAN_SPINUP = 400
+KARMAN_CALL = 200  # steps per timed call
+KARMAN_CALLS = 2
+KARMAN_SMALL = 32  # 17a: 32 x 96, card vs CPU
+PIPE_RES = (32, 64)  # examples/pipe.py's defaults
+# 17c: steps x dt = 3300 x 2.5 = 8250 passes 0.8 H^2 / nu = 8192, where the
+# example asserts its Poiseuille bar
+PIPE_STEPS = 3300
+PIPE_SMALL, PIPE_SMALL_STEPS = 16, 10
+TEMPORAL_RES, TEMPORAL_STEPS = (32, 32), 3  # tests/test_temporal_mixing.py's setup
+SMALL_STEPS = 3  # 17a: obstacle channel steps and gradient depth
+# 17a: plain CG (the pipe, the temporal layer) stops where its float32
+# residual crosses tol, which other sums round across: iterations within 2
+# (phase 15a's allowance), reported; every other count must be equal
+CG_ITER_SLACK = 2
+
+
+def stencil_planes(st) -> list:
+    """(centers, los, his, diag_As) -> the 12 planes, component by component:
+    center, lo_y, lo_x, hi_y, hi_x, diag_A."""
+    centers, los, his, diags = st
+    return [x for c in range(2) for x in (centers[c], *los[c], *his[c], diags[c])]
+
+
+def masked_check(label, vel, pad_modes, dx, nu, beta, dm, act, ns, periodic) -> dict:
+    """Row 13 against its plain version on one field: every plane bit-equal;
+    host ms per call (the pad outside, as on the path), device time per
+    launch, the bound (each input read once, each output written once), the
+    plain version's ms."""
+    from diffpiso_tpu_torch.ops.advassembly_masked import (
+        advection_assembly_masked_plain, fused_advection_assembly_masked)
+    from diffpiso_tpu_torch.ops.fv import pad_staggered
+
+    import torch
+
+    vp = pad_staggered(vel, pad_modes, 1)
+    args = (vp, vel, dx, nu, beta, dm, act, ns, periodic)
+    got = stencil_planes(fused_advection_assembly_masked(*args))
+    want = stencil_planes(advection_assembly_masked_plain(*args))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    shapes = [tuple(c.shape) for c in vel.components]
+    print(f"row 13 {label} {shapes}: bit-equal to plain {same}, max abs err {err:.3e}",
+          flush=True)
+    if not same:
+        fail(f"row 13 {label}: kernel and plain version differ (max abs err {err:.3e})")
+    masks = [act, *dm.components] + ([] if ns is None else [ns])
+    moved = sum(p.numel() * 4 for p in vp) + sum(m.numel() * m.element_size() for m in masks) \
+        + sum(6 * c.numel() * 4 for c in vel.components)
+    # per face and axis ~26 operations (4 window adds and scales, the link
+    # coefficients, the diagonal's two terms), plus the Dirichlet select
+    b_ms, b_by = bound(moved, sum(c.numel() for c in vel.components) * 60)
+    return dict(shapes=shapes, max_abs_err=err, ms=cuda_time_ms(
+        lambda: fused_advection_assembly_masked(*args), 100),
+        **device_time(lambda: fused_advection_assembly_masked(*args)),
+        plain_ms=cuda_time_ms(lambda: advection_assembly_masked_plain(*args), 20),
+        bound_ms=b_ms, bound_by=b_by, bytes=moved)
+
+
+def masked_kernels(dev) -> dict:
+    """Phase 2k (all but the Karman shape, which 17b checks on its spun-up
+    state): row 13 bit-equal to its plain version at the 512 cavity's faces
+    (phase 6's state), the mixing layer's (phase 7's state, with its scalar
+    viscosity: its path takes the general body for its per-face sponge),
+    the pipe's 32 x 64 (x periodic, a state 50 steps in) and, with a batch
+    axis, 13e's 256 x 1024 x 2 planes in "auto", each sample equal to the
+    single-sample kernel."""
+    import torch
+
+    from diffpiso_tpu_torch.core.setups import DEFAULT_PHYSICAL, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.examples.pipe import pipe_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops.advassembly_masked import fused_advection_assembly_masked
+    from diffpiso_tpu_torch.ops.fv import pad_staggered
+
+    nu = DEFAULT_PHYSICAL["viscosity"]  # the mixing layer's, before its sponge ramp
+    out = {}
+    domain, sim, dt = lid_driven_cavity_setup(CAV_N, device=dev)
+    v = STATES["cavity"][0]
+    beta = domain.dx[0] * domain.dx[1] / dt
+    out["cavity"] = masked_check("cavity 512", v, domain.velocity_pad_modes(), domain.dx,
+                                 sim.viscosity, beta, sim.dirichlet_mask, sim.active_mask,
+                                 sim.no_slip_mask, sim.bool_periodic)
+    setup, v = STATES["mixing"][:2]
+    d = setup.domain
+    # a shape check only: the mixing path itself assembles in the general body
+    out["mixing_shape_scalar_nu"] = masked_check(
+        "mixing 128 x 512 shape, scalar nu", v, d.velocity_pad_modes(), d.dx, nu,
+        d.dx[0] * d.dx[1] / setup.dt, setup.sim.dirichlet_mask, setup.sim.active_mask,
+        setup.sim.no_slip_mask, setup.sim.bool_periodic)
+    ps = pipe_setup(*PIPE_RES, device=dev)
+    v, p, g1, g2 = ps.initial_state()
+    for _ in range(50):
+        o = ps.step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    d = ps.domain
+    out["pipe"] = masked_check(f"pipe {PIPE_RES[0]} x {PIPE_RES[1]}", v, d.velocity_pad_modes(),
+                               d.dx, ps.nu, d.dx[0] * d.dx[1] / ps.dt, ps.sim.dirichlet_mask,
+                               ps.sim.active_mask, ps.sim.no_slip_mask, ps.sim.bool_periodic)
+    setup, vb = STATES["batched_training"]
+    d, sim = setup.domain, setup.sim
+    beta = d.dx[0] * d.dx[1] / setup.dt
+    args = (d.velocity_pad_modes(), d.dx, nu, beta, sim.dirichlet_mask, sim.active_mask,
+            sim.no_slip_mask, sim.bool_periodic)
+    out["batched"] = masked_check("13e planes x 2", vb, *args)
+    both = stencil_planes(fused_advection_assembly_masked(pad_staggered(vb, args[0], 1), vb,
+                                                         *args[1:]))
+    for s in range(vb.components[0].shape[0]):
+        vs = StaggeredField(tuple(c[s] for c in vb.components), periodic=vb.periodic)
+        one = stencil_planes(fused_advection_assembly_masked(pad_staggered(vs, args[0], 1), vs,
+                                                            *args[1:]))
+        if not all(torch.equal(a[s], b) for a, b in zip(both, one)):
+            fail(f"row 13 batched: sample {s} differs from the single-sample kernel")
+    print("row 13 on 13e's planes x 2 (auto): each sample bit-equal to the single-sample "
+          "kernel", flush=True)
+    return out
+
+
+def solve_log():
+    """Wraps the forward solves (solvers/base.py `_adv_solve_impl` and
+    `_pressure_solve_impl`) to log each solve in order as (system, warn,
+    iterations, final residual): which solve warned, and how far from its
+    limit. Returns the list and an undo function."""
+    from diffpiso_tpu_torch.solvers import base
+
+    log = []
+    adv, pre = base._adv_solve_impl, base._pressure_solve_impl
+
+    def put(system, res):
+        log.append((system, bool(res.warn), int(res.iterations), float(res.residual_norm)))
+
+    def adv_logged(*a, **k):
+        out = adv(*a, **k)
+        put("momentum", out[1])
+        return out
+
+    def pre_logged(*a, **k):
+        res = pre(*a, **k)
+        put("pressure", res)
+        return res
+
+    base._adv_solve_impl, base._pressure_solve_impl = adv_logged, pre_logged
+
+    def undo():
+        base._adv_solve_impl, base._pressure_solve_impl = adv, pre
+
+    return log, undo
+
+
+def initial_velocity_grad(step, vel, p, steps) -> tuple:
+    """(final velocity, d sum v^2 / d initial velocity, the adjoint solves,
+    warned steps) of `steps` steps from (vel, p) with zero pressure guesses;
+    each step records its solves (SolveStash), remat "none"."""
+    import torch
+
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.solvers.base import SolveStash
+
+    leaves = tuple(c.detach().requires_grad_(True) for c in vel.components)
+    v = StaggeredField(leaves, periodic=vel.periodic)
+    g1 = g2 = torch.zeros_like(p)
+    stashes, warns = [], 0
+    with torch.enable_grad():
+        for _ in range(steps):
+            stashes.append(SolveStash())
+            with stashes[-1].recording():
+                o = step(v, p, g1, g2)
+            warns += int(o.warn)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        grads = torch.autograd.grad(sum(torch.sum(c * c) for c in v.components), leaves)
+    return ([c.detach() for c in v.components], grads,
+            [a for s in stashes for a in s.adjoints], warns)
+
+
+def channel_small_check(dev) -> None:
+    """Phase 17a: the three channel flows at small sizes on the card against
+    the plain path on the CPU: the obstacle channel at 32 x 96 (3 steps from
+    u = 1, then the 3-step gradient of sum v^2 with respect to the initial
+    velocity: gradient rel l2 <= 1e-3, equal gate decisions), the temporal
+    mixing layer at 32 x 32 (tests/test_temporal_mixing.py's setup, 3
+    steps) and the pipe at 16 x 16 (10 steps). Every solve's system and warn
+    equal in order, the momentum loop counters equal; pressure iterations
+    equal for the obstacle's PCG and within CG_ITER_SLACK for plain CG,
+    reported; velocities within rel l2 1e-4."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.core.masks import temporal_mixing_layer_masks
+    from diffpiso_tpu_torch.core.piso import SimulationParameters, piso_step
+    from diffpiso_tpu_torch.examples.karman_street import karman_setup
+    from diffpiso_tpu_torch.examples.pipe import pipe_setup
+    from diffpiso_tpu_torch.fields.box import Box
+    from diffpiso_tpu_torch.fields.domain import Domain
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.material import CLOSED, PERIODIC
+    from diffpiso_tpu_torch.solvers.base import AdvectionSolver, PressureSolver
+
+    def temporal(d):
+        ny, nx = TEMPORAL_RES
+        dm, dv, act, acc, _ = temporal_mixing_layer_masks(
+            TEMPORAL_RES, np.full(nx, 0.5, np.float32), np.full(nx, -0.5, np.float32), device=d)
+        domain = Domain(TEMPORAL_RES, Box.from_size((1.0, 1.0)),
+                        boundaries=[(CLOSED, CLOSED), PERIODIC])
+        sim = SimulationParameters(
+            dirichlet_mask=dm, dirichlet_values=dv, active_mask=act, accessible_mask=acc,
+            no_slip_mask=None, viscosity=1e-3, laplace_rank_deficient=True,
+            bool_periodic=(False, True), linear_solver=AdvectionSolver(max_iterations=200),
+            pressure_solver=PressureSolver(max_iterations=2000, deflate_mean=True))
+        y = (np.arange(ny) + 0.5) / ny - 0.5
+        u = (np.tanh(y * 10.0)[:, None].repeat(nx, 1) * 0.5).astype(np.float32)
+        x = np.arange(nx) / nx
+        v = (0.02 * np.sin(2 * np.pi * 2 * x)[None, :].repeat(ny + 1, 0)).astype(np.float32)
+        vel = StaggeredField((torch.as_tensor(v, device=d), torch.as_tensor(u, device=d)),
+                             periodic=(False, True))
+
+        def step(v, p, g1, g2):
+            return piso_step(v, p, 0.01, domain, sim, advection_tol=1e-5, pressure_tol=1e-5)
+
+        return step, vel, domain.centered_grid(0.0, device=d), TEMPORAL_STEPS
+
+    def pipe(d):
+        ps = pipe_setup(PIPE_SMALL, PIPE_SMALL, device=d)
+        vel, p, _, _ = ps.initial_state()
+        return ps.step, vel, p, PIPE_SMALL_STEPS
+
+    def karman(d):
+        ks = karman_setup(KARMAN_SMALL, device=d)
+        vel, p, _, _ = ks.initial_state()
+        return ks.step, vel, p, SMALL_STEPS
+
+    cpu = torch.device("cpu")
+    for name, make, cg in (("obstacle channel 32 x 96", karman, False),
+                           ("temporal mixing layer 32 x 32", temporal, True),
+                           ("pipe 16 x 16", pipe, True)):
+        out = {}
+        for key, d in (("card", dev), ("cpu", cpu)):
+            step, v, p, steps = make(d)
+            log, undo = solve_log()
+            c0 = loop_counters()
+            g1 = g2 = torch.zeros_like(p)
+            try:
+                for _ in range(steps):
+                    o = step(v, p, g1, g2)
+                    v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            finally:
+                undo()
+            d_ = {k: loop_counters()[k] - c0[k] for k in c0}
+            out[key] = dict(log=log, counters=d_, v=[c.cpu() for c in v.components])
+            if name.startswith("obstacle"):
+                step, v0, p0, steps = make(d)
+                _, grads, adj, warns = initial_velocity_grad(step, v0, p0, steps)
+                out[key].update(grad=[g.cpu() for g in grads], warns=warns,
+                                gates=[(a.system, bool(a.gated)) for a in adj])
+        card, ref = out["card"], out["cpu"]
+        systems = [e[:2] for e in card["log"]] == [e[:2] for e in ref["log"]]
+        iters = [e[2] for e in card["log"] if e[0] == "pressure"], \
+            [e[2] for e in ref["log"] if e[0] == "pressure"]
+        worst = max(abs(a - b) for a, b in zip(*iters))
+        momentum = {k: card["counters"][k] for k in card["counters"] if not k.startswith("pcg")}
+        v_rel = rel_l2(card["v"], ref["v"])
+        line = dict(check=f"{name}, card vs CPU", solves=len(ref["log"]),
+                    pressure_iterations_card=iters[0], pressure_iterations_cpu=iters[1],
+                    momentum_counters_card=momentum, velocity_rel_l2=v_rel)
+        if "grad" in card:
+            line.update(gradient_rel_l2=rel_l2(card["grad"], ref["grad"]),
+                        gated_card=sum(g for _, g in card["gates"]),
+                        gated_cpu=sum(g for _, g in ref["gates"]), adjoints=len(ref["gates"]))
+        print(json.dumps(line), flush=True)
+        if not systems or any(e[1] for e in ref["log"] + card["log"]):
+            fail(f"17a {name}: the solves' order or warn differ, or a solve warned")
+        if momentum != {k: ref["counters"][k] for k in momentum}:
+            fail(f"17a {name}: the momentum loop counters differ card vs CPU")
+        if worst > (CG_ITER_SLACK if cg else 0):
+            fail(f"17a {name}: pressure iterations differ by {worst} card vs CPU")
+        if not v_rel <= 1e-4:
+            fail(f"17a {name}: velocity rel l2 {v_rel:.3e} > 1e-4 card vs CPU")
+        if "grad" in card:
+            if card["gates"] != ref["gates"] or card["warns"] or ref["warns"]:
+                fail(f"17a {name}: gradient gate decisions differ or a step warned")
+            if not line["gradient_rel_l2"] <= 1e-3:
+                fail(f"17a {name}: gradient rel l2 {line['gradient_rel_l2']:.3e} > 1e-3")
+
+
+def channel_counts(fwd: dict, steps: int, d: dict, extra: dict, jacobi) -> dict:
+    """The launches a bounded 2-D path's `steps` forward steps must count,
+    from the steps and the loops' counter deltas `d` (loop_counters) and
+    `extra` (the pressure solves' derived launches): per step row 13 once,
+    the Laplace assembly once, grad2m 3, div2m 2, explicit_H's 2 matvecs,
+    the whole-solve Jacobi `jacobi` = (name, launches per solve) once; the
+    BiCGSTAB hand-overs and generic applies as counted; every other kernel
+    0. `jacobi` None: the momentum solve runs in float64 (the pipe), in the
+    generic loop on plain operations, and launches no kernel."""
+    want = dict(advection_assembly_masked=steps, laplace_assembly=steps, grad2m=3 * steps,
+                div2m=2 * steps, stencil_matvec=2 * steps, **extra)
+    if jacobi is not None:
+        jac, per_solve = jacobi
+        want.update({k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES})
+        want.update({jac: per_solve * steps},
+                    stencil_matvec=2 * steps + 2 * (d["applies"] + d["applies_T"]),
+                    stencil_residual=2 * (d["residuals"] + d["residuals_T"]))
+    return {k: want.get(k, 0) for k in fwd}
+
+
+def karman_path(dev, wrappers: dict) -> tuple:
+    """Phase 17b: examples/karman_street.py at ny 512 (512 x 1536 cells;
+    aspect 3, Re 200, tol 1e-5, caps 100 / 800, the `channel`
+    preconditioner, dt 0.3/512, from u = 1): the 400-step spin-up, row 13
+    on the spun-up state against its plain version (phase 2k's Karman
+    shape), then 2 timed calls of 200 steps with every counter reset before
+    them: steps/s per call, the path's own peak memory (less what the
+    earlier phases hold), warn 0 on the timed steps (the
+    spin-up's warned steps and the solve that warned reported), max |div
+    v| over fluid cells, the obstacle's faces exactly at their Dirichlet
+    zeros, finite vorticity and the wake asymmetry, every launch as the
+    steps and the loops' counters derive (jac1 on both components, the PCG
+    phases, row 13 once a step) and 0 of row 1 and every bypassed kernel.
+    Returns (launches, the phase-2k entry of the Karman shape)."""
+    import torch
+
+    from diffpiso_tpu_torch.examples.karman_street import karman_setup, wake_asymmetry
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+
+    # the path's own peak: the device memory the earlier phases still hold
+    # (STATES) is read before the set-up and taken off
+    held = torch.cuda.memory_allocated()
+    ks = karman_setup(KARMAN_NY, device=dev)
+    sim, domain = ks.sim, ks.domain
+    v, p, g1, g2 = ks.initial_state()
+    log, undo = solve_log()
+
+    def advance(k):
+        nonlocal v, p, g1, g2
+        warned, iters = [], [0, 0]
+        for i in range(k):
+            n0 = len(log)
+            o = ks.step(v, p, g1, g2)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            if o.warn:
+                warned.append((i, [e for e in log[n0:] if e[1]]))
+            iters[0] += o.p_iterations[0]
+            iters[1] += o.p_iterations[1]
+        del log[:]
+        return warned, [x / k for x in iters]
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spin_warned, spin_iters = advance(KARMAN_SPINUP)
+        torch.cuda.synchronize()
+        spin_s = time.perf_counter() - t0
+        print(f"karman {KARMAN_NY} x {3 * KARMAN_NY}: {KARMAN_SPINUP}-step spin-up in "
+              f"{spin_s:.1f} s, warned steps {len(spin_warned)} (first: {spin_warned[:3]}), "
+              f"pressure iterations per step {spin_iters}", flush=True)
+        beta = domain.dx[0] * domain.dx[1] / ks.dt
+        entry = masked_check(f"karman {KARMAN_NY} x {3 * KARMAN_NY}", v,
+                             domain.velocity_pad_modes(), domain.dx, sim.viscosity, beta,
+                             sim.dirichlet_mask, sim.active_mask, sim.no_slip_mask,
+                             sim.bool_periodic)
+        for fn in wrappers.values():
+            fn.launches = 0
+        wrappers["stencil_matvec"].launches_transposed = 0
+        c0 = loop_counters()
+        torch.cuda.reset_peak_memory_stats()
+        calls, warned, iters = [], [], []
+        for _ in range(KARMAN_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w, it = advance(KARMAN_CALL)
+            torch.cuda.synchronize()
+            calls.append(KARMAN_CALL / (time.perf_counter() - t0))
+            warned += w
+            iters.append(it)
+    finally:
+        undo()
+    fwd = {k: fn.launches for k, fn in wrappers.items()}
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    steps = KARMAN_CALLS * KARMAN_CALL
+    derived, d = derived_launches(c0, loop_counters())
+    active_int = sim.active_mask[1:-1, 1:-1]
+    div = float((fv_divergence(v, domain.dx) * active_int).abs().max())
+    solid = sim.no_slip_mask[1:-1, 1:-1]
+    solid_v = torch.zeros_like(sim.dirichlet_mask.components[0])
+    solid_v[:-1] |= solid
+    solid_v[1:] |= solid
+    solid_u = torch.zeros_like(sim.dirichlet_mask.components[1])
+    solid_u[:, :-1] |= solid
+    solid_u[:, 1:] |= solid
+    obstacle_max = max(float(v.components[0][solid_v].abs().max()),
+                       float(v.components[1][solid_u].abs().max()))
+    w = ks.vorticity(v)
+    finite_w = bool(torch.isfinite(w).all())
+    asym = wake_asymmetry(w.cpu().numpy()) if finite_w else float("nan")
+    print(json.dumps(dict(
+        workload=f"Karman street {KARMAN_NY} x {3 * KARMAN_NY} (examples/karman_street.py: Re "
+                 f"200, tol 1e-5, channel preconditioner, {KARMAN_SPINUP}-step spin-up), forward",
+        steps=steps, steps_per_sec_per_call=calls, pressure_iters_per_step_per_call=iters,
+        warned_steps=len(warned), warned_solves=warned[:5],
+        spinup_warned_steps=len(spin_warned), spinup_warned_solves=spin_warned[:5],
+        peak_memory_gb=peak, held_before_gb=held / 1e9, max_abs_div_fluid=div, obstacle_faces_max_abs=obstacle_max,
+        wake_asymmetry=asym, loop_counters=d, launches=fwd)), flush=True)
+    if not finite_w or not all(bool(torch.isfinite(c).all()) for c in v.components):
+        fail("karman: non-finite state or vorticity")
+    if warned:
+        fail(f"karman: {len(warned)} timed steps warned; the first: {warned[:3]}")
+    if obstacle_max != 0.0:
+        fail(f"karman: the obstacle's faces moved off their Dirichlet zeros ({obstacle_max})")
+    want = channel_counts(fwd, steps, d, {k: derived[k] for k in PCG_PHASES},
+                          ("jacobi1_solve", 2))
+    for k in fwd:
+        if fwd[k] != want[k]:
+            fail(f"karman forward: {k} launched {fwd[k]} times, expected {want[k]}")
+    if fwd["advection_assembly"] or not fwd["pcg_apply"]:
+        fail("karman forward: row 1 launched, or the PCG phases did not run")
+    return fwd, entry
+
+
+def pipe_path(dev, wrappers: dict) -> dict:
+    """Phase 17c: examples/pipe.py at 32 x 64 for PIPE_STEPS steps from
+    rest (plain CG with mean deflation, tol 1e-7, the momentum solve in
+    float64 as the example runs it): Poiseuille rel < 0.05, x-invariance and
+    |v| below 1e-5 (tests/test_channel.py's bars), warn 0 (a warned step is
+    reported with the solves that set it), steps/s, CG iterations and
+    momentum iterations per step; every launch as the steps and the loops'
+    counters derive (the CG iteration and residual kernels, row 13 once a
+    step, no momentum kernel: the float64 solve runs plain)."""
+    import torch
+
+    from diffpiso_tpu_torch.examples.pipe import pipe_setup
+
+    ps = pipe_setup(*PIPE_RES, device=dev)
+    if not PIPE_STEPS * ps.dt > ps.steady_time:
+        fail("pipe: the run ends before the example's analytic check applies")
+    v, p, g1, g2 = ps.initial_state()
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["stencil_matvec"].launches_transposed = 0
+    c0, k0 = loop_counters(), cg_counters()
+    warned, iters = [], 0
+    log, undo = solve_log()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(PIPE_STEPS):
+            n0 = len(log)
+            o = ps.step(v, p, g1, g2)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            if o.warn:
+                warned.append((i, [e for e in log[n0:] if e[1]]))
+            iters += o.p_iterations[0] + o.p_iterations[1]
+            del log[:]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        undo()
+    fwd = {k: fn.launches for k, fn in wrappers.items()}
+    _, d = derived_launches(c0, loop_counters())
+    cg, dk = cg_derived(k0, cg_counters())
+    rel = ps.poiseuille_error(v)
+    u = v.components[1]
+    x_var = float((u - u.mean(dim=1, keepdim=True)).abs().max())
+    v_max = float(v.components[0].abs().max())
+    print(json.dumps(dict(
+        workload=f"pipe {PIPE_RES[0]} x {PIPE_RES[1]} (examples/pipe.py: nu 0.1, force 0.01, "
+                 f"plain CG, tol 1e-7, float64 momentum solve), forward from rest",
+        steps=PIPE_STEPS, time=PIPE_STEPS * ps.dt, steady_time=ps.steady_time,
+        steps_per_sec=PIPE_STEPS / elapsed, cg_iterations_per_step=iters / PIPE_STEPS,
+        momentum_iterations_per_step=d["bicgstab_iterations"] / PIPE_STEPS,
+        warned_steps=len(warned), warned_solves=warned[:5],
+        poiseuille_rel_l2=rel, x_variation=x_var, max_abs_v=v_max,
+        cg_counters=dk, loop_counters=d, launches=fwd)), flush=True)
+    if not all(bool(torch.isfinite(c).all()) for c in v.components):
+        fail("pipe: non-finite state")
+    if warned:
+        fail(f"pipe: {len(warned)} steps warned; the first: {warned[:3]}")
+    if not rel < 0.05:
+        fail(f"pipe: Poiseuille rel l2 {rel:.4f} (bar < 0.05)")
+    if not (x_var < 1e-5 and v_max < 1e-5):
+        fail(f"pipe: x variation {x_var:.3e} / max |v| {v_max:.3e} (bars < 1e-5)")
+    want = channel_counts(fwd, PIPE_STEPS, d, cg, None)
+    for k in fwd:
+        if fwd[k] != want[k]:
+            fail(f"pipe forward: {k} launched {fwd[k]} times, expected {want[k]}")
+    return fwd
+
+
+# every kernel wrapper of the port (each holds its launch counter): name,
+# module under diffpiso_tpu_torch, attribute, launches per step of the main
+# path (phase 4, 512^2 turbulence)
+KERNEL_WRAPPERS = (
+    ("advection_assembly", "ops.advassembly", "fused_advection_assembly", 1),
+    ("laplace_assembly", "ops.laplace_assembly", "fused_laplace_assembly", 1),
+    ("jacobi2_solve", "solvers.jacobi2", "fused_jacobi2_solve", 1),
+    ("pcg2_solve", "solvers.pcg2", "fused_pcg2_solve", 2),
+    ("div2", "ops.fv2", "div2", 1),
+    ("grad2", "ops.fv2", "grad2", 1),
+    ("corrector1_bridge", "ops.corrector", "corrector1_bridge", 1),
+    ("corrector2_tail", "ops.corrector", "corrector2_tail", 1),
+    # the bounded cavity's kernels stay off the periodic path
+    ("grad2m", "ops.fv2m", "grad2m", 0),
+    ("div2m", "ops.fv2m", "div2m", 0),
+    ("gradT2m", "ops.fv2m", "gradT2m", 0),
+    ("stencil_matvec", "ops.matvec", "fused_stencil_matvec", 0),
+    # the BiCGSTAB phases run only after a jac2 solve that misses its tol
+    ("bicg_phase_p", "solvers.bicg", "fused_bicg_phase_p", 0),
+    ("bicg_phase_s", "solvers.bicg", "fused_bicg_phase_s", 0),
+    ("bicg_phase_x", "solvers.bicg", "fused_bicg_phase_x", 0),
+    # the per-iteration PCG phases: only the mixing layer's channel_mm
+    # solves take them; the periodic and cavity paths take pcg2
+    ("pcg_residual", "solvers.pcgphases", "fused_residual", 0),
+    ("pcg_apply", "solvers.pcgphases", "fused_pcg_apply", 0),
+    ("pcg_update", "solvers.pcgphases", "fused_pcg_update", 0),
+    # the batch-folded jac2: only the batched training regime takes it
+    ("jacobi2_solve_folded", "solvers.jacobi2", "fused_jacobi2_solve_folded", 0),
+    # the large tier's kernels: only planes past jac2's and pcg2's budgets
+    ("jacobi1_solve", "solvers.jacobi1", "fused_jacobi1_solve", 0),
+    ("pcg_mm_update", "solvers.pcgmm", "fused_pcg_mm_update", 0),
+    # the 3-D kernels: only the 3-D turbulence takes them
+    ("advection_assembly3", "ops.advassembly3", "fused_advection_assembly3", 0),
+    ("div3", "ops.fv3", "div3", 0),
+    ("grad3", "ops.fv3", "grad3", 0),
+    ("stencil_matvec3d", "ops.matvec", "fused_stencil_matvec3d", 0),
+    ("jacobi1_solve_3d", "solvers.jacobi1", "fused_jacobi1_solve_3d", 0),
+    # the 3-D tiers past the whole solve's budget: only 3-D turbulence at
+    # 256^3 (the z block) and 512^3 (the plane sweeps) takes them (phase 14)
+    ("jacobi_zblock_3d", "solvers.jacobi3d", "fused_jacobi_zblock_3d", 0),
+    ("jacobi_sweep_3d", "solvers.jacobi3d", "fused_jacobi_sweep_3d", 0),
+    # the batched "auto" regime's whole solves: only batches of 512^2-class
+    # planes take them (phase 13)
+    ("pcg2_solve_batched", "solvers.pcg2", "fused_pcg2_solve_batched", 0),
+    ("jacobi1_solve_batched", "solvers.jacobi1", "fused_jacobi1_solve_batched", 0),
+    # the CG iteration: only pressure solves with no preconditioner (the
+    # reference's configuration, phase 15b) take it
+    ("cg_iteration", "solvers.cg", "fused_cg_iteration", 0),
+    # the k-sweep momentum tier: only planes past jac1's budget within 8
+    # MiB (phase 16: 1024 x 2048) take it
+    ("jacobi_sweeps", "solvers.jacobi_sweeps", "fused_jacobi_sweeps", 0),
+    # the fused stencil residual: the entry and exit of a BiCGSTAB
+    # hand-over (none on this path)
+    ("stencil_residual", "ops.stencil_residual", "fused_stencil_residual", 0),
+    # the masked advection assembly (row 13): rank-2 fields with a scalar
+    # viscosity that row 1 declines (bounded and mixed-periodicity domains:
+    # the cavity, the channel flows)
+    ("advection_assembly_masked", "ops.advassembly_masked", "fused_advection_assembly_masked", 0),
+)
+
+
+def kernel_wrappers() -> dict:
+    """{name: (wrapper, launches per main-path step)} of KERNEL_WRAPPERS."""
+    import importlib
+
+    return {name: (getattr(importlib.import_module(f"diffpiso_tpu_torch.{mod}"), attr), per_step)
+            for name, mod, attr, per_step in KERNEL_WRAPPERS}
 
 
 def main() -> int:
@@ -4888,29 +5495,18 @@ def main() -> int:
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.ops.advassembly import (
         advection_assembly_plain, assembly_scalars, fused_advection_assembly)
-    from diffpiso_tpu_torch.ops import corrector, fv2, fv2m, matvec
+    from diffpiso_tpu_torch.ops import corrector, fv2
     from diffpiso_tpu_torch.ops.fv import fv_divergence
     from diffpiso_tpu_torch.ops.laplace import (
         assemble_pressure_laplacian, laplace_mask_planes)
     from diffpiso_tpu_torch.ops.laplace_assembly import (
         fused_laplace_assembly, laplace_assembly_plain)
     from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
-    from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
+    from diffpiso_tpu_torch.solvers import krylov
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
-    from diffpiso_tpu_torch.ops import fv3
-    from diffpiso_tpu_torch.ops.advassembly3 import fused_advection_assembly3
-    from diffpiso_tpu_torch.solvers.jacobi1 import (
-        fused_jacobi1_solve, fused_jacobi1_solve_3d, fused_jacobi1_solve_batched)
-    from diffpiso_tpu_torch.solvers.jacobi2 import (
-        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_plain)
-    from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
-    from diffpiso_tpu_torch.solvers.pcg2 import (
-        fused_pcg2_solve, fused_pcg2_solve_batched, gemm, pcg2_plain)
-    from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
-    from diffpiso_tpu_torch.solvers.cg import fused_cg_iteration
-    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
-    from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+    from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5224,58 +5820,7 @@ def main() -> int:
     for _ in range(WARMUP_STEPS):
         o = step(v, pressure, g1, g2)
         v, pressure, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
-    wrappers = {
-        "advection_assembly": (fused_advection_assembly, 1),
-        "laplace_assembly": (fused_laplace_assembly, 1),
-        "jacobi2_solve": (fused_jacobi2_solve, 1),
-        "pcg2_solve": (fused_pcg2_solve, 2),
-        "div2": (fv2.div2, 1),
-        "grad2": (fv2.grad2, 1),
-        "corrector1_bridge": (corrector.corrector1_bridge, 1),
-        "corrector2_tail": (corrector.corrector2_tail, 1),
-        # the bounded cavity's kernels stay off the periodic path
-        "grad2m": (fv2m.grad2m, 0),
-        "div2m": (fv2m.div2m, 0),
-        "gradT2m": (fv2m.gradT2m, 0),
-        "stencil_matvec": (matvec.fused_stencil_matvec, 0),
-        # the BiCGSTAB phases run only after a jac2 solve that misses its tol
-        "bicg_phase_p": (bicg.fused_bicg_phase_p, 0),
-        "bicg_phase_s": (bicg.fused_bicg_phase_s, 0),
-        "bicg_phase_x": (bicg.fused_bicg_phase_x, 0),
-        # the per-iteration PCG phases: only the mixing layer's channel_mm
-        # solves take them; the periodic and cavity paths take pcg2
-        "pcg_residual": (pcgphases.fused_residual, 0),
-        "pcg_apply": (pcgphases.fused_pcg_apply, 0),
-        "pcg_update": (pcgphases.fused_pcg_update, 0),
-        # the batch-folded jac2: only the batched training regime takes it
-        "jacobi2_solve_folded": (fused_jacobi2_solve_folded, 0),
-        # the large tier's kernels: only planes past jac2's and pcg2's budgets
-        "jacobi1_solve": (fused_jacobi1_solve, 0),
-        "pcg_mm_update": (fused_pcg_mm_update, 0),
-        # the 3-D kernels: only the 3-D turbulence takes them
-        "advection_assembly3": (fused_advection_assembly3, 0),
-        "div3": (fv3.div3, 0),
-        "grad3": (fv3.grad3, 0),
-        "stencil_matvec3d": (matvec.fused_stencil_matvec3d, 0),
-        "jacobi1_solve_3d": (fused_jacobi1_solve_3d, 0),
-        # the 3-D tiers past the whole solve's budget: only 3-D turbulence at
-        # 256^3 (the z block) and 512^3 (the plane sweeps) takes them (phase 14)
-        "jacobi_zblock_3d": (fused_jacobi_zblock_3d, 0),
-        "jacobi_sweep_3d": (fused_jacobi_sweep_3d, 0),
-        # the batched "auto" regime's whole solves: only batches of 512^2-class
-        # planes take them (phase 13)
-        "pcg2_solve_batched": (fused_pcg2_solve_batched, 0),
-        "jacobi1_solve_batched": (fused_jacobi1_solve_batched, 0),
-        # the CG iteration: only pressure solves with no preconditioner (the
-        # reference's configuration, phase 15b) take it
-        "cg_iteration": (fused_cg_iteration, 0),
-        # the k-sweep momentum tier: only planes past jac1's budget within 8
-        # MiB (phase 16: 1024 x 2048) take it
-        "jacobi_sweeps": (fused_jacobi_sweeps, 0),
-        # the fused stencil residual: the entry and exit of a BiCGSTAB
-        # hand-over (none on this path)
-        "stencil_residual": (fused_stencil_residual, 0),
-    }
+    wrappers = kernel_wrappers()
     for fn, _ in wrappers.values():
         fn.launches = 0
     fallbacks0 = krylov.bicgstab.fallbacks
@@ -5378,6 +5923,7 @@ def main() -> int:
         "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
         **{k: 0 for k in T3_TIER_KERNELS.values()},
         "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0, "jacobi_sweeps": 0,
+        "advection_assembly_masked": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -5530,6 +6076,22 @@ def main() -> int:
     sweep_fwd, sweep_grad = large_turbulence_path(
         dev, {k: fn for k, (fn, _) in wrappers.items()}, SWEEP_RES, SWEEP_BOX)
 
+    # -- phase 2k: row 13 at the cavity, mixing, pipe and batched shapes -------------------
+    masked_measured = masked_kernels(dev)
+
+    # -- phase 17: the channel flows -----------------------------------------------------
+    # (a) card vs CPU at small sizes; (b) the Karman street at 512 x 1536 (row 13
+    # at its shape on the spun-up state); (c) the pipe at 32 x 64 to steady state
+    channel_small_check(dev)
+    karman_fwd, karman_entry = karman_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+    pipe_fwd = pipe_path(dev, {k: fn for k, (fn, _) in wrappers.items()})
+    kernels.append(dict(
+        name="advection_assembly_masked", route="cuda",
+        source="diffpiso_tpu_torch/csrc/advassembly_masked.cu",
+        replaces="diffpiso_tpu/ops/pallas_advassembly.py:365", library_ms=None,
+        launches_count="one launch per assembly (both components)",
+        **karman_entry, **masked_measured))
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -5566,6 +6128,9 @@ def main() -> int:
         elif name == "jacobi_sweeps":
             entry["path"] = "turbulence 1024x2048 forward"
             entry["launches"] = sweep_fwd[name]
+        elif name == "advection_assembly_masked":
+            entry["path"] = f"Karman street {KARMAN_NY} x {3 * KARMAN_NY} forward"
+            entry["launches"] = karman_fwd[name]
         elif name == "stencil_residual":
             # a hand-over's entry and exit residual: the mixing layer's forward
             # hands over; the 1024 x 2048 run's counts stand beside it
@@ -5611,6 +6176,8 @@ def main() -> int:
         entry["turb1024x2048_grad30_launches"] = sweep_grad[key]
         for kind, counts in kinds.items():
             entry[f"{kind}_launches"] = counts[key]
+        entry["karman_launches"] = karman_fwd[key]
+        entry["pipe_launches"] = pipe_fwd[key]
         entry.update(large_measured.get(name, {}))
         entry.update(batched_measured.get(name, {}))
         entry.update(sweeps_measured.get(name, {}))

@@ -1,7 +1,10 @@
-"""Boundary masks of the lid-driven cavity and the spatial mixing layer.
+"""Boundary masks of the canonical flow cases: the lid-driven cavity, the
+plane channel (pipe), the temporal and spatial mixing layers and the
+obstacle channel.
 
 Counterpart of diffpiso_tpu/core/masks.py lid_driven_cavity_masks,
-second_order_lid_values and mixing_layer_masks. Mask semantics:
+channel_masks, second_order_lid_values, temporal_mixing_layer_masks,
+mixing_layer_masks and obstacle_channel_masks. Mask semantics:
 
   dirichlet_mask/values — staggered faces with prescribed velocity
   active_mask           — centered cells carrying momentum (padded by 1)
@@ -20,12 +23,18 @@ from diffpiso_tpu_torch.device import resolve_device
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 
 
+def _on(device):
+    """numpy -> a tensor on `device` (cuda unless named)."""
+    device = resolve_device(device)
+    return lambda a: torch.as_tensor(a, device=device)
+
+
 def lid_driven_cavity_masks(n: int, lid_velocity: float = 1.0, device=None):
     """Masks for the lid-driven cavity on an (n+1, n) grid: the extra top
     row of cells is inactive, and the moving lid is a Dirichlet value on
     the u-faces of that row. Returns (dirichlet_mask, dirichlet_values,
     active, accessible, no_slip) on `device` (cuda unless named)."""
-    device = resolve_device(device)
+    dev = _on(device)
     ny, nx = n + 1, n
 
     dm_v = np.zeros((ny + 1, nx), bool)
@@ -51,15 +60,80 @@ def lid_driven_cavity_masks(n: int, lid_velocity: float = 1.0, device=None):
     no_slip[:, 0] = True
     no_slip[:, -1] = True
 
-    def dev(a):
-        return torch.as_tensor(a, device=device)
-
     return (
         StaggeredField((dev(dm_v), dev(dm_u))),
         StaggeredField((dev(dv_v), dev(dv_u))),
         dev(active),
         dev(accessible),
         dev(no_slip),
+    )
+
+
+def channel_masks(ny: int, nx: int, device=None):
+    """Masks of plane channel (pipe) flow: no-slip walls at the y ends,
+    periodic x. For a velocity with periodic=(False, True): v carries ny + 1
+    faces with Dirichlet v = 0 at both walls; u carries the nx unique
+    periodic faces and feels the walls through the 2-nu no-slip penalty of
+    the assembly; the x pad ring of the centered masks wraps. Returns
+    (dirichlet_mask, dirichlet_values, active, accessible, no_slip) on
+    `device` (cuda unless named)."""
+    dev = _on(device)
+    dm_v = np.zeros((ny + 1, nx), bool)
+    dm_v[0, :] = True
+    dm_v[-1, :] = True
+    dm_u = np.zeros((ny, nx), bool)
+
+    active = np.zeros((ny + 2, nx + 2), np.float32)
+    active[1:-1, 1:-1] = 1
+    active[:, 0] = active[:, -2]  # wrap the x pad ring
+    active[:, -1] = active[:, 1]
+    accessible = active.copy()
+
+    no_slip = np.zeros((ny + 2, nx + 2), bool)
+    no_slip[0, :] = True
+    no_slip[-1, :] = True
+
+    per = (False, True)
+    return (
+        StaggeredField((dev(dm_v), dev(dm_u)), periodic=per),
+        StaggeredField((dev(np.zeros((ny + 1, nx), np.float32)),
+                        dev(np.zeros((ny, nx), np.float32))), periodic=per),
+        dev(active),
+        dev(accessible),
+        dev(no_slip),
+    )
+
+
+def temporal_mixing_layer_masks(resolution, upper_velocity, lower_velocity, device=None):
+    """Masks of the temporally evolving mixing layer on a (ny, nx) grid,
+    periodic in x: Dirichlet v = 0 on the bottom and top face rows,
+    Dirichlet u on the first and last cell rows (`lower_velocity` and
+    `upper_velocity`, nx values each); active == accessible: zero in the y
+    ghost rows, wrapped in x. Returns (dirichlet_mask, dirichlet_values,
+    active, accessible, None) with periodic-x (unique-face) shapes on
+    `device` (cuda unless named)."""
+    dev = _on(device)
+    ny, nx = resolution
+    dm_v = np.zeros((ny + 1, nx), bool)
+    dm_v[0, :] = True
+    dm_v[-1, :] = True
+    dv_v = np.zeros((ny + 1, nx), np.float32)
+    dm_u = np.zeros((ny, nx), bool)
+    dm_u[0, :] = True
+    dm_u[-1, :] = True
+    dv_u = np.zeros((ny, nx), np.float32)
+    dv_u[0, :] = np.asarray(lower_velocity, np.float32)
+    dv_u[-1, :] = np.asarray(upper_velocity, np.float32)
+
+    padded = np.pad(np.ones((ny, nx), np.float32), ((1, 1), (0, 0)), "constant")
+    padded = np.pad(padded, ((0, 0), (1, 1)), "wrap")
+    per = (False, True)
+    return (
+        StaggeredField((dev(dm_v), dev(dm_u)), periodic=per),
+        StaggeredField((dev(dv_v), dev(dv_u)), periodic=per),
+        dev(padded),
+        dev(padded.copy()),
+        None,
     )
 
 
@@ -72,7 +146,7 @@ def mixing_layer_masks(resolution, inflow_profile, device=None):
     and both ghost rows, open at the outflow; active: the interior cells.
     Returns (dirichlet_mask, dirichlet_values, active, accessible, None) on
     `device` (cuda unless named)."""
-    device = resolve_device(device)
+    dev = _on(device)
     ny, nx = resolution
     inflow = np.asarray(inflow_profile, np.float32).reshape(-1)
     if inflow.shape[0] != ny + 2:
@@ -93,9 +167,6 @@ def mixing_layer_masks(resolution, inflow_profile, device=None):
     accessible[-1, :] = 0
     active = np.zeros((ny + 2, nx + 2), np.float32)
     active[1:-1, 1:-1] = 1
-
-    def dev(a):
-        return torch.as_tensor(a, device=device)
 
     return (
         StaggeredField((dev(dm_v), dev(dm_u))),
@@ -118,3 +189,66 @@ def second_order_lid_values(dirichlet_values: StaggeredField, velocity: Staggere
     u[-1] = 2.0 * lid_velocity - velocity.components[1][-2].detach()
     comps[1] = u
     return StaggeredField(tuple(comps), periodic=dirichlet_values.periodic)
+
+
+def obstacle_channel_masks(resolution, inflow_profile, geometry, box=None, device=None):
+    """Channel flow with an embedded solid obstacle: the spatial mixing
+    layer's channel (Dirichlet inflow at x = 0 from the profile of ny + 2
+    ghost-inclusive points, open outflow at x = nx, closed y walls) with
+    `geometry` (fields/geometry.py, in the physical coordinates of `box`)
+    carved out of the interior: solid cells leave active / accessible,
+    faces touching a solid cell become zero-Dirichlet, and the solid cells
+    enter no_slip so the assembly adds the 2-nu wall penalty. Returns
+    (dirichlet_mask, dirichlet_values, active, accessible, no_slip) on
+    `device` (cuda unless named); the solid mask is sampled there."""
+    from diffpiso_tpu_torch.fields.box import Box
+    from diffpiso_tpu_torch.fields.geometry import geometry_mask
+
+    device = resolve_device(device)
+    dev = _on(device)
+    ny, nx = resolution
+    inflow = np.asarray(inflow_profile, np.float32).reshape(-1)
+    if inflow.shape[0] != ny + 2:
+        raise ValueError("the inflow profile must cover ny + 2 ghost-inclusive rows")
+    box = box or Box.from_size((float(ny), float(nx)))
+    solid = geometry_mask(geometry, (ny, nx), box, device=device).cpu().numpy().astype(bool)
+
+    dm_v = np.zeros((ny + 1, nx), bool)
+    dm_v[0, :] = True
+    dm_v[-1, :] = True
+    dv_v = np.zeros((ny + 1, nx), np.float32)
+    dm_u = np.zeros((ny, nx + 1), bool)
+    dm_u[:, 0] = True
+    dv_u = np.zeros((ny, nx + 1), np.float32)
+    dv_u[:, 0] = inflow[1:-1]
+
+    # any face adjacent to a solid cell is zero-Dirichlet
+    solid_v = np.zeros((ny + 1, nx), bool)  # v face between cells (j-1, i) and (j, i)
+    solid_v[:-1, :] |= solid
+    solid_v[1:, :] |= solid
+    solid_u = np.zeros((ny, nx + 1), bool)
+    solid_u[:, :-1] |= solid
+    solid_u[:, 1:] |= solid
+    dm_v |= solid_v
+    dm_u |= solid_u
+    dv_v[solid_v] = 0.0
+    dv_u[solid_u] = 0.0
+
+    accessible = np.ones((ny + 2, nx + 2), np.float32)
+    accessible[:, 0] = 0
+    accessible[0, :] = 0
+    accessible[-1, :] = 0
+    accessible[1:-1, 1:-1][solid] = 0
+    active = np.zeros((ny + 2, nx + 2), np.float32)
+    active[1:-1, 1:-1] = 1
+    active[1:-1, 1:-1][solid] = 0
+    no_slip = np.zeros((ny + 2, nx + 2), bool)
+    no_slip[1:-1, 1:-1] = solid
+
+    return (
+        StaggeredField((dev(dm_v), dev(dm_u))),
+        StaggeredField((dev(dv_v), dev(dv_u))),
+        dev(active),
+        dev(accessible),
+        dev(no_slip),
+    )

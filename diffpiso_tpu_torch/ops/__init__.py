@@ -4,7 +4,7 @@ kernel (matvec.py) and its fused residual (stencil_residual.py), pressure
 Laplacian, the two assembly kernels and the
 corrector bridge / tail kernels (corrector.py)."""
 
-from diffpiso_tpu_torch.ops.fv import fv_divergence, fv_gradient
+from diffpiso_tpu_torch.ops.fv import fv_divergence, fv_gradient, vorticity
 from diffpiso_tpu_torch.ops.laplace import (
     LaplaceStencil,
     apply_laplacian,
@@ -29,4 +29,5 @@ __all__ = [
     "explicit_H",
     "fv_divergence",
     "fv_gradient",
+    "vorticity",
 ]

@@ -8,7 +8,7 @@ ones, whose faces carry the duplicated boundary entries, to kernels 7-9
 periodic volumes of one shape to kernel 15b (ops/fv3.py div3 / grad3).
 Everything else runs the plain formulation, the branch the JAX package
 takes when those gates are closed. All results are volume-integrated (factors
-prod(dx)/dx_d baked in)."""
+prod(dx)/dx_d baked in), but for `vorticity`, a cell-centered diagnostic."""
 
 from __future__ import annotations
 
@@ -215,3 +215,22 @@ def fv_gradient(
     if accessible_mask is not None:
         comps = _mask_gradient_faces(comps, accessible_mask, periodic, rank)
     return StaggeredField(tuple(comps), periodic=periodic)
+
+
+def vorticity(field: StaggeredField, dx: Sequence[float]) -> torch.Tensor:
+    """2-D vorticity dv/dx - du/dy at the cell centers, by central
+    differences of the center-sampled velocity (one-sided at the domain
+    ends through an edge pad), both axes divided by 2 dx_0. Returns
+    (..., ny, nx)."""
+    if field.rank != 2:
+        raise ValueError("vorticity takes a 2-D velocity")
+    two_dx = 2.0 * float(dx[0])
+    centered = field.at_centers()  # (..., ny, nx, 2): channels (v, u)
+
+    def central(a, axis):
+        padded = torch.cat([_pad_side(a, axis, 1, REPLICATE, False), a,
+                            _pad_side(a, axis, 1, REPLICATE, True)], axis)
+        n = padded.shape[axis]
+        return (_slice(padded, axis, 2, n) - _slice(padded, axis, 0, n - 2)) / two_dx
+
+    return central(centered[..., 0], -1) - central(centered[..., 1], -2)

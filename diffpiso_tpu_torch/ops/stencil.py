@@ -7,19 +7,21 @@ component's own face grid; applying it is five shift-multiply-adds.
 
 `assemble_advection_stencil` sends the uniform-mask periodic case (the
 decaying-turbulence configuration) to kernel 1 (ops/advassembly.py) in
-2-D and kernel 15a (ops/advassembly3.py) in 3-D, and runs the general
-masked body otherwise (bounded domains such as the lid-driven cavity;
-plain PyTorch, as the JAX package's masked-assembly kernel is off by
-default there). The matvec behind `apply_stencil`,
-`apply_stencil_transpose` and `explicit_H` is kernel 10 (ops/matvec.py)
-for float32 rank-2 planes and kernel 15c (the 7-point matvec, same
-module) for float32 rank-3 volumes, as the JAX package sends them to its
-stencil-matvec kernels, and the plain roll formulation otherwise."""
+2-D and kernel 15a (ops/advassembly3.py) in 3-D, the other rank-2
+float32 fields with a scalar viscosity (bounded and mixed-periodicity
+domains: the lid-driven cavity, the channel flows, the temporal mixing
+layer) to kernel 13 (ops/advassembly_masked.py), and the rest (a per-face
+viscosity, float64, B samples in the "fold" regime, bounded volumes) to
+the general body, that module's plain version. The matvec behind
+`apply_stencil`, `apply_stencil_transpose` and `explicit_H` is kernel 10
+(ops/matvec.py) for float32 rank-2 planes and kernel 15c (the 7-point
+matvec, same module) for float32 rank-3 volumes, as the JAX package sends
+them to its stencil-matvec kernels, and the plain roll formulation
+otherwise."""
 
 from __future__ import annotations
 
 import dataclasses
-import math as _math
 from typing import Sequence, Tuple
 
 import torch
@@ -27,6 +29,10 @@ import torch
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops import matvec
 from diffpiso_tpu_torch.ops.advassembly import assembly_scalars, fused_advection_assembly
+from diffpiso_tpu_torch.ops.advassembly_masked import (
+    advection_assembly_masked_plain,
+    fused_advection_assembly_masked,
+)
 from diffpiso_tpu_torch.ops.advassembly3 import (
     VOLUMES_PER_COMPONENT,
     advassembly3_eligible,
@@ -57,23 +63,6 @@ class AdvectionStencil:
         return len(self.center)
 
 
-def _win(arr, off, size):
-    """Window of a 1-padded array: arr[1+off : 1+off+size] per trailing
-    axis (a leading batch axis passes through)."""
-    return arr[(Ellipsis,) + tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, size))]
-
-
-def _interior_masks(shape, d: int, periodic: bool, device):
-    """(interior_lo, interior_hi): the face is not on the lower / upper
-    domain end along axis d. Periodic axes have no domain ends."""
-    if periodic:
-        t = torch.ones((1,) * len(shape), dtype=torch.bool, device=device)
-        return t, t
-    n = shape[d]
-    idx = torch.arange(n, device=device).reshape(tuple(n if i == d else 1 for i in range(len(shape))))
-    return idx > 0, idx < n - 1
-
-
 def uniform_masks(dirichlet_mask, active_mask, no_slip_mask) -> bool:
     """No Dirichlet faces, every cell active, no no-slip walls."""
     if any(bool(torch.any(c)) for c in dirichlet_mask.components):
@@ -101,6 +90,21 @@ def advassembly_eligible(velocity, viscosity, periodic, uniform: bool) -> bool:
     return uniform
 
 
+def advassembly_masked_eligible(velocity, viscosity) -> bool:
+    """Kernel 13 takes the field (after kernel 1 declined it): a rank-2
+    float32 velocity with a scalar viscosity, the clauses of the JAX gate
+    `advassembly_masked_eligible` that do not concern the TPU's memory; B
+    samples at once only in the "auto" batched regime (under "fold" they
+    run the general body, as the JAX vmapped step does under `no_pallas`)."""
+    if velocity.rank != 2 or velocity.dtype != torch.float32:
+        return False
+    if velocity.batched and batched_mode() != "auto":
+        return False
+    if isinstance(viscosity, (StaggeredField, torch.Tensor)) and getattr(viscosity, "ndim", 1) > 0:
+        return False  # per-face viscosity (the sponge ramp, LES) keeps the general body
+    return True
+
+
 def assemble_advection_stencil(
     velocity: StaggeredField,
     dx: Sequence[float],
@@ -123,8 +127,7 @@ def assemble_advection_stencil(
     The velocity may carry a leading batch axis (B samples sharing the
     masks and viscosity); B samples take the general body in the "fold"
     regime, as the JAX package's vmapped step does under `no_pallas`, and
-    kernel 1 with a batch axis in "auto"."""
-    rank = velocity.rank
+    kernel 1 or 13 with a batch axis in "auto"."""
     dx = tuple(float(v) for v in dx)
     periodic = tuple(bool(p) for p in periodic)
     if periodic != velocity.periodic:
@@ -149,73 +152,13 @@ def assemble_advection_stencil(
             hi=tuple((v[2], v[4], v[6]) for v in per), diag_A=tuple(v[7] for v in per),
         )
 
-    dxprod = _math.prod(dx)
-    area = tuple(dxprod / dx[d] for d in range(rank))
-    dtype = velocity.dtype
     vel_pad = pad_staggered(velocity, velocity_pad_modes, 1)
-    active_mask = active_mask.to(dtype)
-    if no_slip_mask is None:
-        no_slip_mask = torch.zeros_like(active_mask, dtype=torch.bool)
-    no_slip_b = no_slip_mask.to(torch.bool)
-
-    centers, los, his, diag_As = [], [], [], []
-    for c in range(rank):
-        S = velocity.components[c].shape[-rank:]
-        e = [tuple(1 if i == d else 0 for i in range(rank)) for d in range(rank)]
-        neg_ec = tuple(-v for v in e[c])
-        if isinstance(viscosity, StaggeredField):
-            nu = viscosity.components[c].to(dtype)
-        else:
-            nu = torch.tensor(viscosity, dtype=dtype, device=velocity.device)
-
-        diag = torch.zeros(S, dtype=dtype, device=velocity.device)
-        lo_c, hi_c = [], []
-        for d in range(rank):
-            w = vel_pad[d]
-            zero_off = (0,) * rank
-            ed_minus_ec = tuple(a - b for a, b in zip(e[d], e[c]))
-            flux_lo = 0.5 * (_win(w, zero_off, S) + _win(w, neg_ec, S)) * area[d]
-            flux_hi = 0.5 * (_win(w, e[d], S) + _win(w, ed_minus_ec, S)) * area[d]
-            off_lo = tuple(-v for v in e[d])
-            # the high centered neighbour sits at +e_d for d != c and at 0
-            # for d == c (the face between two cells belongs to the upper one)
-            off_hi = e[d] if d != c else zero_off
-            interior_lo, interior_hi = _interior_masks(S, d, periodic[d], velocity.device)
-            act_lo = _win(active_mask, off_lo, S)
-            act_hi = _win(active_mask, off_hi, S)
-            ns_lo = _win(no_slip_b, off_lo, S)
-            ns_hi = _win(no_slip_b, off_hi, S)
-            tbb_lo = (act_lo == 1.0) | (interior_lo & ns_lo)
-            tbb_hi = (act_hi == 1.0) | (interior_hi & ns_hi)
-            tbb_lo_f = tbb_lo.to(dtype)
-            tbb_hi_f = tbb_hi.to(dtype)
-            visc = nu * (area[d] / dx[d])
-            # links across periodic wraps always exist; links across
-            # bounded domain ends are dropped
-            coeff_lo = torch.where(tbb_lo & interior_lo, 0.5 * flux_lo + visc, 0.0)
-            coeff_hi = torch.where(tbb_hi & interior_hi, -0.5 * flux_hi + visc, 0.0)
-            wall = 1.0 if d != c else 0.0
-            diag = diag + flux_lo * (2.0 - tbb_lo_f) * 0.5 - visc * (
-                tbb_lo_f + wall * (1.0 - tbb_lo_f) * ns_lo.to(dtype) * 2.0
-            )
-            diag = diag - flux_hi * (2.0 - tbb_hi_f) * 0.5 - visc * (
-                tbb_hi_f + wall * (1.0 - tbb_hi_f) * ns_hi.to(dtype) * 2.0
-            )
-            lo_c.append(coeff_lo)
-            hi_c.append(coeff_hi)
-
-        dmask = dirichlet_mask.components[c].to(torch.bool)
-        center = torch.where(dmask, 1.0, diag - torch.tensor(beta, dtype=dtype))
-        lo_c = tuple(torch.where(dmask, 0.0, v) for v in lo_c)
-        hi_c = tuple(torch.where(dmask, 0.0, v) for v in hi_c)
-        centers.append(center)
-        los.append(lo_c)
-        his.append(hi_c)
-        diag_As.append(torch.where(dmask, 0.0, diag))
-
-    return AdvectionStencil(
-        center=tuple(centers), lo=tuple(los), hi=tuple(his), diag_A=tuple(diag_As)
-    )
+    assemble = (fused_advection_assembly_masked
+                if advassembly_masked_eligible(velocity, viscosity)
+                else advection_assembly_masked_plain)
+    centers, los, his, diag_As = assemble(vel_pad, velocity, dx, viscosity, beta, dirichlet_mask,
+                                          active_mask, no_slip_mask, periodic)
+    return AdvectionStencil(center=centers, lo=los, hi=his, diag_A=diag_As)
 
 
 def _apply_component(center, lo, hi, x, transpose=False):

@@ -100,6 +100,7 @@ FAMILIES = (
     ("zb_", "jacobi 3-D z-block sweeps"),
     ("pl3_", "jacobi 3-D plane sweeps"),
     ("advassembly", "advection assembly"),
+    ("advm_", "advection assembly"),
     ("fv2_", "FV div2 / grad2"),
     ("fv2m_", "FV div2m / grad2m / gradT2m"),
     ("fv3_", "FV div3 / grad3"),
@@ -117,7 +118,7 @@ def family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
-    return "plain PyTorch ops (glue, masks, masked assembly, corrector VJP)"
+    return "plain PyTorch ops (glue, masks, the per-face-viscosity assembly body, corrector VJP)"
 
 
 def main() -> int:

@@ -88,7 +88,8 @@ def test_assemble_dispatches_uniform_periodic_to_the_kernel_wrapper(monkeypatch)
     pst.assemble_advection_stencil(vel, DX, CIRC, NU, BETA, dm, ones, ones, None, (True, True),
                                    uniform=pst.uniform_masks(dm, ones, None))
     assert calls == [(8, 8)]
-    # a Dirichlet face makes the masks non-uniform: the general body runs
+    # a Dirichlet face makes the masks non-uniform: row 13 takes the field
+    # (tests/test_torch_advassembly_masked.py)
     dm2 = StaggeredField((torch.zeros(8, 8, dtype=torch.bool),
                           torch.zeros(8, 8, dtype=torch.bool).index_fill(0, torch.tensor([2]), True)),
                          (True, True))

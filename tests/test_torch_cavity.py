@@ -350,7 +350,7 @@ class _Counts:
     counts chip_smoke.py asserts on the card are derived here first."""
 
     def __init__(self, monkeypatch):
-        from diffpiso_tpu_torch.ops import fv2m, laplace, matvec
+        from diffpiso_tpu_torch.ops import fv2m, laplace, matvec, stencil
         from diffpiso_tpu_torch.solvers import krylov
 
         self.n = {}
@@ -372,18 +372,19 @@ class _Counts:
         wrap(krylov, "fused_jacobi2_solve", "jacobi2")
         wrap(krylov, "fused_pcg2_solve", "pcg2")
         wrap(laplace, "fused_laplace_assembly", "laplace_assembly")
+        wrap(stencil, "fused_advection_assembly_masked", "advection_assembly_masked")
 
 
 def test_cavity_launch_counts_per_step_and_per_rollout_gradient(monkeypatch):
     """The counts chip_smoke.py asserts: per forward step grad2m 3 (the
     predictor's pressure gradient and both correctors'), div2m 2, the
     matvec 2 (explicit_H, one per component), jac2 1, pcg2 2, the Laplace
-    assembly 1; per rollout gradient of U steps ("outputs" remat: the step
-    runs again as the backward's replay, the solves hand back their
-    outputs) grad2m 8U (forward and replay 3U each, plus the 2U div2m
-    VJPs), div2m 4U, gradT2m 3U - 1 (the initial pressure carries no
-    gradient), matvec 4U plus 2U transposed, jac2 2U, pcg2 4U, Laplace
-    assembly 2U."""
+    assembly 1, the masked advection assembly (row 13) 1; per rollout
+    gradient of U steps ("outputs" remat: the step runs again as the
+    backward's replay, the solves hand back their outputs) grad2m 8U
+    (forward and replay 3U each, plus the 2U div2m VJPs), div2m 4U, gradT2m
+    3U - 1 (the initial pressure carries no gradient), matvec 4U plus 2U
+    transposed, jac2 2U, pcg2 4U, Laplace assembly 2U, row 13 2U."""
     counts = _Counts(monkeypatch)
     domain, sim, dt = lid_driven_cavity_setup(16, device="cpu")
     step = _port_step(domain, sim, dt)
@@ -393,7 +394,7 @@ def test_cavity_launch_counts_per_step_and_per_rollout_gradient(monkeypatch):
         out = step(v, p, g1, g2)
         v, p, g1, g2 = out.velocity, out.pressure, out.pressure_inc1, out.pressure_inc2
     assert counts.n == {"grad2m": 6, "div2m": 4, "matvec": 4, "jacobi2": 2, "pcg2": 4,
-                        "laplace_assembly": 2}
+                        "laplace_assembly": 2, "advection_assembly_masked": 2}
     counts.n.clear()
     u = 3
     f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components), periodic=(False, False))
@@ -401,7 +402,7 @@ def test_cavity_launch_counts_per_step_and_per_rollout_gradient(monkeypatch):
     assert res.warns == 0
     assert counts.n == {"grad2m": 8 * u, "div2m": 4 * u, "gradT2m": 3 * u - 1,
                         "matvec": 4 * u, "matvec_T": 2 * u, "jacobi2": 2 * u, "pcg2": 4 * u,
-                        "laplace_assembly": 2 * u}
+                        "laplace_assembly": 2 * u, "advection_assembly_masked": 2 * u}
 
 
 def test_randomized_restarts_are_not_ported_and_raise():

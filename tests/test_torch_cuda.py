@@ -22,8 +22,11 @@ under CG (3 steps and the 3-step gradient) and one step with each
 function preconditioner (fft, dct, channel, mg) against the CPU; the
 k-sweep Jacobi kernel (row 8b) and the fused stencil residual (row 14)
 bit-equal to their plain versions (row 14 also to the chain it replaces),
-the folded PCG update at the non-square 1024 x 2048 plane, and a momentum
-solve in the k-sweep tier on the card against the CPU. Every
+the folded PCG update at the non-square 1024 x 2048 plane, a momentum
+solve in the k-sweep tier on the card against the CPU, and the masked
+advection assembly (row 13) bit-equal to its plain version on the
+cavity, channel, obstacle and temporal masks, with and without a batch
+axis. Every
 test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
@@ -1532,3 +1535,53 @@ def test_cuda_momentum_solve_in_the_k_sweep_tier_matches_the_cpu(transpose, cuda
     for a, w in zip(card[3], cpu[3]):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * float(w.abs().max()))
 
+
+
+@pytest.mark.parametrize("case", ["cavity", "channel", "obstacle", "temporal"])
+def test_masked_advection_assembly_kernel_matches_plain(case, cuda_device):
+    """Row 13 on the bounded and mixed-periodicity masks of the port's flow
+    cases, and with a batch axis of 2: bit-equal to its plain version, one
+    launch per assembly."""
+    from diffpiso_tpu_torch.core import masks as pm
+    from diffpiso_tpu_torch.fields.box import Box
+    from diffpiso_tpu_torch.fields.domain import Domain
+    from diffpiso_tpu_torch.fields.geometry import Sphere
+    from diffpiso_tpu_torch.fields.material import CLOSED, OPEN, PERIODIC
+    from diffpiso_tpu_torch.ops.advassembly_masked import (
+        advection_assembly_masked_plain, fused_advection_assembly_masked)
+    from diffpiso_tpu_torch.ops.fv import pad_staggered
+
+    dev = cuda_device
+    if case == "cavity":
+        dm, _, act, _, ns = pm.lid_driven_cavity_masks(48, device=dev)
+        dom = Domain((49, 48), Box.from_size((1.0 + 1 / 48, 1.0)), boundaries=OPEN)
+    elif case == "channel":
+        dm, _, act, _, ns = pm.channel_masks(24, 48, device=dev)
+        dom = Domain((24, 48), Box.from_size((24.0, 48.0)), boundaries=(OPEN, PERIODIC))
+    elif case == "obstacle":
+        box = Box.from_size((1.0, 3.0))
+        dm, _, act, _, ns = pm.obstacle_channel_masks((40, 120), np.ones(42, np.float32),
+                                                      Sphere((0.5, 0.5), 0.075), box, device=dev)
+        dom = Domain((40, 120), box, boundaries=OPEN)
+    else:
+        dm, _, act, _, ns = pm.temporal_mixing_layer_masks((32, 40), np.full(40, 0.5),
+                                                           np.full(40, -0.5), device=dev)
+        dom = Domain((32, 40), Box.from_size((1.0, 1.0)),
+                     boundaries=[(CLOSED, CLOSED), PERIODIC])
+    for batch in ((), (2,)):
+        vel = StaggeredField(tuple(
+            _rand(batch + dom.staggered_component_shape(d), 40 + d).to(dev) for d in range(2)),
+            periodic=dom.periodic)
+        args = (pad_staggered(vel, dom.velocity_pad_modes(), 1), vel, dom.dx, 1e-3, 2.5, dm, act,
+                ns, dom.periodic)
+        before = fused_advection_assembly_masked.launches
+        got = fused_advection_assembly_masked(*args)
+        assert fused_advection_assembly_masked.launches == before + 1
+        want = advection_assembly_masked_plain(*args)
+
+        def planes(st):
+            centers, los, his, diags = st
+            return [x for c in range(2) for x in (centers[c], *los[c], *his[c], diags[c])]
+
+        for a, b in zip(planes(got), planes(want)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

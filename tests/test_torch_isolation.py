@@ -18,7 +18,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import pkgutil, sys, importlib, diffpiso_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'diffpiso_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, profile_torch_step\n"
+        "import chip_smoke, chip_ab, profile_torch_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'diffpiso_tpu' or m.startswith('diffpiso_tpu.')]\n"
         "assert not bad, bad\n"
@@ -32,7 +32,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
-    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "profile_torch_step.py"]))
+    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+              ROOT / "profile_torch_step.py"]))
 def test_source_names_no_jax_and_no_reference_package(path):
     src = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
@@ -161,3 +162,15 @@ def test_the_scan_covers_the_3d_tier_slice_modules():
             "diffpiso_tpu_torch/solvers/tiers.py", "diffpiso_tpu_torch/core/rollout.py"} <= scanned
     for name in ("jacobi_zblock3.cu", "jacobi_plane3.cu", "stencil3.cuh"):
         assert (PKG / "csrc" / name).exists()
+
+
+def test_the_scan_covers_the_channel_slice_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    assert {"diffpiso_tpu_torch/ops/advassembly_masked.py", "diffpiso_tpu_torch/ops/stencil.py",
+            "diffpiso_tpu_torch/fields/geometry.py", "diffpiso_tpu_torch/core/masks.py",
+            "diffpiso_tpu_torch/ops/fv.py", "diffpiso_tpu_torch/examples/pipe.py",
+            "diffpiso_tpu_torch/examples/karman_street.py"} <= scanned
+    assert (PKG / "csrc" / "advassembly_masked.cu").exists()
+    from diffpiso_tpu_torch import native
+
+    assert "advassembly_masked" in native.SOURCES
