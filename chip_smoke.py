@@ -9,7 +9,7 @@ Phases, each fatal on failure:
   2. every kernel against its plain PyTorch version on the card, at 512^2,
      on the operator planes of a real step (jac2 forward and transposed;
      the solves must also agree on their sweep / iteration counts; the FV
-     pair and the corrector bridge / tail forward and VJP), plus each
+     pair forward and VJP, the corrector bridge / tail forward), plus each
      kernel's time, its plain version's, a library yardstick where one
      PyTorch call computes the same thing, its bound, and its device time
      per launch from torch.profiler (measured after phase 6, so no
@@ -28,6 +28,23 @@ Phases, each fatal on failure:
      adjoint (cold) with the kernels against the plain phases (equal
      iteration counts), the matvec on the (128, 513) u plane in both forms
      (bit-equal), jac2 and the Laplace assembly with its masks;
+  2l. row 17, the corrector bridge's and tail's backward kernels
+     (csrc/corrector_bwd.cu), on phase 2's step planes at 512^2 and on
+     seeded planes at 1024^2 and 1024 x 2048: every cotangent bit-equal to
+     the plain twins, with and without the coefficient cotangents; against
+     autograd's VJP of the forward plain version, the step's cotangents
+     bit-equal (the twins sum in its order), all within rel l2 1e-5; host ms,
+     device us per launch, bound and the twins' ms in both forms;
+  2m. row 16, the fused spectral apply (csrc/gemm.cuh dp_spectral_apply
+     through csrc/pcg2.cu, four launches of the hand-written GEMM a call) on the mixing layer's,
+     training's and the DNS's channel_mm planes and the 513 x 512 cavity's
+     dct_mm plane: rel l2 <= 1e-5 against the four torch.matmuls and the
+     divide (TF32 off), both against float64, repeat bit-equal; host ms,
+     device us per GEMM launch, bound, plain and library ms. Row 17 runs
+     once per unrolled step on every periodic gradient (5a, 10a, 16a on
+     the card, 5b, 10c, 16c) and 0 times elsewhere; row 16 once per M^-1 r of the
+     channel_mm loops (7b-c, 8b, 11, 15c's channel_mm run) as the loop
+     counters derive, 0 elsewhere (asserted);
   3. a small-input check: 3 steps at 64^2 on the card against the plain
      path on the CPU;
   4. the main path: 2-D periodic decaying turbulence at 512^2 (viscosity
@@ -368,7 +385,7 @@ def rel_err(a, b) -> float:
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
                "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
-               "sres_", "advm_")
+               "sres_", "advm_", "corrbwd_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -1073,19 +1090,23 @@ def loop_counters() -> dict:
                 jacobi_probes=b.jacobi_probes, jacobi_trips=b.jacobi_trips)
 
 
-def derived_launches(c0: dict, c1: dict, fold: bool = False) -> tuple:
+def derived_launches(c0: dict, c1: dict, fold: bool = False, spectral: bool = False) -> tuple:
     """(launches the loops derive, counter deltas): the PCG residual once per
     warm entry, reset and finished loop; apply once per iteration; the
     update once per iteration or, where M^-1 is folded into it (`fold`:
     the large tier), the folded update once per loop, reset and iteration;
+    where the loop's M^-1 r is the fused spectral apply (`spectral`: the
+    `channel_mm` preconditioner), row 16 once per loop, reset and iteration;
     the k-sweep tier's kernel (row 8b) 2 launches (a sweep, the residual)
     per component and probe and JAC_K + 1 per component and trip; after a
     Jacobi miss, each BiCGSTAB phase once per component and iteration, the
     fused stencil residual (row 14) once per component and entry or exit
     residual, the matvec once per component and generic operator apply."""
     d = {k: c1[k] - c0[k] for k in c0}
-    update = ({"pcg_mm_update": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]} if fold
-              else {"pcg_update": d["pcg_iterations"]})
+    per_z = d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]
+    update = {"pcg_mm_update": per_z} if fold else {"pcg_update": d["pcg_iterations"]}
+    if spectral:
+        update["spectral_apply"] = per_z
     return ({"pcg_residual": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
              "pcg_apply": d["pcg_iterations"], **update,
              "jacobi_sweeps": 2 * (2 * d["jacobi_probes"] + (JAC_K + 1) * d["jacobi_trips"]),
@@ -1498,7 +1519,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     fwd = read()
     fwd_T = wrappers["stencil_matvec"].launches_transposed
     STATES[name] = (setup, v, p, g1, g2, clock[0])
-    loops, d = derived_launches(c0, loop_counters())
+    loops, d = derived_launches(c0, loop_counters(), spectral=True)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     active_int = setup.sim.active_mask[1:-1, 1:-1]
@@ -1552,7 +1573,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
         torch.cuda.synchronize()
         elapsed_g = time.perf_counter() - t0
         counts = read()
-        loops, d = derived_launches(c0, loop_counters())
+        loops, d = derived_launches(c0, loop_counters(), spectral=True)
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -1893,7 +1914,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
     loss_v = float(loss)
     per_iter = (time.perf_counter() - t0) / TRAIN_REPS
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    loops, d = derived_launches(c0, loop_counters())
+    loops, d = derived_launches(c0, loop_counters(), spectral=True)
     stack = lambda x: torch.stack([x] * TRAIN_CHUNK)
     v0, p0, tg, pe = inputs
     cin = (StaggeredField(tuple(stack(c) for c in v0.components)), stack(p0),
@@ -1939,7 +1960,8 @@ def training_b1_path(dev, wrappers: dict) -> dict:
     # (both advection assembly kernels: the layer's sponge viscosity is per
     # face, so the general body assembles)
     for k in ("advection_assembly", "advection_assembly_masked", "pcg2_solve", "div2", "grad2",
-              "corrector1_bridge", "corrector2_tail", "jacobi2_solve_folded", "jacobi1_solve",
+              "corrector1_bridge", "corrector2_tail", "corrector1_bridge_bwd",
+              "corrector2_tail_bwd", "jacobi2_solve_folded", "jacobi1_solve",
               "pcg_mm_update", *T3_KERNELS, *T3_TIER_KERNELS.values()):
         if counts[k]:
             fail(f"training batch 1: {k} launched {counts[k]} times (must stay off this path)")
@@ -2295,7 +2317,9 @@ def large_small_check(dev) -> None:
             iters.append(list(o.p_iterations))
         c1 = loop_counters()
         f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components), periodic=(True, True))
+        bwd0 = row17_launches()
         r = rollout_loss_grad(step, v0, p0, f, LARGE_CHECK_STEPS)
+        row17_check(f"{n}^2 rollout gradient", d, bwd0, LARGE_CHECK_STEPS)
         c2 = loop_counters()
         if r.warns:
             fail(f"{n}^2 rollout gradient on {d.type}: {r.warns} steps warned")
@@ -2462,6 +2486,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         check("grad30", counts, dict(
             loops, advection_assembly=2 * U, laplace_assembly=2 * U,
             div2=3 * U - 1, grad2=3 * U, corrector1_bridge=2 * U, corrector2_tail=2 * U,
+            corrector1_bridge_bwd=U, corrector2_tail_bwd=U,
             stencil_matvec=2 * (d["applies"] + d["applies_T"]),
             **{k: c * 2 * U for k, c in per_solve.items()}))
         if d["pcg_warm_entries"] != 2 * U or d["pcg_loops"] < 2 * U:
@@ -2729,7 +2754,9 @@ def sweeps_small_check(dev) -> None:
             c1 = loop_counters()
             f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components),
                                periodic=(True, True))
+            bwd0 = row17_launches()
             r = rollout_loss_grad(step, v0, p0, f, U, remat="outputs")
+            row17_check(f"{res[0]}x{res[1]} rollout gradient", d, bwd0, U)
             c2 = loop_counters()
             out[key] = dict(
                 v=[c.cpu() for c in v.components], warns=warns + [r.warns],
@@ -4854,7 +4881,12 @@ def kinds_path(dev, wrappers: dict) -> dict:
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
             launches = {n_: fn.launches for n_, fn in wrappers.items()}
-            derived, d = derived_launches(c0, loop_counters())
+            derived, d = derived_launches(c0, loop_counters(), spectral=k == "channel_mm")
+            # row 16 is the loop's M^-1 r under channel_mm only (fft_mm takes
+            # pcg2; the function kinds apply their own M^-1)
+            if launches["spectral_apply"] != derived.get("spectral_apply", 0):
+                fail(f"{k}: row 16 launched {launches['spectral_apply']} times, the loops "
+                     f"derive {derived.get('spectral_apply', 0)}")
             rows[k] = dict(steps_per_sec=KIND_STEPS / elapsed,
                            pressure_iters_per_step=[i / KIND_STEPS for i in iters],
                            warn_fraction=warns / KIND_STEPS, pcg_counters={
@@ -5412,6 +5444,214 @@ def pipe_path(dev, wrappers: dict) -> dict:
     return fwd
 
 
+# -- rows 17 and 16: the corrector's backward and the fused spectral apply ----------
+BWD_KERNELS = ("corrector1_bridge_bwd", "corrector2_tail_bwd")
+BWD_SHAPES = ((1024, 1024), (1024, 2048))  # 2l: the other periodic gradients' planes
+SPEC_CASES = (  # 2m: (label, preconditioner, plane)
+    ("mixing", "channel_mm", MIX_RES), ("training", "channel_mm", TRAIN_RES),
+    ("dns", "channel_mm", DNS_RES), ("cavity", "dct_mm", (CAV_N + 1, CAV_N)))
+
+
+def row17_launches() -> tuple:
+    from diffpiso_tpu_torch.ops import corrector
+
+    return corrector.corrector1_bridge_bwd.launches, corrector.corrector2_tail_bwd.launches
+
+
+def row17_check(label, dev, before, steps) -> None:
+    """A periodic rollout gradient of `steps` steps launches row 17 (both
+    kernels) once a step on the card; on the CPU its plain twins run."""
+    got = [a - b for a, b in zip(row17_launches(), before)]
+    want = [steps, steps] if dev.type == "cuda" else [0, 0]
+    if got != want:
+        fail(f"{label} on {dev.type}: row 17 launched {got} times, expected {want}")
+
+
+def synthetic_bridge(shape, dev, beta, seed) -> tuple:
+    """The bridge's 17 planes and the tail's 7 at the scales of a step at
+    beta = dxprod / dt (bma ~ beta, the stencil's centre ~ -beta), from a
+    seeded generator on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(scale, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen, device=dev)
+
+    planes = [r(1e-3), r(0.5), r(0.5), r(0.1, beta), r(0.1, beta)]
+    for _ in range(2):
+        planes += [r(0.3, -beta - 4.0)] + [r(0.2) for _ in range(4)]
+    planes += [r(0.3, -1.0), r(0.3, -1.0)]
+    return planes, [r(1e-3), planes[1], planes[2], r(0.5), r(0.5), planes[3], planes[4]]
+
+
+def corrector_bwd_kernels(dev, kernels, scalars, bridge_in, tail_in) -> None:
+    """Phase 2l: row 17, the corrector bridge's and tail's backward kernels
+    (csrc/corrector_bwd.cu), on the 512^2 step's planes of phase 2 and on
+    synthetic planes at 1024^2 and 1024 x 2048 (the other periodic
+    gradients' shapes): every cotangent bit-equal to the plain twin
+    (`bridge_bwd_plain`, `tail_bwd_plain`), without the coefficient
+    cotangents (the step's form) and with them; against autograd's VJP of
+    the forward plain version, the step's cotangents bit for bit and every
+    cotangent within rel l2 1e-5; host ms, device
+    us per launch, bound, the twin's ms in both forms. No single PyTorch call
+    forms the VJP: library_ms is null."""
+    import torch
+
+    from diffpiso_tpu_torch.ops import corrector
+
+    f0, f1, dxprod, beta = scalars
+    cases = [(f"{N}^2 (the step's planes)", (N, N), bridge_in, tail_in, scalars)]
+    for shape in BWD_SHAPES:
+        # the turbulence paths at these shapes: dx = 2 pi / ny square cells, dt 0.4 / ny
+        dx_ = 2 * math.pi / shape[0]
+        sc = (dx_, dx_, dx_ * dx_, dx_ * dx_ / (0.4 / shape[0]))
+        pl, tl = synthetic_bridge(shape, dev, sc[3], shape[1])
+        cases.append((f"{shape[0]}x{shape[1]}", shape, pl, tl, sc))
+    entries = {k: dict(name=k, route="cuda", source="diffpiso_tpu_torch/csrc/corrector_bwd.cu",
+                       replaces=rep, library_ms=None, max_abs_err=0.0)
+               for k, rep in zip(BWD_KERNELS, ("diffpiso_tpu/ops/pallas_corrector.py:433",
+                                               "diffpiso_tpu/ops/pallas_corrector.py:474"))}
+    for label, shape, b_in, t_in, (f0, f1, dxprod, beta) in cases:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cts = [torch.randn(shape, generator=gen, device=dev) for _ in range(5)]
+        plane_bytes = shape[0] * shape[1] * 4
+        cells = shape[0] * shape[1]
+        for name, wrapper, twin, args in (
+                ("corrector1_bridge_bwd", corrector.corrector1_bridge_bwd,
+                 corrector.bridge_bwd_plain, (f0, f1, dxprod, beta, b_in, cts)),
+                ("corrector2_tail_bwd", corrector.corrector2_tail_bwd,
+                 corrector.tail_bwd_plain, (f0, f1, dxprod, t_in, cts[:2]))):
+            rows = {}
+            for coeffs in (False, True):
+                got, want = wrapper(*args, coeffs), twin(*args, coeffs)
+                same = all((a is None and b is None) or torch.equal(a, b)
+                           for a, b in zip(got, want))
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want) if a is not None)
+                entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+                if not same:
+                    fail(f"{name} {label} coeffs={coeffs}: not bit-equal to its plain twin "
+                         f"(max abs err {err:.3e})")
+                # bytes: the bridge reads 19 planes (+ p with coeffs) and writes 1
+                # (+ 14); the tail reads 4 (+ p, h0, h1) and writes 3 (+ 2); flops
+                # per cell of the transposed chain, counted once
+                planes_moved = {("corrector1_bridge_bwd", False): 20,
+                                ("corrector1_bridge_bwd", True): 35,
+                                ("corrector2_tail_bwd", False): 7,
+                                ("corrector2_tail_bwd", True): 12}[name, coeffs]
+                flops = {"corrector1_bridge_bwd": 47 + (62 if coeffs else 0),
+                         "corrector2_tail_bwd": 13 + (14 if coeffs else 0)}[name]
+                b_ms, b_by = bound(planes_moved * plane_bytes, flops * cells)
+                # (bound as defaults: the device time is measured after the paths)
+                rows[coeffs] = dict(
+                    shape=list(shape), bit_equal=same,
+                    ms=cuda_time_ms(lambda: wrapper(*args, coeffs), 100),
+                    plain_ms=cuda_time_ms(lambda: twin(*args, coeffs), 20),
+                    bound_ms=b_ms, bound_by=b_by,
+                    **device_time(lambda w=wrapper, a=args, c=coeffs: w(*a, c)))
+            # against autograd's VJP of the forward plain version: the step's
+            # cotangents (p, v; the tail's h) bit for bit, every cotangent in rel l2
+            fwd = corrector.bridge_plain if name == "corrector1_bridge_bwd" else corrector.tail_plain
+            ins = args[4] if name == "corrector1_bridge_bwd" else args[3]
+            c = args[5] if name == "corrector1_bridge_bwd" else args[4]
+            n_step = 3 if name == "corrector1_bridge_bwd" else 5
+            vjp_rel = 0.0
+            for coeffs in (False, True):
+                leaves = [x.detach().requires_grad_(coeffs or i < n_step)
+                          for i, x in enumerate(ins)]
+                asked = [x for x in leaves if x.requires_grad]
+                with torch.enable_grad():
+                    ref = torch.autograd.grad(fwd(*args[:len(args) - 2], *leaves), asked, c)
+                got = [g for g in wrapper(*args, coeffs) if g is not None]
+                if not coeffs and not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    fail(f"{name} {label}: the step's cotangents are not bit-equal to "
+                         f"autograd's VJP of the plain forward")
+                num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+                          for a, b in zip(got, ref))
+                den = sum(float(torch.sum(b.double() ** 2)) for b in ref)
+                vjp_rel = max(vjp_rel, (num / den) ** 0.5)
+            print(json.dumps(dict(kernel=name, plane=label, bit_equal_to_twin=True,
+                                  step_cotangents_bit_equal_to_autograd=True,
+                                  vjp_rel_l2_vs_autograd=vjp_rel,
+                                  pressure_only={k: v for k, v in rows[False].items()
+                                                 if k != "_device_time"},
+                                  with_coefficients={k: v for k, v in rows[True].items()
+                                                     if k != "_device_time"})), flush=True)
+            if not vjp_rel <= 1e-5:
+                fail(f"{name} {label}: rel l2 {vjp_rel:.3e} against autograd's VJP > 1e-5")
+            e = entries[name]
+            key = "x".join(map(str, shape))
+            if shape == (N, N):
+                e.update(rows[False], vjp_rel_l2_vs_autograd=vjp_rel,
+                         form=f"pressure-only (the step's), {N}^2")
+                e["with_coefficients"] = rows[True]
+            else:
+                e[f"at_{key}"] = dict(rows[False], vjp_rel_l2_vs_autograd=vjp_rel)
+                e[f"at_{key}_with_coefficients"] = rows[True]
+    kernels.extend(entries.values())
+
+
+def spectral_kernels(dev, kernels) -> None:
+    """Phase 2m: row 16, the fused spectral apply (csrc/gemm.cuh
+    dp_spectral_apply through csrc/pcg2.cu's pcg2_precondition: four
+    launches of the hand-written GEMM in one call), on the mixing
+    layer's, training's and the DNS's channel_mm planes and the 513 x 512
+    cavity's dct_mm plane (random r, symbol weights 1): within rel l2 1e-5
+    of the four torch.matmul contractions and the divide (TF32 off), both
+    against float64; the same bits on a repeated call; host ms, device us per
+    GEMM launch, bound, the plain version's ms and the library yardstick's
+    (the four torch.matmuls on the stored transposes and the divide)."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers.fourier import (MatmulSpectralSolver, safe_symbol,
+                                                    spectral_apply_plain)
+    from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 matmul is on: the spectral apply's yardstick must contract in full float32")
+    kinds = {"channel_mm": ("dct2", "dct4"), "dct_mm": ("dct2", "dct2")}
+    entry = dict(name="spectral_apply", route="cuda",
+                 source="diffpiso_tpu_torch/csrc/pcg2.cu (pcg2_precondition: "
+                        "csrc/gemm.cuh dp_spectral_apply)",
+                 replaces="diffpiso_tpu/solvers/pallas_krylov.py:2634",
+                 launches_count="one per M^-1 r call (four GEMM launches)")
+    for label, kind, shape in SPEC_CASES:
+        solver = MatmulSpectralSolver(kinds=kinds[kind], shape=tuple(shape))
+        (v0, v0t), (v1, v1t) = solver.mats(torch.float32, dev)
+        sym = safe_symbol(solver, (1.0, 1.0), torch.float32, dev)
+        r = torch.randn(tuple(shape), generator=torch.Generator(device=dev).manual_seed(4),
+                        device=dev)
+        z = fused_spectral_apply(v0, v0t, v1, v1t, sym, r)
+        want = spectral_apply_plain(v0, v1, sym, r)
+        z64 = spectral_apply_plain(v0.double(), v1.double(), sym.double(), r.double())
+        rel = rel_l2(z, want)
+        repeat = torch.equal(z, fused_spectral_apply(v0, v0t, v1, v1t, sym, r))
+        n0, n1 = shape
+        b_ms, b_by = bound((2 * n0 * n0 + 2 * n1 * n1 + 3 * n0 * n1) * 4,
+                           4.0 * n0 * n1 * (n0 + n1) + n0 * n1)
+        row = dict(
+            plane=list(shape), preconditioner=kind, rel_l2_vs_plain=rel,
+            kernel_rel_l2_vs_float64=rel_l2(z.double(), z64),
+            plain_rel_l2_vs_float64=rel_l2(want.double(), z64), repeat_bit_equal=repeat,
+            max_abs_err=float((z - want).abs().max()),
+            ms=cuda_time_ms(lambda: fused_spectral_apply(v0, v0t, v1, v1t, sym, r), 50),
+            plain_ms=cuda_time_ms(lambda: spectral_apply_plain(v0, v1, sym, r), 50),
+            library_ms=cuda_time_ms(lambda: v0t @ ((v0 @ r @ v1t) / sym) @ v1, 50),
+            bound_ms=b_ms, bound_by=b_by,
+            **device_time(lambda a=(v0, v0t, v1, v1t, sym, r): fused_spectral_apply(*a)))
+        print(json.dumps(dict(kernel="spectral_apply", case=label,
+                              **{k: v for k, v in row.items() if k != "_device_time"})),
+              flush=True)
+        if not (rel <= 1e-5 and repeat):
+            fail(f"spectral_apply {label}: rel l2 {rel:.3e} vs plain (limit 1e-5), repeat "
+                 f"bit-equal {repeat}")
+        if label == "mixing":
+            entry.update(row)
+        else:
+            entry[label] = row
+    kernels.append(entry)
+
+
 # every kernel wrapper of the port (each holds its launch counter): name,
 # module under diffpiso_tpu_torch, attribute, launches per step of the main
 # path (phase 4, 512^2 turbulence)
@@ -5470,6 +5710,13 @@ KERNEL_WRAPPERS = (
     # viscosity that row 1 declines (bounded and mixed-periodicity domains:
     # the cavity, the channel flows)
     ("advection_assembly_masked", "ops.advassembly_masked", "fused_advection_assembly_masked", 0),
+    # the corrector's backward (row 17): only the periodic gradients take it,
+    # once per unrolled step each
+    ("corrector1_bridge_bwd", "ops.corrector", "corrector1_bridge_bwd", 0),
+    ("corrector2_tail_bwd", "ops.corrector", "corrector2_tail_bwd", 0),
+    # the fused spectral apply (row 16): M^-1 r of the per-iteration PCG
+    # loop under channel_mm (the mixing layers, training, the DNS)
+    ("spectral_apply", "solvers.spectral_apply", "fused_spectral_apply", 0),
 )
 
 
@@ -5714,21 +5961,15 @@ def main() -> int:
     def bridge_ref(p, v0, v1):
         return corrector.bridge_plain(fs[0], fs[1], dxprod, beta, p, v0, v1, *bridge_in[3:])
 
-    gen_ct = torch.Generator(device=dev).manual_seed(2)
-    cts = [torch.randn((N, N), generator=gen_ct, device=dev) for _ in range(5)]
     b_out = bridge_kernel(kx, vs0, vs1)
     b_ref = bridge_ref(kx, vs0, vs1)
     b_err = max(float((a - b).abs().max()) for a, b in zip(b_out, b_ref))
     b_rel = max(rel_err(a, b) for a, b in zip(b_out, b_ref))
-    # the Function's backward recomputes the plain chain, so its VJP against
-    # autograd of the plain version checks the recompute's wiring, not the kernel
-    b_vjp = max(rel_err(a, b) for a, b in zip(vjp(bridge_kernel, (kx, vs0, vs1), cts),
-                                              vjp(bridge_ref, (kx, vs0, vs1), cts)))
+    # (the backward is row 17's kernel: phase 2l)
     print(f"corrector bridge kernel vs plain: forward max rel err {b_rel:.3e} (abs "
-          f"{b_err:.3e}); backward wiring (plain recompute vs autograd of plain) max rel "
-          f"err {b_vjp:.3e}", flush=True)
-    if not (b_rel <= 1e-6 and b_vjp <= 1e-6):
-        fail(f"corrector bridge: kernel vs plain rel err {b_rel:.3e} / VJP {b_vjp:.3e} > 1e-6")
+          f"{b_err:.3e})", flush=True)
+    if not b_rel <= 1e-6:
+        fail(f"corrector bridge: kernel vs plain rel err {b_rel:.3e} > 1e-6")
     _, _, h0, h1, hdiv = b_out
     kx2, _, _ = fused_pcg2_solve(lap, hdiv, None, v0, v0t, v1, v1t, sym, P_TOL, 1000)
     tail_in = [kx2, b_out[0], b_out[1], h0, h1, *bma]
@@ -5742,12 +5983,10 @@ def main() -> int:
     t_out, t_ref = tail_kernel(*tail_in[:3]), tail_ref(*tail_in[:3])
     t_err = max(float((a - b).abs().max()) for a, b in zip(t_out, t_ref))
     t_rel = max(rel_err(a, b) for a, b in zip(t_out, t_ref))
-    t_vjp = max(rel_err(a, b) for a, b in zip(vjp(tail_kernel, tail_in[:3], cts[:2]),
-                                              vjp(tail_ref, tail_in[:3], cts[:2])))
     print(f"corrector tail kernel vs plain: forward max rel err {t_rel:.3e} (abs "
-          f"{t_err:.3e}); backward wiring max rel err {t_vjp:.3e}", flush=True)
-    if not (t_rel <= 1e-6 and t_vjp <= 1e-6):
-        fail(f"corrector tail: kernel vs plain rel err {t_rel:.3e} / VJP {t_vjp:.3e} > 1e-6")
+          f"{t_err:.3e})", flush=True)
+    if not t_rel <= 1e-6:
+        fail(f"corrector tail: kernel vs plain rel err {t_rel:.3e} > 1e-6")
     # bridge: 17 planes in, 5 out; per cell 2 x (grad 2, delta 3, v 1,
     # H 12, H/bma 1) + div 5 = 43 flops. tail: 7 in, 2 out, 2 x 6 flops.
     b_br, by_br = bound(22 * plane_bytes, 43 * N * N)
@@ -5768,6 +6007,14 @@ def main() -> int:
         plain_ms=cuda_time_ms(lambda: tail_ref(*tail_in[:3]), 50),
         bound_ms=b_tl, bound_by=by_tl, library_ms=None,
     ))
+
+    # -- phase 2l: the corrector's backward kernels (row 17) on the step's planes,
+    # then at 1024^2 and 1024 x 2048 ---------------------------------------------------
+    corrector_bwd_kernels(dev, kernels, (fs[0], fs[1], dxprod, beta), bridge_in, tail_in)
+
+    # -- phase 2m: the fused spectral apply (row 16) on the channel_mm planes and the
+    # cavity's dct_mm plane --------------------------------------------------------------
+    spectral_kernels(dev, kernels)
 
     # -- phase 2b: the cavity path's kernels at the 512 cavity's shapes ------------
     cavity_measured = cavity_kernels(dev, kernels)
@@ -5878,7 +6125,9 @@ def main() -> int:
                              pressure_inc1_guess=g1, pressure_inc2_guess=g2,
                              advection_tol=ADV_TOL, pressure_tol=P_TOL)
 
+        bwd0 = row17_launches()
         r_s = rollout_loss_grad(step_s, v_s, dom_s.centered_grid(0.0, device=d), f_s, 3)
+        row17_check(f"{n_grad}^2 rollout gradient", d, bwd0, 3)
         if r_s.warns:
             fail(f"{n_grad}^2 rollout gradient on {d.type}: {r_s.warns} steps warned")
         grads[d.type] = [c.cpu().double() for c in r_s.grad.components]
@@ -5911,7 +6160,7 @@ def main() -> int:
     # div2: U (div v*) + U (replay) + U - 1 (VJP of the predictor's
     # grad2 of p: the initial pressure carries no gradient, so the first
     # step has none); grad2: U (predictor) + U (replay) + U (VJP of div v*).
-    # The corrector backward is the VJP of the plain chain: no launch.
+    # The corrector's backward kernels (row 17): U each, one per step.
     U = UNROLL
     expected = {
         "advection_assembly": 2 * U, "laplace_assembly": 2 * U,
@@ -5923,7 +6172,8 @@ def main() -> int:
         "jacobi1_solve": 0, "pcg_mm_update": 0, **{k: 0 for k in T3_KERNELS},
         **{k: 0 for k in T3_TIER_KERNELS.values()},
         "pcg2_solve_batched": 0, "jacobi1_solve_batched": 0, "jacobi_sweeps": 0,
-        "advection_assembly_masked": 0,
+        "advection_assembly_masked": 0, "corrector1_bridge_bwd": U, "corrector2_tail_bwd": U,
+        "spectral_apply": 0,
     }
     forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
                              periodic=(True, True))
@@ -6131,6 +6381,12 @@ def main() -> int:
         elif name == "advection_assembly_masked":
             entry["path"] = f"Karman street {KARMAN_NY} x {3 * KARMAN_NY} forward"
             entry["launches"] = karman_fwd[name]
+        elif name in BWD_KERNELS:
+            entry["path"] = f"turbulence {N}^2 grad30 (one evaluation)"
+            entry["launches"] = grad30["launches_per_eval"][name]
+        elif name == "spectral_apply":
+            entry["path"] = "mixing forward"
+            entry["launches"] = mix_fwd[name]
         elif name == "stencil_residual":
             # a hand-over's entry and exit residual: the mixing layer's forward
             # hands over; the 1024 x 2048 run's counts stand beside it

@@ -31,11 +31,7 @@ from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
-from diffpiso_tpu_torch.solvers.fourier import (
-    safe_symbol,
-    spectral_apply3_plain,
-    spectral_apply_plain,
-)
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
 from diffpiso_tpu_torch.solvers.jacobi1 import (
     fused_jacobi1_solve,
     fused_jacobi1_solve_3d,
@@ -52,6 +48,7 @@ from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_batched
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
+from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
 
 
 class SolveResult(NamedTuple):
@@ -558,8 +555,9 @@ def pcg(
       residual; the exit check is the residual kernel. With all-`fourier`
       bases on planes up to 8 MiB (1024^2) M^-1 is folded into the update
       (solvers/pcgmm.py); otherwise (`channel_mm`; any plane past 8 MiB)
-      M^-1 r runs as four dense contractions between the apply and the
-      update;
+      M^-1 r runs between the apply and the update as the fused spectral
+      apply (row 16, solvers/spectral_apply.py: four launches of the
+      hand-written GEMM);
     * a volume takes the generic per-iteration loop (`_generic_ops`: the
       JAX package's rank-3 kernels, pcg3, the rank-3 phases and the fused
       spectral apply, are closed by default), A p through the 7-point
@@ -605,7 +603,7 @@ def pcg(
         project_z = deflate_mean and not precond_zero_mean
 
         def precond(r):
-            z = spectral_apply_plain(v0, v1, sym, r)
+            z = fused_spectral_apply(v0, v0t, v1, v1t, sym, r)
             return z - torch.sum(z) / z.numel() if project_z else z
 
         x, rn, k = _pcg_phases(stencil, b, x0, precond, tol32, max_iter, residual_reset,

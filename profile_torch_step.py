@@ -78,7 +78,8 @@ UNROLL = 30
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
-    ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update)"),
+    ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update, row 16 spectral "
+                 "apply)"),
     ("pcgmm_", "mm_update elementwise + reductions"),
     ("convolve", "CNN convolutions (cuDNN)"),
     ("fprop", "CNN convolutions (cuDNN)"),
@@ -108,6 +109,7 @@ FAMILIES = (
     ("matvec3_kernel", "7-point stencil matvec"),
     ("bicg_", "BiCGSTAB phases"),
     ("cg_", "CG iteration (row 10d; its sum-p pass is in the PCG phases' family)"),
+    ("corrbwd_", "corrector bridge / tail backward (row 17)"),
     ("corrector_", "corrector bridge / tail"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
@@ -118,7 +120,7 @@ def family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
-    return "plain PyTorch ops (glue, masks, the per-face-viscosity assembly body, corrector VJP)"
+    return "plain PyTorch ops (glue, masks, the per-face-viscosity assembly body)"
 
 
 def main() -> int:

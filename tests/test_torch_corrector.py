@@ -1,9 +1,11 @@
 """Kernel 6's plain versions (ops/corrector.py bridge_plain / tail_plain)
-and the autograd Functions around them against the JAX package's corrector
-kernels (pallas_corrector.corrector1_bridge / corrector2_tail, interpret
-mode on the CPU), forward and VJP for every primal input; and the step's
-fused branch against its plain branch. The CUDA kernels are held against
-these plain versions in tests/test_torch_cuda.py."""
+and the autograd Functions around them (their backward: row 17's plain
+twins, bridge_bwd_plain / tail_bwd_plain) against the JAX package's
+corrector kernels (pallas_corrector.corrector1_bridge / corrector2_tail,
+interpret mode on the CPU), forward and VJP for every primal input; and the
+step's fused branch against its plain branch. The CUDA kernels are held
+against these plain versions in tests/test_torch_cuda.py; row 17's twins
+against the JAX backward kernels in tests/test_torch_corrector_bwd.py."""
 
 import dataclasses
 
@@ -109,25 +111,40 @@ def test_tail_plain_and_vjp_match_the_jax_kernel(shape):
 
 
 def test_bridge_backward_computes_only_the_cotangents_asked_for(monkeypatch):
-    """On the step's path only p_inc and v* carry gradient: the backward's
-    recompute of the plain chain differentiates with respect to those
-    only, not the 15 coefficient planes."""
-    seen = []
-    plain = corrector.bridge_plain
+    """On the step's path only p_inc and v* carry gradient: the backward
+    (the hand transpose, row 17) forms the pressure cotangent and hands the
+    velocity cotangents through, not the 15 coefficient planes' (nor does
+    it recompute the forward chain); a coefficient plane that asks for its
+    cotangent switches on the coefficient form, which is the form the VJP
+    tests above hold against the JAX kernel."""
+    seen, fwd = [], []
+    plain, plain_bwd = corrector.bridge_plain, corrector.bridge_bwd_plain
 
     def spy(*a):
-        seen.append([x.requires_grad for x in a[4:]])
+        fwd.append(1)
         return plain(*a)
 
+    def spy_bwd(*a):
+        outs = plain_bwd(*a)
+        seen.append((a[-1], [o is not None for o in outs]))
+        return outs
+
     monkeypatch.setattr(corrector, "bridge_plain", spy)
+    monkeypatch.setattr(corrector, "bridge_bwd_plain", spy_bwd)
     ins = [t(a) for a in _bridge_inputs((16, 24), 4)]
     ins[0].requires_grad_(True)
     ins[1].requires_grad_(True)
     got = _port_bridge(*ins)
     g = torch.autograd.grad(sum(o.sum() for o in got), ins[:2])
     assert all(x is not None for x in g)
-    # one forward, one recompute in the backward
-    assert len(seen) == 2 and seen[1] == [True, True] + [False] * 15
+    # one forward, no recompute in the backward, no coefficient cotangent
+    assert len(fwd) == 1 and seen == [(False, [True, True, True] + [False] * 14)]
+    ins[16].requires_grad_(True)
+    got = _port_bridge(*ins)
+    g2 = torch.autograd.grad(sum(o.sum() for o in got), [ins[0], ins[1], ins[16]])
+    assert seen[1] == (True, [True] * 17)
+    # the pressure cotangent is the same in both forms
+    assert torch.equal(g[0], g2[0]) and torch.equal(g[1], g2[1])
 
 
 def _one_step(sim, fused):

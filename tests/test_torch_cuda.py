@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card (the
 two assemblies, jac2, pcg2, the FV pair forward and VJP, the corrector
-bridge / tail forward; their VJP recomputes the plain chain, so comparing
-it checks only the wiring; the bounded FV trio forward and VJP, the
+bridge / tail forward and their backward kernels, row 17, bit-equal to
+their plain twins with and without the coefficient cotangents; the fused
+spectral apply, row 16, against the four matmuls; the bounded FV trio forward and VJP, the
 stencil matvec in both forms, jac2 and pcg2 at the cavity's unequal
 bounded shapes, the BiCGSTAB phases and the loop they run; the
 per-iteration PCG phases and the loop they run, and the matvec on the
@@ -71,7 +72,11 @@ from diffpiso_tpu_torch.ops.stencil import (
 )
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers import bicg, krylov, pcgphases
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
+from diffpiso_tpu_torch.solvers.fourier import (
+    MatmulSpectralSolver,
+    safe_symbol,
+    spectral_apply_plain,
+)
 from diffpiso_tpu_torch.solvers.jacobi1 import (
     fused_jacobi1_solve,
     fused_jacobi1_solve_3d,
@@ -88,6 +93,7 @@ from diffpiso_tpu_torch.solvers.jacobi3d import (
 from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps, jacobi_sweeps_plain
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
+from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
 from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
 
 pytestmark = pytest.mark.cuda
@@ -266,7 +272,15 @@ def test_corrector_kernels_match_plain_forward_and_vjp(shape, cuda_device):
     for a, b in zip((*v2, *h, hdiv), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     cts = [_rand(shape, 60 + k).to(cuda_device) for k in range(5)]
+    # the backward is row 17's kernel: bit-equal to its plain twin and to
+    # autograd's VJP of the plain forward (the twin sums in its order)
+    before = corrector.corrector1_bridge_bwd.launches
     got = torch.autograd.grad((*v2, *h, hdiv), ins[:3], cts)
+    assert corrector.corrector1_bridge_bwd.launches == before + 1
+    twin = corrector.bridge_bwd_plain(f0, f1, dxprod, beta, [x.detach() for x in ins], cts,
+                                      coeffs=False)
+    for a, b in zip(got, twin[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with torch.enable_grad():
         ref_in = [x.detach().requires_grad_(i < 3) for i, x in enumerate(ins)]
         ref = torch.autograd.grad(corrector.bridge_plain(f0, f1, dxprod, beta, *ref_in),
@@ -282,11 +296,66 @@ def test_corrector_kernels_match_plain_forward_and_vjp(shape, cuda_device):
     twant = corrector.tail_plain(f0, f1, dxprod, *[x.detach() for x in tins])
     for a, b in zip(v3, twant):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    before = corrector.corrector2_tail_bwd.launches
     got = torch.autograd.grad(v3, tins[:5], cts[:2])
+    assert corrector.corrector2_tail_bwd.launches == before + 1
+    twin = corrector.tail_bwd_plain(f0, f1, dxprod, [x.detach() for x in tins], cts[:2],
+                                    coeffs=False)
+    for a, b in zip(got, twin[:5]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     ref_in = [x.detach().requires_grad_(i < 5) for i, x in enumerate(tins)]
     ref = torch.autograd.grad(corrector.tail_plain(f0, f1, dxprod, *ref_in), ref_in[:5], cts[:2])
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("coeffs", [False, True])
+@pytest.mark.parametrize("shape", [SHAPE, ODD, (1024, 2048), (7, 5)])
+def test_corrector_bwd_kernels_are_bit_equal_to_their_twins(shape, coeffs, cuda_device):
+    """Row 17 with and without the coefficient cotangents: every cotangent
+    bit-equal to `bridge_bwd_plain` / `tail_bwd_plain` on the card."""
+    dx, beta = (0.0123, 0.0123), 51.2
+    f0, f1, dxprod = dx[1], dx[0], dx[0] * dx[1]
+    planes = _bridge_planes(shape, cuda_device, beta)
+    cts = [_rand(shape, 70 + k).to(cuda_device) for k in range(5)]
+    before = corrector.corrector1_bridge_bwd.launches
+    got = corrector.corrector1_bridge_bwd(f0, f1, dxprod, beta, planes, cts, coeffs)
+    assert corrector.corrector1_bridge_bwd.launches == before + 1
+    want = corrector.bridge_bwd_plain(f0, f1, dxprod, beta, planes, cts, coeffs)
+    assert sum(o is not None for o in got) == (17 if coeffs else 3)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    tins = [planes[0], planes[1], planes[2], cts[2], cts[3], planes[3], planes[4]]
+    before = corrector.corrector2_tail_bwd.launches
+    got = corrector.corrector2_tail_bwd(f0, f1, dxprod, tins, cts[:2], coeffs)
+    assert corrector.corrector2_tail_bwd.launches == before + 1
+    want = corrector.tail_bwd_plain(f0, f1, dxprod, tins, cts[:2], coeffs)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind, shape", [("channel_mm", (128, 512)), ("channel_mm", (64, 256)),
+                                         ("channel_mm", (512, 2048)), ("dct_mm", (513, 512)),
+                                         ("fft_mm", (33, 32))])
+def test_spectral_apply_kernel_matches_plain(kind, shape, cuda_device):
+    """Row 16 on the hand-written GEMM against the four torch.matmul
+    contractions and the divide (TF32 off): within rel 1e-5 of the scale,
+    and the same bits on a second call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kinds = {"channel_mm": ("dct2", "dct4"), "dct_mm": ("dct2", "dct2"),
+             "fft_mm": ("fourier", "fourier")}[kind]
+    solver = MatmulSpectralSolver(kinds=kinds, shape=shape)
+    (v0, v0t), (v1, v1t) = solver.mats(torch.float32, cuda_device)
+    sym = safe_symbol(solver, (0.7, 1.3), torch.float32, cuda_device)
+    r = _rand(shape, 80).to(cuda_device)
+    before = fused_spectral_apply.launches
+    z = fused_spectral_apply(v0, v0t, v1, v1t, sym, r)
+    assert fused_spectral_apply.launches == before + 1
+    want = spectral_apply_plain(v0, v1, sym, r)
+    torch.testing.assert_close(z, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(z, fused_spectral_apply(v0, v0t, v1, v1t, sym, r))
+    with pytest.raises(ValueError):
+        fused_spectral_apply(v0, v0t, v1, v1t, sym, r.t())
 
 
 @pytest.mark.parametrize("n, viscosity, p_tol", [

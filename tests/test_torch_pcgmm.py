@@ -38,7 +38,7 @@ from diffpiso_tpu_torch.ops import laplace as plap
 from diffpiso_tpu_torch.solvers import base as pbase
 from diffpiso_tpu_torch.solvers import krylov as pkrylov
 from diffpiso_tpu_torch.solvers import tiers
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from tests.torch_parity import n, t
 
@@ -93,7 +93,7 @@ def test_plain_matches_the_jax_kernel(call, jax_large_tier):
         p, rz_old = np.zeros(SHAPE, np.float32), np.float32(1.0)
     else:
         p = rng.randn(*SHAPE).astype(np.float32)
-        rz_old = np.float32(1.7 * float(torch.sum(t(r) * pkrylov.spectral_apply_plain(
+        rz_old = np.float32(1.7 * float(torch.sum(t(r) * spectral_apply_plain(
             v0, v1, sym, t(r)))))  # beta of O(1)
     jp, jrz = pallas_krylov.fused_pcg_mm_update(
         jnp.asarray(n(v0)), jnp.asarray(n(v1)), jnp.asarray(n(sym)), jnp.float32(rz_old),
