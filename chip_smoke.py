@@ -330,6 +330,48 @@ Phases, each fatal on failure:
      float64 momentum solve, diffpiso_tpu_torch/examples/pipe.py):
      Poiseuille rel l2 < 0.05, x-invariance and |v| < 1e-5, warn 0,
      steps/s and CG iterations a step, its launches derived likewise.
+  2n. rows 10e (the rank-3 residual, PCG apply and CG iteration,
+     csrc/pcgphases3.cu) and 16-3d (the 3-D spectral apply, csrc/spectral3.cu:
+     three passes of the hand-written GEMM, six launches) against their plain
+     versions on real 3-D pressure systems: the 128^3 turbulence's (after
+     2g's spin-up), the 256^3's (after 2h's) and the N = 128 cavity's
+     (after 18b's spin-up), deflation off and on, x and p on a dyadic grid
+     (exact sums, so the shift term agrees bit for bit): volumes within rel
+     1e-6 of their scale plus what the measured alpha / beta differences
+     carry (phase 2i's bar), the scalars reported with their relative
+     error; row 16-3d within rel l2 1e-5 of the six torch.matmuls and the
+     divide (its library yardstick) on the loop's first residual (the
+     dyadic iterate's residual, the worst-conditioned input, reported), the
+     same bits on a repeat; on the
+     turbulence systems one whole PCG solve forward (warm) and adjoint
+     (cold) with the kernels against the plain versions on the card: equal
+     iterations. Host ms, device us per launch, the bound (bytes: 10 / 12 /
+     13 volumes; operations for 16-3d), the plain version's ms and the
+     library's (a cuSPARSE CSR SpMV of the 7-point operator for row 10e's
+     matvec part). Phases 12 and 14 assert rows 10e (residual: warm entries
+     + resets + loops; apply and the volume update, row 10c: iterations)
+     and 16-3d (loops + resets + iterations) from the loops' counters; the
+     7-point matvec then runs only BiCGSTAB's applies and explicit_H.
+  18. the bounded 3-D lid-driven cavity (the JAX package's tests/test_3d.py
+     configuration: (N + 1, N, N) cells, axes (y, x, z), box (1 + 1/N, 1,
+     1), OPEN, rank-deficient, `dct` forward and adjoint, deflating, max
+     iterations 200 / 800, tol 1e-6 / 1e-6) at viscosity 1e-3 (Re 1000) and
+     dt 0.2 / N: (a) N = 16, 5 steps under `dct` and under plain CG and the
+     3-step rollout gradient under `dct`, card vs the CPU plain path
+     (velocity rtol 2e-4 / atol 2e-5, pressure iterations equal under
+     `dct` and within 2 a solve under CG, warn 0, equal gate decisions,
+     gradient rel l2 <= 1e-3, a momentum hand-over may differ within 8 ulps
+     of tol, as 12a); (b) N = 128: the momentum solves in the z-block tier
+     (bz 26 / 43 / 43), a 400-step spin-up from rest, 2n on its pressure
+     system, 2 timed calls of 100 steps: steps/s, pressure iterations a
+     step, trips and sweeps, max |div v| over fluid cells, peak memory;
+     warn 0, u > 0 in the first fluid row below the lid at mid-span, rows
+     10e and 15e as the loops derive, row 16-3d and the periodic-only
+     kernels (15a, 15b, 6, 17) 0; (c) the same state under plain CG, 20
+     steps (CG iterations a step, row 10e's CG iteration once per
+     iteration, warn as the solver reports it) and a 2-step rollout
+     gradient (its gated adjoints). Every 2-D path asserts 0 launches of
+     rows 10e and 16-3d.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -385,7 +427,7 @@ def rel_err(a, b) -> float:
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
                "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
-               "sres_", "advm_", "corrbwd_")
+               "sres_", "advm_", "corrbwd_", "p3_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -3051,16 +3093,20 @@ def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     tier's kernel (the whole-solve Jacobi 2 launches per component solve
     plus one per sweep; per trip one call per component, the z-block
     kernel 1 + JAC_K launches a call, the plane kernel JAC_K); the 7-point
-    matvec once per PCG operator apply
-    (warm entry, reset, iteration, exit residual of each loop) and three
-    times per BiCGSTAB operator apply (one per component)."""
+    matvec three times per BiCGSTAB operator apply (one per component); the
+    pressure loop's rank-3 phases (row 10e: the residual once per warm
+    entry, reset and finished loop, the apply once per iteration), the
+    update (row 10c, on the volume) once per iteration, and the 3-D
+    spectral apply (row 16-3d) once per loop, reset and iteration."""
     d = {k: c1[k] - c0[k] for k in c0}
     jac = {"jac13d": ("jacobi1_solve_3d", 2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"]),
            "zblock": (T3_TIER_KERNELS["zblock"], 3 * (1 + JAC_K) * d["jacobi_trips"]),
            "plane": (T3_TIER_KERNELS["plane"], 3 * JAC_K * d["jacobi_trips"])}[tier]
     return {jac[0]: jac[1],
-            "stencil_matvec3d": (d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_iterations"]
-                                 + d["pcg_loops"] + 3 * (d["applies"] + d["applies_T"]))}, d
+            "stencil_matvec3d": 3 * (d["applies"] + d["applies_T"]),
+            "pcg_residual3": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
+            "pcg_apply3": d["pcg_iterations"], "pcg_update": d["pcg_iterations"],
+            "spectral_apply3": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]}, d
 
 
 def tier_solves_ok(d: dict, tier: str, solves: int) -> bool:
@@ -5652,6 +5698,651 @@ def spectral_kernels(dev, kernels) -> None:
     kernels.append(entry)
 
 
+# -- phases 2n and 18: the rank-3 pressure loop (row 10e, row 16-3d) and the bounded 3-D
+# lid-driven cavity -----------------------------------------------------------------------
+
+CAV3_N = 128  # 18b-c: the 3-D cavity at N = 128 (a (129, 128, 128) pressure grid)
+CAV3_SMALL = 16  # 18a: card vs CPU
+CAV3_SMALL_STEPS = 5
+CAV3_SMALL_UNROLL = 3
+CAV3_NU = 1e-3  # Re 1000, bench.py workload_cavity's viscosity
+CAV3_TOL = 1e-6  # tests/test_3d.py test_cavity_3d_smoke's advection and pressure tol
+CAV3_SPINUP = 400
+CAV3_CALL = 100
+CAV3_CALLS = 2
+CAV3_CG_STEPS = 20
+CAV3_CG_UNROLL = 2  # 18c: the gated adjoints of a 2-step rollout gradient under CG
+RANK3_KERNELS = ("pcg_residual3", "pcg_apply3", "cg_iteration3", "spectral_apply3")
+
+
+def cavity3d_case(n, dev, kind="dct"):
+    """(domain, sim, dt) of the bounded 3-D lid-driven cavity: the JAX
+    package's tests/test_3d.py configuration (an (n + 1, n, n) grid, axes
+    (y, x, z), box (1 + 1/n, 1, 1), OPEN, the rank-deficient pressure
+    system, AdvectionSolver(max_iterations=200), PressureSolver(
+    max_iterations=800, deflate_mean=True) with `kind` forward and adjoint)
+    at viscosity 1e-3 (Re 1000) and dt 0.2 / n."""
+    from diffpiso_tpu_torch import Box, Domain, OPEN
+    from diffpiso_tpu_torch.core.masks import lid_driven_cavity_masks_3d
+    from diffpiso_tpu_torch.core.piso import SimulationParameters
+    from diffpiso_tpu_torch.solvers.base import AdvectionSolver, PressureSolver
+
+    dm, dv, act, acc, ns = lid_driven_cavity_masks_3d(n, device=dev)
+    domain = Domain((n + 1, n, n), Box.from_size((1.0 + 1.0 / n, 1.0, 1.0)), boundaries=OPEN)
+    sim = SimulationParameters(
+        dirichlet_mask=dm, dirichlet_values=dv, active_mask=act, accessible_mask=acc,
+        no_slip_mask=ns, viscosity=CAV3_NU, laplace_rank_deficient=True,
+        bool_periodic=(False,) * 3, linear_solver=AdvectionSolver(max_iterations=200),
+        pressure_solver=PressureSolver(max_iterations=800, deflate_mean=True,
+                                       preconditioner=kind, adjoint_preconditioner=kind))
+    return domain, sim, 0.2 / n
+
+
+def cavity3d_step(domain, sim, dt):
+    from diffpiso_tpu_torch.core.piso import piso_step
+
+    def step(v, p, g1, g2, f=None, full_output=False):
+        return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                         pressure_inc2_guess=g2, advection_tol=CAV3_TOL, pressure_tol=CAV3_TOL,
+                         full_output=full_output)
+
+    return step
+
+
+def dyadic(v, mean_free=False):
+    """`v` rounded to k 2^m with |k| <= K, K = 2^24 // cells (at least 1):
+    every float32 sum over the volume is then exact in any order, so the
+    shift term shift * sum(.) of the kernels and of torch.sum agree bit for
+    bit. `mean_free`: the first |sum k| cells that can move one step toward
+    it do, so the sum is exactly 0, as the deflated loops' iterates are
+    (a large exact sum would make the shift term a constant far above the
+    deflated residual, and the mean, a sum in another order in each
+    version, would then differ at that constant's rounding)."""
+    import math
+
+    import torch
+
+    kmax = max(1, 2 ** 24 // v.numel())
+    if mean_free:
+        v = v - torch.mean(v)
+    # a step that keeps max|v| within K; where K < 4 (256^3 and up) one of the
+    # size of v's spread, so that most cells stay off 0 (the rest clip to +-K)
+    step = 2.0 ** (math.ceil(math.log2(max(float(v.abs().max()), 1e-30) / kmax)) if kmax >= 4
+                   else round(math.log2(max(float(v.std()), 1e-30))))
+    k = torch.clamp(torch.round(v / step), -kmax, kmax).reshape(-1)
+    if mean_free:
+        d = int(k.double().sum())
+        if d:
+            room = torch.nonzero(k > -kmax if d > 0 else k < kmax).flatten()
+            if room.numel() < abs(d):
+                fail("dyadic: too few cells to make the sum 0")
+            k[room[:abs(d)]] -= 1.0 if d > 0 else -1.0
+    return k.reshape(v.shape) * step
+
+
+# 2n: the relative error a rank-3 scalar may have against its plain
+# version. The kernels take their sums as fixed-order block sums, torch.sum
+# in its own order: rnorm (a max), p.q (the form p A p) and alpha agree to
+# rounding, as in phase 2i. beta = -r'.q / p.q sums terms of both signs (r'
+# is what the update leaves), so it cancels: it lay up to 5.59e-5 from
+# plain on the N = 128 cavity's system (PERF.md, 2n). A block sum lost or
+# counted twice moves a sum by about 1 / blocks (at least 1 / 4096 on these
+# grids), which every limit catches.
+RANK3_SCALAR_REL = 1e-5
+RANK3_BETA_REL = 1e-4
+# 2n: row 16-3d's rel l2 from the float64 apply on the dyadic iterate's
+# residual. Its low modes cancel in the analysis, and the GEMM's single
+# running k sum carries the rounding of its wandering partials there: at
+# 256^3 it lay 1.13e-5 from float64 (torch.matmul 2.2e-6), past the 1e-5
+# bar against plain that the loop's own residual meets (PERF.md, 2n).
+RANK3_WHITE_F64 = 2e-5
+
+
+def kernels_vs_plain_solves(label, solves, names, plains, slack) -> dict:
+    """Each solve of `solves` ({how: () -> SolveResult}) once with the
+    kernels and once with `krylov`'s attributes `names` bound to the plain
+    versions `plains`, on the card: iterations within `slack` and not 0, no
+    warn, x within rel 1e-4. Returns {how: the kernels' iterations}."""
+    from diffpiso_tpu_torch.solvers import krylov
+
+    its = {}
+    for how, solve in solves.items():
+        res_k = solve()
+        saved = [getattr(krylov, nm) for nm in names]
+        for nm, fn in zip(names, plains):
+            setattr(krylov, nm, fn)
+        try:
+            res_p = solve()
+        finally:
+            for nm, fn in zip(names, saved):
+                setattr(krylov, nm, fn)
+        rx = rel_err(res_k.x, res_p.x)
+        print(f"2n {label} ({how}): iterations kernels {res_k.iterations} plain "
+              f"{res_p.iterations}, residual kernels {res_k.residual_norm:.3e} plain "
+              f"{res_p.residual_norm:.3e}, x rel err {rx:.3e}", flush=True)
+        if abs(res_k.iterations - res_p.iterations) > slack or res_k.iterations == 0:
+            fail(f"{label} ({how}): iterations {res_k.iterations} vs plain "
+                 f"{res_p.iterations} (slack {slack}), or 0")
+        if res_k.warn or not rx <= 1e-4:
+            fail(f"{label} ({how}): warned or x rel err {rx:.3e} > 1e-4")
+        its[how] = res_k.iterations
+    return its
+
+
+def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False) -> dict:
+    """Phase 2n: row 10e (the residual, the PCG apply, the CG iteration) and,
+    with `spec` = (MatmulSpectralSolver, weights), row 16-3d against their
+    plain versions on the card, on a real 3-D pressure system (`lap`, the
+    right-hand side `b` of a step and a warm guess), deflation off and on:
+    x and p on the dyadic grid (`dyadic`: exact sums), p = M^-1 r of the
+    state's own preconditioner `precond`, both mean-free (exactly) when
+    deflating. The volumes within rel 1e-6 of
+    their scale plus what the measured alpha / beta differences carry into
+    them (phase 2i's bar: the scalars are ratios of sums taken in another
+    order); the scalars within RANK3_SCALAR_REL (beta RANK3_BETA_REL) of
+    plain. Row 16-3d on the loop's first residual (of the warm guess)
+    within rel l2 1e-5 of the six contractions and the divide, the same
+    bits on a repeated call; on the dyadic x's residual (white in x: the
+    worst-conditioned input) within rel l2 RANK3_WHITE_F64 of the float64
+    apply, and the same errors of the plain version reported. Whole solves, the kernels against the plain
+    versions on the card (`kernels_vs_plain_solves`): with `spec`, one PCG
+    solve forward (warm, resets every 50) and adjoint (cold), equal
+    iterations; with `cg_solves`, one CG solve as the 3-D cavity's step
+    runs it (warm, tol CAV3_TOL, resets every 50, 800 iterations at most)
+    and one cold solve of the unit-scaled right-hand side to 1e-4 (some
+    hundred iterations, every reset's residual), iterations within
+    CG_ITER_SLACK. Returns {row: measurements}."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import krylov, pcgphases, spectral_apply3
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
+
+    shape = tuple(b.shape)
+    cells = b.numel()
+    vol = cells * 4
+    out = {k: dict(shape=list(shape), max_abs_err=0.0, scalars_max_rel_err=0.0)
+           for k in RANK3_KERNELS[:3]}
+
+    def rel(a, w):
+        return float((a - w).abs() / w.abs().clamp_min(1e-30))
+
+    def check(name, got, want, carried):
+        for a, w, c in zip(got, want, carried):
+            e = float((a - w).abs().max())
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+            if not e <= 1e-6 * float(w.abs().max()) + c:
+                fail(f"{label} {name}: kernel vs plain {e:.3e} beyond rel 1e-6 of the scale "
+                     f"{float(w.abs().max()):.3e} plus {c:.3e} carried")
+
+    inputs = {}
+    for deflate in (False, True):
+        # deflating, x and p are mean-free, as the loop's iterates are
+        x = dyadic(guess, deflate)
+        kr, pr = pcgphases.fused_residual(lap, b, x, deflate), pcgphases.residual_plain(
+            lap, b, x, deflate)
+        check("pcg_residual3", kr[:1], pr[:1], (0.0,))
+        r = pr[0]
+        p = dyadic(precond(r), deflate)
+        rz = torch.sum(r * p)
+        q_max = float(pcgphases.lap_matvec(lap, p).abs().max())
+        p_max = float(p.abs().max())
+        ka = pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)
+        pa = pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate)
+        d_alpha = abs(float(rz / ka[3]) - float(rz / pa[3]))
+        check("pcg_apply3", ka[:2], pa[:2], (d_alpha * p_max, d_alpha * q_max))
+        kc = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True)
+        pc = cgk.cg_iteration_plain(lap, x, r, p, deflate, with_scalars=True)
+        da, db = (float((kc[4][i] - pc[4][i]).abs()) for i in (1, 2))
+        check("cg_iteration3", kc[:3], pc[:3],
+              (da * p_max, da * q_max, da * q_max + db * p_max))
+        # rnorm; rnorm, p.q; rnorm, p.q, alpha, beta
+        srel = {"pcg_residual3": [rel(kr[1], pr[1])],
+                "pcg_apply3": [rel(ka[2], pa[2]), rel(ka[3], pa[3])],
+                "cg_iteration3": [rel(kc[3], pc[3])] + [rel(a, w) for a, w in zip(kc[4], pc[4])]}
+        for k, v in srel.items():
+            out[k]["scalars_max_rel_err"] = max(out[k]["scalars_max_rel_err"], max(v))
+        print(json.dumps(dict(check=f"2n {label} row 10e, deflate={deflate}",
+                              scalars_rel_err=srel)), flush=True)
+        for k, v in srel.items():
+            limits = [RANK3_SCALAR_REL] * len(v)
+            if k == "cg_iteration3":
+                limits[3] = RANK3_BETA_REL
+            if not all(e <= lim for e, lim in zip(v, limits)):
+                fail(f"{label} {k} deflate={deflate}: scalars rel err {v} beyond {limits}")
+        if not deflate:
+            inputs = {"pcg_residual3": (lap, b, x, False),
+                      "pcg_apply3": (lap, rz, x, r, p, False),
+                      "cg_iteration3": (lap, x, r, p, False)}
+    ops = (c for c in (lap.center, *lap.lo, *lap.hi))
+    csr = csr_of_stencil3(*ops)
+    xv = inputs["pcg_residual3"][2].reshape(-1, 1)
+    spmv_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, xv), 20)
+    del csr
+    # per call: volumes in and out; flops per cell (7-point stencil and shift 15, the
+    # updates and dot products)
+    for name, fn, plain, vols, flops in (
+            ("pcg_residual3", pcgphases.fused_residual, pcgphases.residual_plain, 10, 17),
+            ("pcg_apply3", pcgphases.fused_pcg_apply, pcgphases.pcg_apply_plain, 12, 22),
+            ("cg_iteration3", cgk.fused_cg_iteration, cgk.cg_iteration_plain, 13, 28)):
+        a = inputs[name]
+        b_ms, b_by = bound(vols * vol, flops * cells)
+        out[name].update(
+            ms=cuda_time_ms(lambda fn=fn, a=a: fn(*a), 50),
+            plain_ms=cuda_time_ms(lambda plain=plain, a=a: plain(*a), 20),
+            **device_time(lambda fn=fn, a=a: fn(*a)), bound_ms=b_ms, bound_by=b_by,
+            # yardstick of the matvec part: one cuSPARSE CSR SpMV of the 7-point operator
+            library_ms=spmv_ms)
+    if cg_solves:
+        def cg_solve(cold):
+            rhs = b / b.abs().max() if cold else b
+            return krylov.cg(lap, rhs, None if cold else guess, tol=1e-4 if cold else CAV3_TOL,
+                             max_iter=2000 if cold else 800, residual_reset=50,
+                             deflate_mean=True)
+
+        its = kernels_vs_plain_solves(
+            f"{label} pressure CG",
+            {"forward, warm": lambda: cg_solve(False), "cold, unit scale": lambda: cg_solve(True)},
+            ("fused_residual", "fused_cg_iteration"),
+            (pcgphases.residual_plain, cgk.cg_iteration_plain), CG_ITER_SLACK)
+        for name in ("pcg_residual3", "cg_iteration3"):
+            out[name]["cg_solve_iterations"] = its
+    if spec is None:
+        return out
+
+    solver, weights = spec
+    ops3 = spectral_apply3.spectral3_operands(solver, weights, torch.float32, dev)
+    sym = safe_symbol(solver, weights, torch.float32, dev)
+    mats64 = [(v.double(), vt.double()) for v, vt in ops3.mats]
+
+    def accuracy(r):
+        z = spectral_apply3.fused_spectral_apply_3d(ops3, r)
+        want = spectral_apply3_plain(ops3.mats, sym, r)
+        z64 = spectral_apply3_plain(mats64, sym.double(), r.double())
+        return z, want, dict(rel_l2_vs_plain=rel_l2(z, want),
+                             kernel_rel_l2_vs_float64=rel_l2(z.double(), z64),
+                             plain_rel_l2_vs_float64=rel_l2(want.double(), z64))
+
+    # the dyadic iterate's residual, whose spectrum is the stencil's image of
+    # a near-white field (high modes dominate r, low modes z), the worst
+    # conditioning a residual can have here; and the loop's own first
+    # residual, of the warm guess
+    white_r = pcgphases.residual_plain(lap, b, dyadic(guess, True), True)[0]
+    white = accuracy(white_r)[2]
+    r = pcgphases.residual_plain(lap, b, guess, True)[0]
+    z, want, acc = accuracy(r)
+    repeat = torch.equal(z, spectral_apply3.fused_spectral_apply_3d(ops3, r))
+    nz, ny, nx = shape
+    b_ms, b_by = bound((2 * cells + 2 * (nz * nz + ny * ny + nx * nx) + nz + ny * nx) * 4,
+                       4.0 * cells * (nz + ny + nx) + cells)
+    # the plain version is the six torch.matmul contractions (cuBLAS) and the
+    # divide: one timing is both the plain and the library reading
+    plain_ms = cuda_time_ms(lambda: spectral_apply3_plain(ops3.mats, sym, r), 10)
+    out["spectral_apply3"] = dict(
+        shape=list(shape), **acc, repeat_bit_equal=repeat, dyadic_residual=white,
+        max_abs_err=float((z - want).abs().max()),
+        ms=cuda_time_ms(lambda: spectral_apply3.fused_spectral_apply_3d(ops3, r), 10),
+        plain_ms=plain_ms, library_ms=plain_ms,
+        **device_time(lambda: spectral_apply3.fused_spectral_apply_3d(ops3, r), 5),
+        bound_ms=b_ms, bound_by=b_by)
+    del white_r
+    print(json.dumps(dict(check=f"2n {label} row 16-3d", **{
+        k: v for k, v in out["spectral_apply3"].items() if k != "_device_time"})), flush=True)
+    rl2, w64 = acc["rel_l2_vs_plain"], white["kernel_rel_l2_vs_float64"]
+    if not (rl2 <= 1e-5 and w64 <= RANK3_WHITE_F64 and repeat):
+        fail(f"{label} spectral_apply3: rel l2 {rl2:.3e} vs plain (limit 1e-5), on the dyadic "
+             f"residual {w64:.3e} vs float64 (limit {RANK3_WHITE_F64}), repeat bit-equal {repeat}")
+
+    # one whole solve each way, the kernels against the plain versions on the card
+    def solve(adjoint):
+        rhs = 2.0 * b if adjoint else b
+        return krylov.pcg(lap, rhs, None if adjoint else guess, precond_mm=spec,
+                          tol=P_TOL * (max(1.0, float(rhs.abs().max())) if adjoint else 1.0),
+                          max_iter=2000, residual_reset=0 if adjoint else 50,
+                          deflate_mean=True, precond_zero_mean=True, early_exit=not adjoint)
+
+    solves = kernels_vs_plain_solves(
+        f"{label} pressure PCG",
+        {"forward, warm": lambda: solve(False), "adjoint, cold": lambda: solve(True)},
+        ("fused_residual", "fused_pcg_apply", "fused_pcg_update", "fused_spectral_apply_3d"),
+        (pcgphases.residual_plain, pcgphases.pcg_apply_plain, pcgphases.pcg_update_plain,
+         lambda o, v: spectral_apply3_plain(o.mats, sym, v)), 0)
+    for name in RANK3_KERNELS[:3]:
+        out[name]["solve_iterations"] = solves
+    return out
+
+
+def rank3_state(step, v, p):
+    """(laplacian, first right-hand side, a warm guess that has to iterate)
+    of one step from (v, p): the step's own Laplacian and divergence, half
+    its first pressure increment."""
+    import torch
+
+    o = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True)
+    it = o.intermediates
+    return it["laplacian"], it["v1_div"], 0.5 * o.pressure_inc1
+
+
+def rank3_merge(kernels: list, results: dict) -> None:
+    """The kernel entries of rows 10e and 16-3d from phase 2n's results
+    {label: {row: measurements}}: the 128^3 turbulence's numbers at the
+    top level, every state's beside them."""
+    meta = {
+        "pcg_residual3": ("pcgphases3.cu (p3_residual)", 236,
+                          "one per call (4 launches, 6 deflating)"),
+        "pcg_apply3": ("pcgphases3.cu (p3_apply)", 1517, "one per call (6 launches, 8 deflating)"),
+        "cg_iteration3": ("pcgphases3.cu (p3_cg_iteration)", 325,
+                          "one per iteration (8 launches, 10 deflating)"),
+        "spectral_apply3": ("spectral3.cu (spec3_apply: csrc/gemm.cuh)", 2559,
+                            "one per M^-1 r call (six GEMM launches)"),
+    }
+    for name in RANK3_KERNELS:
+        src, line, count = meta[name]
+        entry = dict(name=name, route="cuda", source=f"diffpiso_tpu_torch/csrc/{src}",
+                     replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}",
+                     launches_count=count)
+        first = True
+        for label, res in results.items():
+            if name not in res:
+                continue
+            if first:
+                entry.update(res[name])
+                first = False
+            else:
+                entry[label] = res[name]
+        kernels.append(entry)
+
+
+def cavity3d_counters() -> dict:
+    return dict(turb3d_counters(), **cg_counters())
+
+
+def cavity3d_derived(c0: dict, c1: dict, tier: str) -> tuple:
+    """(the launches the loops derive on the 3-D cavity, counter deltas):
+    the momentum tier's kernel and the 7-point matvec of BiCGSTAB's applies
+    as `turb3d_derived`; row 10e's residual once per warm entry, reset and
+    finished loop of PCG and of CG, its apply and the update (row 10c) once
+    per PCG iteration, its CG iteration once per CG iteration; no spectral
+    apply (the `dct` preconditioner runs through torch.fft)."""
+    derived, d = turb3d_derived(c0, c1, tier)
+    derived.pop("spectral_apply3")
+    derived["pcg_residual3"] += d["cg_warm_entries"] + d["cg_resets"] + d["cg_loops"]
+    derived["cg_iteration3"] = d["cg_iterations"]
+    return derived, d
+
+
+def cavity3d_small_check(dev) -> None:
+    """Phase 18a: the 3-D cavity at N = 16 on the card against the plain
+    path on the CPU, from rest: 5 steps under `dct` and under plain CG
+    (warn 0; the velocity within rtol 2e-4 / atol 2e-5; pressure iterations
+    equal under `dct`, within 2 a solve under CG, as 15a), then the 3-step
+    rollout gradient under `dct` (rel l2 1e-3, equal gate decisions). Each
+    momentum solve's hand-over (the largest Jacobi exit residual of its
+    components) may differ between the devices only within 8 ulps of tol,
+    as 12a allows; the rest of its record must be equal."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.solvers import base, krylov
+
+    n = CAV3_SMALL
+    res = {}
+    real, real_bi = krylov.fused_jacobi1_solve_3d, base.bicgstab
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        jac, bi = [], []
+
+        def recorded(st_c, b, x, sgn, transpose, tol, max_sweeps, jac=jac):
+            o = real(st_c, b, x, sgn, transpose, tol, max_sweeps)
+            jac.append((o[1], float(b.abs().max()), tol))
+            return o
+
+        def recorded_bi(*args, bi=bi, **kwargs):
+            b0 = loop_counters()
+            o = real_bi(*args, **kwargs)
+            b1 = loop_counters()
+            bi.append(tuple(b1[k] - b0[k] for k in HANDOVER_COUNTERS))
+            return o
+
+        krylov.fused_jacobi1_solve_3d, base.bicgstab = recorded, recorded_bi
+        t0 = time.perf_counter()
+        out = {}
+        try:
+            for kind in ("dct", None):
+                domain, sim, dt = cavity3d_case(n, d, kind)
+                step = cavity3d_step(domain, sim, dt)
+                v0, p0 = domain.staggered_grid(0.0, device=d), domain.centered_grid(0.0, device=d)
+                v, p, g1, g2 = v0, p0, torch.zeros_like(p0), torch.zeros_like(p0)
+                iters, warns = [], 0
+                for _ in range(CAV3_SMALL_STEPS):
+                    o = step(v, p, g1, g2)
+                    warns += int(o.warn)
+                    v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+                    iters.append(list(o.p_iterations))
+                out[str(kind)] = dict(v=[c.cpu() for c in v.components], iters=iters,
+                                      warns=warns)
+            domain, sim, dt = cavity3d_case(n, d, "dct")
+            step = cavity3d_step(domain, sim, dt)
+            v0, p0 = domain.staggered_grid(0.0, device=d), domain.centered_grid(0.0, device=d)
+            gen = np.random.RandomState(18)
+            f = StaggeredField(tuple(torch.as_tensor(
+                (1e-2 * gen.randn(*c.shape)).astype(np.float32), device=d)
+                for c in v0.components), periodic=(False,) * 3)
+            r = rollout_loss_grad(step, v0, p0, f, CAV3_SMALL_UNROLL, remat="none")
+        finally:
+            krylov.fused_jacobi1_solve_3d, base.bicgstab = real, real_bi
+        solves = [(max(j[0] for j in jac[i:i + 3]), max(j[1] for j in jac[i:i + 3]), jac[i][2])
+                  for i in range(0, len(jac), 3)]
+        res[key] = dict(out=out, records=bi, solves=solves, warns=r.warns,
+                        grad=[c.cpu().double() for c in r.grad.components],
+                        decisions=[(a.system, a.gated) for a in r.adjoints],
+                        seconds=time.perf_counter() - t0)
+    card, cpu = res["card"], res["cpu"]
+    err = max(float((a - b).abs().max() - 2e-4 * b.abs().max())
+              for kind in card["out"] for a, b in zip(card["out"][kind]["v"], cpu["out"][kind]["v"]))
+    g_rel = rel_l2(card["grad"], cpu["grad"])
+    differing = []
+    for i, (a, b) in enumerate(zip(card["solves"], cpu["solves"])):
+        if (a[0] < a[2]) != (b[0] < b[2]):
+            differing.append(dict(solve=i, ulps=[abs(x[0] - x[2]) / float(np.spacing(
+                np.float32(x[1]))) for x in (a, b)]))
+    print(json.dumps(dict(
+        check=f"18a 3-D cavity N = {n}: {CAV3_SMALL_STEPS} steps under dct and CG and the "
+              f"{CAV3_SMALL_UNROLL}-step rollout gradient, card vs CPU plain path",
+        pressure_iters={k: [card["out"][k]["iters"], cpu["out"][k]["iters"]] for k in card["out"]},
+        warns=[[card["out"][k]["warns"] for k in card["out"]] + [card["warns"]],
+               [cpu["out"][k]["warns"] for k in cpu["out"]] + [cpu["warns"]]],
+        handovers_decided_by_rounding=differing, velocity_excess=err, grad_rel_l2=g_rel,
+        gated=[sum(g for _, g in card["decisions"]), sum(g for _, g in cpu["decisions"]),
+               len(cpu["decisions"])],
+        seconds=[card["seconds"], cpu["seconds"]])), flush=True)
+    for x in (card, cpu):
+        if any(x["out"][k]["warns"] for k in x["out"]) or x["warns"]:
+            fail(f"18a 3-D cavity N = {n}: a step warned")
+    if len(card["solves"]) != len(cpu["solves"]):
+        fail(f"18a: {len(card['solves'])} vs {len(cpu['solves'])} momentum solves")
+    for x in differing:
+        if not max(x["ulps"]) <= 8:
+            fail(f"18a: momentum solve {x['solve']} hands over on one device only, "
+                 f"{x['ulps']} ulps from tol (more than 8)")
+    skip = {x["solve"] for x in differing}
+    for i, (a, b) in enumerate(zip(card["records"], cpu["records"])):
+        if i not in skip and a != b:
+            fail(f"18a: momentum solve {i} differs, card {a} vs CPU {b}")
+    if card["out"]["dct"]["iters"] != cpu["out"]["dct"]["iters"]:
+        fail("18a: pressure iterations under dct differ between card and CPU")
+    for a, b in zip(card["out"]["None"]["iters"], cpu["out"]["None"]["iters"]):
+        if any(abs(x - y) > CG_ITER_SLACK for x, y in zip(a, b)):
+            fail(f"18a: CG iterations differ by more than {CG_ITER_SLACK} a solve: {a} vs {b}")
+    if card["decisions"] != cpu["decisions"]:
+        fail("18a: adjoint gate decisions differ between card and CPU")
+    if not err <= 2e-5:
+        fail("18a: card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
+    if not g_rel <= 1e-3:
+        fail(f"18a rollout gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
+
+
+def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
+    """Phases 18b and 18c: the 3-D cavity at N = 128 from rest. 18b under
+    `dct`: a 400-step spin-up, phase 2n on the spun-up state's pressure
+    system (into `rank3`), then 2 timed calls of 100 steps; steps/s,
+    pressure iterations a step, the momentum tier with its trips and sweeps,
+    max|div v|, peak memory; warn 0; u > 0 in the first fluid row below the
+    lid at mid-span; every launch count derived from the loops' counters
+    (`cavity3d_derived`): row 10e and the z-block kernel as the counters
+    say, row 16-3d and every periodic-only kernel (rows 15a, 15b, 6, 17)
+    never. 18c: the same state under plain CG, 20 steps (CG iterations a
+    step, row 10e's CG iteration once per iteration, warn as the solver
+    reports it), and a 2-step rollout gradient (its gated adjoints).
+    Returns (18b's launches, 18c's launches)."""
+    import dataclasses
+
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.ops.fv import fv_divergence
+    from diffpiso_tpu_torch.solvers import tiers
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+
+    n = CAV3_N
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def check(what, counts, want):
+        for k in counts:
+            if counts[k] != want.get(k, 0):
+                fail(f"3-D cavity {n} {what}: {k} launched {counts[k]} times, expected "
+                     f"{want.get(k, 0)}")
+
+    domain, sim, dt = cavity3d_case(n, dev, "dct")
+    shapes = [tuple(c.shape) for c in sim.dirichlet_mask.components]
+    tier = tiers.momentum_tier_3d(shapes)
+    bz = [tiers.zblock_eligible(s) for s in shapes]
+    print(json.dumps(dict(workload=f"3-D lid-driven cavity N = {n}: setup", face_shapes=shapes,
+                          momentum_tier=tier, zblock_bz=bz)), flush=True)
+    if tier != "zblock":
+        fail(f"3-D cavity {n}: the momentum solves take the {tier} tier, expected zblock")
+    step = cavity3d_step(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    t0 = time.perf_counter()
+    for k in range(CAV3_SPINUP):
+        o = step(v, p, g1, g2)
+        if o.warn:
+            fail(f"3-D cavity {n} spin-up: step {k} warned")
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    torch.cuda.synchronize()
+    spinup_s = time.perf_counter() - t0
+    lap, b, guess = rank3_state(step, v, p)
+    pre = pressure_preconditioner("dct", lap)
+    rank3["cavity128"] = rank3_kernels(dev, f"3-D cavity {n}", lap, b, guess,
+                                       lambda r: pre(r).contiguous(), cg_solves=True)
+    del lap, b, guess
+
+    reset()
+    c0 = cavity3d_counters()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    iters, warns = [0, 0], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAV3_CALLS):
+        v, p, it, w = turb3d_call(step, v, p, CAV3_CALL)
+        iters = [iters[0] + it[0], iters[1] + it[1]]
+        warns += w
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd = read()
+    derived, d = cavity3d_derived(c0, cavity3d_counters(), tier)
+    S = CAV3_CALLS * CAV3_CALL
+    u = v.components[1]
+    mid = n // 2
+    u_lid = float(u[n - 1, mid, mid])
+    finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
+        and bool(torch.isfinite(p).all())
+    print(json.dumps(dict(
+        workload=f"3-D lid-driven cavity N = {n} (({n + 1}, {n}, {n}) cells, Re 1000, "
+                 "dt 0.2/N), dct, forward",
+        spinup_steps=CAV3_SPINUP, spinup_seconds=spinup_s, steps=S, steps_per_sec=S / elapsed,
+        pressure_iters_per_step=[iters[0] / S, iters[1] / S], warn_fraction=warns / S,
+        momentum_tier=tier, zblock_bz=bz, trips_per_solve=d["jacobi_trips"] / S,
+        sweeps_per_trip=d["jacobi_block_sweeps"] / max(d["jacobi_trips"], 1),
+        bicgstab_fallbacks=d["bicgstab_fallbacks"],
+        u_first_fluid_row_mid=u_lid, u_bottom_mid=float(u[2, mid, mid]),
+        max_abs_div=float((fv_divergence(v, domain.dx)
+                           * sim.active_mask[1:-1, 1:-1, 1:-1]).abs().max()),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd)), flush=True)
+    if not finite:
+        fail(f"3-D cavity {n}: non-finite state after the forward path")
+    if warns:
+        fail(f"3-D cavity {n}: warn fraction {warns / S} (must be 0)")
+    if not u_lid > 0.0:
+        fail(f"3-D cavity {n}: u = {u_lid} in the first fluid row below the lid (must be > 0)")
+    if not tier_solves_ok(d, tier, S) or d["pcg_loops"] == 0:
+        fail(f"3-D cavity {n}: the counters {d} do not show one z-block momentum solve a step "
+             "and the PCG loops")
+    # per step: explicit_H's three matvecs (the corrector runs unfused with masks)
+    check("dct forward", fwd, dict(derived, stencil_matvec3d=3 * S + derived["stencil_matvec3d"]))
+
+    # 18c: plain CG from the same state
+    sim_cg = dataclasses.replace(sim, pressure_solver=dataclasses.replace(
+        sim.pressure_solver, preconditioner=None, adjoint_preconditioner=None))
+    step_cg = cavity3d_step(domain, sim_cg, dt)
+    reset()
+    c0 = cavity3d_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vc, pc, it, w = turb3d_call(step_cg, v, p, CAV3_CG_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    cg_fwd = read()
+    derived, d = cavity3d_derived(c0, cavity3d_counters(), tier)
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=(False,) * 3)
+    rg = rollout_loss_grad(step_cg, v, p, forcing, CAV3_CG_UNROLL, remat="none")
+    p_adj = [a for a in rg.adjoints if a.system == "pressure"]
+    print(json.dumps(dict(
+        workload=f"3-D lid-driven cavity N = {n}, plain CG (preconditioner None), forward "
+                 f"from the dct run's state, and a {CAV3_CG_UNROLL}-step rollout gradient",
+        steps=CAV3_CG_STEPS, steps_per_sec=CAV3_CG_STEPS / elapsed,
+        cg_iters_per_step=[it[0] / CAV3_CG_STEPS, it[1] / CAV3_CG_STEPS],
+        warn_fraction=w / CAV3_CG_STEPS, loop_counters=d, launches=cg_fwd,
+        grad_warns=rg.warns, adjoint_cg_iters=[a.iterations for a in p_adj],
+        adjoint_gated=[sum(a.gated for a in rg.adjoints if a.system == s)
+                       for s in ("momentum", "pressure")])), flush=True)
+    if d["cg_iterations"] == 0 or d["pcg_loops"] != 0:
+        fail(f"3-D cavity {n} under CG: the counters {d} do not show the CG loop alone")
+    if w:
+        print(f"3-D cavity {n} under CG: {w} of {CAV3_CG_STEPS} steps warned (the solver "
+              "reports it; plain CG's max_iterations 800)", flush=True)
+    check("CG forward", cg_fwd,
+          dict(derived, stencil_matvec3d=3 * CAV3_CG_STEPS + derived["stencil_matvec3d"]))
+    return fwd, cg_fwd
+
+
+def turb3d_rank3(dev, n, state) -> dict:
+    """Phase 2n on the 3-D turbulence at n^3: the pressure system of one
+    step from `state` (the state the spin-up leaves) under `fft_mm`."""
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
+
+    _, step = turb3d_step(n, dev)
+    lap, b, guess = rank3_state(step, *state)
+    solver, weights = spec = pressure_preconditioner("fft_mm", lap)
+    mats = solver.mats(b.dtype, b.device)
+    sym = safe_symbol(solver, weights, b.dtype, b.device)
+    return rank3_kernels(dev, f"turbulence {n}^3", lap, b, guess,
+                         lambda r: spectral_apply3_plain(mats, sym, r), spec)
+
+
 # every kernel wrapper of the port (each holds its launch counter): name,
 # module under diffpiso_tpu_torch, attribute, launches per step of the main
 # path (phase 4, 512^2 turbulence)
@@ -5717,6 +6408,12 @@ KERNEL_WRAPPERS = (
     # the fused spectral apply (row 16): M^-1 r of the per-iteration PCG
     # loop under channel_mm (the mixing layers, training, the DNS)
     ("spectral_apply", "solvers.spectral_apply", "fused_spectral_apply", 0),
+    # the rank-3 pressure loop (row 10e, row 16-3d): every 3-D pressure solve
+    # (the 3-D turbulence, phases 12 and 14; the 3-D cavity, phase 18)
+    ("pcg_residual3", "solvers.pcgphases", "fused_residual3", 0),
+    ("pcg_apply3", "solvers.pcgphases", "fused_pcg_apply3", 0),
+    ("cg_iteration3", "solvers.cg", "fused_cg_iteration3", 0),
+    ("spectral_apply3", "solvers.spectral_apply3", "fused_spectral_apply_3d", 0),
 )
 
 
@@ -6033,6 +6730,8 @@ def main() -> int:
 
     # -- phase 2g: the 3-D kernels at 128^3, on the state after bench.py's spin-up --------
     turb3d_state_dev = turb3d_kernels(dev, kernels)
+    # -- phase 2n: rows 10e and 16-3d on the 128^3 pressure system of that state -----------
+    rank3 = {"turbulence128": turb3d_rank3(dev, T3_N, turb3d_state_dev)}
 
     # -- phase 3: small input, card vs the plain path on the CPU --------------------
     n_small = 64
@@ -6290,6 +6989,8 @@ def main() -> int:
     # 2h at 256^3 (the z block) on the state after bench.py's spin-up, then
     # (b) the forward and (c) grad10 under "outputs" remat from it
     state_big = turb3d_tier_kernels(dev, kernels, T3_BIG, "zblock", T3_SPINUP_CALLS, T3_CALL)
+    # 2n at 256^3 on the same state
+    rank3["turbulence256"] = turb3d_rank3(dev, T3_BIG, state_big)
     big_fwd, big_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_big,
                                     T3_BIG, "zblock", T3_BIG_REMAT,
                                     grad_reps=T3_BIG_GRAD_REPS)
@@ -6342,6 +7043,27 @@ def main() -> int:
         launches_count="one launch per assembly (both components)",
         **karman_entry, **masked_measured))
 
+    # -- phase 18: the bounded 3-D lid-driven cavity ---------------------------------------
+    # (a) N = 16 card vs CPU under dct and CG; (b) N = 128 under dct, 2n on its
+    # spun-up pressure system; (c) the same state under plain CG
+    cavity3d_small_check(dev)
+    cav3_fwd, cav3_cg = cavity3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, rank3)
+    rank3_merge(kernels, rank3)
+    # every 2-D path launched none of the rank-3 pressure kernels
+    two_d = {"turbulence forward": launches, "turbulence grad30": grad30["launches_per_eval"],
+             "cavity forward": cav_fwd, "cavity grad30": cav_grad, "mixing forward": mix_fwd,
+             "mixing grad30": mix_grad, "training batch 1": train_b1,
+             "training batch 8": train_b8, "turbulence 1024 forward": turb1024_fwd,
+             "turbulence 1024 grad30": turb1024_grad, "dns forward": dns_fwd,
+             "dns grad30": dns_grad, "cavity CG forward": cga_fwd,
+             "cavity CG grad30": cga_grad, "turbulence 1024x2048 forward": sweep_fwd,
+             "turbulence 1024x2048 grad30": sweep_grad, "karman forward": karman_fwd,
+             "pipe": pipe_fwd, **bat, **kinds}
+    for path, counts in two_d.items():
+        for k in RANK3_KERNELS:
+            if counts.get(k) != 0:
+                fail(f"{path}: {k} launched {counts.get(k)} times on a 2-D path (expected 0)")
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -6375,6 +7097,12 @@ def main() -> int:
         elif name == "cg_iteration":
             entry["path"] = f"cavity {CAV_N} under CG forward"
             entry["launches"] = cga_fwd[name]
+        elif name == "cg_iteration3":
+            entry["path"] = f"3-D cavity {CAV3_N} under CG forward"
+            entry["launches"] = cav3_cg[name]
+        elif name in RANK3_KERNELS:
+            entry["path"] = "turbulence 128^3 forward"
+            entry["launches"] = turb3d_fwd[name]
         elif name == "jacobi_sweeps":
             entry["path"] = "turbulence 1024x2048 forward"
             entry["launches"] = sweep_fwd[name]
@@ -6434,6 +7162,8 @@ def main() -> int:
             entry[f"{kind}_launches"] = counts[key]
         entry["karman_launches"] = karman_fwd[key]
         entry["pipe_launches"] = pipe_fwd[key]
+        entry["cavity3d_launches"] = cav3_fwd[key]
+        entry["cavity3d_cg_launches"] = cav3_cg[key]
         entry.update(large_measured.get(name, {}))
         entry.update(batched_measured.get(name, {}))
         entry.update(sweeps_measured.get(name, {}))

@@ -1,10 +1,11 @@
-"""Boundary masks of the canonical flow cases: the lid-driven cavity, the
-plane channel (pipe), the temporal and spatial mixing layers and the
-obstacle channel.
+"""Boundary masks of the canonical flow cases: the lid-driven cavity (2-D
+and 3-D), the plane channel (pipe), the temporal and spatial mixing layers
+and the obstacle channel.
 
 Counterpart of diffpiso_tpu/core/masks.py lid_driven_cavity_masks,
-channel_masks, second_order_lid_values, temporal_mixing_layer_masks,
-mixing_layer_masks and obstacle_channel_masks. Mask semantics:
+lid_driven_cavity_masks_3d, channel_masks, second_order_lid_values,
+temporal_mixing_layer_masks, mixing_layer_masks and
+obstacle_channel_masks. Mask semantics:
 
   dirichlet_mask/values — staggered faces with prescribed velocity
   active_mask           — centered cells carrying momentum (padded by 1)
@@ -63,6 +64,55 @@ def lid_driven_cavity_masks(n: int, lid_velocity: float = 1.0, device=None):
     return (
         StaggeredField((dev(dm_v), dev(dm_u))),
         StaggeredField((dev(dv_v), dev(dv_u))),
+        dev(active),
+        dev(accessible),
+        dev(no_slip),
+    )
+
+
+def lid_driven_cavity_masks_3d(n: int, lid_velocity: float = 1.0, device=None):
+    """Masks for the 3-D lid-driven cavity on an (n+1, n, n) grid, axes
+    (y, x, z): the 2-D construction extended along z, which behaves like x
+    (Dirichlet normal faces at the z walls, no-slip walls there). The
+    extra top layer of cells is inactive, and the moving lid drives u
+    (x-velocity) on that layer. Returns (dirichlet_mask, dirichlet_values,
+    active, accessible, no_slip) on `device` (cuda unless named)."""
+    dev = _on(device)
+    ny, nx, nz = n + 1, n, n
+
+    dm_v = np.zeros((ny + 1, nx, nz), bool)
+    dm_v[0] = True
+    dm_v[-2:] = True
+    dm_u = np.zeros((ny, nx + 1, nz), bool)
+    dm_u[:, 0, :] = True
+    dm_u[:, -1, :] = True
+    dm_u[-1] = True
+    dm_w = np.zeros((ny, nx, nz + 1), bool)
+    dm_w[:, :, 0] = True
+    dm_w[:, :, -1] = True
+    dm_w[-1] = True
+
+    dv_v = np.zeros((ny + 1, nx, nz), np.float32)
+    dv_u = np.zeros((ny, nx + 1, nz), np.float32)
+    dv_u[-1] = lid_velocity
+    dv_w = np.zeros((ny, nx, nz + 1), np.float32)
+
+    active = np.zeros((ny + 2, nx + 2, nz + 2), np.float32)
+    active[1:-1, 1:-1, 1:-1] = 1
+    active[-2] = 0  # the dummy layer of cells above the lid
+    accessible = active.copy()
+
+    no_slip = np.zeros((ny + 2, nx + 2, nz + 2), bool)
+    no_slip[0] = True
+    no_slip[-2:] = True
+    no_slip[:, 0, :] = True
+    no_slip[:, -1, :] = True
+    no_slip[:, :, 0] = True
+    no_slip[:, :, -1] = True
+
+    return (
+        StaggeredField((dev(dm_v), dev(dm_u), dev(dm_w))),
+        StaggeredField((dev(dv_v), dev(dv_u), dev(dv_w))),
         dev(active),
         dev(accessible),
         dev(no_slip),

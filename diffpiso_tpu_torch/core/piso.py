@@ -26,8 +26,11 @@ the 7-point matvec (kernel 15c); on a bounded domain (the lid-driven
 cavity) its gradients and divergences run the bounded FV kernels
 (ops/fv2m.py, through ops/fv.py) with the accessible mask's face masks,
 the rhs takes the Dirichlet select, the divergences are masked to active
-cells, and explicit_H runs the stencil-matvec kernel (ops/matvec.py). The step is differentiable: the solves
-are autograd Functions with implicit-function-theorem adjoints
+cells, and explicit_H runs the stencil-matvec kernel (ops/matvec.py); on
+a bounded volume (the 3-D lid-driven cavity) the same masked glue runs
+with the plain FV bodies (the JAX package has no bounded rank-3 FV
+kernel) and explicit_H the 7-point matvec. The step is differentiable:
+the solves are autograd Functions with implicit-function-theorem adjoints
 (solvers/base.py), the FV and corrector kernels autograd Functions, and
 the operator coefficients carry no gradient. `warn` and `p_iterations`
 are host values: the solves read their convergence norms back anyway.

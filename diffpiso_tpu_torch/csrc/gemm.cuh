@@ -1,9 +1,10 @@
-// The hand-written tiled fp32 GEMM of the spectral preconditioner's four
-// eigenbasis contractions, shared by the whole-solve PCG (pcg2.cu) and the
-// M^-1-folded PCG update (pcg_mm_update.cu).
+// The hand-written tiled fp32 GEMM of the spectral preconditioner's
+// eigenbasis contractions, shared by the whole-solve PCG (pcg2.cu), the
+// M^-1-folded PCG update (pcg_mm_update.cu) and the 3-D spectral apply
+// (spectral3.cu).
 //
 // C[M,N] = A[M,K] @ B[K,N], all row-major, optionally divided elementwise
-// by S[M,N] in the epilogue. 32x64 output tiles, 16-deep k slices staged in
+// in the epilogue by S[M,N] or by a separable symbol. 32x64 output tiles, 16-deep k slices staged in
 // shared memory (A transposed on the way in), 4x4 outputs per thread of
 // 128, explicit fmaf in a fixed k order: true fp32 (no TF32), and the same
 // bits run to run. M, N and K need not be tile multiples (guarded loads
@@ -25,13 +26,21 @@
 #define GBK 16
 #define GTHREADS 128
 
-// C[M,N] = A[M,K] @ B[K,N] (row-major), optionally divided elementwise by S.
-template <bool DIV>
+// the epilogue of dp_sgemm_nn: none, a divide by a stored symbol S[M,N],
+// or a divide by the separable symbol s = w * ez[m] + eyx[n] with the
+// singular rule |s| < 1e-12 -> 0 (the 3-D spectral apply's z pass)
+enum { GEPI_NONE = 0, GEPI_DIV = 1, GEPI_DIV_SEP = 2 };
+
+// C[M,N] = A[M,K] @ B[K,N] (row-major), then the epilogue EPI. For
+// GEPI_DIV_SEP, S is ez (M floats), eyx is (N floats) and w one float, all
+// on the device.
+template <int EPI>
 __global__ void __launch_bounds__(GTHREADS)
     dp_sgemm_nn(int M, int N, int K, const float* __restrict__ A,
                 const float* __restrict__ B, float* __restrict__ C,
                 const float* __restrict__ S, size_t sA, size_t sB, size_t sC,
-                size_t sS, const int* __restrict__ active) {
+                size_t sS, const int* __restrict__ active,
+                const float* __restrict__ eyx, const float* __restrict__ w) {
   __shared__ float As[GBK][GBM + 4];
   __shared__ float Bs[GBK][GBN];
   const int smp = blockIdx.z;
@@ -39,7 +48,7 @@ __global__ void __launch_bounds__(GTHREADS)
   A += smp * sA;
   B += smp * sB;
   C += smp * sC;
-  if (DIV) S += smp * sS;
+  if (EPI == GEPI_DIV) S += smp * sS;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int row0 = blockIdx.y * GBM, col0 = blockIdx.x * GBN;
@@ -82,7 +91,11 @@ __global__ void __launch_bounds__(GTHREADS)
       const int n = col0 + tx + 16 * b;
       if (m < M && n < N) {
         float v = acc[a][b];
-        if (DIV) v = v / S[(size_t)m * N + n];
+        if (EPI == GEPI_DIV) v = v / S[(size_t)m * N + n];
+        if (EPI == GEPI_DIV_SEP) {
+          const float sv = *w * S[m] + eyx[n];
+          v = fabsf(sv) < 1e-12f ? 0.0f : v / sv;
+        }
         C[(size_t)m * N + n] = v;
       }
     }
@@ -99,11 +112,22 @@ static inline void dp_sgemm_batched(int M, int N, int K, const float* A,
                                     cudaStream_t st) {
   const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, nb);
   if (S)
-    dp_sgemm_nn<true><<<grid, GTHREADS, 0, st>>>(M, N, K, A, B, C, S, sA, sB,
-                                                 sC, sS, active);
+    dp_sgemm_nn<GEPI_DIV><<<grid, GTHREADS, 0, st>>>(
+        M, N, K, A, B, C, S, sA, sB, sC, sS, active, nullptr, nullptr);
   else
-    dp_sgemm_nn<false><<<grid, GTHREADS, 0, st>>>(M, N, K, A, B, C, nullptr,
-                                                  sA, sB, sC, 0, active);
+    dp_sgemm_nn<GEPI_NONE><<<grid, GTHREADS, 0, st>>>(
+        M, N, K, A, B, C, nullptr, sA, sB, sC, 0, active, nullptr, nullptr);
+}
+
+// Launch C = (A @ B) / (w ez[m] + eyx[n]) on `st`, the singular modes
+// (|s| < 1e-12) set to 0.
+static inline void dp_sgemm_div_sep(int M, int N, int K, const float* A,
+                                    const float* B, float* C, const float* ez,
+                                    const float* eyx, const float* w,
+                                    cudaStream_t st) {
+  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, 1);
+  dp_sgemm_nn<GEPI_DIV_SEP><<<grid, GTHREADS, 0, st>>>(
+      M, N, K, A, B, C, ez, 0, 0, 0, 0, nullptr, eyx, w);
 }
 
 // Launch C = A @ B (/ S when S is given) on `st`.

@@ -27,7 +27,8 @@ BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("advassembly", "laplace_assembly", "jacobi2", "pcg2", "fv2", "corrector", "fv2m",
            "matvec", "bicg", "pcgphases", "jacobi2_fold", "jacobi1", "pcg_mm_update",
            "fv3", "advassembly3", "matvec3", "jacobi1_3d", "jacobi_zblock3", "jacobi_plane3",
-           "cg", "jacobi_sweeps", "stencil_residual", "advassembly_masked", "corrector_bwd")
+           "cg", "jacobi_sweeps", "stencil_residual", "advassembly_masked", "corrector_bwd",
+           "pcgphases3", "spectral3")
 # --fmad=false: no contraction of a*b+c into one FMA, so the elementwise
 # kernels round exactly like their plain PyTorch versions (the GEMM in
 # pcg2.cu calls fmaf explicitly)

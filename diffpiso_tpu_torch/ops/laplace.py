@@ -13,10 +13,12 @@ and axis d, neighbour n in {lo, hi}:
 The rank-deficient (all-Neumann) case solves (L + s 1 1^T) with
 s = 0.1 sum|diag| / n. The mask planes are built here exactly as in the
 JAX package; the combination with the influence and sum|diag| run in
-kernel 2 (ops/laplace_assembly.py). A rank-3 Laplacian is ported for the
-JAX package's unmasked all-periodic path (the 3-D turbulence class: every
-mask 1, so the links are the raw face influences; plain PyTorch, as in
-the JAX package). The matvec in `apply_laplacian` is kernel 10
+kernel 2 (ops/laplace_assembly.py). A rank-3 Laplacian takes the JAX
+package's unmasked all-periodic path where every mask is 1 and every axis
+periodic (the 3-D turbulence class: the links are the raw face
+influences), else its general masked body (the bounded 3-D cavity); both
+are plain PyTorch, as in the JAX package, which has no rank-3 assembly
+kernel. The matvec in `apply_laplacian` is kernel 10
 (ops/matvec.py) for float32 planes and kernel 15c for float32 volumes,
 as in the JAX package (the 2-D pressure solves run pcg2's own where they
 take pcg2)."""
@@ -64,6 +66,15 @@ def laplace_mask_planes(active_mask, accessible_mask, periodic, res, dtype):
     """The 8 (ny, nx) 0/1 planes (mdl_y, mdh_y, mdl_x, mdh_x, mll_y, mlh_y,
     mll_x, mlh_x) stacked as (8, ny, nx): diag-count and link masks per
     axis and side."""
+    diag_m, link_m = _mask_pairs(active_mask, accessible_mask, periodic, res, dtype)
+    return torch.stack([
+        m.to(dtype) for pair in (diag_m[0], diag_m[1], link_m[0], link_m[1]) for m in pair
+    ])
+
+
+def _mask_pairs(active_mask, accessible_mask, periodic, res, dtype):
+    """Per axis d, the boolean (lo, hi) diag-count masks and (lo, hi) link
+    masks of any rank: two lists of pairs."""
     rank = len(res)
     act = active_mask.to(dtype)
     acc = accessible_mask.to(dtype)
@@ -91,9 +102,7 @@ def laplace_mask_planes(active_mask, accessible_mask, periodic, res, dtype):
             link_hi = link_hi & (idx < n - 1)
         diag_m.append((counts_lo, counts_hi))
         link_m.append((link_lo, link_hi))
-    return torch.stack([
-        m.to(dtype) for pair in (diag_m[0], diag_m[1], link_m[0], link_m[1]) for m in pair
-    ])
+    return diag_m, link_m
 
 
 def assemble_pressure_laplacian(
@@ -118,11 +127,10 @@ def assemble_pressure_laplacian(
         if masks_all_one is None:
             masks_all_one = bool(torch.all(active_mask == 1)) and bool(
                 torch.all(accessible_mask == 1))
-        if not (all(periodic) and masks_all_one):
-            raise NotImplementedError(
-                "3-D pressure Laplacians are ported for all-periodic domains with all-one "
-                "masks only (the masked rank-3 assembly is not ported)")
-        return _unmasked_periodic_laplacian(influence, rank_deficient)
+        if all(periodic) and masks_all_one:
+            return _unmasked_periodic_laplacian(influence, rank_deficient)
+        return _masked_laplacian_plain(influence, active_mask, accessible_mask, periodic,
+                                       rank_deficient)
     if influence.rank != 2:
         raise NotImplementedError("only 2-D and 3-D pressure Laplacians are ported")
     res = influence.resolution
@@ -142,6 +150,35 @@ def assemble_pressure_laplacian(
     return LaplaceStencil(
         center=center, lo=(lo_y, lo_x), hi=(hi_y, hi_x), shift=shift, periodic=periodic,
     )
+
+
+def _masked_laplacian_plain(influence: StaggeredField, active_mask, accessible_mask, periodic,
+                            rank_deficient) -> LaplaceStencil:
+    """The JAX package's general assembly body (ops/laplace.py:185-202) in
+    any rank: per axis, the lo face of cell i is face i and the hi face
+    face i + 1 (wrapped on a periodic axis), each counted into the diagonal
+    and kept as a link where its mask says so."""
+    res = influence.resolution
+    dtype = influence.dtype
+    diag_m, link_m = _mask_pairs(active_mask, accessible_mask, periodic, res, dtype)
+    diag = torch.zeros(res, dtype=dtype, device=influence.device)
+    lo, hi = [], []
+    for d in range(influence.rank):
+        comp = influence.components[d].detach()
+        if periodic[d]:
+            infl_lo, infl_hi = comp, torch.roll(comp, -1, d)
+        else:
+            infl_lo, infl_hi = comp.narrow(d, 0, res[d]), comp.narrow(d, 1, res[d])
+        zero = torch.zeros((), dtype=dtype, device=comp.device)
+        diag = diag - torch.where(diag_m[d][0], infl_lo, zero)
+        diag = diag - torch.where(diag_m[d][1], infl_hi, zero)
+        lo.append(torch.where(link_m[d][0], infl_lo, zero))
+        hi.append(torch.where(link_m[d][1], infl_hi, zero))
+    sum_abs = torch.sum(torch.abs(diag))
+    n = float(np.prod(res))
+    shift = 0.1 * sum_abs / n if bool(rank_deficient) else torch.zeros_like(sum_abs)
+    return LaplaceStencil(center=diag, lo=tuple(lo), hi=tuple(hi), shift=shift,
+                          periodic=tuple(periodic))
 
 
 def _unmasked_periodic_laplacian(influence: StaggeredField, rank_deficient) -> LaplaceStencil:

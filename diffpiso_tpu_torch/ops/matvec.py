@@ -1,6 +1,7 @@
 """Kernel 10: the 5-point stencil matvec on rank-2 planes, and kernel 15c:
-the 7-point stencil matvec on periodic rank-3 volumes (each with its
-transpose).
+the 7-point stencil matvec on rank-3 volumes (each with its transpose;
+the roll wrap, harmless on bounded volumes, whose stencils carry zero
+links across the walls).
 
 Replaces diffpiso_tpu/ops/pallas_stencil.py fused_stencil_matvec, 2-D
 monolithic branch (TPU kernels `_stencil_kernel` / `_stencil_kernel_T`).

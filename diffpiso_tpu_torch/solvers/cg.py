@@ -1,11 +1,14 @@
-"""Kernel row 10d: one iteration of unpreconditioned CG on the 2-D pressure
-system, the JAX package's default pressure solver (`PressureSolver`
-with no preconditioner runs `krylov.cg`, the reference's own recurrence,
-pressure_solve_op.cu.cc:257-357).
+"""Kernel rows 10d and 10e: one iteration of unpreconditioned CG on the
+pressure system, planes and volumes, the JAX package's default pressure
+solver (`PressureSolver` with no preconditioner runs `krylov.cg`, the
+reference's own recurrence, pressure_solve_op.cu.cc:257-357).
 
 Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_cg_iteration, rank-2
-TPU kernel `_cg_iter_kernel`. With A v = L v + shift sum(v) (roll wrap)
-and proj r = r - mean(r) when deflating:
+TPU kernel `_cg_iter_kernel` (row 10d) and rank-3 `_cg_iter3_kernel` (row
+10e: csrc/pcgphases3.cu `p3_cg_iteration`, through `fused_cg_iteration3`,
+with its own launch counter; the same split, the 7-point stencil, at most
+4096 blocks walking the volume, bound by 13 volumes). With A v = L v +
+shift sum(v) (roll wrap) and proj r = r - mean(r) when deflating:
 
   q = A p; pq = p.q; alpha = |pq| > 1e-30 ? p.r / pq : 0
   x' = x + alpha p; r' = proj(r - alpha q)
@@ -28,7 +31,13 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
-from diffpiso_tpu_torch.solvers.pcgphases import _lap_ptrs, _project, lap_matvec
+from diffpiso_tpu_torch.solvers.pcgphases import (
+    _SIGS3,
+    _lap_ptrs,
+    _project,
+    lap_matvec,
+    scratch3,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +45,8 @@ _SIGS = {"cg_iteration": [_P] * 10 + [_I, _I, _I, _P]}
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
 # slots of the scalar output array in csrc/cg.cu
 _C_NORM, _C_PQ, _C_ALPHA, _C_BETA = 0, 2, 4, 7
+# and of csrc/pcgphases3.cu
+_P3_NORM, _P3_PQ, _P3_ALPHA, _P3_BETA = 0, 1, 2, 7
 _EPS = 1e-30
 
 
@@ -59,7 +70,9 @@ def cg_iteration_plain(lap, x, r, p, deflate, with_scalars=False, matvec=lap_mat
 def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False):
     """(x', r', p', max|r'|) of one CG iteration; lap a 2-D LaplaceStencil,
     rnorm a 0-d tensor. `with_scalars` adds (pq, alpha, beta) as 0-d
-    tensors."""
+    tensors. A volume goes to `fused_cg_iteration3`."""
+    if x.ndim == 3:
+        return fused_cg_iteration3(lap, x, r, p, deflate, with_scalars)
     if x.device.type == "cpu":
         return cg_iteration_plain(lap, x, r, p, deflate, with_scalars)
     planes, shift, ptrs = _lap_ptrs(lap)
@@ -81,4 +94,21 @@ def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False):
     return res + ((out[_C_PQ], out[_C_ALPHA], out[_C_BETA]),) if with_scalars else res
 
 
+def fused_cg_iteration3(lap, x, r, p, deflate: bool, with_scalars=False):
+    """`fused_cg_iteration` on volumes; lap a 3-D LaplaceStencil."""
+    if x.device.type == "cpu":
+        return cg_iteration_plain(lap, x, r, p, deflate, with_scalars)
+    ptrs, (nz, ny, nx), partials, out = scratch3("fused_cg_iteration3", lap, (x, r, p))
+    q, xo, ro, po = (torch.empty_like(x) for _ in range(4))
+    lib = native.library("pcgphases3", _SIGS3)
+    native.check(lib.p3_cg_iteration(ptrs, *(native.ptr(a) for a in (x, r, p, q, xo, ro, po,
+                                                                      partials, out)),
+                                     nz, ny, nx, int(bool(deflate)), native.stream_of(x)),
+                 "p3_cg_iteration")
+    fused_cg_iteration3.launches += 1
+    res = (xo, ro, po, out[_P3_NORM])
+    return res + ((out[_P3_PQ], out[_P3_ALPHA], out[_P3_BETA]),) if with_scalars else res
+
+
 fused_cg_iteration.launches = 0
+fused_cg_iteration3.launches = 0

@@ -14,8 +14,8 @@ in the JAX package; this port keeps its own copy of the builders.
 Rank-3 volumes (the 3-D turbulence's `fft_mm` on all three axes) apply the
 same inverse as the JAX package's `_mm_solve_xla`: one contraction per
 axis in axis order, the divide by the symbol, one transposed contraction
-per axis (`spectral_apply3_plain`), as plain products outside any kernel,
-where the JAX package leaves them to XLA.
+per axis (`spectral_apply3_plain`, the plain version of row 16-3d,
+solvers/spectral_apply3.py, which the pressure loop runs on the card).
 
 The JAX package contracts at Precision.HIGH (3 bf16 passes on the TPU);
 the port contracts in full fp32 — the TPU's pass count is not part of the
@@ -33,7 +33,8 @@ computed in float64 and rounded to the working dtype. The corner-block
 rule of the `precondition` methods (the DCT solve on the largest 2,3,5-
 smooth corner block, Jacobi scaling of the remaining rows and columns,
 then the mean removed for `dct`) changes the iterates, so it is followed
-exactly: at 129 x 128 the block is 128 x 128."""
+exactly, in any rank: at 129 x 128 the block is 128 x 128, and on the 3-D
+cavity's (129, 128, 128) it is 128^3."""
 
 from __future__ import annotations
 

@@ -7,11 +7,12 @@ fused phase-kernel loop with the fused stencil residual at its entry and
 exit, and the generic one, the restart-if-bad policy) and
 `pcg` with the spectral preconditioners: the whole-solve kernel, or the
 per-iteration loop with residual resets through the phase kernels, M^-1
-folded into its update in the large tier; on volumes, the generic
-per-iteration loop; with a preconditioner given as a function (the FFT
-kinds, the multigrid V-cycle), the per-iteration loop; and `cg`, the
-unpreconditioned CG of the JAX package's default pressure solver, one
-iteration kernel a step. Which accelerator and which pressure path a shape
+folded into its update in the large tier; on volumes, the per-iteration
+loop through the rank-3 phase kernels with the fused 3-D spectral apply
+as M^-1 r; with a preconditioner given as a function (the FFT kinds, the
+multigrid V-cycle), the per-iteration loop; and `cg`, the unpreconditioned
+CG of the JAX package's default pressure solver, one iteration kernel a
+step (planes and volumes). Which accelerator and which pressure path a shape
 takes follows the JAX package's size tiers (solvers/tiers.py).
 Loops that JAX runs as `lax.while_loop` are Python loops here; each
 convergence test reads one scalar back to the host. Tolerances compare in
@@ -31,7 +32,7 @@ from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol
 from diffpiso_tpu_torch.solvers.jacobi1 import (
     fused_jacobi1_solve,
     fused_jacobi1_solve_3d,
@@ -49,6 +50,7 @@ from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_b
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
+from diffpiso_tpu_torch.solvers.spectral_apply3 import fused_spectral_apply_3d, spectral3_operands
 
 
 class SolveResult(NamedTuple):
@@ -443,7 +445,7 @@ def _pcg_loop(ops, b, x0, tol, max_iter, residual_reset, early_exit):
 def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, early_exit,
                 mm=None):
     """`_pcg_loop` with the fused phase kernels (solvers/pcgphases.py) on
-    planes; when deflating, the mean is removed from b and from each
+    planes and volumes; when deflating, the mean is removed from b and from each
     residual (`precond` returns M^-1 r already projected where the
     preconditioner's output is not mean-free). With `mm` = (v0, v0t, v1,
     v1t, symbol) M^-1 is folded into the update (solvers/pcgmm.py) and
@@ -484,7 +486,8 @@ def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, ear
 
 def _generic_ops(apply_A, b, precond, deflate, zero_mean):
     """`_pcg_loop`'s operations as the JAX package's generic loop forms them
-    (its `fused` gate closed, the path of rank-3 volumes), from the operator
+    (its `fused` gate closed: planes past 8 MiB under a function
+    preconditioner), from the operator
     `apply_A` and the preconditioner `precond`: the mean is removed from
     each residual when deflating, and from M^-1 r unless the preconditioner
     is mean-free. The operator applications are warm entries + resets +
@@ -558,16 +561,18 @@ def pcg(
       M^-1 r runs between the apply and the update as the fused spectral
       apply (row 16, solvers/spectral_apply.py: four launches of the
       hand-written GEMM);
-    * a volume takes the generic per-iteration loop (`_generic_ops`: the
-      JAX package's rank-3 kernels, pcg3, the rank-3 phases and the fused
-      spectral apply, are closed by default), A p through the 7-point
-      matvec kernel, M^-1 r as six dense contractions.
+    * a volume takes the per-iteration loop through the rank-3 phase
+      kernels (row 10e, `tiers.volume_phases`), M^-1 r between the apply
+      and the update as the fused 3-D spectral apply (row 16-3d,
+      solvers/spectral_apply3.py: three passes of the hand-written GEMM);
+      the JAX package's whole-solve pcg3 (row 15g) is not ported.
 
     A preconditioner given as a function `precond` (r -> M^-1 r: the `fft`,
     `dct`, `channel` and `mg` kinds) instead of `precond_mm` takes the
-    per-iteration loop through the phase kernels on planes where the JAX
-    gate opens with no kinds (`tiers.cg_tier`: the JAX `krylov.pcg` passes
-    no kinds without `precond_mm`), else the generic loop; M^-1 r is
+    per-iteration loop through the phase kernels on volumes and on planes
+    where the JAX gate opens with no kinds (`tiers.cg_tier`: the JAX
+    `krylov.pcg` passes no kinds without `precond_mm`), else the generic
+    loop; M^-1 r is
     projected when deflating unless `precond_zero_mean`. pcg2 and the
     folded update take only `precond_mm`, as in the JAX package.
 
@@ -581,14 +586,19 @@ def pcg(
     if b.ndim not in (2, 3) or tuple(solver.shape) != tuple(b.shape):
         raise NotImplementedError("only the spectral PCG on 2-D planes and 3-D volumes is ported")
     tol32 = _f32(tol)
-    sym = safe_symbol(solver, weights, b.dtype, b.device)
-    if b.ndim == 3:
-        mats = solver.mats(b.dtype, b.device)
-        ops = _generic_ops(lambda p: apply_laplacian(stencil, p), b,
-                           lambda r: spectral_apply3_plain(mats, sym, r), deflate_mean,
-                           precond_zero_mean)
-        x, rn, k = _pcg_loop(ops, b, x0, tol32, max_iter, residual_reset, early_exit)
+    # a mean-free preconditioner's output needs no projection
+    project_z = deflate_mean and not precond_zero_mean
+    if tiers.volume_phases(tuple(b.shape)):
+        spec = spectral3_operands(solver, weights, b.dtype, b.device)
+
+        def precond3(r):
+            z = fused_spectral_apply_3d(spec, r)
+            return z - torch.sum(z) / z.numel() if project_z else z
+
+        x, rn, k = _pcg_phases(stencil, b, x0, precond3, tol32, max_iter, residual_reset,
+                               deflate_mean, early_exit)
         return _result(x, rn, k, tol)
+    sym = safe_symbol(solver, weights, b.dtype, b.device)
     (v0, v0t), (v1, v1t) = solver.mats(b.dtype, b.device)
     tier = tiers.pressure_tier(tuple(b.shape), solver.kinds, stencil.periodic, precond_zero_mean,
                                deflate_mean, b.dtype)
@@ -599,9 +609,6 @@ def pcg(
         x, rn, k = _pcg_phases(stencil, b, x0, None, tol32, max_iter, residual_reset,
                                deflate_mean, early_exit, (v0, v0t, v1, v1t, sym))
     else:
-        # a mean-free preconditioner's output needs no projection
-        project_z = deflate_mean and not precond_zero_mean
-
         def precond(r):
             z = fused_spectral_apply(v0, v0t, v1, v1t, sym, r)
             return z - torch.sum(z) / z.numel() if project_z else z
@@ -621,14 +628,14 @@ def _result(x, rn, k, tol) -> SolveResult:
 
 def _pcg_function(stencil, b, x0, precond, tol, max_iter, residual_reset, deflate, zero_mean,
                   early_exit) -> SolveResult:
-    """`pcg` with M^-1 r = precond(r): the phase kernels on planes within
-    `tiers.cg_tier`, else the generic loop."""
+    """`pcg` with M^-1 r = precond(r): the phase kernels on volumes and
+    planes within `tiers.cg_tier`, else the generic loop."""
     tol32 = _f32(tol)
-    if b.ndim == 2 and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases":
+    if not stencil.batched and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases":
         project_z = deflate and not zero_mean
 
         def precond_p(r):
-            z = precond(r).contiguous()  # the phase kernels take dense planes
+            z = precond(r).contiguous()  # the phase kernels take dense operands
             return z - torch.sum(z) / z.numel() if project_z else z
 
         x, rn, k = _pcg_phases(stencil, b, x0, precond_p, tol32, max_iter, residual_reset,
@@ -643,9 +650,9 @@ def _pcg_function(stencil, b, x0, precond, tol, max_iter, residual_reset, deflat
 # launch each), resets, iterations; with them every phase kernel's launches
 # follow (residual: warm entries + resets + loops; apply: iterations;
 # update: iterations, or in the large tier the folded update: loops +
-# resets + iterations); in the generic loop on volumes, the operator
-# applications (the 7-point matvec): warm entries + resets + iterations +
-# loops
+# resets + iterations; a separate M^-1 r kernel, the fused spectral apply
+# of either rank: loops + resets + iterations); in the generic loop, the
+# operator applications: warm entries + resets + iterations + loops
 pcg.loops = 0
 pcg.warm_entries = 0
 pcg.resets = 0
@@ -676,13 +683,14 @@ def cg(
     residual of x0; a start whose max|r0| is already below tol is returned
     as it is. Every `residual_reset`-th iteration restarts from the true
     residual with p = r; the loop stops at max|r| < tol or a non-finite
-    norm; the exit residual is recomputed. Planes within `tiers.cg_tier`
-    run one iteration kernel a step (solvers/cg.py, row 10d) and the
-    residual kernel (solvers/pcgphases.py); others (volumes, planes past 8
-    MiB) plain ops with A p through the matvec kernels. warn: a non-finite
-    residual or one above 100 tol. Reads one norm back per iteration."""
+    norm; the exit residual is recomputed. Volumes and planes within
+    `tiers.cg_tier` run one iteration kernel a step (solvers/cg.py, rows
+    10d and 10e) and the residual kernel (solvers/pcgphases.py); planes
+    past 8 MiB plain ops with A p through the matvec kernels. warn: a
+    non-finite residual or one above 100 tol. Reads one norm back per
+    iteration."""
     tol32 = _f32(tol)
-    fused = b.ndim == 2 and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases"
+    fused = not stencil.batched and tiers.cg_tier(tuple(b.shape), b.dtype) == "phases"
 
     def project(v):
         return v - torch.sum(v) / v.numel() if deflate_mean else v

@@ -12,7 +12,11 @@ and basis kinds:
                                              plane <= 8 MiB with every
                                              kind `fourier` (or no kinds)
   cg_tier             `eligible:86`, no kinds  `krylov.cg`'s phase kernel
-                                             (row 10d) or its generic loop
+                                             (row 10d) or its generic loop;
+                                             volumes: `volume_phases`
+  volume_phases       (`eligible3:176`,      every volume: the rank-3 phases
+                      `spectral_eligible_3d`) (10e), the 3-D apply (16-3d);
+                                             the budgets not copied
   pcg2_eligible       `pcg2_eligible:2369`   `_pcg2_plane_bytes` of the
                                              padded plane <= 24 MiB
   mm_update_eligible  `mm_update_large_eligible:1980`  every kind
@@ -98,12 +102,32 @@ def cg_tier(shape, dtype="float32") -> str:
     preconditioner is a function: `fft`, `dct`, `channel`, `mg`) runs:
     'phases' (one CG iteration kernel a step, the residual kernel at the
     warm start, each reset and the exit; for PCG the apply / update
-    phases), where the JAX gate `eligible` opens with no kinds (12 planes
-    within 13 MiB, or any 2-D plane up to 8 MiB); otherwise 'generic' (plain
-    ops around the matvec kernels: volumes, whose rank-3 phases are off by
-    default in the JAX package, and planes past 8 MiB). Both follow the
-    same recurrence, with the same resets and exit test."""
+    phases) on every volume (`volume_phases`) and on planes where the JAX
+    gate `eligible` opens with no kinds (12 planes within 13 MiB, or any
+    2-D plane up to 8 MiB); otherwise 'generic' (plain ops around the
+    matvec kernels: planes past 8 MiB). Both follow the same recurrence,
+    with the same resets and exit test."""
+    if volume_phases(shape):
+        return "phases"
     return "phases" if phase_tier(shape, None, dtype) else "generic"
+
+
+def volume_phases(shape) -> bool:
+    """Whether a pressure solve runs the rank-3 phase kernels (row 10e:
+    the residual, the PCG apply, the CG iteration; the PCG update as
+    (nz ny, nx) planes) and, for the `_mm` kinds, the fused 3-D spectral
+    apply (row 16-3d): every volume (`krylov.pcg`, `krylov.cg` and the
+    function-preconditioned PCG all ask here; the pressure solves run in
+    float32 only, `base.PressureSolver`). The JAX gates `eligible3` (12
+    volumes within 110 MiB of VMEM, `pallas_krylov.py:176-194`) and
+    `spectral_eligible_3d` (`:2474-2508`) are not copied. Their budget is
+    the TPU's layout, and their default, off, was measured against XLA
+    fusing the generic loop's ops on the TPU; on the H100 nothing fuses
+    them. Both branches run the same recurrence (the same residuals,
+    resets, exit test and preconditioner), so the choice changes rounding,
+    not the algorithm: it is one of "the phase kernels or XLA for the PCG
+    loop", which ROADMAP.md's rules for the port leave to the port."""
+    return len(shape) == 3
 
 
 def _pcg2_plane_bytes(shape, item) -> int:

@@ -79,7 +79,8 @@ UNROLL = 30
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update, row 16 spectral "
-                 "apply)"),
+                 "apply, rank 2 and 3)"),
+    ("p3_", "rank-3 PCG / CG phases (row 10e: residual / apply / CG iteration)"),
     ("pcgmm_", "mm_update elementwise + reductions"),
     ("convolve", "CNN convolutions (cuDNN)"),
     ("fprop", "CNN convolutions (cuDNN)"),

@@ -1654,3 +1654,147 @@ def test_masked_advection_assembly_kernel_matches_plain(case, cuda_device):
 
         for a, b in zip(planes(got), planes(want)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the rank-3 pressure loop (row 10e, row 16-3d) and the bounded 3-D cavity ---------
+
+
+def _lap3(dev, shape, seed, bounded):
+    """A rank-deficient 7-point pressure Laplacian: random influences on the
+    periodic volume, or the 3-D cavity's masks (shape (n + 1, n, n))."""
+    rng = np.random.RandomState(seed)
+    if bounded:
+        from diffpiso_tpu_torch.core.masks import lid_driven_cavity_masks_3d
+
+        per = (False, False, False)
+        _, _, act, acc, _ = lid_driven_cavity_masks_3d(shape[1], device=dev)
+        face = [tuple(s + (1 if i == d else 0) for i, s in enumerate(shape)) for d in range(3)]
+    else:
+        per = (True, True, True)
+        act = acc = torch.ones(tuple(s + 2 for s in shape), device=dev)
+        face = [shape] * 3
+    infl = StaggeredField(tuple(t(rng.rand(*f) + 0.5).to(dev) for f in face), per)
+    return plap.assemble_pressure_laplacian(infl, act, acc, per, True)
+
+
+def _dyadic(shape, seed, dev):
+    """Values k / 8, |k| <= 7: every float32 sum over these volumes is exact
+    in any order, so the shift term shift * sum(.) agrees bit for bit."""
+    k = np.random.RandomState(seed).randint(-7, 8, size=shape)
+    return t(k / 8.0).to(dev)
+
+
+RANK3_SHAPES = {"periodic": (16, 24, 32), "bounded": (17, 16, 16),
+                # 2 M cells: past the capped grid's 4096 x 256 threads, so each
+                # thread walks two cells (the grid-stride path)
+                "periodic, grid-stride": (64, 128, 256)}
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("case", list(RANK3_SHAPES))
+def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
+    """Row 10e: the residual, the PCG apply and the CG iteration on a
+    periodic (16, 24, 32) volume, on the 3-D cavity's (17, 16, 16) and on a
+    periodic volume past one cell a thread: the volumes within rel 1e-6 of
+    their scale (the CG iteration's within 2e-6: alpha and beta are ratios
+    of sums in another order, both carried into p'), rnorm, p.q and alpha
+    within rel 1e-5; one launch counted per call; the update (row 10c) on
+    the volume equals the plane launch; float64 refused."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+
+    bounded = case == "bounded"
+    shape = RANK3_SHAPES[case]
+    lap = _lap3(cuda_device, shape, 3, bounded)
+    b = _rand(shape, 4).to(cuda_device)
+    x, p = _dyadic(shape, 5, cuda_device), _dyadic(shape, 6, cuda_device)
+
+    def close(got, want, rel=1e-6):
+        for a, w in zip(got, want):
+            if a.ndim:
+                assert float((a - w).abs().max()) <= rel * float(w.abs().max())
+            else:
+                assert float((a - w).abs()) <= 1e-5 * float(w.abs())
+
+    before = (pcgphases.fused_residual3.launches, pcgphases.fused_pcg_apply3.launches,
+              cgk.fused_cg_iteration3.launches)
+    r, rn = pcgphases.fused_residual(lap, b, x, deflate)
+    close((r, rn), pcgphases.residual_plain(lap, b, x, deflate))
+    rz = torch.sum(r * p)
+    close(pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate),
+          pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate))
+    got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True)
+    want = cgk.cg_iteration_plain(lap, x, r, p, deflate, with_scalars=True)
+    close(got[:4] + got[4][:2], want[:4] + want[4][:2], 2e-6)
+    assert (pcgphases.fused_residual3.launches, pcgphases.fused_pcg_apply3.launches,
+            cgk.fused_cg_iteration3.launches) == tuple(n + 1 for n in before)
+    z = _rand(shape, 7).to(cuda_device)
+    vol = pcgphases.fused_pcg_update(rz, r, z, p)
+    flat = pcgphases.fused_pcg_update(rz, *(a.reshape(-1, shape[-1]) for a in (r, z, p)))
+    assert torch.equal(vol[0].reshape(-1, shape[-1]), flat[0]) and torch.equal(vol[1], flat[1])
+    with pytest.raises(ValueError):
+        pcgphases.fused_residual(lap, b.double(), x.double(), deflate)
+
+
+@pytest.mark.parametrize("shape,kind", [((8, 16, 24), "fourier"), ((33, 20, 24), "fourier"),
+                                        ((17, 16, 16), "dct2")])
+def test_spectral_apply3_kernel_matches_plain(shape, kind, cuda_device):
+    """Row 16-3d against the six contractions and the divide of the plain
+    version: rel l2 1e-5 (float32 products in another order), the same
+    bits on a repeated call, one launch counted."""
+    from diffpiso_tpu_torch.solvers import spectral_apply3
+    from diffpiso_tpu_torch.solvers.fourier import spectral_apply3_plain
+
+    solver = MatmulSpectralSolver(kinds=(kind,) * 3, shape=shape)
+    w = tuple(torch.tensor(v, device=cuda_device) for v in (0.8, 1.1, 0.6))
+    ops = spectral_apply3.spectral3_operands(solver, w, torch.float32, cuda_device)
+    sym = safe_symbol(solver, w, torch.float32, cuda_device)
+    r = _rand(shape, 8).to(cuda_device)
+    before = spectral_apply3.fused_spectral_apply_3d.launches
+    z = spectral_apply3.fused_spectral_apply_3d(ops, r)
+    assert spectral_apply3.fused_spectral_apply_3d.launches == before + 1
+    want = spectral_apply3_plain(ops.mats, sym, r)
+    rel = float(torch.linalg.vector_norm(z - want) / torch.linalg.vector_norm(want))
+    assert rel <= 1e-5
+    assert torch.equal(z, spectral_apply3.fused_spectral_apply_3d(ops, r))
+
+
+def test_cuda_cavity3d_steps_match_the_cpu_plain_path(cuda_device):
+    """The bounded 3-D cavity at N = 8 (the JAX package's test
+    configuration, `dct` and plain CG): 3 steps on the card against the CPU
+    plain path: equal pressure iterations (CG within 2 a solve), warn 0,
+    the velocity within rtol 2e-4 / atol 2e-5."""
+    from diffpiso_tpu_torch import Box, Domain, OPEN
+    from diffpiso_tpu_torch.core.masks import lid_driven_cavity_masks_3d
+    from diffpiso_tpu_torch.core.piso import SimulationParameters
+
+    n = 8
+    for kind in ("dct", None):
+        out = {}
+        for d in (cuda_device, torch.device("cpu")):
+            dm, dv, act, acc, ns = lid_driven_cavity_masks_3d(n, device=d)
+            dom = Domain((n + 1, n, n), Box.from_size((1.0 + 1.0 / n, 1.0, 1.0)), boundaries=OPEN)
+            sim = SimulationParameters(
+                dirichlet_mask=dm, dirichlet_values=dv, active_mask=act, accessible_mask=acc,
+                no_slip_mask=ns, viscosity=1e-2, laplace_rank_deficient=True,
+                bool_periodic=(False,) * 3,
+                linear_solver=pbase.AdvectionSolver(max_iterations=200),
+                pressure_solver=pbase.PressureSolver(max_iterations=800, deflate_mean=True,
+                                                     preconditioner=kind,
+                                                     adjoint_preconditioner=kind))
+            v, p = dom.staggered_grid(0.0, device=d), dom.centered_grid(0.0, device=d)
+            g1 = g2 = torch.zeros_like(p)
+            iters = []
+            for _ in range(3):
+                o = piso_step(v, p, 0.02, dom, sim, pressure_inc1_guess=g1,
+                              pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-6)
+                assert not o.warn
+                v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+                iters.append(o.p_iterations)
+            out[d.type] = ([c.cpu() for c in v.components], iters)
+        (cv, ci), (pv, pi) = out["cuda"], out["cpu"]
+        if kind is None:
+            assert all(abs(a - b) <= 2 for x, y in zip(ci, pi) for a, b in zip(x, y))
+        else:
+            assert ci == pi
+        for a, b in zip(cv, pv):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)

@@ -96,17 +96,35 @@ def test_the_unmasked_periodic_laplacian_matches_jax(rank_deficient, jax_kernel)
 
 
 def test_a_masked_or_bounded_3d_laplacian_raises():
+    """The masked rank-3 assembly is ported now, so nothing raises: a
+    volume with a masked cell and one with a bounded axis (n + 1 faces
+    along it) take the JAX package's general body and match it (rel 1e-6
+    of the scale, the shift to rel 1e-6); the cached flag of the simulation
+    parameters is taken as given, so all-one masks flagged otherwise take
+    the general body too, which then sums like the unmasked path, bit for
+    bit."""
     infl = StaggeredField(tuple(map(t, _influence(9))), periodic=PER)
     ones = torch.ones(tuple(s + 2 for s in SHAPE))
     mask = ones.clone()
     mask[2, 3, 4] = 0.0
-    with pytest.raises(NotImplementedError, match="masked rank-3 assembly"):
-        plap.assemble_pressure_laplacian(infl, mask, ones, PER, True)
-    with pytest.raises(NotImplementedError, match="masked rank-3 assembly"):
-        plap.assemble_pressure_laplacian(infl, ones, ones, (True, True, False), True)
-    # the cached flag of the simulation parameters is taken as given
-    with pytest.raises(NotImplementedError):
-        plap.assemble_pressure_laplacian(infl, ones, ones, PER, True, masks_all_one=False)
+    bounded = (True, True, False)
+    infl_b = _influence(10)
+    infl_b[2] = np.concatenate([infl_b[2], infl_b[2][:, :, :1]], axis=2)
+    for field, act, per in ((_influence(9), mask, PER), (infl_b, ones, bounded)):
+        want = jlap.assemble_pressure_laplacian(
+            JField(tuple(map(jnp.asarray, field)), periodic=per), jnp.asarray(n(act)),
+            jnp.asarray(n(ones)), per, True)
+        got = plap.assemble_pressure_laplacian(
+            StaggeredField(tuple(map(t, field)), periodic=per), act, ones, per, True)
+        assert got.periodic == per
+        for a, b in zip((got.center, *got.lo, *got.hi), (want.center, *want.lo, *want.hi)):
+            _close(a, b)
+        np.testing.assert_allclose(float(got.shift), float(want.shift), rtol=1e-6)
+    general = plap.assemble_pressure_laplacian(infl, ones, ones, PER, True, masks_all_one=False)
+    unmasked = plap.assemble_pressure_laplacian(infl, ones, ones, PER, True)
+    for a, b in zip((general.center, *general.lo, *general.hi, general.shift),
+                    (unmasked.center, *unmasked.lo, *unmasked.hi, unmasked.shift)):
+        assert torch.equal(a, b)
 
 
 def test_gate_takes_float32_volumes():

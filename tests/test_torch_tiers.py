@@ -125,33 +125,38 @@ def test_each_gate_matches_its_jax_counterpart(tpu_gates):
 
 # (label, pressure shape, tier) of `krylov.cg` and of PCG with a function
 # preconditioner: the path A cavity, the Ghia cavity, the checks' planes,
-# the large planes up to 8 MiB, and past them; volumes
+# the large planes up to 8 MiB, and past them; volumes, where the port
+# takes the rank-3 phases at every size and the JAX gate `eligible3` stays
+# at its default, closed (the fourth column)
 CG = [
-    ("cavity 513 x 512", (513, 512), "phases"),
-    ("Ghia 129 x 128", (129, 128), "phases"),
-    ("cavity 65 x 64", (65, 64), "phases"),
-    ("cavity 33 x 32", (33, 32), "phases"),
-    ("turbulence 512^2", (512, 512), "phases"),
-    ("mixing 128 x 512", (128, 512), "phases"),
-    ("turbulence 1024^2", (1024, 1024), "phases"),
-    ("mixing 512 x 2048", (512, 2048), "phases"),
-    ("turbulence 1024 x 2048 (8 MiB)", (1024, 2048), "phases"),
-    ("turbulence 2048^2", (2048, 2048), "generic"),
-    ("volume 64^3", (64, 64, 64), "generic"),
-    ("volume 128^3", (128, 128, 128), "generic"),
+    ("cavity 513 x 512", (513, 512), "phases", "phases"),
+    ("Ghia 129 x 128", (129, 128), "phases", "phases"),
+    ("cavity 65 x 64", (65, 64), "phases", "phases"),
+    ("cavity 33 x 32", (33, 32), "phases", "phases"),
+    ("turbulence 512^2", (512, 512), "phases", "phases"),
+    ("mixing 128 x 512", (128, 512), "phases", "phases"),
+    ("turbulence 1024^2", (1024, 1024), "phases", "phases"),
+    ("mixing 512 x 2048", (512, 2048), "phases", "phases"),
+    ("turbulence 1024 x 2048 (8 MiB)", (1024, 2048), "phases", "phases"),
+    ("turbulence 2048^2", (2048, 2048), "generic", "generic"),
+    ("volume 64^3", (64, 64, 64), "phases", "generic"),
+    ("volume 128^3", (128, 128, 128), "phases", "generic"),
 ]
 
 
-@pytest.mark.parametrize("label,shape,want", CG, ids=[c[0] for c in CG])
-def test_cg_tier_matches_the_jax_gate(label, shape, want, tpu_gates):
+@pytest.mark.parametrize("label,shape,want,jax_want", CG, ids=[c[0] for c in CG])
+def test_cg_tier_matches_the_jax_gate(label, shape, want, jax_want, tpu_gates):
     """`krylov.cg` fuses where `eligible` (no kinds) or `eligible3` opens;
     `krylov.pcg` without `precond_mm` (the `fft`, `dct`, `channel`, `mg`
     kinds) passes no kinds, so the same shape-only rule decides its phase
-    kernels."""
+    kernels. On planes the port follows the JAX gate; every volume takes
+    the rank-3 phases (`tiers.volume_phases`: the JAX budget
+    and its default are the TPU's layout, not the algorithm)."""
     jax_fused = pk.eligible(shape, F32) or pk.eligible3(shape, F32)
     assert jax_fused == pk.eligible(shape, F32, large_kinds=None) or len(shape) == 3
-    assert ("phases" if jax_fused else "generic") == want
+    assert ("phases" if jax_fused else "generic") == jax_want
     assert tiers.cg_tier(shape) == want
+    assert tiers.volume_phases(shape) == (len(shape) == 3)
 
 
 @pytest.mark.parametrize("n", [32, 64])
