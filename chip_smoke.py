@@ -372,6 +372,34 @@ Phases, each fatal on failure:
      iteration, warn as the solver reports it) and a 2-step rollout
      gradient (its gated adjoints). Every 2-D path asserts 0 launches of
      rows 10e and 16-3d.
+  2o. (inside 2n, on the 128^3 and 256^3 turbulence systems) row 15g, the
+     whole-solve rank-3 PCG (csrc/pcg3.cu around row 16-3d's apply,
+     solvers/pcg3.py): each launch (the warm entry's residual, q, xr, r.z,
+     p) against its plain twin on the card, x and p on the dyadic grid:
+     volumes bit-equal, the norms equal, p.q and r.z within rel 1.2e-6,
+     the sums within 1.2e-6 of their terms' magnitudes (M^-1 r is row
+     16-3d, which 2n checks); host ms, device us per launch, the bound,
+     the twin's and the library's ms (a cuSPARSE SpMV for the stencil
+     launches, torch.dot); whole solves in the adjoint form, cold,
+     warm from zeros and warm from half the increment, the kernels against
+     the twins on the card: equal iterations. 2n's own adjoint-form solve
+     keeps the per-iteration loop (`whole_solve_closed`).
+  19. the adjoint warm-start channels (core/piso.py `adjoint_channels`,
+     the JAX package's `solve_*_ws`), with which every 3-D adjoint pressure
+     solve enters row 15g warm: (a) after phase 12, 32^3 card vs the CPU
+     plain path, 3 steps and grad10 with the channels (12a's bars and
+     records; every pressure adjoint a warm whole solve); (b) in phase 12c
+     and (c) in 14c, grad10 at 128^3 ("none") and 256^3 ("outputs") from
+     their states without and then with the channels: warn, gate counts,
+     adjoint iterations and row 15g's launches per evaluation, every 15g
+     launch > 0 (the residual only with the channels), 0 on every forward
+     path, the gradient with the channels within rel l2 1e-3 of the one
+     without; (d) after phase 5b, grad30 at 512^2 from phase 4's state
+     without and with the channels (runs/ab_adjoint_ws.py: no remat): warn
+     0, no rank-3 launch, the gradients compared where every gate decision
+     is equal (both decision lists printed otherwise). Phases 12c and 14c
+     run every pressure adjoint as a cold whole solve of row 15g; rows 10e,
+     10c and 16-3d keep the forward solves and the exit check.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -427,7 +455,7 @@ def rel_err(a, b) -> float:
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
                "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
-               "sres_", "advm_", "corrbwd_", "p3_")
+               "sres_", "advm_", "corrbwd_", "p3_", "g3_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -2164,10 +2192,10 @@ def turbulence_step_fn(domain, sim, dt, p_tol=P_TOL):
     1e-8, warm-started pressure increments."""
     from diffpiso_tpu_torch.core.piso import piso_step
 
-    def step(v, p, g1, g2, f=None, full_output=False):
+    def step(v, p, g1, g2, f=None, full_output=False, adjoint_channels=None):
         return piso_step(v, p, dt, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
                          pressure_inc2_guess=g2, advection_tol=ADV_TOL, pressure_tol=p_tol,
-                         full_output=full_output)
+                         full_output=full_output, adjoint_channels=adjoint_channels)
 
     return step
 
@@ -3081,11 +3109,12 @@ def turb3d_counters() -> dict:
     BiCGSTAB hand-overs and applies, the whole-solve Jacobi's sweeps and
     component solves, and the trip loop's trips and sweeps (the z-block
     and plane tiers)."""
-    from diffpiso_tpu_torch.solvers import krylov
+    from diffpiso_tpu_torch.solvers import krylov, pcg3
 
-    b = krylov.bicgstab
+    b, w = krylov.bicgstab, pcg3.fused_pcg3_solve
     return dict(loop_counters(), jacobi_solves_3d=b.jacobi_solves, jacobi_trips=b.jacobi_trips,
-                jacobi_block_sweeps=b.jacobi_block_sweeps)
+                jacobi_block_sweeps=b.jacobi_block_sweeps, pcg3_loops=w.loops,
+                pcg3_warm_entries=w.warm_entries, pcg3_iterations=w.iterations)
 
 
 def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
@@ -3097,16 +3126,25 @@ def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     pressure loop's rank-3 phases (row 10e: the residual once per warm
     entry, reset and finished loop, the apply once per iteration), the
     update (row 10c, on the volume) once per iteration, and the 3-D
-    spectral apply (row 16-3d) once per loop, reset and iteration."""
+    spectral apply (row 16-3d) once per loop, reset and iteration; of
+    those, the whole solves of row 15g (the adjoint pressure solves, their
+    own counters in `pcg3_*`) launch instead its residual once per warm
+    entry, q, xr and p once per iteration, r.z once per loop and
+    iteration, row 10e's residual once per loop (the exit check), and row
+    16-3d as the loop does (M^-1 r once per loop and iteration)."""
     d = {k: c1[k] - c0[k] for k in c0}
     jac = {"jac13d": ("jacobi1_solve_3d", 2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"]),
            "zblock": (T3_TIER_KERNELS["zblock"], 3 * (1 + JAC_K) * d["jacobi_trips"]),
            "plane": (T3_TIER_KERNELS["plane"], 3 * JAC_K * d["jacobi_trips"])}[tier]
+    l3, w3, i3 = d["pcg3_loops"], d["pcg3_warm_entries"], d["pcg3_iterations"]
+    its = d["pcg_iterations"] - i3
     return {jac[0]: jac[1],
             "stencil_matvec3d": 3 * (d["applies"] + d["applies_T"]),
-            "pcg_residual3": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
-            "pcg_apply3": d["pcg_iterations"], "pcg_update": d["pcg_iterations"],
-            "spectral_apply3": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"]}, d
+            "pcg_residual3": d["pcg_warm_entries"] - w3 + d["pcg_resets"] + d["pcg_loops"],
+            "pcg_apply3": its, "pcg_update": its,
+            "spectral_apply3": d["pcg_loops"] + d["pcg_resets"] + d["pcg_iterations"],
+            "pcg3_residual": w3, "pcg3_q": i3, "pcg3_xr": i3, "pcg3_p": i3,
+            "pcg3_dots": l3 + i3}, d
 
 
 def tier_solves_ok(d: dict, tier: str, solves: int) -> bool:
@@ -3153,13 +3191,17 @@ def less_records(counters: dict, records: list, step_solves: int, skip: set,
     return out
 
 
-def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
+def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none", channels=False,
+                       unroll=3) -> None:
     """Phase 12a (and 14a): the 3-D turbulence at n^3 (32^3) from one seeded
     0.5 N(0, 1) state, 3 steps and then the 3-step rollout gradient (under
     `remat`, from the same state), on the card against the plain path on
     the CPU at the main path's tolerances, in the tier the volume takes or,
     with `bz`, in the z-block tier at that block size (14a: 64^3, bz 16,
-    remat "outputs"; the caller forces the tier, `forced_zblock`): equal
+    remat "outputs"; the caller forces the tier, `forced_zblock`); with
+    `channels` the gradient (then `unroll` steps deep: 19a, grad10) runs
+    with the adjoint warm-start channels, every pressure adjoint a warm
+    whole solve of row 15g: equal
     pressure iterations per step, equal loop counters (PCG loops, warm
     entries, resets, iterations; Jacobi solves, sweeps and trips; BiCGSTAB
     hand-overs and iterations) for the steps and for the
@@ -3188,7 +3230,8 @@ def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.solvers import base, krylov
 
-    label = f"{n}^3" if bz is None else f"{n}^3 z-block bz {bz}"
+    label = (f"{n}^3" if bz is None else f"{n}^3 z-block bz {bz}") + (
+        " with adjoint channels" if channels else "")
     tier = "jac13d" if bz is None else "zblock"
     rng = np.random.RandomState(1)
     comps = [(0.5 * rng.randn(n, n, n)).astype(np.float32) for _ in range(3)]
@@ -3234,7 +3277,8 @@ def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
             c1, step_solves = turb3d_counters(), len(bi)
             f = StaggeredField(tuple(torch.zeros_like(c) for c in v0.components),
                                periodic=(True,) * 3)
-            r = rollout_loss_grad(step, v0, p0, f, 3, remat=remat)
+            r = rollout_loss_grad(step, v0, p0, f, unroll, remat=remat,
+                                  adjoint_channels=channels)
             c2 = turb3d_counters()
         finally:
             krylov.fused_jacobi1_solve_3d, base.bicgstab = real, real_bi
@@ -3272,7 +3316,8 @@ def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
             differing.append(dict(solve=i, ulps=[abs(x[0] - x[2]) / float(np.spacing(
                 np.float32(x[1]))) for x in (a, b)]))
     print(json.dumps(dict(
-        check=f"{label} x 3 steps and rollout gradient (remat {remat}), card vs CPU plain path",
+        check=f"{label} x 3 steps and {unroll}-step rollout gradient (remat {remat}), card vs "
+              "CPU plain path",
         pressure_iters=[card["iters"], cpu["iters"]], step_counters=[card["steps"], cpu["steps"]],
         grad_counters=[card["grad_counters"], cpu["grad_counters"]],
         handovers_decided_by_rounding=differing, velocity_excess=err, grad_rel_l2=g_rel,
@@ -3301,6 +3346,12 @@ def turb3d_small_check(dev, n=T3_SMALL, bz=None, remat="none") -> None:
     if not tier_solves_ok(card["steps"], tier, 3):
         fail(f"{label}: the 3 steps' counters {card['steps']} do not show 3 momentum solves "
              f"in the {tier} tier")
+    g3 = card["grad_counters"]
+    if g3["pcg3_loops"] != 2 * unroll or g3["pcg3_warm_entries"] != (2 * unroll if channels
+                                                                     else 0):
+        fail(f"{label}: the gradient's pressure adjoints ran {g3['pcg3_loops']} whole solves "
+             f"({g3['pcg3_warm_entries']} warm), expected {2 * unroll}"
+             f"{' warm' if channels else ' cold'}")
     if not err <= 2e-5:
         fail(f"{label} card steps disagree with the CPU plain path beyond rtol 2e-4, atol 2e-5")
     if not g_rel <= 1e-3:
@@ -3417,7 +3468,8 @@ def turb3d_grad_expected(U: int, remat: str, derived: dict) -> dict:
     forward but its solves in the backward pass: the assembly 2U, grad3 8U,
     div3 7U - 1, explicit_H 9U. The solves' kernels as the loops' counters
     derive (`derived`: U forward and U transposed momentum solves, 2U warm
-    forward and 2U cold adjoint pressure loops, none replayed)."""
+    forward pressure loops and 2U adjoint whole solves of row 15g, none
+    replayed)."""
     replay = remat == "outputs"
     out = dict(derived, advection_assembly3=(2 if replay else 1) * U,
                grad3=(8 if replay else 5) * U, div3=(7 if replay else 5) * U - 1)
@@ -3427,7 +3479,7 @@ def turb3d_grad_expected(U: int, remat: str, derived: dict) -> dict:
 
 def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
                 calls=T3_TIMED_CALLS, call_steps=T3_CALL, unroll=T3_UNROLL,
-                grad_reps=T3_GRAD_REPS) -> tuple:
+                grad_reps=T3_GRAD_REPS, channels=(False,)) -> tuple:
     """Phases 12b and 12c (and 14b-d): bench.py workload_turb3d at n^3
     (128^3) from the state the spin-up (2 calls of 50 steps) left, in the
     momentum tier the volume takes (`tier`, asserted): `calls` timed calls
@@ -3437,8 +3489,12 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
     assembly once per step, grad3 three and div3 two times, the tier's
     Jacobi kernel and the 7-point matvec as the loops' counters derive
     (plus the matvec's three explicit_H applies per step), every other
-    kernel never. Returns (forward launches, grad launches per evaluation
-    or None)."""
+    kernel never; row 15g never in the forward, on every pressure adjoint
+    in the gradient. The gradient runs once per flag of `channels`
+    (without, then with the adjoint warm-start channels: phase 19b-c), and
+    with both the gradient with the channels must lie within rel l2 1e-3
+    of the one without. Returns (forward launches, grad launches per
+    evaluation or None, {flag: grad launches per evaluation})."""
     import torch
 
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
@@ -3502,75 +3558,102 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
     if not tier_solves_ok(d, tier, S):
         fail(f"{n}^3: the counters {d} do not show one momentum solve per step in the {tier} "
              "tier")
+    if any(fwd.get(k) for k in PCG3_KERNELS):
+        fail(f"{n}^3 forward: row 15g launched ({ {k: fwd.get(k) for k in PCG3_KERNELS} }) on a "
+             "forward path")
     # per step: the assembly, three gradients (predictor, both correctors),
     # two divergences, explicit_H's three matvecs
     check("forward", fwd, dict(derived, advection_assembly3=S, grad3=3 * S, div3=2 * S,
                                stencil_matvec3d=3 * S + derived["stencil_matvec3d"]))
     if not grad_reps:
-        return fwd, None
+        return fwd, None, {}
 
     # grad{U} from the developed state; per evaluation U forward and U
-    # transposed momentum solves, 2U warm forward and 2U cold adjoint
-    # pressure loops (turb3d_grad_expected)
+    # transposed momentum solves, 2U warm forward pressure loops and 2U
+    # adjoint whole solves of row 15g, cold or, with the channels, warm
+    # (turb3d_grad_expected)
     U = unroll
     forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                              periodic=(True,) * 3)
-    evals = []
-    for rep in range(1 + grad_reps):
-        reset()
-        c0 = turb3d_counters()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = rollout_loss_grad(step, v, p, forcing, U, remat=remat)
-        torch.cuda.synchronize()
-        elapsed_g = time.perf_counter() - t0
-        counts = read()
-        derived, d = turb3d_derived(c0, turb3d_counters(), tier)
-        p_adj = [a for a in res.adjoints if a.system == "pressure"]
-        gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
-        evals.append(dict(
-            timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
-            warn_fraction=res.warns / U,
-            pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
-            adjoint_pcg_iters_per_step=sum(a.iterations for a in p_adj) / U,
-            adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
-                           for s in ("momentum", "pressure")],
-            adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
-                                         default=None),
-            adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
-                                        default=None),
-            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-            memory_allocated_before_bytes=held, loop_counters=d, launches=counts))
-        print(json.dumps(dict(turb3d_grad_eval=rep, n=n, **evals[-1])), flush=True)
-        if res.warns:
-            fail(f"{n}^3 grad{U}: warn fraction {res.warns / U} (must be 0)")
-        if not (gnorm > 0 and gnorm < float("inf")):
-            fail(f"{n}^3 grad{U}: |grad| = {gnorm} (must be finite and > 0)")
-        if not tier_solves_ok(d, tier, 2 * U) or d["pcg_loops"] < 2 * U:
-            fail(f"{n}^3 grad{U}: not 2U momentum solves in the {tier} tier and the 2U cold "
-                 "adjoint loops")
-        check(f"grad{U}", counts, turb3d_grad_expected(U, remat, derived))
-        if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
-            fail(f"{n}^3 grad{U}: an evaluation from the same state counted differently")
-    timed = [e for e in evals if e["timed"]]
-    print(json.dumps(dict(
-        workload=f"3-D decaying turbulence {n}^3, grad{U} (d sum v^2 / d forcing), remat {remat}",
-        evaluations=len(timed),
-        unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
-        pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
-        adjoint_pcg_iters_per_step=sum(e["adjoint_pcg_iters_per_step"] for e in timed)
-        / len(timed),
-        warn_fraction=max(e["warn_fraction"] for e in timed),
-        adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
-        adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
-        adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
-        max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
-        memory_allocated_before_bytes=timed[-1]["memory_allocated_before_bytes"],
-        grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
-    )), flush=True)
-    return fwd, timed[-1]["launches"]
+    runs, grads = {}, {}
+    for ch in channels:
+        evals = []
+        tag = " with adjoint channels" if ch else ""
+        for rep in range(1 + grad_reps):
+            reset()
+            c0 = turb3d_counters()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rollout_loss_grad(step, v, p, forcing, U, remat=remat, adjoint_channels=ch)
+            torch.cuda.synchronize()
+            elapsed_g = time.perf_counter() - t0
+            counts = read()
+            derived, d = turb3d_derived(c0, turb3d_counters(), tier)
+            p_adj = [a for a in res.adjoints if a.system == "pressure"]
+            gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
+            evals.append(dict(
+                timed=rep > 0, seconds=elapsed_g, loss=res.loss, grad_l2=gnorm,
+                warn_fraction=res.warns / U,
+                pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U
+                                         for k in (0, 1)],
+                adjoint_pcg_iters_per_step=sum(a.iterations for a in p_adj) / U,
+                adjoint_pcg_iters_per_eval=sum(a.iterations for a in p_adj),
+                adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                               for s in ("momentum", "pressure")],
+                adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj
+                                              if not a.gated), default=None),
+                adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
+                                            default=None),
+                row15g_launches={k: counts[k] for k in PCG3_KERNELS},
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                memory_allocated_before_bytes=held, loop_counters=d, launches=counts))
+            print(json.dumps(dict(turb3d_grad_eval=rep, n=n, channels=ch, **evals[-1])),
+                  flush=True)
+            if res.warns:
+                fail(f"{n}^3 grad{U}{tag}: warn fraction {res.warns / U} (must be 0)")
+            if not (gnorm > 0 and gnorm < float("inf")):
+                fail(f"{n}^3 grad{U}{tag}: |grad| = {gnorm} (must be finite and > 0)")
+            if not tier_solves_ok(d, tier, 2 * U) or d["pcg3_loops"] != 2 * U \
+                    or d["pcg3_warm_entries"] != (2 * U if ch else 0):
+                fail(f"{n}^3 grad{U}{tag}: not 2U momentum solves in the {tier} tier and 2U "
+                     f"{'warm' if ch else 'cold'} adjoint whole solves (row 15g): {d}")
+            if not all(counts[k] for k in PCG3_KERNELS if ch or k != "pcg3_residual"):
+                fail(f"{n}^3 grad{U}{tag}: a row 15g launch never ran: {evals[-1]['row15g_launches']}")
+            check(f"grad{U}{tag}", counts, turb3d_grad_expected(U, remat, derived))
+            if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
+                fail(f"{n}^3 grad{U}{tag}: an evaluation from the same state counted differently")
+        grads[ch] = [c.detach().double() for c in res.grad.components]
+        del res
+        timed = [e for e in evals if e["timed"]]
+        print(json.dumps(dict(
+            workload=f"3-D decaying turbulence {n}^3, grad{U} (d sum v^2 / d forcing), remat "
+                     f"{remat}{tag}",
+            evaluations=len(timed),
+            unrolled_steps_per_sec=U * len(timed) / sum(e["seconds"] for e in timed),
+            pressure_iters_per_step=timed[-1]["pressure_iters_per_step"],
+            adjoint_pcg_iters_per_step=sum(e["adjoint_pcg_iters_per_step"] for e in timed)
+            / len(timed),
+            adjoint_pcg_iters_per_eval=timed[-1]["adjoint_pcg_iters_per_eval"],
+            warn_fraction=max(e["warn_fraction"] for e in timed),
+            adjoint_gated_per_eval=timed[-1]["adjoint_gated"],
+            adjoint_ratio_passed_max=timed[-1]["adjoint_ratio_passed_max"],
+            adjoint_ratio_gated_min=timed[-1]["adjoint_ratio_gated_min"],
+            row15g_launches_per_eval=timed[-1]["row15g_launches"],
+            max_memory_allocated_bytes=max(e["max_memory_allocated_bytes"] for e in timed),
+            memory_allocated_before_bytes=timed[-1]["memory_allocated_before_bytes"],
+            grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
+        )), flush=True)
+        runs[ch] = timed[-1]["launches"]
+    if len(grads) == 2:
+        g_rel = rel_l2_list(grads[True], grads[False])
+        print(json.dumps(dict(check=f"19 {n}^3 grad{U} with vs without adjoint channels",
+                              grad_rel_l2=g_rel)), flush=True)
+        if not g_rel <= 1e-3:
+            fail(f"{n}^3 grad{U}: with vs without the adjoint channels rel l2 {g_rel:.3e} > 1e-3")
+    del grads
+    return fwd, runs[channels[0]], runs
 
 
 # -- the batched "auto" regime (runs/ab_batched_512.py; make_batched_train_step) ----------
@@ -5798,26 +5881,29 @@ RANK3_BETA_REL = 1e-4
 RANK3_WHITE_F64 = 2e-5
 
 
-def kernels_vs_plain_solves(label, solves, names, plains, slack) -> dict:
+def kernels_vs_plain_solves(label, solves, names, plains, slack, module=None,
+                            phase="2n") -> dict:
     """Each solve of `solves` ({how: () -> SolveResult}) once with the
-    kernels and once with `krylov`'s attributes `names` bound to the plain
-    versions `plains`, on the card: iterations within `slack` and not 0, no
-    warn, x within rel 1e-4. Returns {how: the kernels' iterations}."""
+    kernels and once with `module`'s (default `krylov`) attributes `names`
+    bound to the plain versions `plains`, on the card: iterations within
+    `slack` and not 0, no warn, x within rel 1e-4. Returns {how: the
+    kernels' iterations}."""
     from diffpiso_tpu_torch.solvers import krylov
 
+    module = krylov if module is None else module
     its = {}
     for how, solve in solves.items():
         res_k = solve()
-        saved = [getattr(krylov, nm) for nm in names]
+        saved = [getattr(module, nm) for nm in names]
         for nm, fn in zip(names, plains):
-            setattr(krylov, nm, fn)
+            setattr(module, nm, fn)
         try:
             res_p = solve()
         finally:
             for nm, fn in zip(names, saved):
-                setattr(krylov, nm, fn)
+                setattr(module, nm, fn)
         rx = rel_err(res_k.x, res_p.x)
-        print(f"2n {label} ({how}): iterations kernels {res_k.iterations} plain "
+        print(f"{phase} {label} ({how}): iterations kernels {res_k.iterations} plain "
               f"{res_p.iterations}, residual kernels {res_k.residual_norm:.3e} plain "
               f"{res_p.residual_norm:.3e}, x rel err {rx:.3e}", flush=True)
         if abs(res_k.iterations - res_p.iterations) > slack or res_k.iterations == 0:
@@ -5993,13 +6079,16 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
         fail(f"{label} spectral_apply3: rel l2 {rl2:.3e} vs plain (limit 1e-5), on the dyadic "
              f"residual {w64:.3e} vs float64 (limit {RANK3_WHITE_F64}), repeat bit-equal {repeat}")
 
-    # one whole solve each way, the kernels against the plain versions on the card
+    # one whole solve each way, the kernels against the plain versions on the
+    # card (the adjoint form in the loop: the path gives it to row 15g, 2o)
     def solve(adjoint):
         rhs = 2.0 * b if adjoint else b
-        return krylov.pcg(lap, rhs, None if adjoint else guess, precond_mm=spec,
-                          tol=P_TOL * (max(1.0, float(rhs.abs().max())) if adjoint else 1.0),
-                          max_iter=2000, residual_reset=0 if adjoint else 50,
-                          deflate_mean=True, precond_zero_mean=True, early_exit=not adjoint)
+        with whole_solve_closed():
+            return krylov.pcg(lap, rhs, None if adjoint else guess, precond_mm=spec,
+                              tol=P_TOL * (max(1.0, float(rhs.abs().max())) if adjoint else 1.0),
+                              max_iter=2000, residual_reset=0 if adjoint else 50,
+                              deflate_mean=True, precond_zero_mean=True,
+                              early_exit=not adjoint)
 
     solves = kernels_vs_plain_solves(
         f"{label} pressure PCG",
@@ -6010,6 +6099,200 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
     for name in RANK3_KERNELS[:3]:
         out[name]["solve_iterations"] = solves
     return out
+
+
+@contextlib.contextmanager
+def whole_solve_closed():
+    """The adjoint-form volume solves in the per-iteration loop (row 10e)
+    instead of the whole solve of row 15g (as the CPU tests reach it: there
+    is no knob)."""
+    from diffpiso_tpu_torch.solvers import tiers
+
+    real = tiers.volume_whole_solve
+    tiers.volume_whole_solve = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        tiers.volume_whole_solve = real
+
+
+# row 15g's launch wrappers (solvers/pcg3.py), in the order of one iteration
+PCG3_KERNELS = ("pcg3_residual", "pcg3_q", "pcg3_xr", "pcg3_dots", "pcg3_p")
+# 2o: the relative error a row 15g scalar may have against its twin (sums in
+# another order: rnorm exact, p.q and r.z like row 10e's scalars, which lay
+# within 1.16e-6 on these systems, PERF.md); a sum of terms of both signs
+# (sum r', sum z, sum p') is judged against the sum of their magnitudes
+PCG3_SCALAR_REL = 1.2e-6
+PCG3_RESULTS = {}
+
+
+def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
+    """Phase 2o: row 15g's launches against their plain twins on the card, on
+    a real 3-D pressure system (`lap`, the right-hand side `b` of a step, a
+    warm guess; `spec` = (MatmulSpectralSolver, weights)), x and p on the
+    dyadic grid (`dyadic`: exact sums, so sum x and sum p agree bit for
+    bit): the residual, q, xr and p volumes bit-equal given the same
+    scalars, the norms equal, p.q and r.z within PCG3_SCALAR_REL, the sums
+    within it of their terms' magnitudes (M^-1 r is row 16-3d's apply,
+    which 2n holds on the same systems). Host ms, device us per launch, the
+    bound (bytes: 10 / 9 / 6 / 2 / 3 volumes), the plain twin's ms, the
+    library's (a cuSPARSE CSR SpMV of the 7-point operator for the stencil
+    launches; torch.dot for r.z).
+    Then whole solves of row 15g, the kernels against the twins on the card:
+    cold, warm from a zeros guess and warm from half the step's increment,
+    in the adjoint form (no reset, no early exit): equal iterations.
+    Returns {launch: measurements}."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import krylov, pcg3, pcgphases, spectral_apply3
+    from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
+
+    solver, weights = spec
+    ops = spectral_apply3.spectral3_operands(solver, weights, torch.float32, dev)
+    plain_ops = spectral_apply3.Spectral3(ops.mats, None, None, None,
+                                          safe_symbol(solver, weights, torch.float32, dev))
+    shape = tuple(b.shape)
+    cells = b.numel()
+    vol = cells * 4
+    out = {k: dict(shape=list(shape), max_abs_err=0.0, scalars_max_rel_err=0.0, bit_equal=True)
+           for k in PCG3_KERNELS}
+
+    def vols(name, got, want):
+        for a, w in zip(got, want):
+            eq = torch.equal(a, w)
+            out[name]["bit_equal"] = out[name]["bit_equal"] and eq
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], float((a - w).abs().max()))
+            if not eq:
+                fail(f"{label} {name}: kernel volume differs from its twin (max abs "
+                     f"{float((a - w).abs().max()):.3e})")
+
+    def scal(name, got, want, terms=None):
+        scale = abs(float(want)) if terms is None else float(terms.abs().sum())
+        e = abs(float(got) - float(want)) / max(scale, 1e-30)
+        out[name]["scalars_max_rel_err"] = max(out[name]["scalars_max_rel_err"], e)
+        if not e <= PCG3_SCALAR_REL:
+            fail(f"{label} {name}: scalar {float(got)!r} vs twin {float(want)!r}, rel {e:.3e} > "
+                 f"{PCG3_SCALAR_REL}")
+
+    # the warm entry's residual on a dyadic x (an exact sum: the shift term agrees)
+    xd = dyadic(guess)
+    kr, pr = pcg3.pcg3_residual(lap, b, xd), pcg3.residual_plain(lap, b, xd)
+    vols("pcg3_residual", kr[:1], pr[:1])
+    scal("pcg3_residual", kr[1], pr[1])
+    # one iteration from the mean-free dyadic x: r, z = M^-1 r, p on the dyadic grid
+    x = dyadic(guess, True)
+    r = pcg3.residual_plain(lap, b, x)[0]
+    def precond_plain(v):
+        return spectral_apply3_plain(plain_ops.mats, plain_ops.sym, v)
+
+    z = precond_plain(r)
+    kd, pd = pcg3.pcg3_dots(r, z, start=True), pcg3.dots_plain(r, z, True)
+    scal("pcg3_dots", kd[0], pd[0])
+    scal("pcg3_dots", kd[1], pd[1], z)
+    scal("pcg3_dots", kd[2], pd[2], r)
+    p = dyadic(z)
+    sp = torch.sum(p)
+    kq, pq_ = pcg3.pcg3_q(lap, p, sp), pcg3.q_plain(lap, p, sp)
+    vols("pcg3_q", kq[:1], pq_[:1])
+    scal("pcg3_q", kq[1], pq_[1])
+    q, pq = pq_
+    rz, sr = torch.sum(r * p), torch.sum(r)
+    xr_in = (x, r, p, q, rz, pq, sr, 1.0, float(cells))
+    kx, px = pcg3.pcg3_xr(*xr_in), pcg3.xr_plain(*xr_in)
+    vols("pcg3_xr", kx[:2], px[:2])
+    scal("pcg3_xr", kx[2], px[2])
+    scal("pcg3_xr", kx[3], px[3], px[1])
+    r1 = px[1]
+    z1 = precond_plain(r1)
+    scal("pcg3_dots", pcg3.pcg3_dots(r1, z1), pcg3.dots_plain(r1, z1, False))
+    rz1 = torch.sum(r1 * z1)
+    kp, pp = pcg3.pcg3_p(z1, p, rz1, rz), pcg3.p_plain(z1, p, rz1, rz)
+    vols("pcg3_p", kp[:1], pp[:1])
+    scal("pcg3_p", kp[1], pp[1], pp[0])
+    print(json.dumps(dict(check=f"2o {label} row 15g launches vs their twins", **{
+        k: {kk: vv for kk, vv in v.items() if kk != "shape"} for k, v in out.items()})),
+          flush=True)
+
+    # timings at the path's shapes; the stencil launches' yardstick one cuSPARSE SpMV
+    csr = csr_of_stencil3(lap.center, *lap.lo, *lap.hi)
+    xv = x.reshape(-1, 1)
+    spmv_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, xv), 20)
+    del csr
+    rows = (
+        # name, kernel, twin, bytes, flops, library call
+        ("pcg3_residual", lambda: pcg3.pcg3_residual(lap, b, xd),
+         lambda: pcg3.residual_plain(lap, b, xd), 10 * vol, 17 * cells, spmv_ms),
+        ("pcg3_q", lambda: pcg3.pcg3_q(lap, p, sp), lambda: pcg3.q_plain(lap, p, sp),
+         9 * vol, 17 * cells, spmv_ms),
+        ("pcg3_xr", lambda: pcg3.pcg3_xr(*xr_in), lambda: pcg3.xr_plain(*xr_in), 6 * vol,
+         7 * cells, None),
+        ("pcg3_dots", lambda: pcg3.pcg3_dots(r1, z1), lambda: pcg3.dots_plain(r1, z1, False),
+         2 * vol, 2 * cells,
+         cuda_time_ms(lambda: torch.dot(r1.reshape(-1), z1.reshape(-1)), 20)),
+        ("pcg3_p", lambda: pcg3.pcg3_p(z1, p, rz1, rz), lambda: pcg3.p_plain(z1, p, rz1, rz),
+         3 * vol, 3 * cells, None),
+    )
+    for name, fn, plain, nbytes, flops, lib in rows:
+        b_ms, b_by = bound(nbytes, flops)
+        plain_ms = cuda_time_ms(plain, 10)
+        out[name].update(ms=cuda_time_ms(fn, 20), plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib,
+                         **device_time(fn, 5))
+
+    # whole solves, the kernels against the twins on the card
+    def twin(fn):  # the twin in a wrapper's place: the solve's scratch unused
+        return lambda *a, work=None: fn(*a)
+
+    twins = (twin(pcg3.residual_plain), twin(pcg3.q_plain), twin(pcg3.xr_plain),
+             lambda o, v: precond_plain(v),
+             lambda r_, z_, start=False, work=None: pcg3.dots_plain(r_, z_, start),
+             twin(pcg3.p_plain), pcgphases.residual_plain)
+    rhs = 2.0 * b
+    tol = P_TOL * max(1.0, float(rhs.abs().max()))
+
+    def solve(x0):
+        return krylov.pcg(lap, rhs, x0, precond_mm=spec, tol=tol, max_iter=2000,
+                          residual_reset=0, deflate_mean=True, precond_zero_mean=True,
+                          early_exit=False)
+
+    its = kernels_vs_plain_solves(
+        f"{label} row 15g whole solve",
+        {"cold": lambda: solve(None), "warm from zeros": lambda: solve(torch.zeros_like(b)),
+         "warm from half the increment": lambda: solve(2.0 * guess)},
+        ("pcg3_residual", "pcg3_q", "pcg3_xr", "fused_spectral_apply_3d", "pcg3_dots", "pcg3_p",
+         "fused_residual3"), twins, 0, module=pcg3, phase="2o")
+    for name in PCG3_KERNELS:
+        out[name]["solve_iterations"] = its
+    return out
+
+
+def pcg3_merge(kernels: list, results: dict) -> None:
+    """The kernel entries of row 15g's launches from phase 2o's results
+    {label: {launch: measurements}}: the 128^3 turbulence's numbers at the
+    top level, the 256^3's beside them."""
+    what = {
+        "pcg3_residual": ("pcg3.cu (g3_residual)", 1777,
+                          "one per warm entry (3 launches: sum x, its one-block pass, r)"),
+        "pcg3_q": ("pcg3.cu (g3_q)", 1789, "one per iteration (2 launches)"),
+        "pcg3_xr": ("pcg3.cu (g3_xr)", 1801, "one per iteration (a memset, 2 launches)"),
+        "pcg3_dots": ("pcg3.cu (g3_dots)", 1840,
+                      "one per M^-1 r (2 launches; the r.z of :1840; at the start sum z0, "
+                      "sum r0)"),
+        "pcg3_p": ("pcg3.cu (g3_p)", 1852, "one per iteration (2 launches)"),
+    }
+    for name in PCG3_KERNELS:
+        src, line, count = what[name]
+        entry = dict(name=name, route="cuda", source=f"diffpiso_tpu_torch/csrc/{src}",
+                     replaces=f"diffpiso_tpu/solvers/pallas_krylov.py:{line}",
+                     launches_count=count)
+        first = True
+        for label, res in results.items():
+            if first:
+                entry.update(res[name])
+                first = False
+            else:
+                entry[label] = res[name]
+        kernels.append(entry)
 
 
 def rank3_state(step, v, p):
@@ -6329,8 +6612,8 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
 
 
 def turb3d_rank3(dev, n, state) -> dict:
-    """Phase 2n on the 3-D turbulence at n^3: the pressure system of one
-    step from `state` (the state the spin-up leaves) under `fft_mm`."""
+    """Phases 2n and 2o on the 3-D turbulence at n^3: the pressure system of
+    one step from `state` (the state the spin-up leaves) under `fft_mm`."""
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain
 
@@ -6339,8 +6622,11 @@ def turb3d_rank3(dev, n, state) -> dict:
     solver, weights = spec = pressure_preconditioner("fft_mm", lap)
     mats = solver.mats(b.dtype, b.device)
     sym = safe_symbol(solver, weights, b.dtype, b.device)
-    return rank3_kernels(dev, f"turbulence {n}^3", lap, b, guess,
-                         lambda r: spectral_apply3_plain(mats, sym, r), spec)
+    out = rank3_kernels(dev, f"turbulence {n}^3", lap, b, guess,
+                        lambda r: spectral_apply3_plain(mats, sym, r), spec)
+    # 2o: row 15g on the same system
+    PCG3_RESULTS[f"turbulence{n}"] = pcg3_kernels(dev, f"turbulence {n}^3", lap, b, guess, spec)
+    return out
 
 
 # every kernel wrapper of the port (each holds its launch counter): name,
@@ -6414,7 +6700,85 @@ KERNEL_WRAPPERS = (
     ("pcg_apply3", "solvers.pcgphases", "fused_pcg_apply3", 0),
     ("cg_iteration3", "solvers.cg", "fused_cg_iteration3", 0),
     ("spectral_apply3", "solvers.spectral_apply3", "fused_spectral_apply_3d", 0),
+    # the whole-solve rank-3 PCG (row 15g): every 3-D adjoint pressure solve
+    # under fft_mm (the gradients of phases 12, 14 and 19)
+    ("pcg3_residual", "solvers.pcg3", "pcg3_residual", 0),
+    ("pcg3_q", "solvers.pcg3", "pcg3_q", 0),
+    ("pcg3_xr", "solvers.pcg3", "pcg3_xr", 0),
+    ("pcg3_dots", "solvers.pcg3", "pcg3_dots", 0),
+    ("pcg3_p", "solvers.pcg3", "pcg3_p", 0),
 )
+
+
+C2_UNROLL = 30  # 19d: runs/ab_adjoint_ws.py's grad30 (no remat)
+C2_REPS = 2
+
+
+def channels_2d_path(dev, wrappers: dict, domain, sim, dt, v, p) -> dict:
+    """Phase 19d: the JAX package's runs/ab_adjoint_ws.py protocol on the port:
+    grad30 of sum v^2 with respect to a forcing field at 512^2 (phase 4's
+    configuration) from the state phase 4 leaves, remat "none", without and
+    with the adjoint warm-start channels, 1 untimed and C2_REPS timed
+    evaluations each: warn 0, row 15g and the rank-3 kernels 0 (a 2-D
+    path), unrolled steps/s, the adjoint iterations and gate decisions; the
+    two gradients within rel l2 1e-3 where every adjoint's gate decision is
+    the same, else both decision lists printed (a gated adjoint zeroes its
+    share of the gradient, so gradients with other decisions differ by
+    construction). Returns the launches of one evaluation with the
+    channels."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    step = turbulence_step_fn(domain, sim, dt)
+    U = C2_UNROLL
+    forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                             periodic=v.periodic)
+    runs = {}
+    for ch in (False, True):
+        secs = []
+        for rep in range(1 + C2_REPS):
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rollout_loss_grad(step, v, p, forcing, U, remat="none", adjoint_channels=ch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            if res.warns:
+                fail(f"19d grad{U} channels={ch}: {res.warns} steps warned")
+            if any(counts[k] for k in PCG3_KERNELS + RANK3_KERNELS):
+                fail(f"19d grad{U} channels={ch}: a rank-3 pressure kernel launched on a 2-D "
+                     "path")
+        adj = res.adjoints
+        runs[ch] = dict(
+            unrolled_steps_per_sec=U * C2_REPS / sum(secs[1:]),
+            adjoint_pressure_iters_per_eval=sum(a.iterations for a in adj
+                                                if a.system == "pressure"),
+            adjoint_momentum_iters_per_eval=sum(a.iterations for a in adj
+                                                if a.system == "momentum"),
+            gated=[sum(a.gated for a in adj if a.system == s) for s in ("momentum", "pressure")],
+            decisions=[(a.system, bool(a.gated)) for a in adj],
+            grad=[c.detach().double() for c in res.grad.components], launches=counts)
+        print(json.dumps(dict(
+            workload=f"19d decaying turbulence {p.shape[0]}^2, grad{U} (remat none), adjoint "
+                     f"channels "
+                     f"{ch}", **{k: v_ for k, v_ in runs[ch].items()
+                                 if k not in ("grad", "decisions", "launches")})), flush=True)
+        del res
+    same = runs[True]["decisions"] == runs[False]["decisions"]
+    g_rel = rel_l2_list(runs[True]["grad"], runs[False]["grad"])
+    print(json.dumps(dict(check=f"19d {p.shape[0]}^2 grad{U} with vs without adjoint channels",
+                          same_gate_decisions=same, grad_rel_l2=g_rel,
+                          **({} if same else {"decisions_without": runs[False]["decisions"],
+                                              "decisions_with": runs[True]["decisions"]}))),
+          flush=True)
+    if same and not g_rel <= 1e-3:
+        fail(f"19d: with vs without the adjoint channels rel l2 {g_rel:.3e} > 1e-3 at equal "
+             "gate decisions")
+    return runs[True]["launches"]
 
 
 def kernel_wrappers() -> dict:
@@ -6942,6 +7306,9 @@ def main() -> int:
         grad_l2=timed[-1]["grad_l2"], launches_per_eval=timed[-1]["launches"],
     )
     print(json.dumps(grad30), flush=True)
+    # 19d: the same state, grad30 without and with the adjoint warm-start channels
+    c2d = channels_2d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, domain, sim, dt, v,
+                           pressure)
 
     # -- phase 6: the lid-driven cavity -----------------------------------------
     cavity_small_check(dev)
@@ -6973,8 +7340,12 @@ def main() -> int:
 
     # -- phase 12: 3-D decaying turbulence (bench.py workload_turb3d) ---------------------
     turb3d_small_check(dev)
-    turb3d_fwd, turb3d_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()},
-                                          turb3d_state_dev)
+    # (c) and 19b: grad10 without and with the adjoint warm-start channels
+    turb3d_fwd, turb3d_grad, turb3d_ch = turb3d_path(
+        dev, {k: fn for k, (fn, _) in wrappers.items()}, turb3d_state_dev,
+        channels=(False, True))
+    # 19a: 32^3 card vs CPU, grad10 with the adjoint warm-start channels
+    turb3d_small_check(dev, T3_SMALL, channels=True, unroll=T3_UNROLL)
 
     # -- phase 13: the batched "auto" regime (per-sample planes from 512^2) -----------------
     batched_measured = batched_kernels(dev, kernels)
@@ -6991,16 +7362,17 @@ def main() -> int:
     state_big = turb3d_tier_kernels(dev, kernels, T3_BIG, "zblock", T3_SPINUP_CALLS, T3_CALL)
     # 2n at 256^3 on the same state
     rank3["turbulence256"] = turb3d_rank3(dev, T3_BIG, state_big)
-    big_fwd, big_grad = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_big,
-                                    T3_BIG, "zblock", T3_BIG_REMAT,
-                                    grad_reps=T3_BIG_GRAD_REPS)
+    # (c) and 19c: grad10 without and with the adjoint warm-start channels
+    big_fwd, big_grad, big_ch = turb3d_path(
+        dev, {k: fn for k, (fn, _) in wrappers.items()}, state_big, T3_BIG, "zblock",
+        T3_BIG_REMAT, grad_reps=T3_BIG_GRAD_REPS, channels=(False, True))
     del state_big
     torch.cuda.empty_cache()
     # 2h at 512^3 (the plane sweeps) after one spin-up call of 20 steps,
     # then (d) one timed call of 20 forward steps (bench.py --fwd-only,
     # cut for time)
     state_huge = turb3d_tier_kernels(dev, kernels, T3_HUGE, "plane", 1, T3_HUGE_CALL)
-    huge_fwd, _ = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_huge,
+    huge_fwd, _, _ = turb3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, state_huge,
                               T3_HUGE, "plane", calls=1, call_steps=T3_HUGE_CALL, grad_reps=0)
     del state_huge
     torch.cuda.empty_cache()
@@ -7049,6 +7421,7 @@ def main() -> int:
     cavity3d_small_check(dev)
     cav3_fwd, cav3_cg = cavity3d_path(dev, {k: fn for k, (fn, _) in wrappers.items()}, rank3)
     rank3_merge(kernels, rank3)
+    pcg3_merge(kernels, PCG3_RESULTS)
     # every 2-D path launched none of the rank-3 pressure kernels
     two_d = {"turbulence forward": launches, "turbulence grad30": grad30["launches_per_eval"],
              "cavity forward": cav_fwd, "cavity grad30": cav_grad, "mixing forward": mix_fwd,
@@ -7058,9 +7431,9 @@ def main() -> int:
              "dns grad30": dns_grad, "cavity CG forward": cga_fwd,
              "cavity CG grad30": cga_grad, "turbulence 1024x2048 forward": sweep_fwd,
              "turbulence 1024x2048 grad30": sweep_grad, "karman forward": karman_fwd,
-             "pipe": pipe_fwd, **bat, **kinds}
+             "pipe": pipe_fwd, "turbulence grad30 with adjoint channels": c2d, **bat, **kinds}
     for path, counts in two_d.items():
-        for k in RANK3_KERNELS:
+        for k in RANK3_KERNELS + PCG3_KERNELS:
             if counts.get(k) != 0:
                 fail(f"{path}: {k} launched {counts.get(k)} times on a 2-D path (expected 0)")
 
@@ -7100,6 +7473,10 @@ def main() -> int:
         elif name == "cg_iteration3":
             entry["path"] = f"3-D cavity {CAV3_N} under CG forward"
             entry["launches"] = cav3_cg[name]
+        elif name in PCG3_KERNELS:
+            entry["path"] = (f"turbulence {T3_N}^3 grad{T3_UNROLL} with adjoint channels (one "
+                             "evaluation)")
+            entry["launches"] = turb3d_ch[True][name]
         elif name in RANK3_KERNELS:
             entry["path"] = "turbulence 128^3 forward"
             entry["launches"] = turb3d_fwd[name]
@@ -7149,6 +7526,9 @@ def main() -> int:
         entry["dns_grad30_launches"] = dns_grad[key]
         entry["turb3d_launches"] = turb3d_fwd[key]
         entry["turb3d_grad10_launches"] = turb3d_grad[key]
+        entry["turb3d_grad10_channels_launches"] = turb3d_ch[True][key]
+        entry[f"turb3d{T3_BIG}_grad10_channels_launches"] = big_ch[True][key]
+        entry["grad30_channels_launches"] = c2d[key]
         entry[f"turb3d{T3_BIG}_launches"] = big_fwd[key]
         entry[f"turb3d{T3_BIG}_grad10_launches"] = big_grad[key]
         entry[f"turb3d{T3_HUGE}_launches"] = huge_fwd[key]

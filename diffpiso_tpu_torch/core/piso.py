@@ -34,8 +34,14 @@ the solves are autograd Functions with implicit-function-theorem adjoints
 (solvers/base.py), the FV and corrector kernels autograd Functions, and
 the operator coefficients carry no gradient. `warn` and `p_iterations`
 are host values: the solves read their convergence norms back anyway.
-`full_output` returns the intermediates dict of the reference. The
-adjoint warm-start channels (`adjoint_channels`) are not ported.
+`full_output` returns the intermediates dict of the reference.
+`adjoint_channels` = (momentum, p1, p2) from the previous step's
+`PisoOutput.adjoint_channels` (or `zero_adjoint_channels` at the first
+step) runs the three solves with the adjoint warm-start channels
+(solvers/base.py `solve_*_ws`): the forward is bit-identical, and in an
+unrolled gradient each adjoint solve starts from the next backward step's
+adjoint solution. The corrector glue takes the same branch as without
+them (the JAX step's fused-corrector gate does not read the channels).
 
 B samples advance at once when the state carries a leading batch axis
 (velocity components (B, ...), pressure (B, ny, nx)); the masks and the
@@ -81,7 +87,9 @@ from diffpiso_tpu_torch.solvers.base import (
     AdvectionSolver,
     PressureSolver,
     solve_advection_system,
+    solve_advection_system_ws,
     solve_pressure_system,
+    solve_pressure_system_ws,
 )
 
 
@@ -126,6 +134,9 @@ class PisoOutput(NamedTuple):
     adv_residual: torch.Tensor
     p_iterations: Tuple[Any, Any]  # iterations of the two pressure solves; (B,) each when batched
     intermediates: Any  # dict when full_output else None
+    # the adjoint warm-start channels (momentum, p1, p2) when `adjoint_channels`
+    # was passed in: zeros, to be wired into the next step's `adjoint_channels`
+    adjoint_channels: Any = None
 
 
 def piso_step(
@@ -142,11 +153,12 @@ def piso_step(
     advection_tol=1e-6,
     pressure_tol=1e-6,
     full_output: bool = False,
+    adjoint_channels=None,
 ) -> PisoOutput:
     """Advance one PISO step. Runs on the device the state lies on; the
     kernels launch for CUDA tensors. Differentiable with respect to the
     velocity, pressure and forcing (implicit-function-theorem adjoints
-    through the solves)."""
+    through the solves). `adjoint_channels`: see the module docstring."""
     dx = domain.dx
     dxprod = _math.prod(dx)
     beta = dxprod / dt
@@ -175,8 +187,13 @@ def piso_step(
         ),
         periodic=velocity.periodic,
     )
-    velocity_star, warn = solve_advection_system(
-        sim.linear_solver, stencil, rhs, velocity, advection_tol)
+    if adjoint_channels is not None:
+        am_ch, a1_ch, a2_ch = adjoint_channels
+        velocity_star, warn, am_out = solve_advection_system_ws(
+            sim.linear_solver, stencil, rhs, velocity, advection_tol, am_ch)
+    else:
+        velocity_star, warn = solve_advection_system(
+            sim.linear_solver, stencil, rhs, velocity, advection_tol)
 
     # -- corrector 1 (dx_factor = prod(dx) / dx_0^2 assumes equal spacing on
     # every axis, like the reference, in 2-D and 3-D)
@@ -192,8 +209,12 @@ def piso_step(
     # the pressure systems are defined on active cells only
     active_int = sim.active_mask[tuple(slice(1, -1) for _ in range(len(dx)))]
     v1_div = fv_divergence(velocity_star, dx) * active_int
-    p_inc1, iters1, pw1 = solve_pressure_system(
-        sim.pressure_solver, laplacian, v1_div, pressure_inc1_guess, pressure_tol)
+    if adjoint_channels is not None:
+        p_inc1, iters1, pw1, a1_out = solve_pressure_system_ws(
+            sim.pressure_solver, laplacian, v1_div, pressure_inc1_guess, pressure_tol, a1_ch)
+    else:
+        p_inc1, iters1, pw1 = solve_pressure_system(
+            sim.pressure_solver, laplacian, v1_div, pressure_inc1_guess, pressure_tol)
 
     # fused corrector glue (kernel 6) under the JAX package's gate:
     # periodic, one plane shape, float32, all-one masks
@@ -224,8 +245,12 @@ def piso_step(
             periodic=velocity.periodic,
         )
         h_div = fv_divergence(h_over, dx) * active_int
-    p_inc2, iters2, pw2 = solve_pressure_system(
-        sim.pressure_solver, laplacian, h_div, pressure_inc2_guess, pressure_tol)
+    if adjoint_channels is not None:
+        p_inc2, iters2, pw2, a2_out = solve_pressure_system_ws(
+            sim.pressure_solver, laplacian, h_div, pressure_inc2_guess, pressure_tol, a2_ch)
+    else:
+        p_inc2, iters2, pw2 = solve_pressure_system(
+            sim.pressure_solver, laplacian, h_div, pressure_inc2_guess, pressure_tol)
 
     if bridge_ok:
         velocity_s3 = StaggeredField(
@@ -262,4 +287,12 @@ def piso_step(
         adv_residual=torch.zeros((), device=pressure.device),
         p_iterations=(iters1, iters2),
         intermediates=intermediates,
+        adjoint_channels=(am_out, a1_out, a2_out) if adjoint_channels is not None else None,
     )
+
+
+def zero_adjoint_channels(velocity: StaggeredField, pressure: torch.Tensor):
+    """The initial (momentum, p1, p2) adjoint warm-start channels of a
+    rollout: zeros shaped like the solves' right-hand sides."""
+    zp = torch.zeros_like(pressure)
+    return velocity.map(torch.zeros_like), zp, zp

@@ -17,7 +17,12 @@ recorded outputs, so no Krylov loop runs twice. Per step
 the momentum solve runs twice (forward, transposed adjoint) and the
 pressure solve four times (two correctors, forward and adjoint).
 remat="none" keeps every intermediate; it is the reference that "outputs"
-is held against.
+is held against. `adjoint_channels=True` threads the adjoint warm-start
+channels (core/piso.py) through the carry from zeros, as the JAX package's
+`runs/ab_ws3d.py` loss does: each step's outputs feed the next step's
+channels, so each backward step's adjoint solves start from the adjoint
+solutions of the step after it; under "outputs" the channels are inputs
+and outputs of each checkpointed step.
 
 B samples at once (every state tensor with a leading batch axis):
 `batched_rollout` advances them n steps, the pressure increments carried
@@ -41,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from diffpiso_tpu_torch import regime
+from diffpiso_tpu_torch.core.piso import zero_adjoint_channels
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.solvers.base import AdjointSolve, SolveStash
 
@@ -70,11 +76,13 @@ def rollout_loss_grad(
     unroll: int,
     remat: str = "outputs",
     loss_fn: Callable[[StaggeredField], torch.Tensor] = sum_of_squares,
+    adjoint_channels: bool = False,
 ) -> RolloutGrad:
     """Gradient of loss_fn(velocity after `unroll` steps) with respect to
     `forcing`. `step(vel, p, g1, g2, forcing)` advances one step and returns
     a PisoOutput (piso_step with the caller's domain, parameters and
-    tolerances bound)."""
+    tolerances bound); with `adjoint_channels` it is called as `step(vel,
+    p, g1, g2, forcing, adjoint_channels=ch)`."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
     per = vel.periodic
@@ -82,20 +90,35 @@ def rollout_loss_grad(
     f_leaves = tuple(c.detach().requires_grad_(True) for c in forcing.components)
     forcing_g = StaggeredField(f_leaves, periodic=forcing.periodic)
 
+    nf = len(forcing.components)
+
     def run(*args):
-        # the velocity components (2 or 3), p, g1, g2, the forcing components
-        v, (p, g1, g2), f = args[:ncomp], args[ncomp:ncomp + 3], args[ncomp + 3:]
+        # the velocity components (2 or 3), p, g1, g2, the forcing
+        # components; with channels the momentum channel's components, p1's, p2's
+        v, (p, g1, g2) = args[:ncomp], args[ncomp:ncomp + 3]
+        f, ch = args[ncomp + 3:ncomp + 3 + nf], args[ncomp + 3 + nf:]
+        kw = {}
+        if adjoint_channels:
+            kw["adjoint_channels"] = (StaggeredField(ch[:ncomp], periodic=per), *ch[ncomp:])
         out = step(StaggeredField(v, periodic=per), p, g1, g2,
-                   StaggeredField(f, periodic=forcing.periodic))
+                   StaggeredField(f, periodic=forcing.periodic), **kw)
+        chans = ()
+        if adjoint_channels:
+            am, a1, a2 = out.adjoint_channels
+            chans = (*am.components, a1, a2)
         return (*out.velocity.components, out.pressure, out.pressure_inc1,
-                out.pressure_inc2, out.p_iterations, out.warn)
+                out.pressure_inc2, *chans, out.p_iterations, out.warn)
 
     comps = tuple(c.detach() for c in vel.components)
     p = p.detach()
     g1 = g2 = torch.zeros_like(p)
+    chans = ()
+    if adjoint_channels:
+        am, a1, a2 = zero_adjoint_channels(StaggeredField(comps, periodic=per), p)
+        chans = (*am.components, a1, a2)
     iters, warns, stashes = [], 0, []
     for _ in range(unroll):
-        args = (*comps, p, g1, g2, *forcing_g.components)
+        args = (*comps, p, g1, g2, *forcing_g.components, *chans)
         stash = SolveStash()
         stashes.append(stash)
         if remat == "outputs":
@@ -104,7 +127,8 @@ def rollout_loss_grad(
         else:
             with stash.recording():
                 res = run(*args)
-        *comps, p, g1, g2, its, warn = res
+        *comps, p, g1, g2 = res[:ncomp + 3]
+        chans, (its, warn) = tuple(res[ncomp + 3:-2]), res[-2:]
         iters.append(tuple(its))
         warns += int(warn)
     loss = loss_fn(StaggeredField(tuple(comps), periodic=per))

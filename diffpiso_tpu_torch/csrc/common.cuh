@@ -21,6 +21,14 @@ __device__ __forceinline__ float dp_block_sum(float v, float* sh) {
   return r;
 }
 
+// Thread 0 writes the block sum of v to partials[blockIdx.x]: one entry per
+// block, summed later in a fixed order (dp_sum_partials, or a one-block pass).
+__device__ __forceinline__ void dp_block_partial(float v, float* sh,
+                                                 float* __restrict__ partials) {
+  const float s = dp_block_sum(v, sh);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
 // Max-abs via the bit patterns of |v|: for non-negative floats the unsigned
 // order is the float order, and a NaN (exponent all ones, nonzero mantissa)
 // sorts above +inf, so a NaN anywhere propagates like jnp.max. Max is exact

@@ -31,8 +31,7 @@ __global__ void pcgp_partial_sum(const float* __restrict__ a, const float* __res
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   float v = 0.0f;
   if (idx < n) v = b ? a[idx] * b[idx] : a[idx];
-  const float s = dp_block_sum(v, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  dp_block_partial(v, sh, partials);
 }
 
 static PcgLap pcgp_lap(const void* const* lap, int ny, int nx) {

@@ -51,68 +51,12 @@
 // in; x', r', p' out): 25, 30 and 33 us at 128^3 at 3.35 TB/s. The kernels
 // move 11, 17 and 20 (the pre-pass over x or p, the q scratch volume
 // written and read; 2 more when deflating).
-#include "stencil3.cuh"
-
-#define P3_MAX_BLOCKS 4096
+#include "grid3.cuh"
 
 // slots of the per-call scalar output array (8 floats)
 enum { O_NORM = 0, O_PQ = 1, O_ALPHA = 2, O_SUM = 3, O_MEAN = 4, O_PR = 5, O_RQ = 6,
        O_BETA = 7 };
 enum { F_SUM = 0, F_ALPHA_RZ = 1, F_ALPHA_PR = 2, F_MEAN = 3, F_BETA = 4 };
-
-struct Lap3 {
-  Stencil7 s;
-  const float* shift;
-  int nz, ny, nx;
-};
-
-static unsigned p3_blocks(size_t n) {
-  const size_t b = (n + DP_THREADS - 1) / DP_THREADS;
-  return (unsigned)(b < P3_MAX_BLOCKS ? b : P3_MAX_BLOCKS);
-}
-
-// the grid-stride walk: this thread's first cell and the stride
-__device__ __forceinline__ size_t p3_first() {
-  return (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-}
-__device__ __forceinline__ size_t p3_stride() { return (size_t)gridDim.x * blockDim.x; }
-
-// (A v)[idx] = S v + shift * sum v, the sum given
-__device__ __forceinline__ float p3_q(const Lap3& L, const float* __restrict__ v, size_t idx,
-                                      float sum) {
-  const Nbr3 n = dp3_nbr(idx, L.nz, L.ny, L.nx);
-  const float sv = dp3_matvec<false>(L.s, n, [&](size_t i) { return v[i]; });
-  return sv + *L.shift * sum;
-}
-
-// the block's max of per-thread |.| bit patterns into *out (common.cuh's
-// dp_block_max_abs, for a thread that has already folded its cells)
-__device__ __forceinline__ void p3_block_max_bits(unsigned int bits, unsigned int* sh,
-                                                  float* out) {
-  const int t = threadIdx.x;
-  sh[t] = bits;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] = max(sh[t], sh[t + s]);
-    __syncthreads();
-  }
-  if (t == 0) atomicMax(reinterpret_cast<unsigned int*>(out), sh[0]);
-  __syncthreads();
-}
-
-__device__ __forceinline__ unsigned int p3_abs_bits(float v) {
-  return __float_as_uint(fabsf(v));
-}
-
-// partials[block] = sum of a over the block's cells
-__global__ void p3_partial_sum(const float* __restrict__ a, size_t n,
-                               float* __restrict__ partials) {
-  __shared__ float sh[DP_THREADS];
-  float acc = 0.0f;
-  for (size_t i = p3_first(); i < n; i += p3_stride()) acc += a[i];
-  const float s = dp_block_sum(acc, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
-}
 
 // One block: the fixed-order sums of `nb` partials (two arrays of them for
 // F_ALPHA_PR: p.q then p.r), then the scalars they feed. F_SUM zeroes the
@@ -173,8 +117,7 @@ __global__ void p3_residual_kernel(Lap3 L, const float* __restrict__ b,
     m = max(m, p3_abs_bits(v));
   }
   if (deflate) {
-    const float s = dp_block_sum(acc, sh);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    dp_block_partial(acc, sh, partials);
   } else {
     p3_block_max_bits(m, shu, out + O_NORM);
   }
@@ -193,11 +136,9 @@ __global__ void p3_q_kernel(Lap3 L, const float* __restrict__ p, const float* __
     apq += p[i] * qv;
     if (r) apr += p[i] * r[i];
   }
-  const float a = dp_block_sum(apq, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = a;
+  dp_block_partial(apq, sh, partials);
   if (r) {
-    const float c = dp_block_sum(apr, sh);
-    if (threadIdx.x == 0) partials[gridDim.x + blockIdx.x] = c;
+    dp_block_partial(apr, sh, partials + gridDim.x);
   }
 }
 
@@ -222,12 +163,10 @@ __global__ void p3_xr_kernel(const float* __restrict__ x, const float* __restric
     m = max(m, p3_abs_bits(v));
   }
   if (deflate) {
-    const float s = dp_block_sum(acc, sh);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    dp_block_partial(acc, sh, partials);
   } else {
     if (with_rq) {
-      const float s = dp_block_sum(arq, sh);
-      if (threadIdx.x == 0) partials[blockIdx.x] = s;
+      dp_block_partial(arq, sh, partials);
     }
     p3_block_max_bits(m, shu, out + O_NORM);
   }
@@ -248,8 +187,7 @@ __global__ void p3_deflate_kernel(float* __restrict__ r, const float* __restrict
     m = max(m, p3_abs_bits(v));
   }
   if (q) {
-    const float s = dp_block_sum(arq, sh);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    dp_block_partial(arq, sh, partials);
   }
   p3_block_max_bits(m, shu, out + O_NORM);
 }
@@ -260,24 +198,6 @@ __global__ void p3_p_kernel(const float* __restrict__ ro, const float* __restric
   const float beta = out[O_BETA];
   for (size_t i = p3_first(); i < n; i += p3_stride()) po[i] = ro[i] + beta * p[i];
 }
-
-static Lap3 p3_lap(const void* const* lap, int nz, int ny, int nx) {
-  Lap3 L;
-  L.s = {(const float*)lap[0], (const float*)lap[1], (const float*)lap[2],
-         (const float*)lap[3], (const float*)lap[4], (const float*)lap[5],
-         (const float*)lap[6]};
-  L.shift = (const float*)lap[7];
-  L.nz = nz;
-  L.ny = ny;
-  L.nx = nx;
-  return L;
-}
-
-#define P3_CHECK()                            \
-  do {                                        \
-    cudaError_t e_ = cudaGetLastError();      \
-    if (e_ != cudaSuccess) return (int)e_;    \
-  } while (0)
 
 // sum of v into out[O_SUM], the norm slot zeroed
 static int p3_sum_pass(const float* v, size_t n, unsigned nb, float* partials, float* out,

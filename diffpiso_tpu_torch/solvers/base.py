@@ -8,8 +8,9 @@ implicit-function-theorem adjoints:
   `_adjoint_tol(tol, g)`: the transposed Jacobi solve of the momentum
   system's tier (jac2, jac1 or, on volumes, jac13d) with transpose=True
   through `bicgstab`; the same pressure solve (CG, or the spectral or
-  multigrid PCG: pcg2 or the per-iteration loop), cold-started, for the
-  symmetric pressure system;
+  multigrid PCG: pcg2, the per-iteration loop or, in 3-D, the whole
+  solve of row 15g), cold-started, for the symmetric pressure system
+  (warm-started through the adjoint warm-start channels below);
 * the operator coefficients, the initial guess and tol get zero gradient
   (Picard linearization, as in the reference);
 * the gradient is gated by (1 - warn_forward) (1 - adjoint_failed); for
@@ -23,7 +24,11 @@ step's adjoint solves (`AdjointSolve`). Under the "outputs" remat protocol
 the backward's replay of the step hands the recorded outputs back instead
 of solving again, so the Krylov loops never re-run; the operators the
 adjoints need are saved tensors, rebuilt by the replay of the assembly.
-The adjoint warm-start channels (`solve_*_ws`) are not ported.
+The adjoint warm-start channels (`solve_advection_system_ws`,
+`solve_pressure_system_ws`, as in the JAX package) add an input and a
+zeros output to each solve; wired from step to step, they hand each
+backward step's adjoint solution to the preceding backward step as its
+guess (warm adjoints; a zeros guess at the chain's end).
 
 B samples at once (every plane with a leading batch axis: the batched
 training regime) take `_AdvectionSolveBatched` / `_PressureSolveBatched`:
@@ -230,31 +235,41 @@ def _stencil_from_planes(planes, rank):
 
 
 class _AdvectionSolve(torch.autograd.Function):
+    """The momentum solve; with `ws` the adjoint warm-start channel: the
+    tensors are the rhs's components and then the channel's, the outputs
+    x's and then zeros of the rhs's shape (adj_out). In backward the
+    cotangent of adj_out is the transposed solve's guess (zeros at the
+    chain's end: a warm start from 0), and the gated adjoint solution is the
+    channel's cotangent as well as the rhs's."""
+
     @staticmethod
-    def forward(ctx, cfg, stencil, guess, tol, periodic, info, *rhs):
+    def forward(ctx, cfg, stencil, guess, tol, periodic, info, ws, *tensors):
+        rhs = tensors[:stencil.rank]
+
         def solve():
             x, res = _adv_solve_impl(cfg, stencil, StaggeredField(rhs, periodic), guess, tol)
             return x.components, res.warn
 
         xs, warn = _run_or_replay(solve)
         info["warn"] = warn
-        ctx.cfg, ctx.tol, ctx.periodic, ctx.warn = cfg, tol, periodic, warn
+        ctx.cfg, ctx.tol, ctx.periodic, ctx.warn, ctx.ws = cfg, tol, periodic, warn, ws
         ctx.rank, ctx.stash = stencil.rank, _STASH.get()
         ctx.save_for_backward(*_stencil_planes(stencil))
-        return xs
+        return (*xs, *(torch.zeros_like(c) for c in rhs)) if ws else xs
 
     @staticmethod
     def backward(ctx, *g):
         stencil = _stencil_from_planes(ctx.saved_tensors, ctx.rank)
-        ct = StaggeredField(g, periodic=ctx.periodic)
+        ct = StaggeredField(g[:ctx.rank], periodic=ctx.periodic)
+        guess = StaggeredField(g[ctx.rank:], periodic=ctx.periodic) if ctx.ws else None
         adj_tol = float(_adjoint_tol(ctx.tol, ct))
-        db, res = _adv_solve_impl(ctx.cfg, stencil, ct, None, adj_tol, transpose=True)
+        db, res = _adv_solve_impl(ctx.cfg, stencil, ct, guess, adj_tol, transpose=True)
         gate = (1.0 - float(ctx.warn)) * (1.0 - float(res.warn))
         _record_adjoint(ctx, AdjointSolve("momentum", res.iterations, float(res.residual_norm),
                                           None, gate != 1.0))
         if gate != 1.0:
             db = db * gate
-        return (None,) * 6 + tuple(db.components)
+        return (None,) * 7 + tuple(db.components) * (2 if ctx.ws else 1)
 
 
 def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
@@ -264,9 +279,32 @@ def solve_advection_system(cfg: AdvectionSolver, stencil: AdvectionStencil,
     zero gradient. With a leading batch axis, warn is a (B,) bool array."""
     info = {}
     guess = None if guess is None else guess.map(torch.Tensor.detach)
-    fn = _AdvectionSolveBatched if rhs.batched else _AdvectionSolve
-    xs = fn.apply(cfg, stencil, guess, float(tol), rhs.periodic, info, *rhs.components)
+    if rhs.batched:
+        xs = _AdvectionSolveBatched.apply(cfg, stencil, guess, float(tol), rhs.periodic, info,
+                                          *rhs.components)
+    else:
+        xs = _AdvectionSolve.apply(cfg, stencil, guess, float(tol), rhs.periodic, info, False,
+                                   *rhs.components)
     return StaggeredField(xs, periodic=rhs.periodic), info["warn"]
+
+
+def solve_advection_system_ws(cfg: AdvectionSolver, stencil: AdvectionStencil,
+                              rhs: StaggeredField, guess, tol, adj_channel: StaggeredField):
+    """`solve_advection_system` with the adjoint warm-start channel (the JAX
+    package's `solve_advection_system_ws`): returns (v, warn, adj_out),
+    adj_out zeros of the rhs's shape. Wire adj_out into the next step's
+    adj_channel; the backward pass then starts each transposed solve from
+    the next backward step's adjoint solution. The forward is the same
+    solve, bit for bit."""
+    if rhs.batched:
+        raise NotImplementedError("the adjoint warm-start channels are ported for one sample")
+    info = {}
+    guess = None if guess is None else guess.map(torch.Tensor.detach)
+    out = _AdvectionSolve.apply(cfg, stencil, guess, float(tol), rhs.periodic, info, True,
+                                *rhs.components, *adj_channel.components)
+    k = rhs.rank
+    return (StaggeredField(out[:k], periodic=rhs.periodic), info["warn"],
+            StaggeredField(out[k:], periodic=rhs.periodic))
 
 
 # the spectral preconditioners and their per-axis bases, as the JAX
@@ -335,7 +373,9 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
     (`krylov.pcg` picks pcg2 or the per-iteration loop by size tier for the
     `_mm` kinds, the loop for the function kinds) with resets and early
     exit in the forward solve only. The adjoint takes the adjoint
-    preconditioner and a cold start."""
+    preconditioner and the guess it is given: None (cold) from the plain
+    solve's backward, the next backward step's adjoint solution through the
+    warm-start channels."""
     if cfg.dtype is not None:
         raise NotImplementedError("the pressure solves run in float32 only")
     if cfg.randomized_restarts:
@@ -344,7 +384,7 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
     kind = cfg.preconditioner
     if adjoint and cfg.adjoint_preconditioner != "same":
         kind = cfg.adjoint_preconditioner
-    x0 = None if adjoint else guess
+    x0 = guess
     if kind is None:
         return cg(lap, rhs, x0, tol=tol, max_iter=cfg.max_iterations,
                   residual_reset=cfg.residual_reset, deflate_mean=cfg.deflate_mean)
@@ -354,15 +394,20 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
         lap, rhs, x0,
         precond_mm=None if fn else pre, precond=pre if fn else None,
         tol=tol, max_iter=cfg.max_iterations, deflate_mean=cfg.deflate_mean,
-        # adjoint solves are cold and non-trivial: no resets, no early exit
+        # adjoint solves take no resets and no early exit; they start cold, or
+        # warm from the adjoint channel's guess
         residual_reset=0 if adjoint else cfg.residual_reset,
         precond_zero_mean=kind in _ZERO_MEAN, early_exit=not adjoint,
     )
 
 
 class _PressureSolve(torch.autograd.Function):
+    """The pressure solve; with `ws` the adjoint warm-start channel (the
+    tensors rhs and the channel; the outputs x and zeros of the rhs's shape,
+    adj_out), as `_AdvectionSolve`."""
+
     @staticmethod
-    def forward(ctx, cfg, lap, guess, tol, info, rhs):
+    def forward(ctx, cfg, lap, guess, tol, info, ws, rhs, *channel):
         def solve():
             res = _pressure_solve_impl(cfg, lap, rhs, guess, tol)
             return (res.x,), (res.iterations, res.warn)
@@ -370,18 +415,19 @@ class _PressureSolve(torch.autograd.Function):
         (x,), (iters, warn) = _run_or_replay(solve)
         info["iterations"], info["warn"] = iters, warn
         ctx.cfg, ctx.tol, ctx.warn, ctx.periodic = cfg, tol, warn, lap.periodic
-        ctx.stash = _STASH.get()
+        ctx.stash, ctx.ws = _STASH.get(), ws
         ctx.save_for_backward(lap.center, *lap.lo, *lap.hi, lap.shift)
-        return x
+        return (x, torch.zeros_like(rhs)) if ws else x
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *g_channel):
         center, *planes, shift = ctx.saved_tensors
         rank = len(planes) // 2
         lap = LaplaceStencil(center=center, lo=tuple(planes[:rank]), hi=tuple(planes[rank:]),
                              shift=shift, periodic=ctx.periodic)
         adj_tol = float(_adjoint_tol(ctx.tol, g))
-        res = _pressure_solve_impl(ctx.cfg, lap, g, None, adj_tol, adjoint=True)
+        guess = g_channel[0] if ctx.ws else None
+        res = _pressure_solve_impl(ctx.cfg, lap, g, guess, adj_tol, adjoint=True)
         limit = float(np.float32(100.0) * np.float32(adj_tol))
         adj_failed = res.warn or res.residual_norm > limit
         gate = (1.0 - float(ctx.warn)) * (1.0 - float(adj_failed))
@@ -390,7 +436,7 @@ class _PressureSolve(torch.autograd.Function):
         db = res.x
         if gate != 1.0:
             db = db * gate
-        return None, None, None, None, None, db
+        return (None,) * 6 + ((db, db) if ctx.ws else (db,))
 
 
 def solve_pressure_system(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, guess, tol):
@@ -400,9 +446,28 @@ def solve_pressure_system(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, g
     batch axis, iterations and warn are (B,) arrays."""
     info = {}
     guess = None if guess is None else guess.detach()
-    fn = _PressureSolveBatched if laplacian.batched else _PressureSolve
-    x = fn.apply(cfg, laplacian, guess, float(tol), info, rhs)
+    if laplacian.batched:
+        x = _PressureSolveBatched.apply(cfg, laplacian, guess, float(tol), info, rhs)
+    else:
+        x = _PressureSolve.apply(cfg, laplacian, guess, float(tol), info, False, rhs)
     return x, info["iterations"], info["warn"]
+
+
+def solve_pressure_system_ws(cfg: PressureSolver, laplacian: LaplaceStencil, rhs, guess, tol,
+                             adj_channel):
+    """`solve_pressure_system` with the adjoint warm-start channel (the JAX
+    package's `solve_pressure_system_ws`): returns (p, iterations, warn,
+    adj_out), adj_out zeros of the rhs's shape. Wire adj_out into the next
+    step's adj_channel: each adjoint solve then starts from the next
+    backward step's adjoint solution (from zeros at the chain's end), gated
+    as the plain solve's."""
+    if laplacian.batched:
+        raise NotImplementedError("the adjoint warm-start channels are ported for one sample")
+    info = {}
+    guess = None if guess is None else guess.detach()
+    x, adj_out = _PressureSolve.apply(cfg, laplacian, guess, float(tol), info, True, rhs,
+                                      adj_channel)
+    return x, info["iterations"], info["warn"], adj_out
 
 
 # -- B samples at once ------------------------------------------------------------

@@ -47,6 +47,7 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
 from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
 from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, fused_pcg2_solve_batched
+from diffpiso_tpu_torch.solvers.pcg3 import fused_pcg3_solve
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update
 from diffpiso_tpu_torch.solvers.pcgphases import fused_pcg_apply, fused_pcg_update, fused_residual
 from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
@@ -565,7 +566,10 @@ def pcg(
       kernels (row 10e, `tiers.volume_phases`), M^-1 r between the apply
       and the update as the fused 3-D spectral apply (row 16-3d,
       solvers/spectral_apply3.py: three passes of the hand-written GEMM);
-      the JAX package's whole-solve pcg3 (row 15g) is not ported.
+      in the adjoint form (a mean-free preconditioner, no reset, no early
+      exit: `tiers.volume_whole_solve`) it takes the whole-solve PCG of
+      row 15g instead (solvers/pcg3.py: cold from r = b unprojected, warm
+      from its residual launch, the mean deflation lagged one iteration).
 
     A preconditioner given as a function `precond` (r -> M^-1 r: the `fft`,
     `dct`, `channel` and `mg` kinds) instead of `precond_mm` takes the
@@ -590,6 +594,11 @@ def pcg(
     project_z = deflate_mean and not precond_zero_mean
     if tiers.volume_phases(tuple(b.shape)):
         spec = spectral3_operands(solver, weights, b.dtype, b.device)
+        if tiers.volume_whole_solve(tuple(b.shape), precond_zero_mean, early_exit,
+                                    residual_reset):
+            x, rn, k = fused_pcg3_solve(stencil, b, x0, spec, tol32, max_iter, deflate_mean,
+                                        early_exit, counters=pcg)
+            return _result(x, rn, k, tol)
 
         def precond3(r):
             z = fused_spectral_apply_3d(spec, r)
@@ -647,7 +656,10 @@ def _pcg_function(stencil, b, x0, precond, tol, max_iter, residual_reset, deflat
 
 
 # the per-iteration loop's counters: loops run, warm entries (one residual
-# launch each), resets, iterations; with them every phase kernel's launches
+# launch each), resets, iterations, the whole solves of row 15g included
+# (their own counters, `pcg3.fused_pcg3_solve.loops` / `warm_entries` /
+# `iterations`, tell them apart; each whole solve's exit residual is row
+# 10e's); with them every phase kernel's launches
 # follow (residual: warm entries + resets + loops; apply: iterations;
 # update: iterations, or in the large tier the folded update: loops +
 # resets + iterations; a separate M^-1 r kernel, the fused spectral apply

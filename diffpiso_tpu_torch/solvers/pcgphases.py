@@ -54,7 +54,7 @@ _SIGS3 = {
     "p3_cg_iteration": [_P] * 10 + [_I] * 4 + [_P],
 }
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
-_MAX_BLOCKS3 = 4096  # P3_MAX_BLOCKS in csrc/pcgphases3.cu
+_MAX_BLOCKS3 = 4096  # P3_MAX_BLOCKS in csrc/grid3.cuh
 # slots of the scalar output array in csrc/pcgphases.cu
 _O_NORM, _O_PQ, _O_RZ = 0, 1, 5
 _EPS = 1e-30

@@ -17,6 +17,9 @@ and basis kinds:
   volume_phases       (`eligible3:176`,      every volume: the rank-3 phases
                       `spectral_eligible_3d`) (10e), the 3-D apply (16-3d);
                                              the budgets not copied
+  volume_whole_solve  `pcg3_eligible:1610`   a volume's `_mm` PCG in the
+                                             adjoint form (no reset, no
+                                             early exit): row 15g
   pcg2_eligible       `pcg2_eligible:2369`   `_pcg2_plane_bytes` of the
                                              padded plane <= 24 MiB
   mm_update_eligible  `mm_update_large_eligible:1980`  every kind
@@ -128,6 +131,31 @@ def volume_phases(shape) -> bool:
     not the algorithm: it is one of "the phase kernels or XLA for the PCG
     loop", which ROADMAP.md's rules for the port leave to the port."""
     return len(shape) == 3
+
+
+def volume_whole_solve(shape, precond_zero_mean: bool, early_exit: bool,
+                       residual_reset: int) -> bool:
+    """Whether a spectral (`_mm`) pressure PCG on a volume runs the whole
+    solve of row 15g (solvers/pcg3.py) instead of the per-iteration loop:
+    a rank-3 b, a preconditioner that zeroes the mean mode (`fft_mm`,
+    `dct_mm`), no early exit and no residual resets: the adjoint form,
+    cold or warm-started by the adjoint channels. It stands for the JAX
+    gate `pcg3_eligible` (`pallas_krylov.py:1610`) and its dispatch in
+    `krylov.pcg` (`krylov.py:772-803`). The whole solve has no resets, no
+    per-iteration early exit, and subtracts the mean of r one iteration
+    late; in the adjoint form the first two never arise. The third is not
+    inert in float32: each r' keeps alpha shift sum(p) (the float32 sum of
+    the mean-free p over n cells, times the rank-one shift) until the next
+    iteration, and that constant is most of max|r'| on the 3-D adjoints
+    (median 95%), which the loop projects away before its norm. So the choice costs
+    iterations: 40 against the loop's 39 at 128^3, 42 against 40 at 256^3
+    (one grad10's cold adjoints, `chip_pcg3_adjoints.py` on an H100; not
+    from the mean of b: the whole solve from b less its mean takes 40 and
+    41), at an equal or lower cost per iteration. The VMEM budget is not
+    copied: it is the TPU's layout and changes rounding only, and 512^3,
+    past it, has no gradient path. Nor is the environment switch
+    (`DIFFPISO_FUSED_PCG3`, off by default there): the port has no knob."""
+    return len(shape) == 3 and precond_zero_mean and not early_exit and residual_reset == 0
 
 
 def _pcg2_plane_bytes(shape, item) -> int:

@@ -81,6 +81,7 @@ FAMILIES = (
     ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update, row 16 spectral "
                  "apply, rank 2 and 3)"),
     ("p3_", "rank-3 PCG / CG phases (row 10e: residual / apply / CG iteration)"),
+    ("g3_", "whole-solve rank-3 PCG (row 15g: residual / q / xr / r.z / p launches)"),
     ("pcgmm_", "mm_update elementwise + reductions"),
     ("convolve", "CNN convolutions (cuDNN)"),
     ("fprop", "CNN convolutions (cuDNN)"),

@@ -1,18 +1,22 @@
-"""What the JAX package's whole-solve rank-3 spectral PCG (row 15g,
-`pallas_krylov.fused_pcg3_solve`, not ported yet) changes against the
-per-iteration loop the port runs on volumes (`krylov.pcg`: the rank-3
-phases of row 10e and the 3-D spectral apply of row 16-3d, here their
-plain versions on the CPU), on the pressure systems of the 3-D decaying
-turbulence at 32^3 (bench.py workload_turb3d's setup: viscosity 1e-3,
-dt 0.4/n, pressure tol 1e-8, `fft_mm`, deflating) after a 20-step
-spin-up: the first corrector's system of the next step, warm (its guess
-the previous step's increment, resets every 50, early exit) and cold (the
-adjoint's form: no reset, no early exit, b = the system's rhs); and the
-same two solves on a system the preconditioner fits less well (random
-face influences, tol 1e-6), where the loops run longer. The JAX
-solve runs in interpret mode. Prints one JSON line per solve: iterations,
-exit residual (each package's own verification residual) and warn (a
-non-finite residual or one above 100 tol).
+"""What the whole-solve rank-3 spectral PCG (row 15g) changes against the
+per-iteration loop on volumes: the port's loop (`krylov.pcg`: the rank-3
+phases of row 10e and the 3-D spectral apply of row 16-3d, with
+`tiers.volume_whole_solve` held closed), the port's whole solve
+(`pcg3.fused_pcg3_solve`, which `krylov.pcg` takes for the adjoint form)
+and the JAX package's (`pallas_krylov.fused_pcg3_solve`, interpret mode),
+all on the CPU (the port's twins), on the pressure systems of the 3-D
+decaying turbulence at 32^3 (bench.py workload_turb3d's setup: viscosity
+1e-3, dt 0.4/n, pressure tol 1e-8, `fft_mm`, deflating) after a 20-step
+spin-up: the first corrector's system of the next step in the forward form
+(its guess the previous step's increment, resets every 50, early exit),
+cold in the adjoint form (no reset, no early exit) and warm in the adjoint
+form (the guess, as the warm-start channels deliver one); and the same
+three solves on a system the preconditioner fits less well (random face
+influences, tol 1e-6), where the loops run longer. Prints one JSON line
+per solve: iterations, exit residual (each solver's own verification
+residual) and warn (a non-finite residual or one above 100 tol), and the
+largest gap of each whole solve's solution from the loop's (means
+removed).
 
     python -m tests.measure_pcg3
 
@@ -29,8 +33,9 @@ from diffpiso_tpu.solvers import fourier as jfourier
 from diffpiso_tpu.solvers import pallas_krylov
 from diffpiso_tpu_torch.core.piso import piso_step
 from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
-from diffpiso_tpu_torch.solvers import krylov
+from diffpiso_tpu_torch.solvers import krylov, pcg3, tiers
 from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+from diffpiso_tpu_torch.solvers.spectral_apply3 import spectral3_operands
 
 N = 32
 P_TOL = 1e-8
@@ -89,23 +94,39 @@ def measure(label, lap, b, g1, tol):
     jsolver = jfourier.MatmulSpectralSolver(kinds=solver.kinds, shape=solver.shape)
     jw = tuple(jnp.float32(float(w)) for w in weights)
     bad_at = float(np.float32(100.0) * np.float32(tol))
-    for how, guess, early in (("warm", g1, True), ("cold", None, False)):
-        res = krylov.pcg(lap, b, guess, precond_mm=(solver, weights), tol=tol, max_iter=800,
-                         residual_reset=50 if early else 0, deflate_mean=True,
-                         precond_zero_mean=True, early_exit=early)
+    spec = spectral3_operands(solver, weights, torch.float32, "cpu")
+
+    def record(x, rn, k):
+        return dict(iterations=int(k), exit_residual=float(rn),
+                    warn=bool(not np.isfinite(rn) or rn > bad_at))
+
+    def centred(x):
+        x = np.asarray(x)
+        return x - x.mean()
+
+    real = tiers.volume_whole_solve
+    for how, guess, early in (("forward, warm", g1, True), ("adjoint, cold", None, False),
+                              ("adjoint, warm", g1, False)):
+        tiers.volume_whole_solve = lambda *a, **k: False
+        try:
+            res = krylov.pcg(lap, b, guess, precond_mm=(solver, weights), tol=tol, max_iter=800,
+                             residual_reset=50 if early else 0, deflate_mean=True,
+                             precond_zero_mean=True, early_exit=early)
+        finally:
+            tiers.volume_whole_solve = real
+        px, prn, pk = pcg3.fused_pcg3_solve(lap, b, guess, spec, tol, 800, deflate_mean=True,
+                                            early_exit=early)
         jx, jrn, jk = pallas_krylov.fused_pcg3_solve(
             jl, jnp.asarray(b.numpy()), None if guess is None else jnp.asarray(guess.numpy()),
             jsolver, jw, tol, 800, deflate_mean=True, early_exit=early)
-        jrn = float(jrn)
-        gap = float(np.abs((np.asarray(jx) - np.asarray(jx).mean())
-                           - (res.x.numpy() - res.x.numpy().mean())).max())
+        loop_x = centred(res.x.numpy())
         print(json.dumps(dict(
             system=f"{label}, {how}, tol {tol:g}",
-            port_loop=dict(iterations=int(res.iterations), exit_residual=res.residual_norm,
-                           warn=bool(res.warn)),
-            jax_pcg3=dict(iterations=int(jk), exit_residual=jrn,
-                          warn=bool(not np.isfinite(jrn) or jrn > bad_at)),
-            solution_max_gap=gap, scale=float(res.x.abs().max()))), flush=True)
+            port_loop=record(res.x, res.residual_norm, res.iterations),
+            port_pcg3=record(px, prn, pk), jax_pcg3=record(jx, float(jrn), jk),
+            port_pcg3_gap=float(np.abs(centred(px.numpy()) - loop_x).max()),
+            jax_pcg3_gap=float(np.abs(centred(jx) - loop_x).max()),
+            scale=float(res.x.abs().max()))), flush=True)
 
 
 if __name__ == "__main__":

@@ -1798,3 +1798,152 @@ def test_cuda_cavity3d_steps_match_the_cpu_plain_path(cuda_device):
             assert ci == pi
         for a, b in zip(cv, pv):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["periodic", "periodic, grid-stride"])
+def test_pcg3_launches_match_their_twins(case, cuda_device):
+    """Row 15g: each launch against its plain twin on dyadic x and p (exact
+    sums): the residual, q, xr and p volumes bit-equal given the same
+    scalars, the norms equal, p.q and r.z within rel 1.2e-6, the sums
+    within 1.2e-6 of their terms' magnitudes; one launch counted per call;
+    the same results through a solve's shared scratch (`Pcg3Work`)."""
+    from diffpiso_tpu_torch.solvers import pcg3, spectral_apply3
+
+    shape = RANK3_SHAPES[case]
+    lap = _lap3(cuda_device, shape, 3, False)
+    b = _rand(shape, 4).to(cuda_device)
+    x, p = _dyadic(shape, 5, cuda_device), _dyadic(shape, 6, cuda_device)
+    solver, weights = pbase.pressure_preconditioner("fft_mm", lap)
+    ops = spectral_apply3.spectral3_operands(solver, weights, torch.float32, cuda_device)
+    wrappers = (pcg3.pcg3_residual, pcg3.pcg3_q, pcg3.pcg3_xr, pcg3.pcg3_dots, pcg3.pcg3_p)
+    before = [w.launches for w in wrappers]
+
+    def scal(a, w, terms=None):
+        scale = float(w.abs()) if terms is None else float(terms.abs().sum())
+        assert float((a - w).abs()) <= 1.2e-6 * scale
+
+    r, rn = pcg3.pcg3_residual(lap, b, x)
+    pr, prn = pcg3.residual_plain(lap, b, x)
+    assert torch.equal(r, pr) and float(rn) == float(prn)
+    sp = torch.sum(p)
+    q, pq = pcg3.pcg3_q(lap, p, sp)
+    wq, wpq = pcg3.q_plain(lap, p, sp)
+    assert torch.equal(q, wq)
+    scal(pq, wpq)
+    rz, sr = torch.sum(r * p), torch.sum(r)
+    got = pcg3.pcg3_xr(x, r, p, wq, rz, wpq, sr, 1.0, float(b.numel()))
+    want = pcg3.xr_plain(x, r, p, wq, rz, wpq, sr, 1.0, float(b.numel()))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[2]) == float(want[2])
+    scal(got[3], want[3], want[1])
+    z = spectral_apply3.fused_spectral_apply_3d(ops, want[1])
+    d0, w0 = pcg3.pcg3_dots(want[1], z, start=True), pcg3.dots_plain(want[1], z, True)
+    scal(d0[0], w0[0])
+    scal(d0[1], w0[1], z)
+    scal(d0[2], w0[2], want[1])
+    scal(pcg3.pcg3_dots(want[1], z), w0[0])
+    pn, spn = pcg3.pcg3_p(z, p, w0[0], rz)
+    wpn, wspn = pcg3.p_plain(z, p, w0[0], rz)
+    assert torch.equal(pn, wpn)
+    scal(spn, wspn, wpn)
+    assert [w.launches for w in wrappers] == [n + k for n, k in zip(before, (1, 1, 1, 2, 1))]
+    # a solve's shared scratch: the same results; after a flip, the previous
+    # iteration's r.z survives this one's
+    work = pcg3.Pcg3Work("test", lap, b)
+    r2, rn2 = pcg3.pcg3_residual(lap, b, x, work)
+    q2, pq2 = pcg3.pcg3_q(lap, p, sp, work)
+    assert torch.equal(r2, r) and torch.equal(q2, q) and float(pq2) == float(pq)
+    assert float(rn2) == float(rn)
+    rz_a = pcg3.pcg3_dots(want[1], z, False, work)
+    work.flip()
+    rz_b = pcg3.pcg3_dots(r, p, False, work)
+    assert float(rz_a) == float(pcg3.pcg3_dots(want[1], z))
+    assert float(rz_b) == float(pcg3.pcg3_dots(r, p))
+    with pytest.raises(ValueError):
+        pcg3.pcg3_q(lap, p.double(), sp.double())
+
+
+@pytest.mark.parametrize("start", ["cold", "zeros", "warm"])
+def test_pcg3_solve_kernels_match_the_twins_on_the_card(start, cuda_device):
+    """The whole solve of row 15g in the adjoint form (through `krylov.pcg`),
+    the kernels against the twins on the card: equal iterations, x within
+    rel 1e-4, the exit residuals on the same side of tol."""
+    from diffpiso_tpu_torch.solvers import pcg3, pcgphases
+
+    shape = (32, 32, 32)
+    lap = _lap3(cuda_device, shape, 9, False)
+    rng = np.random.RandomState(10)
+    sol = t(0.05 * rng.randn(*shape)).to(cuda_device)
+    b = pcgphases.lap_matvec(lap, sol - sol.mean())
+    b = b - b.mean() + 0.3 * b.abs().max()
+    x0 = {"cold": None, "zeros": torch.zeros_like(b), "warm": 0.9 * sol}[start]
+    pre = pbase.pressure_preconditioner("fft_mm", lap)
+
+    def solve():
+        return krylov.pcg(lap, b, x0, precond_mm=pre, tol=1e-4, max_iter=200, residual_reset=0,
+                          deflate_mean=True, precond_zero_mean=True, early_exit=False)
+
+    loops = pcg3.fused_pcg3_solve.loops
+    got = solve()
+    assert pcg3.fused_pcg3_solve.loops == loops + 1
+    from diffpiso_tpu_torch.solvers.fourier import spectral_apply3_plain
+    from diffpiso_tpu_torch.solvers.spectral_apply3 import Spectral3
+
+    solver, weights = pre
+    plain_ops = Spectral3(solver.mats(torch.float32, cuda_device), None, None, None,
+                          safe_symbol(solver, weights, torch.float32, cuda_device))
+    names = ("pcg3_residual", "pcg3_q", "pcg3_xr", "fused_spectral_apply_3d", "pcg3_dots",
+             "pcg3_p", "fused_residual3")
+    def twin(fn):  # the twin in a wrapper's place: the solve's scratch unused
+        return lambda *a, work=None: fn(*a)
+
+    twins = (twin(pcg3.residual_plain), twin(pcg3.q_plain), twin(pcg3.xr_plain),
+             lambda o, v: spectral_apply3_plain(plain_ops.mats, plain_ops.sym, v),
+             lambda r_, z_, start=False, work=None: pcg3.dots_plain(r_, z_, start),
+             twin(pcg3.p_plain), pcgphases.residual_plain)
+    saved = [getattr(pcg3, nm) for nm in names]
+    for nm, fn in zip(names, twins):
+        setattr(pcg3, nm, fn)
+    try:
+        want = solve()
+    finally:
+        for nm, fn in zip(names, saved):
+            setattr(pcg3, nm, fn)
+    assert got.iterations == want.iterations > 0
+    assert not got.warn and (got.residual_norm < 1e-4) == (want.residual_norm < 1e-4)
+    assert float((got.x - want.x).abs().max()) <= 1e-4 * float(want.x.abs().max())
+
+
+def test_cuda_turb3d_gradient_with_channels_matches_the_cpu_plain_path(cuda_device):
+    """16^3 3-D turbulence, the 3-step rollout gradient with the adjoint
+    warm-start channels (every pressure adjoint a warm whole solve of row
+    15g) on the card against the CPU plain path: equal pressure adjoint
+    iterations, warn 0, gradient rel l2 <= 1e-3."""
+    from diffpiso_tpu_torch.solvers import pcg3
+
+    n = 16
+    rng = np.random.RandomState(7)
+    comps = [(0.5 * rng.randn(n, n, n)).astype(np.float32) for _ in range(3)]
+    out = {}
+    for d in (cuda_device, torch.device("cpu")):
+        domain, sim = decaying_turbulence_setup((n,) * 3, viscosity=1e-3, device=d)
+
+        def step(v, p, g1, g2, f, adjoint_channels=None, domain=domain, sim=sim):
+            return piso_step(v, p, 0.4 / n, domain, sim, forcing_term=f, pressure_inc1_guess=g1,
+                             pressure_inc2_guess=g2, advection_tol=1e-6, pressure_tol=1e-8,
+                             adjoint_channels=adjoint_channels)
+
+        per = (True,) * 3
+        vel = StaggeredField(tuple(t(c).to(d) for c in comps), periodic=per)
+        f = StaggeredField(tuple(torch.zeros((n,) * 3, device=d) for _ in range(3)), per)
+        warm = pcg3.fused_pcg3_solve.warm_entries
+        res = rollout_loss_grad(step, vel, domain.centered_grid(0.0, device=d), f, 3,
+                                remat="none", adjoint_channels=True)
+        assert res.warns == 0 and pcg3.fused_pcg3_solve.warm_entries == warm + 6
+        out[d.type] = ([c.cpu().double() for c in res.grad.components],
+                       [a.iterations for a in res.adjoints if a.system == "pressure"])
+    (cg, ci), (pg, pi) = out["cuda"], out["cpu"]
+    assert ci == pi
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(cg, pg))
+    den = sum(float(torch.sum(b ** 2)) for b in pg)
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3

@@ -18,7 +18,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import pkgutil, sys, importlib, diffpiso_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'diffpiso_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, chip_ab, profile_torch_step\n"
+        "import chip_smoke, chip_ab, chip_pcg3_adjoints, profile_torch_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'diffpiso_tpu' or m.startswith('diffpiso_tpu.')]\n"
         "assert not bad, bad\n"
@@ -33,7 +33,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-              ROOT / "profile_torch_step.py"]))
+              ROOT / "chip_pcg3_adjoints.py", ROOT / "profile_torch_step.py"]))
 def test_source_names_no_jax_and_no_reference_package(path):
     src = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path

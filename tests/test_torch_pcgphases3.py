@@ -176,8 +176,10 @@ def _jax_pcg(jl, rhs, x0, residual_reset, early_exit):
 @pytest.mark.parametrize("case", ["warm", "cold", "reset"])
 def test_pcg_loop_matches_jax_pcg_with_the_rank3_phases(case, monkeypatch):
     """The 3-D turbulence's pressure solve (`fft_mm`, deflating): warm (the
-    forward, resets every 50), cold (the adjoint: no reset, no early exit)
-    and resets every 3 iterations; equal iterations, resets and loops."""
+    forward, resets every 50), cold (the adjoint: no reset, no early exit;
+    the port takes the whole solve of row 15g there, `tiers.
+    volume_whole_solve`, held against the JAX package's loop) and resets
+    every 3 iterations; equal iterations, resets and loops."""
     _interpret(monkeypatch)
     monkeypatch.setattr(pallas_krylov, "eligible3", lambda *a, **k: True)
     shape = SHAPES[1]
