@@ -400,6 +400,21 @@ Phases, each fatal on failure:
      is equal (both decision lists printed otherwise). Phases 12c and 14c
      run every pressure adjoint as a cold whole solve of row 15g; rows 10e,
      10c and 16-3d keep the forward solves and the exit check.
+  20. the per-shard solvers (rows 18a-18d, parallel/kernels.py) on the
+     one-card (1,1) mesh with forced slivers (the JAX package's
+     DIFFPISO_SHARD_FORCE_SLIVERS=1 proxy of the multi-device program):
+     (a) each kernel against its plain twin on a 512^2 step's operators
+     from phase 4's state (18a-18c bit-equal volumes, 18d's update within
+     a stated relative limit from the warm guess and from a cold start),
+     host ms, device us, bound, twin ms; (e) 64^2 card vs CPU, 3 steps and
+     the 3-step gradient (adjoint="auto"), every solve's trips and
+     iterations equal (or a named exception within rounding of tol); (b)
+     200 forward steps from phase 4's state: rows 18a-18c at the counts
+     the sharded solvers' counters derive, 18d and rows 1-17 at 0, warn 0,
+     the velocity within rel 1e-3 of the single-device path's; (c) grad30
+     under adjoint="auto" within rel l2 5e-3 of the single-device grad30,
+     transposed 18a calls > 0; (d) 20 steps with the whole tier forced, 18d
+     once per tier trip. Every earlier path launches none of 18a-18d.
 Then one {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -455,7 +470,7 @@ def rel_err(a, b) -> float:
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
                "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
-               "sres_", "advm_", "corrbwd_", "p3_", "g3_")
+               "sres_", "advm_", "corrbwd_", "p3_", "g3_", "shm_", "shp_", "shw_")
 
 
 def device_time(fn, reps: int = 20) -> dict:
@@ -6707,6 +6722,12 @@ KERNEL_WRAPPERS = (
     ("pcg3_xr", "solvers.pcg3", "pcg3_xr", 0),
     ("pcg3_dots", "solvers.pcg3", "pcg3_dots", 0),
     ("pcg3_p", "solvers.pcg3", "pcg3_p", 0),
+    # the per-shard solvers (rows 18a-18d): only solves inside
+    # parallel.sharded_solvers take them (phase 20)
+    ("shard_momentum", "parallel.kernels", "momentum_trip", 0),
+    ("shard_pcg_matvec", "parallel.kernels", "pcg_matvec", 0),
+    ("shard_pcg_update", "parallel.kernels", "pcg_update", 0),
+    ("shard_pressure_whole", "parallel.kernels", "pressure_whole", 0),
 )
 
 
@@ -6779,6 +6800,516 @@ def channels_2d_path(dev, wrappers: dict, domain, sim, dt, v, p) -> dict:
         fail(f"19d: with vs without the adjoint channels rel l2 {g_rel:.3e} > 1e-3 at equal "
              "gate decisions")
     return runs[True]["launches"]
+
+
+# -- phase 20: the per-shard solvers (rows 18a-18d) on the one-card sliver mesh ----------
+# The JAX package's forced-sliver (1,1) mesh (`DIFFPISO_SHARD_FORCE_SLIVERS=1`):
+# the multi-device program (halo slivers, outer trips, cut blocks) on one
+# card, every exchange the block's own edge planes, every sum local.
+
+# the four wrappers of parallel/kernels.py, by their KERNEL_WRAPPERS names
+SHARD_KERNELS = ("shard_momentum", "shard_pcg_matvec", "shard_pcg_update",
+                 "shard_pressure_whole")
+SH_WARMUP = 5
+SH_STEPS = 200  # 20b
+SH_UNROLL = 30  # 20c
+SH_GRAD_REPS = 1  # timed grad30 evaluations after an untimed one
+SH_WHOLE_STEPS = 20  # 20d
+SH_SMALL = 64  # 20e
+SH_SMALL_STEPS = 3
+SH_SMALL_TOL = 1e-6  # 20e pressure tol: its adjoints at 1e-7 end near the float32 floor
+# 20e: a decision within rounding of tol: at the trip or iteration where one
+# device stopped, both devices' norms lie within this band around tol
+SH_ROUNDING_BAND = 0.1
+# 20a row 18d against its twin: local iterations equal, n0 exact, and the
+# update x' - x within these relative limits (the GEMM sums in its own k
+# order), from the warm guess and from a cold start at tol SH_WHOLE_COLD_TOL
+# of max|b - mean b|. The limits are about 4x the readings on an H100 80GB
+# HBM3 at 700 W (2.23e-5 warm, where one ulp of x' is a large share of the
+# small update; 5.07e-6 cold, 5 local iterations)
+SH_WHOLE_COLD_TOL = 1e-4
+SH_WHOLE_WARM_REL = 1e-4
+SH_WHOLE_COLD_REL = 2e-5
+
+
+def shard_ctx(**kw):
+    """sharded_solvers on the one-card (1,1) mesh with forced slivers."""
+    from diffpiso_tpu_torch.parallel import make_mesh, sharded_solvers
+
+    return sharded_solvers(make_mesh((1, 1)), ("y", "x"), force_slivers=True, **kw)
+
+
+def shard_counters() -> dict:
+    """The sharded solvers' own counters, from which rows 18a-18d's launches
+    follow."""
+    from diffpiso_tpu_torch.parallel import kernels as K
+    from diffpiso_tpu_torch.parallel import shard_kernels as sk
+    from diffpiso_tpu_torch.solvers import base
+
+    p = sk.sharded_pressure_pcg
+    return dict(trips=sk.sharded_momentum_solve.trips, p_iterations=p.iterations,
+                p_matvecs=p.matvecs,
+                whole_trips=sk._whole_tier.trips, whole_local=sk._whole_tier.local_iterations,
+                fallbacks=base._sharded_adv_solve.fallbacks, transposed=K.momentum_trip.transposed)
+
+
+def shard_derived(c0: dict, c1: dict) -> tuple:
+    """(launches the loops derive, counter deltas): 18a one per trip and
+    component, 18b one per phase iteration and per entry or verification
+    matvec, 18c one per phase iteration, 18d one per whole-tier trip."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    return ({"shard_momentum": d["trips"], "shard_pcg_matvec": d["p_iterations"] + d["p_matvecs"],
+             "shard_pcg_update": d["p_iterations"], "shard_pressure_whole": d["whole_trips"]}, d)
+
+
+def shard_check_counts(label: str, counts: dict, derived: dict) -> None:
+    """Rows 18a-18d at their derived counts, every other kernel at 0."""
+    for k, n in counts.items():
+        want = derived.get(k, 0)
+        if n != want:
+            fail(f"{label}: {k} launched {n} times, expected {want}")
+
+
+def shard_kernels_check(dev, kernels: list) -> None:
+    """Phase 20a: rows 18a-18d on the card against their plain twins on the
+    same inputs, on the operators of a 512^2 step from phase 4's state,
+    inside the forced-sliver (1,1) context (the slivers the block's own
+    edge planes): 18a (a trip from the step's guess, k = 4, forward and
+    transposed, both components: x' bit-equal, n0 exact, equal sweeps), 18b
+    and 18c (on the step's first pressure system, p = M^-1 r: q, x', r'
+    bit-equal, max|r'| exact, the sums within rel 1e-5 of the sum of
+    magnitudes), 18d (one whole-tier trip from the warm guess and one from
+    x = 0: equal local iterations, n0 exact, the update x' - x within
+    SH_WHOLE_WARM_REL / SH_WHOLE_COLD_REL of the twin's, relative to its
+    largest magnitude: the GEMM sums in its own k order). Host ms a call,
+    device us a launch, the bound and the plain twins' ms; no PyTorch call
+    computes any of these functions (library_ms null). Appends the four
+    entries to `kernels`."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.parallel import halo
+    from diffpiso_tpu_torch.parallel import kernels as K
+    from diffpiso_tpu_torch.parallel import shard_kernels as sk
+    from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
+
+    domain, sim = STATES["turbulence_setup"]
+    v, p, g1, g2 = STATES["turbulence"]
+    it = turbulence_step_fn(domain, sim, 0.4 / N)(v, p, g1, g2, full_output=True).intermediates
+    cells = N * N
+    plane = 4 * cells
+    with shard_ctx() as ctx:
+        active, sharded = sk._active_axes(ctx)
+        st, b_c, x_c = it["stencil"], it["rhs"].components, v.components
+        err_a, sweeps = 0.0, {}
+        for c in range(2):
+            planes = tuple(a.contiguous() for a in (st.center[c], st.lo[c][0], st.hi[c][0],
+                                                    st.lo[c][1], st.hi[c][1]))
+            b, x = b_c[c].contiguous(), x_c[c].contiguous()
+            for tr in (False, True):
+                slv = sk.sliver_values(ctx, x, planes, active, tr)
+                got = K.momentum_trip(planes, b, x, slv, -1.0, ADV_TOL, tr, sharded, 4)
+                want = K.momentum_trip_plain(planes, b, x, slv, -1.0, ADV_TOL, tr, sharded, 4)
+                err_a = max(err_a, float((got[0] - want[0]).abs().max()))
+                sweeps[f"c{c}_T{int(tr)}"] = want[2]
+                if not (torch.equal(got[0], want[0]) and float(got[1]) == float(want[1])
+                        and int(got[2]) == want[2]):
+                    fail(f"20a row 18a component {c} transpose={tr}: x', n0 or sweeps not "
+                         f"equal to the twin ({float(got[1])!r} vs {float(want[1])!r}, "
+                         f"{int(got[2])} vs {want[2]} sweeps)")
+        planes0 = tuple(a.contiguous() for a in (st.center[0], st.lo[0][0], st.hi[0][0],
+                                                 st.lo[0][1], st.hi[0][1]))
+        b0, x0 = b_c[0].contiguous(), x_c[0].contiguous()
+        s_f = sk.sliver_values(ctx, x0, planes0, active, False)
+        s_t = sk.sliver_values(ctx, x0, planes0, active, True)
+        print(f"20a {N}^2 row 18a (momentum trip, k = 4) both forms, both components: bit-equal "
+              f"to the twin, sweeps {sweeps}", flush=True)
+
+        lap, rhs = it["laplacian"], it["v1_div"].contiguous()
+        planes_p = tuple(a.contiguous() for a in (lap.center, lap.lo[0], lap.hi[0], lap.lo[1],
+                                                  lap.hi[1]))
+        shift = lap.shift.to(torch.float32).reshape(())
+        mm, w = pressure_preconditioner("fft_mm", lap)
+        mats, eigs = halo.spectral_constants(mm.kinds, (N, N), torch.float32, dev)
+        pc = (*halo.precond_blocks(mats, eigs, ctx.mesh, ("y", "x")),
+              *(t.reshape(()) for t in w))
+        r = rhs - rhs.mean()
+        z = halo.local_spectral_precond(r, *pc, "y", "x", ctx.mesh)
+        slv_p = sk.sliver_values(ctx, z, planes_p, active, False)
+        q, pq, sp = K.pcg_matvec(planes_p, z, slv_p, sharded)
+        qw, pqw, spw = K.pcg_matvec_plain(planes_p, z, slv_p, sharded)
+        err_b = float((q - qw).abs().max())
+        sums_b = (abs(float(pq) - float(pqw)) / float((z * qw).abs().sum()),
+                  abs(float(sp) - float(spw)) / float(z.abs().sum()))
+        if not (torch.equal(q, qw) and max(sums_b) <= 1e-5):
+            fail(f"20a row 18b: q not bit-equal or sums off (rel {sums_b})")
+        pq_t = pqw + shift * spw * spw
+        alpha = torch.where(pq_t.abs() > 1e-30, torch.sum(r * z) / pq_t, 0.0)
+        cs = alpha * shift * spw
+        cbar = torch.sum(r) / cells
+        x_p = g1.contiguous()
+        got = K.pcg_update(x_p, r, z, qw, alpha, cs, cbar)
+        want = K.pcg_update_plain(x_p, r, z, qw, alpha, cs, cbar)
+        err_c = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        sum_c = abs(float(got[3]) - float(want[3])) / float(want[1].abs().sum())
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and float(got[2]) == float(want[2]) and sum_c <= 1e-5):
+            fail(f"20a row 18c: x' / r' not bit-equal, max|r'| not exact or sum r' off "
+                 f"(rel {sum_c:.3e})")
+        print(f"20a {N}^2 rows 18b, 18c on the first pressure system: q, x', r' bit-equal, "
+              f"sums rel {sums_b[0]:.2e} / {sums_b[1]:.2e} / {sum_c:.2e}", flush=True)
+
+        vb = []
+        for d in range(2):
+            Vs, Es = sk.local_basis(mm.kinds[d], N, 1, True)
+            vb.append((torch.as_tensor(Vs[0], dtype=torch.float32, device=dev),
+                       torch.as_tensor(Es[0], dtype=torch.float32, device=dev)))
+        (v0, e0), (v1, e1) = vb
+        sym = pc[6] * e0[:, None] + pc[7] * e1[None, :]
+        sym = torch.where(sym.abs() < 1e-12, torch.inf, sym).contiguous()
+        v0t, v1t = v0.t().contiguous(), v1.t().contiguous()
+        S0 = x_p.sum()
+        tol32 = np.float32(P_TOL)
+        sc = torch.stack([shift, S0, torch.tensor(tol32, device=dev),
+                          torch.tensor(np.float32(0.1) * tol32, device=dev),
+                          rhs.mean() - shift * S0]).to(torch.float32)
+        slv_x = sk.sliver_values(ctx, x_p, planes_p, active, False)
+        max_it = sim.pressure_solver.max_iterations
+        gd = K.pressure_whole(planes_p, rhs, x_p, slv_x, v0, v0t, v1, v1t, sym, sc, sharded,
+                              False, max_it)
+        wd = K.pressure_whole_plain(planes_p, rhs, x_p, slv_x, v0, v1, sym, sc, sharded, False,
+                                    max_it)
+        err_d = float((gd[0] - wd[0]).abs().max())
+        # the warm trip moves x by little: hold the update x' - x
+        rel_d = err_d / float((wd[0] - x_p).abs().max())
+        # a cold trip (x = 0, tol 1e-4 of max|b - mean b|), where x' is all update
+        x_c0 = torch.zeros_like(x_p)
+        tol_c = np.float32(SH_WHOLE_COLD_TOL * float((rhs - rhs.mean()).abs().max()))
+        sc_c = torch.stack([shift, torch.zeros((), device=dev), torch.tensor(tol_c, device=dev),
+                            torch.tensor(np.float32(0.1) * tol_c, device=dev),
+                            rhs.mean()]).to(torch.float32)
+        slv_c = sk.sliver_values(ctx, x_c0, planes_p, active, False)
+        gc = K.pressure_whole(planes_p, rhs, x_c0, slv_c, v0, v0t, v1, v1t, sym, sc_c, sharded,
+                              False, max_it)
+        wc = K.pressure_whole_plain(planes_p, rhs, x_c0, slv_c, v0, v1, sym, sc_c, sharded,
+                                    False, max_it)
+        rel_c = float((gc[0] - wc[0]).abs().max()) / float(wc[0].abs().max())
+        print(f"20a {N}^2 row 18d (whole-tier trip) from the warm guess: local iterations card "
+              f"{gd[3]} / twin {wd[3]}, n0 {float(gd[1])!r} / {float(wd[1])!r}, x' max abs "
+              f"diff {err_d:.3e}, rel to max|x' - x| {rel_d:.3e}; cold: local iterations card "
+              f"{gc[3]} / twin {wc[3]}, n0 {float(gc[1])!r} / {float(wc[1])!r}, x' rel "
+              f"{rel_c:.3e}", flush=True)
+        if not (gd[3] == wd[3] and float(gd[1]) == float(wd[1]) and rel_d <= SH_WHOLE_WARM_REL
+                and gc[3] == wc[3] > 1 and float(gc[1]) == float(wc[1])
+                and rel_c <= SH_WHOLE_COLD_REL):
+            fail("20a row 18d: the trip disagrees with its twin beyond rounding")
+
+        # 18a: 7 planes in (5 coefficients, b, x), x' out, the slivers; per
+        # cell 11 flops the measure, 15 a sweep (iv, x' update, the delta's
+        # stencil, r update, |.| max)
+        k_a = sweeps["c0_T0"]
+        b_a = bound(8 * plane + 4 * 2 * (N + N), cells * (11 + 15 * k_a))
+
+        def trip():
+            return K.momentum_trip(planes0, b0, x0, s_f, -1.0, ADV_TOL, False, sharded, 4)
+
+        def trip_t():
+            return K.momentum_trip(planes0, b0, x0, s_t, -1.0, ADV_TOL, True, sharded, 4)
+
+        kernels.append(dict(
+            name="shard_momentum", route="cuda",
+            source="diffpiso_tpu_torch/csrc/shard_momentum.cu",
+            replaces="diffpiso_tpu/parallel/shard_kernels.py:388", max_abs_err=err_a,
+            launches_count="calls (one per trip and component: the measure and k = 4 sweep "
+                           "launches each)",
+            shape=[N, N], sweeps=k_a, ms=cuda_time_ms(trip, 50), **device_time(trip, 10),
+            plain_ms=cuda_time_ms(lambda: K.momentum_trip_plain(
+                planes0, b0, x0, s_f, -1.0, ADV_TOL, False, sharded, 4), 10),
+            bound_ms=b_a[0], bound_by=b_a[1], library_ms=None,
+            transposed=dict(ms=cuda_time_ms(trip_t, 50), **device_time(trip_t, 10),
+                            sweeps=sweeps["c0_T1"])))
+        # 18b: 6 planes in, q out; 12 flops a cell (stencil 9, p q, 2 sums)
+        b_b = bound(7 * plane + 4 * 2 * (N + N), 12 * cells)
+        kernels.append(dict(
+            name="shard_pcg_matvec", route="cuda", source="diffpiso_tpu_torch/csrc/shard_pcg.cu",
+            replaces="diffpiso_tpu/parallel/shard_kernels.py:577", max_abs_err=err_b,
+            launches_count="calls (one per phase iteration and per entry or verification "
+                           "matvec)",
+            shape=[N, N], ms=cuda_time_ms(lambda: K.pcg_matvec(planes_p, z, slv_p, sharded), 200),
+            **device_time(lambda: K.pcg_matvec(planes_p, z, slv_p, sharded)),
+            plain_ms=cuda_time_ms(lambda: K.pcg_matvec_plain(planes_p, z, slv_p, sharded), 50),
+            bound_ms=b_b[0], bound_by=b_b[1], library_ms=None))
+        # 18c: x, r, p, q in; x', r' out; 9 flops a cell
+        b_c_ = bound(6 * plane, 9 * cells)
+
+        def upd():
+            return K.pcg_update(x_p, r, z, qw, alpha, cs, cbar)
+
+        kernels.append(dict(
+            name="shard_pcg_update", route="cuda", source="diffpiso_tpu_torch/csrc/shard_pcg.cu",
+            replaces="diffpiso_tpu/parallel/shard_kernels.py:599", max_abs_err=err_c,
+            launches_count="calls (one per phase iteration)", shape=[N, N],
+            ms=cuda_time_ms(upd, 200), **device_time(upd),
+            plain_ms=cuda_time_ms(lambda: K.pcg_update_plain(x_p, r, z, qw, alpha, cs, cbar), 50),
+            bound_ms=b_c_[0], bound_by=b_c_[1], library_ms=None))
+        # 18d: 7 planes in, x' out, the bases and the symbol; per local
+        # iteration the four contractions 2 x 2 (m0^2 m1 + m0 m1^2) flops and
+        # ~30 flops a cell of stencil, dots and updates
+        k_d = gd[3]
+        b_d = bound(8 * plane + 4 * (2 * N * N + cells),
+                    k_d * (4 * N * N * N * 2 + 30 * cells) + 12 * cells)
+
+        def whole():
+            return K.pressure_whole(planes_p, rhs, x_p, slv_x, v0, v0t, v1, v1t, sym, sc, sharded,
+                                    False, max_it)
+
+        kernels.append(dict(
+            name="shard_pressure_whole", route="cuda",
+            source="diffpiso_tpu_torch/csrc/shard_whole.cu",
+            replaces="diffpiso_tpu/parallel/shard_kernels.py:807", max_abs_err=err_d,
+            max_rel_err=rel_d, cold_rel_err=rel_c, cold_local_iterations=gc[3],
+            launches_count="calls (one per whole-tier trip)", shape=[N, N],
+            local_iterations=k_d, ms=cuda_time_ms(whole, 5, warmup=1),
+            **device_time(whole, 3),
+            plain_ms=cuda_time_ms(lambda: K.pressure_whole_plain(
+                planes_p, rhs, x_p, slv_x, v0, v1, sym, sc, sharded, False, max_it), 2,
+                warmup=1),
+            bound_ms=b_d[0], bound_by=b_d[1], library_ms=None))
+
+
+def shard_run(step, state, n, ctx=None):
+    """n steps from `state` = (v, p, g1, g2), inside `ctx` (a context
+    manager; None: the single-device path). Returns (state, pressure
+    iterations summed per corrector, warns)."""
+    v, p, g1, g2 = state
+    its, warns = [0, 0], 0
+    with ctx if ctx is not None else contextlib.nullcontext():
+        for _ in range(n):
+            o = step(v, p, g1, g2)
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+            its[0] += o.p_iterations[0]
+            its[1] += o.p_iterations[1]
+            warns += int(o.warn)
+    return (v, p, g1, g2), its, warns
+
+
+def shard_forward_path(dev, wrappers: dict) -> dict:
+    """Phase 20b: the 512^2 turbulence (phase 4's configuration) from phase
+    4's final state on the forced-sliver (1,1) mesh: SH_WARMUP steps, then
+    SH_STEPS timed with every counter reset before them (rows 18a-18c at
+    the counts the sharded solvers' counters derive, 18d and rows 1-17 at
+    0, warn 0); steps/s, pressure iterations and momentum trips a step,
+    BiCGSTAB fallbacks; then the same SH_STEPS on the single-device path
+    from the same state, the velocities within rel 1e-3. Returns the
+    launches."""
+    import torch
+
+    domain, sim = STATES["turbulence_setup"]
+    step = turbulence_step_fn(domain, sim, 0.4 / N)
+    state, _, _ = shard_run(step, STATES["turbulence"], SH_WARMUP, shard_ctx())
+    for fn in wrappers.values():
+        fn.launches = 0
+    c0 = shard_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end, its, warns = shard_run(step, state, SH_STEPS, shard_ctx())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    derived, d = shard_derived(c0, shard_counters())
+    ref, _, ref_warns = shard_run(step, state, SH_STEPS)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(end[0].components, ref[0].components))
+    print(json.dumps(dict(
+        workload=f"20b decaying turbulence {N}^2, sharded solvers on the (1,1) mesh with forced "
+                 "slivers, forward",
+        steps=SH_STEPS, steps_per_sec=SH_STEPS / elapsed,
+        pressure_iters_per_step=[its[0] / SH_STEPS, its[1] / SH_STEPS],
+        momentum_trips_per_step=d["trips"] / SH_STEPS, bicgstab_fallbacks=d["fallbacks"],
+        warn_fraction=warns / SH_STEPS, velocity_rel_vs_single_device=rel,
+        single_device_warns=ref_warns, launches=counts)), flush=True)
+    if warns:
+        fail(f"20b: {warns} steps warned")
+    shard_check_counts("20b", counts, derived)
+    if not all(counts[k] > 0 for k in SHARD_KERNELS[:3]):
+        fail("20b: a row of 18a-18c never launched on the sliver path")
+    if not rel <= 1e-3:
+        fail(f"20b: velocity after {SH_STEPS} steps rel {rel:.3e} from the single-device path "
+             "(> 1e-3)")
+    STATES["sharded"] = end
+    return counts
+
+
+def shard_grad_path(dev, wrappers: dict) -> dict:
+    """Phase 20c: grad30 (remat "outputs", d sum v^2 / d forcing) from 20b's
+    final state under adjoint="auto" (every transposed momentum solve and
+    pressure adjoint on the shards): 1 untimed and SH_GRAD_REPS timed
+    evaluations with the counters checked per evaluation (rows 18a-18c as
+    derived, 18a's transposed calls > 0, every other row 0), warn 0;
+    unrolled steps/s, the gated adjoints, and the gradient against the
+    single-device grad30 from the same state (rel l2 <= 5e-3, the JAX
+    package's own bound for sharded against unsharded). Returns the
+    launches of one evaluation."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    domain, sim = STATES["turbulence_setup"]
+    step = turbulence_step_fn(domain, sim, 0.4 / N)
+    v, p, _, _ = STATES["sharded"]
+    forcing = StaggeredField(tuple(torch.zeros(N, N, device=dev) for _ in range(2)),
+                             periodic=(True, True))
+    U = SH_UNROLL
+    secs = []
+    for rep in range(1 + SH_GRAD_REPS):
+        for fn in wrappers.values():
+            fn.launches = 0
+        c0 = shard_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with shard_ctx(adjoint="auto"):
+            res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        derived, d = shard_derived(c0, shard_counters())
+        if res.warns:
+            fail(f"20c grad{U}: {res.warns} steps warned")
+        shard_check_counts(f"20c grad{U}", counts, derived)
+        if not d["transposed"] > 0:
+            fail(f"20c grad{U}: no transposed momentum trip ran on the shards")
+    ref = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
+    g_rel = rel_l2_list(res.grad.components, ref.grad.components)
+    dec = [(a.system, bool(a.gated)) for a in res.adjoints]
+    dec_ref = [(a.system, bool(a.gated)) for a in ref.adjoints]
+    print(json.dumps(dict(
+        workload=f"20c decaying turbulence {N}^2, grad{U} (remat outputs), sharded solvers on the "
+                 "(1,1) mesh with forced slivers, adjoint auto",
+        evaluations=SH_GRAD_REPS, unrolled_steps_per_sec=U * SH_GRAD_REPS / sum(secs[1:]),
+        pressure_iters_per_step=[sum(i[k] for i in res.p_iterations) / U for k in (0, 1)],
+        momentum_trips_per_eval=d["trips"], transposed_momentum_calls=d["transposed"],
+        bicgstab_fallbacks=d["fallbacks"],
+        adjoint_gated=[sum(a.gated for a in res.adjoints if a.system == s)
+                       for s in ("momentum", "pressure")],
+        single_device_adjoint_gated=[sum(a.gated for a in ref.adjoints if a.system == s)
+                                     for s in ("momentum", "pressure")],
+        same_gate_decisions=dec == dec_ref, grad_rel_l2_vs_single_device=g_rel,
+        launches=counts)), flush=True)
+    if not g_rel <= 5e-3:
+        fail(f"20c: grad{U} rel l2 {g_rel:.3e} from the single-device grad{U} (> 5e-3); "
+             f"decisions {dec} vs {dec_ref}")
+    return counts
+
+
+def shard_whole_path(dev, wrappers: dict) -> dict:
+    """Phase 20d: the whole-solve tier forced (whole_tier="always"),
+    SH_WHOLE_STEPS steps from 20b's final state: 18d once per tier trip,
+    18a-18c as derived (the fall-through to the phase PCG), rows 1-17 at 0,
+    warn 0; 18d's calls, local iterations, and the pressure iterations a
+    step (local iterations plus the phase PCG's). Returns the launches."""
+    import torch
+
+    domain, sim = STATES["turbulence_setup"]
+    step = turbulence_step_fn(domain, sim, 0.4 / N)
+    for fn in wrappers.values():
+        fn.launches = 0
+    c0 = shard_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, its, warns = shard_run(step, STATES["sharded"], SH_WHOLE_STEPS,
+                              shard_ctx(whole_tier="always"))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    derived, d = shard_derived(c0, shard_counters())
+    print(json.dumps(dict(
+        workload=f"20d decaying turbulence {N}^2, whole-solve tier forced (always), (1,1) mesh "
+                 "with forced slivers",
+        steps=SH_WHOLE_STEPS, steps_per_sec=SH_WHOLE_STEPS / elapsed,
+        pressure_iters_per_step=[its[0] / SH_WHOLE_STEPS, its[1] / SH_WHOLE_STEPS],
+        whole_tier_trips=d["whole_trips"], local_iterations=d["whole_local"],
+        local_iterations_per_trip=d["whole_local"] / max(1, d["whole_trips"]),
+        phase_iterations=d["p_iterations"], warn_fraction=warns / SH_WHOLE_STEPS,
+        launches=counts)), flush=True)
+    if warns:
+        fail(f"20d: {warns} steps warned")
+    shard_check_counts("20d", counts, derived)
+    if not counts["shard_pressure_whole"] > 0:
+        fail("20d: row 18d never launched")
+    return counts
+
+
+def shard_small_check(dev) -> None:
+    """Phase 20e: 64^2 turbulence, SH_SMALL_STEPS steps and the 3-step
+    rollout gradient (adjoint="auto") in the forced-sliver context on the
+    card and on the CPU (the twins): each solve's decisions (momentum:
+    its per-trip entry norms; pressure: its per-iteration norms; the
+    fallbacks) equal, or a named exception within rounding of tol (at the
+    trip or iteration where one device stopped, both norms within
+    SH_ROUNDING_BAND of tol); velocity rel 1e-4, gradient rel l2 1e-3, the
+    adjoint gate decisions equal."""
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.parallel import shard_kernels as sk
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        domain, sim = decaying_turbulence_setup((SH_SMALL, SH_SMALL), viscosity=VISCOSITY,
+                                                device=d)
+        v = random_solenoidal(domain, torch.Generator().manual_seed(3), device=d)
+        p = domain.centered_grid(0.0, device=d)
+        zero = torch.zeros_like(p)
+        step = turbulence_step_fn(domain, sim, 0.4 / SH_SMALL, p_tol=SH_SMALL_TOL)
+        log = []
+        sk.RECORD = log
+        try:
+            fb0 = shard_counters()["fallbacks"]
+            (vo, _, _, _), _, warns = shard_run(step, (v, p, zero, zero), SH_SMALL_STEPS,
+                                                shard_ctx())
+            f = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                               periodic=(True, True))
+            with shard_ctx(adjoint="auto"):
+                res = rollout_loss_grad(step, v, p, f, 3, remat="outputs")
+            fb = shard_counters()["fallbacks"] - fb0
+        finally:
+            sk.RECORD = None
+        if warns or res.warns:
+            fail(f"20e on {d.type}: warned ({warns} forward, {res.warns} gradient steps)")
+        out.append(dict(v=[c.cpu() for c in vo.components], log=log, fallbacks=fb,
+                        grad=[c.cpu() for c in res.grad.components],
+                        gated=[(a.system, bool(a.gated)) for a in res.adjoints]))
+    card, cpu = out
+    exceptions = []
+    if len(card["log"]) != len(cpu["log"]):
+        fail(f"20e: {len(card['log'])} solves on the card, {len(cpu['log'])} on the CPU")
+    for i, ((kind, a, tol), (_, b, _)) in enumerate(zip(card["log"], cpu["log"])):
+        if len(a) == len(b):
+            continue
+        j = min(len(a), len(b)) - 1
+        near = all(abs(s[j] / tol - 1.0) <= SH_ROUNDING_BAND for s in (a, b))
+        exceptions.append(dict(solve=i, system=kind, card=len(a), cpu=len(b), tol=tol,
+                               card_norm=a[j], cpu_norm=b[j], within_rounding=near))
+        if not near:
+            fail(f"20e: solve {i} ({kind}) decided differently: card {len(a)} vs CPU {len(b)} "
+                 f"trips / iterations, norms {a[j]!r} / {b[j]!r} at tol {tol!r}")
+    v_rel = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(card["v"], cpu["v"]))
+    g_rel = rel_l2_list(card["grad"], cpu["grad"])
+    print(json.dumps(dict(
+        check=f"20e {SH_SMALL}^2 sharded solvers (1,1) forced slivers, {SH_SMALL_STEPS} steps + "
+              "3-step gradient (adjoint auto), card vs CPU",
+        solves=len(cpu["log"]), decisions_equal=not exceptions, exceptions=exceptions,
+        fallbacks=[card["fallbacks"], cpu["fallbacks"]], velocity_rel=v_rel, grad_rel_l2=g_rel,
+        same_gate_decisions=card["gated"] == cpu["gated"])), flush=True)
+    if card["fallbacks"] != cpu["fallbacks"] or card["gated"] != cpu["gated"]:
+        fail("20e: fallbacks or adjoint gate decisions differ between the card and the CPU")
+    if not (v_rel <= 1e-4 and g_rel <= 1e-3):
+        fail(f"20e: card vs CPU velocity rel {v_rel:.3e} (> 1e-4) or gradient rel l2 "
+             f"{g_rel:.3e} (> 1e-3)")
 
 
 def kernel_wrappers() -> dict:
@@ -7437,6 +7968,30 @@ def main() -> int:
             if counts.get(k) != 0:
                 fail(f"{path}: {k} launched {counts.get(k)} times on a 2-D path (expected 0)")
 
+    # -- phase 20: the per-shard solvers (rows 18a-18d) on the (1,1) sliver mesh ----------
+    # (a) each kernel against its twin on a 512^2 step's operators; (e) 64^2 card
+    # vs CPU; (b) the forward path, (c) grad30 under adjoint="auto", (d) the
+    # whole-solve tier, each from phase 4's 512^2 state
+    shard_kernels_check(dev, kernels)
+    shard_small_check(dev)
+    flat = {k: fn for k, (fn, _) in wrappers.items()}
+    shard_fwd = shard_forward_path(dev, flat)
+    shard_grad = shard_grad_path(dev, flat)
+    shard_whole = shard_whole_path(dev, flat)
+    # every earlier path launched none of rows 18a-18d
+    earlier = dict(two_d, **{
+        "turbulence 128^3 forward": turb3d_fwd, "turbulence 128^3 grad10": turb3d_grad,
+        "turbulence 128^3 grad10 with channels": turb3d_ch[True],
+        f"turbulence {T3_BIG}^3 forward": big_fwd, f"turbulence {T3_BIG}^3 grad10": big_grad,
+        f"turbulence {T3_BIG}^3 grad10 with channels": big_ch[True],
+        f"turbulence {T3_HUGE}^3 forward": huge_fwd, "3-D cavity forward": cav3_fwd,
+        "3-D cavity CG": cav3_cg})
+    for path, counts in earlier.items():
+        for k in SHARD_KERNELS:
+            if counts.get(k) != 0:
+                fail(f"{path}: {k} launched {counts.get(k)} times outside the sharded context "
+                     "(expected 0)")
+
     # each kernel's `launches` come from the path it is checked on: the PCG
     # phases from the mixing layer's forward run; the cavity's own kernels
     # from its forward run (gradT2m, which only a backward pass launches,
@@ -7449,7 +8004,14 @@ def main() -> int:
     for entry in kernels:
         name = entry["name"]
         key = BAT_WRAPPER.get(name, name)  # a batched entry's wrapper counter
-        if name in BAT_ENTRIES:
+        if name == "shard_pressure_whole":
+            entry["path"] = (f"sharded turbulence {N}^2, whole tier (always), (1,1) mesh, forced "
+                             "slivers")
+            entry["launches"] = shard_whole[name]
+        elif name in SHARD_KERNELS:
+            entry["path"] = f"sharded turbulence {N}^2 forward, (1,1) mesh, forced slivers"
+            entry["launches"] = shard_fwd[name]
+        elif name in BAT_ENTRIES:
             entry["path"] = "batched turbulence 512^2 x 4 forward"
             entry["launches"] = bat["batched512"][key]
         elif name in BAT_TRAIN_ENTRIES:
@@ -7544,6 +8106,9 @@ def main() -> int:
         entry["pipe_launches"] = pipe_fwd[key]
         entry["cavity3d_launches"] = cav3_fwd[key]
         entry["cavity3d_cg_launches"] = cav3_cg[key]
+        entry["sharded_launches"] = shard_fwd[key]
+        entry["sharded_grad30_launches"] = shard_grad[key]
+        entry["sharded_whole_tier_launches"] = shard_whole[key]
         entry.update(large_measured.get(name, {}))
         entry.update(batched_measured.get(name, {}))
         entry.update(sweeps_measured.get(name, {}))

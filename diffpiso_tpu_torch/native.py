@@ -28,7 +28,7 @@ SOURCES = ("advassembly", "laplace_assembly", "jacobi2", "pcg2", "fv2", "correct
            "matvec", "bicg", "pcgphases", "jacobi2_fold", "jacobi1", "pcg_mm_update",
            "fv3", "advassembly3", "matvec3", "jacobi1_3d", "jacobi_zblock3", "jacobi_plane3",
            "cg", "jacobi_sweeps", "stencil_residual", "advassembly_masked", "corrector_bwd",
-           "pcgphases3", "spectral3", "pcg3")
+           "pcgphases3", "spectral3", "pcg3", "shard_momentum", "shard_pcg", "shard_whole")
 # --fmad=false: no contraction of a*b+c into one FMA, so the elementwise
 # kernels round exactly like their plain PyTorch versions (the GEMM in
 # pcg2.cu calls fmaf explicitly)

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch import native, regime
 from diffpiso_tpu_torch.ops.advassembly import uniform_assembly_plain
 
 _SIGS = {
@@ -37,7 +37,8 @@ def advassembly3_eligible(velocity, viscosity, uniform: bool) -> bool:
     face, every cell active, no no-slip wall). Its (8, 128) tiling and VMEM
     clauses are the TPU's layout and are left out; the general body it
     falls back to computes the same coefficients."""
-    if velocity.rank != 3 or not all(velocity.periodic) or velocity.batched:
+    if velocity.rank != 3 or not all(velocity.periodic) or velocity.batched \
+            or not regime.kernels_open():
         return False
     shapes = {tuple(c.shape) for c in velocity.components}
     if len(shapes) != 1 or next(iter(shapes))[0] < 2:

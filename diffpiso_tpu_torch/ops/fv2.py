@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
-from diffpiso_tpu_torch.regime import batched_mode
+from diffpiso_tpu_torch.regime import batched_mode, kernels_open
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,7 @@ def eligible2(shapes, dtype) -> bool:
     rank = 3 if batched_mode() == "auto" else 2
     return (
         dtype == torch.float32
+        and kernels_open()
         and all(len(s) in (2, rank) for s in shapes)
         and all(tuple(s) == tuple(shapes[0]) for s in shapes)
     )

@@ -39,7 +39,7 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
-from diffpiso_tpu_torch.regime import batched_mode
+from diffpiso_tpu_torch.regime import batched_mode, kernels_open
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +66,7 @@ def eligible2m(comp_shapes, out_shape, periodic, dtype) -> bool:
     lead = {tuple(s[:-2]) for s in comp_shapes}
     return (
         dtype == torch.float32
+        and kernels_open()
         and len(out_shape) == 2
         and len(lead) == 1
         and all(len(s) in (2, rank) for s in comp_shapes)

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.regime import kernels_open
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,7 @@ def eligible3(shapes, dtype) -> bool:
     function's.)"""
     return (
         dtype == torch.float32
+        and kernels_open()
         and all(len(s) == 3 for s in shapes)
         and all(tuple(s) == tuple(shapes[0]) for s in shapes)
     )

@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
-from diffpiso_tpu_torch.regime import batched_mode
+from diffpiso_tpu_torch.regime import batched_mode, kernels_open
 
 _SIGS = {
     "laplace_assembly_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -38,7 +38,8 @@ def eligible(comp_shapes, dtype) -> bool:
     (a leading batch axis) in the "auto" batched regime; under "fold" they
     run the plain version (diffpiso_tpu_torch/regime.py)."""
     rank = 3 if batched_mode() == "auto" else 2
-    return dtype == torch.float32 and all(len(s) in (2, rank) for s in comp_shapes)
+    return (dtype == torch.float32 and kernels_open()
+            and all(len(s) in (2, rank) for s in comp_shapes))
 
 
 def laplace_assembly_plain(comp_y, comp_x, masks, periodic):

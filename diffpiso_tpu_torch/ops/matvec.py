@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
-from diffpiso_tpu_torch.regime import batched_mode
+from diffpiso_tpu_torch.regime import batched_mode, kernels_open
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +47,7 @@ def eligible(shape, dtype, batched: bool = False) -> bool:
     """The kernel takes float32 rank-2 planes of any shape, and B samples'
     planes (`batched`: a leading batch axis on a 2-D stencil) in the "auto"
     batched regime; under "fold" those run plain (diffpiso_tpu_torch/regime.py)."""
-    if dtype != torch.float32:
+    if dtype != torch.float32 or not kernels_open():
         return False
     if batched:
         return len(shape) == 3 and batched_mode() == "auto"
@@ -57,7 +57,7 @@ def eligible(shape, dtype, batched: bool = False) -> bool:
 def eligible3(shape, dtype) -> bool:
     """Kernel 15c takes float32 rank-3 volumes of any shape (the JAX gate's
     (8, 128) tiling and VMEM clauses are the TPU's layout)."""
-    return len(shape) == 3 and dtype == torch.float32
+    return len(shape) == 3 and dtype == torch.float32 and kernels_open()
 
 
 def stencil_apply_plain(center, lo, hi, x, transpose=False):

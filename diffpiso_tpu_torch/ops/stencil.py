@@ -39,7 +39,7 @@ from diffpiso_tpu_torch.ops.advassembly3 import (
     fused_advection_assembly3,
 )
 from diffpiso_tpu_torch.ops.fv import pad_staggered
-from diffpiso_tpu_torch.regime import batched_mode
+from diffpiso_tpu_torch.regime import batched_mode, kernels_open
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +77,7 @@ def advassembly_eligible(velocity, viscosity, periodic, uniform: bool) -> bool:
     scalar viscosity, and `uniform` masks (`uniform_masks` of the masks);
     B samples at once only in the "auto" batched regime (diffpiso_tpu_torch/regime.py),
     under "fold" they run the general body."""
-    if velocity.rank != 2 or tuple(periodic) != (True, True):
+    if velocity.rank != 2 or tuple(periodic) != (True, True) or not kernels_open():
         return False
     if velocity.batched and batched_mode() != "auto":
         return False
@@ -96,7 +96,7 @@ def advassembly_masked_eligible(velocity, viscosity) -> bool:
     `advassembly_masked_eligible` that do not concern the TPU's memory; B
     samples at once only in the "auto" batched regime (under "fold" they
     run the general body, as the JAX vmapped step does under `no_pallas`)."""
-    if velocity.rank != 2 or velocity.dtype != torch.float32:
+    if velocity.rank != 2 or velocity.dtype != torch.float32 or not kernels_open():
         return False
     if velocity.batched and batched_mode() != "auto":
         return False

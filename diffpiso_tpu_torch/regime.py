@@ -71,3 +71,31 @@ def batched_regime(mode: str):
 def batched_mode() -> str:
     """The batched regime in force: "fold" outside any `batched_regime`."""
     return _REGIME.get() or "fold"
+
+
+# -- the closed-kernels context (the JAX package's `no_pallas()`) ----------------------
+
+_CLOSED: contextvars.ContextVar = contextvars.ContextVar("diffpiso_kernels_closed",
+                                                         default=False)
+
+
+@contextlib.contextmanager
+def kernels_closed():
+    """Within the context every kernel gate of ops/ and solvers/
+    answers no, as under the JAX package's `no_pallas()`: the assemblies,
+    FV ops, matvecs and corrector glue take their plain formulation, the
+    momentum solves run BiCGSTAB with no Jacobi tier in front of it, and
+    the pressure solves run the generic per-iteration loops. These change
+    results (the tiers change the algorithm), so they are followed, not
+    only the kernels' presence. `parallel/shard_kernels.py sharded_solvers`
+    enters it (the solves it dispatches run its own kernels, rows 18a-18d)."""
+    token = _CLOSED.set(True)
+    try:
+        yield
+    finally:
+        _CLOSED.reset(token)
+
+
+def kernels_open() -> bool:
+    """Whether the kernel gates may open (False inside `kernels_closed`)."""
+    return not _CLOSED.get()

@@ -39,7 +39,16 @@ solvers/krylov.py, by the batched regime (diffpiso_tpu_torch/regime.py): in "fol
 `bicgstab_batched` behind the batch-folded Jacobi kernel and the generic
 `pcg_batched`; in "auto" the whole-solve kernels per sample (jac2 or
 jac1 in front of `bicgstab_batched`, `pcg2_batched` within pcg2's budget,
-`pcg_batched` past it); warn and iteration counts are (B,) host arrays."""
+`pcg_batched` past it); warn and iteration counts are (B,) host arrays.
+
+Inside `parallel.sharded_solvers` a single-sample solve that the context's
+gates take (`shard_kernels.momentum_eligible` / `pressure_eligible`; the
+transposed and adjoint solves only under adjoint="auto") runs on the mesh:
+the momentum solve as the per-shard Jacobi trips of row 18a with BiCGSTAB
+from their iterate when they miss tol (`_sharded_adv_solve`), the pressure
+solve as the distributed PCG of rows 18b-18d. The solves' autograd
+Functions and the stash's checkpoint replay re-enter the forward's context
+in the backward pass."""
 
 from __future__ import annotations
 
@@ -64,8 +73,10 @@ from diffpiso_tpu_torch.solvers.fourier import (
 )
 from diffpiso_tpu_torch.solvers.multigrid import build_mg_hierarchy, v_cycle
 from diffpiso_tpu_torch import regime
+from diffpiso_tpu_torch.parallel import shard_kernels as _sk
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.krylov import (
+    SolveResult,
     _bmax_abs,
     _tree_max_abs,
     bicgstab,
@@ -128,8 +139,15 @@ class SolveStash:
 
     def contexts(self):
         """The (forward, recompute) pair `torch.utils.checkpoint` takes as
-        `context_fn`."""
-        return self.recording(), self.replaying()
+        `context_fn`. The recompute also re-enters the sharded-solver
+        context (parallel/shard_kernels.py) the stash was made in, so the
+        replay in the backward pass takes the forward's path."""
+        return self.recording(), self._replaying_in(_sk.current())
+
+    @contextlib.contextmanager
+    def _replaying_in(self, shard):
+        with _sk.entered(shard), self.replaying():
+            yield
 
 
 _STASH: contextvars.ContextVar = contextvars.ContextVar("diffpiso_solve_stash", default=None)
@@ -193,9 +211,42 @@ class PressureSolver:
         return solve_pressure_system(self, laplacian, rhs, guess, tol)
 
 
+def _sharded_adv_solve(ctx, cfg: AdvectionSolver, stencil: AdvectionStencil,
+                       rhs: StaggeredField, guess, tol, transpose: bool):
+    """The momentum solve on a device mesh (the JAX package's
+    `_sharded_adv_solve`): the per-shard Jacobi-Richardson trips of
+    parallel/shard_kernels.py (row 18a), then, when their joint residual is
+    not below tol, BiCGSTAB from their iterate (its plain loop: the kernel
+    gates are closed in the context); warn on a non-finite residual or
+    one above 100 tol."""
+    st_cs = [(stencil.center[i], stencil.lo[i], stencil.hi[i]) for i in range(stencil.rank)]
+    x0 = guess if guess is not None else rhs.map(torch.zeros_like)
+    x_c, jn = _sk.sharded_momentum_solve(ctx, st_cs, rhs.components, x0.components, -1.0,
+                                         transpose, tol)
+    x0f = StaggeredField(tuple(x_c), periodic=rhs.periodic)
+    tol32 = float(np.float32(tol))
+    if jn < tol32:
+        x, rnorm, k = x0f, jn, 0
+    else:
+        apply_fn = apply_stencil_transpose if transpose else apply_stencil
+        diag = StaggeredField(tuple(-c for c in stencil.center), periodic=rhs.periodic)
+        _sharded_adv_solve.fallbacks += 1
+        res = bicgstab(lambda v: apply_fn(stencil, v, negate=True), rhs, x0f, tol=tol,
+                       max_iter=cfg.max_iterations, diag=diag if cfg.precondition else None)
+        x, rnorm, k = res.x, res.residual_norm, res.iterations
+    warn = not np.isfinite(rnorm) or rnorm > float(np.float32(100.0) * np.float32(tol))
+    return x, SolveResult(x=x, iterations=k, residual_norm=rnorm, converged=rnorm < tol32,
+                          warn=warn)
+
+
+_sharded_adv_solve.fallbacks = 0  # BiCGSTAB runs after the sharded trips
+
+
 def _adv_solve_impl(cfg: AdvectionSolver, stencil: AdvectionStencil,
                     rhs: StaggeredField, guess, tol, transpose: bool = False):
-    """Solve (-M) v = rhs (or (-M^T) v = rhs). Returns (v, SolveResult)."""
+    """Solve (-M) v = rhs (or (-M^T) v = rhs). Returns (v, SolveResult).
+    Inside `parallel.sharded_solvers` an eligible solve runs on the mesh
+    (`_sharded_adv_solve`)."""
     in_dtype = rhs.dtype
     if cfg.dtype is not None:
         dt = getattr(torch, cfg.dtype)
@@ -208,6 +259,11 @@ def _adv_solve_impl(cfg: AdvectionSolver, stencil: AdvectionStencil,
         )
         rhs = rhs.map(cast)
         guess = None if guess is None else guess.map(cast)
+    ctx = _sk.current()
+    if ctx is not None and not rhs.batched and _sk.momentum_eligible(
+            ctx, tuple(tuple(c.shape) for c in stencil.center), rhs.dtype, transpose):
+        x, result = _sharded_adv_solve(ctx, cfg, stencil, rhs, guess, tol, transpose)
+        return x.map(lambda a: a.to(in_dtype)), result
     apply_fn = apply_stencil_transpose if transpose else apply_stencil
     diag = StaggeredField(tuple(-c for c in stencil.center), periodic=rhs.periodic)
     result = bicgstab(
@@ -254,6 +310,10 @@ class _AdvectionSolve(torch.autograd.Function):
         info["warn"] = warn
         ctx.cfg, ctx.tol, ctx.periodic, ctx.warn, ctx.ws = cfg, tol, periodic, warn, ws
         ctx.rank, ctx.stash = stencil.rank, _STASH.get()
+        # the adjoint solve runs in the forward's sharded context, wherever
+        # the backward pass runs (after the `with` block; on CUDA on the
+        # autograd engine's device thread)
+        ctx.shard = _sk.current()
         ctx.save_for_backward(*_stencil_planes(stencil))
         return (*xs, *(torch.zeros_like(c) for c in rhs)) if ws else xs
 
@@ -263,7 +323,8 @@ class _AdvectionSolve(torch.autograd.Function):
         ct = StaggeredField(g[:ctx.rank], periodic=ctx.periodic)
         guess = StaggeredField(g[ctx.rank:], periodic=ctx.periodic) if ctx.ws else None
         adj_tol = float(_adjoint_tol(ctx.tol, ct))
-        db, res = _adv_solve_impl(ctx.cfg, stencil, ct, guess, adj_tol, transpose=True)
+        with _sk.entered(ctx.shard):
+            db, res = _adv_solve_impl(ctx.cfg, stencil, ct, guess, adj_tol, transpose=True)
         gate = (1.0 - float(ctx.warn)) * (1.0 - float(res.warn))
         _record_adjoint(ctx, AdjointSolve("momentum", res.iterations, float(res.residual_norm),
                                           None, gate != 1.0))
@@ -385,6 +446,17 @@ def _pressure_solve_impl(cfg: PressureSolver, lap: LaplaceStencil, rhs, guess, t
     if adjoint and cfg.adjoint_preconditioner != "same":
         kind = cfg.adjoint_preconditioner
     x0 = guess
+    ctx = _sk.current()
+    if ctx is not None and not lap.batched and rhs.ndim == 2 and _sk.pressure_eligible(
+            ctx, tuple(rhs.shape), rhs.dtype, kind, adjoint):
+        # the distributed PCG with the per-shard phases (rows 18b-18d); L is
+        # symmetric, so the adjoint is the same solve
+        mm, w = pressure_preconditioner(kind, lap) if kind is not None else (None, None)
+        x, k, rn = _sk.sharded_pressure_pcg(ctx, lap, rhs, guess, tol, cfg.max_iterations,
+                                            cfg.deflate_mean, mm_solver=mm, weights=w)
+        tol32 = float(np.float32(tol))
+        warn = not np.isfinite(rn) or rn > float(np.float32(100.0) * np.float32(tol))
+        return SolveResult(x=x, iterations=k, residual_norm=rn, converged=rn < tol32, warn=warn)
     if kind is None:
         return cg(lap, rhs, x0, tol=tol, max_iter=cfg.max_iterations,
                   residual_reset=cfg.residual_reset, deflate_mean=cfg.deflate_mean)
@@ -416,6 +488,7 @@ class _PressureSolve(torch.autograd.Function):
         info["iterations"], info["warn"] = iters, warn
         ctx.cfg, ctx.tol, ctx.warn, ctx.periodic = cfg, tol, warn, lap.periodic
         ctx.stash, ctx.ws = _STASH.get(), ws
+        ctx.shard = _sk.current()  # re-entered by the backward (see _AdvectionSolve)
         ctx.save_for_backward(lap.center, *lap.lo, *lap.hi, lap.shift)
         return (x, torch.zeros_like(rhs)) if ws else x
 
@@ -427,7 +500,8 @@ class _PressureSolve(torch.autograd.Function):
                              shift=shift, periodic=ctx.periodic)
         adj_tol = float(_adjoint_tol(ctx.tol, g))
         guess = g_channel[0] if ctx.ws else None
-        res = _pressure_solve_impl(ctx.cfg, lap, g, guess, adj_tol, adjoint=True)
+        with _sk.entered(ctx.shard):
+            res = _pressure_solve_impl(ctx.cfg, lap, g, guess, adj_tol, adjoint=True)
         limit = float(np.float32(100.0) * np.float32(adj_tol))
         adj_failed = res.warn or res.residual_norm > limit
         gate = (1.0 - float(ctx.warn)) * (1.0 - float(adj_failed))

@@ -32,7 +32,7 @@ from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
 from diffpiso_tpu_torch.solvers import tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
-from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain, spectral_apply_plain
 from diffpiso_tpu_torch.solvers.jacobi1 import (
     fused_jacobi1_solve,
     fused_jacobi1_solve_3d,
@@ -249,7 +249,9 @@ def bicgstab(
     the rest (volumes among them: the fused loop is rank-2 in the JAX
     package too; `bicgstab.applies` counts its operator applications). A
     non-finite or > 100 tol final residual restarts once from zeros; warn
-    is set when even that fails."""
+    is set when even that fails. Within `regime.kernels_closed` (the
+    sharded solvers' context, the JAX package's `no_pallas()`) no Jacobi
+    tier runs and the loop is the generic one."""
     if x0 is None:
         x0 = _zeros_like(b)
     tol32 = _f32(tol)
@@ -281,7 +283,8 @@ def bicgstab(
              for i in range(len(comps))] if structured else None
     # the JAX gate of the fused loop: rank-2 planes of at most 4-byte floats
     # (its cap of 8 MiB per plane is the TPU's VMEM, not the function's)
-    fused = structured and rank == 2 and all(c.dtype == torch.float32 for c in stencil.center)
+    fused = (structured and rank == 2 and regime.kernels_open()
+             and all(c.dtype == torch.float32 for c in stencil.center))
 
     def once(x_init):
         if fused:
@@ -580,7 +583,9 @@ def pcg(
     projected when deflating unless `precond_zero_mean`. pcg2 and the
     folded update take only `precond_mm`, as in the JAX package.
 
-    Each loop reads one norm back per iteration."""
+    Within `regime.kernels_closed` every solve takes the generic loop
+    with M^-1 r as the plain contractions (the JAX package under
+    `no_pallas()`). Each loop reads one norm back per iteration."""
     if (precond_mm is None) == (precond is None):
         raise ValueError("pcg takes exactly one of precond_mm and precond")
     if precond is not None:
@@ -592,6 +597,21 @@ def pcg(
     tol32 = _f32(tol)
     # a mean-free preconditioner's output needs no projection
     project_z = deflate_mean and not precond_zero_mean
+    if not regime.kernels_open():
+        # the JAX package's generic loop (`no_pallas()`): plain operations,
+        # M^-1 r as the plain contractions
+        sym = safe_symbol(solver, weights, b.dtype, b.device)
+        mats = solver.mats(b.dtype, b.device)
+        if b.ndim == 3:
+            def precond(r):
+                return spectral_apply3_plain(mats, sym, r)
+        else:
+            def precond(r):
+                return spectral_apply_plain(mats[0][0], mats[1][0], sym, r)
+        ops = _generic_ops(lambda p: apply_laplacian(stencil, p), b, precond, deflate_mean,
+                           precond_zero_mean)
+        x, rn, k = _pcg_loop(ops, b, x0, tol32, max_iter, residual_reset, early_exit)
+        return _result(x, rn, k, tol)
     if tiers.volume_phases(tuple(b.shape)):
         spec = spectral3_operands(solver, weights, b.dtype, b.device)
         if tiers.volume_whole_solve(tuple(b.shape), precond_zero_mean, early_exit,

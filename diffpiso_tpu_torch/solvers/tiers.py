@@ -56,6 +56,8 @@ run their whole solves per sample by `batched_momentum_tier` /
 
 from __future__ import annotations
 
+from diffpiso_tpu_torch.regime import kernels_open
+
 MIB = 1024 * 1024
 _LARGE_PLANE_BYTES = 8 * MIB
 _ITEMSIZE = {"float16": 2, "bfloat16": 2, "float32": 4, "float64": 8}
@@ -110,6 +112,8 @@ def cg_tier(shape, dtype="float32") -> str:
     2-D plane up to 8 MiB); otherwise 'generic' (plain ops around the
     matvec kernels: planes past 8 MiB). Both follow the same recurrence,
     with the same resets and exit test."""
+    if not kernels_open():
+        return "generic"
     if volume_phases(shape):
         return "phases"
     return "phases" if phase_tier(shape, None, dtype) else "generic"
@@ -130,7 +134,7 @@ def volume_phases(shape) -> bool:
     resets, exit test and preconditioner), so the choice changes rounding,
     not the algorithm: it is one of "the phase kernels or XLA for the PCG
     loop", which ROADMAP.md's rules for the port leave to the port."""
-    return len(shape) == 3
+    return len(shape) == 3 and kernels_open()
 
 
 def volume_whole_solve(shape, precond_zero_mean: bool, early_exit: bool,
@@ -155,7 +159,8 @@ def volume_whole_solve(shape, precond_zero_mean: bool, early_exit: bool,
     copied: it is the TPU's layout and changes rounding only, and 512^3,
     past it, has no gradient path. Nor is the environment switch
     (`DIFFPISO_FUSED_PCG3`, off by default there): the port has no knob."""
-    return len(shape) == 3 and precond_zero_mean and not early_exit and residual_reset == 0
+    return (volume_phases(shape) and precond_zero_mean and not early_exit
+            and residual_reset == 0)
 
 
 def _pcg2_plane_bytes(shape, item) -> int:
@@ -231,7 +236,9 @@ def momentum_tier_3d(shapes, dtype="float32") -> str:
     'jac13d' (one whole solve per component, every component within its
     budget), 'zblock' (k full 3-D sweeps per z block, every component with
     a block size), 'plane' (k in-plane sweeps with z frozen) or 'none'
-    (BiCGSTAB from the guess, no Jacobi)."""
+    (BiCGSTAB from the guess, no Jacobi; also within `regime.kernels_closed`)."""
+    if not kernels_open():
+        return "none"
     if all(jac13d_eligible(s, dtype) for s in shapes):
         return "jac13d"
     if all(zblock_eligible(s, dtype) for s in shapes):
@@ -246,7 +253,10 @@ def momentum_tier(shapes, dtype="float32") -> str:
     'jac2' (both components in one whole solve), 'jac1' (one whole solve
     per component), 'sweeps' (k-sweep launches, `fused_jacobi_sweeps`:
     planes up to 8 MiB past jac1's budget) or 'none' (BiCGSTAB from the
-    guess, no Jacobi: the JAX package's fused gate is closed too)."""
+    guess, no Jacobi: the JAX package's fused gate is closed too; also
+    within `regime.kernels_closed`)."""
+    if not kernels_open():
+        return "none"
     if jac2_eligible(shapes, dtype):
         return "jac2"
     if all(jac1_eligible(s, dtype) for s in shapes):
@@ -263,7 +273,10 @@ def pressure_tier(shape, kinds, periodic, zero_mean: bool, deflate: bool,
     per-iteration loop with M^-1 folded into the update) or 'loop' (the
     per-iteration loop, M^-1 r between the apply and the update). The fold
     needs the preconditioner's output to be mean-free when deflating, as
-    the loop then projects nothing."""
+    the loop then projects nothing. Within `regime.kernels_closed`: 'loop'
+    (`krylov.pcg` then runs the generic loop's plain operations)."""
+    if not kernels_open():
+        return "loop"
     if zero_mean and pcg2_eligible(shape, periodic, dtype):
         return "pcg2"
     if (phase_tier(shape, kinds, dtype) and mm_update_eligible(shape, kinds, dtype)

@@ -3,6 +3,7 @@
 
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] [--n 512] [--steps 20] [--trace PATH]
     python3 profile_torch_step.py [--workload turbulence|cavity|mixing] --grad [--trace PATH]
+    python3 profile_torch_step.py --sliver [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload cavity --kind cg|dct_mm [--grad]
     python3 profile_torch_step.py --workload turb1024|dns512x2048 [--grad] [--trace PATH]
     python3 profile_torch_step.py --workload turb_1024x2048 [--grad] [--trace PATH]
@@ -59,13 +60,17 @@ stepped at once, the grid-over-batch whole solves and the plane kernels
 with a batch axis, after one unprofiled call of 50 steps; "steps" in its
 report are batched steps (each `--batch` sample-steps), and its --grad
 profiles one grad10 evaluation of sum_c mean(v_c^2) with respect to the
-batched initial velocity, remat "none". Needs a GPU.
+batched initial velocity, remat "none". `--sliver` runs `turbulence`
+(warm-up included) inside `sharded_solvers` on the one-card (1,1) mesh with
+forced slivers, adjoint "auto": the per-shard solver path of
+chip_smoke.py's phase 20 (rows 18a-18d). Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -78,6 +83,9 @@ UNROLL = 30
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
+    ("shm_", "per-shard momentum trip (row 18a: measure and sweeps)"),
+    ("shp_", "per-shard PCG phases (rows 18b matvec, 18c update)"),
+    ("shw_", "per-shard whole-tier trip (row 18d, its GEMMs under dp_sgemm)"),
     ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update, row 16 spectral "
                  "apply, rank 2 and 3)"),
     ("p3_", "rank-3 PCG / CG phases (row 10e: residual / apply / CG iteration)"),
@@ -94,7 +102,7 @@ FAMILIES = (
     ("pcg2b_", "pcg2 elementwise + reductions"),
     ("pcgp_", "PCG phases (residual / apply / update)"),
     ("gemm", "M^-1 r contractions (torch.matmul)"),
-    ("dp_sum_partials", "laplace assembly"),
+    ("dp_sum_partials", "one-block partial sums (laplace assembly; rows 18b, 18c)"),
     ("laplace_assembly", "laplace assembly"),
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
     ("jac13d_", "jacobi 3-D whole-solve sweeps"),
@@ -139,8 +147,12 @@ def main() -> int:
                     help="profile one rollout-gradient evaluation instead of forward steps")
     ap.add_argument("--kind", choices=("dct_mm", "cg"), default="dct_mm",
                     help="the cavity's pressure preconditioner (cg: none, plain CG)")
+    ap.add_argument("--sliver", action="store_true",
+                    help="turbulence under sharded_solvers on the forced-sliver (1,1) mesh")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    if args.sliver and args.workload != "turbulence":
+        ap.error("--sliver runs the turbulence workload only")
     large = {"turb1024": ("turbulence", 1024), "dns512x2048": ("mixing", 2048),
              "turb_1024x2048": ("turbulence", 1024)}
     shape = (1024, 2048) if args.workload == "turb_1024x2048" else None
@@ -159,6 +171,8 @@ def main() -> int:
         label = f"turb3d{args.n}" if args.workload == "turb3d" else args.workload
         if args.workload == "cavity" and args.kind == "cg":
             label = "cavity_cg"
+        if args.sliver:
+            label = "turbulence_sliver"
         args.trace = f"traces/profile_torch_{label}_{mode}.json"
 
     import torch
@@ -177,6 +191,7 @@ def main() -> int:
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.native import build_all
+    from diffpiso_tpu_torch.parallel import make_mesh, sharded_solvers
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
@@ -238,18 +253,26 @@ def main() -> int:
                          forcing_term=f, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
                          advection_tol=adv_tol, pressure_tol=p_tol)
 
+    def solvers():
+        if not args.sliver:
+            return contextlib.nullcontext()
+        return sharded_solvers(make_mesh((1, 1)), ("y", "x"), force_slivers=True,
+                               adjoint="auto")
+
     def run(k):
         nonlocal v, p, g1, g2
-        for _ in range(k):
-            o = step(v, p, g1, g2)
-            if o.warn:
-                raise RuntimeError("a solve warned during profiling")
-            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        with solvers():
+            for _ in range(k):
+                o = step(v, p, g1, g2)
+                if o.warn:
+                    raise RuntimeError("a solve warned during profiling")
+                v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
 
     def grad_eval():
         forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                                  periodic=v.periodic)
-        res = rollout_loss_grad(step, v, p, forcing, unroll, remat=remat)
+        with solvers():
+            res = rollout_loss_grad(step, v, p, forcing, unroll, remat=remat)
         if res.warns:
             raise RuntimeError("a solve warned during profiling")
 
@@ -276,6 +299,7 @@ def main() -> int:
     return report(prof, wall, steps, dict(
         workload=args.workload, n=n, **({"shape": list(shape)} if shape else {}),
         **({"kind": args.kind} if args.workload == "cavity" else {}),
+        **({"solvers": "sharded, (1,1) mesh, forced slivers"} if args.sliver else {}),
         mode=f"grad{unroll} (remat {remat}), one evaluation" if args.grad else "forward",
         steps=steps))
 

@@ -24,10 +24,11 @@ function preconditioner (fft, dct, channel, mg) against the CPU; the
 k-sweep Jacobi kernel (row 8b) and the fused stencil residual (row 14)
 bit-equal to their plain versions (row 14 also to the chain it replaces),
 the folded PCG update at the non-square 1024 x 2048 plane, a momentum
-solve in the k-sweep tier on the card against the CPU, and the masked
+solve in the k-sweep tier on the card against the CPU, the masked
 advection assembly (row 13) bit-equal to its plain version on the
 cavity, channel, obstacle and temporal masks, with and without a batch
-axis. Every
+axis, and the per-shard solver kernels (rows 18a-18d) against their
+plain twins on blocks cut on either axis or both. Every
 test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
@@ -1947,3 +1948,119 @@ def test_cuda_turb3d_gradient_with_channels_matches_the_cpu_plain_path(cuda_devi
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(cg, pg))
     den = sum(float(torch.sum(b ** 2)) for b in pg)
     assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+# -- rows 18a-18d: the per-shard solver kernels (parallel/kernels.py) -----------------------
+
+
+def _shard_block(shape, seed, periodic_coupling=True):
+    """A momentum-like block: five coefficient planes (center ~ -4), b, x,
+    and every sliver of both forms, seeded."""
+    rng = np.random.RandomState(seed)
+    ny, nx = shape
+    c = t(-4.0 + 0.3 * rng.randn(ny, nx))
+    cpl = [t(0.15 * rng.randn(ny, nx)) for _ in range(4)]
+    b, x = t(rng.randn(ny, nx)), t(rng.randn(ny, nx))
+    slv = {ax: [t(rng.randn(*((1, nx) if ax == 0 else (ny, 1)))) for _ in range(4)]
+           for ax in (0, 1)}
+    return (c, *cpl), b, x, slv
+
+
+def _slivers(slv, sharded, transpose, dev):
+    out = []
+    for ax in (0, 1):
+        if sharded[ax]:
+            out += [s.to(dev) for s in slv[ax][:4 if transpose else 2]]
+    return out
+
+
+SHARD_CUTS = [(True, True), (True, False), (False, True)]
+
+
+@pytest.mark.parametrize("sharded", SHARD_CUTS)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_shard_momentum_trip_matches_plain(sharded, transpose, cuda_device):
+    """18a: the trip's x' bit-equal to the plain twin, n0 exact, equal
+    sweeps; with tol above the entry norm the trip is measure-only."""
+    from diffpiso_tpu_torch.parallel import kernels
+
+    planes, b, x, slv = _shard_block((96, 160), 3)
+    dev = cuda_device
+    pl = tuple(p.to(dev) for p in planes)
+    s_dev = _slivers(slv, sharded, transpose, dev)
+    s_cpu = _slivers(slv, sharded, transpose, "cpu")
+    for tol in (1e-6, 1e3):
+        got = kernels.momentum_trip(pl, b.to(dev), x.to(dev), s_dev, -1.0, tol, transpose,
+                                    sharded, 4)
+        want = kernels.momentum_trip_plain(planes, b, x, s_cpu, -1.0, tol, transpose, sharded, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0])
+        assert float(got[1]) == float(want[1])
+        assert int(got[2]) == want[2] == (4 if tol < 1 else 0)
+
+
+@pytest.mark.parametrize("sharded", SHARD_CUTS)
+def test_shard_pcg_phases_match_plain(sharded, cuda_device):
+    """18b and 18c: q, x' and r' bit-equal to the plain twins, max|r'|
+    exact, the sums to rounding."""
+    from diffpiso_tpu_torch.parallel import kernels
+
+    planes, b, x, slv = _shard_block((128, 96), 5)
+    dev = cuda_device
+    pl = tuple(p.to(dev) for p in planes)
+    q, pq, sp = kernels.pcg_matvec(pl, x.to(dev), _slivers(slv, sharded, False, dev), sharded)
+    qw, pqw, spw = kernels.pcg_matvec_plain(planes, x, _slivers(slv, sharded, False, "cpu"),
+                                            sharded)
+    assert torch.equal(q.cpu(), qw)
+    assert abs(float(pq) - float(pqw)) <= 1e-5 * float((x * qw).abs().sum())
+    assert abs(float(sp) - float(spw)) <= 1e-5 * float(x.abs().sum())
+    alpha, cs, cbar = (torch.tensor(v) for v in (0.37, 1.5e-3, -2e-4))
+    got = kernels.pcg_update(x.to(dev), b.to(dev), x.to(dev), q, alpha.to(dev), cs.to(dev),
+                             cbar.to(dev))
+    want = kernels.pcg_update_plain(x, b, x, qw, alpha, cs, cbar)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert float(got[2]) == float(want[2])
+    assert abs(float(got[3]) - float(want[3])) <= 1e-5 * float(want[1].abs().sum())
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+def test_shard_pressure_whole_matches_plain(deflate, cuda_device):
+    """18d on a periodic Laplacian block cut on both axes (the whole tier
+    on the forced-sliver mesh) and uncut (deflate): equal local iterations,
+    n0 exact, x' within rel 1e-4 (the GEMM sums in its own k order)."""
+    from diffpiso_tpu_torch.parallel import kernels
+    from diffpiso_tpu_torch.parallel.shard_kernels import local_basis
+
+    n = 64
+    rng = np.random.RandomState(9)
+    iy, ix = (t(0.5 + rng.rand(n, n)) for _ in range(2))
+    ly, hy = -iy, -torch.roll(iy, -1, 0)
+    lx, hx = -ix, -torch.roll(ix, -1, 1)
+    c = -(ly + hy + lx + hx)
+    planes = (c, ly, hy, lx, hx)
+    b = t(rng.randn(n, n))
+    b = b - b.mean()
+    x = t(0.1 * rng.randn(n, n))
+    sharded = (False, False) if deflate else (True, True)
+    # the slivers of a (1,1) mesh: the block's own edge planes
+    slv = [] if deflate else [x[-1:, :].contiguous(), x[:1, :].contiguous(),
+                              x[:, -1:].contiguous(), x[:, :1].contiguous()]
+    V0, E0 = (a[0] for a in local_basis("fourier", n, 1, not deflate))
+    v0 = torch.as_tensor(V0, dtype=torch.float32)
+    e0 = torch.as_tensor(E0, dtype=torch.float32)
+    w0, w1 = float(iy.mean()), float(ix.mean())
+    sym = w0 * e0[:, None] + w1 * e0[None, :]
+    sym = torch.where(sym.abs() < 1e-12, torch.inf, sym)
+    shift = torch.tensor(1.0 / (n * n) if deflate else 0.0)
+    sc = torch.stack([shift, x.sum(), torch.tensor(1e-5), torch.tensor(1e-6),
+                      torch.tensor(0.0)]).float()
+    want = kernels.pressure_whole_plain(planes, b, x, slv, v0, v0, sym, sc, sharded, deflate, 200)
+    dev = cuda_device
+    got = kernels.pressure_whole(tuple(p.to(dev) for p in planes), b.to(dev), x.to(dev),
+                                 [s.to(dev) for s in slv], v0.to(dev), v0.t().contiguous().to(dev),
+                                 v0.to(dev), v0.t().contiguous().to(dev), sym.to(dev),
+                                 sc.to(dev), sharded, deflate, 200)
+    torch.cuda.synchronize()
+    assert got[3] == want[3] > 0
+    assert float(got[1]) == float(want[1])
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-4 * float(want[0].abs().max())

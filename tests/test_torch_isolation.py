@@ -174,3 +174,21 @@ def test_the_scan_covers_the_channel_slice_modules():
     from diffpiso_tpu_torch import native
 
     assert "advassembly_masked" in native.SOURCES
+
+
+def test_the_scan_covers_the_parallel_slice_modules():
+    """The sharded solvers (parallel/) are scanned like every module, read no
+    environment variable (the JAX package's gates are arguments of
+    `sharded_solvers`), and their three kernel sources are built."""
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    mods = {f"diffpiso_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "sharding", "halo", "kernels", "shard_kernels")}
+    assert mods <= scanned
+    for m in mods:
+        src = (ROOT / m).read_text()
+        assert "os.environ" not in src and "getenv" not in src, m
+    from diffpiso_tpu_torch import native
+
+    for name in ("shard_momentum", "shard_pcg", "shard_whole"):
+        assert name in native.SOURCES
+    assert (PKG / "csrc" / "shard.cuh").exists()
