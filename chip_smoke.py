@@ -45,6 +45,11 @@ Phases, each fatal on failure:
      the card, 5b, 10c, 16c) and 0 times elsewhere; row 16 once per M^-1 r of the
      channel_mm loops (7b-c, 8b, 11, 15c's channel_mm run) as the loop
      counters derive, 0 elsewhere (asserted);
+  2p. the hand-written GEMM under rows 4, 10d-mm, 16, 16-3d, 15g and 18d
+     (csrc/gemm.cuh), on a shape of each tile configuration its plan takes
+     and with each epilogue: bit-equal to the fmaf chain in k order
+     (`pcg2.gemm_plain`, emulated exactly in float64) in every
+     configuration, repeat bit-equal; the plan's choice, device us;
   3. a small-input check: 3 steps at 64^2 on the card against the plain
      path on the CPU;
   4. the main path: 2-D periodic decaying turbulence at 512^2 (viscosity
@@ -5796,6 +5801,64 @@ def spectral_kernels(dev, kernels) -> None:
     kernels.append(entry)
 
 
+GEMM_PLAN_CASES = (  # 2p: (M, N, K, batch): a shape of each configuration the plan takes
+    (1024, 2048, 1024, 1), (1024, 1024, 1024, 1), (513, 512, 513, 1), (128, 512, 512, 1),
+    (128, 128, 128, 128))
+
+
+def gemm_plan_check(dev) -> None:
+    """Phase 2p: the hand-written GEMM (csrc/gemm.cuh) on a shape of each
+    tile configuration its plan takes (10d-mm's at 1024 x 2048 and 1024^2,
+    the cavity's, the mixing layer's, a batched 128^3 plane pass) and with
+    the 3-D z pass's separable divide at 128 x 16384 x 128: bit-equal to its
+    plain version (`pcg2.gemm_plain`, each output's fmaf chain in k order,
+    emulated exactly in float64) in the plan's configuration and in every
+    other, with and without the stored divide, and the same bits on a
+    repeated call; prints the plan's choice and device us per launch."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import pcg2
+
+    cfgs = pcg2.gemm_configs()
+    g = torch.Generator(device=dev).manual_seed(17)
+    for m, n, k, nb in GEMM_PLAN_CASES:
+        a = torch.randn((m, k), generator=g, device=dev)
+        b = torch.randn((k, n) if nb == 1 else (nb, k, n), generator=g, device=dev)
+        s = 0.5 + torch.rand((m, n), generator=g, device=dev)
+
+        def run(sv=None, config=None):
+            return (pcg2.gemm(a, b, sv, config) if nb == 1
+                    else pcg2.gemm_batched(a, b, sv, config=config))
+
+        want = pcg2.gemm_plain(a, b)
+        c = run()
+        ok = torch.equal(c, want) and torch.equal(run(), c) and torch.equal(run(s), want / s)
+        forced = [torch.equal(run(config=i), c) for i in range(len(cfgs))]
+        dt = profile_device(run, 10)
+        print(json.dumps(dict(kernel="dp_sgemm", shape=[m, n, k, nb],
+                              plan=pcg2.gemm_plan(m, n, nb), bit_equal_to_plain=ok,
+                              every_configuration_bit_equal=all(forced),
+                              device_us_per_launch=dt["device_us_per_launch"],
+                              tflops=2.0 * m * n * k * nb / dt["device_us_per_launch"] / 1e6)),
+              flush=True)
+        if not (ok and all(forced)):
+            fail(f"dp_sgemm {m}x{n}x{k} x {nb}: not the fmaf chain's bits (plan {ok}, "
+                 f"configurations {forced})")
+    m, n, k = 128, 16384, 128
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev)
+    ez, eyx = torch.randn(m, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
+    ez[0], eyx[0] = 0.0, 0.0  # a singular mode
+    w = torch.full((1,), 0.7, device=dev)
+    want = pcg2.gemm_plain(a, b, sep=(ez, eyx, w))
+    got = [pcg2.gemm_div_sep(a, b, ez, eyx, w, config=i) for i in [None, *range(len(cfgs))]]
+    if not all(torch.equal(x, want) for x in got) or got[0][0, 0] != 0:
+        fail("dp_sgemm's separable divide: not the fmaf chain's bits")
+    print(json.dumps(dict(kernel="dp_sgemm", shape=[m, n, k, 1], epilogue="div_sep",
+                          plan=pcg2.gemm_plan(m, n, 1), bit_equal_to_plain=True,
+                          every_configuration_bit_equal=True)), flush=True)
+
+
 # -- phases 2n and 18: the rank-3 pressure loop (row 10e, row 16-3d) and the bounded 3-D
 # lid-driven cavity -----------------------------------------------------------------------
 
@@ -7607,6 +7670,9 @@ def main() -> int:
     # -- phase 2m: the fused spectral apply (row 16) on the channel_mm planes and the
     # cavity's dct_mm plane --------------------------------------------------------------
     spectral_kernels(dev, kernels)
+
+    # -- phase 2p: the GEMM's tile plan, bit-equal to the fmaf chain in every configuration
+    gemm_plan_check(dev)
 
     # -- phase 2b: the cavity path's kernels at the 512 cavity's shapes ------------
     cavity_measured = cavity_kernels(dev, kernels)

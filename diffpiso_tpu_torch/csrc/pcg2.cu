@@ -17,8 +17,8 @@
 //
 // Design: the host runs the iteration loop and reads one 4-byte norm per
 // iteration. M^-1 r is four dense fp32 contractions, done by the
-// hand-written tiled GEMM of gemm.cuh (32x64 output tiles, 16-deep k slices
-// in shared memory, 4x4 outputs per thread, explicit fmaf, fixed k order),
+// hand-written GEMM of gemm.cuh (register tiles, a cp.async ring of k
+// slices, a tile plan by shape; each output one fmaf chain in k order),
 // with the divide by S fused into the second product's epilogue; the
 // bases' transposes are stored once so every product is row-major NN.
 // Dot products, sums and the deflation mean are block partial sums plus a
@@ -427,20 +427,32 @@ extern "C" int pcg2b_iterate(const void* const* planes, const float* v0,
                      active, st);
 }
 
-// The GEMM alone, for timing and testing the contraction: C = A @ B (/ S).
-extern "C" int pcg2_gemm(const float* A, const float* B, float* C,
-                         const float* S, int M, int N, int K, void* stream) {
-  dp_sgemm(M, N, K, A, B, C, S, (cudaStream_t)stream);
+// The GEMM with every option, for tests and timing: the epilogue epi
+// (GEPI_*; for GEPI_DIV_SEP, S is ez and eyx, w are given, nb is 1), the
+// active flags (null: every sample) and the tile configuration cfg (-1:
+// the plan's).
+extern "C" int pcg2_gemm_ex(const float* A, long long sA, const float* B, long long sB,
+                            float* C, long long sC, const float* S, long long sS,
+                            const float* eyx, const float* w, const int* active, int M,
+                            int N, int K, int nb, int epi, int cfg, void* stream) {
+  if (cfg < -1 || cfg >= DP_GEMM_NCONFIGS || epi < GEPI_NONE || epi > GEPI_DIV_SEP ||
+      (epi == GEPI_DIV_SEP && nb != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (epi == GEPI_DIV_SEP)
+    dp_sgemm_div_sep(M, N, K, A, B, C, S, eyx, w, st, cfg);
+  else
+    dp_sgemm_batched(M, N, K, A, (size_t)sA, B, (size_t)sB, C, (size_t)sC,
+                     epi == GEPI_DIV ? S : nullptr, (size_t)sS, nb, active, st, cfg);
   return (int)cudaGetLastError();
 }
 
-// The batched GEMM alone: C_b = A_b @ B_b (/ S_b) for nb samples, strides
-// in floats (0: the operand is shared).
-extern "C" int pcg2_gemm_batched(const float* A, long long sA, const float* B,
-                                 long long sB, float* C, long long sC,
-                                 const float* S, long long sS, int M, int N, int K,
-                                 int nb, void* stream) {
-  dp_sgemm_batched(M, N, K, A, (size_t)sA, B, (size_t)sB, C, (size_t)sC, S, (size_t)sS, nb,
-                   nullptr, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+// The plan's tile configuration for an M x N product over nb samples.
+extern "C" int pcg2_gemm_plan(int M, int N, int nb) { return dp_sgemm_plan(M, N, nb); }
+
+// Configuration i as (BM, BN, TM, TN, BK, stages, threads, shared bytes)
+// into out[8]; returns the number of configurations.
+extern "C" int pcg2_gemm_config(int i, int* out) {
+  if (i >= 0 && i < DP_GEMM_NCONFIGS) dp_sgemm_config(i, out);
+  return DP_GEMM_NCONFIGS;
 }

@@ -16,9 +16,10 @@
 // Design: the TPU kernel held everything in VMEM in one launch; here the
 // op is a few launches on one stream, and z lives only in a scratch plane
 // the wrapper owns:
-//   1. the four contractions on the hand-written tiled GEMM of gemm.cuh
-//      (the one pcg2.cu uses), the divide fused into the second one's
-//      epilogue;
+//   1. the four contractions on the hand-written fp32 GEMM of gemm.cuh
+//      (the one pcg2.cu uses: register tiles, a cp.async ring of k slices,
+//      a tile plan by shape; each output one fmaf chain in k order), the
+//      divide fused into the second one's epilogue;
 //   2. block partial sums of r * z (fixed-shape trees, common.cuh);
 //   3. one block: their fixed-order sum rz' and beta, into a small device
 //      array (no float atomics, so the result repeats bit for bit);

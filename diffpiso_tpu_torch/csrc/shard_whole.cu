@@ -21,7 +21,7 @@
 // iteration with the scalars (rz, beta, sum p, alpha, the mean) in a small
 // device array written by one-block fixed-order passes, and one 4-byte
 // norm read back per iteration to decide the next. M^-1 r is four launches
-// of the hand-written tiled fp32 GEMM (gemm.cuh dp_spectral_apply), the
+// of the hand-written fp32 GEMM (gemm.cuh dp_spectral_apply), the
 // divide by the symbol fused into the second's epilogue; the bases'
 // transposes are stored once. The elementwise kernels round like the
 // plain twin (--fmad=false); the GEMM's k order is not torch.matmul's, so

@@ -13,7 +13,8 @@
 //
 // Design. The TPU kernel ran three launches, each program holding one plane
 // (or one column slab) and the bases in VMEM. Here one host call runs the
-// same three passes on the hand-written tiled fp32 GEMM of gemm.cuh, two
+// same three passes on the hand-written fp32 GEMM of gemm.cuh (register
+// tiles, a cp.async ring, its tile plan: wide N tiles for the z pass), two
 // launches a pass: the plane passes as GEMMs batched over z (the bases
 // shared at stride 0), the z pass as a (nz, nz) x (nz, ny nx) product whose
 // epilogue forms S from the 1-D eigenvalues and divides (no stored symbol

@@ -8,7 +8,8 @@ global terms; that is an alignment workaround, so here nothing is padded:
 the stencil keeps its roll wrap (bounded axes carry zero edge links), and
 the rank-one shift and the mean deflation run over the true plane, which
 is what the masked TPU path computes. The CUDA kernels
-are csrc/pcg2.cu: a hand-written tiled fp32 GEMM for the four eigenbasis
+are csrc/pcg2.cu: the hand-written fp32 GEMM of csrc/gemm.cuh (register
+tiles, a cp.async pipeline, a tile plan by shape) for the four eigenbasis
 contractions of M^-1 r (the divide by the symbol fused into the second
 product's epilogue), and one-pass elementwise kernels with deterministic
 block-partial reductions for the stencil, dots, updates and deflation. The
@@ -59,12 +60,14 @@ _SIGS = {
     "pcg2_residual": [_P] * 7 + [_I, _I, _I, _P, _P],
     "pcg2_precondition": [_P] * 9 + [_I, _I, _P],
     "pcg2_update": [_P] * 9 + [_I, _I, _I, _P, _P],
-    "pcg2_gemm": [_P] * 4 + [_I, _I, _I, _P],
     "pcg2b_residual": [_P] * 7 + [_I, _I, _I, _I, _P, _P],
     "pcg2b_iterate": [_P] * 5 + [_L, _L, _P, _L, _P, _P, _I] + [_P] * 12
     + [_I, _I, _I, _I, _P, _P],
-    "pcg2_gemm_batched": [_P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _P],
+    "pcg2_gemm_ex": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P] + [_I] * 6 + [_P],
+    "pcg2_gemm_plan": [_I, _I, _I],
+    "pcg2_gemm_config": [_I, _P],
 }
+_GEPI_NONE, _GEPI_DIV, _GEPI_DIV_SEP = 0, 1, 2  # the epilogues of csrc/gemm.cuh
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
 _S_RZ = 0  # scalar slot of rz in csrc/pcg2.cu
 _NSCAL = 8  # scalar slots per sample in csrc/pcg2.cu
@@ -169,17 +172,98 @@ def fused_pcg2_solve(lap, b, x0, v0, v0t, v1, v1t, sym, tol, max_iter, deflate=T
 fused_pcg2_solve.launches = 0
 
 
-def gemm(a, b, s=None):
-    """The hand-written GEMM alone: a @ b (/ s), for tests and timing."""
-    native.require_cuda_f32("pcg2.gemm", a, b, *(() if s is None else (s,)))
-    m, kk = a.shape
-    n = b.shape[1]
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+def _fma32(a, b, c):
+    """fmaf(a, b, c) rounded once to float32, on float64 tensors that hold
+    float32 values: a * b is exact in float64, TwoSum gives s + e = a b + c
+    exactly, and s rounds to the float32 that a b + c rounds to unless s
+    lies halfway between two float32s, where the sign of e decides."""
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.to(torch.float32)
+    d = s - r.double()
+    nb = torch.nextafter(r, torch.where(d > 0, torch.tensor(float("inf"), device=r.device),
+                                        torch.tensor(float("-inf"), device=r.device)))
+    half = (d != 0) & (2 * d == nb.double() - r.double())
+    away = half & (e != 0) & ((e > 0) == (d > 0))
+    return torch.where(away, nb, r)
+
+
+def gemm_plain(a, b, s=None, sep=None):
+    """The plain version of csrc/gemm.cuh, bit for bit: each output the fmaf
+    chain acc = fmaf(a[m, k], b[k, n], acc) over k = 0..K-1 from 0.0 (one
+    float64 pass per k, see `_fma32`), then the epilogue: / s, or with
+    `sep` = (ez, eyx, w) / (w ez[m] + eyx[n]) with 0 where that is below
+    1e-12 in magnitude. a / b / s are 2-D or (B, ...) per sample."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,), b.shape[:-2] + (1, 1))[:-1]
+                      + (b.shape[-1],), dtype=torch.float32, device=a.device)
+    for k in range(a.shape[-1]):
+        acc = _fma32(a64[..., :, k:k + 1], b64[..., k:k + 1, :], acc.double())
+    if s is not None:
+        acc = acc / s
+    if sep is not None:
+        ez, eyx, w = sep
+        sv = (w * ez)[:, None] + eyx[None, :]
+        acc = torch.where(sv.abs() < 1e-12, torch.zeros_like(acc), acc / sv)
+    return acc
+
+
+def _gemm_ex(a, b, c, nb, s=None, *, epi, sep=None, active=None, config=None):
+    """Launch csrc/pcg2.cu pcg2_gemm_ex into c: a / b / s / c are 2-D (shared
+    at stride 0) or (nb, ...) per sample."""
+    stride = lambda t: 0 if t is None or t.ndim < 3 else t.shape[-2] * t.shape[-1]
+    opt = lambda t: None if t is None else native.ptr(t)
+    sym, eyx, w = sep if sep is not None else (s, None, None)  # sep: ez in S's place
+    m, kk = a.shape[-2:]
     lib = native.library("pcg2", _SIGS)
-    native.check(lib.pcg2_gemm(native.ptr(a), native.ptr(b), native.ptr(c),
-                               None if s is None else native.ptr(s), m, n, kk,
-                               native.stream_of(a)), "pcg2_gemm")
+    native.check(lib.pcg2_gemm_ex(
+        native.ptr(a), stride(a), native.ptr(b), stride(b), native.ptr(c), stride(c),
+        opt(sym), stride(sym), opt(eyx), opt(w), opt(active), m, b.shape[-1], kk, nb, epi,
+        -1 if config is None else config, native.stream_of(a)), "pcg2_gemm_ex")
     return c
+
+
+def gemm(a, b, s=None, config=None):
+    """The hand-written GEMM alone: a @ b (/ s), for tests and timing;
+    `config` forces a tile configuration of csrc/gemm.cuh (None: the plan's
+    choice). On CPU tensors: `gemm_plain`."""
+    if a.device.type == "cpu":
+        return gemm_plain(a, b, s)
+    native.require_cuda_f32("pcg2.gemm", a, b, *(() if s is None else (s,)))
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+    return _gemm_ex(a, b, c, 1, s, epi=_GEPI_NONE if s is None else _GEPI_DIV, config=config)
+
+
+def gemm_div_sep(a, b, ez, eyx, w, config=None):
+    """The GEMM with the separable epilogue of the 3-D spectral apply's z
+    pass: (a @ b) / (w ez[m] + eyx[n]), 0 where |w ez[m] + eyx[n]| < 1e-12
+    (`w` a one-element tensor). On CPU tensors: `gemm_plain`."""
+    if a.device.type == "cpu":
+        return gemm_plain(a, b, sep=(ez, eyx, w))
+    native.require_cuda_f32("pcg2.gemm_div_sep", a, b, ez, eyx, w)
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+    return _gemm_ex(a, b, c, 1, epi=_GEPI_DIV_SEP, sep=(ez, eyx, w), config=config)
+
+
+def gemm_plan(m: int, n: int, nb: int = 1) -> int:
+    """The tile configuration csrc/gemm.cuh's plan takes for an m x n
+    product over nb samples (an index into `gemm_configs()`)."""
+    return native.library("pcg2", _SIGS).pcg2_gemm_plan(m, n, nb)
+
+
+def gemm_configs() -> list:
+    """csrc/gemm.cuh's tile configurations as dicts of bm, bn, tm, tn, bk,
+    stages, threads and shared-memory bytes."""
+    lib = native.library("pcg2", _SIGS)
+    out = (ctypes.c_int * 8)()
+    keys = ("bm", "bn", "tm", "tn", "bk", "stages", "threads", "smem_bytes")
+    rows = []
+    for i in range(lib.pcg2_gemm_config(0, out)):
+        lib.pcg2_gemm_config(i, out)
+        rows.append(dict(zip(keys, list(out))))
+    return rows
 
 
 class SampleLap:
@@ -298,19 +382,25 @@ def fused_pcg2_solve_batched(lap, b, x0, v0, v0t, v1, v1t, sym, tol, max_iter, d
 fused_pcg2_solve_batched.launches = 0  # host-loop launches: entry residual, one per iteration, exit residual
 
 
-def gemm_batched(a, b, s=None):
+def gemm_batched(a, b, s=None, active=None, config=None, out=None):
     """The hand-written batched GEMM alone: a_i @ b_i (/ s_i) for the
     samples of the (B, m, k) / (B, k, n) operands (a 2-D operand is shared),
-    for tests and timing."""
+    for tests and timing, into `out` (B, m, n) if given. `active` (B int32
+    flags) leaves the output of a sample flagged 0 as it was; `config`
+    forces a tile configuration (None: the plan's). On CPU tensors:
+    `gemm_plain` per active sample."""
+    if a.device.type == "cpu":
+        c = gemm_plain(a, b, s)
+        if c.ndim == 2:
+            c = c[None]
+        if out is None:
+            return c
+        keep = torch.ones(c.shape[0], dtype=torch.bool) if active is None else active != 0
+        out[keep] = c[keep]
+        return out
     native.require_cuda_f32("pcg2.gemm_batched", a, b, *(() if s is None else (s,)))
     nb = max(a.shape[0] if a.ndim == 3 else 1, b.shape[0] if b.ndim == 3 else 1)
-    m, kk = a.shape[-2:]
-    n = b.shape[-1]
-    c = torch.empty((nb, m, n), dtype=a.dtype, device=a.device)
-    stride = lambda t: 0 if t.ndim == 2 else t.shape[-2] * t.shape[-1]
-    lib = native.library("pcg2", _SIGS)
-    native.check(lib.pcg2_gemm_batched(
-        native.ptr(a), stride(a), native.ptr(b), stride(b), native.ptr(c), m * n,
-        None if s is None else native.ptr(s), 0 if s is None else stride(s), m, n, kk, nb,
-        native.stream_of(a)), "pcg2_gemm_batched")
-    return c
+    c = out if out is not None else torch.empty((nb, a.shape[-2], b.shape[-1]),
+                                                dtype=a.dtype, device=a.device)
+    return _gemm_ex(a, b, c, nb, s, epi=_GEPI_NONE if s is None else _GEPI_DIV,
+                    active=active, config=config)

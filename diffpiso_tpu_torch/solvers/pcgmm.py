@@ -13,7 +13,10 @@ bases), in place of the preconditioner and the update:
 The loop's first call (and each reset) passes p = 0 and rz_old = 1, which
 gives p' = z and rz' = r.z. The CUDA kernels are csrc/pcg_mm_update.cu:
 the four contractions on the hand-written fp32 GEMM that pcg2 uses
-(csrc/gemm.cuh; no TF32, no library GEMM), block partials of r.z and a
+(csrc/gemm.cuh: register tiles, a `cp.async` ring of k slices, its tile
+plan taking 64x128 tiles at 1024^2 and 128x128 at 1024 x 2048; each
+output one fmaf chain in k order; no TF32, no library GEMM), block
+partials of r.z and a
 one-block fixed-order sum, then the update; z stays in a scratch plane
 and rz' on the device. What bounds it on the H100 is operations: 4 x 2 x
 n^3 flops, 8.59 GFLOP at 1024^2 (0.128 ms at 67 TFLOP/s fp32). The GEMM

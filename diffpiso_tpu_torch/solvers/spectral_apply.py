@@ -11,7 +11,10 @@ any `_mm` plane past pcg2's and the folded update's tiers.
 The TPU kernel held V0, V1, r and the intermediate in VMEM in one launch.
 Here one host call runs the four contractions on the hand-written fp32
 GEMM (csrc/gemm.cuh `dp_spectral_apply`, exported by csrc/pcg2.cu as
-`pcg2_precondition`, the M^-1 r of pcg2's own loop), the divide by S fused
+`pcg2_precondition`, the M^-1 r of pcg2's own loop: register tiles, a
+`cp.async` ring of k slices, and a tile plan by shape that gives the 64-
+and 128-row planes of training and the mixing layer small 2x2-output
+threads and the DNS's 512 x 2048 64x128 tiles), the divide by S fused
 into the second one's epilogue: four launches on one stream, the
 intermediates in two scratch planes from the caching allocator. True fp32
 (explicit fmaf in a fixed k order, no TF32, no library GEMM), so pcg2, the

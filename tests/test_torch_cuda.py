@@ -27,8 +27,11 @@ the folded PCG update at the non-square 1024 x 2048 plane, a momentum
 solve in the k-sweep tier on the card against the CPU, the masked
 advection assembly (row 13) bit-equal to its plain version on the
 cavity, channel, obstacle and temporal masks, with and without a batch
-axis, and the per-shard solver kernels (rows 18a-18d) against their
-plain twins on blocks cut on either axis or both. Every
+axis, the per-shard solver kernels (rows 18a-18d) against their
+plain twins on blocks cut on either axis or both, and the hand-written
+GEMM (csrc/gemm.cuh) bit-equal to its fmaf chain (`pcg2.gemm_plain`) on
+the main paths' shapes, ragged edges and batched strides, with each
+epilogue, in every tile configuration. Every
 test here needs a GPU
 and skips without one. The file imports no JAX, so it also runs where JAX
 is absent:
@@ -192,6 +195,126 @@ def test_gemm_matches_matmul(cuda_device):
     s = (_rand((200, 130), 3).abs() + 0.5).to(cuda_device)
     torch.testing.assert_close(gemm(a, b), a @ b, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(gemm(a, b, s), (a @ b) / s, rtol=1e-5, atol=1e-4)
+
+
+# the GEMM shapes of the main paths, (M, N, K, batch): pcg2 at 512^2, the
+# cavity, 10d-mm at 1024^2 and 1024 x 2048, row 16 on the DNS, mixing and
+# training planes, row 16-3d's plane passes and z pass at 128^3 / 256^3,
+# 11b-pcg2 at 512^2 x 4
+GEMM_SHAPES = [(512, 512, 512, 1), (513, 512, 513, 1), (513, 512, 512, 1),
+               (1024, 1024, 1024, 1), (1024, 2048, 1024, 1), (1024, 2048, 2048, 1),
+               (512, 2048, 512, 1), (512, 2048, 2048, 1), (128, 512, 128, 1),
+               (128, 512, 512, 1), (64, 256, 64, 1), (64, 256, 256, 1), (128, 128, 128, 128),
+               (128, 16384, 128, 1), (256, 256, 256, 256), (256, 65536, 256, 1),
+               (512, 512, 512, 4)]
+# ragged edges: M, N, K of 1, 7, 129, 513, 1537, 2049
+GEMM_RAGGED = [(1, 1, 1), (7, 7, 7), (1, 2049, 7), (2049, 1, 129), (129, 513, 1537),
+               (513, 129, 2049), (1537, 7, 513), (7, 1537, 129), (2049, 513, 1)]
+
+
+def _gemm_operands(m, n, k, nb, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    a = t(rng.randn(m, k)).to(dev)
+    b = t(rng.randn(*((k, n) if nb == 1 else (nb, k, n)))).to(dev)
+    s = t(0.5 + np.abs(rng.randn(m, n))).to(dev)
+    return a, b, s
+
+
+def _within_gemm_bound(c, a, b, s=None):
+    """|c - (a @ b) / s| within the fp32 chain's bound K u (|a| @ |b|) / |s|
+    (u = 2^-24), plus one rounding of the divide, against float64."""
+    k = a.shape[-1]
+    c64 = torch.matmul(a.double(), b.double())
+    mag = torch.matmul(a.double().abs(), b.double().abs())
+    if s is not None:
+        c64, mag = c64 / s.double(), mag / s.double().abs()
+    tol = 1.01 * k * 2.0 ** -24 * mag + 2.0 ** -24 * c64.abs()
+    return bool(((c.double() - c64).abs() <= tol).all())
+
+
+def _gemm_any(a, b, s=None, config=None):
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_batched
+
+    return gemm(a, b, s, config) if b.ndim == 2 else gemm_batched(a, b, s, config=config)
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda x: "x".join(map(str, x)))
+def test_gemm_is_the_fmaf_chain_on_the_main_path_shapes(shape, cuda_device):
+    """Each output is one fmaf chain over k in order (`pcg2.gemm_plain`,
+    emulated exactly in float64), bit for bit, in the plan's configuration
+    and in every other; with and without the stored divide; within the
+    chain's bound of float64; the same bits on a repeated call."""
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_configs, gemm_plain
+
+    m, n, k, nb = shape
+    a, b, s = _gemm_operands(m, n, k, nb, cuda_device)
+    want = gemm_plain(a, b)
+    c = _gemm_any(a, b)
+    assert torch.equal(c, want)
+    assert torch.equal(_gemm_any(a, b), c)
+    assert _within_gemm_bound(c, a, b)
+    assert torch.equal(_gemm_any(a, b, s), want / s)
+    for cfg in range(len(gemm_configs())):
+        assert torch.equal(_gemm_any(a, b, config=cfg), c), cfg
+    if nb == 1 and n > 8192:  # the 3-D z pass: the separable divide
+        from diffpiso_tpu_torch.solvers.pcg2 import gemm_div_sep
+
+        rng = np.random.RandomState(1)
+        ez, eyx = t(rng.randn(m)).to(cuda_device), t(rng.randn(n)).to(cuda_device)
+        ez[0], eyx[0] = 0.0, 0.0  # a singular mode: 0 out
+        w = t(np.array([0.7])).to(cuda_device)
+        got = gemm_div_sep(a, b, ez, eyx, w)
+        assert torch.equal(got, gemm_plain(a, b, sep=(ez, eyx, w))) and got[0, 0] == 0
+
+
+@pytest.mark.parametrize("shape", GEMM_RAGGED, ids=lambda x: "x".join(map(str, x)))
+def test_gemm_ragged_edges(shape, cuda_device):
+    """M, N, K that are no tile multiple, each epilogue, every
+    configuration: bit-equal to the fmaf chain, within its bound."""
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_configs, gemm_div_sep, gemm_plain
+
+    m, n, k = shape
+    a, b, s = _gemm_operands(m, n, k, 1, cuda_device, seed=2)
+    rng = np.random.RandomState(3)
+    ez, eyx = t(rng.randn(m)).to(cuda_device), t(rng.randn(n)).to(cuda_device)
+    w = t(np.array([1.3])).to(cuda_device)
+    want = gemm_plain(a, b)
+    want_sep = gemm_plain(a, b, sep=(ez, eyx, w))
+    assert _within_gemm_bound(want, a, b)
+    for cfg in [None] + list(range(len(gemm_configs()))):
+        assert torch.equal(gemm(a, b, config=cfg), want), cfg
+        assert torch.equal(gemm(a, b, s, config=cfg), want / s), cfg
+        assert torch.equal(gemm_div_sep(a, b, ez, eyx, w, config=cfg), want_sep), cfg
+
+
+@pytest.mark.parametrize("share", ["a", "b", "none"])
+def test_gemm_batched_strides_and_active_flags(share, cuda_device):
+    """Batched operands at stride 0 (shared) or per sample, a per-sample
+    divide, and an inactive sample whose output is left as it was."""
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_batched, gemm_plain
+
+    nb, m, n, k = 3, 513, 129, 257
+    rng = np.random.RandomState(4)
+    a = t(rng.randn(*((m, k) if share == "a" else (nb, m, k)))).to(cuda_device)
+    b = t(rng.randn(*((k, n) if share == "b" else (nb, k, n)))).to(cuda_device)
+    s = t(0.5 + np.abs(rng.randn(nb, m, n))).to(cuda_device)
+    want = gemm_plain(a, b, s)
+    assert torch.equal(gemm_batched(a, b, s), want)
+    out = torch.full((nb, m, n), float("nan"), device=cuda_device)
+    active = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    gemm_batched(a, b, s, active=active, out=out)
+    assert torch.isnan(out[1]).all()
+    assert torch.equal(out[0], want[0]) and torch.equal(out[2], want[2])
+
+
+def test_gemm_plan_reaches_every_configuration(cuda_device):
+    """The plan takes every configuration of csrc/gemm.cuh on some shape of
+    the main paths or the ragged list."""
+    from diffpiso_tpu_torch.solvers.pcg2 import gemm_configs, gemm_plan
+
+    seen = {gemm_plan(m, n, nb) for m, n, _, nb in GEMM_SHAPES}
+    seen |= {gemm_plan(m, n, 1) for m, n, _ in GEMM_RAGGED}
+    assert seen == set(range(len(gemm_configs())))
 
 
 def test_cuda_steps_match_the_cpu_plain_path(cuda_device):
