@@ -1,5 +1,5 @@
 """Compare two trees of the port on one GPU: the hand-written GEMM shape by
-shape, and the 2-D paths.
+shape, the 2-D paths, and the 3-D momentum tier kernels and paths.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -34,10 +34,27 @@ exits 1 if a run fails or a held line differs.
 
 runs the GEMM pass alone in the same turns.
 
-    python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only]
+    python3 chip_ab.py --three-d PARENT_DIR
+
+runs the 3-D pass alone in the same turns, each turn two processes (the
+512^3 volume, whose path peaks at 51 GB, in its own), from each tree's
+chip_smoke.py: the momentum tier kernels on the operators of the first
+step after the spin-up (bench.py's 2 calls of 50 steps; 192^3 one call),
+each component forward and transposed, the trip loop's first two calls,
+one line per volume with the sha256 of x, the entry norm and the
+per-block sweeps of each call and, under "clock", device us a call
+(component 0, forward, first call) and host ms: 15e at 256^3 (bz 8) and
+192^3 (bz 16), 15e on the 3-D cavity's face volumes at N = 128 (after 100
+steps from rest), 15f at 512^3 (after one 20-step call); the trajectory
+digests of the 256^3 forward (50 steps after the spin-up) and its grad10
+("outputs" remat: the loss and the gradient's bits), of the cavity's 100
+steps and of the 512^3 call, each with its steps/s (not compared).
+
+    python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART]
 
 runs DIR's GEMM pass and phases alone (what each turn above runs); --save
-writes the turbulence grad30 gradient to PATH.
+writes the turbulence grad30 gradient to PATH; --three-d-part main / 512
+runs that part of the 3-D pass instead.
 
     python3 chip_ab.py --gemm-configs
 
@@ -60,6 +77,7 @@ AB_PATHS = ("cavity_path", "mixing_path", "training_b1_path")  # phases 6b-c, 7b
 HERE = os.path.dirname(os.path.abspath(__file__))
 TURB_N, TURB_WARMUP, TURB_STEPS, TURB_GRAD_REPS, UNROLL = 512, 10, 200, 2, 30
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+T3_MID = 192  # the 3-D pass's second z-block volume (bz 16)
 # (label M x N x K [x batch], M, N, K, batch, what runs it); a batched shape
 # shares A (the eigenbasis) and takes B per sample, as the plane passes do
 GEMM_SHAPES = (
@@ -442,7 +460,128 @@ def turbulence_paths(dev, wrappers: dict, save=None) -> None:
         torch.save([c.detach().cpu() for c in res.grad.components], save)
 
 
-def paths_in(tree: str, save=None, gemm_only=False) -> int:
+def tier_line(dev, cs, label: str, tier: str, st, rhs, vel) -> None:
+    """The tier kernel of the momentum solve on one step's operators (`st`,
+    the stencil; `rhs`, the right-hand sides; `vel`, the entry iterates),
+    with whichever package is imported, as krylov's trip loop calls it
+    (sgn -1, advection tol, k = JAC_K, the tiers' bz): each component
+    forward and transposed, two calls (the second from the first's x). One
+    JSON line: the sha256 of x, the entry norm and the sweeps of each call;
+    device us and host ms of component 0's first forward call."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.solvers import tiers
+    from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
+
+    shapes = [tuple(c.shape) for c in rhs]
+    bzs = [tiers.zblock_eligible(sh) for sh in shapes]
+
+    def call(c, x, tr):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        if tier == "zblock":
+            return fused_jacobi_zblock_3d(st_c, rhs[c], x, -1.0, tr, cs.ADV_TOL, cs.JAC_K, bzs[c])
+        return fused_jacobi_sweep_3d(st_c, rhs[c], x, -1.0, tr, cs.JAC_K)
+
+    digests, sweeps = [], []
+    for c in range(len(rhs)):
+        for tr in (False, True):
+            x = vel[c].contiguous()
+            for _ in range(2):
+                out = call(c, x, tr)
+                h = hashlib.sha256(bits_sha256(out[0]).encode())
+                h.update(out[1].detach().reshape(1).view(torch.int32).cpu().numpy().tobytes())
+                if tier == "zblock":
+                    h.update(out[2].cpu().numpy().tobytes())
+                    sweeps.append(int(out[2].sum()))
+                digests.append(h.hexdigest())
+                x = out[0]
+    x0 = vel[0].contiguous()
+    d = device_us(lambda: call(0, x0, False), 10, "zb_" if tier == "zblock" else "pl3_")
+    print(json.dumps(dict(
+        tier3d=f"{tier} {label}", shapes=shapes, bz=bzs if tier == "zblock" else None,
+        block_sweeps_per_call=sweeps, sha256=digests,
+        clock=dict(launches_seen=d["launches_per_call"], device_us_per_call=d["device_us_per_call"],
+                   device_us_per_launch=d["device_us_per_launch"],
+                   ms=host_ms(lambda: call(0, x0, False), 10)))), flush=True)
+
+
+def three_d_pass(dev, cs, part: str) -> None:
+    """One part of the 3-D pass (the module docstring) with the imported
+    package and its tree's chip_smoke.py `cs`."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+
+    def first_step(step, v, p):
+        o = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True)
+        return o.intermediates["stencil"], o.intermediates["rhs"].components
+
+    def timed_call(name, step, v, p, steps):
+        """One bench.py call of `steps` steps, timed: one JSON line."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, p, iters, warns = cs.turb3d_call(step, v, p, steps)
+        torch.cuda.synchronize()
+        print(json.dumps(dict(workload=name, steps=steps, pressure_iters=iters, warns=warns,
+                              steps_per_sec=steps / (time.perf_counter() - t0))), flush=True)
+        return v, p
+
+    if part == "512":
+        n = cs.T3_HUGE
+        traj = Trajectory(cs, "turbulence_step_fn")
+        domain, step = cs.turb3d_step(n, dev)
+        v, p = cs.turb3d_state(n, dev)
+        v, p = timed_call(f"turbulence {n}^3 forward", step, v, p, cs.T3_HUGE_CALL)
+        traj.close(f"turbulence {n}^3 forward, {cs.T3_HUGE_CALL} steps")
+        st, rhs = first_step(step, v, p)
+        tier_line(dev, cs, f"{n}^3", "plane", st, rhs, v.components)
+        return
+    for n in (cs.T3_BIG, T3_MID):
+        traj = Trajectory(cs, "turbulence_step_fn")
+        domain, step = cs.turb3d_step(n, dev)
+        v, p = cs.turb3d_state(n, dev)
+        for _ in range(cs.T3_SPINUP_CALLS if n == cs.T3_BIG else 1):
+            v, p, _, _ = cs.turb3d_call(step, v, p)
+        st, rhs = first_step(step, v, p)
+        tier_line(dev, cs, f"{n}^3", "zblock", st, rhs, v.components)
+        del st, rhs
+        if n != cs.T3_BIG:
+            traj.close(f"turbulence {n}^3 spin-up, {cs.T3_CALL} steps")
+            continue
+        traj.sums.clear()
+        v, p = timed_call(f"turbulence {n}^3 forward", step, v, p, cs.T3_CALL)
+        traj.close(f"turbulence {n}^3 forward, {cs.T3_CALL} steps")
+        forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                                 periodic=(True,) * 3)
+        t0 = time.perf_counter()
+        res = rollout_loss_grad(step, v, p, forcing, cs.T3_UNROLL, remat=cs.T3_BIG_REMAT)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        digest = hashlib.sha256()
+        for c in res.grad.components:
+            digest.update(bits_sha256(c).encode())
+        print(json.dumps(dict(
+            workload=f"turbulence {n}^3 grad{cs.T3_UNROLL}, remat {cs.T3_BIG_REMAT}",
+            loss=res.loss, warns=res.warns, grad_sha256=digest.hexdigest(),
+            unrolled_steps_per_sec=cs.T3_UNROLL / seconds)), flush=True)
+        del res, v, p, step, domain
+    n = cs.CAV3_N
+    domain, sim, dt = cs.cavity3d_case(n, dev, "dct")
+    traj = Trajectory(cs, "cavity3d_step")
+    step = cs.cavity3d_step(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    v, p = timed_call(f"3-D cavity {n} from rest", step, v, p, 100)
+    traj.close(f"3-D cavity {n}, 100 steps from rest")
+    st, rhs = first_step(step, v, p)
+    tier_line(dev, cs, f"3-D cavity {n} faces", "zblock", st, rhs, v.components)
+
+
+def paths_in(tree: str, save=None, gemm_only=False, three_d=None) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
     then (unless gemm_only) DIR's own phases 6b-c, 7b-c, 8b, 10b-c and 11
     with their trajectories, and `turbulence_paths`; their JSON lines go
@@ -472,6 +611,9 @@ def paths_in(tree: str, save=None, gemm_only=False) -> int:
     native.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if three_d:
+        three_d_pass(dev, cs, three_d)
+        return 0
     gemm_pass(dev)
     if gemm_only:
         return 0
@@ -521,10 +663,12 @@ def line_name(row: dict) -> str:
         return f"gemm {row['gemm']} {row['epilogue']}"
     if "row" in row:
         return f"row {row['row']} {row.get('case') or row.get('plane')}"
+    if "tier3d" in row:
+        return f"tier3d {row['tier3d']}"
     return str(next(iter(row)))
 
 
-def ab(parent: str, gemm_only=False) -> int:
+def ab(parent: str, gemm_only=False, three_d=False) -> int:
     """Run `--paths-in` on the parent tree and on this tree in turns
     (parent, change, change, parent) and compare the lines."""
     import torch
@@ -535,11 +679,15 @@ def ab(parent: str, gemm_only=False) -> int:
     for label, tree in (("parent", parent), ("change", HERE), ("change", HERE),
                         ("parent", parent)):
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
-                              "--save", os.path.join(saves, f"run{len(runs)}.pt")]
-                             + (["--gemm-only"] if gemm_only else []),
-                             capture_output=True, text=True, timeout=1800)
-        lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+        lines = []
+        for extra in ((["--three-d-part", "main"], ["--three-d-part", "512"]) if three_d else
+                      (["--gemm-only"] if gemm_only else [],)):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
+                                  "--save", os.path.join(saves, f"run{len(runs)}.pt")] + extra,
+                                 capture_output=True, text=True, timeout=1800)
+            lines += [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+            if res.returncode:
+                break
         print(json.dumps(dict(run=len(runs), tree=label, rc=res.returncode,
                               seconds=time.perf_counter() - t0, lines=lines)), flush=True)
         if res.returncode:
@@ -561,7 +709,7 @@ def ab(parent: str, gemm_only=False) -> int:
               flush=True)
         if not across and must_equal(name):
             differ = True
-    if gemm_only:
+    if gemm_only or three_d:
         return 1 if differ else 0
     grads = [torch.load(os.path.join(saves, f"run{i}.pt")) for i in range(4)]
 
@@ -582,6 +730,9 @@ if __name__ == "__main__":
     ap.add_argument("--gemm", action="store_true", help="compare the GEMM pass alone")
     ap.add_argument("--paths-in", metavar="DIR", help="run DIR's GEMM pass and paths alone")
     ap.add_argument("--gemm-only", action="store_true", help="with --paths-in: the GEMM pass")
+    ap.add_argument("--three-d", action="store_true", help="compare the 3-D pass alone")
+    ap.add_argument("--three-d-part", choices=("main", "512"),
+                    help="with --paths-in: that part of the 3-D pass")
     ap.add_argument("--save", metavar="PATH", help="with --paths-in: save the turbulence gradient")
     ap.add_argument("--gemm-configs", action="store_true",
                     help="time every tile configuration of this tree's GEMM")
@@ -594,7 +745,7 @@ if __name__ == "__main__":
             sys.exit(1)
         sys.exit(gemm_configs(torch.device("cuda")))
     if args.paths_in:
-        sys.exit(paths_in(args.paths_in, args.save, args.gemm_only))
+        sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part))
     if not args.parent:
         ap.error("name a parent tree, or --paths-in DIR, or --gemm-configs")
-    sys.exit(ab(args.parent, args.gemm))
+    sys.exit(ab(args.parent, args.gemm, args.three_d))

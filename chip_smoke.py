@@ -485,34 +485,49 @@ def device_time(fn, reps: int = 20) -> dict:
     return {"_device_time": (fn, reps)}
 
 
+def library_device_time(fn, reps: int = 20) -> dict:
+    """`device_time` of a library call (the yardstick of `library_ms`):
+    every kernel it launches counts, under the keys library_device_*."""
+    return {"_library_device_time": (fn, reps)}
+
+
 def measure_device_times(entries) -> None:
-    """Replace each placeholder of `device_time` in the entries (and their
-    nested dicts) by its measurement."""
+    """Replace each placeholder of `device_time` / `library_device_time`
+    in the entries (and their nested dicts) by its measurement."""
     for entry in entries:
         for sub in [entry] + [v for v in entry.values() if isinstance(v, dict)]:
             if "_device_time" in sub:
                 sub.update(profile_device(*sub.pop("_device_time")))
+            if "_library_device_time" in sub:
+                got = profile_device(*sub.pop("_library_device_time"), own=False)
+                sub.update({f"library_{k}": v for k, v in got.items()})
 
 
-def profile_device(fn, reps: int) -> dict:
+def profile_device(fn, reps: int, own: bool = True, tries: int = 3) -> dict:
     """Device time of `fn` under torch.profiler: the kernels of this
-    repository it launches per call, and their mean device time per launch
-    (microseconds). The host-clock `ms` of a call beside it includes the
-    wrapper's own cost."""
+    repository it launches per call (every kernel unless `own`), their mean
+    device time per launch and their device time per call (microseconds).
+    The host-clock `ms` of a call beside it includes the wrapper's own
+    cost. A session that saw no kernel at all is run again, up to `tries`
+    times: the profiler drops events in this long process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and any(k in e.name for k in OWN_KERNELS)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and (not own or any(k in e.name for k in OWN_KERNELS))]
+        if evs:
+            break
     total_us = sum(e.time_range.elapsed_us() for e in evs)
     return dict(device_launches_per_call=len(evs) / reps,
-                device_us_per_launch=total_us / len(evs) if evs else None)
+                device_us_per_launch=total_us / len(evs) if evs else None,
+                device_us_per_call=total_us / reps)
 
 
 def bound(bytes_moved: float, flops: float):
@@ -531,6 +546,20 @@ BICG_PHASES = ("bicg_phase_p", "bicg_phase_s", "bicg_phase_x")
 # (those only its grad30 launches, from that)
 CAVITY_KERNELS = ("grad2m", "div2m", "gradT2m", "stencil_matvec") + BICG_PHASES
 CAVITY_GRAD_KERNELS = ("gradT2m",) + BICG_PHASES
+
+
+def lazy_call(make, call):
+    """fn() = call(make()), make() run once, at the first call: a large
+    yardstick operand (a 3-D CSR matrix) is built when its device time is
+    measured, at the end, and not held until then."""
+    box = []
+
+    def fn():
+        if not box:
+            box.append(make())
+        return call(box[0])
+
+    return fn
 
 
 def csr_of_stencil(c, ly, hy, lx, hx):
@@ -757,7 +786,8 @@ def cavity_kernels(dev, kernels: list) -> dict:
         ms=cuda_time_ms(mv_k, 200), ms_transposed=cuda_time_ms(lambda: mv_k(True), 200),
         plain_ms=cuda_time_ms(lambda: matvec.matvec_plain(*planes0, w[0]), 50),
         **device_time(mv_k), bound_ms=b_mv, bound_by=by_mv,
-        library_ms=cuda_time_ms(lambda: csr @ x0f, 200), shape=list(w[0].shape),
+        library_ms=cuda_time_ms(lambda: csr @ x0f, 200),
+        **library_device_time(lambda: csr @ x0f), shape=list(w[0].shape),
     ))
 
     # the BiCGSTAB phases on the step's momentum operator, both forms and
@@ -2775,6 +2805,7 @@ def sweeps_kernels(dev, kernels: list) -> dict:
         # yardstick: b + M x as one cuSPARSE CSR addmm, without the max; the
         # port never calls it
         library_ms=cuda_time_ms(lambda: torch.addmm(bcol, csr, xcol), 50),
+        **library_device_time(lambda m=csr: torch.addmm(bcol, m, xcol)),
         library_rel_err=lib_rel))
     del csr
 
@@ -2900,6 +2931,11 @@ T3_ZB_SMALL_BZ = 16
 T3_HUGE = 512  # 14d: bench.py --n3d 512 --fwd-only, the plane tier
 T3_HUGE_CALL = 20  # cut for time: bench.py's calls are 50 steps, 2 spin-up and 3 timed
 JAC_K = 4  # sweeps per tier-kernel call (krylov.bicgstab's trip loop)
+# launches a call of the tier kernels (solvers/jacobi3d.py): 15e the entry
+# residual fused with sweep 0, then one a sweep (at least 2); 15f up to 4
+# sweeps a launch
+ZB_CALL_LAUNCHES = max(JAC_K, 2)
+PL_CALL_LAUNCHES = -(-JAC_K // 4)
 # the tier kernels (z block, plane), by the tier that runs them
 T3_TIER_KERNELS = {"zblock": "jacobi_zblock_3d", "plane": "jacobi_sweep_3d"}
 
@@ -3064,7 +3100,9 @@ def turb3d_kernels(dev, kernels: list) -> tuple:
         plain_ms=cuda_time_ms(lambda: matvec.matvec3_plain(*lap_args), 20),
         bound_ms=b_mv, bound_by=by_mv,
         # yardstick: one cuSPARSE CSR SpMV of the same operator; the port never calls it
-        library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, pv), 50)))
+        library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, pv), 50),
+        **library_device_time(lazy_call(lambda: csr_of_stencil3(*lap_args[:7]),
+                                        lambda m: torch.sparse.mm(m, pv)))))
     del csr
 
     # 15d on the step's right-hand sides from the developed velocity, each
@@ -3141,7 +3179,8 @@ def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     """(the 3-D launches the loops derive, counter deltas): the momentum
     tier's kernel (the whole-solve Jacobi 2 launches per component solve
     plus one per sweep; per trip one call per component, the z-block
-    kernel 1 + JAC_K launches a call, the plane kernel JAC_K); the 7-point
+    kernel ZB_CALL_LAUNCHES launches a call, the plane kernel
+    PL_CALL_LAUNCHES); the 7-point
     matvec three times per BiCGSTAB operator apply (one per component); the
     pressure loop's rank-3 phases (row 10e: the residual once per warm
     entry, reset and finished loop, the apply once per iteration), the
@@ -3154,8 +3193,8 @@ def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     16-3d as the loop does (M^-1 r once per loop and iteration)."""
     d = {k: c1[k] - c0[k] for k in c0}
     jac = {"jac13d": ("jacobi1_solve_3d", 2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"]),
-           "zblock": (T3_TIER_KERNELS["zblock"], 3 * (1 + JAC_K) * d["jacobi_trips"]),
-           "plane": (T3_TIER_KERNELS["plane"], 3 * JAC_K * d["jacobi_trips"])}[tier]
+           "zblock": (T3_TIER_KERNELS["zblock"], 3 * ZB_CALL_LAUNCHES * d["jacobi_trips"]),
+           "plane": (T3_TIER_KERNELS["plane"], 3 * PL_CALL_LAUNCHES * d["jacobi_trips"])}[tier]
     l3, w3, i3 = d["pcg3_loops"], d["pcg3_warm_entries"], d["pcg3_iterations"]
     its = d["pcg_iterations"] - i3
     return {jac[0]: jac[1],
@@ -3461,12 +3500,14 @@ def turb3d_tier_kernels(dev, kernels: list, n: int, tier: str, spinup_calls: int
         swept = sum(block_sweeps) * bz * n * n
         b_k, by_k = bound(10 * vol, 15 * cells + 18 * swept)
         extra = dict(bz=bz, block_sweeps=block_sweeps,
-                     launches_count=f"kernel launches (per call: init, then {JAC_K} sweeps)")
+                     launches_count=f"kernel launches (per call: {ZB_CALL_LAUNCHES}, the entry "
+                                    "residual fused with sweep 0, then one a sweep)")
     else:
         # 9 volumes in, x out; per cell the z terms and rhs (6 flops), then
         # per sweep the in-plane residual (11) and the update (2)
         b_k, by_k = bound(10 * vol, cells * (6 + 13 * JAC_K))
-        extra = dict(launches_count=f"kernel launches (per call: {JAC_K}, one per sweep)")
+        extra = dict(launches_count=f"kernel launches (per call: {PL_CALL_LAUNCHES}, "
+                                    f"{JAC_K} sweeps in one launch)")
     src, line = ("jacobi_zblock3", 1443) if tier == "zblock" else ("jacobi_plane3", 1315)
     kernels.append(dict(
         name=name, route="cuda", source=f"diffpiso_tpu_torch/csrc/{src}.cu",
@@ -4703,7 +4744,13 @@ def cg_kernels(dev, kernels: list) -> None:
         **device_time(lambda: cgk.fused_cg_iteration(*inputs)),
         bound_ms=b_, bound_by=by_,
         library_ms=cuda_time_ms(lambda: csr @ pf, 200),
-        library_call="one cuSPARSE CSR SpMV of the same Laplacian (the matvec part)"))
+        library_call="one cuSPARSE CSR SpMV of the same Laplacian (the matvec part)",
+        # device time of the SpMV and of the SpMV with the iteration's two
+        # dot products (p.q, r.r)
+        **library_device_time(lambda: csr @ pf),
+        spmv_dots=library_device_time(lambda: (
+            torch.dot(pf.reshape(-1), (csr @ pf).reshape(-1)),
+            torch.dot(r.reshape(-1), r.reshape(-1))))))
 
 
 def cg_small_check(dev) -> None:
@@ -6078,10 +6125,12 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
             inputs = {"pcg_residual3": (lap, b, x, False),
                       "pcg_apply3": (lap, rz, x, r, p, False),
                       "cg_iteration3": (lap, x, r, p, False)}
-    ops = (c for c in (lap.center, *lap.lo, *lap.hi))
+    ops = (lap.center, *lap.lo, *lap.hi)
     csr = csr_of_stencil3(*ops)
     xv = inputs["pcg_residual3"][2].reshape(-1, 1)
     spmv_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, xv), 20)
+    spmv_dev = library_device_time(lazy_call(lambda: csr_of_stencil3(*ops),
+                                             lambda m: torch.sparse.mm(m, xv)))
     del csr
     # per call: volumes in and out; flops per cell (7-point stencil and shift 15, the
     # updates and dot products)
@@ -6096,7 +6145,7 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
             plain_ms=cuda_time_ms(lambda plain=plain, a=a: plain(*a), 20),
             **device_time(lambda fn=fn, a=a: fn(*a)), bound_ms=b_ms, bound_by=b_by,
             # yardstick of the matvec part: one cuSPARSE CSR SpMV of the 7-point operator
-            library_ms=spmv_ms)
+            library_ms=spmv_ms, **spmv_dev)
     if cg_solves:
         def cg_solve(cold):
             rhs = b / b.abs().max() if cold else b
@@ -6296,6 +6345,15 @@ def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
     xv = x.reshape(-1, 1)
     spmv_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, xv), 20)
     del csr
+
+    def spmv_dev():
+        return library_device_time(lazy_call(
+            lambda: csr_of_stencil3(lap.center, *lap.lo, *lap.hi),
+            lambda m: torch.sparse.mm(m, xv)), 5)
+
+    def dot_dev():
+        return library_device_time(lambda: torch.dot(r1.reshape(-1), z1.reshape(-1)), 5)
+
     rows = (
         # name, kernel, twin, bytes, flops, library call
         ("pcg3_residual", lambda: pcg3.pcg3_residual(lap, b, xd),
@@ -6310,12 +6368,13 @@ def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
         ("pcg3_p", lambda: pcg3.pcg3_p(z1, p, rz1, rz), lambda: pcg3.p_plain(z1, p, rz1, rz),
          3 * vol, 3 * cells, None),
     )
+    lib_dev = {"pcg3_residual": spmv_dev, "pcg3_q": spmv_dev, "pcg3_dots": dot_dev}
     for name, fn, plain, nbytes, flops, lib in rows:
         b_ms, b_by = bound(nbytes, flops)
         plain_ms = cuda_time_ms(plain, 10)
         out[name].update(ms=cuda_time_ms(fn, 20), plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib,
-                         **device_time(fn, 5))
+                         **device_time(fn, 5), **(lib_dev[name]() if name in lib_dev else {}))
 
     # whole solves, the kernels against the twins on the card
     def twin(fn):  # the twin in a wrapper's place: the solve's scratch unused

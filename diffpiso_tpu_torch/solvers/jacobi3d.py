@@ -18,8 +18,9 @@ coupling live inside the block and frozen at its two edge planes:
 A block already at tol sweeps zero times. The block size changes the
 result, so the caller passes the JAX gate's bz (8 at 256^3, 16 at 192^3);
 the kernel takes any bz that divides nz. The CUDA kernels are
-csrc/jacobi_zblock3.cu: one init launch and k sweep launches over all
-blocks, each block's norms and sweep count in device slots, no host read.
+csrc/jacobi_zblock3.cu: max(k, 2) launches over all blocks (the entry
+residual fused with the first sweep, then one sweep each), each block's
+norms and sweep count in device slots, no host read.
 
 Kernel 15f, `fused_jacobi_sweep_3d`, replaces pallas_krylov.py
 fused_jacobi_sweep_3d (TPU kernel `_jacobi3d_kernel`), the tier past the
@@ -33,8 +34,9 @@ the z coupling frozen at the entry iterate, k in-plane sweeps per plane:
   return x and n, the residual of the entry x
 
 It multiplies by the reciprocal where 15e divides, as the TPU kernels do.
-The CUDA kernels are csrc/jacobi_plane3.cu: one launch per sweep over all
-planes.
+The CUDA kernel is csrc/jacobi_plane3.cu: one launch runs up to 4 sweeps
+in shared memory (temporal blocking in the plane), so a call takes
+ceil(k / 4) launches.
 
 Both kernels round like their plain versions op for op, bit for bit. On a
 CUDA tensor a wrapper launches its kernels (each launch adds one to its
@@ -56,13 +58,12 @@ _P = ctypes.c_void_p
 _F = ctypes.c_float
 _I = ctypes.c_int
 _SIGS_ZB = {
-    "zb_init": [_P, _P, _F, _F, _F, _I, _I, _P, _P, _P],
+    "zb_first": [_P, _P, _F, _F, _F, _I, _I, _P, _P, _P],
     "zb_sweep": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P],
 }
-_SIGS_PL = {
-    "pl3_first": [_P, _P, _F, _I, _P, _P, _P, _P],
-    "pl3_sweep": [_P, _P, _F, _I, _P, _P, _P, _P],
-}
+_SIGS_PL = {"pl3_sweeps": [_P, _P, _F, _I, _I, _P, _P, _P, _P]}
+PL3_HALO = 4  # sweeps a 15f launch at most (csrc/jacobi_plane3.cu)
+_MAX_CELLS = 2 ** 31  # the kernels' 32-bit offsets
 
 
 def _scalars(sgn, tol):
@@ -78,6 +79,8 @@ def _operands(name, st_c, b, x):
     native.require_cuda_f32(name, *ops)
     if b.ndim != 3 or any(t.shape != b.shape for t in ops):
         raise ValueError(f"{name}: the volumes must share one 3-D shape")
+    if b.numel() >= _MAX_CELLS:
+        raise ValueError(f"{name}: {b.numel()} cells; the kernels take fewer than 2^31")
     return ops
 
 
@@ -148,7 +151,7 @@ def fused_jacobi_zblock_3d(st_c, b, x, sgn, transpose, tol, k, bz):
     """k full 3-D Jacobi sweeps per block of bz z planes for one component
     of the periodic 3-D momentum system. Returns (x', the global max
     |b - A x| at entry as a 0-d tensor, per-block sweeps (nz / bz,) int32
-    tensor). On a CUDA tensor: one init launch and k sweep launches."""
+    tensor). On a CUDA tensor: max(k, 2) launches."""
     if b.device.type == "cpu":
         return jacobi_zblock3_plain(st_c, b, x, sgn, transpose, tol, k, bz)
     ops = _operands("fused_jacobi_zblock_3d", st_c, b, x)
@@ -158,8 +161,10 @@ def fused_jacobi_zblock_3d(st_c, b, x, sgn, transpose, tol, k, bz):
 
 def _zblock_launches(lib, ops, sgn, transpose, tol, k, bz):
     """Kernel 15e's launches through the library `lib` on the operands
-    `ops` (c, lz, hz, ly, hy, lx, hx, b, x): the init, then k sweeps, each
-    counted in `fused_jacobi_zblock_3d.launches` right after it is made."""
+    `ops` (c, lz, hz, ly, hy, lx, hx, b, x): the entry residual fused with
+    sweep 0, then launches j = 1 .. max(k - 1, 1) (launch 1 also puts x0
+    back on the blocks that ran no sweep), each counted in
+    `fused_jacobi_zblock_3d.launches` right after it is made."""
     b = ops[7]
     nz, ny, nx = b.shape
     if bz < 1 or nz % bz:
@@ -177,11 +182,11 @@ def _zblock_launches(lib, ops, sgn, transpose, tol, k, bz):
     dims = (ctypes.c_int * 4)(nz, ny, nx, bz)
     tr = int(bool(transpose))
     stream = native.stream_of(b)
-    native.check(lib.zb_init(ptrs, dims, sgn32, tol32, tol_in, k, tr, native.ptr(ra),
-                             native.ptr(norms), stream), "zb_init")
+    native.check(lib.zb_first(ptrs, dims, sgn32, tol32, tol_in, k, tr, native.ptr(ra),
+                              native.ptr(norms), stream), "zb_first")
     fused_jacobi_zblock_3d.launches += 1
-    for j in range(k):
-        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
+    for j in range(1, max(k, 2)):
+        r_in, r_out = (ra, rb) if j % 2 == 1 else (rb, ra)
         native.check(lib.zb_sweep(ptrs, dims, sgn32, tol32, tol_in, k, tr, j, native.ptr(r_in),
                                   native.ptr(r_out), native.ptr(norms), native.ptr(sweeps),
                                   stream), "zb_sweep")
@@ -189,7 +194,7 @@ def _zblock_launches(lib, ops, sgn, transpose, tol, k, bz):
     return xo, norms[nslots - 1], sweeps
 
 
-fused_jacobi_zblock_3d.launches = 0  # kernel launches (per call: init, then k sweeps)
+fused_jacobi_zblock_3d.launches = 0  # kernel launches (per call: max(k, 2))
 
 
 def jacobi_plane3_plain(st_c, b, x, sgn, transpose, k):
@@ -222,7 +227,7 @@ def fused_jacobi_sweep_3d(st_c, b, x, sgn, transpose, k=4):
     """k in-plane Jacobi sweeps per z plane, the z coupling frozen at the
     entry x, for one component of the periodic 3-D momentum system.
     Returns (x', max |b - A x| at entry as a 0-d tensor). On a CUDA
-    tensor: k launches, one per sweep."""
+    tensor: ceil(k / PL3_HALO) launches."""
     if b.device.type == "cpu":
         return jacobi_plane3_plain(st_c, b, x, sgn, transpose, k)
     ops = _operands("fused_jacobi_sweep_3d", st_c, b, x)
@@ -230,29 +235,31 @@ def fused_jacobi_sweep_3d(st_c, b, x, sgn, transpose, k=4):
 
 
 def _plane_launches(lib, ops, sgn, transpose, k):
-    """Kernel 15f's k launches through the library `lib` on the operands
-    `ops` (c, lz, hz, ly, hy, lx, hx, b, x), each counted in
-    `fused_jacobi_sweep_3d.launches` right after it is made."""
+    """Kernel 15f's launches through the library `lib` on the operands
+    `ops` (c, lz, hz, ly, hy, lx, hx, b, x): runs of at most PL3_HALO sweeps,
+    each from the iterate the one before wrote (the first from x, forming
+    the entry norm), each counted in `fused_jacobi_sweep_3d.launches` right
+    after it is made."""
     if k < 1:
         raise ValueError(f"fused_jacobi_sweep_3d: k = {k}, at least one sweep is needed")
     b = ops[7]
-    rhs = torch.empty_like(b)
-    xa, xb = torch.empty_like(b), torch.empty_like(b)
+    bufs = [torch.empty_like(b) for _ in range(1 if k <= PL3_HALO else 2)]
     norm = torch.zeros((), dtype=torch.float32, device=b.device)
     ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in ops])
     dims = (ctypes.c_int * 3)(*b.shape)
     sgn32 = float(np.float32(sgn))
     tr = int(bool(transpose))
     stream = native.stream_of(b)
-    native.check(lib.pl3_first(ptrs, dims, sgn32, tr, native.ptr(rhs), native.ptr(xa),
-                               native.ptr(norm), stream), "pl3_first")
-    fused_jacobi_sweep_3d.launches += 1
-    for j in range(1, k):
-        x_in, x_out = (xa, xb) if j % 2 == 1 else (xb, xa)
-        native.check(lib.pl3_sweep(ptrs, dims, sgn32, tr, native.ptr(rhs), native.ptr(x_in),
-                                   native.ptr(x_out), stream), "pl3_sweep")
+    x_in, done = ops[8], 0
+    while done < k:
+        run = min(PL3_HALO, k - done)
+        out = bufs[0] if x_in is not bufs[0] else bufs[1]
+        native.check(lib.pl3_sweeps(ptrs, dims, sgn32, tr, run, native.ptr(x_in), native.ptr(out),
+                                    native.ptr(norm) if done == 0 else None, stream),
+                     "pl3_sweeps")
         fused_jacobi_sweep_3d.launches += 1
-    return (xa if k % 2 == 1 else xb), norm
+        x_in, done = out, done + run
+    return x_in, norm
 
 
-fused_jacobi_sweep_3d.launches = 0  # kernel launches (per call: k, one per sweep)
+fused_jacobi_sweep_3d.launches = 0  # kernel launches (per call: ceil(k / PL3_HALO))

@@ -1216,35 +1216,74 @@ def _system3(shape, seed, device, plane_scale=None):
     return (c, lo, hi), t(b).to(device)
 
 
+# (shape, bz): tiles of 16 x 32 cells that cross the plane's edges (the
+# 3-D cavity's face volumes: 129 columns), bz = nz, one-plane blocks
+ZB_CASES = [((12, 12, 16), 3), ((32, 48, 64), 8), ((26, 130, 129), 13), ((43, 128, 129), 43),
+            ((16, 20, 24), 16), ((6, 17, 33), 1)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("shape,bz", [((12, 12, 16), 3), ((32, 48, 64), 8)])
-def test_jacobi_zblock3d_kernel_is_bit_equal_to_plain(shape, bz, transpose, cuda_device):
-    """Kernel 15e: x, the entry residual and every block's sweeps equal; a
-    block at tol (its b near zero) sweeps zero times, one stops early."""
+@pytest.mark.parametrize("shape,bz", ZB_CASES)
+def test_jacobi_zblock3d_kernel_is_bit_equal_to_plain(shape, bz, transpose, k, cuda_device):
+    """Kernel 15e at every k from 1 to 4, on shapes whose planes end inside
+    a tile, with bz = nz and one-plane blocks: x, the entry residual and
+    every block's sweeps equal to the plain version's. With several blocks
+    the first enters at tol (its b near zero: 0 sweeps), the last stops
+    early (at k = 4), the rest run k; the call is max(k, 2) launches. From
+    the first call's x (the trip loop's second call) every block's sweeps
+    again match."""
+    nb = shape[0] // bz
     scale = np.ones(shape[0], np.float32)
-    scale[:bz] = 1e-7
-    scale[-bz:] = 1e-3
-    st, b = _system3(shape, 90, cuda_device, scale)
-    x0 = torch.zeros_like(b)
-    before = fused_jacobi_zblock_3d.launches
+    if nb > 1:
+        scale[:bz] = 1e-7
+        scale[-bz:] = 2e-5
+    st, b = _system3(shape, 93, cuda_device, scale)
+    x = 0.001 * _rand(shape, 94).to(cuda_device) if nb == 1 else torch.zeros_like(b)
+    for call in range(2):
+        before = fused_jacobi_zblock_3d.launches
+        kx, kn, ks = fused_jacobi_zblock_3d(st, b, x, -1.0, transpose, 1e-6, k, bz)
+        px, pn, ps = jacobi_zblock3_plain(st, b, x, -1.0, transpose, 1e-6, k, bz)
+        assert fused_jacobi_zblock_3d.launches - before == max(k, 2)
+        assert torch.equal(kx, px) and float(kn) == float(pn)
+        assert ks.tolist() == ps.tolist()
+        if call == 0 and nb > 1:
+            assert ps[0] == 0 and 0 < int(ps[-1]) <= k
+            assert nb == 2 or int(ps[1:-1].min()) == k
+        x = kx
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_jacobi_zblock3d_kernel_stops_a_block_with_a_nan(transpose, cuda_device):
+    """A NaN in b: its block's entry residual is NaN, the block sweeps zero
+    times and keeps x0 bit for bit, the global entry residual is NaN; the
+    other blocks run as the plain version's."""
+    shape, bz = (26, 130, 129), 13
+    st, b = _system3(shape, 95, cuda_device)
+    b[20, 7, 128] = float("nan")
+    x0 = 0.001 * _rand(shape, 96).to(cuda_device)
     kx, kn, ks = fused_jacobi_zblock_3d(st, b, x0, -1.0, transpose, 1e-6, 4, bz)
     px, pn, ps = jacobi_zblock3_plain(st, b, x0, -1.0, transpose, 1e-6, 4, bz)
-    assert torch.equal(kx, px) and float(kn) == float(pn)
-    assert ks.tolist() == ps.tolist() and ps[0] == 0 and int(ps.max()) == 4
-    assert fused_jacobi_zblock_3d.launches - before == 5
+    assert torch.equal(kx, px) and torch.equal(kx[13:], x0[13:])
+    assert np.isnan(float(kn)) and np.isnan(float(pn))
+    assert ks.tolist() == ps.tolist() and ps[1] == 0 and ps[0] > 0
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("shape", VOLUMES)
+@pytest.mark.parametrize("shape", VOLUMES + [(26, 130, 129), (12, 12, 16), (3, 100, 57)])
 def test_jacobi_plane3d_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+    """Kernel 15f at k = 1 .. 5 and 9 (past 4 sweeps the call chains
+    launches), on planes that end inside a tile and planes smaller than
+    one: x and the entry residual equal to the plain version's; one launch
+    a call up to k = 4."""
     st, b = _system3(shape, 91, cuda_device)
     x0 = 0.004 * _rand(shape, 92).to(cuda_device)
-    for k in (1, 4):
+    for k in (1, 2, 3, 4, 5, 9):
         before = fused_jacobi_sweep_3d.launches
         kx, kn = fused_jacobi_sweep_3d(st, b, x0, -1.0, transpose, k)
         px, pn = jacobi_plane3_plain(st, b, x0, -1.0, transpose, k)
         assert torch.equal(kx, px) and float(kn) == float(pn)
-        assert fused_jacobi_sweep_3d.launches - before == k
+        assert fused_jacobi_sweep_3d.launches - before == -(-k // 4)
 
 
 def test_cuda_turb3d_steps_and_gradient_match_the_cpu_plain_path(cuda_device):

@@ -116,27 +116,27 @@ def test_plane_tier_hands_over_to_bicgstab_as_jax_does(jax_kernels, monkeypatch)
         np.testing.assert_allclose(n(a), n(w), rtol=0, atol=1e-4 * float(np.abs(n(w)).max()))
 
 
-@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("k", [1, 2, 4, 5, 9])
 def test_the_launch_counter_moves_at_each_launch(k, monkeypatch):
     """Kernel 15f's launches through a stand-in library that records each
-    launch: the first (rhs, the entry norm, the first update), then k - 1
-    sweeps, each reading the iterate the one before wrote;
-    `fused_jacobi_sweep_3d.launches` moves once per launch the library
-    saw, and the result is the buffer the last launch wrote."""
+    launch: runs of at most PL3_HALO (4) sweeps, the first from the entry x
+    with the norm slot, each later one from the iterate the one before
+    wrote into another buffer, without it; `fused_jacobi_sweep_3d.launches`
+    moves once per launch the library saw: ceil(k / 4) a call, and the
+    result is the buffer the last launch wrote."""
     monkeypatch.setattr(jacobi3d.native, "stream_of", lambda t_: None)
     seen = []
     lib = types.SimpleNamespace(
-        pl3_first=lambda ptrs, dims, sgn, tr, rhs, xo, norm, s:
-            seen.append(("first", None, xo.value)) or 0,
-        pl3_sweep=lambda ptrs, dims, sgn, tr, rhs, xi, xo, s:
-            seen.append(("sweep", xi.value, xo.value)) or 0)
+        pl3_sweeps=lambda ptrs, dims, sgn, tr, run, xi, xo, norm, s:
+            seen.append((run, xi.value, xo.value, norm)) or 0)
     ops = tuple(torch.zeros(SHAPE) for _ in range(9))
     before = fused_jacobi_sweep_3d.launches
     x, norm = jacobi3d._plane_launches(lib, ops, -1.0, True, k)
-    assert [s[0] for s in seen] == ["first"] + ["sweep"] * (k - 1)
+    assert [s[0] for s in seen] == [4] * (k // 4) + ([k % 4] if k % 4 else [])
+    assert seen[0][1] == ops[8].data_ptr() and seen[0][3] is not None
     for prev, cur in zip(seen, seen[1:]):
-        assert cur[1] == prev[2] and cur[2] != cur[1]
+        assert cur[1] == prev[2] and cur[2] != cur[1] and cur[3] is None
     assert x.data_ptr() == seen[-1][2] and norm.shape == ()
-    assert fused_jacobi_sweep_3d.launches - before == k == len(seen)
+    assert fused_jacobi_sweep_3d.launches - before == -(-k // 4) == len(seen)
     with pytest.raises(ValueError, match="at least one sweep"):
         jacobi3d._plane_launches(lib, ops, -1.0, True, 0)

@@ -239,26 +239,29 @@ def test_a_nan_ends_the_trips_and_hands_over(monkeypatch):
     assert got.warn and np.isnan(got.residual_norm)
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 2, 4])
 def test_the_launch_counter_moves_at_each_launch(k, monkeypatch):
     """Kernel 15e's launches through a stand-in library that records each
-    launch: one init, then k sweeps with their sweep index and alternating
-    residual buffers; `fused_jacobi_zblock_3d.launches` moves once per
-    launch the library saw."""
+    launch: the entry residual fused with sweep 0 (writing the first
+    residual buffer), then launches j = 1 .. max(k - 1, 1), each reading the
+    residual buffer the launch before wrote and writing the other one;
+    `fused_jacobi_zblock_3d.launches` moves once per launch the library
+    saw: max(k, 2) a call."""
     monkeypatch.setattr(jacobi3d.native, "stream_of", lambda t_: None)
     seen = []
     lib = types.SimpleNamespace(
-        zb_init=lambda ptrs, dims, sgn, tol, tol_in, k_, tr, r, norms, s:
-            seen.append(("init", tuple(dims), k_, r.value)) or 0,
+        zb_first=lambda ptrs, dims, sgn, tol, tol_in, k_, tr, r, norms, s:
+            seen.append(("first", tuple(dims), k_, r.value)) or 0,
         zb_sweep=lambda ptrs, dims, sgn, tol, tol_in, k_, tr, j, ri, ro, norms, sw, s:
             seen.append(("sweep", j, ri.value, ro.value)) or 0)
     ops = tuple(torch.zeros(SHAPE) for _ in range(9))
     before = fused_jacobi_zblock_3d.launches
     x, n0, sweeps = jacobi3d._zblock_launches(lib, ops, -1.0, False, 1e-6, k, 3)
-    assert seen[0][:3] == ("init", (12, 12, 16, 3), k)
-    assert [s[1] for s in seen[1:]] == list(range(k))
-    r0 = seen[0][3]
+    assert seen[0][:3] == ("first", (12, 12, 16, 3), k)
+    assert [s[1] for s in seen[1:]] == list(range(1, max(k, 2)))
+    written = seen[0][3]
     for s in seen[1:]:
-        assert s[2] == r0 if s[1] % 2 == 0 else s[3] == r0  # r alternates between two buffers
-    assert fused_jacobi_zblock_3d.launches - before == 1 + k == len(seen)
+        assert s[2] == written and s[3] != written  # r alternates between two buffers
+        written = s[3]
+    assert fused_jacobi_zblock_3d.launches - before == max(k, 2) == len(seen)
     assert sweeps.shape == (4,) and n0.shape == () and x.shape == SHAPE
