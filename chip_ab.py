@@ -1,5 +1,6 @@
 """Compare two trees of the port on one GPU: the hand-written GEMM shape by
-shape, the 2-D paths, and the 3-D momentum tier kernels and paths.
+shape, the 2-D paths, the 3-D momentum tier kernels and paths, and the CG
+iteration (row 10d) and whole-solve 3-D PCG (row 15g) with their paths.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -50,11 +51,35 @@ digests of the 256^3 forward (50 steps after the spin-up) and its grad10
 ("outputs" remat: the loss and the gradient's bits), of the cavity's 100
 steps and of the 512^3 call, each with its steps/s (not compared).
 
-    python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART]
+    python3 chip_ab.py --solvers PARENT_DIR [--kernels-only]
+
+runs the solver pass alone in the same turns, one process each, from each
+tree's chip_smoke.py (`solvers_pass`): row 10d (csrc/cg.cu) chained 12
+calls from a real start on the 513 x 512 cavity's Laplacian (a CG step
+from the state after phase 6's 2000-step spin-up) and on phase 4's 512^2
+turbulence, deflating and not, the sum of p carried from call to call
+where the tree's `fused_cg_iteration` takes it (`sum_p`), one line per
+case with the sha256 of each call's x', r', p' and scalar slots (the
+slots both designs write); row 15g (csrc/pcg3.cu) on the 128^3 and 256^3
+turbulence pressure systems (a step after bench.py's spin-up, 2 calls of
+50 steps): three adjoint-form solves (cold, warm from zeros, warm from the
+step's increment; 12 iterations each) through `krylov.pcg`, with the
+sha256 of every launch's outputs, the iterations, x and the exit norm;
+then (unless --kernels-only) phase 15b (`cg_cavity_path`: the 512 cavity under CG, 200
+forward steps and grad30) and grad10 at 128^3 ("none") and 256^3
+("outputs"), 1 untimed and 2 timed evaluations, with their trajectory,
+loss and gradient digests. Under "clock": device us and kernels a call of
+10d (with and without the carried sum) and of each 15g launch, beside
+`torch.dot`, one cuSPARSE CSR SpMV and the SpMV with two dot products
+(torch.profiler), and the paths' steps/s (not compared).
+
+    python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART
+                                       | --solvers-part PART]
 
 runs DIR's GEMM pass and phases alone (what each turn above runs); --save
 writes the turbulence grad30 gradient to PATH; --three-d-part main / 512
-runs that part of the 3-D pass instead.
+runs that part of the 3-D pass instead, --solvers-part kernels / all the
+solver pass.
 
     python3 chip_ab.py --gemm-configs
 
@@ -581,7 +606,259 @@ def three_d_pass(dev, cs, part: str) -> None:
     tier_line(dev, cs, f"3-D cavity {n} faces", "zblock", st, rhs, v.components)
 
 
-def paths_in(tree: str, save=None, gemm_only=False, three_d=None) -> int:
+CG_CALLS = 12  # chained calls of row 10d a case in the solver pass
+
+
+def cg_chain(cgk, label, lap, rhs, x0, deflate) -> None:
+    """Row 10d chained CG_CALLS calls from (x0, its residual), as
+    `krylov.cg` runs it: the sum of p carried from call to call where the
+    tree's wrapper takes it. One JSON line: the sha256 of each call's x',
+    r', p' and its scalar slots (the 8 of the former design; the mean slot
+    only when deflating), captured as the wrapper allocates them; under
+    "clock" device us and kernels a call (the first call's inputs; carried:
+    the second's, with the first's sum p') and host ms."""
+    import hashlib
+    import inspect
+
+    import torch
+
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    carry = "sum_p" in inspect.signature(cgk.fused_cg_iteration).parameters
+    slots = [i for i in range(8) if deflate or i != 5]
+    made = []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        t = real_empty(*a, **k)
+        if t.ndim == 1 and t.numel() in (8, 9):
+            made.append(t)
+        return t
+
+    r0, _ = pcgphases.residual_plain(lap, rhs, x0, deflate)
+    x, r, p, sp = x0, r0, r0, None
+    digests, inputs = [], []
+    for _ in range(CG_CALLS):
+        inputs.append((x, r, p, sp))
+        made.clear()
+        torch.empty = empty
+        try:
+            res = (cgk.fused_cg_iteration(lap, x, r, p, deflate, sum_p=sp) if carry
+                   else cgk.fused_cg_iteration(lap, x, r, p, deflate))
+        finally:
+            torch.empty = real_empty
+        (out,) = made
+        h = hashlib.sha256()
+        for t in res[:3]:
+            h.update(bits_sha256(t).encode())
+        h.update((out[slots] + 0.0).cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+        x, r, p = res[:3]
+        sp = res[4] if carry else None
+    rnorm = float(res[3])
+
+    def call(i, with_sum):
+        xi, ri, pi, si = inputs[i]
+        if carry:
+            return lambda: cgk.fused_cg_iteration(lap, xi, ri, pi, deflate,
+                                                  sum_p=si if with_sum else None)
+        return lambda: cgk.fused_cg_iteration(lap, xi, ri, pi, deflate)
+
+    clock = {}
+    for name, fn in (("first", call(0, False)),) + ((("carried", call(1, True)),) if carry
+                                                     else ()):
+        d = device_us(fn, 20, None)
+        clock[name] = dict(kernels_seen=d["launches_per_call"],
+                           device_us_per_launch=d["device_us_per_launch"],
+                           device_us_per_call=d["device_us_per_call"], ms=host_ms(fn, 50))
+    print(json.dumps(dict(row="10d", case=f"{label}, deflate={deflate}", plane=list(x0.shape),
+                          calls=CG_CALLS, last_rnorm=rnorm, sha256=digests,
+                          clock=dict(clock, carried_sum=carry))), flush=True)
+
+
+def cg_library_clock(cs, label, lap, r, p) -> None:
+    """Under "clock": device us a call of `torch.dot` (r.r), one cuSPARSE
+    CSR SpMV of the Laplacian and the SpMV with two dot products (p.q, r.r),
+    on one plane of row 10d's chain."""
+    import torch
+
+    csr = cs.csr_of_stencil(lap.center, lap.lo[0], lap.hi[0], lap.lo[1], lap.hi[1])
+    pf, rf = p.reshape(-1, 1), r.reshape(-1)
+
+    def spmv_dots():
+        return (torch.dot(pf.reshape(-1), (csr @ pf).reshape(-1)), torch.dot(rf, rf))
+
+    print(json.dumps(dict(row="10d library", case=label, clock={
+        name: device_us(fn, 20, None)["device_us_per_call"]
+        for name, fn in (("torch_dot", lambda: torch.dot(rf, rf)), ("spmv", lambda: csr @ pf),
+                         ("spmv_two_dots", spmv_dots))})), flush=True)
+
+
+def pcg3_solves(cs, label, lap, b, guess, spec) -> None:
+    """Row 15g: three adjoint-form solves through `krylov.pcg` (cold, warm
+    from zeros, warm from `guess`), each CG_CALLS iterations (tol 0: the
+    preconditioner is exact on these constant-coefficient systems up to
+    rounding, so a real tol stops after one or two), every launch's outputs
+    hashed as the wrappers return them. One JSON line a solve (iterations, sha256 of x,
+    the exit norm, the sha256 of the launches' outputs in order) and one
+    under "clock" with device us and kernels a call of each launch (its
+    first call in the cold solve) beside `torch.dot` and one cuSPARSE CSR
+    SpMV."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.solvers import krylov, pcg3
+
+    names = ("pcg3_residual", "pcg3_q", "pcg3_xr", "pcg3_dots", "pcg3_p")
+    first, h = {}, None
+    real = {k: getattr(pcg3, k) for k in names}
+
+    def wrap(name):
+        def f(*a, **kw):
+            out = real[name](*a, **kw)
+            start = name == "pcg3_dots" and (a[2] if len(a) > 2 else kw.get("start", False))
+            first.setdefault(name + " start" * bool(start), (a, kw))
+            for t in out if isinstance(out, tuple) else (out,):
+                h.update(bits_sha256(t).encode())
+            return out
+
+        # the wrappers count through their module-level names: f carries the
+        # counters while it stands in, and hands them back after
+        f.__dict__.update(real[name].__dict__)
+        return f
+
+    for start, x0 in (("cold", None), ("warm from zeros", torch.zeros_like(b)),
+                      ("warm from the increment", guess)):
+        h = hashlib.sha256()
+        for k in names:
+            setattr(pcg3, k, wrap(k))
+        try:
+            res = krylov.pcg(lap, b, x0, precond_mm=spec, tol=0.0, max_iter=CG_CALLS,
+                             residual_reset=0, deflate_mean=True, precond_zero_mean=True,
+                             early_exit=False)
+        finally:
+            for k in names:
+                real[k].__dict__.update(getattr(pcg3, k).__dict__)
+                setattr(pcg3, k, real[k])
+        print(json.dumps(dict(row="15g", case=f"{label} {start}", iterations=res.iterations,
+                              x_sha256=bits_sha256(res.x), exit_norm=res.residual_norm,
+                              launches_sha256=h.hexdigest())), flush=True)
+    clock = {}
+    for k in names + ("pcg3_dots start",):
+        a, kw = first[k]
+        fn = real[k.split()[0]]
+        d = device_us(lambda: fn(*a, **kw), 20, None)
+        clock[k] = dict(kernels_seen=d["launches_per_call"],
+                        device_us_per_launch=d["device_us_per_launch"],
+                        device_us_per_call=d["device_us_per_call"],
+                        ms=host_ms(lambda: fn(*a, **kw), 50))
+    r, z = first["pcg3_dots"][0][:2]
+    clock["torch_dot"] = device_us(lambda: torch.dot(r.reshape(-1), z.reshape(-1)), 20,
+                                   None)["device_us_per_call"]
+    csr = cs.csr_of_stencil3(lap.center, *lap.lo, *lap.hi)
+    xv = b.reshape(-1, 1)
+    clock["spmv"] = device_us(lambda: torch.sparse.mm(csr, xv), 5, None)["device_us_per_call"]
+    del csr
+    print(json.dumps(dict(row="15g clock", case=label, clock=clock)), flush=True)
+
+
+def solvers_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The solver pass (the module docstring) with the imported package and
+    its tree's chip_smoke.py `cs`."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.fields.grid import StaggeredField
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.solvers import base as pbase
+    from diffpiso_tpu_torch.solvers import cg as cgk
+
+    # the cavity after phase 6's spin-up, a CG step's system on it
+    domain, sim, dt = lid_driven_cavity_setup(cs.CAV_N, device=dev)
+    step = cs.cavity_step_fn(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(cs.CAV_SPINUP):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    cs.STATES["cavity"] = (v, p, g1, g2)
+    cdomain, csim, cdt = cs.cg_cavity(cs.CAV_N, dev)
+    o = piso_step(v, p, cdt, cdomain, csim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                  advection_tol=cs.CAV_TOL, pressure_tol=cs.CAV_TOL, full_output=True)
+    systems = [("cavity", o.intermediates["laplacian"], o.intermediates["v1_div"], g1)]
+    # phase 4's turbulence after its warm-up
+    tdomain, tsim = decaying_turbulence_setup((cs.N, cs.N), viscosity=cs.VISCOSITY, device=dev)
+    tv = random_solenoidal(tdomain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    tp = tdomain.centered_grid(0.0, device=dev)
+    tg1 = tg2 = torch.zeros_like(tp)
+    for _ in range(cs.WARMUP_STEPS):
+        o = piso_step(tv, tp, 0.4 / cs.N, tdomain, tsim, pressure_inc1_guess=tg1,
+                      pressure_inc2_guess=tg2, advection_tol=cs.ADV_TOL,
+                      pressure_tol=cs.P_TOL)
+        tv, tp, tg1, tg2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    o = piso_step(tv, tp, 0.4 / cs.N, tdomain, tsim, pressure_inc1_guess=tg1,
+                  pressure_inc2_guess=tg2, advection_tol=cs.ADV_TOL, pressure_tol=cs.P_TOL,
+                  full_output=True)
+    systems.append(("turbulence 512^2", o.intermediates["laplacian"],
+                    o.intermediates["v1_div"], tg1))
+    for label, lap, rhs, x0 in systems:
+        for deflate in (True, False):
+            cg_chain(cgk, label, lap, rhs, x0, deflate)
+        r0 = rhs - lap.center * x0
+        cg_library_clock(cs, label, lap, r0, r0)
+
+    # row 15g on the 3-D turbulence after bench.py's spin-up, then grad10
+    forward = None
+    if not kernels_only:
+        traj = Trajectory(cs, "cavity_step_fn")
+        forward, _ = cs.cg_cavity_path(dev, wrappers)
+        traj.close("lid-driven cavity 512 under CG, phase 15b (200 steps, grad30)")
+    for n, remat in ((cs.T3_N, "none"), (cs.T3_BIG, cs.T3_BIG_REMAT)):
+        traj = Trajectory(cs, "turbulence_step_fn")
+        _, step = cs.turb3d_step(n, dev)
+        v, p = cs.turb3d_state(n, dev)
+        for _ in range(cs.T3_SPINUP_CALLS):
+            v, p, _, _ = cs.turb3d_call(step, v, p)
+        o = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True)
+        lap, b = o.intermediates["laplacian"], o.intermediates["v1_div"]
+        spec = pbase.pressure_preconditioner("fft_mm", lap)
+        pcg3_solves(cs, f"{n}^3", lap, b, o.pressure_inc1, spec)
+        del o, lap, b, spec
+        if kernels_only:
+            continue
+        traj.sums.clear()
+        forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
+                                 periodic=(True,) * 3)
+        evals = []
+        for rep in range(3):
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rollout_loss_grad(step, v, p, forcing, cs.T3_UNROLL, remat=remat)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for c in res.grad.components:
+                digest.update(bits_sha256(c).encode())
+            evals.append(dict(seconds=time.perf_counter() - t0, loss=res.loss,
+                              warns=res.warns, grad_sha256=digest.hexdigest(),
+                              launches={k: fn.launches for k, fn in wrappers.items()
+                                        if fn.launches}))
+            del res
+        traj.close(f"turbulence {n}^3 grad{cs.T3_UNROLL}, remat {remat}, 3 evaluations")
+        print(json.dumps(dict(
+            workload=f"turbulence {n}^3 grad{cs.T3_UNROLL}, remat {remat}",
+            unrolled_steps_per_sec=cs.T3_UNROLL * 2 / sum(e["seconds"] for e in evals[1:]),
+            evaluations=evals)), flush=True)
+        del v, p, step
+
+
+def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
     then (unless gemm_only) DIR's own phases 6b-c, 7b-c, 8b, 10b-c and 11
     with their trajectories, and `turbulence_paths`; their JSON lines go
@@ -614,15 +891,18 @@ def paths_in(tree: str, save=None, gemm_only=False, three_d=None) -> int:
     if three_d:
         three_d_pass(dev, cs, three_d)
         return 0
-    gemm_pass(dev)
-    if gemm_only:
-        return 0
     wrappers = {}
     for name, mod, attr, _ in here.KERNEL_WRAPPERS:
         try:
             wrappers[name] = getattr(importlib.import_module(f"diffpiso_tpu_torch.{mod}"), attr)
         except (ImportError, AttributeError):  # a wrapper the older tree does not have
             continue
+    if solvers:
+        solvers_pass(dev, cs, wrappers, solvers == "kernels")
+        return 0
+    gemm_pass(dev)
+    if gemm_only:
+        return 0
     paths = (("cavity", "cavity_step_fn", lambda: cs.cavity_path(dev, wrappers)),
              ("mixing", "mixing_step_fn", lambda: cs.mixing_path(dev, wrappers)),
              ("training", None, lambda: cs.training_b1_path(dev, wrappers)),
@@ -647,7 +927,8 @@ def decisions(line):
     if not isinstance(line, dict):
         return line
     return {k: decisions(v) for k, v in line.items()
-            if not ("per_sec" in k or k in ("seconds", "elapsed", "clock") or k.endswith("_s"))}
+            if not ("per_sec" in k or k in ("seconds", "elapsed", "clock") or k.endswith("_s")
+                    or k.startswith("host_us") or k.startswith("max_memory"))}
 
 
 def must_equal(name: str) -> bool:
@@ -663,12 +944,14 @@ def line_name(row: dict) -> str:
         return f"gemm {row['gemm']} {row['epilogue']}"
     if "row" in row:
         return f"row {row['row']} {row.get('case') or row.get('plane')}"
+    if "cavity_cg_grad_eval" in row:
+        return f"cavity under CG grad eval {row['cavity_cg_grad_eval']}"
     if "tier3d" in row:
         return f"tier3d {row['tier3d']}"
     return str(next(iter(row)))
 
 
-def ab(parent: str, gemm_only=False, three_d=False) -> int:
+def ab(parent: str, gemm_only=False, three_d=False, solvers=None) -> int:
     """Run `--paths-in` on the parent tree and on this tree in turns
     (parent, change, change, parent) and compare the lines."""
     import torch
@@ -681,6 +964,7 @@ def ab(parent: str, gemm_only=False, three_d=False) -> int:
         t0 = time.perf_counter()
         lines = []
         for extra in ((["--three-d-part", "main"], ["--three-d-part", "512"]) if three_d else
+                      (["--solvers-part", solvers],) if solvers else
                       (["--gemm-only"] if gemm_only else [],)):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
                                   "--save", os.path.join(saves, f"run{len(runs)}.pt")] + extra,
@@ -709,7 +993,7 @@ def ab(parent: str, gemm_only=False, three_d=False) -> int:
               flush=True)
         if not across and must_equal(name):
             differ = True
-    if gemm_only or three_d:
+    if gemm_only or three_d or solvers:
         return 1 if differ else 0
     grads = [torch.load(os.path.join(saves, f"run{i}.pt")) for i in range(4)]
 
@@ -733,6 +1017,12 @@ if __name__ == "__main__":
     ap.add_argument("--three-d", action="store_true", help="compare the 3-D pass alone")
     ap.add_argument("--three-d-part", choices=("main", "512"),
                     help="with --paths-in: that part of the 3-D pass")
+    ap.add_argument("--solvers", action="store_true",
+                    help="compare the solver pass alone (rows 10d and 15g and their paths)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="with --solvers: rows 10d and 15g without the paths")
+    ap.add_argument("--solvers-part", choices=("kernels", "all"),
+                    help="with --paths-in: the solver pass")
     ap.add_argument("--save", metavar="PATH", help="with --paths-in: save the turbulence gradient")
     ap.add_argument("--gemm-configs", action="store_true",
                     help="time every tile configuration of this tree's GEMM")
@@ -745,7 +1035,9 @@ if __name__ == "__main__":
             sys.exit(1)
         sys.exit(gemm_configs(torch.device("cuda")))
     if args.paths_in:
-        sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part))
+        sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part,
+                          args.solvers_part))
     if not args.parent:
         ap.error("name a parent tree, or --paths-in DIR, or --gemm-configs")
-    sys.exit(ab(args.parent, args.gemm, args.three_d))
+    sys.exit(ab(args.parent, args.gemm, args.three_d,
+                ("kernels" if args.kernels_only else "all") if args.solvers else None))

@@ -4644,6 +4644,41 @@ def cg_derived(c0: dict, c1: dict) -> tuple:
              "pcg_residual": d["cg_warm_entries"] + d["cg_resets"] + d["cg_loops"]}, d)
 
 
+# kernels a call of row 10d launches, by (deflate, sum of p carried in)
+CG_KERNELS = {(True, False): 5, (True, True): 4, (False, False): 4, (False, True): 3}
+
+
+def exact_check(cgk, label, lap, x, r, p, deflate) -> None:
+    """Phase 2i's bit-for-bit check of row 10d against
+    `cg.cg_iteration_exact`, two chained calls: the first forms sum p, the
+    second takes the first's sum p' (as `krylov.cg` carries it); each call's
+    kernels counted."""
+    import torch
+
+    sp = None
+    for call in range(2):
+        k0 = cgk.fused_cg_iteration.kernel_launches
+        got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True, sum_p=sp)
+        launched = cgk.fused_cg_iteration.kernel_launches - k0
+        xe, re_, pe, ne, slots = cgk.cg_iteration_exact(lap, x, r, p, deflate, sum_p=sp)
+        pairs = {"x'": (got[0], xe), "r'": (got[1], re_), "p'": (got[2], pe),
+                 "rnorm": (got[3], ne), "p.q": (got[4][0], slots[2]),
+                 "alpha": (got[4][1], slots[4]), "beta": (got[4][2], slots[7]),
+                 "sum p'": (got[5], slots[8])}
+        bad = [k for k, (a, w) in pairs.items() if not torch.equal(a, w)]
+        want = CG_KERNELS[(bool(deflate), sp is not None)]
+        print(f"cg_iteration {label} deflate={deflate} call {call} (sum p "
+              f"{'carried' if sp is not None else 'formed'}): bit-equal to "
+              f"cg_iteration_exact: {not bad}; kernels {launched} (expected {want})", flush=True)
+        if bad:
+            fail(f"cg_iteration {label} deflate={deflate} call {call}: {', '.join(bad)} not "
+                 f"bit-equal to cg_iteration_exact")
+        if launched != want:
+            fail(f"cg_iteration {label} deflate={deflate} call {call}: {launched} kernels, "
+                 f"expected {want}")
+        x, r, p, sp = got[0], got[1], got[2], got[5]
+
+
 def cg_kernels(dev, kernels: list) -> None:
     """Phase 2i: row 10d against its plain version on the card, on the
     513 x 512 cavity's Laplacian in the reference's configuration (one CG
@@ -4654,8 +4689,15 @@ def cg_kernels(dev, kernels: list) -> None:
     on this shifted all-Neumann system an undeflated recurrence feeds the
     indefinite shift direction (measured on the H100: beta 4.2e3 by the
     third iteration), where every rounding difference is amplified. The
-    kernel's block sums run in another order than torch.sum's, so rnorm,
-    p.q, alpha and beta must agree within rel 1e-5, and each plane within
+    kernel must be bit-equal to `cg.cg_iteration_exact` (the same
+    elementwise arithmetic with every sum in the kernels' order,
+    `pcgphases.tree_sum_plain`): x', r', p', rnorm, p.q, alpha, beta and
+    the sum of p' it carries to the next call, called with the sum of p
+    formed by its own first launch and with that sum carried from the
+    previous call, each call launching CG_KERNELS[(deflate, carried)]
+    kernels (the wrapper's `kernel_launches`). Against the plain version
+    (torch.sum's order), as a second check, rnorm, p.q, alpha and beta
+    must agree within rel 1e-5, and each plane within
     1e-6 of its scale plus what the two versions' measured scalar
     difference carries into it, the elementwise arithmetic being the same
     (`--fmad=false`): x' = x + alpha p takes |d alpha| max|p|, r' = proj(r
@@ -4697,6 +4739,7 @@ def cg_kernels(dev, kernels: list) -> None:
         if not deflate:
             pp = summable(pp, float(pcgphases.lap_matvec(lap, pp).abs().max())
                           / float(lap.shift))
+        exact_check(cgk, label, lap, x, r, pp, deflate)
         got = cgk.fused_cg_iteration(lap, x, r, pp, deflate, with_scalars=True)
         want = cgk.cg_iteration_plain(lap, x, r, pp, deflate, with_scalars=True)
         rs = max(float((a - w).abs() / w.abs().clamp_min(1e-30))
@@ -4735,13 +4778,20 @@ def cg_kernels(dev, kernels: list) -> None:
     # per cell: the matvec 9 and its shift 2, three dot products 6, two axpys
     # and p' 6, the deflation 2, max 1
     b_, by_ = bound(11 * ny * nx * 4, 26 * ny * nx)
+    # the path's call: the sum of p carried from the previous call
+    carried = pcgphases.tree_sum_plain(pp)
     kernels.append(dict(
         name="cg_iteration", route="cuda", source="diffpiso_tpu_torch/csrc/cg.cu",
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:350", shape=[ny, nx],
         max_abs_err=err, planes_max_rel_err=rel_planes, scalars_max_rel_err=rel_scalars,
-        ms=cuda_time_ms(lambda: cgk.fused_cg_iteration(*inputs), 200),
+        bit_equal_to_exact=True,
+        kernels_per_call={f"deflate={d}, sum carried={c}": k
+                          for (d, c), k in CG_KERNELS.items()},
+        ms=cuda_time_ms(lambda: cgk.fused_cg_iteration(*inputs, sum_p=carried), 200),
         plain_ms=cuda_time_ms(lambda: cgk.cg_iteration_plain(*inputs), 50),
-        **device_time(lambda: cgk.fused_cg_iteration(*inputs)),
+        **device_time(lambda: cgk.fused_cg_iteration(*inputs, sum_p=carried)),
+        uncarried=dict(ms=cuda_time_ms(lambda: cgk.fused_cg_iteration(*inputs), 200),
+                       **device_time(lambda: cgk.fused_cg_iteration(*inputs))),
         bound_ms=b_, bound_by=by_,
         library_ms=cuda_time_ms(lambda: csr @ pf, 200),
         library_call="one cuSPARSE CSR SpMV of the same Laplacian (the matvec part)",
@@ -6040,6 +6090,14 @@ def kernels_vs_plain_solves(label, solves, names, plains, slack, module=None,
     return its
 
 
+def cg_plain_step(*args, sum_p=None, **kw):
+    """`cg.cg_iteration_plain` in the place of `krylov.fused_cg_iteration`:
+    its outputs and no carried sum (the plain version forms sum p itself)."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+
+    return (*cgk.cg_iteration_plain(*args, **kw), None)
+
+
 def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False) -> dict:
     """Phase 2n: row 10e (the residual, the PCG apply, the CG iteration) and,
     with `spec` = (MatmulSpectralSolver, weights), row 16-3d against their
@@ -6157,7 +6215,7 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
             f"{label} pressure CG",
             {"forward, warm": lambda: cg_solve(False), "cold, unit scale": lambda: cg_solve(True)},
             ("fused_residual", "fused_cg_iteration"),
-            (pcgphases.residual_plain, cgk.cg_iteration_plain), CG_ITER_SLACK)
+            (pcgphases.residual_plain, cg_plain_step), CG_ITER_SLACK)
         for name in ("pcg_residual3", "cg_iteration3"):
             out[name]["cg_solve_iterations"] = its
     if spec is None:
@@ -6253,6 +6311,65 @@ PCG3_SCALAR_REL = 1.2e-6
 PCG3_RESULTS = {}
 
 
+# kernels a call of each row-15g launch makes (the residual: sum x, then r)
+PCG3_CALL_KERNELS = {"pcg3_residual": 2, "pcg3_q": 1, "pcg3_xr": 1, "pcg3_dots": 1, "pcg3_p": 1}
+
+
+def pcg3_exact_check(label, lap, b, x, p, sp, xr_in, start, dots, rz1, rz, out) -> None:
+    """Phase 2o's bit-for-bit check of row 15g's scalars: each launch called
+    once through a solve's scratch (`Pcg3Work`) on phase 2o's inputs, every
+    sum it forms (sum x, p.q, sum r', r.z, sum z, sum r, sum p') bit-equal
+    to `pcgphases.tree_sum_plain(..., max_blocks=P3_MAX_BLOCKS)` of the same
+    terms (the kernel's own output volumes), every norm to the max of |.|
+    of its volume, and each call's kernels (the wrapper's
+    `kernel_launches`) as PCG3_CALL_KERNELS says. Marks `out` (phase 2o's
+    results) with bit_equal_to_tree_sum and kernels_per_call."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import pcg3
+    from diffpiso_tpu_torch.solvers.pcgphases import _MAX_BLOCKS3, tree_sum_plain
+
+    def ts(v):
+        return tree_sum_plain(v, max_blocks=_MAX_BLOCKS3)
+
+    w = pcg3.Pcg3Work("2o", lap, b)
+
+    def call(name, *args):
+        wrapper = getattr(pcg3, name)
+        k0 = wrapper.kernel_launches
+        res = wrapper(*args, work=w)
+        got = wrapper.kernel_launches - k0
+        out[name]["kernels_per_call"] = got
+        if got != PCG3_CALL_KERNELS[name]:
+            fail(f"{label} {name}: {got} kernels a call, expected {PCG3_CALL_KERNELS[name]}")
+        return res
+
+    pairs = []
+    r, norm = call("pcg3_residual", lap, b, x)
+    pairs += [("pcg3_residual", "sum x", w.out[2].clone(), ts(x)),
+              ("pcg3_residual", "max|r|", norm.clone(), r.abs().max())]
+    q, pq = call("pcg3_q", lap, p, sp)
+    pairs.append(("pcg3_q", "p.q", pq.clone(), ts(p * q)))
+    _, ro, rnorm, sr = call("pcg3_xr", *xr_in)
+    pairs += [("pcg3_xr", "sum r'", sr.clone(), ts(ro)),
+              ("pcg3_xr", "max|r'|", rnorm.clone(), ro.abs().max())]
+    (r0, z0), (r1, z1) = start, dots
+    rzs, sz, sr0 = (t.clone() for t in call("pcg3_dots", r0, z0, True))
+    pairs += [("pcg3_dots", "r.z (start)", rzs, ts(r0 * z0)), ("pcg3_dots", "sum z", sz, ts(z0)),
+              ("pcg3_dots", "sum r", sr0, ts(r0))]
+    pairs.append(("pcg3_dots", "r.z", call("pcg3_dots", r1, z1, False).clone(), ts(r1 * z1)))
+    pn, spn = call("pcg3_p", z1, p, rz1, rz)
+    pairs.append(("pcg3_p", "sum p'", spn, ts(pn)))
+    for name, what, got, want in pairs:
+        eq = torch.equal(got.reshape(()), want.reshape(()))
+        out[name]["bit_equal_to_tree_sum"] = out[name].get("bit_equal_to_tree_sum", True) and eq
+        if not eq:
+            fail(f"{label} {name}: {what} {float(got)!r} is not tree_sum_plain's "
+                 f"{float(want)!r}")
+    print(f"{label} row 15g: every sum bit-equal to tree_sum_plain, kernels a call "
+          f"{ {k: out[k]['kernels_per_call'] for k in PCG3_KERNELS} }", flush=True)
+
+
 def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
     """Phase 2o: row 15g's launches against their plain twins on the card, on
     a real 3-D pressure system (`lap`, the right-hand side `b` of a step, a
@@ -6260,7 +6377,10 @@ def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
     dyadic grid (`dyadic`: exact sums, so sum x and sum p agree bit for
     bit): the residual, q, xr and p volumes bit-equal given the same
     scalars, the norms equal, p.q and r.z within PCG3_SCALAR_REL, the sums
-    within it of their terms' magnitudes (M^-1 r is row 16-3d's apply,
+    within it of their terms' magnitudes; then every scalar a launch forms
+    bit-equal to `pcgphases.tree_sum_plain` (the kernels' order) of the same
+    terms, with each call's kernels counted (`pcg3_exact_check`; M^-1 r is
+    row 16-3d's apply,
     which 2n holds on the same systems). Host ms, device us per launch, the
     bound (bytes: 10 / 9 / 6 / 2 / 3 volumes), the plain twin's ms, the
     library's (a cuSPARSE CSR SpMV of the 7-point operator for the stencil
@@ -6336,6 +6456,7 @@ def pcg3_kernels(dev, label, lap, b, guess, spec) -> dict:
     kp, pp = pcg3.pcg3_p(z1, p, rz1, rz), pcg3.p_plain(z1, p, rz1, rz)
     vols("pcg3_p", kp[:1], pp[:1])
     scal("pcg3_p", kp[1], pp[1], pp[0])
+    pcg3_exact_check(label, lap, b, xd, p, sp, xr_in, (r, z), (r1, z1), rz1, rz, out)
     print(json.dumps(dict(check=f"2o {label} row 15g launches vs their twins", **{
         k: {kk: vv for kk, vv in v.items() if kk != "shape"} for k, v in out.items()})),
           flush=True)
@@ -6409,13 +6530,13 @@ def pcg3_merge(kernels: list, results: dict) -> None:
     top level, the 256^3's beside them."""
     what = {
         "pcg3_residual": ("pcg3.cu (g3_residual)", 1777,
-                          "one per warm entry (3 launches: sum x, its one-block pass, r)"),
-        "pcg3_q": ("pcg3.cu (g3_q)", 1789, "one per iteration (2 launches)"),
-        "pcg3_xr": ("pcg3.cu (g3_xr)", 1801, "one per iteration (a memset, 2 launches)"),
+                          "one per warm entry (2 launches: sum x, then r, each folded)"),
+        "pcg3_q": ("pcg3.cu (g3_q)", 1789, "one per iteration (1 launch)"),
+        "pcg3_xr": ("pcg3.cu (g3_xr)", 1801, "one per iteration (1 launch)"),
         "pcg3_dots": ("pcg3.cu (g3_dots)", 1840,
-                      "one per M^-1 r (2 launches; the r.z of :1840; at the start sum z0, "
+                      "one per M^-1 r (1 launch; the r.z of :1840; at the start sum z0, "
                       "sum r0)"),
-        "pcg3_p": ("pcg3.cu (g3_p)", 1852, "one per iteration (2 launches)"),
+        "pcg3_p": ("pcg3.cu (g3_p)", 1852, "one per iteration (1 launch)"),
     }
     for name in PCG3_KERNELS:
         src, line, count = what[name]

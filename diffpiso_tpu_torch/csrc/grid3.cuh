@@ -33,6 +33,25 @@ __device__ __forceinline__ size_t p3_first() {
 }
 __device__ __forceinline__ size_t p3_stride() { return (size_t)gridDim.x * blockDim.x; }
 
+// This thread's cells of the walk in increasing order, K at a time: the
+// loads of a chunk's K cells (`load(i)`) are all issued before its cells
+// are used (`use(i, value)`, in order), so the loads overlap instead of
+// waiting one behind the other. The cells and their order are the plain
+// walk's, so every sum folds in the same order.
+template <int K, class Load, class Use>
+__device__ __forceinline__ void p3_cells(size_t n, Load load, Use use) {
+  const size_t S = p3_stride();
+  for (size_t i0 = p3_first(); i0 < n; i0 += K * S) {
+    decltype(load(i0)) v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (i0 + k * S < n) v[k] = load(i0 + k * S);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (i0 + k * S < n) use(i0 + k * S, v[k]);
+  }
+}
+
 // (A v)[idx] = S v + shift * sum v, the sum given
 __device__ __forceinline__ float p3_q(const Lap3& L, const float* __restrict__ v, size_t idx,
                                       float sum) {

@@ -7,7 +7,11 @@ of the sources and flags, so a changed source rebuilds and an unchanged one
 loads at once. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()` as an int; `check` raises on a non-zero code."""
+`cudaGetLastError()` as an int; `check` raises on a non-zero code. The
+entries that report their launches (cg.cu, pcg3.cu) return the number of
+kernels launched, or minus the error: `launched` reads it. Kernels that
+end in a last-block fold (csrc/common.cuh) take the word of
+`fold_state`."""
 
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fold_states: dict = {}
 build_seconds: float | None = None
 
 
@@ -110,6 +115,27 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def launched(code: int, what: str) -> int:
+    """The number of kernels an entry that reports its launches made; raises
+    on its error (a negative return)."""
+    if code < 0:
+        raise RuntimeError(f"{what}: CUDA error {-code}")
+    return code
+
+
+def fold_state(t, stream: ctypes.c_void_p) -> torch.Tensor:
+    """The zeroed ticket word of the last-block fold on the device of `t`
+    and `stream` (its `stream_of`; csrc/common.cuh `dp_last_block`):
+    allocated and zeroed once per (device, stream); every fold leaves it at
+    0, and the launches of one stream run one after another, so the
+    launches of every call on that stream share it."""
+    key = (t.device, stream.value)
+    state = _fold_states.get(key)
+    if state is None:
+        state = _fold_states[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
+    return state
 
 
 def ptr(t) -> ctypes.c_void_p:

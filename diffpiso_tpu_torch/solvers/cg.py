@@ -15,12 +15,17 @@ shift sum(v) (roll wrap) and proj r = r - mean(r) when deflating:
   beta = |pq| > 1e-30 ? -(r'.q) / pq : 0; p' = r' + beta p; rnorm = max|r'|
 
 The CUDA kernels are csrc/cg.cu: one thread per cell, the iteration split
-where it needs a global scalar (block partials and one-block fixed-order
-passes: seven launches, nine when deflating); alpha, beta and the sums
-stay on the device, so `krylov.cg` reads back one value per iteration.
-The sums run in another order than torch.sum's, so on the card the
-scalars agree with the plain version to rounding and the planes within a
-few ulps of their scale. What bounds it on the H100 is bytes (11 planes).
+where it needs a global scalar, each launch ending in a last-block fold
+that forms the scalars (3 launches an iteration, 4 deflating, one more
+where the sum of p is formed first); alpha, beta and the sums stay on the
+device, so `krylov.cg` reads back one value per iteration. The last
+launch also sums p', which the caller hands to the next call (`sum_p`):
+`krylov.cg` carries it from iteration to iteration and passes None at a
+loop's start and after a residual reset. The sums run in another order
+than torch.sum's, so on the card the scalars agree with the plain version
+to rounding and the planes within a few ulps of their scale;
+`cg_iteration_exact` sums in the kernels' order (`tree_sum_plain`) and
+is bit-equal to them. What bounds it on the H100 is bytes (11 planes).
 On a CUDA tensor the wrapper launches the kernels (or raises); on a CPU
 tensor it runs `cg_iteration_plain`."""
 
@@ -31,31 +36,39 @@ import ctypes
 import torch
 
 from diffpiso_tpu_torch import native
+from diffpiso_tpu_torch.ops.matvec import stencil_apply_plain
 from diffpiso_tpu_torch.solvers.pcgphases import (
     _SIGS3,
     _lap_ptrs,
     _project,
     lap_matvec,
     scratch3,
+    tree_sum_plain,
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGS = {"cg_iteration": [_P] * 10 + [_I, _I, _I, _P]}
+_SIGS = {"cg_iteration": [_P] * 12 + [_I, _I, _I, _P]}
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
-# slots of the scalar output array in csrc/cg.cu
-_C_NORM, _C_PQ, _C_ALPHA, _C_BETA = 0, 2, 4, 7
+# slots of the scalar output array in csrc/cg.cu (CG_SLOTS floats)
+(_C_NORM, _C_SUM, _C_PQ, _C_PR, _C_ALPHA, _C_MEAN, _C_RQ, _C_BETA, _C_SUMP) = range(9)
+_CG_SLOTS = 9
 # and of csrc/pcgphases3.cu
 _P3_NORM, _P3_PQ, _P3_ALPHA, _P3_BETA = 0, 1, 2, 7
 _EPS = 1e-30
 
 
-def cg_iteration_plain(lap, x, r, p, deflate, with_scalars=False, matvec=lap_matvec):
+def cg_iteration_plain(lap, x, r, p, deflate, with_scalars=False, matvec=lap_matvec,
+                       sum_p=None):
     """Plain PyTorch version: (x', r', p', max|r'|), and (pq, alpha, beta)
     after them when `with_scalars`. `matvec(lap, p)` gives A p: the plain
     one by default, `krylov.cg`'s generic tier passes the matvec kernels'
-    dispatcher."""
-    q = matvec(lap, p)
+    dispatcher. `sum_p`: sum(p) as the caller carries it, in place of the
+    plain matvec's own torch.sum(p)."""
+    if sum_p is None:
+        q = matvec(lap, p)
+    else:
+        q = stencil_apply_plain(lap.center, lap.lo, lap.hi, p) + lap.shift * sum_p
     pq = torch.sum(p * q)
     pr = torch.sum(p * r)
     ok = pq.abs() > _EPS
@@ -67,31 +80,74 @@ def cg_iteration_plain(lap, x, r, p, deflate, with_scalars=False, matvec=lap_mat
     return out + ((pq, alpha, beta),) if with_scalars else out
 
 
-def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False):
-    """(x', r', p', max|r'|) of one CG iteration; lap a 2-D LaplaceStencil,
-    rnorm a 0-d tensor. `with_scalars` adds (pq, alpha, beta) as 0-d
-    tensors. A volume goes to `fused_cg_iteration3`."""
+def cg_iteration_exact(lap, x, r, p, deflate, sum_p=None):
+    """The CUDA iteration (csrc/cg.cu) in PyTorch, bit for bit: the plain
+    version's elementwise operations, every sum in the kernels' order
+    (`tree_sum_plain`, one thread a cell) and sum p as the kernels take it
+    (`sum_p`, else formed first). Returns (x', r', p', max|r'|, slots):
+    slots the kernels' scalar array (norm, sum p, pq, pr, alpha, mean,
+    r'.q, beta, sum p'; mean 0 unless deflating)."""
+    sp = tree_sum_plain(p) if sum_p is None else sum_p
+    q = stencil_apply_plain(lap.center, lap.lo, lap.hi, p) + lap.shift * sp
+    pq, pr = tree_sum_plain(p * q), tree_sum_plain(p * r)
+    ok = pq.abs() > _EPS
+    alpha = torch.where(ok, pr / pq, 0.0)
+    xn = x + alpha * p
+    rn = r - alpha * q
+    mean = torch.zeros((), dtype=x.dtype, device=x.device)
+    if deflate:
+        mean = tree_sum_plain(rn) / torch.tensor(float(rn.numel()), dtype=x.dtype,
+                                                 device=x.device)
+        rn = rn - mean
+    rq = tree_sum_plain(rn * q)
+    beta = torch.where(ok, -rq / pq, 0.0)
+    pn = rn + beta * p
+    rnorm = rn.abs().max()
+    slots = torch.stack([rnorm, sp.reshape(()), pq, pr, alpha, mean, rq, beta,
+                         tree_sum_plain(pn)])
+    return xn, rn, pn, rnorm, slots
+
+
+def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False, sum_p=None):
+    """(x', r', p', max|r'|, sum p') of one CG iteration; lap a 2-D
+    LaplaceStencil, the norm and the sum 0-d tensors. `with_scalars` puts
+    (pq, alpha, beta), 0-d tensors, before sum p'. `sum_p`: sum(p) as the
+    previous call returned it (its sum p'), or None, where the kernels form
+    it first (a loop's first iteration, after a reset). A volume goes to
+    `fused_cg_iteration3` (its sum p' is None: row 10e forms the sum
+    itself); on the CPU sum p' is torch.sum(p')."""
     if x.ndim == 3:
-        return fused_cg_iteration3(lap, x, r, p, deflate, with_scalars)
+        return (*fused_cg_iteration3(lap, x, r, p, deflate, with_scalars), None)
     if x.device.type == "cpu":
-        return cg_iteration_plain(lap, x, r, p, deflate, with_scalars)
+        res = cg_iteration_plain(lap, x, r, p, deflate, with_scalars, sum_p=sum_p)
+        return (*res, torch.sum(res[2]))
     planes, shift, ptrs = _lap_ptrs(lap)
-    native.require_cuda_f32("fused_cg_iteration", *planes, shift, x, r, p)
+    native.require_cuda_f32("fused_cg_iteration", *planes, shift, x, r, p,
+                            *(() if sum_p is None else (sum_p,)))
     if x.ndim != 2 or any(t.shape != x.shape for t in (*planes, r, p)):
         raise ValueError("fused_cg_iteration: the planes must share one 2-D shape")
+    if sum_p is not None and sum_p.numel() != 1:
+        raise ValueError("fused_cg_iteration: sum_p must be one value")
     ny, nx = x.shape
     nb = (ny * nx + _THREADS - 1) // _THREADS
     partials = torch.empty(2 * nb, dtype=torch.float32, device=x.device)
-    out = torch.empty(8, dtype=torch.float32, device=x.device)
+    out = torch.empty(_CG_SLOTS, dtype=torch.float32, device=x.device)
     q, xo, ro, po = (torch.empty_like(x) for _ in range(4))
     lib = native.library("cg", _SIGS)
-    native.check(lib.cg_iteration(ptrs, *(native.ptr(a) for a in (x, r, p, q, xo, ro, po,
-                                                                   partials, out)),
-                                  ny, nx, int(bool(deflate)), native.stream_of(x)),
-                 "cg_iteration")
+    sp = None if sum_p is None else native.ptr(sum_p)
+    stream = native.stream_of(x)
+    launched = native.launched(
+        lib.cg_iteration(ptrs, *(native.ptr(a) for a in (x, r, p)), sp,
+                         *(native.ptr(a) for a in (q, xo, ro, po, partials, out,
+                                                   native.fold_state(x, stream))),
+                         ny, nx, int(bool(deflate)), stream),
+        "cg_iteration")
     fused_cg_iteration.launches += 1
+    fused_cg_iteration.kernel_launches += launched
     res = (xo, ro, po, out[_C_NORM])
-    return res + ((out[_C_PQ], out[_C_ALPHA], out[_C_BETA]),) if with_scalars else res
+    if with_scalars:
+        res += ((out[_C_PQ], out[_C_ALPHA], out[_C_BETA]),)
+    return res + (out[_C_SUMP],)
 
 
 def fused_cg_iteration3(lap, x, r, p, deflate: bool, with_scalars=False):
@@ -110,5 +166,7 @@ def fused_cg_iteration3(lap, x, r, p, deflate: bool, with_scalars=False):
     return res + ((out[_P3_PQ], out[_P3_ALPHA], out[_P3_BETA]),) if with_scalars else res
 
 
+# calls, and the kernels those calls launched
 fused_cg_iteration.launches = 0
+fused_cg_iteration.kernel_launches = 0
 fused_cg_iteration3.launches = 0

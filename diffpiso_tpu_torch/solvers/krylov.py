@@ -733,10 +733,11 @@ def cg(
         r = project(b - apply_laplacian(stencil, x))
         return r, r.abs().max()
 
-    def iterate(x, r, p):
+    def iterate(x, r, p, sum_p):
         if fused:
-            return fused_cg_iteration(stencil, x, r, p, deflate_mean)
-        return cg_iteration_plain(stencil, x, r, p, deflate_mean, matvec=apply_laplacian)
+            return fused_cg_iteration(stencil, x, r, p, deflate_mean, sum_p=sum_p)
+        return (*cg_iteration_plain(stencil, x, r, p, deflate_mean, matvec=apply_laplacian),
+                None)
 
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -749,15 +750,17 @@ def cg(
         # r0 is the true residual of x0: nothing to solve or verify
         return _result(x0, float(rnorm0), 0, tol)
     cg.loops += 1
-    x, r, p = x0, r0, r0
+    # sum_p: sum(p) as the iteration kernel carries it to the next call
+    # (None where p starts anew: the kernels form it)
+    x, r, p, sum_p = x0, r0, r0, None
     k = 0
     done = False
     while not done and k < max_iter:
         if residual_reset > 0 and (k + 1) % residual_reset == 0:
             cg.resets += 1
             r, _ = residual(x)
-            p = r
-        x, r, p, rnorm = iterate(x, r, p)
+            p, sum_p = r, None
+        x, r, p, rnorm, sum_p = iterate(x, r, p, sum_p)
         rn = float(rnorm)
         done = rn < tol32 or not np.isfinite(rn)
         k += 1

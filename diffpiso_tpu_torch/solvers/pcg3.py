@@ -35,21 +35,26 @@ most of the norm, and the whole solve takes a few more iterations than
 the per-iteration loop, which projects r' at once (tiers.volume_whole_solve
 gives the readings).
 
-The CUDA kernels are csrc/pcg3.cu (residual, q, xr, r.z, p: each splits at
-its global scalar into grid-stride block partials and a one-block
-fixed-order pass, csrc/grid3.cuh as row 10e) and, for M^-1 r, row 16-3d's
+The CUDA kernels are csrc/pcg3.cu (residual, q, xr, r.z, p: grid-stride
+block partials, csrc/grid3.cuh as row 10e, each launch ending in a
+last-block fold that sums them in a fixed order: one launch each, two for
+the residual, so an iteration is 4 launches beside M^-1 r; each wrapper
+counts its calls in `launches` and the kernels they launched in
+`kernel_launches`) and, for M^-1 r, row 16-3d's
 whole apply (`spectral_apply3.fused_spectral_apply_3d`: three passes of
 csrc/gemm.cuh; r.z is a separate dot launch, not the GEMM's epilogue).
 rz, p.q, sum(p), sum(r) and the norms stay on the device; the loop reads
 one value back per iteration, the exit norm. A solve allocates its
 scratch once (`Pcg3Work`: the Laplacian's device pointers, the block
-partials, two scalar arrays that the iterations alternate between). What
+partials, two scalar arrays that the iterations alternate between, and the
+fold's ticket word of the stream, `native.fold_state`). What
 bounds the launches on the H100 is bytes (residual 10, q 9, xr 6, r.z 2,
 p 3 volumes) and the passes' operations (row 16-3d). Each of the five
 launches has its plain PyTorch twin here and its launch counter; on a
 CUDA tensor a wrapper launches its kernel (a failure raises), on a CPU
 tensor it runs the twin. The twins round the volumes like the kernels
-given the same scalars; the sums run in another order."""
+given the same scalars; the sums run in another order, the kernels' one
+being `pcgphases.tree_sum_plain(..., max_blocks=P3_MAX_BLOCKS)`."""
 
 from __future__ import annotations
 
@@ -68,11 +73,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "g3_residual": [_P] * 6 + [_I] * 3 + [_P],
-    "g3_q": [_P] * 6 + [_I] * 3 + [_P],
-    "g3_xr": [_P] * 7 + [_F, _F] + [_P] * 4 + [_I] * 3 + [_P],
-    "g3_dots": [_P, _P, _I, _P, _P] + [_I] * 3 + [_P],
-    "g3_p": [_P] * 7 + [_I] * 3 + [_P],
+    "g3_residual": [_P] * 7 + [_I] * 3 + [_P],
+    "g3_q": [_P] * 7 + [_I] * 3 + [_P],
+    "g3_xr": [_P] * 7 + [_F, _F] + [_P] * 5 + [_I] * 3 + [_P],
+    "g3_dots": [_P, _P, _I, _P, _P, _P] + [_I] * 3 + [_P],
+    "g3_p": [_P] * 8 + [_I] * 3 + [_P],
 }
 # slots of the scalar output array in csrc/pcg3.cu
 _G_NORM, _G_PQ, _G_SUMX, _G_SUMR, _G_RZ, _G_SUMZ, _G_SUMP = range(7)
@@ -125,10 +130,15 @@ def p_plain(z, p, rz_new, rz_old):
 class Pcg3Work:
     """The scratch of the launches on the volume b: the Laplacian's device
     pointers (with `lap`; None for the launches that take no operator),
-    three arrays of block partials, the stream and two 8-float scalar
-    arrays. `out` is the one the launches write their scalars to; a solve
-    calls `flip` before each iteration, so the scalars of one iteration
-    (rz, sum p, sum r) stay readable in the next. Checks the operands once."""
+    three arrays of block partials, the stream, two 8-float scalar arrays
+    and the ticket word of the launches' last-block folds. `out` is the one
+    the launches write their scalars to; a solve calls `flip` before each
+    iteration, so the scalars of one iteration (rz, sum p, sum r) stay
+    readable in the next. The ticket is the stream's (`native.fold_state`):
+    a solve's launches run one after another on that stream and each fold
+    sets it back to 0 before its launch ends, so they share it with each
+    other and with every other fold on the stream. Checks the operands
+    once."""
 
     def __init__(self, fn_name, lap, b):
         native.require_cuda_f32(fn_name, b)
@@ -144,6 +154,7 @@ class Pcg3Work:
         self.shape = tuple(b.shape)
         self.stream = native.stream_of(b)
         self.partials = torch.empty(3 * _MAX_BLOCKS3, dtype=torch.float32, device=b.device)
+        self.ticket = native.ptr(native.fold_state(b, self.stream))
         outs = torch.empty((2, 8), dtype=torch.float32, device=b.device)
         self._outs = outs[0], outs[1]
         self._i = 1
@@ -174,6 +185,13 @@ def _p(*tensors):
     return (native.ptr(a) for a in tensors)
 
 
+def _count(wrapper, code: int, what: str) -> None:
+    """One call counted in `wrapper.launches`, its kernels in
+    `wrapper.kernel_launches` (the entry returns their number)."""
+    wrapper.kernel_launches += native.launched(code, what)
+    wrapper.launches += 1
+
+
 def pcg3_residual(lap, b, x, work=None):
     """(r, max|r|): the warm entry's residual, r = b - A x. `work`: the
     solve's `Pcg3Work` (each wrapper takes one; without it the launch
@@ -182,9 +200,8 @@ def pcg3_residual(lap, b, x, work=None):
         return residual_plain(lap, b, x)
     w = _work("pcg3_residual", lap, (b, x), work)
     r = torch.empty_like(b)
-    native.check(_lib().g3_residual(w.ptrs, *_p(b, x, r, w.partials, w.out), *w.shape, w.stream),
-                 "g3_residual")
-    pcg3_residual.launches += 1
+    _count(pcg3_residual, _lib().g3_residual(w.ptrs, *_p(b, x, r, w.partials, w.out), w.ticket,
+                                             *w.shape, w.stream), "g3_residual")
     return r, w.out[_G_NORM]
 
 
@@ -194,9 +211,8 @@ def pcg3_q(lap, p, sp, work=None):
         return q_plain(lap, p, sp)
     w = _work("pcg3_q", lap, (sp, p), work)
     q = torch.empty_like(p)
-    native.check(_lib().g3_q(w.ptrs, *_p(p, sp, q, w.partials, w.out), *w.shape, w.stream),
-                 "g3_q")
-    pcg3_q.launches += 1
+    _count(pcg3_q, _lib().g3_q(w.ptrs, *_p(p, sp, q, w.partials, w.out), w.ticket, *w.shape,
+                               w.stream), "g3_q")
     return q, w.out[_G_PQ]
 
 
@@ -207,9 +223,9 @@ def pcg3_xr(x, r, p, q, rz, pq, sr, defl: float, ncells: float, work=None):
         return xr_plain(x, r, p, q, rz, pq, sr, defl, ncells)
     w = _work("pcg3_xr", None, (rz, pq, sr, x, r, p, q), work)
     xo, ro = torch.empty_like(x), torch.empty_like(x)
-    native.check(_lib().g3_xr(*_p(x, r, p, q, rz, pq, sr), float(defl), float(ncells),
-                              *_p(xo, ro, w.partials, w.out), *w.shape, w.stream), "g3_xr")
-    pcg3_xr.launches += 1
+    _count(pcg3_xr, _lib().g3_xr(*_p(x, r, p, q, rz, pq, sr), float(defl), float(ncells),
+                                 *_p(xo, ro, w.partials, w.out), w.ticket, *w.shape, w.stream),
+           "g3_xr")
     return xo, ro, w.out[_G_NORM], w.out[_G_SUMR]
 
 
@@ -218,9 +234,9 @@ def pcg3_dots(r, z, start: bool = False, work=None):
     if r.device.type == "cpu":
         return dots_plain(r, z, start)
     w = _work("pcg3_dots", None, (r, z), work)
-    native.check(_lib().g3_dots(native.ptr(r), native.ptr(z), int(start), *_p(w.partials, w.out),
-                                *w.shape, w.stream), "g3_dots")
-    pcg3_dots.launches += 1
+    _count(pcg3_dots, _lib().g3_dots(native.ptr(r), native.ptr(z), int(start),
+                                     *_p(w.partials, w.out), w.ticket, *w.shape, w.stream),
+           "g3_dots")
     return (w.out[_G_RZ], w.out[_G_SUMZ], w.out[_G_SUMR]) if start else w.out[_G_RZ]
 
 
@@ -230,14 +246,14 @@ def pcg3_p(z, p, rz_new, rz_old, work=None):
         return p_plain(z, p, rz_new, rz_old)
     w = _work("pcg3_p", None, (rz_new, rz_old, z, p), work)
     po = torch.empty_like(p)
-    native.check(_lib().g3_p(*_p(z, p, rz_new, rz_old, po, w.partials, w.out), *w.shape,
-                             w.stream), "g3_p")
-    pcg3_p.launches += 1
+    _count(pcg3_p, _lib().g3_p(*_p(z, p, rz_new, rz_old, po, w.partials, w.out), w.ticket,
+                               *w.shape, w.stream), "g3_p")
     return po, w.out[_G_SUMP]
 
 
 for _fn in (pcg3_residual, pcg3_q, pcg3_xr, pcg3_dots, pcg3_p):
-    _fn.launches = 0
+    _fn.launches = 0  # calls
+    _fn.kernel_launches = 0  # the kernels those calls launched
 
 
 # -- the solve ----------------------------------------------------------------------

@@ -66,6 +66,47 @@ def lap_matvec(lap, p):
     return stencil_apply_plain(lap.center, lap.lo, lap.hi, p) + lap.shift * torch.sum(p)
 
 
+def tree_sum_plain(values, threads: int = _THREADS, max_blocks: int | None = None):
+    """The float32 sum of `values` (flattened) in the order of the kernels'
+    block reductions (csrc/common.cuh), a 0-d tensor bit-equal to their sum
+    on the card. The cells are dealt to blocks of `threads` threads: one
+    thread a cell by default (a thread past the end holds 0), or, with
+    `max_blocks` (P3_MAX_BLOCKS of csrc/grid3.cuh), at most that many
+    blocks walking the cells grid-stride, each thread summing 0 + its cells
+    i, i + stride, ... in increasing order. Each block's values go through
+    the pairwise tree (at stride s = threads / 2, ..., 1 thread t < s adds
+    thread t + s), then one block of `threads` threads sums the block
+    partials as the fold does: thread t 0 + partial t + partial t + threads
+    + ..., then the tree."""
+    v = values.reshape(-1)
+    nb = -(-v.numel() // threads)
+    if max_blocks is None:
+        cells = torch.cat([v, v.new_zeros(nb * threads - v.numel())])
+    else:
+        nb = min(nb, max_blocks)
+        cells = _strided_sums(v, nb * threads)
+    partials = _block_tree(cells.reshape(nb, threads))
+    return _block_tree(_strided_sums(partials, threads).reshape(1, threads))[0]
+
+
+def _strided_sums(v, width: int):
+    """acc[t] = 0 + v[t] + v[t + width] + ... in increasing order (float32)."""
+    acc = v.new_zeros(width)
+    for k in range(0, v.numel(), width):
+        chunk = v[k:k + width]
+        acc[:chunk.numel()] = acc[:chunk.numel()] + chunk
+    return acc
+
+
+def _block_tree(x):
+    """Each row's pairwise tree: at stride s, element t < s adds t + s."""
+    s = x.shape[-1] // 2
+    while s >= 1:
+        x = x[:, :s] + x[:, s:2 * s]
+        s //= 2
+    return x[:, 0]
+
+
 def _project(r, deflate):
     return r - torch.sum(r) / r.numel() if deflate else r
 

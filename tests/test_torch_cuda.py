@@ -1564,6 +1564,60 @@ def test_cg_iteration_kernel_matches_plain(deflate, cuda_device):
         cgk.fused_cg_iteration(lap, x.double(), r.double(), p.double(), deflate)
 
 
+def _lap2(dev, shape, seed):
+    """A periodic variable-coefficient pressure Laplacian with its shift."""
+    rng = np.random.RandomState(seed)
+    infl = StaggeredField(tuple(t(rng.rand(*shape) + 0.5).to(dev) for _ in range(2)),
+                          (True, True))
+    ones = torch.ones(tuple(s + 2 for s in shape), device=dev)
+    return plap.assemble_pressure_laplacian(infl, ones, ones, (True, True), True)
+
+
+# kernels a call of row 10d, by (deflate, sum of p carried in)
+CG_KERNELS = {(True, False): 5, (True, True): 4, (False, False): 4, (False, True): 3}
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("case", ["cavity 65 x 64", "ragged 33 x 47", "513 x 512"])
+def test_cg_iteration_kernel_is_bit_equal_to_its_exact_emulation(case, deflate, carried,
+                                                                 cuda_device):
+    """Row 10d bit for bit against `cg.cg_iteration_exact` (the plain
+    arithmetic with every sum in the kernels' order, `tree_sum_plain`): x',
+    r', p', rnorm, p.q, alpha, beta and the sum of p' over three chained
+    calls from a deflated start, the sum of p formed by the kernels' first
+    launch or carried in (the first call given the tree sum of p, the later
+    ones the previous call's sum p'), on the 64 cavity's plane, a ragged
+    periodic plane (a partial last block) and the cavity's 513 x 512 shape;
+    the kernels a call (the wrapper's `kernel_launches`) 5 / 4 deflating, 4
+    / 3 without, with the sum formed / carried."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers.pcgphases import tree_sum_plain
+
+    if case.startswith("cavity"):
+        it, x = _cavity_cg_laplacian(cuda_device)
+        lap, b = it["laplacian"], it["v1_div"]
+    else:
+        shape = (33, 47) if case.startswith("ragged") else (513, 512)
+        lap = _lap2(cuda_device, shape, 3)
+        x, b = _rand(shape, 4).to(cuda_device), _rand(shape, 5).to(cuda_device)
+        b = b - b.mean()
+    r, _ = pcgphases.residual_plain(lap, b, x, True)
+    p = r
+    sp = tree_sum_plain(p) if carried else None
+    for _ in range(3):
+        k0, c0 = cgk.fused_cg_iteration.kernel_launches, cgk.fused_cg_iteration.launches
+        got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True, sum_p=sp)
+        assert cgk.fused_cg_iteration.launches == c0 + 1
+        assert cgk.fused_cg_iteration.kernel_launches - k0 == CG_KERNELS[(deflate, carried)]
+        xe, re_, pe, ne, slots = cgk.cg_iteration_exact(lap, x, r, p, deflate, sum_p=sp)
+        for a, w in zip(got[:4] + got[4] + got[5:],
+                        (xe, re_, pe, ne, slots[2], slots[4], slots[7], slots[8])):
+            assert torch.equal(a, w)
+        x, r, p = got[:3]
+        sp = got[5] if carried else None
+
+
 def test_cuda_cg_cavity_steps_and_gradient_match_the_cpu_plain_path(cuda_device):
     """The 32^2 cavity under CG (the reference's configuration): 3 steps
     and the 3-step rollout gradient on the card against the CPU plain path;
@@ -2024,6 +2078,65 @@ def test_pcg3_launches_match_their_twins(case, cuda_device):
     assert float(rz_b) == float(pcg3.pcg3_dots(r, p))
     with pytest.raises(ValueError):
         pcg3.pcg3_q(lap, p.double(), sp.double())
+
+
+# an odd cell count: the last cells of a walk fall short of a whole vector
+TREE_SUM_SHAPES = dict(RANK3_SHAPES, **{"periodic, odd": (7, 9, 13)})
+
+
+@pytest.mark.parametrize("case", list(TREE_SUM_SHAPES))
+def test_pcg3_sums_are_bit_equal_to_tree_sum_plain(case, cuda_device):
+    """Row 15g on random (not dyadic) volumes, each launch through a solve's
+    scratch: every sum it forms (sum x, p.q, sum r', r.z, sum z, sum r, sum
+    p') bit-equal to `tree_sum_plain` of the same terms in the kernels' order
+    (at most P3_MAX_BLOCKS blocks walking the volume grid-stride: the third
+    case gives a thread two cells; the odd one ends r.z's walk short of a
+    whole float4), every norm the max of |.| of its volume; the kernels a
+    call 2 for the residual (sum x, then r), 1 for each other launch."""
+    from diffpiso_tpu_torch.solvers import pcg3, spectral_apply3
+    from diffpiso_tpu_torch.solvers.pcgphases import _MAX_BLOCKS3, tree_sum_plain
+
+    def ts(v):
+        return tree_sum_plain(v, max_blocks=_MAX_BLOCKS3)
+
+    shape = TREE_SUM_SHAPES[case]
+    lap = _lap3(cuda_device, shape, 3, case == "bounded")
+    b, x, p = (_rand(shape, s).to(cuda_device) for s in (4, 5, 6))
+    solver, weights = pbase.pressure_preconditioner("fft_mm", lap)
+    ops = spectral_apply3.spectral3_operands(solver, weights, torch.float32, cuda_device)
+    w = pcg3.Pcg3Work("test", lap, b)
+    kernels = {"pcg3_residual": 2, "pcg3_q": 1, "pcg3_xr": 1, "pcg3_dots": 1, "pcg3_p": 1}
+
+    def call(name, *args):
+        wrapper = getattr(pcg3, name)
+        k0 = wrapper.kernel_launches
+        res = wrapper(*args, work=w)
+        assert wrapper.kernel_launches - k0 == kernels[name]
+        return res
+
+    def same(a, want):
+        assert torch.equal(a.reshape(()), want.reshape(()))
+
+    r, rn = call("pcg3_residual", lap, b, x)
+    same(w.out[2], ts(x))
+    same(rn, r.abs().max())
+    sp = ts(p)
+    q, pq = call("pcg3_q", lap, p, sp)
+    same(pq, ts(p * q))
+    pq = pq.clone()
+    rz, sr = ts(r * p), ts(r)
+    _, ro, rno, sro = call("pcg3_xr", x, r, p, q, rz, pq, sr, 1.0, float(b.numel()))
+    same(sro, ts(ro))
+    same(rno, ro.abs().max())
+    z = spectral_apply3.fused_spectral_apply_3d(ops, ro)
+    rz0, sz, sr0 = call("pcg3_dots", ro, z, True)
+    same(rz0, ts(ro * z))
+    same(sz, ts(z))
+    same(sr0, ts(ro))
+    rz1 = call("pcg3_dots", ro, z, False).clone()
+    same(rz1, ts(ro * z))
+    pn, spn = call("pcg3_p", z, p, rz1, rz)
+    same(spn, ts(pn))
 
 
 @pytest.mark.parametrize("start", ["cold", "zeros", "warm"])
