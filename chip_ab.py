@@ -73,13 +73,33 @@ loss and gradient digests. Under "clock": device us and kernels a call of
 `torch.dot`, one cuSPARSE CSR SpMV and the SpMV with two dot products
 (torch.profiler), and the paths' steps/s (not compared).
 
+    python3 chip_ab.py --jacobi1 PARENT_DIR [--kernels-only]
+
+runs the whole-solve Jacobi pass alone in the same turns, one process
+each, from each tree's chip_smoke.py (`jacobi1_pass`): row 9
+(`fused_jacobi1_solve`) on both components of the first 1024^2 step's
+operators (phase 2f's) and on the 513 x 2048 / 512 x 2049 faces of the
+DNS's step 20, row 15d (`fused_jacobi1_solve_3d`) on all three components
+of the 128^3 step after bench.py's spin-up (2 calls of 50 steps), each
+forward and transposed from the path's own velocity as the guess: one line
+per plane or volume with the sha256 of each call's x, exit residual and
+sweeps and, under "clock", device us a call and a launch (torch.profiler,
+the kernels of both trees' designs by name); then (unless --kernels-only)
+the paths with their trajectory digests: phases 10b-c (`large_turbulence_
+path`: 1024^2, 200 forward steps and grad30), phase 11's DNS
+(`mixing_path` at 512 x 2048: 400-step spin-up, 400 steps, grad30) and
+phase 12's 128^3 (`turb3d_path`: the spin-up, 3 x 50 forward steps,
+grad10). The kernel and trajectory lines must be equal; the paths' own
+lines are compared without their launch counts and memory readings (the
+new schedule launches fewer kernels) and reported.
+
     python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART
-                                       | --solvers-part PART]
+                                       | --solvers-part PART | --jacobi1-part PART]
 
 runs DIR's GEMM pass and phases alone (what each turn above runs); --save
 writes the turbulence grad30 gradient to PATH; --three-d-part main / 512
 runs that part of the 3-D pass instead, --solvers-part kernels / all the
-solver pass.
+solver pass, --jacobi1-part kernels / all the whole-solve Jacobi pass.
 
     python3 chip_ab.py --gemm-configs
 
@@ -147,7 +167,7 @@ def device_us(fn, reps: int, match="dp_sgemm", tries: int = 3) -> dict:
 def profile_us(fn, reps: int, match) -> dict:
     """torch.profiler over `reps` calls of `fn` (after one): device launches
     per call and mean device us per launch of the kernels whose name holds
-    `match` (None: every kernel)."""
+    `match` (a tuple: any of its names; None: every kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,8 +177,9 @@ def profile_us(fn, reps: int, match) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and (match is None or match in e.name)]
+           and (match is None or any(k in e.name for k in names))]
     if not evs:
         raise RuntimeError(f"the profiler saw no kernel matching {match!r}")
     total = sum(e.time_range.elapsed_us() for e in evs)
@@ -858,7 +879,112 @@ def solvers_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
         del v, p, step
 
 
-def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None) -> int:
+# the kernels of rows 9 and 15d in either tree's design (parent: one thread
+# a cell, jacobi.cuh / jacobi1_3d.cu; change: the marches of jacobi1.cu /
+# jacobi1_3d.cu)
+J1_KERNELS = ("dp_jac_kernel", "j1_", "jac13d_kernel", "j13_")
+J1_REPS = 10  # profiled calls a clock reading
+
+
+def jacobi1_cases(dev, cs):
+    """The planes and volumes of the whole-solve Jacobi pass (the module
+    docstring): (label, 3-D, tol, [(component, (c, lo, hi), b, x)])."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+
+    def comps(it, vel):
+        st, rhs = it["stencil"], it["rhs"].components
+        return [(c, (st.center[c], st.lo[c], st.hi[c]), rhs[c], vel[c].contiguous())
+                for c in range(len(rhs))]
+
+    n = cs.LARGE_N
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=cs.VISCOSITY, device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = cs.turbulence_step_fn(domain, sim, 0.4 / n)(v, zero, zero, zero,
+                                                      full_output=True).intermediates
+    yield f"{n}^2", False, cs.ADV_TOL, comps(it, v.components)
+    del it, v
+    setup = cs.mixing_setup(cs.DNS_RES, dev)
+    step = cs.mixing_step_fn(setup)
+    v, p = setup.initial_state()
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    for k in range(20):
+        o = step(v, p, g1, g2, tm=cs.bench_time(k, setup.dt))
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    it = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                   dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                       cs.bench_time(20, setup.dt))),
+                   pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=cs.MIX_TOL,
+                   pressure_tol=cs.MIX_TOL, full_output=True).intermediates
+    yield "dns {}x{}".format(*cs.DNS_RES), False, cs.MIX_TOL, comps(it, v.components)
+    del it, v, p, g1, g2
+    n = cs.T3_N
+    _, step = cs.turb3d_step(n, dev)
+    v, p = cs.turb3d_state(n, dev)
+    for _ in range(cs.T3_SPINUP_CALLS):
+        v, p, _, _ = cs.turb3d_call(step, v, p)
+    it = step(v, p, torch.zeros_like(p), torch.zeros_like(p), full_output=True).intermediates
+    yield f"{n}^3", True, cs.ADV_TOL, comps(it, v.components)
+
+
+def jacobi1_kernels(dev, cs) -> None:
+    """The kernel part of the whole-solve Jacobi pass with the imported
+    package: one JSON line per plane or volume."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.solvers import jacobi1
+
+    for label, three_d, tol, comps in jacobi1_cases(dev, cs):
+        solve = jacobi1.fused_jacobi1_solve_3d if three_d else jacobi1.fused_jacobi1_solve
+        calls = []
+        for c, st_c, b, x in comps:
+            for tr in (False, True):
+                args = (st_c, b, x, -1.0, tr, tol, 33)
+                kx, kn, ks = solve(*args)
+                h = hashlib.sha256(bits_sha256(kx).encode())
+                h.update(np.float32(kn).tobytes())
+                h.update(str(ks).encode())
+                calls.append(dict(component=c, transpose=tr, sweeps=ks, sha256=h.hexdigest(),
+                                  clock=device_us(lambda: solve(*args), J1_REPS, J1_KERNELS)))
+        print(json.dumps(dict(jacobi1=label, shape=list(comps[0][2].shape), calls=calls)),
+              flush=True)
+        del comps
+        torch.cuda.empty_cache()
+
+
+def jacobi1_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The whole-solve Jacobi pass (the module docstring) with the imported
+    package and its tree's chip_smoke.py `cs`."""
+    jacobi1_kernels(dev, cs)
+    if kernels_only:
+        return
+    paths = (("turbulence 1024^2, phases 10b-c", "turbulence_step_fn",
+              lambda: cs.large_turbulence_path(dev, wrappers)),
+             ("dns, phase 11", "mixing_step_fn", lambda: cs.mixing_path(
+                 dev, wrappers, cs.DNS_RES, "dns", ("jacobi1_solve", 2))))
+    for name, factory, run in paths:
+        traj = Trajectory(cs, factory)
+        run()
+        traj.close(name)
+    n = cs.T3_N
+    traj = Trajectory(cs, "turbulence_step_fn")
+    _, step = cs.turb3d_step(n, dev)
+    v, p = cs.turb3d_state(n, dev)
+    for _ in range(cs.T3_SPINUP_CALLS):
+        v, p, _, _ = cs.turb3d_call(step, v, p)
+    cs.turb3d_path(dev, wrappers, (v, p), n=n)
+    traj.close(f"turbulence {n}^3: spin-up, forward, grad{cs.T3_UNROLL}, phase 12")
+
+
+def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None,
+             jacobi1=None) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
     then (unless gemm_only) DIR's own phases 6b-c, 7b-c, 8b, 10b-c and 11
     with their trajectories, and `turbulence_paths`; their JSON lines go
@@ -900,6 +1026,9 @@ def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None) 
     if solvers:
         solvers_pass(dev, cs, wrappers, solvers == "kernels")
         return 0
+    if jacobi1:
+        jacobi1_pass(dev, cs, wrappers, jacobi1 == "kernels")
+        return 0
     gemm_pass(dev)
     if gemm_only:
         return 0
@@ -919,16 +1048,23 @@ def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None) 
     return 0
 
 
-def decisions(line):
-    """A JSON line without its clock readings: what a bit-equal kernel must
-    leave as it was."""
+def decisions(line, drop=()):
+    """A JSON line without its clock readings (and the keys in `drop`): what
+    a bit-equal kernel must leave as it was."""
     if isinstance(line, list):
-        return [decisions(x) for x in line]
+        return [decisions(x, drop) for x in line]
     if not isinstance(line, dict):
         return line
-    return {k: decisions(v) for k, v in line.items()
+    return {k: decisions(v, drop) for k, v in line.items()
             if not ("per_sec" in k or k in ("seconds", "elapsed", "clock") or k.endswith("_s")
-                    or k.startswith("host_us") or k.startswith("max_memory"))}
+                    or k.startswith("host_us") or k.startswith("max_memory") or k in drop)}
+
+
+# what the whole-solve Jacobi pass leaves out of the paths' lines: the
+# launch counts (row 15d's schedule changed), the counters the new schedule
+# adds, memory readings
+J1_DROP = ("launches", "launches_per_eval", "jacobi_idle", "row9_kernel_launches",
+           "memory_allocated_before_bytes")
 
 
 def must_equal(name: str) -> bool:
@@ -948,10 +1084,12 @@ def line_name(row: dict) -> str:
         return f"cavity under CG grad eval {row['cavity_cg_grad_eval']}"
     if "tier3d" in row:
         return f"tier3d {row['tier3d']}"
+    if "jacobi1" in row:
+        return f"jacobi1 {row['jacobi1']}"
     return str(next(iter(row)))
 
 
-def ab(parent: str, gemm_only=False, three_d=False, solvers=None) -> int:
+def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None) -> int:
     """Run `--paths-in` on the parent tree and on this tree in turns
     (parent, change, change, parent) and compare the lines."""
     import torch
@@ -965,6 +1103,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None) -> int:
         lines = []
         for extra in ((["--three-d-part", "main"], ["--three-d-part", "512"]) if three_d else
                       (["--solvers-part", solvers],) if solvers else
+                      (["--jacobi1-part", jacobi1],) if jacobi1 else
                       (["--gemm-only"] if gemm_only else [],)):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
                                   "--save", os.path.join(saves, f"run{len(runs)}.pt")] + extra,
@@ -977,7 +1116,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None) -> int:
         if res.returncode:
             print(res.stderr[-4000:], file=sys.stderr, flush=True)
             return 1
-        runs.append((label, [decisions(x) for x in lines]))
+        runs.append((label, [decisions(x, J1_DROP if jacobi1 else ()) for x in lines]))
     n = len(runs[0][1])
     if any(len(r[1]) != n for r in runs):
         print("the runs printed different numbers of lines", file=sys.stderr)
@@ -993,7 +1132,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None) -> int:
               flush=True)
         if not across and must_equal(name):
             differ = True
-    if gemm_only or three_d or solvers:
+    if gemm_only or three_d or solvers or jacobi1:
         return 1 if differ else 0
     grads = [torch.load(os.path.join(saves, f"run{i}.pt")) for i in range(4)]
 
@@ -1019,8 +1158,13 @@ if __name__ == "__main__":
                     help="with --paths-in: that part of the 3-D pass")
     ap.add_argument("--solvers", action="store_true",
                     help="compare the solver pass alone (rows 10d and 15g and their paths)")
+    ap.add_argument("--jacobi1", action="store_true",
+                    help="compare the whole-solve Jacobi pass alone (rows 9 and 15d and "
+                         "their paths)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="with --solvers: rows 10d and 15g without the paths")
+                    help="with --solvers / --jacobi1: the kernels without the paths")
+    ap.add_argument("--jacobi1-part", choices=("kernels", "all"),
+                    help="with --paths-in: the whole-solve Jacobi pass")
     ap.add_argument("--solvers-part", choices=("kernels", "all"),
                     help="with --paths-in: the solver pass")
     ap.add_argument("--save", metavar="PATH", help="with --paths-in: save the turbulence gradient")
@@ -1036,8 +1180,9 @@ if __name__ == "__main__":
         sys.exit(gemm_configs(torch.device("cuda")))
     if args.paths_in:
         sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part,
-                          args.solvers_part))
+                          args.solvers_part, args.jacobi1_part))
     if not args.parent:
         ap.error("name a parent tree, or --paths-in DIR, or --gemm-configs")
-    sys.exit(ab(args.parent, args.gemm, args.three_d,
-                ("kernels" if args.kernels_only else "all") if args.solvers else None))
+    part = "kernels" if args.kernels_only else "all"
+    sys.exit(ab(args.parent, args.gemm, args.three_d, part if args.solvers else None,
+                part if args.jacobi1 else None))

@@ -474,7 +474,7 @@ def rel_err(a, b) -> float:
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
                "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "jac13d_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
+               "fv3_", "matvec3_kernel", "j1_", "j13_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
                "sres_", "advm_", "corrbwd_", "p3_", "g3_", "shm_", "shp_", "shw_")
 
 
@@ -1570,6 +1570,30 @@ def mixing_small_check(dev) -> None:
         fail(f"{MIX_SMALL} mixing gradient: card vs CPU rel l2 {g_rel:.3e} > 1e-3")
 
 
+def jac1_snapshot() -> tuple:
+    """Row 9's kernel launches and the BiCGSTAB loop's whole-solve Jacobi
+    counters (sweeps, component solves that ran none, component solves)."""
+    from diffpiso_tpu_torch.solvers import krylov
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
+
+    b = krylov.bicgstab
+    return fused_jacobi1_solve.kernel_launches, b.jacobi_sweeps, b.jacobi_idle, b.jacobi_solves
+
+
+def jac1_schedule_check(what: str, s0: tuple, s1: tuple) -> int:
+    """Row 9's kernel launches between two `jac1_snapshot`s against the
+    schedule the loops' counters derive (`jacobi1.schedule_launches`): fails
+    if they differ or none ran. Returns the launches."""
+    from diffpiso_tpu_torch.solvers.jacobi1 import schedule_launches
+
+    k, sweeps, idle, solves = (b - a for a, b in zip(s0, s1))
+    want = schedule_launches(sweeps, idle)
+    if k != want or not k:
+        fail(f"{what}: row 9 launched {k} kernels, its schedule derives {want} ({solves} "
+             f"component solves, {sweeps} sweeps, {idle} of them with none)")
+    return k
+
+
 def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
                 jacobi=("jacobi2_solve", 1)) -> tuple:
     """Phases 7b and 7c (the 128 x 512 mixing layer, bench.py workload_dns)
@@ -1631,12 +1655,14 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     # -- 7b: the forward path
     reset()
     c0 = loop_counters()
+    j0 = jac1_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warns, iters = advance(MIX_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     fwd = read()
+    j1 = jac1_snapshot()
     fwd_T = wrappers["stencil_matvec"].launches_transposed
     STATES[name] = (setup, v, p, g1, g2, clock[0])
     loops, d = derived_launches(c0, loop_counters(), spectral=True)
@@ -1650,6 +1676,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
         steps=MIX_STEPS, steps_per_sec=MIX_STEPS / elapsed, pressure_iters_per_step=iters,
         warn_fraction=warns / MIX_STEPS, spinup_warned_steps=spin_warns,
         max_abs_div_active=div, loop_counters=d, launches=fwd,
+        **({"row9_kernel_launches": j1[0] - j0[0]} if jac == "jacobi1_solve" else {}),
     )), flush=True)
     if not finite:
         fail(f"{name}: non-finite state after the forward path")
@@ -1669,6 +1696,8 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
             fail(f"{name} forward: {k} launched {fwd[k]} times, expected {want.get(k, 0)}")
     if fwd_T != 2 * d["applies_T"]:
         fail(f"{name} forward: {fwd_T} transposed matvecs, expected {2 * d['applies_T']}")
+    if jac == "jacobi1_solve":
+        jac1_schedule_check(f"{name} forward", j0, j1)
 
     # -- 7c: grad30 from the developed state, the Dirichlet values frozen at
     # the last forward call's time (bench.py). Per evaluation, U steps,
@@ -1687,6 +1716,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     for rep in range(1 + GRAD_REPS):
         reset()
         c0 = loop_counters()
+        j0 = jac1_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step_g, v, p, forcing, U, remat="outputs")
@@ -1721,6 +1751,8 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
             if counts[k] != want.get(k, 0):
                 fail(f"{name} grad30: {k} launched {counts[k]} times, expected "
                      f"{want.get(k, 0)}")
+        if jac == "jacobi1_solve":
+            jac1_schedule_check(f"{name} grad30", j0, jac1_snapshot())
         e = evals[-1]
         if e["matvec_transposed"] != 2 * U + 2 * d["applies_T"]:
             fail(f"{name} grad30: {e['matvec_transposed']} transposed matvecs, expected "
@@ -2252,8 +2284,10 @@ def turbulence_step_fn(domain, sim, dt, p_tol=P_TOL):
 
 def jacobi1_check(label, st, b_c, x_c) -> tuple:
     """jac1 against its plain version on each component, forward and
-    transposed: equal sweeps, x within rel 1e-6 (bit-equal by design).
-    Returns (sweeps of each (component, transpose), max abs err)."""
+    transposed: equal sweeps, exit residual and x, bit for bit. Returns
+    (sweeps of each (component, transpose), max abs err)."""
+    import torch
+
     from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
 
     sweeps, err = {}, 0.0
@@ -2263,19 +2297,55 @@ def jacobi1_check(label, st, b_c, x_c) -> tuple:
             args = (st_c, b_c[c], x_c[c], -1.0, transpose, ADV_TOL, 33)
             kx, kn, ks = fused_jacobi1_solve(*args)
             px, pn, ps = jacobi1_plain(*args)
-            rel = rel_err(kx, px)
+            bit = torch.equal(kx, px) and kn == pn
             err = max(err, float((kx - px).abs().max()))
             print(f"{label} jac1 component {c} {tuple(b_c[c].shape)} transpose={transpose}: "
                   f"sweeps kernel {ks} plain {ps}, residual kernel {kn:.3e} plain {pn:.3e}, "
-                  f"x rel err {rel:.3e}", flush=True)
-            if ks != ps:
-                fail(f"{label} jac1 component {c} transpose={transpose}: sweep counts differ "
-                     f"({ks} vs {ps})")
-            if not rel <= 1e-6:
-                fail(f"{label} jac1 component {c} transpose={transpose}: x rel err {rel:.3e} "
-                     f"> 1e-6")
+                  f"bit-equal {bit}", flush=True)
+            if ks != ps or not bit:
+                fail(f"{label} jac1 component {c} transpose={transpose}: kernel and plain "
+                     f"differ (sweeps {ks} vs {ps}; bit-equal {bit})")
             sweeps[(c, transpose)] = ks
     return sweeps, err
+
+
+def jacobi1_edges(label, solve, plain, st_c, b, x) -> dict:
+    """A whole-solve Jacobi kernel (`solve`: row 9 or 15d) against its plain
+    version on one path operator at the edges of its schedule, forward and
+    transposed: tol met at entry (no sweep; x comes back as x itself, as in
+    the plain version), exactly one sweep (tol between the entry residual
+    and the first sweep's), max_sweeps 0, 1 and reached (2 at tol 0), a NaN
+    in b (it stops at entry), the tolerances from the same form's entry
+    and first-sweep residuals. Each: the sweeps the edge must take (0, 1,
+    0, 1, 2, 0), equal exit residual and x, bit for bit. Returns {case:
+    sweeps}."""
+    import math
+
+    import torch
+
+    bn = b.clone()
+    bn.view(-1)[b.numel() // 3] = float("nan")
+    out = {}
+    for tr in (False, True):
+        n0 = plain(st_c, b, x, -1.0, tr, 0.0, 0)[1]
+        n1 = plain(st_c, b, x, -1.0, tr, 0.0, 1)[1]
+        cases = {"tol met at entry": (b, 2.0 * n0, 33, 0),
+                 "one sweep": (b, math.sqrt(n0 * n1), 33, 1), "max_sweeps 0": (b, ADV_TOL, 0, 0),
+                 "max_sweeps 1": (b, ADV_TOL, 1, 1), "max_sweeps reached": (b, 0.0, 2, 2),
+                 "NaN in b": (bn, ADV_TOL, 33, 0)}
+        for name, (bb, tol, ms, want) in cases.items():
+            kx, kn, ks = solve(st_c, bb, x, -1.0, tr, tol, ms)
+            px, pn, ps = plain(st_c, bb, x, -1.0, tr, tol, ms)
+            same = ks == ps == want and torch.equal(kx, px) and (
+                kn == pn or (math.isnan(kn) and math.isnan(pn)))
+            if ps == 0:
+                same = same and kx is x
+            out[f"{name}{' T' if tr else ''}"] = ks
+            if not same:
+                fail(f"{label} {name} transpose={tr}: kernel and plain differ or miss the edge "
+                     f"(sweeps {ks} vs {ps}, want {want}; residual {kn} vs {pn})")
+    print(f"{label} schedule edges, sweeps: {out}", flush=True)
+    return out
 
 
 def jacobi1_entry(st_c, b, x, sweeps: int, err: float) -> dict:
@@ -2299,14 +2369,16 @@ def large_kernels(dev, kernels: list) -> dict:
     """Phase 2f: the large tier's two kernels against their plain versions
     on the card. At 1024^2, on the operators of the first step of the
     turbulence run (bench.py turb_1024): jac1 forward and transposed on
-    both components (equal sweeps, x within rel 1e-6), and the folded PCG
+    both components (equal sweeps, exit residual and x, bit for bit; on
+    component 0 the schedule's edges, `jacobi1_edges`), and the folded PCG
     update on the loop's first call (p = 0, rz_old = 1, r the deflated
     divergence) and on the call after one apply (p' within rel 1e-6 of its
     scale, rz' within rel 1e-5: the hand-written GEMM sums in another order
     than torch.matmul); then jac1 on the 512 x 2048 mixing layer's faces
-    (513 x 2048, 512 x 2049), on the operators of a step 20 steps into its
-    run. Appends both kernels' entries (times at 1024^2) to `kernels`;
-    returns jac1's measurements on the DNS faces."""
+    (513 x 2048, 512 x 2049, each with the schedule's edges), on the
+    operators of a step 20 steps into its run. Appends both kernels'
+    entries (times at 1024^2) to `kernels`; returns jac1's measurements on
+    the DNS faces."""
     import torch
 
     from diffpiso_tpu_torch.core.piso import piso_step
@@ -2315,6 +2387,7 @@ def large_kernels(dev, kernels: list) -> dict:
     from diffpiso_tpu_torch.solvers import pcgphases
     from diffpiso_tpu_torch.solvers.base import pressure_preconditioner
     from diffpiso_tpu_torch.solvers.fourier import safe_symbol
+    from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve, jacobi1_plain
     from diffpiso_tpu_torch.solvers.pcg2 import gemm
     from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 
@@ -2326,11 +2399,13 @@ def large_kernels(dev, kernels: list) -> dict:
                                                    full_output=True).intermediates
     st, b_c, x_c = it["stencil"], it["rhs"].components, v.components
     sweeps, err = jacobi1_check(f"{n}^2", st, b_c, x_c)
+    jacobi1_edges(f"{n}^2 jac1", fused_jacobi1_solve, jacobi1_plain,
+                  (st.center[0], st.lo[0], st.hi[0]), b_c[0], x_c[0])
     kernels.append(dict(
         name="jacobi1_solve", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi1.cu",
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:989",
-        launches_count="whole solves of one component (each: entry residual, one launch per "
-                       "sweep, exit residual)",
+        launches_count="whole solves of one component (each: the entry residual fused with "
+                       "sweep 0, then one launch a further sweep: jacobi1.schedule_launches)",
         **jacobi1_entry((st.center[0], st.lo[0], st.hi[0]), b_c[0], x_c[0], sweeps[(0, False)],
                         err)))
 
@@ -2394,6 +2469,9 @@ def large_kernels(dev, kernels: list) -> dict:
                    pressure_tol=MIX_TOL, full_output=True).intermediates
     st, b_c = it["stencil"], it["rhs"].components
     sweeps, err = jacobi1_check(f"dns {DNS_RES}", st, b_c, v.components)
+    for c in range(2):
+        jacobi1_edges(f"dns {tuple(b_c[c].shape)} jac1", fused_jacobi1_solve, jacobi1_plain,
+                      (st.center[c], st.lo[c], st.hi[c]), b_c[c], v.components[c])
     out = {}
     for c in range(2):
         shape = "x".join(map(str, b_c[c].shape))
@@ -2529,6 +2607,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
     reset()
     c0 = loop_counters()
+    j0 = jac1_snapshot()
     warns, iters = 0, [0, 0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2541,6 +2620,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     fwd = read()
+    j1 = jac1_snapshot()
     loops, d = derived_launches(c0, loop_counters(), fold=True)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
@@ -2550,7 +2630,8 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         pressure_iters_per_step=[iters[0] / TIMED_STEPS, iters[1] / TIMED_STEPS],
         warn_fraction=warns / TIMED_STEPS,
         max_abs_div=float(fv_divergence(v, domain.dx).abs().max()), momentum_tier=tier,
-        **sweep_stats(d, TIMED_STEPS), loop_counters=d, launches=fwd)), flush=True)
+        **sweep_stats(d, TIMED_STEPS), loop_counters=d, launches=fwd,
+        **({"row9_kernel_launches": j1[0] - j0[0]} if tier == "jac1" else {}))), flush=True)
     if not finite:
         fail(f"{n}: non-finite state after the forward path")
     if warns:
@@ -2564,6 +2645,8 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
     if tier == "sweeps" and d["jacobi_probes"] != S:
         fail(f"{n} forward: {d['jacobi_probes']} k-sweep probes, expected one per momentum "
              f"solve ({S})")
+    if tier == "jac1":
+        jac1_schedule_check(f"{n} forward", j0, j1)
 
     # grad30 from the developed state: phase 5b's counts with jac1 twice per
     # momentum solve and the pressure solves' loops derived (2U warm forward
@@ -2575,6 +2658,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
     for rep in range(1 + GRAD_REPS):
         reset()
         c0 = loop_counters()
+        j0 = jac1_snapshot()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2615,6 +2699,8 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         if tier == "sweeps" and d["jacobi_probes"] != 2 * U:
             fail(f"{n} grad30: {d['jacobi_probes']} k-sweep probes, expected one per forward "
                  f"and adjoint momentum solve ({2 * U})")
+        if tier == "jac1":
+            jac1_schedule_check(f"{n} grad30", j0, jac1_snapshot())
         if any(evals[-1][k] != evals[0][k] for k in ("launches", "loop_counters")):
             fail(f"{n} grad30: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
@@ -2987,7 +3073,8 @@ def turb3d_kernels(dev, kernels: list) -> tuple:
     the first pressure increment, forward and VJP; the 7-point matvec in
     both forms and its VJP on the momentum operator of component 0, and
     forward on the pressure Laplacian; the whole-solve Jacobi forward and
-    transposed on all three components (equal sweeps). Each must be
+    transposed on all three components (equal sweeps; on component 0 the
+    schedule's edges, `jacobi1_edges`). Each must be
     bit-equal or within the stated bound: elementwise volumes within rel
     1e-6 of their scale (8 ulps), Jacobi bit-equal x and residual. Appends
     the four kernels' entries (div3 and grad3 apart) to `kernels`; returns
@@ -3124,6 +3211,7 @@ def turb3d_kernels(dev, kernels: list) -> tuple:
                      f"differ (sweeps {ks} vs {ps}; bit-equal {bit})")
             sweeps[(c, transpose)] = ks
     st0 = (st.center[0], st.lo[0], st.hi[0])
+    jacobi1_edges(f"{n}^3 jac13d", fused_jacobi1_solve_3d, jacobi1_3d_plain, st0, b_c[0], w[0])
     a0 = (st0, b_c[0], w[0], -1.0, False, ADV_TOL, 33)
     sw = sweeps[(0, False)]
     # 9 volumes in (7 coefficients, b, x0), x out; per cell the entry and exit
@@ -3134,8 +3222,8 @@ def turb3d_kernels(dev, kernels: list) -> tuple:
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:1173", max_abs_err=jac_err,
         sweeps=sw, sweeps_per_component={f"{c}{'T' if tr else ''}": s
                                          for (c, tr), s in sweeps.items()},
-        launches_count="kernel launches (per component solve: entry residual, one per sweep, "
-                       "exit residual)",
+        launches_count="kernel launches (per component solve: the entry residual fused with "
+                       "sweep 0, then one a further sweep: jacobi1.schedule_launches)",
         ms=cuda_time_ms(lambda: fused_jacobi1_solve_3d(*a0), 20),
         **device_time(lambda: fused_jacobi1_solve_3d(*a0), 5),
         plain_ms=cuda_time_ms(lambda: jacobi1_3d_plain(*a0), 5),
@@ -3170,15 +3258,17 @@ def turb3d_counters() -> dict:
     from diffpiso_tpu_torch.solvers import krylov, pcg3
 
     b, w = krylov.bicgstab, pcg3.fused_pcg3_solve
-    return dict(loop_counters(), jacobi_solves_3d=b.jacobi_solves, jacobi_trips=b.jacobi_trips,
+    return dict(loop_counters(), jacobi_solves_3d=b.jacobi_solves, jacobi_idle=b.jacobi_idle,
+                jacobi_trips=b.jacobi_trips,
                 jacobi_block_sweeps=b.jacobi_block_sweeps, pcg3_loops=w.loops,
                 pcg3_warm_entries=w.warm_entries, pcg3_iterations=w.iterations)
 
 
 def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     """(the 3-D launches the loops derive, counter deltas): the momentum
-    tier's kernel (the whole-solve Jacobi 2 launches per component solve
-    plus one per sweep; per trip one call per component, the z-block
+    tier's kernel (the whole-solve Jacobi as `jacobi1.schedule_launches`
+    derives it from the sweeps and the component solves that ran none; per
+    trip one call per component, the z-block
     kernel ZB_CALL_LAUNCHES launches a call, the plane kernel
     PL_CALL_LAUNCHES); the 7-point
     matvec three times per BiCGSTAB operator apply (one per component); the
@@ -3191,8 +3281,10 @@ def turb3d_derived(c0: dict, c1: dict, tier: str = "jac13d") -> tuple:
     entry, q, xr and p once per iteration, r.z once per loop and
     iteration, row 10e's residual once per loop (the exit check), and row
     16-3d as the loop does (M^-1 r once per loop and iteration)."""
+    from diffpiso_tpu_torch.solvers.jacobi1 import schedule_launches
+
     d = {k: c1[k] - c0[k] for k in c0}
-    jac = {"jac13d": ("jacobi1_solve_3d", 2 * d["jacobi_solves_3d"] + d["jacobi_sweeps"]),
+    jac = {"jac13d": ("jacobi1_solve_3d", schedule_launches(d["jacobi_sweeps"], d["jacobi_idle"])),
            "zblock": (T3_TIER_KERNELS["zblock"], 3 * ZB_CALL_LAUNCHES * d["jacobi_trips"]),
            "plane": (T3_TIER_KERNELS["plane"], 3 * PL_CALL_LAUNCHES * d["jacobi_trips"])}[tier]
     l3, w3, i3 = d["pcg3_loops"], d["pcg3_warm_entries"], d["pcg3_iterations"]

@@ -3,19 +3,23 @@
 Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_jacobi1_solve (TPU
 kernel `_jacobi1_solve_kernel` around `_jacobi1_core`), the tier past the
 joint solve's budget (solvers/tiers.py: 1024^2, the 512 x 2048 mixing
-layer's faces). The CUDA kernels are csrc/jacobi1.cu (the sweep kernel of
-csrc/jacobi.cuh, shared with jac2, for one component); the sweep loop runs
-on the host, one launch and one 4-byte norm read per sweep, with the
-control flow of the TPU kernel:
+layer's faces), with the control flow of the TPU kernel:
 
   iv = where(|sgn c| > 1e-30, 1/(sgn c), 1)
   r = b - A x;  while max|r| > tol and j < max_sweeps: x += iv r; r -= A(iv r)
   return x and the TRUE exit residual max|b - A x|
 
 The caller (solvers/krylov.py bicgstab) runs one solve per component; each
-stops at its own residual. What bounds it on the H100 is bytes (9 planes
-per sweep: 37.7 MB at 1024^2, about 11 us at 3.35 TB/s). The kernels round
-like the plain version op for op, so both count the same sweeps.
+stops at its own residual. The CUDA kernels are csrc/jacobi1.cu's y-march
+(a warp a 32-column strip, dlt once a cell in a three-row ring, the next
+row's loads issued ahead); the sweep loop runs on the host
+(`_solve_launches`), one launch a sweep. The first launch fuses the entry
+residual with a speculative sweep 0, and every launch also forms the exit
+residual of the x it writes, so a solve of s >= 1 sweeps takes s launches
+(one that stops at entry: 1), each followed by one host read of its norms.
+What bounds a launch on the H100 is bytes (a sweep: 10 planes, 41.9 MB at
+1024^2, about 12.5 us at 3.35 TB/s). The kernels round like the plain
+version op for op, so both count the same sweeps.
 
 On a CUDA tensor the wrapper launches the kernels; on a CPU tensor it runs
 `jacobi1_plain`.
@@ -44,11 +48,11 @@ inverse, as the TPU kernel does:
   r = b - A x;  while max|r| > tol and j < max_sweeps: x += dlt(r); r -= A dlt(r)
   return x and the TRUE exit residual max|b - A x|
 
-The CUDA kernels are csrc/jacobi1_3d.cu: the H100 cannot hold the 120 MiB
-working set on chip, so each sweep is one launch from HBM (9 volumes in, 2
-out: 92 MB at 128^3) and the host loop reads one norm per sweep. Its
-counter counts kernel launches (entry residual, one per sweep, exit
-residual); on a CPU tensor the wrapper runs `jacobi1_3d_plain`."""
+The CUDA kernels are csrc/jacobi1_3d.cu, the z-march of csrc/zmarch3.cuh
+(row 15e's) over the whole periodic volume: the H100 cannot hold the 120
+MiB working set on chip, so each sweep is one launch from HBM, with the
+2-D solve's schedule (`_solve_launches`). Its counter counts kernel
+launches; on a CPU tensor the wrapper runs `jacobi1_3d_plain`."""
 
 from __future__ import annotations
 
@@ -68,18 +72,43 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
 )
 
 _P = ctypes.c_void_p
+_F, _I = ctypes.c_float, ctypes.c_int
+# first: ptrs, dims, sgn, transpose, x_out, r_out, norms, stream;
+# sweep: ptrs, dims, sgn, transpose, x_in, x_out, r_in, r_out, norms, stream
+_MARCH = {"first": [_P, _P, _F, _I, _P, _P, _P, _P],
+          "sweep": [_P, _P, _F, _I, _P, _P, _P, _P, _P, _P]}
 _SIGS = {
-    "jac1_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P],
-    "jac1_sweep": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P],
-    "jac1_true_residual": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P],
+    **{f"jac1_{k}": v for k, v in _MARCH.items()},
     # the batched entry points take jacobi2_fold.cu's arguments
     **{name.replace("jac2f", "jac1b"): args for name, args in _FOLD_SIGS.items()},
 }
-_SIGS3 = {
-    "jac13d_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P],
-    "jac13d_sweep": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P],
-    "jac13d_true_residual": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P],
-}
+_SIGS3 = {f"jac13d_{k}": v for k, v in _MARCH.items()}
+
+# What a warp (2-D) or a CTA (3-D) marches: about this many warps / CTAs a
+# launch (at 1024^2 and 128^3 one wave on the H100's 132 SMs).
+MARCH_WARPS = 4096
+MARCH_CTAS = 256
+
+
+def march_rows(ny: int, nx: int) -> int:
+    """Rows a warp of csrc/jacobi1.cu marches on an (ny, nx) plane."""
+    runs = max(1, min(ny, -(-MARCH_WARPS // -(-nx // 32))))
+    return -(-ny // runs)
+
+
+def march_planes(nz: int, ny: int, nx: int) -> int:
+    """z planes a CTA of csrc/jacobi1_3d.cu marches on an (nz, ny, nx) volume
+    (tiles of 16 x 32 cells)."""
+    tiles = -(-ny // 16) * -(-nx // 32)
+    runs = max(1, min(nz, -(-MARCH_CTAS // tiles)))
+    return -(-nz // runs)
+
+
+def schedule_launches(sweeps: int, idle: int) -> int:
+    """Kernel launches of whole solves that took `sweeps` sweeps in all,
+    `idle` of them none: the first launch of each (an idle solve's only
+    one), then one a sweep after the first."""
+    return sweeps + idle
 
 
 def jacobi1_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):
@@ -105,52 +134,61 @@ def jacobi1_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):
     return x, float((b - mv(x)).abs().max()), j
 
 
-def _host_sweep_loop(lib, prefix, ops, b, sgn, transpose, tol, max_sweeps,
-                     on_launch=lambda: None):
+def _solve_launches(lib, prefix, ops, dims, sgn, transpose, tol, max_sweeps,
+                    on_launch=lambda: None):
     """The host loop of a whole Jacobi solve on one component, around the
-    library's `<prefix>_init`, `_sweep` and `_true_residual` launches: the
-    entry residual, one launch and one 4-byte norm read per sweep (the new
-    residual in the other of two buffers, x updated in place) while the
-    norm is above tol and sweeps remain, then the true exit residual of x.
-    `ops` are the operand tensors in the library's pointer order, x last;
-    the output x follows them. `on_launch` is called once right after each
-    launch. Returns (x', true max-residual, sweeps)."""
-    xo = torch.empty_like(b)
-    ra, rb = torch.empty_like(b), torch.empty_like(b)
-    norms = torch.zeros(max_sweeps + 2, dtype=torch.float32, device=b.device)
-    ptrs = (ctypes.c_void_p * (len(ops) + 1))(*[t.data_ptr() for t in (*ops, xo)])
-    dims = (ctypes.c_int * b.ndim)(*b.shape)
+    library's `<prefix>_first` and `_sweep` launches. `ops` are the operand
+    tensors in the library's pointer order, b and x0 last; `dims` the
+    library's dimensions (the plane or volume, then the rows or planes a
+    march takes). The first launch writes x1 and r1 (the entry residual
+    fused with a speculative sweep 0) and the norms n0, n1 and the exit
+    residual e1 of x1; the host reads them in one read. Where n0 <= tol
+    (NaN included) or max_sweeps < 1 the sweep is discarded: x0 comes back
+    as it was and its exit residual is n0, formed as the plain version
+    forms it. Else launch j (j >= 1) runs sweep j + 1 from (x_j, r_j), x
+    and r each alternating between two buffers, and leaves n_{j+1} and
+    e_{j+1}, one read each, while n_j > tol and j < max_sweeps.
+    `on_launch` is called once right after each launch. Returns (x', true
+    max-residual, sweeps)."""
+    b, x0 = ops[-2], ops[-1]
+    xs = (torch.empty_like(b), torch.empty_like(b))
+    rs = (torch.empty_like(b), torch.empty_like(b))
+    # slots: n0, n1, e1, then (n_{j+1}, e_{j+1}) for launch j
+    norms = torch.zeros(2 * max(max_sweeps, 1) + 1, dtype=torch.float32, device=b.device)
+    ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+    cdims = (ctypes.c_int * len(dims))(*dims)
     sgn32 = float(np.float32(sgn))
     tol32 = float(np.float32(tol))
     tr = int(bool(transpose))
     stream = native.stream_of(b)
-    init, sweep, resid = (getattr(lib, f"{prefix}_{k}") for k in ("init", "sweep",
-                                                                    "true_residual"))
 
     def slot(k):
         return ctypes.c_void_p(norms.data_ptr() + 4 * k)
 
-    native.check(init(ptrs, dims, sgn32, tr, native.ptr(ra), slot(0), stream), f"{prefix}_init")
+    native.check(getattr(lib, f"{prefix}_first")(ptrs, cdims, sgn32, tr, native.ptr(xs[0]),
+                                                 native.ptr(rs[0]), slot(0), stream),
+                 f"{prefix}_first")
     on_launch()
-    n = float(norms[0])
-    j = 0
+    n0, n, e = norms[:3].tolist()
+    if not (n0 > tol32 and max_sweeps >= 1):
+        return x0, n0, 0
+    j = 1
     while n > tol32 and j < max_sweeps:
-        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
-        native.check(sweep(ptrs, dims, sgn32, tr, native.ptr(r_in), native.ptr(r_out),
-                           slot(j + 1), stream), f"{prefix}_sweep")
+        a, z = (j - 1) % 2, j % 2
+        native.check(getattr(lib, f"{prefix}_sweep")(
+            ptrs, cdims, sgn32, tr, native.ptr(xs[a]), native.ptr(xs[z]), native.ptr(rs[a]),
+            native.ptr(rs[z]), slot(2 * j + 1), stream), f"{prefix}_sweep")
         on_launch()
-        n = float(norms[j + 1])
+        n, e = norms[2 * j + 1:2 * j + 3].tolist()
         j += 1
-    native.check(resid(ptrs, dims, sgn32, tr, slot(max_sweeps + 1), stream),
-                 f"{prefix}_true_residual")
-    on_launch()
-    return xo, float(norms[max_sweeps + 1]), j
+    return xs[(j - 1) % 2], e, j
 
 
 def fused_jacobi1_solve(st_c, b, x, sgn, transpose, tol, max_sweeps):
     """Whole-solve Jacobi-Richardson for one component of the 2-D momentum
     system. st_c = (center, (lo_y, lo_x), (hi_y, hi_x)); b and x are planes
-    of one shape. Returns (x', true max-residual as a float, sweeps)."""
+    of one shape. Returns (x', true max-residual as a float, sweeps); x' is
+    x itself when the solve stops at entry, as in the plain version."""
     if b.device.type == "cpu":
         return jacobi1_plain(st_c, b, x, sgn, transpose, tol, max_sweeps)
     c, lo, hi = st_c
@@ -158,13 +196,19 @@ def fused_jacobi1_solve(st_c, b, x, sgn, transpose, tol, max_sweeps):
     native.require_cuda_f32("fused_jacobi1_solve", *ops)
     if any(t.shape != b.shape for t in ops) or b.ndim != 2:
         raise ValueError("fused_jacobi1_solve: the planes must share one 2-D shape")
-    out = _host_sweep_loop(native.library("jacobi1", _SIGS), "jac1", ops, b, sgn, transpose, tol,
-                           max_sweeps)
+    out = _solve_launches(native.library("jacobi1", _SIGS), "jac1", ops,
+                          (*b.shape, march_rows(*b.shape)), sgn, transpose, tol, max_sweeps,
+                          _count_jac1_kernel)
     fused_jacobi1_solve.launches += 1
     return out
 
 
-fused_jacobi1_solve.launches = 0  # whole solves (each: init, one launch per sweep, exit residual)
+def _count_jac1_kernel():
+    fused_jacobi1_solve.kernel_launches += 1
+
+
+fused_jacobi1_solve.launches = 0  # whole solves
+fused_jacobi1_solve.kernel_launches = 0  # their kernel launches (`schedule_launches`)
 
 
 def jacobi1_batched_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):
@@ -259,7 +303,8 @@ def fused_jacobi1_solve_3d(st_c, b, x, sgn, transpose, tol, max_sweeps):
     """Whole-solve Jacobi-Richardson for one component of the periodic 3-D
     momentum system. st_c = (center, (lo_z, lo_y, lo_x), (hi_z, hi_y,
     hi_x)); b and x are volumes of one shape. Returns (x', true
-    max-residual as a float, sweeps)."""
+    max-residual as a float, sweeps); x' is x itself when the solve stops
+    at entry."""
     if b.device.type == "cpu":
         return jacobi1_3d_plain(st_c, b, x, sgn, transpose, tol, max_sweeps)
     c, lo, hi = st_c
@@ -267,12 +312,13 @@ def fused_jacobi1_solve_3d(st_c, b, x, sgn, transpose, tol, max_sweeps):
     native.require_cuda_f32("fused_jacobi1_solve_3d", *ops)
     if any(t.shape != b.shape for t in ops) or b.ndim != 3:
         raise ValueError("fused_jacobi1_solve_3d: the volumes must share one 3-D shape")
-    return _host_sweep_loop(native.library("jacobi1_3d", _SIGS3), "jac13d", ops, b, sgn,
-                            transpose, tol, max_sweeps, on_launch=_count_jac13d_launch)
+    return _solve_launches(native.library("jacobi1_3d", _SIGS3), "jac13d", ops,
+                           (*b.shape, march_planes(*b.shape)), sgn, transpose, tol, max_sweeps,
+                           _count_jac13d_launch)
 
 
 def _count_jac13d_launch():
     fused_jacobi1_solve_3d.launches += 1
 
 
-fused_jacobi1_solve_3d.launches = 0  # kernel launches (entry residual, each sweep, exit residual)
+fused_jacobi1_solve_3d.launches = 0  # kernel launches (`schedule_launches`)

@@ -315,6 +315,7 @@ def bicgstab(
             jn = float(np.max([o[1] for o in outs]))  # NaN propagates
             bicgstab.jacobi_sweeps += sum(o[2] for o in outs)
             bicgstab.jacobi_solves += len(comps)
+            bicgstab.jacobi_idle += sum(o[2] == 0 for o in outs)
         x0 = _rebuild(b, xs)
         if jn < tol32:
             x, rnorm, k = x0, jn, 0
@@ -385,6 +386,7 @@ bicgstab.fallbacks = 0  # Jacobi solves that missed tol and handed over to BiCGS
 bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
 bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1 / jac13d: summed over components)
 bicgstab.jacobi_solves = 0  # whole Jacobi solves (jac2: one joint solve; jac1 / jac13d: one per component)
+bicgstab.jacobi_idle = 0  # jac1 / jac13d component solves that stopped at entry (no sweep)
 # the trip loop of the 2-D k-sweep tier and the 3-D z-block and plane
 # tiers (each trip: one kernel call per component): the k-sweep tier's
 # probes (one k = 1 call per component each), trips, and sweeps (z-block:

@@ -105,7 +105,8 @@ FAMILIES = (
     ("dp_sum_partials", "one-block partial sums (laplace assembly; rows 18b, 18c)"),
     ("laplace_assembly", "laplace assembly"),
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
-    ("jac13d_", "jacobi 3-D whole-solve sweeps"),
+    ("j1_", "jacobi2 / jacobi1 sweeps"),
+    ("j13_", "jacobi 3-D whole-solve sweeps"),
     ("jsw_", "k-sweep Jacobi (row 8b: sweeps and residual)"),
     ("sres_", "fused stencil residual (row 14)"),
     ("zb_", "jacobi 3-D z-block sweeps"),

@@ -81,11 +81,13 @@ from diffpiso_tpu_torch.solvers.fourier import (
     safe_symbol,
     spectral_apply_plain,
 )
+from diffpiso_tpu_torch.solvers import jacobi1
 from diffpiso_tpu_torch.solvers.jacobi1 import (
     fused_jacobi1_solve,
     fused_jacobi1_solve_3d,
     jacobi1_3d_plain,
     jacobi1_plain,
+    schedule_launches,
 )
 from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
 from diffpiso_tpu_torch.solvers.jacobi3d import (
@@ -98,7 +100,13 @@ from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps, jacobi
 from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
-from tests.torch_parity import cuda_device, t  # noqa: F401  (cuda_device is a fixture)
+from tests.torch_parity import (  # noqa: F401  (cuda_device is a fixture)
+    JACOBI1_EDGE_SWEEPS,
+    JACOBI1_EDGES,
+    cuda_device,
+    jacobi1_edge,
+    t,
+)
 
 pytestmark = pytest.mark.cuda
 SHAPE = (512, 512)
@@ -1041,25 +1049,48 @@ def test_cuda_batched_training_gradient_matches_the_cpu_plain_path(cuda_device):
     assert _rel_l2(out["card"][2], out["cpu"][2]) <= 1e-3
 
 
+def _jacobi1_matches_plain(solve, plain, st, b, x0, transpose, tol, max_sweeps):
+    """The kernel against its plain version: equal sweeps, exit residual and
+    x, bit for bit; x itself where no sweep ran. Returns the sweeps."""
+    kx, kn, ks = solve(st, b, x0, -1.0, transpose, tol, max_sweeps)
+    px, pn, ps = plain(st, b, x0, -1.0, transpose, tol, max_sweeps)
+    assert ks == ps and torch.equal(kx, px)
+    assert kn == pn or (np.isnan(kn) and np.isnan(pn))
+    assert ps > 0 or kx is x0
+    return ks
+
+
+@pytest.mark.parametrize("case", JACOBI1_EDGES)
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("shape", [(513, 2048), (512, 2049), (7, 5)])
-def test_jacobi1_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+@pytest.mark.parametrize("shape", [(513, 2048), (512, 2049), (7, 5), (33, 65), (129, 257)])
+def test_jacobi1_kernel_is_bit_equal_to_plain(shape, transpose, case, cuda_device, monkeypatch):
     """The per-component whole solve on the 512 x 2048 mixing layer's two
-    face shapes and a small odd plane: the same sweeps, the same exit
-    residual and the same x, bit for bit (one thread per cell,
-    --fmad=false), and bit-equal to jac2's component when both components
-    converge together."""
+    face shapes and small ragged planes (strips and runs that end inside
+    the plane): the same sweeps, the same exit residual and the same x, bit
+    for bit (--fmad=false), on the path's tol and at the schedule's edges,
+    with its kernel launches as `schedule_launches` derives; on the path's
+    tol every run length gives the same bits, and jac2 on two copies of the
+    component sweeps exactly as far."""
     c = _rand(shape, 40, 0.3, -10.0).to(cuda_device)
     lo = tuple(_rand(shape, 40 + k, 0.4).to(cuda_device) for k in (1, 2))
     hi = tuple(_rand(shape, 40 + k, 0.4).to(cuda_device) for k in (3, 4))
     b = _rand(shape, 45).to(cuda_device)
     x0 = torch.zeros(shape, device=cuda_device)
-    before = fused_jacobi1_solve.launches
-    kx, kn, ks = fused_jacobi1_solve((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
-    assert fused_jacobi1_solve.launches == before + 1
-    px, pn, ps = jacobi1_plain((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
-    assert ks == ps > 0 and kn == pn
-    torch.testing.assert_close(kx, px, rtol=0, atol=0)
+    bb, tol, ms = jacobi1_edge(case, jacobi1_plain, (c, lo, hi), b, x0, transpose)
+    before = fused_jacobi1_solve.launches, fused_jacobi1_solve.kernel_launches
+    ks = _jacobi1_matches_plain(fused_jacobi1_solve, jacobi1_plain, (c, lo, hi), bb, x0,
+                                transpose, tol, ms)
+    assert fused_jacobi1_solve.launches == before[0] + 1
+    assert fused_jacobi1_solve.kernel_launches - before[1] == schedule_launches(ks, int(ks == 0))
+    assert ks == JACOBI1_EDGE_SWEEPS.get(case, ks)
+    if case != "path":
+        return
+    assert ks > 2
+    kx, kn, _ = fused_jacobi1_solve((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
+    for rows in (1, 5, shape[0]):
+        monkeypatch.setattr(jacobi1, "march_rows", lambda ny, nx, k=rows: k)
+        assert torch.equal(fused_jacobi1_solve((c, lo, hi), b, x0, -1.0, transpose, 1e-6,
+                                               33)[0], kx)
     # jac2 on two copies of the component sweeps exactly as far
     j0, j1, jn, js = fused_jacobi2_solve([(c, lo, hi)] * 2, (b, b), (x0, x0), -1.0, transpose,
                                          1e-6, 33)
@@ -1189,20 +1220,35 @@ def test_matvec3_kernel_is_bit_equal_to_plain_and_its_vjp(shape, transpose, cuda
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("case", JACOBI1_EDGES)
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("shape", VOLUMES)
-def test_jacobi13d_kernel_is_bit_equal_to_plain(shape, transpose, cuda_device):
+@pytest.mark.parametrize("shape", VOLUMES + [(17, 17, 17), (20, 33, 47)])
+def test_jacobi13d_kernel_is_bit_equal_to_plain(shape, transpose, case, cuda_device,
+                                                monkeypatch):
+    """Kernel 15d on volumes whose tiles and z runs end inside the volume:
+    bit-equal to its plain version on the path's tol and at the schedule's
+    edges, launching as `schedule_launches` derives; on the path's tol
+    every z run length gives the same bits."""
     rng = np.random.RandomState(80)
     c = t(-10.0 + 0.3 * rng.randn(*shape)).to(cuda_device)
     lo = tuple(t(0.4 * rng.randn(*shape)).to(cuda_device) for _ in range(3))
     hi = tuple(t(0.4 * rng.randn(*shape)).to(cuda_device) for _ in range(3))
     b = t(0.1 * rng.randn(*shape)).to(cuda_device)
     x0 = torch.zeros_like(b)
+    bb, tol, ms = jacobi1_edge(case, jacobi1_3d_plain, (c, lo, hi), b, x0, transpose)
     before = fused_jacobi1_solve_3d.launches
-    kx, kn, ks = fused_jacobi1_solve_3d((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
-    px, pn, ps = jacobi1_3d_plain((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)
-    assert ks == ps > 0 and kn == pn and torch.equal(kx, px)
-    assert fused_jacobi1_solve_3d.launches - before == 2 + ks
+    ks = _jacobi1_matches_plain(fused_jacobi1_solve_3d, jacobi1_3d_plain, (c, lo, hi), bb, x0,
+                                transpose, tol, ms)
+    assert fused_jacobi1_solve_3d.launches - before == schedule_launches(ks, int(ks == 0))
+    assert ks == JACOBI1_EDGE_SWEEPS.get(case, ks)
+    if case != "path":
+        return
+    assert ks > 2
+    kx = fused_jacobi1_solve_3d((c, lo, hi), b, x0, -1.0, transpose, 1e-6, 33)[0]
+    for planes in (1, 3, shape[0]):
+        monkeypatch.setattr(jacobi1, "march_planes", lambda nz, ny, nx, k=planes: k)
+        assert torch.equal(fused_jacobi1_solve_3d((c, lo, hi), b, x0, -1.0, transpose, 1e-6,
+                                                  33)[0], kx)
 
 
 def _system3(shape, seed, device, plane_scale=None):

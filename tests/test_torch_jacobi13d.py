@@ -222,27 +222,30 @@ def test_a_nan_propagates_into_the_hand_over_and_warns(monkeypatch):
 def test_the_launch_counter_moves_at_each_launch(norms, monkeypatch):
     """The host loop around kernel 15d's launches, driven by a stand-in
     library that records each launch and writes the scripted norm of each
-    residual into its slot: the loop stops at tol or at max_sweeps, and
+    residual into its slot (the first launch: the entry residual's and the
+    speculative first sweep's): the loop stops at tol or at max_sweeps, and
     `fused_jacobi1_solve_3d.launches` moves once per launch the library
-    saw (the entry residual, each sweep, the exit residual), not by the
-    sweep count the loop returns."""
+    saw (the first, then each further sweep, as `schedule_launches`
+    derives), not by the sweep count the loop returns."""
     monkeypatch.setattr(jacobi1.native, "stream_of", lambda t_: None)
     seen = []
     left = list(norms)
 
-    def launch(name, slot):
+    def launch(name, slot, count):
         seen.append(name)
-        ctypes.c_float.from_address(slot.value).value = left.pop(0) if left else 0.0
+        for k in range(count):
+            ctypes.c_float.from_address(slot.value + 4 * k).value = left.pop(0) if left else 0.0
         return 0
 
     lib = types.SimpleNamespace(
-        jac13d_init=lambda ptrs, dims, sgn, tr, r, slot, s: launch("init", slot),
-        jac13d_sweep=lambda ptrs, dims, sgn, tr, ri, ro, slot, s: launch("sweep", slot),
-        jac13d_true_residual=lambda ptrs, dims, sgn, tr, slot, s: launch("resid", slot))
+        jac13d_first=lambda ptrs, dims, sgn, tr, xo, ro, slot, s: launch("first", slot, 2),
+        jac13d_sweep=lambda ptrs, dims, sgn, tr, xi, xo, ri, ro, slot, s:
+            launch("sweep", slot, 1))
     b = torch.zeros(SHAPE)
     before = fused_jacobi1_solve_3d.launches
-    _, _, j = jacobi1._host_sweep_loop(lib, "jac13d", (b,) * 9, b, -1.0, False, 1e-6,
-                                       MAX_SWEEPS, on_launch=jacobi1._count_jac13d_launch)
+    _, _, j = jacobi1._solve_launches(lib, "jac13d", (b,) * 9, (*SHAPE, 1), -1.0, False, 1e-6,
+                                      MAX_SWEEPS, on_launch=jacobi1._count_jac13d_launch)
     assert j == min(len(norms) - 1, MAX_SWEEPS)
-    assert seen == ["init"] + ["sweep"] * j + ["resid"]
-    assert fused_jacobi1_solve_3d.launches - before == len(seen)
+    assert seen == ["first"] + ["sweep"] * max(j - 1, 0)
+    assert fused_jacobi1_solve_3d.launches - before == len(seen) == jacobi1.schedule_launches(
+        j, int(j == 0))

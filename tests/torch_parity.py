@@ -175,3 +175,30 @@ def force_jax_batched_kernels(monkeypatch):
     monkeypatch.setattr(pallas_krylov, "jac2_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "pcg2_eligible", lambda *a, **k: True)
     monkeypatch.setattr(pallas_krylov, "jac2_fold_eligible", lambda *a, **k: False)
+
+
+# The edges of the whole-solve Jacobi schedule of rows 9 and 15d (the
+# speculative first launch; solvers/jacobi1.py _solve_launches), and the
+# sweeps each must take. tests/test_torch_jacobi1_schedule.py holds the host
+# loop to the plain versions and JAX at them on the CPU,
+# tests/test_torch_cuda.py the kernels on the card.
+JACOBI1_EDGES = ["path", "tol met at entry", "one sweep", "max_sweeps 0", "max_sweeps 1",
+                 "max_sweeps reached", "NaN in b"]
+JACOBI1_EDGE_SWEEPS = {"tol met at entry": 0, "one sweep": 1, "max_sweeps 0": 0,
+                       "max_sweeps 1": 1, "max_sweeps reached": 2, "NaN in b": 0}
+
+
+def jacobi1_edge(case, plain, st, b, x0, transpose):
+    """(b, tol, max_sweeps) of an edge of the schedule, from the plain
+    version's entry residual n0 and its residual after one sweep n1 in the
+    same form: tol 1e-6 on the path, 2 n0 (met at entry), sqrt(n0 n1) (one
+    sweep), tol 0 with 2 sweeps allowed (reached), b with a NaN (stops at
+    entry)."""
+    n0 = plain(st, b, x0, -1.0, transpose, 0.0, 0)[1]
+    n1 = plain(st, b, x0, -1.0, transpose, 0.0, 1)[1]
+    bn = b.clone()
+    bn.view(-1)[b.numel() // 3] = float("nan")
+    return {"path": (b, 1e-6, 33), "tol met at entry": (b, 2.0 * n0, 33),
+            "one sweep": (b, (n0 * n1) ** 0.5, 33), "max_sweeps 0": (b, 1e-6, 0),
+            "max_sweeps 1": (b, 1e-6, 1), "max_sweeps reached": (b, 0.0, 2),
+            "NaN in b": (bn, 1e-6, 33)}[case]
