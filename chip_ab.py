@@ -1,6 +1,8 @@
 """Compare two trees of the port on one GPU: the hand-written GEMM shape by
-shape, the 2-D paths, the 3-D momentum tier kernels and paths, and the CG
-iteration (row 10d) and whole-solve 3-D PCG (row 15g) with their paths.
+shape, the 2-D paths, the 3-D momentum tier kernels and paths, the CG
+iteration (row 10d) and whole-solve 3-D PCG (row 15g), the whole-solve
+Jacobi (rows 9, 15d), and the rank-3 PCG phases (row 10e) and the k-sweep
+Jacobi (row 8b), each with their paths.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -93,13 +95,46 @@ grad10). The kernel and trajectory lines must be equal; the paths' own
 lines are compared without their launch counts and memory readings (the
 new schedule launches fewer kernels) and reported.
 
+    python3 chip_ab.py --phases PARENT_DIR [--kernels-only]
+
+runs the phases pass alone in the same turns, one process each, from each
+tree's chip_smoke.py (`phases_pass`): row 10e (the rank-3 residual, PCG
+apply and CG iteration) on the pressure systems of the 128^3 and 256^3
+turbulence steps after bench.py's spin-up (2 calls of 50 steps) and of
+the 3-D cavity at N = 128 (after its 400-step spin-up), each through
+krylov's loops from the step's warm guess, deflating and not: PCG with
+the system's preconditioner (fft_mm, dct) and plain CG (a reset every 5
+iterations, the sum of p carried where the tree's iteration takes it),
+12 iterations each, one line per loop with the sha256 of every call's
+outputs and of the scalar slots both designs write; row 8b on phase 16's
+1024 x 2048 operators, both components, forward and transposed, k = 1
+and then 4 (the sha256 of each x_k and norm). Under "clock": device us a
+call and a launch (torch.profiler) of each row's calls. Then (unless
+--kernels-only) the paths with their trajectory digests: phase 12's
+128^3 (spin-up, 3 x 50 forward steps, grad10), 256^3 (spin-up and 50
+forward steps), phase 18's 3-D cavity (`cavity3d_path`: spin-up, 2n,
+dct forward, CG forward and gradient) and phase 16's 1024 x 2048
+(`large_turbulence_path`: forward and grad30). The kernel and trajectory
+lines must be equal; the paths' own lines are compared without their
+launch counts and memory readings and reported with their steps/s.
+
     python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART
-                                       | --solvers-part PART | --jacobi1-part PART]
+                                       | --solvers-part PART | --jacobi1-part PART
+                                       | --phases-part PART]
 
 runs DIR's GEMM pass and phases alone (what each turn above runs); --save
 writes the turbulence grad30 gradient to PATH; --three-d-part main / 512
 runs that part of the 3-D pass instead, --solvers-part kernels / all the
-solver pass, --jacobi1-part kernels / all the whole-solve Jacobi pass.
+solver pass, --jacobi1-part kernels / all the whole-solve Jacobi pass,
+--phases-part kernels / all the phases pass.
+
+    python3 chip_ab.py --kernel-profile DIR
+
+runs, with DIR's package, rows 10e and 8b on one pressure system each of
+the 128^3 and 256^3 turbulence and on phase 16's 1024 x 2048 operators:
+device us a call and a kernel, every profiler event counted
+(`kernel_profile`), which is how their designs were timed (DIR a copy of
+a tree with other constants).
 
     python3 chip_ab.py --gemm-configs
 
@@ -983,8 +1018,306 @@ def jacobi1_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
     traj.close(f"turbulence {n}^3: spin-up, forward, grad{cs.T3_UNROLL}, phase 12")
 
 
+PH_CALLS = 12  # iterations of each row 10e loop in the phases pass
+PH_CG_RESET = 5  # the CG loops restart every 5 iterations (the sum of p formed anew)
+# the wrappers of row 10e: (module, name, index of `deflate` among the
+# arguments, output tensors both designs return, scalar slots both designs
+# write (csrc/pcgphases3.cu: norm 0, pq 1, alpha 2, sum 3, mean 4, pr 5,
+# r'.q 6, beta 7), the mean only when deflating)
+PH_WRAPPERS = (("pcgphases", "fused_residual3", 3, 2, (0, 3)),
+               ("pcgphases", "fused_pcg_apply3", 5, 4, (0, 1, 2, 3)),
+               ("cg", "fused_cg_iteration3", 4, 4, (0, 1, 2, 3, 5, 6, 7)))
+
+
+def phase_loops(cs, label, lap, b, guess, kind) -> None:
+    """Row 10e on one pressure system through krylov's loops, deflating and
+    not: PCG (`kind`'s preconditioner, warm from `guess`, resets every 50,
+    tol 0: PH_CALLS iterations: one residual, PH_CALLS applies, the exit
+    residual) and plain CG (warm from `guess`, a reset every PH_CG_RESET
+    iterations, the sum of p carried from call to call where the tree's
+    iteration takes it). Every call of the three wrappers hashed as it
+    returns: its output volumes and norm and the scalar slots both designs
+    write (the scalar array captured as the wrapper allocates it). One JSON
+    line a loop (iterations, the sha256 of x, the exit norm, the sha256 of
+    the calls in order) and one under "clock": device us and kernels a
+    call (torch.profiler: every kernel of the call, either design's) and
+    host ms of each wrapper's first call and, where the sum is carried, of
+    the CG iteration's second."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.solvers import base as pbase
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import krylov, pcgphases
+
+    mods = {"pcgphases": pcgphases, "cg": cgk}
+    real = {name: getattr(mods[m], name) for m, name, *_ in PH_WRAPPERS}
+    first, h = {}, None
+    real_empty = torch.empty
+
+    def wrap(mod, name, at, nout, slots):
+        def f(*a, **kw):
+            made = []
+
+            def empty(*ea, **ekw):
+                t = real_empty(*ea, **ekw)
+                if t.ndim == 1 and t.numel() in (8, 9):
+                    made.append(t)
+                return t
+
+            torch.empty = empty
+            try:
+                out = real[name](*a, **kw)
+            finally:
+                torch.empty = real_empty
+            carried = name == "fused_cg_iteration3" and len(a) > 6 and a[6] is not None
+            first.setdefault(name + " carried" * carried, (a, kw))
+            for t in out[:nout]:
+                h.update(bits_sha256(t).encode())
+            deflate = a[at]
+            for arr in made:  # the kernels' scalar array (none on the CPU)
+                h.update((arr[[i for i in (*slots, 4) if i != 4 or deflate]] + 0.0)
+                         .cpu().numpy().tobytes())
+            return out
+
+        # the wrappers count through their module-level names: f carries the
+        # counters while it stands in, and hands them back after
+        f.__dict__.update(real[name].__dict__)
+        return f
+
+    for loop in ("pcg", "cg"):
+        for deflate in (True, False):
+            h = hashlib.sha256()
+            for m, name, *rest in PH_WRAPPERS:
+                setattr(mods[m], name, wrap(m, name, *rest))
+            try:
+                if loop == "pcg":
+                    pre = pbase.pressure_preconditioner(kind, lap)
+                    fn = kind in pbase._FUNCTION_KINDS
+                    res = krylov.pcg(lap, b, guess, precond_mm=None if fn else pre,
+                                     precond=pre if fn else None, tol=0.0, max_iter=PH_CALLS,
+                                     residual_reset=50, deflate_mean=deflate,
+                                     precond_zero_mean=kind in pbase._ZERO_MEAN, early_exit=True)
+                else:
+                    res = krylov.cg(lap, b, guess, tol=0.0, max_iter=PH_CALLS,
+                                    residual_reset=PH_CG_RESET, deflate_mean=deflate)
+            finally:
+                for m, name, *_ in PH_WRAPPERS:
+                    real[name].__dict__.update(getattr(mods[m], name).__dict__)
+                    setattr(mods[m], name, real[name])
+            print(json.dumps(dict(row="10e", case=f"{label} {loop} deflate={deflate}",
+                                  iterations=res.iterations, x_sha256=bits_sha256(res.x),
+                                  exit_norm=res.residual_norm,
+                                  calls_sha256=h.hexdigest())), flush=True)
+    clock = {}
+    for key, (a, kw) in first.items():
+        fn = real[key.split()[0]]
+        d = device_us(lambda: fn(*a, **kw), 20, None)
+        clock[key] = dict(kernels_seen=d["launches_per_call"],
+                          device_us_per_launch=d["device_us_per_launch"],
+                          device_us_per_call=d["device_us_per_call"],
+                          ms=host_ms(lambda: fn(*a, **kw), 50))
+    print(json.dumps(dict(row="10e clock", case=label, shape=list(b.shape), clock=clock)),
+          flush=True)
+
+
+def sweeps_calls(dev, cs) -> None:
+    """Row 8b on phase 16's operators (the first step of the 1024 x 2048 run,
+    `chip_smoke.sweeps_kernels`' state): each component, forward and
+    transposed, k = 1 (the probe) and then k = JAC_K from the probe's iterate
+    (a trip). One JSON line: the sha256 of each call's x_k and norm; under
+    "clock" device us a call and a launch of k = JAC_K and k = 1 (component
+    0, forward; torch.profiler: the kernels of either design by name, and
+    every device event, the memset ahead of the former design's norm
+    included) and host ms."""
+    import hashlib
+
+    import torch
+
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
+
+    domain, sim = decaying_turbulence_setup(cs.SWEEP_RES, box_size=cs.SWEEP_BOX,
+                                            viscosity=cs.VISCOSITY, device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = cs.turbulence_step_fn(domain, sim, 0.4 / cs.SWEEP_RES[0])(
+        v, zero, zero, zero, full_output=True).intermediates
+    st, b_c, x_c = it["stencil"], it["rhs"].components, v.components
+    digests = []
+    for c in range(2):
+        st_c = (st.center[c], st.lo[c], st.hi[c])
+        for tr in (False, True):
+            x = x_c[c].contiguous()
+            for k in (1, cs.JAC_K):
+                kx, kn = fused_jacobi_sweeps(st_c, b_c[c], x, k, -1.0, tr)
+                d = hashlib.sha256(bits_sha256(kx).encode())
+                d.update(kn.detach().reshape(1).view(torch.int32).cpu().numpy().tobytes())
+                digests.append(d.hexdigest())
+                x = kx
+    st0, b0, x0 = (st.center[0], st.lo[0], st.hi[0]), b_c[0], x_c[0].contiguous()
+    clock = {}
+    for k in (cs.JAC_K, 1):
+        def call(k=k):
+            return fused_jacobi_sweeps(st0, b0, x0, k, -1.0, False)
+
+        kern, every = device_us(call, 20, "jsw_"), device_us(call, 20, None)
+        clock[f"k={k}"] = dict(kernels_seen=kern["launches_per_call"],
+                               device_us_per_launch=kern["device_us_per_launch"],
+                               device_us_per_call=kern["device_us_per_call"],
+                               events_seen=every["launches_per_call"],
+                               events_us_per_call=every["device_us_per_call"],
+                               ms=host_ms(call, 50))
+    print(json.dumps(dict(row="8b", case="{}x{}".format(*cs.SWEEP_RES), sha256=digests,
+                          clock=clock)), flush=True)
+
+
+def per_kernel_us(fn, reps: int = 20) -> dict:
+    """torch.profiler over `reps` calls of `fn` (after one): {kernel name:
+    (launches a call, mean device us a launch)}, every event counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].replace("void ", "")[:40]
+            c, t = seen.get(name, (0, 0.0))
+            seen[name] = (c + 1, t + e.time_range.elapsed_us())
+    return {k: (c / reps, t / c) for k, (c, t) in seen.items()}
+
+
+def kernel_profile(dev, cs) -> None:
+    """The per-kernel pass with the imported package (`--kernel-profile`):
+    one pressure system each of the 128^3 and 256^3 turbulence (one step
+    from bench.py's seeded state after a 2-step call), x the step's warm
+    guess, r its plain residual, p = r less its mean: row 10e's residual,
+    apply and CG iteration (sum of p formed and, where the tree takes it,
+    carried), deflating and not; then row 8b on phase 16's first 1024 x
+    2048 step, each component and form, k = 1 and 4. One JSON line a call:
+    device us a call and {kernel: (launches a call, us a launch)}."""
+    import torch
+
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import pcgphases
+    from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
+
+    def line(**kw):
+        k = kw["kernels"]
+        print(json.dumps(dict(kw, total_us=sum(c * t for c, t in k.values()))), flush=True)
+
+    for n in (cs.T3_N, cs.T3_BIG):
+        _, step = cs.turb3d_step(n, dev)
+        v, p = cs.turb3d_state(n, dev)
+        v, p, _, _ = cs.turb3d_call(step, v, p, 2)
+        lap, b, x = cs.rank3_state(step, v, p)
+        r, _ = pcgphases.residual_plain(lap, b, x, True)
+        pv = r - r.mean()
+        rz = torch.sum(r * pv)
+        for d in (False, True):
+            line(row="10e", n=n, call=f"residual deflate={d}",
+                 kernels=per_kernel_us(lambda: pcgphases.fused_residual(lap, b, x, d)))
+            line(row="10e", n=n, call=f"apply deflate={d}",
+                 kernels=per_kernel_us(lambda: pcgphases.fused_pcg_apply(lap, rz, x, r, pv, d)))
+            line(row="10e", n=n, call=f"cg formed deflate={d}",
+                 kernels=per_kernel_us(lambda: cgk.fused_cg_iteration(lap, x, r, pv, d)))
+            sp = cgk.fused_cg_iteration(lap, x, r, pv, d)[-1]
+            if sp is not None:
+                line(row="10e", n=n, call=f"cg carried deflate={d}", kernels=per_kernel_us(
+                    lambda: cgk.fused_cg_iteration(lap, x, r, pv, d, sum_p=sp)))
+        del lap, b, x, r, pv, v, p, step
+        torch.cuda.empty_cache()
+    domain, sim = decaying_turbulence_setup(cs.SWEEP_RES, box_size=cs.SWEEP_BOX,
+                                            viscosity=cs.VISCOSITY, device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = cs.turbulence_step_fn(domain, sim, 0.4 / cs.SWEEP_RES[0])(
+        v, zero, zero, zero, full_output=True).intermediates
+    st, b_c = it["stencil"], it["rhs"].components
+    for c in range(2):
+        st_c, x = (st.center[c], st.lo[c], st.hi[c]), v.components[c].contiguous()
+        for tr in (False, True):
+            for k in (1, cs.JAC_K):
+                line(row="8b", call=f"component {c} transpose={tr} k={k}", kernels=per_kernel_us(
+                    lambda: fused_jacobi_sweeps(st_c, b_c[c], x, k, -1.0, tr)))
+
+
+def phases_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The phases pass (the module docstring) with the imported package and
+    its tree's chip_smoke.py `cs`."""
+    import torch
+
+    for n in (cs.T3_N, cs.T3_BIG):
+        _, step = cs.turb3d_step(n, dev)
+        v, p = cs.turb3d_state(n, dev)
+        for _ in range(cs.T3_SPINUP_CALLS):
+            v, p, _, _ = cs.turb3d_call(step, v, p)
+        lap, b, guess = cs.rank3_state(step, v, p)
+        phase_loops(cs, f"turbulence {n}^3", lap, b, guess, "fft_mm")
+        del lap, b, guess, v, p, step
+        torch.cuda.empty_cache()
+    n = cs.CAV3_N
+    domain, sim, dt = cs.cavity3d_case(n, dev, "dct")
+    step = cs.cavity3d_step(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(cs.CAV3_SPINUP):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    lap, b, guess = cs.rank3_state(step, v, p)
+    phase_loops(cs, f"3-D cavity {n}", lap, b, guess, "dct")
+    del lap, b, guess, v, p, g1, g2, o, step
+    torch.cuda.empty_cache()
+    sweeps_calls(dev, cs)
+    if kernels_only:
+        return
+    n = cs.T3_N
+    traj = Trajectory(cs, "turbulence_step_fn")
+    _, step = cs.turb3d_step(n, dev)
+    v, p = cs.turb3d_state(n, dev)
+    for _ in range(cs.T3_SPINUP_CALLS):
+        v, p, _, _ = cs.turb3d_call(step, v, p)
+    cs.turb3d_path(dev, wrappers, (v, p), n=n)
+    traj.close(f"turbulence {n}^3: spin-up, forward, grad{cs.T3_UNROLL}, phase 12")
+    del v, p, step
+    n = cs.T3_BIG
+    traj = Trajectory(cs, "turbulence_step_fn")
+    _, step = cs.turb3d_step(n, dev)
+    v, p = cs.turb3d_state(n, dev)
+    for _ in range(cs.T3_SPINUP_CALLS):
+        v, p, _, _ = cs.turb3d_call(step, v, p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, p, iters, warns = cs.turb3d_call(step, v, p, cs.T3_CALL)
+    torch.cuda.synchronize()
+    print(json.dumps(dict(workload=f"turbulence {n}^3 forward", steps=cs.T3_CALL,
+                          pressure_iters=iters, warns=warns,
+                          steps_per_sec=cs.T3_CALL / (time.perf_counter() - t0))), flush=True)
+    traj.close(f"turbulence {n}^3: spin-up, {cs.T3_CALL} forward steps")
+    del v, p, step
+    torch.cuda.empty_cache()
+    traj = Trajectory(cs, "cavity3d_step")
+    cs.cavity3d_path(dev, wrappers, {})
+    traj.close(f"3-D cavity {cs.CAV3_N}: spin-up, dct forward, CG forward and gradient, "
+               "phase 18")
+    torch.cuda.empty_cache()
+    traj = Trajectory(cs, "turbulence_step_fn")
+    cs.large_turbulence_path(dev, wrappers, cs.SWEEP_RES, cs.SWEEP_BOX)
+    traj.close("turbulence {}x{}: forward, grad30, phase 16".format(*cs.SWEEP_RES))
+
+
 def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None,
-             jacobi1=None) -> int:
+             jacobi1=None, phases=None, kernel_prof=False) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
     then (unless gemm_only) DIR's own phases 6b-c, 7b-c, 8b, 10b-c and 11
     with their trajectories, and `turbulence_paths`; their JSON lines go
@@ -1029,6 +1362,12 @@ def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None,
     if jacobi1:
         jacobi1_pass(dev, cs, wrappers, jacobi1 == "kernels")
         return 0
+    if phases:
+        phases_pass(dev, cs, wrappers, phases == "kernels")
+        return 0
+    if kernel_prof:
+        kernel_profile(dev, cs)
+        return 0
     gemm_pass(dev)
     if gemm_only:
         return 0
@@ -1057,6 +1396,7 @@ def decisions(line, drop=()):
         return line
     return {k: decisions(v, drop) for k, v in line.items()
             if not ("per_sec" in k or k in ("seconds", "elapsed", "clock") or k.endswith("_s")
+                    or k.endswith("_seconds")
                     or k.startswith("host_us") or k.startswith("max_memory") or k in drop)}
 
 
@@ -1064,6 +1404,10 @@ def decisions(line, drop=()):
 # launch counts (row 15d's schedule changed), the counters the new schedule
 # adds, memory readings
 J1_DROP = ("launches", "launches_per_eval", "jacobi_idle", "row9_kernel_launches",
+           "memory_allocated_before_bytes")
+# and the phases pass: the launch counts (rows 10e and 8b launch fewer
+# kernels), the row 10e kernel counts the change adds, memory readings
+PH_DROP = ("launches", "launches_per_eval", "row10e_kernel_launches",
            "memory_allocated_before_bytes")
 
 
@@ -1089,7 +1433,8 @@ def line_name(row: dict) -> str:
     return str(next(iter(row)))
 
 
-def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None) -> int:
+def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None,
+       phases=None) -> int:
     """Run `--paths-in` on the parent tree and on this tree in turns
     (parent, change, change, parent) and compare the lines."""
     import torch
@@ -1104,6 +1449,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None) 
         for extra in ((["--three-d-part", "main"], ["--three-d-part", "512"]) if three_d else
                       (["--solvers-part", solvers],) if solvers else
                       (["--jacobi1-part", jacobi1],) if jacobi1 else
+                      (["--phases-part", phases],) if phases else
                       (["--gemm-only"] if gemm_only else [],)):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
                                   "--save", os.path.join(saves, f"run{len(runs)}.pt")] + extra,
@@ -1116,7 +1462,8 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None) 
         if res.returncode:
             print(res.stderr[-4000:], file=sys.stderr, flush=True)
             return 1
-        runs.append((label, [decisions(x, J1_DROP if jacobi1 else ()) for x in lines]))
+        drop = J1_DROP if jacobi1 else PH_DROP if phases else ()
+        runs.append((label, [decisions(x, drop) for x in lines]))
     n = len(runs[0][1])
     if any(len(r[1]) != n for r in runs):
         print("the runs printed different numbers of lines", file=sys.stderr)
@@ -1132,7 +1479,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None) 
               flush=True)
         if not across and must_equal(name):
             differ = True
-    if gemm_only or three_d or solvers or jacobi1:
+    if gemm_only or three_d or solvers or jacobi1 or phases:
         return 1 if differ else 0
     grads = [torch.load(os.path.join(saves, f"run{i}.pt")) for i in range(4)]
 
@@ -1161,8 +1508,14 @@ if __name__ == "__main__":
     ap.add_argument("--jacobi1", action="store_true",
                     help="compare the whole-solve Jacobi pass alone (rows 9 and 15d and "
                          "their paths)")
+    ap.add_argument("--phases", action="store_true",
+                    help="compare the phases pass alone (rows 10e and 8b and their paths)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="with --solvers / --jacobi1: the kernels without the paths")
+                    help="with --solvers / --jacobi1 / --phases: the kernels without the paths")
+    ap.add_argument("--phases-part", choices=("kernels", "all"),
+                    help="with --paths-in: the phases pass")
+    ap.add_argument("--kernel-profile", metavar="DIR",
+                    help="device us a kernel of DIR's rows 10e and 8b calls")
     ap.add_argument("--jacobi1-part", choices=("kernels", "all"),
                     help="with --paths-in: the whole-solve Jacobi pass")
     ap.add_argument("--solvers-part", choices=("kernels", "all"),
@@ -1178,11 +1531,13 @@ if __name__ == "__main__":
             print("no CUDA device", file=sys.stderr)
             sys.exit(1)
         sys.exit(gemm_configs(torch.device("cuda")))
+    if args.kernel_profile:
+        sys.exit(paths_in(args.kernel_profile, kernel_prof=True))
     if args.paths_in:
         sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part,
-                          args.solvers_part, args.jacobi1_part))
+                          args.solvers_part, args.jacobi1_part, args.phases_part))
     if not args.parent:
         ap.error("name a parent tree, or --paths-in DIR, or --gemm-configs")
     part = "kernels" if args.kernels_only else "all"
     sys.exit(ab(args.parent, args.gemm, args.three_d, part if args.solvers else None,
-                part if args.jacobi1 else None))
+                part if args.jacobi1 else None, part if args.phases else None))

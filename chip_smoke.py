@@ -275,7 +275,7 @@ Phases, each fatal on failure:
      the first step of phase 16's 1024 x 2048 run: row 8b at k = 1 (the
      probe) and k = 4 (a trip from the probe's iterate), forward and
      transposed, both components, x_k and the norm bit-equal to the plain
-     version, k + 1 launches a call; row 14 forward and transposed, negate
+     version, one launch a call; row 14 forward and transposed, negate
      and not, both components, bit-equal to the plain version and to the
      chain it replaces (row 7's matvec kernel, its negation, b - A x), and
      the same on the mixing layer's (129, 512) / (128, 513) faces at phase
@@ -344,7 +344,12 @@ Phases, each fatal on failure:
      (exact sums, so the shift term agrees bit for bit): volumes within rel
      1e-6 of their scale plus what the measured alpha / beta differences
      carry (phase 2i's bar), the scalars reported with their relative
-     error; row 16-3d within rel l2 1e-5 of the six torch.matmuls and the
+     error; row 10e bit-equal to its exact versions (`residual3_exact`,
+     `pcg_apply3_exact`, `cg_iteration3_exact`: every sum in the kernels'
+     order; the CG iteration over two chained calls, the sum of p formed
+     and then carried), each call's kernels counted (residual 2, apply 3,
+     CG iteration 3 carried / 4 formed, one more each deflating); row
+     16-3d within rel l2 1e-5 of the six torch.matmuls and the
      divide (its library yardstick) on the loop's first residual (the
      dyadic iterate's residual, the worst-conditioned input, reported), the
      same bits on a repeat; on the
@@ -355,7 +360,9 @@ Phases, each fatal on failure:
      library's (a cuSPARSE CSR SpMV of the 7-point operator for row 10e's
      matvec part). Phases 12 and 14 assert rows 10e (residual: warm entries
      + resets + loops; apply and the volume update, row 10c: iterations)
-     and 16-3d (loops + resets + iterations) from the loops' counters; the
+     and 16-3d (loops + resets + iterations) from the loops' counters, and
+     row 10e's kernels (every 3-D pressure solve deflates: 3 a residual, 4
+     an apply, 4 a CG iteration and one more a CG loop and reset); the
      7-point matvec then runs only BiCGSTAB's applies and explicit_H.
   18. the bounded 3-D lid-driven cavity (the JAX package's tests/test_3d.py
      configuration: (N + 1, N, N) cells, axes (y, x, z), box (1 + 1/N, 1,
@@ -1217,8 +1224,8 @@ def derived_launches(c0: dict, c1: dict, fold: bool = False, spectral: bool = Fa
     the large tier), the folded update once per loop, reset and iteration;
     where the loop's M^-1 r is the fused spectral apply (`spectral`: the
     `channel_mm` preconditioner), row 16 once per loop, reset and iteration;
-    the k-sweep tier's kernel (row 8b) 2 launches (a sweep, the residual)
-    per component and probe and JAC_K + 1 per component and trip; after a
+    the k-sweep tier's kernel (row 8b) one launch per component and probe
+    and per component and trip (JAC_K <= its JSW_MAX_K); after a
     Jacobi miss, each BiCGSTAB phase once per component and iteration, the
     fused stencil residual (row 14) once per component and entry or exit
     residual, the matvec once per component and generic operator apply."""
@@ -1229,7 +1236,7 @@ def derived_launches(c0: dict, c1: dict, fold: bool = False, spectral: bool = Fa
         update["spectral_apply"] = per_z
     return ({"pcg_residual": d["pcg_warm_entries"] + d["pcg_resets"] + d["pcg_loops"],
              "pcg_apply": d["pcg_iterations"], **update,
-             "jacobi_sweeps": 2 * (2 * d["jacobi_probes"] + (JAC_K + 1) * d["jacobi_trips"]),
+             "jacobi_sweeps": 2 * (d["jacobi_probes"] + d["jacobi_trips"]),
              "stencil_residual": 2 * (d["residuals"] + d["residuals_T"]),
              **{k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES}}, d)
 
@@ -2831,9 +2838,9 @@ def sweeps_kernels(dev, kernels: list) -> dict:
             for k in (1, JAC_K):
                 before = fused_jacobi_sweeps.launches
                 kx, kn = fused_jacobi_sweeps(st_c, b_c[c], x, k, -1.0, transpose)
-                if fused_jacobi_sweeps.launches - before != k + 1:
+                if fused_jacobi_sweeps.launches - before != 1:
                     fail(f"row 8b k={k}: {fused_jacobi_sweeps.launches - before} launches, "
-                         f"expected {k + 1}")
+                         "expected 1")
                 px, pn = jacobi_sweeps_plain(st_c, b_c[c], x, k, -1.0, transpose)
                 sw_err = max(sw_err, float((kx - px).abs().max()))
                 norms[f"c{c}_T{int(transpose)}_k{k}"] = float(kn)
@@ -2861,8 +2868,8 @@ def sweeps_kernels(dev, kernels: list) -> dict:
     kernels.append(dict(
         name="jacobi_sweeps", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi_sweeps.cu",
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:558", max_abs_err=sw_err,
-        launches_count=f"kernel launches (k sweeps and one residual a call: 2 a probe, "
-                       f"{JAC_K + 1} a trip)",
+        launches_count="kernel launches (one a call: the k sweeps and the norm, a probe "
+                       "and a trip alike)",
         shape=list(SWEEP_RES), k=JAC_K, ms=cuda_time_ms(sweeps(JAC_K), 50),
         **device_time(sweeps(JAC_K), 10), plain_ms=cuda_time_ms(sweeps_plain(JAC_K), 10),
         bound_ms=trip_b[0], bound_by=trip_b[1], library_ms=None,
@@ -3672,7 +3679,7 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
                 fail(f"{n}^3 {what}: {k} launched {counts[k]} times, expected {want.get(k, 0)}")
 
     reset()
-    c0 = turb3d_counters()
+    c0, r0 = turb3d_counters(), rank3_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     # live before the run: the state, and the operands earlier phases keep
     # for their device-time measurement at the end
@@ -3688,6 +3695,7 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
     elapsed = time.perf_counter() - t0
     fwd = read()
     derived, d = turb3d_derived(c0, turb3d_counters(), tier)
+    r10e = rank3_kernels_check(f"{n}^3 forward", r0, derived, d)
     S = calls * call_steps
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
@@ -3703,7 +3711,8 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
         **jacobi, bicgstab_fallbacks=d["bicgstab_fallbacks"],
         max_abs_div=float(fv_divergence(v, domain.dx).abs().max()),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd)), flush=True)
+        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd,
+        row10e_kernel_launches=r10e)), flush=True)
     if not finite:
         fail(f"{n}^3: non-finite state after the forward path")
     if warns:
@@ -3734,7 +3743,7 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
         tag = " with adjoint channels" if ch else ""
         for rep in range(1 + grad_reps):
             reset()
-            c0 = turb3d_counters()
+            c0, r0 = turb3d_counters(), rank3_kernel_counts()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             torch.cuda.synchronize()
@@ -3744,6 +3753,7 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
             elapsed_g = time.perf_counter() - t0
             counts = read()
             derived, d = turb3d_derived(c0, turb3d_counters(), tier)
+            r10e = rank3_kernels_check(f"{n}^3 grad{U}", r0, derived, d)
             p_adj = [a for a in res.adjoints if a.system == "pressure"]
             gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
             evals.append(dict(
@@ -3761,7 +3771,8 @@ def turb3d_path(dev, wrappers: dict, state, n=T3_N, tier="jac13d", remat="none",
                                             default=None),
                 row15g_launches={k: counts[k] for k in PCG3_KERNELS},
                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-                memory_allocated_before_bytes=held, loop_counters=d, launches=counts))
+                memory_allocated_before_bytes=held, loop_counters=d, launches=counts,
+                row10e_kernel_launches=r10e))
             print(json.dumps(dict(turb3d_grad_eval=rep, n=n, channels=ch, **evals[-1])),
                   flush=True)
             if res.warns:
@@ -6190,6 +6201,88 @@ def cg_plain_step(*args, sum_p=None, **kw):
     return (*cgk.cg_iteration_plain(*args, **kw), None)
 
 
+# kernels a call of row 10e launches: by (phase, deflate), and for the CG
+# iteration by (deflate, sum of p carried in)
+RANK3_CALL_KERNELS = {("residual", False): 2, ("residual", True): 3, ("apply", False): 3,
+                      ("apply", True): 4, (False, False): 4, (False, True): 3, (True, False): 5,
+                      (True, True): 4}
+
+
+def rank3_exact_check(label, lap, b, x, r, p, rz, deflate) -> None:
+    """Phase 2n's bit-for-bit check of row 10e against its exact versions
+    (`pcgphases.residual3_exact`, `pcg_apply3_exact`,
+    `cg.cg_iteration3_exact`: the plain arithmetic with every sum in the
+    kernels' order): the residual, the apply, and two chained CG
+    iterations, the first forming sum p, the second taking the first's sum
+    p' (as `krylov.cg` carries it); each call's kernels counted
+    (RANK3_CALL_KERNELS)."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import pcgphases as ph
+
+    def held(what, pairs, wrapper, k0, want):
+        bad = [k for k, (a, w) in pairs.items() if not torch.equal(a, w)]
+        launched = wrapper.kernel_launches - k0
+        print(f"2n {label} row 10e {what} deflate={deflate}: bit-equal to exact: {not bad}; "
+              f"kernels {launched} (expected {want})", flush=True)
+        if bad:
+            fail(f"{label} row 10e {what} deflate={deflate}: {', '.join(bad)} not bit-equal to "
+                 "the exact version")
+        if launched != want:
+            fail(f"{label} row 10e {what} deflate={deflate}: {launched} kernels, expected {want}")
+
+    k0 = ph.fused_residual3.kernel_launches
+    kr, kn = ph.fused_residual(lap, b, x, deflate)
+    er, en, _ = ph.residual3_exact(lap, b, x, deflate)
+    held("residual", {"r": (kr, er), "rnorm": (kn, en)}, ph.fused_residual3, k0,
+         RANK3_CALL_KERNELS[("residual", deflate)])
+    k0 = ph.fused_pcg_apply3.kernel_launches
+    ka = ph.fused_pcg_apply(lap, rz, x, r, p, deflate)
+    ea = ph.pcg_apply3_exact(lap, rz, x, r, p, deflate)
+    held("apply", dict(zip(("x'", "r'", "rnorm", "p.q"), zip(ka, ea[:4]))), ph.fused_pcg_apply3,
+         k0, RANK3_CALL_KERNELS[("apply", deflate)])
+    sp = None
+    for call in range(2):
+        k0 = cgk.fused_cg_iteration3.kernel_launches
+        got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True, sum_p=sp)
+        xe, re_, pe, ne, slots = cgk.cg_iteration3_exact(lap, x, r, p, deflate, sum_p=sp)
+        pairs = {"x'": (got[0], xe), "r'": (got[1], re_), "p'": (got[2], pe),
+                 "rnorm": (got[3], ne), "p.q": (got[4][0], slots[ph.O3_PQ]),
+                 "alpha": (got[4][1], slots[ph.O3_ALPHA]), "beta": (got[4][2], slots[ph.O3_BETA]),
+                 "sum p'": (got[5], slots[ph.O3_SUMP])}
+        held(f"CG iteration call {call} (sum p {'carried' if sp is not None else 'formed'})",
+             pairs, cgk.fused_cg_iteration3, k0, RANK3_CALL_KERNELS[(deflate, sp is not None)])
+        x, r, p, sp = got[0], got[1], got[2], got[5]
+
+
+def rank3_kernel_counts() -> dict:
+    """Row 10e's kernels launched so far (its wrappers' `kernel_launches`)."""
+    from diffpiso_tpu_torch.solvers import cg as cgk
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    return {"pcg_residual3": pcgphases.fused_residual3.kernel_launches,
+            "pcg_apply3": pcgphases.fused_pcg_apply3.kernel_launches,
+            "cg_iteration3": cgk.fused_cg_iteration3.kernel_launches}
+
+
+def rank3_kernels_check(label, k0: dict, derived: dict, d: dict) -> dict:
+    """Row 10e's kernels since `k0` against the calls the loops derive
+    (`derived`, with the counter deltas `d`): every 3-D pressure solve
+    deflates, so a residual launches 3, an apply 4, a CG iteration 4 and
+    one more where it forms the sum of p (each CG loop's first iteration
+    and each reset's). Returns the kernels by wrapper."""
+    got = {k: v - k0[k] for k, v in rank3_kernel_counts().items()}
+    want = {"pcg_residual3": 3 * derived.get("pcg_residual3", 0),
+            "pcg_apply3": 4 * derived.get("pcg_apply3", 0),
+            "cg_iteration3": 4 * derived.get("cg_iteration3", 0)
+            + (d.get("cg_loops", 0) + d.get("cg_resets", 0) if derived.get("cg_iteration3")
+               else 0)}
+    if got != want:
+        fail(f"{label}: row 10e kernels {got}, the loops derive {want}")
+    return got
+
+
 def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False) -> dict:
     """Phase 2n: row 10e (the residual, the PCG apply, the CG iteration) and,
     with `spec` = (MatmulSpectralSolver, weights), row 16-3d against their
@@ -6271,6 +6364,7 @@ def rank3_kernels(dev, label, lap, b, guess, precond, spec=None, cg_solves=False
                 limits[3] = RANK3_BETA_REL
             if not all(e <= lim for e, lim in zip(v, limits)):
                 fail(f"{label} {k} deflate={deflate}: scalars rel err {v} beyond {limits}")
+        rank3_exact_check(label, lap, b, x, r, p, rz, deflate)
         if not deflate:
             inputs = {"pcg_residual3": (lap, b, x, False),
                       "pcg_apply3": (lap, rz, x, r, p, False),
@@ -6662,10 +6756,12 @@ def rank3_merge(kernels: list, results: dict) -> None:
     top level, every state's beside them."""
     meta = {
         "pcg_residual3": ("pcgphases3.cu (p3_residual)", 236,
-                          "one per call (4 launches, 6 deflating)"),
-        "pcg_apply3": ("pcgphases3.cu (p3_apply)", 1517, "one per call (6 launches, 8 deflating)"),
+                          "one per call (2 kernel launches, 3 deflating)"),
+        "pcg_apply3": ("pcgphases3.cu (p3_apply)", 1517,
+                       "one per call (3 kernel launches, 4 deflating)"),
         "cg_iteration3": ("pcgphases3.cu (p3_cg_iteration)", 325,
-                          "one per iteration (8 launches, 10 deflating)"),
+                          "one per iteration (3 kernel launches with the sum of p carried, 4 "
+                          "where it is formed; one more deflating)"),
         "spectral_apply3": ("spectral3.cu (spec3_apply: csrc/gemm.cuh)", 2559,
                             "one per M^-1 r call (six GEMM launches)"),
     }
@@ -6880,7 +6976,7 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
     del lap, b, guess
 
     reset()
-    c0 = cavity3d_counters()
+    c0, r0 = cavity3d_counters(), rank3_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     iters, warns = [0, 0], 0
@@ -6894,6 +6990,7 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
     elapsed = time.perf_counter() - t0
     fwd = read()
     derived, d = cavity3d_derived(c0, cavity3d_counters(), tier)
+    r10e = rank3_kernels_check(f"3-D cavity {n} dct forward", r0, derived, d)
     S = CAV3_CALLS * CAV3_CALL
     u = v.components[1]
     mid = n // 2
@@ -6912,7 +7009,8 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
         max_abs_div=float((fv_divergence(v, domain.dx)
                            * sim.active_mask[1:-1, 1:-1, 1:-1]).abs().max()),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd)), flush=True)
+        memory_allocated_before_bytes=held, loop_counters=d, launches=fwd,
+        row10e_kernel_launches=r10e)), flush=True)
     if not finite:
         fail(f"3-D cavity {n}: non-finite state after the forward path")
     if warns:
@@ -6930,7 +7028,7 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
         sim.pressure_solver, preconditioner=None, adjoint_preconditioner=None))
     step_cg = cavity3d_step(domain, sim_cg, dt)
     reset()
-    c0 = cavity3d_counters()
+    c0, r0 = cavity3d_counters(), rank3_kernel_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     vc, pc, it, w = turb3d_call(step_cg, v, p, CAV3_CG_STEPS)
@@ -6938,6 +7036,7 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
     elapsed = time.perf_counter() - t0
     cg_fwd = read()
     derived, d = cavity3d_derived(c0, cavity3d_counters(), tier)
+    r10e = rank3_kernels_check(f"3-D cavity {n} CG forward", r0, derived, d)
     forcing = StaggeredField(tuple(torch.zeros_like(c) for c in v.components),
                              periodic=(False,) * 3)
     rg = rollout_loss_grad(step_cg, v, p, forcing, CAV3_CG_UNROLL, remat="none")
@@ -6948,6 +7047,7 @@ def cavity3d_path(dev, wrappers: dict, rank3: dict) -> tuple:
         steps=CAV3_CG_STEPS, steps_per_sec=CAV3_CG_STEPS / elapsed,
         cg_iters_per_step=[it[0] / CAV3_CG_STEPS, it[1] / CAV3_CG_STEPS],
         warn_fraction=w / CAV3_CG_STEPS, loop_counters=d, launches=cg_fwd,
+        row10e_kernel_launches=r10e,
         grad_warns=rg.warns, adjoint_cg_iters=[a.iterations for a in p_adj],
         adjoint_gated=[sum(a.gated for a in rg.adjoints if a.system == s)
                        for s in ("momentum", "pressure")])), flush=True)

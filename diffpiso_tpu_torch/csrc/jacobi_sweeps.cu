@@ -11,99 +11,216 @@
 // with the roll wrap. This is the direct form: each sweep recomputes
 // b - A x from the iterate. The whole solves (jacobi.cuh dp_jac_kernel)
 // maintain the residual instead (x += iv r; r -= A (iv r)), which rounds
-// differently, so that kernel is not reused; its matvec and inverse
-// diagonal are.
+// differently, so that kernel is not reused; its inverse diagonal is.
 //
-// Design: the TPU kernel holds the seven planes in VMEM and loops k times
-// in one launch. Here one launch per sweep, one thread per cell (a sweep
-// reads its neighbours' old values, so the caller ping-pongs between two
-// x buffers), then one residual launch that reduces max |r| into a norm
-// slot (the exact bit-pattern atomicMax of common.cuh). Built with
-// --fmad=false, each cell rounds like the plain PyTorch version.
+// Design: temporal blocking in the plane, after the plane sweeps of row
+// 15f (jacobi_plane3.cu). The TPU kernel holds the planes in VMEM and
+// loops k times in one launch; the 7 input planes (56 MiB at 1024 x 2048)
+// do not fit the 50 MB L2, so a launch a sweep would go back to HBM every
+// sweep. Here one launch runs all k sweeps and the norm. A CTA takes a
+// JSW_W x JSW_LY window of the plane: its interior plus a ring of k + 1
+// cells, cells taken with the roll wrap (a plane smaller than the window
+// wraps onto itself), read once. Each thread keeps the diagonal, b,
+// 1 / (sgn c) and the four link coefficients of its cells in registers
+// (for the transposed form the neighbours' links, gathered once at load);
+// only the iterate goes through shared memory, in two buffers. A sweep
+// updates every cell but the window's edge, so the cells that are exact
+// shrink by one a sweep: after k sweeps the interior and one ring around
+// it hold x_k, and the interior's residual |b - A x_k| reads only those.
+// Overlapping windows recompute their ring cells with the same operations,
+// so the bits do not depend on the tiling. Each CTA writes x_k on its
+// interior and folds its interior's max |r| (bit patterns, warp maxima)
+// into a block partial; the last block folds them into the norm
+// (common.cuh `dp_last_block`, `dp_fold_max`): no memset, no second
+// launch. Calls of more than JSW_MAX_K sweeps chain launches, each from
+// the iterate the one before wrote, the norm in the last. Each cell rounds
+// exactly like the plain PyTorch version (solvers/jacobi_sweeps.py
+// jacobi_sweeps_plain) with --fmad=false.
 //
 // Bound on the H100: bytes. One call of k sweeps needs the 7 input planes
 // read once and x_k written once (8 planes: 67.1 MB at 1024 x 2048, 20 us
-// at 3.35 TB/s); this design moves 8 planes a sweep (5 coefficients, b,
-// x in; x out) and 7 for the residual. The 56 MiB of inputs do not fit
-// the 50 MB L2, so every sweep goes back to HBM.
+// at 3.35 TB/s); the windows re-read their rings (from L2: the blocks run
+// row of windows by row of windows).
 #include "jacobi.cuh"
 
-struct SwPlanes {
-  const float *c, *ly, *hy, *lx, *hx, *b;
-  int ny, nx;
+#define JSW_W 64  // window width (two warps a row)
+#define JSW_TY 4  // thread rows: JSW_W x JSW_TY threads
+#define JSW_ROWS 12  // cells a thread, one every JSW_TY rows: a 64 x 48 window
+#define JSW_MINB 2  // CTAs an SM the registers must allow
+#define JSW_MAX_K 4  // sweeps a launch at most (a ring of JSW_MAX_K + 1 cells)
+#define JSW_THREADS (JSW_W * JSW_TY)
+#define JSW_LY (JSW_TY * JSW_ROWS)
+
+struct SwArgs {
+  const float *c, *ly, *hy, *lx, *hx, *b, *xin;
+  float* xout;
+  int ny, nx, sweeps;
+  float sgn;
 };
 
-// x_out = x + iv (b - A x)
-template <bool TRANSPOSE>
-__global__ void jsw_sweep_kernel(SwPlanes s, float sgn, const float* __restrict__ x,
-                                 float* __restrict__ x_out) {
-  const int nx = s.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)s.ny * nx) return;
-  const int i = (int)(idx / nx), j = (int)(idx % nx);
-  const float q = dp_jac_matvec<TRANSPOSE>(
-      s.c, s.ly, s.hy, s.lx, s.hx, s.ny, nx, sgn, i, j,
-      [&](int y, int xx) { return x[(size_t)y * nx + xx]; });
-  x_out[idx] = x[idx] + dp_jac_inv_diag(s.c[idx], sgn) * (s.b[idx] - q);
+__device__ __forceinline__ int jsw_mod(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
 }
 
-// *norm = max |b - A x| (norm zeroed before the launch)
+// the window's interior: JSW_W and JSW_LY less the ring on both sides
+static inline int jsw_tiles(int ny, int nx, int sweeps) {
+  const int ring = sweeps + 1;
+  const int iw = JSW_W - 2 * ring, ih = JSW_LY - 2 * ring;
+  return ((nx + iw - 1) / iw) * ((ny + ih - 1) / ih);
+}
+
+// sgn (M x)[cell] (or M^T) from the window buffer X at (wy, tx): the terms
+// in dp_jac_matvec's order, the cell's own value x
 template <bool TRANSPOSE>
-__global__ void jsw_residual_kernel(SwPlanes s, float sgn, const float* __restrict__ x,
-                                    float* norm) {
-  __shared__ unsigned int sh[DP_THREADS];
-  const int nx = s.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float res = 0.0f;
-  if (idx < (size_t)s.ny * nx) {
-    const int i = (int)(idx / nx), j = (int)(idx % nx);
-    res = s.b[idx] - dp_jac_matvec<TRANSPOSE>(
-                         s.c, s.ly, s.hy, s.lx, s.hx, s.ny, nx, sgn, i, j,
-                         [&](int y, int xx) { return x[(size_t)y * nx + xx]; });
+__device__ __forceinline__ float jsw_matvec(const float (*X)[JSW_W], int wy, int tx, float c,
+                                            float x, float k1, float k2, float k3, float k4,
+                                            float sgn) {
+  float q = c * x;
+  if (!TRANSPOSE) {
+    q = q + k1 * X[wy - 1][tx];
+    q = q + k2 * X[wy + 1][tx];
+    q = q + k3 * X[wy][tx - 1];
+    q = q + k4 * X[wy][tx + 1];
+  } else {
+    q = q + k1 * X[wy + 1][tx];
+    q = q + k2 * X[wy - 1][tx];
+    q = q + k3 * X[wy][tx + 1];
+    q = q + k4 * X[wy][tx - 1];
   }
-  dp_block_max_abs(res, sh, norm);
+  return sgn * q;
 }
 
-static SwPlanes jsw_planes(const void* const* ptrs, const int* dims) {
-  SwPlanes s;
-  s.c = (const float*)ptrs[0];
-  s.ly = (const float*)ptrs[1];
-  s.hy = (const float*)ptrs[2];
-  s.lx = (const float*)ptrs[3];
-  s.hx = (const float*)ptrs[4];
-  s.b = (const float*)ptrs[5];
-  s.ny = dims[0];
-  s.nx = dims[1];
-  return s;
+// One launch: a.sweeps (0..JSW_MAX_K) sweeps from a.xin into a.xout; with
+// `norm`, max |b - A x_k| over the plane folded into *norm.
+template <bool TRANSPOSE>
+__global__ void __launch_bounds__(JSW_THREADS, JSW_MINB)
+jsw_kernel(SwArgs a, float* partials, float* norm, unsigned int* ticket) {
+  __shared__ float xs[2][JSW_LY][JSW_W];
+  __shared__ unsigned int shu[JSW_THREADS / 32];
+  const int ring = a.sweeps + 1;
+  const int iw = JSW_W - 2 * ring, ih = JSW_LY - 2 * ring;
+  const int nx = a.nx, ny = a.ny;
+  const int tilesx = (nx + iw - 1) / iw;
+  const int tx = threadIdx.x % JSW_W, ty = threadIdx.x / JSW_W;
+  const int ox = (int)(blockIdx.x % tilesx) * iw - ring;  // the window's origin
+  const int oy = (int)(blockIdx.x / tilesx) * ih - ring;
+  const int gx = jsw_mod(ox + tx, nx);
+  const int gxm = dp_wrap_dec(gx, nx), gxp = dp_wrap_inc(gx, nx);
+  const float sgn = a.sgn;
+  // per cell: the diagonal, the four links in the order the terms are
+  // added, b, 1 / (sgn c), the iterate (32-bit offsets: the wrapper checks
+  // the plane's size)
+  float c[JSW_ROWS], k1[JSW_ROWS], k2[JSW_ROWS], k3[JSW_ROWS], k4[JSW_ROWS];
+  float bb[JSW_ROWS], iv[JSW_ROWS], x[JSW_ROWS];
+#pragma unroll
+  for (int i = 0; i < JSW_ROWS; ++i) {
+    const int gy = jsw_mod(oy + ty + JSW_TY * i, ny);
+    const int row = gy * nx, q = row + gx;
+    c[i] = a.c[q];
+    bb[i] = a.b[q];
+    x[i] = a.xin[q];
+    if (!TRANSPOSE) {
+      k1[i] = a.ly[q];
+      k2[i] = a.hy[q];
+      k3[i] = a.lx[q];
+      k4[i] = a.hx[q];
+    } else {
+      k1[i] = a.ly[dp_wrap_inc(gy, ny) * nx + gx];
+      k2[i] = a.hy[dp_wrap_dec(gy, ny) * nx + gx];
+      k3[i] = a.lx[row + gxp];
+      k4[i] = a.hx[row + gxm];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < JSW_ROWS; ++i) {
+    iv[i] = dp_jac_inv_diag(c[i], sgn);
+    xs[0][ty + JSW_TY * i][tx] = x[i];
+  }
+  __syncthreads();
+  const bool edge_x = tx == 0 || tx == JSW_W - 1;
+  int cur = 0;
+  for (int sw = 0; sw < a.sweeps; ++sw) {
+#pragma unroll
+    for (int i = 0; i < JSW_ROWS; ++i) {
+      const int wy = ty + JSW_TY * i;
+      if (!edge_x && wy != 0 && wy != JSW_LY - 1) {
+        const float q =
+            jsw_matvec<TRANSPOSE>(xs[cur], wy, tx, c[i], x[i], k1[i], k2[i], k3[i], k4[i], sgn);
+        x[i] = x[i] + iv[i] * (bb[i] - q);
+      }
+      xs[cur ^ 1][wy][tx] = x[i];
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  // the interior: x_k out, and the residual of x_k
+  const bool in_x = tx >= ring && tx < JSW_W - ring && ox + tx < nx;
+  unsigned int m = 0u;
+#pragma unroll
+  for (int i = 0; i < JSW_ROWS; ++i) {
+    const int wy = ty + JSW_TY * i;
+    if (in_x && wy >= ring && wy < JSW_LY - ring && oy + wy < ny) {
+      a.xout[(oy + wy) * nx + ox + tx] = x[i];
+      if (norm != nullptr) {
+        const float q =
+            jsw_matvec<TRANSPOSE>(xs[cur], wy, tx, c[i], x[i], k1[i], k2[i], k3[i], k4[i], sgn);
+        m = max(m, __float_as_uint(fabsf(bb[i] - q)));
+      }
+    }
+  }
+  if (norm == nullptr) return;
+  m = dp_block_max_bits(m, shu);
+  if (threadIdx.x == 0) partials[blockIdx.x] = __uint_as_float(m);
+  if (!dp_last_block(ticket)) return;
+  const float v = dp_fold_max(partials, gridDim.x, shu);
+  if (threadIdx.x == 0) *norm = v;
 }
 
-static unsigned jsw_blocks(const int* dims) {
-  return (unsigned)(((size_t)dims[0] * dims[1] + DP_THREADS - 1) / DP_THREADS);
+// The block partials a call needs (its last launch's grid)
+extern "C" int jsw_partials(int ny, int nx, int k) {
+  const int last = k - JSW_MAX_K * ((k > 0 ? k - 1 : 0) / JSW_MAX_K);
+  return jsw_tiles(ny, nx, last);
 }
 
-// ptrs: (c, ly, hy, lx, hx, b), 6 device pointers; dims: (ny, nx); x and
-// x_out distinct contiguous (ny, nx) planes.
-extern "C" int jsw_sweep(const void* const* ptrs, const int* dims, float sgn, int transpose,
-                         const float* x, float* x_out, void* stream) {
-  const SwPlanes s = jsw_planes(ptrs, dims);
+// ptrs: (c, ly, hy, lx, hx, b), 6 device pointers to contiguous (ny, nx)
+// float32 planes of fewer than 2^31 cells; dims: (ny, nx). k sweeps (k >=
+// 0) from x into x_out (another buffer), in ceil(k / JSW_MAX_K) launches
+// (one for k = 0), x_mid a third buffer when there are more than one (else
+// null); *norm = max |b - A x_k|; partials: jsw_partials floats; ticket:
+// the fold's word (native.fold_state). Returns the launches, or minus the
+// first launch error.
+extern "C" int jsw_sweeps(const void* const* ptrs, const int* dims, float sgn, int transpose,
+                          int k, const float* x, float* x_mid, float* x_out, float* partials,
+                          float* norm, unsigned int* ticket, void* stream) {
+  if (k < 0 || (k > JSW_MAX_K && x_mid == nullptr)) return -(int)cudaErrorInvalidValue;
+  SwArgs a;
+  a.c = (const float*)ptrs[0];
+  a.ly = (const float*)ptrs[1];
+  a.hy = (const float*)ptrs[2];
+  a.lx = (const float*)ptrs[3];
+  a.hx = (const float*)ptrs[4];
+  a.b = (const float*)ptrs[5];
+  a.ny = dims[0];
+  a.nx = dims[1];
+  a.sgn = sgn;
   cudaStream_t st = (cudaStream_t)stream;
-  if (transpose)
-    jsw_sweep_kernel<true><<<jsw_blocks(dims), DP_THREADS, 0, st>>>(s, sgn, x, x_out);
-  else
-    jsw_sweep_kernel<false><<<jsw_blocks(dims), DP_THREADS, 0, st>>>(s, sgn, x, x_out);
-  return (int)cudaGetLastError();
-}
-
-// *norm = max |b - A x|; zeroes the slot first, on the same stream.
-extern "C" int jsw_residual(const void* const* ptrs, const int* dims, float sgn, int transpose,
-                            const float* x, float* norm, void* stream) {
-  const SwPlanes s = jsw_planes(ptrs, dims);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(norm, 0, sizeof(float), st);
-  if (e != cudaSuccess) return (int)e;
-  if (transpose)
-    jsw_residual_kernel<true><<<jsw_blocks(dims), DP_THREADS, 0, st>>>(s, sgn, x, norm);
-  else
-    jsw_residual_kernel<false><<<jsw_blocks(dims), DP_THREADS, 0, st>>>(s, sgn, x, norm);
-  return (int)cudaGetLastError();
+  const int calls = k > JSW_MAX_K ? (k + JSW_MAX_K - 1) / JSW_MAX_K : 1;
+  int launches = 0;
+  const float* xin = x;
+  for (int j = 0; j < calls; ++j) {
+    const bool last = j == calls - 1;
+    a.sweeps = last ? k - JSW_MAX_K * j : JSW_MAX_K;
+    a.xin = xin;
+    a.xout = (calls - 1 - j) % 2 == 0 ? x_out : x_mid;
+    const unsigned grid = (unsigned)jsw_tiles(a.ny, a.nx, a.sweeps);
+    float* nrm = last ? norm : nullptr;
+    if (transpose)
+      jsw_kernel<true><<<grid, JSW_THREADS, 0, st>>>(a, partials, nrm, ticket);
+    else
+      jsw_kernel<false><<<grid, JSW_THREADS, 0, st>>>(a, partials, nrm, ticket);
+    DP_LAUNCHED(launches);
+    xin = a.xout;
+  }
+  return launches;
 }

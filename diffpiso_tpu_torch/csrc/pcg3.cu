@@ -34,9 +34,12 @@
 // launches (sum x, folded, then r), every other one launch; an iteration
 // is q, xr, r.z and p, 4 launches around row 16-3d's apply (8 and a memset
 // before). The norms are maxima of bit patterns, folded like the sums (no
-// memset ahead of an atomic max). The walks that only stream (sum x, xr,
-// p) issue a chunk of cells' loads before using them (grid3.cuh
-// `p3_cells`): the cells and their order are the plain walk's. r.z runs
+// memset ahead of an atomic max). The residual's two launches are row
+// 10e's (grid3.cuh `p3_sum_kernel`, folded on a persistent grid, which also
+// zeroes the norm slot; `p3_residual_kernel`, one atomic max of bit
+// patterns a block into it). The walks that only stream (xr, p) issue a
+// chunk of cells' loads before using them (grid3.cuh `p3_cells`): the
+// cells and their order are the plain walk's. r.z runs
 // each block of 256 logical threads on 64 hardware threads, each holding 4
 // neighbouring logical threads, so its cells at one stride are one float4
 // load; every logical thread keeps its cells and their order, and the
@@ -69,39 +72,6 @@ struct G3Two {
 struct G3Four {
   float x, r, p, q;
 };
-
-// sum x: the partials; fold: out[G_SUMX]
-__global__ void DP_FOLD_BOUNDS
-g3_sum_kernel(const float* __restrict__ a, size_t n, float* partials, float* __restrict__ out,
-              unsigned int* ticket) {
-  __shared__ float sh[DP_THREADS];
-  float acc = 0.0f;
-  p3_cells<4>(n, [&](size_t i) { return a[i]; }, [&](size_t, float v) { acc += v; });
-  dp_block_partial(acc, sh, partials);
-  if (!dp_last_block(ticket)) return;
-  const float s = dp_fold_sum(partials, gridDim.x, sh);
-  if (threadIdx.x == 0) out[G_SUMX] = s;
-}
-
-// r = b - (S x + shift sum x); the block maxima of |r|; fold: out[G_NORM]
-__global__ void DP_FOLD_BOUNDS
-g3_residual_kernel(Lap3 L, const float* __restrict__ b, const float* __restrict__ x,
-                   float* __restrict__ r, size_t n, float* partials, float* out,
-                   unsigned int* ticket) {
-  __shared__ unsigned int shu[DP_THREADS / 32];
-  const float sum = out[G_SUMX];
-  unsigned int m = 0u;
-  for (size_t i = p3_first(); i < n; i += p3_stride()) {
-    const float v = b[i] - p3_q(L, x, i, sum);
-    r[i] = v;
-    m = max(m, p3_abs_bits(v));
-  }
-  m = dp_block_max_bits(m, shu);
-  if (threadIdx.x == 0) partials[blockIdx.x] = __uint_as_float(m);
-  if (!dp_last_block(ticket)) return;
-  const float norm = dp_fold_max(partials, gridDim.x, shu);
-  if (threadIdx.x == 0) out[G_NORM] = norm;
-}
 
 // q = S p + shift sp; the partials of p.q; fold: out[G_PQ] (no launch
 // bound: held to 32 registers, its stencil loop ran 6% slower at 256^3)
@@ -309,11 +279,13 @@ extern "C" int g3_residual(const void* const* lap, const float* b, const float* 
   cudaStream_t st = (cudaStream_t)stream;
   const Lap3 L = p3_lap(lap, nz, ny, nx);
   const size_t n = g3_cells(nz, ny, nx);
-  const unsigned nb = p3_blocks(n);
   int launches = 0;
-  g3_sum_kernel<<<nb, DP_THREADS, 0, st>>>(x, n, partials, out, ticket);
+  // sum x (zeroing the norm slot); r with one atomic max of |r| a block
+  p3_sum_kernel<<<p3_grid(n), DP_THREADS, 0, st>>>(x, n, partials, out + G_SUMX, out + G_NORM,
+                                                   ticket);
   DP_LAUNCHED(launches);
-  g3_residual_kernel<<<nb, DP_THREADS, 0, st>>>(L, b, x, r, n, partials, out, ticket);
+  p3_residual_kernel<false><<<p3_blocks(n), DP_THREADS, 0, st>>>(L, b, x, out + G_SUMX, r, n,
+                                                                 partials, out + G_NORM);
   DP_LAUNCHED(launches);
   return launches;
 }

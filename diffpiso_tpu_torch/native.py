@@ -8,8 +8,9 @@ loads at once. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` as an int; `check` raises on a non-zero code. The
-entries that report their launches (cg.cu, pcg3.cu) return the number of
-kernels launched, or minus the error: `launched` reads it. Kernels that
+entries that report their launches (cg.cu, pcg3.cu, pcgphases3.cu,
+jacobi_sweeps.cu) return the number of kernels launched, or minus the
+error: `launched` reads it. Kernels that
 end in a last-block fold (csrc/common.cuh) take the word of
 `fold_state`."""
 

@@ -6,9 +6,11 @@ reference's own recurrence, pressure_solve_op.cu.cc:257-357).
 Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_cg_iteration, rank-2
 TPU kernel `_cg_iter_kernel` (row 10d) and rank-3 `_cg_iter3_kernel` (row
 10e: csrc/pcgphases3.cu `p3_cg_iteration`, through `fused_cg_iteration3`,
-with its own launch counter; the same split, the 7-point stencil, at most
-4096 blocks walking the volume, bound by 13 volumes). With A v = L v +
-shift sum(v) (roll wrap) and proj r = r - mean(r) when deflating:
+with its own counters; the same split and folds, the 7-point stencil, the
+sums in the order of at most 4096 blocks walking the volume, the sum of p'
+carried the same way, bound by 13 volumes; `cg_iteration3_exact` is its
+arithmetic). With A v = L v + shift sum(v) (roll wrap) and proj r = r -
+mean(r) when deflating:
 
   q = A p; pq = p.q; alpha = |pq| > 1e-30 ? p.r / pq : 0
   x' = x + alpha p; r' = proj(r - alpha q)
@@ -39,10 +41,22 @@ from diffpiso_tpu_torch import native
 from diffpiso_tpu_torch.ops.matvec import stencil_apply_plain
 from diffpiso_tpu_torch.solvers.pcgphases import (
     _SIGS3,
+    O3_ALPHA,
+    O3_BETA,
+    O3_MEAN,
+    O3_NORM,
+    O3_PQ,
+    O3_PR,
+    O3_RQ,
+    O3_SUM,
+    O3_SUMP,
     _lap_ptrs,
+    _matvec3_given,
+    _mean3,
     _project,
     lap_matvec,
     scratch3,
+    tree_sum3,
     tree_sum_plain,
 )
 
@@ -53,8 +67,6 @@ _THREADS = 256  # DP_THREADS in csrc/common.cuh
 # slots of the scalar output array in csrc/cg.cu (CG_SLOTS floats)
 (_C_NORM, _C_SUM, _C_PQ, _C_PR, _C_ALPHA, _C_MEAN, _C_RQ, _C_BETA, _C_SUMP) = range(9)
 _CG_SLOTS = 9
-# and of csrc/pcgphases3.cu
-_P3_NORM, _P3_PQ, _P3_ALPHA, _P3_BETA = 0, 1, 2, 7
 _EPS = 1e-30
 
 
@@ -108,16 +120,41 @@ def cg_iteration_exact(lap, x, r, p, deflate, sum_p=None):
     return xn, rn, pn, rnorm, slots
 
 
+def cg_iteration3_exact(lap, x, r, p, deflate, sum_p=None):
+    """The rank-3 iteration (csrc/pcgphases3.cu `p3_cg_iteration`) in
+    PyTorch, bit for bit: the plain version's elementwise operations, every
+    sum in the kernels' order (`pcgphases.tree_sum3`) and sum p as the
+    kernels take it (`sum_p`, else formed first). Returns (x', r', p',
+    max|r'|, slots): slots {slot of the kernel's scalar array: 0-d tensor}
+    for the slots it writes (the mean only when deflating)."""
+    sp = tree_sum3(p) if sum_p is None else sum_p.reshape(())
+    q = _matvec3_given(lap, p, sp)
+    pq, pr = tree_sum3(p * q), tree_sum3(p * r)
+    ok = pq.abs() > _EPS
+    alpha = torch.where(ok, pr / pq, 0.0)
+    xn = x + alpha * p
+    rn = r - alpha * q
+    slots = {O3_SUM: sp, O3_PQ: pq, O3_PR: pr, O3_ALPHA: alpha}
+    if deflate:
+        slots[O3_MEAN] = mean = _mean3(rn)
+        rn = rn - mean
+    slots[O3_RQ] = rq = tree_sum3(rn * q)
+    slots[O3_BETA] = beta = torch.where(ok, -rq / pq, 0.0)
+    pn = rn + beta * p
+    slots[O3_NORM] = rnorm = rn.abs().max()
+    slots[O3_SUMP] = tree_sum3(pn)
+    return xn, rn, pn, rnorm, slots
+
+
 def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False, sum_p=None):
     """(x', r', p', max|r'|, sum p') of one CG iteration; lap a 2-D
     LaplaceStencil, the norm and the sum 0-d tensors. `with_scalars` puts
     (pq, alpha, beta), 0-d tensors, before sum p'. `sum_p`: sum(p) as the
     previous call returned it (its sum p'), or None, where the kernels form
     it first (a loop's first iteration, after a reset). A volume goes to
-    `fused_cg_iteration3` (its sum p' is None: row 10e forms the sum
-    itself); on the CPU sum p' is torch.sum(p')."""
+    `fused_cg_iteration3`; on the CPU sum p' is torch.sum(p')."""
     if x.ndim == 3:
-        return (*fused_cg_iteration3(lap, x, r, p, deflate, with_scalars), None)
+        return fused_cg_iteration3(lap, x, r, p, deflate, with_scalars, sum_p)
     if x.device.type == "cpu":
         res = cg_iteration_plain(lap, x, r, p, deflate, with_scalars, sum_p=sum_p)
         return (*res, torch.sum(res[2]))
@@ -150,23 +187,33 @@ def fused_cg_iteration(lap, x, r, p, deflate: bool, with_scalars=False, sum_p=No
     return res + (out[_C_SUMP],)
 
 
-def fused_cg_iteration3(lap, x, r, p, deflate: bool, with_scalars=False):
+def fused_cg_iteration3(lap, x, r, p, deflate: bool, with_scalars=False, sum_p=None):
     """`fused_cg_iteration` on volumes; lap a 3-D LaplaceStencil."""
     if x.device.type == "cpu":
-        return cg_iteration_plain(lap, x, r, p, deflate, with_scalars)
-    ptrs, (nz, ny, nx), partials, out = scratch3("fused_cg_iteration3", lap, (x, r, p))
+        res = cg_iteration_plain(lap, x, r, p, deflate, with_scalars, sum_p=sum_p)
+        return (*res, torch.sum(res[2]))
+    extra = () if sum_p is None else (sum_p,)
+    ptrs, (nz, ny, nx), partials, out, stream, ticket = scratch3("fused_cg_iteration3", lap,
+                                                                 (*extra, x, r, p))
+    if sum_p is not None and sum_p.numel() != 1:
+        raise ValueError("fused_cg_iteration3: sum_p must be one value")
     q, xo, ro, po = (torch.empty_like(x) for _ in range(4))
     lib = native.library("pcgphases3", _SIGS3)
-    native.check(lib.p3_cg_iteration(ptrs, *(native.ptr(a) for a in (x, r, p, q, xo, ro, po,
-                                                                      partials, out)),
-                                     nz, ny, nx, int(bool(deflate)), native.stream_of(x)),
-                 "p3_cg_iteration")
+    sp = None if sum_p is None else native.ptr(sum_p)
+    launched = native.launched(
+        lib.p3_cg_iteration(ptrs, *(native.ptr(a) for a in (x, r, p)), sp,
+                            *(native.ptr(a) for a in (q, xo, ro, po, partials, out, ticket)),
+                            nz, ny, nx, int(bool(deflate)), stream), "p3_cg_iteration")
     fused_cg_iteration3.launches += 1
-    res = (xo, ro, po, out[_P3_NORM])
-    return res + ((out[_P3_PQ], out[_P3_ALPHA], out[_P3_BETA]),) if with_scalars else res
+    fused_cg_iteration3.kernel_launches += launched
+    res = (xo, ro, po, out[O3_NORM])
+    if with_scalars:
+        res += ((out[O3_PQ], out[O3_ALPHA], out[O3_BETA]),)
+    return res + (out[O3_SUMP],)
 
 
 # calls, and the kernels those calls launched
 fused_cg_iteration.launches = 0
 fused_cg_iteration.kernel_launches = 0
 fused_cg_iteration3.launches = 0
+fused_cg_iteration3.kernel_launches = 0

@@ -16,15 +16,16 @@ differently. `krylov.bicgstab` calls it as the JAX package's
 then up to 8 trips of k = 4 on every component while the largest norm is
 above tol.
 
-The CUDA kernels are csrc/jacobi_sweeps.cu: one launch per sweep, one
-thread per cell, ping-ponging between two x buffers, then one residual
-launch that reduces max |r| on the device; no host read inside a call.
-What bounds it on the H100 is bytes (the 7 input planes once and x_k: 20 us
-a call at 1024 x 2048; this design moves 8 planes a sweep). The kernels
-round like the plain version op for op. `launches` counts kernel launches
-(k sweeps and the residual: k + 1 a call).
+The CUDA kernel is csrc/jacobi_sweeps.cu: one launch a call (temporal
+blocking in the plane: each CTA sweeps a window with a ring of k + 1
+cells k times from one read of the planes, then folds max |r| of its
+interior into the norm; more than JSW_MAX_K sweeps chain launches), no
+host read inside a call. What bounds it on the H100 is bytes (the 7 input
+planes once and x_k: 20 us a call at 1024 x 2048). The kernel rounds like
+the plain version op for op. `launches` counts kernel launches (one a
+call for k <= JSW_MAX_K).
 
-On a CUDA tensor the wrapper launches the kernels (a failed build or
+On a CUDA tensor the wrapper launches the kernel (a failed build or
 launch raises); on a CPU tensor it runs `jacobi_sweeps_plain`."""
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ from diffpiso_tpu_torch import native
 from diffpiso_tpu_torch.solvers.jacobi2 import adv_matvec
 
 _P = ctypes.c_void_p
-_ARGS = [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P]
-_SIGS = {"jsw_sweep": _ARGS, "jsw_residual": _ARGS}
+_I = ctypes.c_int
+_SIGS = {"jsw_sweeps": [_P, _P, ctypes.c_float, _I, _I] + [_P] * 7,
+         "jsw_partials": [_I, _I, _I]}
+JSW_MAX_K = 4  # sweeps a launch at most in csrc/jacobi_sweeps.cu (more chain launches)
 
 
 def jacobi_sweeps_plain(st_c, b, x, k, sgn, transpose):
@@ -68,25 +71,27 @@ def fused_jacobi_sweeps(st_c, b, x, k, sgn, transpose):
     native.require_cuda_f32("fused_jacobi_sweeps", *ops, x)
     if b.ndim != 2 or any(t.shape != b.shape for t in (*ops, x)):
         raise ValueError("fused_jacobi_sweeps: the planes must share one 2-D shape")
+    if b.numel() >= 2**31:
+        raise ValueError("fused_jacobi_sweeps: planes of fewer than 2^31 cells")
+    k = int(k)
+    if k < 0:
+        raise ValueError("fused_jacobi_sweeps: k must be at least 0")
     lib = native.library("jacobi_sweeps", _SIGS)
     ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
     dims = (ctypes.c_int * 2)(*b.shape)
-    sgn32 = float(np.float32(sgn))
-    tr = int(bool(transpose))
     stream = native.stream_of(b)
-    bufs = (torch.empty_like(b), torch.empty_like(b))
+    out = torch.empty_like(b)
+    mid = torch.empty_like(b) if k > JSW_MAX_K else None
+    partials = torch.empty(lib.jsw_partials(*b.shape, k), dtype=torch.float32, device=b.device)
     norm = torch.empty(1, dtype=torch.float32, device=b.device)
-    cur = x
-    for j in range(k):
-        out = bufs[j % 2]
-        native.check(lib.jsw_sweep(ptrs, dims, sgn32, tr, native.ptr(cur), native.ptr(out),
-                                   stream), "jsw_sweep")
-        fused_jacobi_sweeps.launches += 1
-        cur = out
-    native.check(lib.jsw_residual(ptrs, dims, sgn32, tr, native.ptr(cur), native.ptr(norm),
-                                  stream), "jsw_residual")
-    fused_jacobi_sweeps.launches += 1
-    return cur, norm[0]
+    ticket = native.fold_state(b, stream)
+    launched = native.launched(
+        lib.jsw_sweeps(ptrs, dims, float(np.float32(sgn)), int(bool(transpose)), k,
+                       native.ptr(x), None if mid is None else native.ptr(mid), native.ptr(out),
+                       native.ptr(partials), native.ptr(norm), native.ptr(ticket), stream),
+        "jsw_sweeps")
+    fused_jacobi_sweeps.launches += launched
+    return out, norm[0]
 
 
-fused_jacobi_sweeps.launches = 0  # kernel launches: k sweeps and one residual a call
+fused_jacobi_sweeps.launches = 0  # kernel launches: one a call of at most JSW_MAX_K sweeps

@@ -22,15 +22,19 @@ and proj r = r - mean(r) when deflating:
 The CUDA kernels are csrc/pcgphases.cu (planes; the update on volumes
 too, which it takes as (nz ny, nx) planes: it is elementwise) and
 csrc/pcgphases3.cu (the residual and apply on volumes, with their own
-launch counters, `fused_residual3` / `fused_pcg_apply3`, to which the
-public wrappers dispatch a rank-3 operand). Each phase is split where it
-needs a global scalar (block partials and a one-block fixed-order pass;
-the apply sums p first and forms q per cell before p.q, as the TPU kernel
-does); rz, pq, alpha and beta stay on the device, so the loop reads back
-one value per iteration. What bounds them on the H100 is bytes (8, 10 and
-4 planes; 10 and 12 volumes). The scalars come back as 0-d tensors. On a
-CUDA tensor a wrapper launches its kernels; on a CPU tensor it runs its
-plain version."""
+counters, `fused_residual3` / `fused_pcg_apply3`, to which the public
+wrappers dispatch a rank-3 operand). Each phase is split where it needs a
+global scalar (block partials and a fixed-order sum: a one-block pass on
+planes, a last-block fold on volumes; the apply sums p first and forms q
+per cell before p.q, as the TPU kernel does); rz, pq, alpha and beta stay
+on the device, so the loop reads back one value per iteration. On volumes
+the residual is 2 launches and the apply 3, one more each deflating (each
+rank-3 wrapper counts its calls in `launches` and its kernels in
+`kernel_launches`); `residual3_exact` and `pcg_apply3_exact` are their
+arithmetic in PyTorch, bit for bit, every sum in the kernels' order. What
+bounds them on the H100 is bytes (8, 10 and 4 planes; 10 and 12 volumes).
+The scalars come back as 0-d tensors. On a CUDA tensor a wrapper launches
+its kernels; on a CPU tensor it runs its plain version."""
 
 from __future__ import annotations
 
@@ -49,14 +53,17 @@ _SIGS = {
     "pcgp_update": [_P] * 7 + [_I, _I, _P],
 }
 _SIGS3 = {
-    "p3_residual": [_P] * 6 + [_I] * 4 + [_P],
-    "p3_apply": [_P] * 10 + [_I] * 4 + [_P],
-    "p3_cg_iteration": [_P] * 10 + [_I] * 4 + [_P],
+    "p3_residual": [_P] * 7 + [_I] * 4 + [_P],
+    "p3_apply": [_P] * 11 + [_I] * 4 + [_P],
+    "p3_cg_iteration": [_P] * 12 + [_I] * 4 + [_P],
 }
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
 _MAX_BLOCKS3 = 4096  # P3_MAX_BLOCKS in csrc/grid3.cuh
 # slots of the scalar output array in csrc/pcgphases.cu
 _O_NORM, _O_PQ, _O_RZ = 0, 1, 5
+# and of csrc/pcgphases3.cu (P3_SLOTS floats)
+(O3_NORM, O3_PQ, O3_ALPHA, O3_SUM, O3_MEAN, O3_PR, O3_RQ, O3_BETA, O3_SUMP) = range(9)
+P3_SLOTS = 9
 _EPS = 1e-30
 
 
@@ -111,6 +118,54 @@ def _project(r, deflate):
     return r - torch.sum(r) / r.numel() if deflate else r
 
 
+def tree_sum3(values):
+    """`tree_sum_plain` in the order of the rank-3 kernels' capped grid."""
+    return tree_sum_plain(values, max_blocks=_MAX_BLOCKS3)
+
+
+def _mean3(r):
+    """sum r / n as the rank-3 kernels form it (float32 division by float32 n)."""
+    return tree_sum3(r) / torch.tensor(float(r.numel()), dtype=r.dtype, device=r.device)
+
+
+def _matvec3_given(lap, p, sp):
+    """A p with sum p given: S p + shift sp."""
+    return stencil_apply_plain(lap.center, lap.lo, lap.hi, p) + lap.shift * sp
+
+
+def residual3_exact(lap, b, x, deflate):
+    """The rank-3 residual (csrc/pcgphases3.cu `p3_residual`) in PyTorch, bit
+    for bit: the plain version's elementwise operations with sum x, the
+    mean and every sum in the kernels' order (`tree_sum3`). Returns (r,
+    max|r|, slots): slots {slot of the kernel's scalar array: 0-d tensor}
+    for the slots it writes."""
+    sx = tree_sum3(x)
+    r = b - _matvec3_given(lap, x, sx)
+    slots = {O3_SUM: sx}
+    if deflate:
+        slots[O3_MEAN] = mean = _mean3(r)
+        r = r - mean
+    slots[O3_NORM] = rn = r.abs().max()
+    return r, rn, slots
+
+
+def pcg_apply3_exact(lap, rz, x, r, p, deflate):
+    """The rank-3 apply (`p3_apply`) in PyTorch, bit for bit, as
+    `residual3_exact`. Returns (x', r', max|r'|, p.q, slots)."""
+    sp = tree_sum3(p)
+    q = _matvec3_given(lap, p, sp)
+    pq = tree_sum3(p * q)
+    alpha = torch.where(pq.abs() > _EPS, rz / pq, 0.0)
+    xn = x + alpha * p
+    rn = r - alpha * q
+    slots = {O3_SUM: sp, O3_PQ: pq, O3_ALPHA: alpha}
+    if deflate:
+        slots[O3_MEAN] = mean = _mean3(rn)
+        rn = rn - mean
+    slots[O3_NORM] = rnorm = rn.abs().max()
+    return xn, rn, rnorm, pq, slots
+
+
 def residual_plain(lap, b, x, deflate):
     """Plain PyTorch version of the residual: (r, max|r|)."""
     r = _project(b - lap_matvec(lap, x), deflate)
@@ -148,43 +203,50 @@ def _lap3_ptrs(lap):
 
 def scratch3(fn_name, lap, tensors):
     """Check the operands of a rank-3 phase; return the lap pointers, its
-    (nz, ny, nx) and the block partials and scalar output array."""
+    (nz, ny, nx), the block partials, the scalar output array and the
+    stream with its fold ticket."""
     vols, shift, ptrs = _lap3_ptrs(lap)
     native.require_cuda_f32(fn_name, *vols, shift, *tensors)
     shape = tensors[-1].shape
     if len(shape) != 3 or any(t.ndim != 0 and t.shape != shape for t in (*vols, *tensors)):
         raise ValueError(f"{fn_name}: the volumes must share one 3-D shape")
     dev = tensors[0].device
-    return (ptrs, tuple(shape), torch.empty(2 * _MAX_BLOCKS3, dtype=torch.float32, device=dev),
-            torch.empty(8, dtype=torch.float32, device=dev))
+    stream = native.stream_of(tensors[0])
+    return (ptrs, tuple(shape), torch.empty(4 * _MAX_BLOCKS3, dtype=torch.float32, device=dev),
+            torch.empty(P3_SLOTS, dtype=torch.float32, device=dev), stream,
+            native.fold_state(tensors[0], stream))
 
 
 def fused_residual3(lap, b, x, deflate: bool):
     """(r, max|r|) with r = proj(b - A x); lap a 3-D LaplaceStencil."""
     if b.device.type == "cpu":
         return residual_plain(lap, b, x, deflate)
-    ptrs, (nz, ny, nx), partials, out = scratch3("fused_residual3", lap, (b, x))
+    ptrs, (nz, ny, nx), partials, out, stream, ticket = scratch3("fused_residual3", lap, (b, x))
     r = torch.empty_like(b)
     lib = native.library("pcgphases3", _SIGS3)
-    native.check(lib.p3_residual(ptrs, native.ptr(b), native.ptr(x), native.ptr(r),
-                                 native.ptr(partials), native.ptr(out), nz, ny, nx,
-                                 int(bool(deflate)), native.stream_of(b)), "p3_residual")
+    launched = native.launched(
+        lib.p3_residual(ptrs, *(native.ptr(a) for a in (b, x, r, partials, out, ticket)),
+                        nz, ny, nx, int(bool(deflate)), stream), "p3_residual")
     fused_residual3.launches += 1
-    return r, out[_O_NORM]
+    fused_residual3.kernel_launches += launched
+    return r, out[O3_NORM]
 
 
 def fused_pcg_apply3(lap, rz, x, r, p, deflate: bool):
     """(x', r', max|r'|, p.q) on volumes; rz a 0-d tensor."""
     if x.device.type == "cpu":
         return pcg_apply_plain(lap, rz, x, r, p, deflate)
-    ptrs, (nz, ny, nx), partials, out = scratch3("fused_pcg_apply3", lap, (rz, x, r, p))
+    ptrs, (nz, ny, nx), partials, out, stream, ticket = scratch3("fused_pcg_apply3", lap,
+                                                                 (rz, x, r, p))
     q, xo, ro = (torch.empty_like(x) for _ in range(3))
     lib = native.library("pcgphases3", _SIGS3)
-    native.check(lib.p3_apply(ptrs, *(native.ptr(a) for a in (rz, x, r, p, q, xo, ro, partials,
-                                                              out)),
-                              nz, ny, nx, int(bool(deflate)), native.stream_of(x)), "p3_apply")
+    launched = native.launched(
+        lib.p3_apply(ptrs, *(native.ptr(a) for a in (rz, x, r, p, q, xo, ro, partials, out,
+                                                    ticket)),
+                     nz, ny, nx, int(bool(deflate)), stream), "p3_apply")
     fused_pcg_apply3.launches += 1
-    return xo, ro, out[_O_NORM], out[_O_PQ]
+    fused_pcg_apply3.kernel_launches += launched
+    return xo, ro, out[O3_NORM], out[O3_PQ]
 
 
 def _scratch(fn_name, tensors, shape):
@@ -259,5 +321,8 @@ def fused_pcg_update(rz_old, r, z, p):
 fused_residual.launches = 0
 fused_pcg_apply.launches = 0
 fused_pcg_update.launches = 0
+# the rank-3 wrappers: calls, and the kernels those calls launched
 fused_residual3.launches = 0
+fused_residual3.kernel_launches = 0
 fused_pcg_apply3.launches = 0
+fused_pcg_apply3.kernel_launches = 0

@@ -88,7 +88,8 @@ FAMILIES = (
     ("shw_", "per-shard whole-tier trip (row 18d, its GEMMs under dp_sgemm)"),
     ("dp_sgemm", "hand-written GEMM (M^-1 r contractions: pcg2, mm_update, row 16 spectral "
                  "apply, rank 2 and 3)"),
-    ("p3_", "rank-3 PCG / CG phases (row 10e: residual / apply / CG iteration)"),
+    ("p3_", "rank-3 PCG / CG phases (row 10e: residual / apply / CG iteration; row 15g's warm "
+            "residual shares its two launches)"),
     ("g3_", "whole-solve rank-3 PCG (row 15g: residual / q / xr / r.z / p launches)"),
     ("pcgmm_", "mm_update elementwise + reductions"),
     ("convolve", "CNN convolutions (cuDNN)"),
@@ -107,7 +108,7 @@ FAMILIES = (
     ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
     ("j1_", "jacobi2 / jacobi1 sweeps"),
     ("j13_", "jacobi 3-D whole-solve sweeps"),
-    ("jsw_", "k-sweep Jacobi (row 8b: sweeps and residual)"),
+    ("jsw_", "k-sweep Jacobi (row 8b: the k sweeps and the norm, one launch a call)"),
     ("sres_", "fused stencil residual (row 14)"),
     ("zb_", "jacobi 3-D z-block sweeps"),
     ("pl3_", "jacobi 3-D plane sweeps"),

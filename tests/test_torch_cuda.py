@@ -1754,23 +1754,31 @@ def _momentum_planes(shape, seed, dev):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("shape", [(1024, 2048), (7, 5)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("shape", [(1024, 2048), (7, 5), (33, 65), (77, 109)])
 def test_jacobi_sweeps_kernel_is_bit_equal_to_plain(shape, k, transpose, cuda_device):
-    """Row 8b at the 1024 x 2048 tier's plane and a small odd one: x_k and
-    the exit norm bit for bit (one thread per cell, --fmad=false), k + 1
-    launches a call, x0 untouched."""
+    """Row 8b at the 1024 x 2048 tier's plane, a plane smaller than the
+    kernel's window (7 x 5: it wraps onto itself), a ragged one and one
+    just past a multiple of the window's interior (77 x 109): x_k and the
+    exit norm bit for bit (--fmad=false), one launch a call (two for k = 6,
+    past JSW_MAX_K), x0 untouched; a NaN in b reaches x_k and the norm as
+    in the plain version."""
     st = _momentum_planes(shape, 60, cuda_device)
     b = _rand(shape, 65).to(cuda_device)
     x0 = _rand(shape, 66, 0.1).to(cuda_device)
     keep = x0.clone()
     before = fused_jacobi_sweeps.launches
     kx, kn = fused_jacobi_sweeps(st, b, x0, k, -1.0, transpose)
-    assert fused_jacobi_sweeps.launches == before + k + 1
+    assert fused_jacobi_sweeps.launches == before + (1 if k <= 4 else 2)
     px, pn = jacobi_sweeps_plain(st, b, x0, k, -1.0, transpose)
     torch.testing.assert_close(kx, px, rtol=0, atol=0)
     assert kn.ndim == 0 and float(kn) == float(pn) > 0
     assert torch.equal(x0, keep)
+    b[shape[0] // 2, shape[1] // 3] = float("nan")
+    kx, kn = fused_jacobi_sweeps(st, b, x0, k, -1.0, transpose)
+    px, pn = jacobi_sweeps_plain(st, b, x0, k, -1.0, transpose)
+    torch.testing.assert_close(kx, px, rtol=0, atol=0, equal_nan=True)
+    assert bool(kn.isnan()) and bool(pn.isnan())
     with pytest.raises(ValueError):
         fused_jacobi_sweeps(st, b.double(), x0, k, -1.0, transpose)
 
@@ -1863,7 +1871,8 @@ def test_cuda_momentum_solve_in_the_k_sweep_tier_matches_the_cpu(transpose, cuda
     card, cpu = out["card"], out["cpu"]
     assert card[:3] == cpu[:3] and not card[2]
     assert card[0] == {"jacobi_probes": 1, "jacobi_trips": 8, "fallbacks": 1}
-    assert card[4] == (2 * (2 + 5 * 8), 4) and cpu[4] == (0, 0)
+    # row 8b: one launch a call, the probe's and each trip's, per component
+    assert card[4] == (2 * (1 + 8), 4) and cpu[4] == (0, 0)
     for a, w in zip(card[3], cpu[3]):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * float(w.abs().max()))
 
@@ -1953,6 +1962,13 @@ RANK3_SHAPES = {"periodic": (16, 24, 32), "bounded": (17, 16, 16),
                 "periodic, grid-stride": (64, 128, 256)}
 
 
+# kernels a call of row 10e, by (phase, deflate) and for the CG iteration
+# by (deflate, sum of p carried in)
+RANK3_KERNELS = {("residual", False): 2, ("residual", True): 3, ("apply", False): 3,
+                 ("apply", True): 4, (False, False): 4, (False, True): 3, (True, False): 5,
+                 (True, True): 4}
+
+
 @pytest.mark.parametrize("deflate", [False, True])
 @pytest.mark.parametrize("case", list(RANK3_SHAPES))
 def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
@@ -1961,8 +1977,13 @@ def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
     periodic volume past one cell a thread: the volumes within rel 1e-6 of
     their scale (the CG iteration's within 2e-6: alpha and beta are ratios
     of sums in another order, both carried into p'), rnorm, p.q and alpha
-    within rel 1e-5; one launch counted per call; the update (row 10c) on
-    the volume equals the plane launch; float64 refused."""
+    within rel 1e-5; one call counted per call; bit for bit against the
+    exact versions (`residual3_exact`, `pcg_apply3_exact`,
+    `cg_iteration3_exact`: every sum in the kernels' order), the CG
+    iteration over two chained calls with the sum of p formed and then
+    carried (the first call's sum p'), each call's kernels
+    (`kernel_launches`) as RANK3_KERNELS says; the update (row 10c) on the
+    volume equals the plane launch; float64 refused."""
     from diffpiso_tpu_torch.solvers import cg as cgk
 
     bounded = case == "bounded"
@@ -1970,6 +1991,29 @@ def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
     lap = _lap3(cuda_device, shape, 3, bounded)
     b = _rand(shape, 4).to(cuda_device)
     x, p = _dyadic(shape, 5, cuda_device), _dyadic(shape, 6, cuda_device)
+    k0 = pcgphases.fused_residual3.kernel_launches
+    r, rn = pcgphases.fused_residual(lap, b, x, deflate)
+    assert pcgphases.fused_residual3.kernel_launches - k0 == RANK3_KERNELS[("residual", deflate)]
+    er, ern, _ = pcgphases.residual3_exact(lap, b, x, deflate)
+    assert torch.equal(r, er) and torch.equal(rn, ern)
+    rz = torch.sum(r * p)
+    k0 = pcgphases.fused_pcg_apply3.kernel_launches
+    got = pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)
+    assert pcgphases.fused_pcg_apply3.kernel_launches - k0 == RANK3_KERNELS[("apply", deflate)]
+    for a, w in zip(got, pcgphases.pcg_apply3_exact(lap, rz, x, r, p, deflate)[:4]):
+        assert torch.equal(a, w)
+    xc, rc, pc, sp = x, r, p, None
+    for _ in range(2):
+        k0 = cgk.fused_cg_iteration3.kernel_launches
+        got = cgk.fused_cg_iteration(lap, xc, rc, pc, deflate, with_scalars=True, sum_p=sp)
+        assert (cgk.fused_cg_iteration3.kernel_launches - k0
+                == RANK3_KERNELS[(deflate, sp is not None)])
+        xe, re_, pe, ne, slots = cgk.cg_iteration3_exact(lap, xc, rc, pc, deflate, sum_p=sp)
+        want = (xe, re_, pe, ne, slots[pcgphases.O3_PQ], slots[pcgphases.O3_ALPHA],
+                slots[pcgphases.O3_BETA], slots[pcgphases.O3_SUMP])
+        for a, w in zip(got[:4] + got[4] + got[5:], want):
+            assert torch.equal(a, w)
+        xc, rc, pc, sp = got[0], got[1], got[2], got[5]
 
     def close(got, want, rel=1e-6):
         for a, w in zip(got, want):

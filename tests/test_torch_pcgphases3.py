@@ -10,9 +10,13 @@ per-iteration loop (`krylov.pcg` with `fft_mm`, the rank-3 phases and the
 3-D spectral apply's plain version) on warm, cold and reset starts against
 the JAX package's `krylov.pcg` with its rank-3 phase kernels forced open
 (`eligible3` patched, interpret mode), and CG on a volume against the JAX
-`krylov.cg` with its rank-3 iteration kernel. The CUDA kernels are held
-against the plain versions in tests/test_torch_cuda.py and chip_smoke.py
-phase 2n.
+`krylov.cg` with its rank-3 iteration kernel. The CUDA kernels' exact
+arithmetic (`residual3_exact`, `pcg_apply3_exact`, `cg_iteration3_exact`:
+every sum in the capped grid's order) is held against the same JAX kernels
+and, past one cell a thread, against the plain versions; a 3-D CG loop
+carrying the sum of p' from call to call equals the loop that forms it
+each call. The CUDA kernels are held against the exact versions and the
+plain versions in tests/test_torch_cuda.py and chip_smoke.py phase 2n.
 
 Tolerances: volumes atol 1e-6 on O(1) inputs and outputs (the CG
 iteration's rel 2e-6 of the scale: see its test), scalars rel 1e-6 (the
@@ -231,3 +235,151 @@ def test_cg_on_a_volume_matches_jax_cg_with_the_rank3_iteration(monkeypatch):
     assert pkrylov.cg.iterations - before == res.iterations
     a, b = n(res.x) - n(res.x).mean(), n(jx) - n(jx).mean()
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * float(np.abs(b).max()))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("deflate", [False, True])
+def test_exact_phases_match_the_jax_kernels(deflate, shape, monkeypatch):
+    """The CUDA kernels' arithmetic against the JAX rank-3 kernels on the
+    inputs and with the tolerances of the plain versions' tests above; the
+    CG iteration with the sum of p formed and carried in (the tree sum of
+    p: the same bits)."""
+    _interpret(monkeypatch)
+    jl, pl = _laplacian(shape, 1)
+    (b,), (x,) = _vols(shape, 2, 1), _vols(shape, 12, 1, 0.1)
+    x = _mean_free_if(deflate, x)
+    jr, jn = pallas_krylov.fused_residual(jl, jnp.asarray(b), jnp.asarray(x), deflate)
+    er, en, _ = pcgphases.residual3_exact(pl, t(b), t(x), deflate)
+    _close(er, jr)
+    _rel(en, jn)
+    jl, pl = _laplacian(shape, 3)
+    (x, r), (p,) = _vols(shape, 4, 2), _vols(shape, 14, 1, 0.1)
+    p = _mean_free_if(deflate, p)
+    rz = np.float32(0.1 * float(torch.sum(t(p) * pcgphases.lap_matvec(pl, t(p)))))
+    ja = pallas_krylov.fused_pcg_apply(jl, jnp.float32(rz), jnp.asarray(x), jnp.asarray(r),
+                                       jnp.asarray(p), deflate)
+    ea = pcgphases.pcg_apply3_exact(pl, torch.tensor(rz), t(x), t(r), t(p), deflate)
+    _close(ea[0], ja[0])
+    _close(ea[1], ja[1])
+    _rel(ea[2], ja[2])
+    _rel(ea[3], ja[3])
+    jl, pl = _laplacian(shape, 5)
+    (x, r), (p,) = _vols(shape, 6, 2), _vols(shape, 16, 1, 0.1)
+    p = _mean_free_if(deflate, p)
+    jc = pallas_krylov.fused_cg_iteration(jl, jnp.asarray(x), jnp.asarray(r), jnp.asarray(p),
+                                          deflate)
+    formed = pcg_mod.cg_iteration3_exact(pl, t(x), t(r), t(p), deflate)
+    carried = pcg_mod.cg_iteration3_exact(pl, t(x), t(r), t(p), deflate,
+                                          sum_p=pcgphases.tree_sum3(t(p)))
+    for a, w in zip(formed[:4], carried[:4]):
+        assert torch.equal(a, w)
+    for a, w in zip(formed[:3], jc[:3]):
+        np.testing.assert_allclose(n(a), n(w), rtol=0, atol=2e-6 * float(np.abs(n(w)).max()))
+    _rel(formed[3], jc[3])
+
+
+def test_exact_phases_match_the_plain_versions_past_one_cell_a_thread():
+    """At 2 M cells (past the capped grid's 4096 x 256 threads: each thread
+    walks two cells) the exact versions against the plain versions
+    (torch.sum's order): the scalars within rel 1e-5, the volumes within
+    rel 1e-6 of their scale plus what the scalars' measured differences
+    carry into them (alpha into x' and r', beta into p'); the slots the
+    kernels write are the sums the exact versions report. x and p are
+    dyadic and mean-free (`_dyadic`), as chip_smoke.py phase 2n makes them:
+    their sums are exactly 0 in any order, so the shift term, which scales
+    a rounding difference of sum x by about 0.1 |c| n, is the same in both."""
+    shape = (64, 128, 256)
+    pl = _laplacian_torch(shape, 31)
+    (b, x, r), (p,) = _vols(shape, 32, 3), _vols(shape, 33, 1, 0.1)
+    b, r = t(b), t(r)
+    x, p = _dyadic(t(x) * 0.1), _dyadic(t(p))
+    assert float(torch.sum(x)) == float(pcgphases.tree_sum3(x)) == 0.0
+
+    def close(a, w, carried=0.0):
+        assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max()) + carried
+
+    def rel(a, w):
+        assert abs(float(a) - float(w)) <= 1e-5 * abs(float(w))
+
+    for deflate in (False, True):
+        er, en, slots = pcgphases.residual3_exact(pl, b, x, deflate)
+        pr_, pn = pcgphases.residual_plain(pl, b, x, deflate)
+        close(er, pr_)
+        rel(en, pn)
+        assert float(slots[pcgphases.O3_NORM]) == float(en)
+        rz = torch.sum(r * p)
+        ea = pcgphases.pcg_apply3_exact(pl, rz, x, r, p, deflate)
+        pa = pcgphases.pcg_apply_plain(pl, rz, x, r, p, deflate)
+        da = abs(float(ea[4][pcgphases.O3_ALPHA]) - float(rz / pa[3]))
+        q_max = float(pcgphases.lap_matvec(pl, p).abs().max())
+        close(ea[0], pa[0], da * float(p.abs().max()))
+        close(ea[1], pa[1], da * q_max)
+        rel(ea[2], pa[2])
+        rel(ea[3], pa[3])
+        ec = pcg_mod.cg_iteration3_exact(pl, x, r, p, deflate)
+        pc = pcg_mod.cg_iteration_plain(pl, x, r, p, deflate, with_scalars=True)
+        da = abs(float(ec[4][pcgphases.O3_ALPHA]) - float(pc[4][1]))
+        db = abs(float(ec[4][pcgphases.O3_BETA]) - float(pc[4][2]))
+        p_max = float(p.abs().max())
+        close(ec[0], pc[0], da * p_max)
+        close(ec[1], pc[1], da * q_max)
+        close(ec[2], pc[2], da * q_max + db * p_max)
+        rel(ec[3], pc[3])
+        rel(ec[4][pcgphases.O3_PQ], pc[4][0])
+        assert float(ec[4][pcgphases.O3_SUMP]) == float(pcgphases.tree_sum3(ec[2]))
+
+
+def _dyadic(v, kmax=8):
+    """v rounded to k 2^m with |k| <= kmax (kmax n below 2^24: every float32
+    sum over v is exact in any order), then the first |sum k| cells that
+    can move one step toward 0 do, so that the sum is exactly 0."""
+    step = 2.0 ** round(float(np.log2(float(v.std()))))
+    k = torch.clamp(torch.round(v / step), -kmax, kmax).reshape(-1)
+    d = int(k.double().sum())
+    room = torch.nonzero(k > -kmax if d > 0 else k < kmax).flatten()[:abs(d)]
+    k[room] -= float(np.sign(d))
+    return k.reshape(v.shape) * step
+
+
+def _laplacian_torch(shape, seed):
+    """`_laplacian`'s port side alone (no JAX)."""
+    rng = np.random.RandomState(seed)
+    infl = [(rng.rand(*shape) + 0.5).astype(np.float32) for _ in range(3)]
+    ones = np.ones(tuple(s + 2 for s in shape), np.float32)
+    return plap.assemble_pressure_laplacian(StaggeredField(tuple(map(t, infl)), periodic=PER),
+                                            t(ones), t(ones), PER, True)
+
+
+@pytest.mark.parametrize("reset", [0, 4])
+def test_cg_loop_on_a_volume_with_the_carried_sum_equals_the_loop_without(reset, monkeypatch):
+    """`krylov.cg` on a volume with the rank-3 iteration's exact arithmetic
+    in the wrapper's place: carrying the sum of p' from call to call (None
+    at the loop's start and after each reset) gives the bits of the loop
+    whose every call forms the sum of p itself: x, the iterations, the
+    exit norm; the carried sum is handed in on every call but the first
+    and those after a reset."""
+    shape = SHAPES[1]
+    pl = _laplacian_torch(shape, 41)
+    sol = _vols(shape, 42, 1)[0]
+    rhs = pcgphases.lap_matvec(pl, t(sol - sol.mean()))
+    rhs = rhs - rhs.mean()
+    results = {}
+    for carry in (True, False):
+        given = []
+
+        def iteration3(lap, x, r, p, deflate, with_scalars=False, sum_p=None, carry=carry,
+                       given=given):
+            given.append(sum_p is not None)
+            xe, re_, pe, ne, slots = pcg_mod.cg_iteration3_exact(
+                lap, x, r, p, deflate, sum_p=sum_p if carry else None)
+            return xe, re_, pe, ne, slots[pcgphases.O3_SUMP]
+
+        monkeypatch.setattr(pcg_mod, "fused_cg_iteration3", iteration3)
+        res = pkrylov.cg(pl, rhs, 0.01 * t(_vols(shape, 43, 1)[0]), tol=TOL, max_iter=60,
+                         residual_reset=reset, deflate_mean=True)
+        results[carry] = (res, given)
+    (a, given), (b, _) = results[True], results[False]
+    assert a.iterations == b.iterations > 4
+    assert torch.equal(a.x, b.x) and a.residual_norm == b.residual_norm
+    fresh = [k == 0 or (reset and (k + 1) % reset == 0) for k in range(a.iterations)]
+    assert given == [not f for f in fresh]
