@@ -1,8 +1,8 @@
 """Compare two trees of the port on one GPU: the hand-written GEMM shape by
 shape, the 2-D paths, the 3-D momentum tier kernels and paths, the CG
 iteration (row 10d) and whole-solve 3-D PCG (row 15g), the whole-solve
-Jacobi (rows 9, 15d), and the rank-3 PCG phases (row 10e) and the k-sweep
-Jacobi (row 8b), each with their paths.
+Jacobi (rows 9, 15d; rows 3, 11a, 11b), and the rank-3 PCG phases (row
+10e) and the k-sweep Jacobi (row 8b), each with their paths.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -27,8 +27,9 @@ kernels, asserting its own counts:
     step's velocity and pressure bits are summed on the device
     (`Trajectory`); one line per path carries the sha256 of those sums.
 Every JSON line but its clock readings must be equal between the trees,
-except the training lines (training counts vary between runs of one
-tree), which are reported with their differences. The turbulence gradient
+except a training line whose parent runs differ (training counts have
+varied between runs of one tree); every line is reported with the keys
+that differ. The turbulence gradient
 of each run is saved (`ab_grads/` in the git-ignored output directory) and
 its rel l2 between the runs printed. Prints one JSON line per run and per compared line;
 exits 1 if a run fails or a held line differs.
@@ -53,7 +54,7 @@ digests of the 256^3 forward (50 steps after the spin-up) and its grad10
 ("outputs" remat: the loss and the gradient's bits), of the cavity's 100
 steps and of the 512^3 call, each with its steps/s (not compared).
 
-    python3 chip_ab.py --solvers PARENT_DIR [--kernels-only]
+    python3 chip_ab.py --pass solvers PARENT_DIR [--kernels-only]
 
 runs the solver pass alone in the same turns, one process each, from each
 tree's chip_smoke.py (`solvers_pass`): row 10d (csrc/cg.cu) chained 12
@@ -75,7 +76,7 @@ loss and gradient digests. Under "clock": device us and kernels a call of
 `torch.dot`, one cuSPARSE CSR SpMV and the SpMV with two dot products
 (torch.profiler), and the paths' steps/s (not compared).
 
-    python3 chip_ab.py --jacobi1 PARENT_DIR [--kernels-only]
+    python3 chip_ab.py --pass jacobi1 PARENT_DIR [--kernels-only]
 
 runs the whole-solve Jacobi pass alone in the same turns, one process
 each, from each tree's chip_smoke.py (`jacobi1_pass`): row 9
@@ -95,7 +96,39 @@ grad10). The kernel and trajectory lines must be equal; the paths' own
 lines are compared without their launch counts and memory readings (the
 new schedule launches fewer kernels) and reported.
 
-    python3 chip_ab.py --phases PARENT_DIR [--kernels-only]
+    python3 chip_ab.py --pass jacobi2 PARENT_DIR [--kernels-only]
+
+runs the joint / batched Jacobi pass alone in the same turns, one process
+each, from each tree's chip_smoke.py (`jacobi2_pass`): row 3
+(`fused_jacobi2_solve`) on the first step's operators of the 512^2
+turbulence, on phase 2b's cavity planes (20 steps from rest), phase 2c's
+mixing layer (step 20) and one frame of phase 2d's training system; the
+batched kernel (`fused_jacobi2_solve_folded`: row 11a on phase 2d's batch
+of 8, row 11b-jac2 on the first step of the batch-4 512^2 and on the
+batch-2 257 x 1024 training faces; `fused_jacobi1_solve_batched`, row
+11b-jac1, on both components of the batch-2 1024^2 step), each forward and
+transposed from the path's own velocity: one line per system with the
+sha256 of each call's x, exit residuals and sweeps and, under "clock",
+device us a call and the kernels seen (the kernels of both trees' designs
+by name, and every device event), host ms a call and, where the tree has
+`jacobi2.RUN_LENGTH`, the host ms at run lengths 1, 2, 4, 4, 2 and 1
+(each held to the same digest); then (unless --kernels-only) the 512^2
+turbulence forward and grad30, phases 6b-c (the cavity), 7b-c (mixing)
+and 13b-d (batched 512^2 x 4 and 1024^2 x 2) with their trajectory
+digests. The kernel and trajectory lines must be equal; the paths' own
+lines are compared without their launch counts and memory readings.
+
+    python3 chip_ab.py --pass training PARENT_DIR
+
+runs the training paths 8b, 9b and 13e (batch 1 and 8 at 64 x 256, batch
+2 at 256 x 1024) alone in the same turns under PyTorch's deterministic
+algorithms (`torch.use_deterministic_algorithms`, warning on stderr for
+an op that has none; cuDNN's deterministic convolutions; cuBLAS's
+workspace set for them), compared without their launch counts: every
+line must be equal (outside this pass a training line is held only where
+the parent's two runs agree).
+
+    python3 chip_ab.py --pass phases PARENT_DIR [--kernels-only]
 
 runs the phases pass alone in the same turns, one process each, from each
 tree's chip_smoke.py (`phases_pass`): row 10e (the rank-3 residual, PCG
@@ -119,14 +152,11 @@ lines must be equal; the paths' own lines are compared without their
 launch counts and memory readings and reported with their steps/s.
 
     python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART
-                                       | --solvers-part PART | --jacobi1-part PART
-                                       | --phases-part PART]
+                                       | --pass NAME [--kernels-only]]
 
 runs DIR's GEMM pass and phases alone (what each turn above runs); --save
 writes the turbulence grad30 gradient to PATH; --three-d-part main / 512
-runs that part of the 3-D pass instead, --solvers-part kernels / all the
-solver pass, --jacobi1-part kernels / all the whole-solve Jacobi pass,
---phases-part kernels / all the phases pass.
+runs that part of the 3-D pass instead, --pass NAME that pass (`PASSES`).
 
     python3 chip_ab.py --kernel-profile DIR
 
@@ -444,7 +474,7 @@ class Trajectory:
         import torch
 
         vel = getattr(out, "velocity", None)
-        if vel is None:
+        if vel is None or out.pressure.device.type != "cuda":  # (a path's CPU reference steps)
             return
         with torch.no_grad():
             for x in (*vel.components, out.pressure):
@@ -1018,6 +1048,226 @@ def jacobi1_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
     traj.close(f"turbulence {n}^3: spin-up, forward, grad{cs.T3_UNROLL}, phase 12")
 
 
+J2_KERNELS = ("dp_jac", "jm_kernel")  # rows 3 / 11's kernels in either design
+J2_REPS = 10  # profiled calls a clock reading
+# run lengths (`jacobi2.RUN_LENGTH`, `jacobi1.BATCHED_RUN_LENGTH`) whose host
+# ms the pass reads, in this order (each twice, the order reversed the
+# second time)
+J2_RUNS = (1, 2, 4, 4, 2, 1)
+J2_WARPS = (1024, 2048, 4096, 8192)  # `jacobi2.MARCH_WARPS` whose device us the pass reads
+
+
+def training_system(cs, dev, res, nb, dt=None):
+    """Phase 2d's joint system at `res` (the predictor's operators and
+    right-hand sides of `nb` frames of a network-free run): (st_cs, b_c,
+    x_c), every plane (nb, ny, nx)."""
+    import torch
+
+    from diffpiso_tpu_torch.ops.fv import fv_gradient
+    from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
+
+    setup = cs.training_setup(res, dev, *(() if dt is None else (dt,)))
+    vel, p, _, pe = cs.training_frames(setup, cs.training_cfg(), nb)
+    dx, sim = setup.domain.dx, setup.sim
+    beta = dx[0] * dx[1] / setup.dt
+    st = assemble_advection_stencil(vel, dx, setup.domain.velocity_pad_modes(), sim.viscosity,
+                                    beta, sim.dirichlet_mask, sim.active_mask,
+                                    sim.accessible_mask, sim.no_slip_mask, sim.bool_periodic,
+                                    uniform=False)
+    rhs = vel * beta - fv_gradient(p, dx, setup.domain.pressure_pad_modes(),
+                                   sim.accessible_mask)
+    dv = setup.dirichlet_values(pe[:, 0])
+    b_c = tuple(torch.where(dm, -d, r).contiguous() for dm, d, r in zip(
+        sim.dirichlet_mask.components, dv.components, rhs.components))
+    st_cs = [(st.center[i].contiguous(), tuple(a.contiguous() for a in st.lo[i]),
+              tuple(a.contiguous() for a in st.hi[i])) for i in range(2)]
+    return st_cs, b_c, tuple(c.contiguous() for c in vel.components)
+
+
+def step_system(it, vel):
+    """(st_cs, b_c, x_c) of a step's momentum system, x its velocity."""
+    st = it["stencil"]
+    return ([(st.center[i].contiguous(), tuple(a.contiguous() for a in st.lo[i]),
+              tuple(a.contiguous() for a in st.hi[i])) for i in range(2)],
+            tuple(c.contiguous() for c in it["rhs"].components),
+            tuple(c.contiguous() for c in vel.components))
+
+
+def jacobi2_cases(dev, cs):
+    """The systems of the joint / batched Jacobi pass (the module
+    docstring): (label, form, tol, (st_cs, b_c, x_c)); form "joint" (row
+    3), "fold" (rows 11a, 11b-jac2) or "jac1b" (row 11b-jac1, per
+    component)."""
+    import torch
+
+    from diffpiso_tpu_torch import regime
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+
+    n = cs.N
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=cs.VISCOSITY, device=dev)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    zero = domain.centered_grid(0.0, device=dev)
+    it = cs.turbulence_step_fn(domain, sim, 0.4 / n)(v, zero, zero, zero,
+                                                      full_output=True).intermediates
+    yield f"turbulence {n}^2", "joint", cs.ADV_TOL, step_system(it, v)
+    domain, sim, dt = lid_driven_cavity_setup(cs.CAV_N, device=dev)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(20):  # phase 2b's planes
+        o = piso_step(v, p, dt, domain, sim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                      advection_tol=cs.CAV_TOL, pressure_tol=cs.CAV_TOL, full_output=True)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    yield f"cavity {cs.CAV_N}", "joint", cs.CAV_TOL, step_system(o.intermediates, v)
+    setup = cs.mixing_setup(cs.MIX_RES, dev)
+    step = cs.mixing_step_fn(setup)
+    v, p = setup.initial_state()
+    g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+    for k in range(20):  # phase 2c's planes
+        o = step(v, p, g1, g2, tm=cs.bench_time(k, setup.dt))
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    it = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                   dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                       cs.bench_time(20, setup.dt))),
+                   pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=cs.MIX_TOL,
+                   pressure_tol=cs.MIX_TOL, full_output=True).intermediates
+    yield "mixing {}x{}".format(*cs.MIX_RES), "joint", cs.MIX_TOL, step_system(it, v)
+    st_cs, b_c, x_c = training_system(cs, dev, cs.TRAIN_RES, cs.TRAIN_BATCH)
+    one = ([(c[0], tuple(a[0] for a in lo), tuple(a[0] for a in hi)) for c, lo, hi in st_cs],
+           tuple(b[0] for b in b_c), tuple(x[0] for x in x_c))
+    yield "training {}x{}".format(*cs.TRAIN_RES), "joint", cs.TRAIN_TOL, one
+    yield "training {}x{} x {}".format(*cs.TRAIN_RES, cs.TRAIN_BATCH), "fold", cs.TRAIN_TOL, \
+        (st_cs, b_c, x_c)
+    for nn, seeds, form in ((cs.BAT_N, cs.BAT_SEEDS, "fold"),
+                            (cs.BAT_LARGE_N, cs.BAT_LARGE_SEEDS, "jac1b")):
+        _, step, vel, p = cs.batched_turbulence(nn, seeds, dev)
+        z = torch.zeros_like(p)
+        with regime.batched_regime("auto"):
+            it = step(vel, p, z, z, full_output=True).intermediates
+        yield f"batched {nn}^2 x {len(seeds)}", form, cs.ADV_TOL, step_system(it, vel)
+    yield "training faces {}x{} x {}".format(*cs.BAT_TRAIN_RES, cs.BAT_TRAIN_B), "fold", \
+        cs.ADV_TOL, training_system(cs, dev, cs.BAT_TRAIN_RES, cs.BAT_TRAIN_B, cs.BAT_TRAIN_DT)
+
+
+def jacobi2_calls(form, system, tol):
+    """[(component or None, a call of the form's wrapper on the system)]."""
+    from diffpiso_tpu_torch.solvers import jacobi1, jacobi2
+
+    st_cs, b_c, x_c = system
+    if form == "jac1b":
+        return [(c, lambda tr, c=c: jacobi1.fused_jacobi1_solve_batched(
+            st_cs[c], b_c[c], x_c[c], -1.0, tr, tol, 33)) for c in range(2)]
+    fn = jacobi2.fused_jacobi2_solve if form == "joint" else jacobi2.fused_jacobi2_solve_folded
+    return [(None, lambda tr: fn(st_cs, b_c, x_c, -1.0, tr, tol, 33))]
+
+
+def jacobi2_digest(out) -> tuple:
+    """(sha256 of a solve's x bits, exit residual bits and sweeps, the
+    sweeps as a list)."""
+    import hashlib
+
+    import numpy as np
+
+    xs, nt, sw = (out[:-2], out[-2], out[-1])
+    h = hashlib.sha256("".join(bits_sha256(x) for x in xs).encode())
+    h.update(np.asarray(nt, np.float32).tobytes())
+    sw = np.asarray(sw).reshape(-1).astype(np.int64)
+    h.update(sw.tobytes())
+    return h.hexdigest(), sw.tolist()
+
+
+def jacobi2_kernels(dev, cs) -> None:
+    """The kernel part of the joint / batched Jacobi pass with the imported
+    package: one JSON line per system. Where the package has
+    `jacobi2.RUN_LENGTH`, every line also carries, under "clock", the host
+    ms a call at each run length of J2_RUNS, and the kernels' device us a
+    call at each `jacobi2.MARCH_WARPS` of J2_WARPS (and fails the run where
+    either changes a digest)."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import jacobi1, jacobi2
+
+    for label, form, tol, system in jacobi2_cases(dev, cs):
+        calls = []
+        for comp, call in jacobi2_calls(form, system, tol):
+            for tr in (False, True):
+                sha, sw = jacobi2_digest(call(tr))
+                kern = device_us(lambda: call(tr), J2_REPS, J2_KERNELS)
+                every = device_us(lambda: call(tr), J2_REPS, None)
+                clock = dict(kernels_seen=kern["launches_per_call"],
+                             device_us_per_launch=kern["device_us_per_launch"],
+                             device_us_per_call=kern["device_us_per_call"],
+                             events_seen=every["launches_per_call"],
+                             events_us_per_call=every["device_us_per_call"],
+                             ms=host_ms(lambda: call(tr), 50))
+                runs = getattr(jacobi2, "RUN_LENGTH", None)
+                if runs is not None:
+                    clock["run_lengths"] = {}
+                    runs1 = getattr(jacobi1, "BATCHED_RUN_LENGTH", None)
+                    for r in J2_RUNS:
+                        jacobi2.RUN_LENGTH = jacobi1.BATCHED_RUN_LENGTH = r
+                        if jacobi2_digest(call(tr))[0] != sha:
+                            raise RuntimeError(f"{label}: run length {r} changed the digest")
+                        seen = clock["run_lengths"].setdefault(r, dict(ms=[]))
+                        seen["ms"].append(host_ms(lambda: call(tr), 50))
+                        seen["kernels_seen"] = device_us(lambda: call(tr), J2_REPS,
+                                                         J2_KERNELS)["launches_per_call"]
+                    jacobi2.RUN_LENGTH, jacobi1.BATCHED_RUN_LENGTH = runs, runs1
+                    warps = jacobi2.MARCH_WARPS
+                    clock["march_warps"] = {}
+                    for w in J2_WARPS:
+                        jacobi2.MARCH_WARPS = w
+                        jacobi2._march_dims.cache_clear()
+                        if jacobi2_digest(call(tr))[0] != sha:
+                            raise RuntimeError(f"{label}: {w} warps changed the digest")
+                        clock["march_warps"][w] = device_us(lambda: call(tr), J2_REPS,
+                                                            J2_KERNELS)["device_us_per_call"]
+                    jacobi2.MARCH_WARPS = warps
+                    jacobi2._march_dims.cache_clear()
+                calls.append(dict(component=comp, transpose=tr, sweeps=sw, sha256=sha,
+                                  clock=clock))
+        shapes = [list(b.shape) for b in system[1]]
+        print(json.dumps(dict(jacobi2=label, form=form, shapes=shapes, calls=calls)),
+              flush=True)
+        del system
+        torch.cuda.empty_cache()
+
+
+def jacobi2_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The joint / batched Jacobi pass (the module docstring) with the
+    imported package and its tree's chip_smoke.py `cs`."""
+    import torch
+
+    jacobi2_kernels(dev, cs)
+    if kernels_only:
+        return
+    turbulence_paths(dev, wrappers)
+    for name, factory, run in (
+            ("cavity, phases 6b-c", "cavity_step_fn", lambda: cs.cavity_path(dev, wrappers)),
+            ("mixing, phases 7b-c", "mixing_step_fn", lambda: cs.mixing_path(dev, wrappers)),
+            ("batched 512^2 x 4 and 1024^2 x 2, phases 13b-d", "turbulence_step_fn",
+             lambda: cs.batched_paths(dev, wrappers))):
+        traj = Trajectory(cs, factory)
+        run()
+        traj.close(name)
+        torch.cuda.empty_cache()
+
+
+def training_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The training pass (the module docstring): phases 8b, 9b and 13e with
+    its tree's chip_smoke.py `cs` under PyTorch's deterministic algorithms
+    (`paths_in` sets cuBLAS's workspace for them before any GEMM; an op
+    that has none warns on stderr). `kernels_only` leaves nothing out."""
+    import torch
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cs.training_b1_path(dev, wrappers)
+    cs.training_b8_path(dev, wrappers)
+    cs.batched_training_path(dev, wrappers)
+
+
 PH_CALLS = 12  # iterations of each row 10e loop in the phases pass
 PH_CG_RESET = 5  # the CG loops restart every 5 iterations (the sum of p formed anew)
 # the wrappers of row 10e: (module, name, index of `deflate` among the
@@ -1316,13 +1566,16 @@ def phases_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
     traj.close("turbulence {}x{}: forward, grad30, phase 16".format(*cs.SWEEP_RES))
 
 
-def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None,
-             jacobi1=None, phases=None, kernel_prof=False) -> int:
+def paths_in(tree: str, save=None, gemm_only=False, three_d=None, pass_name=None,
+             kernels_only=False, kernel_prof=False) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
     then (unless gemm_only) DIR's own phases 6b-c, 7b-c, 8b, 10b-c and 11
-    with their trajectories, and `turbulence_paths`; their JSON lines go
+    with their trajectories, and `turbulence_paths`; or the 3-D pass's
+    part `three_d`, or the pass PASSES[pass_name]. Their JSON lines go
     to stdout. The launch counters reset are this tree's wrapper table
     (chip_smoke.KERNEL_WRAPPERS) less the wrappers DIR does not have."""
+    if pass_name == "training":  # read when cuBLAS makes its first handle
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
 
     if not torch.cuda.is_available():
@@ -1356,14 +1609,8 @@ def paths_in(tree: str, save=None, gemm_only=False, three_d=None, solvers=None,
             wrappers[name] = getattr(importlib.import_module(f"diffpiso_tpu_torch.{mod}"), attr)
         except (ImportError, AttributeError):  # a wrapper the older tree does not have
             continue
-    if solvers:
-        solvers_pass(dev, cs, wrappers, solvers == "kernels")
-        return 0
-    if jacobi1:
-        jacobi1_pass(dev, cs, wrappers, jacobi1 == "kernels")
-        return 0
-    if phases:
-        phases_pass(dev, cs, wrappers, phases == "kernels")
+    if pass_name:
+        PASSES[pass_name][0](dev, cs, wrappers, kernels_only)
         return 0
     if kernel_prof:
         kernel_profile(dev, cs)
@@ -1402,19 +1649,37 @@ def decisions(line, drop=()):
 
 # what the whole-solve Jacobi pass leaves out of the paths' lines: the
 # launch counts (row 15d's schedule changed), the counters the new schedule
-# adds, memory readings
+# adds (and rows 3 and 11's), memory readings
 J1_DROP = ("launches", "launches_per_eval", "jacobi_idle", "row9_kernel_launches",
-           "memory_allocated_before_bytes")
+           "jacobi_schedule", "row3_kernel_launches", "memory_allocated_before_bytes")
 # and the phases pass: the launch counts (rows 10e and 8b launch fewer
 # kernels), the row 10e kernel counts the change adds, memory readings
 PH_DROP = ("launches", "launches_per_eval", "row10e_kernel_launches",
            "memory_allocated_before_bytes")
+# and the joint / batched Jacobi and training passes: the launch counts
+# (rows 3, 11a and 11b launch fewer kernels), the schedule counter and row 3
+# kernel counts the change adds, memory readings
+J2_DROP = ("launches", "launches_per_eval", "jacobi_schedule", "row3_kernel_launches",
+           "memory_allocated_before_bytes")
+# the passes `--pass NAME` compares alone: NAME -> (the pass, run with the
+# imported package as fn(dev, cs, wrappers, kernels_only); the keys its
+# compared lines leave out; whether every line is held equal, the training
+# lines too: they are under the training pass's deterministic algorithms)
+PASSES = {
+    "solvers": (solvers_pass, (), False),
+    "jacobi1": (jacobi1_pass, J1_DROP, False),
+    "jacobi2": (jacobi2_pass, J2_DROP, False),
+    "training": (training_pass, J2_DROP, True),
+    "phases": (phases_pass, PH_DROP, False),
+}
 
 
-def must_equal(name: str) -> bool:
-    """Every line but the training path's (its losses and counts vary between
-    runs of one tree)."""
-    return not name.startswith("closure training")
+def must_equal(name: str, pass_name=None) -> bool:
+    """Every line but the training path's outside the training pass (its
+    losses and counts have varied between runs of one tree there: those
+    lines are held where the parent's two runs agree)."""
+    return (pass_name is not None and PASSES[pass_name][2]) or \
+        not name.startswith("closure training")
 
 
 def line_name(row: dict) -> str:
@@ -1430,11 +1695,12 @@ def line_name(row: dict) -> str:
         return f"tier3d {row['tier3d']}"
     if "jacobi1" in row:
         return f"jacobi1 {row['jacobi1']}"
+    if "jacobi2" in row:
+        return f"jacobi2 {row['jacobi2']}"
     return str(next(iter(row)))
 
 
-def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None,
-       phases=None) -> int:
+def ab(parent: str, gemm_only=False, three_d=False, pass_name=None, kernels_only=False) -> int:
     """Run `--paths-in` on the parent tree and on this tree in turns
     (parent, change, change, parent) and compare the lines."""
     import torch
@@ -1447,10 +1713,8 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None,
         t0 = time.perf_counter()
         lines = []
         for extra in ((["--three-d-part", "main"], ["--three-d-part", "512"]) if three_d else
-                      (["--solvers-part", solvers],) if solvers else
-                      (["--jacobi1-part", jacobi1],) if jacobi1 else
-                      (["--phases-part", phases],) if phases else
-                      (["--gemm-only"] if gemm_only else [],)):
+                      (["--pass", pass_name] + (["--kernels-only"] if kernels_only else []),)
+                      if pass_name else (["--gemm-only"] if gemm_only else [],)):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths-in", tree,
                                   "--save", os.path.join(saves, f"run{len(runs)}.pt")] + extra,
                                  capture_output=True, text=True, timeout=1800)
@@ -1462,7 +1726,7 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None,
         if res.returncode:
             print(res.stderr[-4000:], file=sys.stderr, flush=True)
             return 1
-        drop = J1_DROP if jacobi1 else PH_DROP if phases else ()
+        drop = PASSES[pass_name][1] if pass_name else ()
         runs.append((label, [decisions(x, drop) for x in lines]))
     n = len(runs[0][1])
     if any(len(r[1]) != n for r in runs):
@@ -1473,13 +1737,16 @@ def ab(parent: str, gemm_only=False, three_d=False, solvers=None, jacobi1=None,
         rows = [r[1][i] for r in runs]
         name = line_name(rows[0])
         across = rows[0] == rows[1] and rows[3] == rows[2]
+        held = must_equal(name, pass_name) or rows[0] == rows[3]
+        differ_in = sorted({k for a in rows[1:] for k in set(a) | set(rows[0])
+                            if a.get(k) != rows[0].get(k)})
         print(json.dumps(dict(line=name, parent_runs_equal=rows[0] == rows[3],
                               change_runs_equal=rows[1] == rows[2],
-                              parent_equals_change=across, held_equal=must_equal(name))),
-              flush=True)
-        if not across and must_equal(name):
+                              parent_equals_change=across, held_equal=held,
+                              keys_that_differ=differ_in)), flush=True)
+        if not across and held:
             differ = True
-    if gemm_only or three_d or solvers or jacobi1 or phases:
+    if gemm_only or three_d or pass_name:
         return 1 if differ else 0
     grads = [torch.load(os.path.join(saves, f"run{i}.pt")) for i in range(4)]
 
@@ -1503,23 +1770,12 @@ if __name__ == "__main__":
     ap.add_argument("--three-d", action="store_true", help="compare the 3-D pass alone")
     ap.add_argument("--three-d-part", choices=("main", "512"),
                     help="with --paths-in: that part of the 3-D pass")
-    ap.add_argument("--solvers", action="store_true",
-                    help="compare the solver pass alone (rows 10d and 15g and their paths)")
-    ap.add_argument("--jacobi1", action="store_true",
-                    help="compare the whole-solve Jacobi pass alone (rows 9 and 15d and "
-                         "their paths)")
-    ap.add_argument("--phases", action="store_true",
-                    help="compare the phases pass alone (rows 10e and 8b and their paths)")
+    ap.add_argument("--pass", dest="pass_name", choices=sorted(PASSES),
+                    help="compare that pass alone (with --paths-in: run it)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="with --solvers / --jacobi1 / --phases: the kernels without the paths")
-    ap.add_argument("--phases-part", choices=("kernels", "all"),
-                    help="with --paths-in: the phases pass")
+                    help="with --pass: the kernels without the paths")
     ap.add_argument("--kernel-profile", metavar="DIR",
                     help="device us a kernel of DIR's rows 10e and 8b calls")
-    ap.add_argument("--jacobi1-part", choices=("kernels", "all"),
-                    help="with --paths-in: the whole-solve Jacobi pass")
-    ap.add_argument("--solvers-part", choices=("kernels", "all"),
-                    help="with --paths-in: the solver pass")
     ap.add_argument("--save", metavar="PATH", help="with --paths-in: save the turbulence gradient")
     ap.add_argument("--gemm-configs", action="store_true",
                     help="time every tile configuration of this tree's GEMM")
@@ -1535,9 +1791,7 @@ if __name__ == "__main__":
         sys.exit(paths_in(args.kernel_profile, kernel_prof=True))
     if args.paths_in:
         sys.exit(paths_in(args.paths_in, args.save, args.gemm_only, args.three_d_part,
-                          args.solvers_part, args.jacobi1_part, args.phases_part))
+                          args.pass_name, args.kernels_only))
     if not args.parent:
         ap.error("name a parent tree, or --paths-in DIR, or --gemm-configs")
-    part = "kernels" if args.kernels_only else "all"
-    sys.exit(ab(args.parent, args.gemm, args.three_d, part if args.solvers else None,
-                part if args.jacobi1 else None, part if args.phases else None))
+    sys.exit(ab(args.parent, args.gemm, args.three_d, args.pass_name, args.kernels_only))

@@ -7,8 +7,10 @@ Phases, each fatal on failure:
   1. print the card (name, power limit) and build the CUDA kernels from
      diffpiso_tpu_torch/csrc (timed);
   2. every kernel against its plain PyTorch version on the card, at 512^2,
-     on the operator planes of a real step (jac2 forward and transposed;
-     the solves must also agree on their sweep / iteration counts; the FV
+     on the operator planes of a real step (jac2 forward and transposed,
+     bit-equal to its plain version at the schedule's edges with the
+     kernel launches `jacobi2.solve_launches` derives; the solves must
+     also agree on their sweep / iteration counts; the FV
      pair forward and VJP, the corrector bridge / tail forward), plus each
      kernel's time, its plain version's, a library yardstick where one
      PyTorch call computes the same thing, its bound, and its device time
@@ -109,9 +111,11 @@ Phases, each fatal on failure:
      of the PCG phase kernels (they take pcg2);
   2d. the batch-folded jac2 kernel at the batch-8 training shapes (64 x
      256, 8 frames of a network-free run, the predictor's right-hand
-     sides), forward and transposed, shared and per-sample tolerances:
-     bit-equal x and exit residuals and equal per-sample sweeps against
-     its plain version and against 8 single-sample jac2 kernels;
+     sides), forward and transposed, shared and per-sample tolerances and
+     the schedule's edges: bit-equal x and exit residuals and equal
+     per-sample sweeps against its plain version and against 8
+     single-sample jac2 kernels, and the kernel launches the schedule
+     derives;
   2e. the batch-1 training path's single-sample kernels at its own shapes
      (pressure 64 x 256, faces 65 x 256 and 64 x 257), on a step of the
      training setup 20 steps into its run: the checks of 2c plus the
@@ -132,8 +136,8 @@ Phases, each fatal on failure:
      within rtol 1e-4, masked-mean weight gradient rel l2 <= 1e-3); (b) 8
      copies of the sample as bench.py stacks them, 1 untimed and 5 timed
      train steps: fold kernel launches equal to what the solver's counters
-     derive (2 per solve + the slowest sample's sweeps), every
-     single-sample kernel 0;
+     derive (per solve `jacobi2.solve_launches` of the slowest sample's
+     sweeps), every single-sample kernel 0;
   2f. the large tier's two kernels (bench.py's turb_1024 and dns_512x2048
      rows, where the JAX package's size tiers switch: solvers/tiers.py) at
      1024^2 on the operators of the turbulence run's first step: jac1
@@ -480,8 +484,8 @@ def rel_err(a, b) -> float:
 
 # fragments of the names of this repository's kernels (csrc/*.cu)
 OWN_KERNELS = ("advassembly", "corrector", "fv2", "jac2", "laplace_assembly", "dp_sum_partials",
-               "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_jac_", "dp_sgemm", "pcgmm_",
-               "fv3_", "matvec3_kernel", "j1_", "j13_", "dp_jacb", "zb_", "pl3_", "cg_", "jsw_",
+               "matvec_kernel", "pcg2", "bicg_", "pcgp_", "dp_sgemm", "pcgmm_",
+               "fv3_", "matvec3_kernel", "j1_", "j13_", "jm_kernel", "zb_", "pl3_", "cg_", "jsw_",
                "sres_", "advm_", "corrbwd_", "p3_", "g3_", "shm_", "shp_", "shw_")
 
 
@@ -825,19 +829,10 @@ def cavity_kernels(dev, kernels: list) -> dict:
     # jac2 on the step's momentum system, both forms
     b_c = tuple(it["rhs"].components)
     x_c = tuple(o.velocity.components)
-    sweeps, j_err = {}, 0.0
-    for tr in (False, True):
-        k = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, tr, CAV_TOL, 33)
-        q = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, CAV_TOL, 33)
-        j_err = max(j_err, maxerr([(k[0], q[0]), (k[1], q[1])]))
-        rel = max(rel_err(k[0], q[0]), rel_err(k[1], q[1]))
-        print(f"cavity jac2 transpose={tr}: sweeps kernel {k[3]} plain {q[3]}, residual kernel "
-              f"{k[2]:.3e} plain {q[2]:.3e}, x rel err {rel:.3e}", flush=True)
-        if k[3] != q[3]:
-            fail(f"cavity jac2 transpose={tr}: sweep counts differ ({k[3]} vs {q[3]})")
-        if not rel <= 1e-6:
-            fail(f"cavity jac2 transpose={tr}: x rel err {rel:.3e} > 1e-6")
-        sweeps[tr] = k[3]
+    sweeps = jac2_edges("cavity", st_cs, b_c, x_c, CAV_TOL)
+    k = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, CAV_TOL, 33)
+    q = jacobi2_plain(st_cs, b_c, x_c, -1.0, False, CAV_TOL, 33)
+    j_err = maxerr([(k[0], q[0]), (k[1], q[1])])
     # per component: 7 planes in and x out; per face 2 residual matvecs
     # (init, exit) of 11 flops and 13 per sweep, plus the inverse diagonal
     b_jac, by_jac = bound(8 * faces, n_faces * (2 + 22 + 13 * sweeps[False]))
@@ -1021,12 +1016,14 @@ def cavity_path(dev, wrappers: dict) -> tuple:
     # -- 6b: the forward path
     reset()
     fb0 = krylov.bicgstab.fallbacks
+    j0 = jac1_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warns, iters = advance(CAV_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     fwd = read()
+    j1 = jac1_snapshot()
     fallbacks = krylov.bicgstab.fallbacks - fb0
     STATES["cavity"] = (v, p, g1, g2)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
@@ -1039,6 +1036,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         steps=CAV_STEPS, steps_per_sec=CAV_STEPS / elapsed, pressure_iters_per_step=iters,
         warn_fraction=warns / CAV_STEPS, spinup_warned_steps=spin_warns,
         bicgstab_fallbacks=fallbacks, max_abs_div_active=div, launches=fwd,
+        row3_kernel_launches=j1[1] - j0[1],
     )), flush=True)
     if not finite:
         fail("cavity: non-finite state after the forward path")
@@ -1056,6 +1054,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         if fwd[k] != per_step.get(k, 0) * CAV_STEPS:
             fail(f"cavity forward: {k} launched {fwd[k]} times, expected "
                  f"{per_step.get(k, 0) * CAV_STEPS}")
+    jac1_schedule_check("cavity forward", j0, j1)
 
     # -- 6c: grad30 from the developed state. Per evaluation, U steps,
     # "outputs" remat (tests/test_torch_cavity.py derives the same counts on
@@ -1083,12 +1082,14 @@ def cavity_path(dev, wrappers: dict) -> tuple:
         fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
         ap0 = dict(krylov.bicgstab.applies)
         rs0 = dict(krylov.bicgstab.residuals)
+        j0 = jac1_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step, v, p, forcing, U, remat="outputs")
         torch.cuda.synchronize()
         elapsed_g = time.perf_counter() - t0
         counts = read()
+        row3 = jac1_schedule_check("cavity grad30", j0, jac1_snapshot())
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -1113,6 +1114,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
                 for k, a in enumerate(a for a in res.adjoints if a.system == "momentum")
                 if a.iterations > 0],
             launches=counts, matvec_transposed=wrappers["stencil_matvec"].launches_transposed,
+            row3_kernel_launches=row3,
         ))
         print(json.dumps(dict(cavity_grad_eval=rep, **evals[-1])), flush=True)
         if res.warns:
@@ -1133,7 +1135,7 @@ def cavity_path(dev, wrappers: dict) -> tuple:
             fail(f"cavity grad30: {e['matvec_transposed']} transposed matvecs, "
                  f"expected {2 * U + 2 * applies['True']}")
         same = ("launches", "bicgstab_fallbacks", "bicgstab_iterations", "bicgstab_applies",
-                "bicgstab_residuals")
+                "bicgstab_residuals", "row3_kernel_launches")
         if any(e[k] != evals[0][k] for k in same):
             fail("cavity grad30: an evaluation from the same state counted differently")
     timed = [e for e in evals if e["timed"]]
@@ -1465,17 +1467,10 @@ def mixing_kernels(dev, kernels, setup, label: str) -> dict:
     st_cs = [(st.center[i], st.lo[i], st.hi[i]) for i in range(2)]
     b_c = tuple(it["rhs"].components)
     x_c = tuple(v.components)
-    sweeps, j_err = {}, 0.0
-    for tr in (False, True):
-        kj = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, tr, MIX_TOL, 33)
-        pj = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, MIX_TOL, 33)
-        j_err = max(j_err, maxerr([(kj[0], pj[0]), (kj[1], pj[1])]))
-        rel = max(rel_err(kj[0], pj[0]), rel_err(kj[1], pj[1]))
-        print(f"{label} jac2 transpose={tr}: sweeps kernel {kj[3]} plain {pj[3]}, residual kernel "
-              f"{kj[2]:.3e} plain {pj[2]:.3e}, x rel err {rel:.3e}", flush=True)
-        if kj[3] != pj[3] or not rel <= 1e-6:
-            fail(f"{label} jac2 transpose={tr}: sweeps differ or x rel err {rel:.3e} > 1e-6")
-        sweeps[tr] = kj[3]
+    sweeps = jac2_edges(label, st_cs, b_c, x_c, MIX_TOL)
+    kj = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, MIX_TOL, 33)
+    pj = jacobi2_plain(st_cs, b_c, x_c, -1.0, False, MIX_TOL, 33)
+    j_err = maxerr([(kj[0], pj[0]), (kj[1], pj[1])])
     faces = sum(c.numel() for c in b_c)
     b_jac, by_jac = bound(8 * faces * 4, faces * (2 + 22 + 13 * sweeps[False]))
     out["jacobi2_solve"] = dict(
@@ -1578,27 +1573,187 @@ def mixing_small_check(dev) -> None:
 
 
 def jac1_snapshot() -> tuple:
-    """Row 9's kernel launches and the BiCGSTAB loop's whole-solve Jacobi
-    counters (sweeps, component solves that ran none, component solves)."""
+    """The whole-solve Jacobi kernel launches of rows 9 and 3 (one of them
+    runs on a path: jac2, or past its budget jac1 per component) and the
+    BiCGSTAB loop's whole-solve Jacobi counters (sweeps, component solves
+    that ran none, solves, the jac2 solves' launches their schedule
+    derives)."""
     from diffpiso_tpu_torch.solvers import krylov
     from diffpiso_tpu_torch.solvers.jacobi1 import fused_jacobi1_solve
+    from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve
 
     b = krylov.bicgstab
-    return fused_jacobi1_solve.kernel_launches, b.jacobi_sweeps, b.jacobi_idle, b.jacobi_solves
+    return (fused_jacobi1_solve.kernel_launches, fused_jacobi2_solve.kernel_launches,
+            b.jacobi_sweeps, b.jacobi_idle, b.jacobi_solves, b.jacobi2_schedule)
 
 
 def jac1_schedule_check(what: str, s0: tuple, s1: tuple) -> int:
-    """Row 9's kernel launches between two `jac1_snapshot`s against the
-    schedule the loops' counters derive (`jacobi1.schedule_launches`): fails
-    if they differ or none ran. Returns the launches."""
+    """Rows 9 and 3's kernel launches between two `jac1_snapshot`s against
+    the schedules the loops' counters derive: row 9 one launch a sweep and
+    one for a component solve that stops at entry
+    (`jacobi1.schedule_launches`), row 3 `jacobi2.solve_launches` of each
+    solve's sweeps, the loop's sum. Fails if they differ or none ran.
+    Returns the launches."""
     from diffpiso_tpu_torch.solvers.jacobi1 import schedule_launches
 
-    k, sweeps, idle, solves = (b - a for a, b in zip(s0, s1))
-    want = schedule_launches(sweeps, idle)
-    if k != want or not k:
-        fail(f"{what}: row 9 launched {k} kernels, its schedule derives {want} ({solves} "
-             f"component solves, {sweeps} sweeps, {idle} of them with none)")
-    return k
+    k1, k2, sweeps, idle, solves, want2 = (b - a for a, b in zip(s0, s1))
+    want1 = 0 if k2 or want2 else schedule_launches(sweeps, idle)
+    if k1 != want1 or k2 != want2 or not k1 + k2:
+        fail(f"{what}: rows 9 / 3 launched {k1} / {k2} kernels, their schedules derive "
+             f"{want1} / {want2} ({solves} solves, {sweeps} sweeps, {idle} component solves "
+             "with none)")
+    return k1 + k2
+
+
+def same_norm(a, b) -> bool:
+    """Exit residuals (scalars or per sample) with equal bits, or both NaN."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return bool(np.all((a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))))
+
+
+JAC_EDGE_SWEEPS = {"tol met at entry": 0, "one sweep": 1, "max_sweeps 0": 0, "max_sweeps 1": 1,
+                   "max_sweeps reached": 2, "NaN in b": 0}
+
+
+def jac2_edges(label: str, st_cs, b_c, x_c, tol) -> dict:
+    """Row 3 on one system, forward and transposed, at `tol` and at the
+    schedule's edges (tol met at entry, one sweep, max_sweeps 0, 1 and 2
+    at tol 0, a NaN in b): x, exit residual and sweeps bit-equal to
+    `jacobi2_plain`, each call one whole solve of the kernel launches
+    `jacobi2.solve_launches` derives. Fails otherwise. Returns {transpose:
+    the sweeps at tol}."""
+    from diffpiso_tpu_torch.solvers.jacobi2 import (
+        RUN_LENGTH, fused_jacobi2_solve, jacobi2_plain, solve_launches)
+
+    fn = fused_jacobi2_solve
+    out = {}
+    for tr in (False, True):
+        n0 = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, 0.0, 0)[2]
+        n1 = jacobi2_plain(st_cs, b_c, x_c, -1.0, tr, 0.0, 1)[2]
+        bn = tuple(b.clone() for b in b_c)
+        bn[-1].view(-1)[bn[-1].numel() // 3] = float("nan")
+        cases = {"tol": (b_c, tol, 33), "tol met at entry": (b_c, 2.0 * n0, 33),
+                 "one sweep": (b_c, (n0 * n1) ** 0.5, 33), "max_sweeps 0": (b_c, tol, 0),
+                 "max_sweeps 1": (b_c, tol, 1), "max_sweeps reached": (b_c, 0.0, 2),
+                 "NaN in b": (bn, tol, 33)}
+        seen = {}
+        for case, (b, tl, ms) in cases.items():
+            k0, c0 = fn.kernel_launches, fn.launches
+            k = fn(st_cs, b, x_c, -1.0, tr, tl, ms)
+            launched = fn.kernel_launches - k0
+            q = jacobi2_plain(st_cs, b, x_c, -1.0, tr, tl, ms)
+            same = (same_bits(k[0], q[0]) and same_bits(k[1], q[1]) and same_norm(k[2], q[2])
+                    and k[3] == q[3])
+            seen[case] = (k[3], launched)
+            # (one sweep stops at sqrt(n0 n1) only where the sweep lowers the residual)
+            want = k[3] if case == "one sweep" and not n1 < n0 else JAC_EDGE_SWEEPS.get(case, k[3])
+            if not (same and k[3] == want and fn.launches == c0 + 1
+                    and launched == solve_launches(k[3], ms, RUN_LENGTH)):
+                fail(f"{label} jac2 transpose={tr} ({case}): bit-equal to plain {same}, sweeps "
+                     f"{k[3]} (plain {q[3]}), {launched} kernel launches (the schedule: "
+                     f"{solve_launches(k[3], ms, RUN_LENGTH)})")
+        print(f"{label} jac2 transpose={tr}: bit-equal to plain at every edge; (sweeps, kernel "
+              f"launches) {seen}", flush=True)
+        out[tr] = seen["tol"][0]
+    return out
+
+
+def batch_edges(label: str, solve, plain, single, b_c, tol, run: int) -> None:
+    """A batched whole solve (rows 11a, 11b) on B >= 2 samples at the
+    schedule's edges: a NaN in the last sample's b, the last sample
+    converged at entry (with max_sweeps 33 and 1), max_sweeps 0, 1 and 2
+    at tol 0. `solve` and `plain` map (b, tol, max_sweeps) to ([x per
+    component], per-sample exit residuals, per-sample sweeps), `single`
+    (sample, b, tol, max_sweeps) to the single-sample kernel's (x, exit
+    residual, sweeps); `solve` returns its kernel launches as a fourth
+    item. Every output bit-equal to plain and to the single-sample kernel,
+    the launches `jacobi2.solve_launches` derives at the wrapper's run
+    length `run`. Fails otherwise."""
+    import numpy as np
+
+    from diffpiso_tpu_torch.solvers.jacobi2 import solve_launches
+
+    n0 = np.asarray(plain(b_c, 0.0, 0)[1], np.float32)
+    nb, last = len(n0), len(n0) - 1
+    bn = tuple(b.clone() for b in b_c)
+    bn[0][last].view(-1)[bn[0][last].numel() // 2] = float("nan")
+    conv = np.full(nb, tol, np.float32)
+    conv[last] = 2.0 * n0[last]
+    cases = {"NaN in one sample": (bn, tol, 33), "one sample starts converged": (b_c, conv, 33),
+             "one starts converged, max_sweeps 1": (b_c, conv, 1),
+             "max_sweeps 0": (b_c, tol, 0), "max_sweeps 1": (b_c, tol, 1),
+             "max_sweeps reached": (b_c, 0.0, 2)}
+    seen = {}
+    for case, (b, tl, ms) in cases.items():
+        kx, kn, ks, launched = solve(b, tl, ms)
+        px, pn, ps = plain(b, tl, ms)
+        same = (all(same_bits(k, q) for k, q in zip(kx, px)) and same_norm(kn, pn)
+                and np.array_equal(ks, ps))
+        tols = np.broadcast_to(np.asarray(tl, np.float32), (nb,))
+        for s in range(nb):
+            zx, zn, zs = single(s, b, float(tols[s]), ms)
+            same &= (all(same_bits(k[s], z) for k, z in zip(kx, zx)) and same_norm(kn[s], zn)
+                     and int(ks[s]) == zs)
+        want = {"NaN in one sample": ks[last] == 0 and ks[0] > 0,
+                "one sample starts converged": ks[last] == 0 and ks[0] > 0,
+                "one starts converged, max_sweeps 1": ks[last] == 0 and ks[0] == 1
+                }.get(case, True)
+        seen[case] = (ks.tolist(), launched)
+        if not (same and want and launched == solve_launches(int(ks.max()), ms, run)):
+            fail(f"{label} ({case}): bit-equal to plain and the single-sample kernel {same}, "
+                 f"sweeps {ks.tolist()}, {launched} kernel launches (the schedule: "
+                 f"{solve_launches(int(ks.max()), ms, run)})")
+    print(f"{label}: bit-equal to plain and to the single-sample kernels at every edge; "
+          f"(sweeps, kernel launches) {seen}", flush=True)
+
+
+def fold_edge_calls(st_cs, x_c, transpose) -> tuple:
+    """`batch_edges`' (solve, plain, single) for the joint solve on the
+    samples of `st_cs` (rows 11a, 11b-jac2)."""
+    from diffpiso_tpu_torch.solvers.jacobi2 import (
+        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain)
+
+    def solve(b, tl, ms):
+        l0 = fused_jacobi2_solve_folded.launches
+        x0, x1, nt, sw = fused_jacobi2_solve_folded(st_cs, b, x_c, -1.0, transpose, tl, ms)
+        return [x0, x1], nt, sw, fused_jacobi2_solve_folded.launches - l0
+
+    def plain(b, tl, ms):
+        x0, x1, nt, sw = jacobi2_fold_plain(st_cs, b, x_c, -1.0, transpose, tl, ms)
+        return [x0, x1], nt, sw
+
+    def single(s, b, tl, ms):
+        one = [(c[s], tuple(a[s] for a in lo), tuple(a[s] for a in hi)) for c, lo, hi in st_cs]
+        z0, z1, zn, zs = fused_jacobi2_solve(one, tuple(v[s] for v in b),
+                                             tuple(x[s] for x in x_c), -1.0, transpose, tl, ms)
+        return [z0, z1], zn, zs
+
+    return solve, plain, single
+
+
+def jac1b_edge_calls(st_c, x, transpose) -> tuple:
+    """`batch_edges`' (solve, plain, single) for the batched per-component
+    solve on the samples of `st_c` (row 11b-jac1); b is a 1-tuple."""
+    from diffpiso_tpu_torch.solvers.jacobi1 import (
+        fused_jacobi1_solve, fused_jacobi1_solve_batched, jacobi1_batched_plain)
+
+    def solve(b, tl, ms):
+        l0 = fused_jacobi1_solve_batched.launches
+        kx, nt, sw = fused_jacobi1_solve_batched(st_c, b[0], x, -1.0, transpose, tl, ms)
+        return [kx], nt, sw, fused_jacobi1_solve_batched.launches - l0
+
+    def plain(b, tl, ms):
+        px, nt, sw = jacobi1_batched_plain(st_c, b[0], x, -1.0, transpose, tl, ms)
+        return [px], nt, sw
+
+    def single(s, b, tl, ms):
+        one = (st_c[0][s], tuple(a[s] for a in st_c[1]), tuple(a[s] for a in st_c[2]))
+        zx, zn, zs = fused_jacobi1_solve(one, b[0][s], x[s], -1.0, transpose, tl, ms)
+        return [zx], zn, zs
+
+    return solve, plain, single
 
 
 def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
@@ -1683,7 +1838,8 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
         steps=MIX_STEPS, steps_per_sec=MIX_STEPS / elapsed, pressure_iters_per_step=iters,
         warn_fraction=warns / MIX_STEPS, spinup_warned_steps=spin_warns,
         max_abs_div_active=div, loop_counters=d, launches=fwd,
-        **({"row9_kernel_launches": j1[0] - j0[0]} if jac == "jacobi1_solve" else {}),
+        **({"row9_kernel_launches": j1[0] - j0[0]} if jac == "jacobi1_solve" else
+           {"row3_kernel_launches": j1[1] - j0[1]}),
     )), flush=True)
     if not finite:
         fail(f"{name}: non-finite state after the forward path")
@@ -1703,8 +1859,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
             fail(f"{name} forward: {k} launched {fwd[k]} times, expected {want.get(k, 0)}")
     if fwd_T != 2 * d["applies_T"]:
         fail(f"{name} forward: {fwd_T} transposed matvecs, expected {2 * d['applies_T']}")
-    if jac == "jacobi1_solve":
-        jac1_schedule_check(f"{name} forward", j0, j1)
+    jac1_schedule_check(f"{name} forward", j0, j1)
 
     # -- 7c: grad30 from the developed state, the Dirichlet values frozen at
     # the last forward call's time (bench.py). Per evaluation, U steps,
@@ -1758,8 +1913,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
             if counts[k] != want.get(k, 0):
                 fail(f"{name} grad30: {k} launched {counts[k]} times, expected "
                      f"{want.get(k, 0)}")
-        if jac == "jacobi1_solve":
-            jac1_schedule_check(f"{name} grad30", j0, jac1_snapshot())
+        jac1_schedule_check(f"{name} grad30", j0, jac1_snapshot())
         e = evals[-1]
         if e["matvec_transposed"] != 2 * U + 2 * d["applies_T"]:
             fail(f"{name} grad30: {e['matvec_transposed']} transposed matvecs, expected "
@@ -1885,16 +2039,19 @@ def training_kernels(dev, kernels: list) -> dict:
     workload's 64 x 256 shapes (faces 65 x 256 and 64 x 257), on the
     operators of 8 distinct states (frames of a network-free run) and the
     predictor's right-hand sides, forward and transposed, with a shared and
-    a per-sample tolerance: against its plain version and against 8 calls
-    of the single-sample jac2 kernel, bit-equal x and exit residuals and
-    equal per-sample sweeps. Appends the kernel's entry."""
+    a per-sample tolerance and at the schedule's edges (`batch_edges`):
+    against its plain version and against 8 calls of the single-sample jac2
+    kernel, bit-equal x and exit residuals, equal per-sample sweeps, the
+    kernel launches `jacobi2.solve_launches` derives. Appends the kernel's
+    entry."""
     import numpy as np
     import torch
 
     from diffpiso_tpu_torch.ops.fv import fv_gradient
     from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
     from diffpiso_tpu_torch.solvers.jacobi2 import (
-        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain)
+        RUN_LENGTH, fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain,
+        solve_launches)
 
     setup = training_setup(TRAIN_RES, dev)
     cfg = training_cfg()
@@ -1918,11 +2075,14 @@ def training_kernels(dev, kernels: list) -> dict:
     err, rows = 0.0, []
     for transpose in (False, True):
         for tol in (TRAIN_TOL, per_tol):
+            l0 = fused_jacobi2_solve_folded.launches
             kx0, kx1, kn, ks = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose,
                                                           tol, 33)
+            launched = fused_jacobi2_solve_folded.launches - l0
             px0, px1, pn, ps = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
-            same = (torch.equal(kx0, px0) and torch.equal(kx1, px1)
-                    and np.array_equal(kn, pn) and np.array_equal(ks, ps))
+            same = (same_bits(kx0, px0) and same_bits(kx1, px1)
+                    and same_norm(kn, pn) and np.array_equal(ks, ps)
+                    and launched == solve_launches(int(ks.max()), 33, RUN_LENGTH))
             tols = np.broadcast_to(np.asarray(tol, np.float32), (TRAIN_BATCH,))
             single = True
             for s in range(TRAIN_BATCH):
@@ -1931,18 +2091,21 @@ def training_kernels(dev, kernels: list) -> dict:
                 z0, z1, zn, zs = fused_jacobi2_solve(one, tuple(b[s] for b in b_c),
                                                      tuple(x[s] for x in x_c), -1.0, transpose,
                                                      float(tols[s]), 33)
-                single &= (torch.equal(kx0[s], z0) and torch.equal(kx1[s], z1)
-                           and np.float32(kn[s]) == np.float32(zn) and int(ks[s]) == zs)
+                single &= (same_bits(kx0[s], z0) and same_bits(kx1[s], z1)
+                           and same_norm(kn[s], zn) and int(ks[s]) == zs)
             err = max(err, float((kx0 - px0).abs().max()), float((kx1 - px1).abs().max()))
             rows.append(dict(transpose=transpose, per_sample_tol=not np.isscalar(tol),
-                             sweeps=ks.tolist(), bit_equal_plain=same,
+                             sweeps=ks.tolist(), kernel_launches=launched, bit_equal_plain=same,
                              bit_equal_single_sample_kernel=single))
             print(f"jac2 fold (B={TRAIN_BATCH}, {TRAIN_RES[0]}x{TRAIN_RES[1]}) transpose="
                   f"{transpose} per-sample tol={not np.isscalar(tol)}: sweeps {ks.tolist()}, "
-                  f"bit-equal to plain {same}, to 8 single-sample kernels {single}", flush=True)
+                  f"{launched} kernel launches, bit-equal to plain {same}, to 8 single-sample "
+                  f"kernels {single}", flush=True)
             if not (same and single):
                 fail(f"jac2 fold transpose={transpose}: not bit-equal to its plain version and "
-                     f"the single-sample kernel per sample")
+                     f"the single-sample kernel per sample, or not the schedule's launches")
+        batch_edges(f"jac2 fold (B={TRAIN_BATCH}) transpose={transpose}",
+                    *fold_edge_calls(st_cs, x_c, transpose), b_c, TRAIN_TOL, RUN_LENGTH)
     _, _, _, sw = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, False, TRAIN_TOL, 33)
     cells = [b.numel() for b in b_c]  # B planes per component
     # 14 planes in and 2 out per sample; per cell and component: the inverse
@@ -1960,7 +2123,8 @@ def training_kernels(dev, kernels: list) -> dict:
         plain_ms=cuda_time_ms(lambda: jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, False,
                                                          TRAIN_TOL, 33), 10),
         bound_ms=b_f, bound_by=by_f, library_ms=None,
-        launches_count="kernel launches (per solve: entry residual, one per sweep, exit residual)",
+        launches_count="kernel launches (per solve: jacobi2.solve_launches of the slowest "
+                       "sample's sweeps)",
         batch=TRAIN_BATCH, sweeps=sw.tolist(), checks=rows,
     ))
     return {}
@@ -2064,6 +2228,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     c0 = loop_counters()
+    j0 = jac1_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warns = 0
@@ -2073,6 +2238,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
     loss_v = float(loss)
     per_iter = (time.perf_counter() - t0) / TRAIN_REPS
     counts = {k: fn.launches for k, fn in wrappers.items()}
+    row3 = jac1_schedule_check("training batch 1", j0, jac1_snapshot())
     loops, d = derived_launches(c0, loop_counters(), spectral=True)
     stack = lambda x: torch.stack([x] * TRAIN_CHUNK)
     v0, p0, tg, pe = inputs
@@ -2096,7 +2262,7 @@ def training_b1_path(dev, wrappers: dict) -> dict:
         parts=[float(x) for x in parts], count=int(state.count),
         chunked_train_iterations_per_sec=1.0 / per_chunk_iter, chunked_scan_chunk=TRAIN_CHUNK,
         chunked_warn=bool(cwarns.any()), timed_iterations=TRAIN_REPS, launches=counts,
-        loop_counters=d,
+        loop_counters=d, row3_kernel_launches=row3,
     )), flush=True)
     if warns or cwarns.any() or not finite:
         fail("training batch 1: a step warned or its loss / weights are not finite")
@@ -2191,10 +2357,11 @@ def training_b8_path(dev, wrappers: dict) -> dict:
     """Phase 9b: bench.py workload_training at batch 8 as bench stacks it (8
     copies of the sample), remat "none": 1 untimed and 5 timed train steps,
     launches counted over the timed ones. The fold kernel launches exactly
-    as its per-sample sweep counters derive (per solve: entry, one per
-    sweep of its slowest sample, exit), and no single-sample 2-D kernel
-    launches (the batched regime runs the plain formulations elsewhere, as
-    the JAX package's vmapped step does under no_pallas)."""
+    as its per-sample sweep counters derive (per solve:
+    `jacobi2.solve_launches` of its slowest sample's sweeps), and no
+    single-sample 2-D kernel launches (the batched regime runs the plain
+    formulations elsewhere, as the JAX package's vmapped step does under
+    no_pallas)."""
     import numpy as np
     import torch
 
@@ -2222,6 +2389,7 @@ def training_b8_path(dev, wrappers: dict) -> dict:
         fn.launches = 0
     solves0 = krylov.bicgstab_batched.jacobi_solves
     sweeps0 = krylov.bicgstab_batched.jacobi_sweeps
+    sched0 = krylov.bicgstab_batched.jacobi_schedule
     fb0 = krylov.bicgstab_batched.fallbacks
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2234,7 +2402,8 @@ def training_b8_path(dev, wrappers: dict) -> dict:
     counts = {k: fn.launches for k, fn in wrappers.items()}
     solves = krylov.bicgstab_batched.jacobi_solves - solves0
     sweeps = krylov.bicgstab_batched.jacobi_sweeps - sweeps0
-    derived = 2 * solves + sweeps
+    # `jacobi2.solve_launches` of each solve's slowest sample's sweeps
+    derived = krylov.bicgstab_batched.jacobi_schedule - sched0
     print(json.dumps(dict(
         workload=f"closure training iteration {TRAIN_RES[0]}x{TRAIN_RES[1]}, "
                  f"{TRAIN_STEPS}-step unroll, 4 losses, Adam, batch {TRAIN_BATCH}",
@@ -3877,7 +4046,7 @@ def batched_counters() -> dict:
 
     b = krylov.bicgstab_batched
     return dict(jacobi_solves=b.jacobi_solves, jacobi_sweeps=b.jacobi_sweeps,
-                fallbacks=b.fallbacks, bicgstab_iterations=b.iterations,
+                jacobi_schedule=b.jacobi_schedule, fallbacks=b.fallbacks, bicgstab_iterations=b.iterations,
                 applies=b.applies[False] + b.applies[True], pcg2_solves=krylov.pcg2_batched.solves,
                 pcg2_loops=krylov.pcg2_batched.loops, pcg_applies=krylov.pcg_batched.applies,
                 pcg_iterations=krylov.pcg_batched.iterations)
@@ -3886,12 +4055,13 @@ def batched_counters() -> dict:
 def batched_derived(c0: dict, c1: dict, jac: str) -> tuple:
     """(the batched whole-solve kernels' launches the loops derive, counter
     deltas): per Jacobi solve (`jac`: the joint kernel, or jac1 per
-    component) and per pcg2 solve, the entry and exit launches plus one per
-    sweep / iteration of its slowest sample; the matvec kernel once per
-    component and BiCGSTAB operator apply and once per generic-PCG
+    component) `jacobi2.solve_launches` of its slowest sample's sweeps (the
+    loop's `jacobi_schedule`); per pcg2 solve the entry and exit launches
+    plus one per iteration of its slowest sample; the matvec kernel once
+    per component and BiCGSTAB operator apply and once per generic-PCG
     operator apply."""
     d = {k: c1[k] - c0[k] for k in c0}
-    return ({jac: 2 * d["jacobi_solves"] + d["jacobi_sweeps"],
+    return ({jac: d["jacobi_schedule"],
              "pcg2_solve_batched": 2 * d["pcg2_solves"] + d["pcg2_loops"],
              "stencil_matvec": 2 * d["applies"] + d["pcg_applies"]}, d)
 
@@ -3959,9 +4129,11 @@ def batched_kernels(dev, kernels: list) -> dict:
     from diffpiso_tpu_torch.ops.stencil import assemble_advection_stencil
     from diffpiso_tpu_torch.solvers.fourier import MatmulSpectralSolver, safe_symbol
     from diffpiso_tpu_torch.solvers.jacobi1 import (
-        fused_jacobi1_solve, fused_jacobi1_solve_batched, jacobi1_batched_plain)
+        BATCHED_RUN_LENGTH, fused_jacobi1_solve, fused_jacobi1_solve_batched,
+        jacobi1_batched_plain)
     from diffpiso_tpu_torch.solvers.jacobi2 import (
-        fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain)
+        RUN_LENGTH, fused_jacobi2_solve, fused_jacobi2_solve_folded, jacobi2_fold_plain,
+        solve_launches)
     from diffpiso_tpu_torch.solvers.pcg2 import (
         SampleLap, fused_pcg2_solve, fused_pcg2_solve_batched, gemm_batched, pcg2_batched_plain)
 
@@ -4080,11 +4252,14 @@ def batched_kernels(dev, kernels: list) -> dict:
         err, rows = 0.0, []
         for transpose in (False, True):
             for tl in (tol, per_tol):
+                l0 = fused_jacobi2_solve_folded.launches
                 kx0, kx1, kn, ks = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose,
                                                               tl, 33)
+                launched = fused_jacobi2_solve_folded.launches - l0
                 px0, px1, pn, ps = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tl, 33)
-                same = (same_bits(kx0, px0) and same_bits(kx1, px1) and same_bits(kn, pn)
-                        and np.array_equal(ks, ps))
+                same = (same_bits(kx0, px0) and same_bits(kx1, px1) and same_norm(kn, pn)
+                        and np.array_equal(ks, ps)
+                        and launched == solve_launches(int(ks.max()), 33, RUN_LENGTH))
                 tols = np.broadcast_to(np.asarray(tl, np.float32), (nbs,))
                 single = True
                 for s in range(nbs):
@@ -4094,19 +4269,23 @@ def batched_kernels(dev, kernels: list) -> dict:
                                                          tuple(x[s] for x in x_c), -1.0,
                                                          transpose, float(tols[s]), 33)
                     single &= (same_bits(kx0[s], z0) and same_bits(kx1[s], z1)
-                               and same_bits(kn[s], zn) and int(ks[s]) == zs)
+                               and same_norm(kn[s], zn) and int(ks[s]) == zs)
                 for k, q in ((kx0, px0), (kx1, px1)):  # over the finite cells
                     d = (k - q)[torch.isfinite(k) & torch.isfinite(q)]
                     err = max(err, float(d.abs().max()) if d.numel() else 0.0)
                 rows.append(dict(transpose=transpose, per_sample_tol=not np.isscalar(tl),
-                                 sweeps=ks.tolist(), bit_equal_plain=same,
-                                 bit_equal_single_sample_kernel=single))
+                                 sweeps=ks.tolist(), kernel_launches=launched,
+                                 bit_equal_plain=same, bit_equal_single_sample_kernel=single))
                 print(f"jac2 grid rule ({label}) transpose={transpose} per-sample tol="
-                      f"{not np.isscalar(tl)}: sweeps {ks.tolist()}, bit-equal to plain "
-                      f"{same}, to {nbs} single-sample kernels {single}", flush=True)
+                      f"{not np.isscalar(tl)}: sweeps {ks.tolist()}, {launched} kernel launches, "
+                      f"bit-equal to plain {same}, to {nbs} single-sample kernels {single}",
+                      flush=True)
                 if not (same and single):
                     fail(f"jac2 grid rule ({label}) transpose={transpose}: not bit-equal to "
-                         f"its plain version and the single-sample kernel per sample")
+                         f"its plain version and the single-sample kernel per sample, or not "
+                         f"the schedule's launches")
+            batch_edges(f"jac2 grid rule ({label}) transpose={transpose}",
+                        *fold_edge_calls(st_cs, x_c, transpose), b_c, tol, RUN_LENGTH)
         return err, rows
 
     def fold_entry(label, st_cs, b_c, x_c, err, rows):
@@ -4132,7 +4311,8 @@ def batched_kernels(dev, kernels: list) -> dict:
         name="jacobi2_solve_folded_grid", route="cuda",
         source="diffpiso_tpu_torch/csrc/jacobi2_fold.cu",
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:861",
-        launches_count="kernel launches (per solve: entry residual, one per sweep, exit residual)",
+        launches_count="kernel launches (per solve: jacobi2.solve_launches of the slowest "
+                       "sample's sweeps)",
         **fold_entry(f"{n}x{n}", st_cs, b_c, x_c, err, rows)))
 
     # pcg2 batched: forward (shared tol, cold) and cold adjoint (per-sample
@@ -4240,28 +4420,37 @@ def batched_kernels(dev, kernels: list) -> dict:
         bc, xc = b_l[c].contiguous(), vel_l.components[c].contiguous()
         for transpose in (False, True):
             for tl in (ADV_TOL, np.asarray([1e-5, 1e-6], np.float32)):
+                l0 = fused_jacobi1_solve_batched.launches
                 kx, kn, ks = fused_jacobi1_solve_batched(stc, bc, xc, -1.0, transpose, tl, 33)
+                launched = fused_jacobi1_solve_batched.launches - l0
                 px, pn, ps = jacobi1_batched_plain(stc, bc, xc, -1.0, transpose, tl, 33)
-                same = same_bits(kx, px) and same_bits(kn, pn) and np.array_equal(ks, ps)
+                same = (same_bits(kx, px) and same_norm(kn, pn) and np.array_equal(ks, ps)
+                        and launched == solve_launches(int(ks.max()), 33, BATCHED_RUN_LENGTH))
                 tols = np.broadcast_to(np.asarray(tl, np.float32), (nbl,))
                 single = True
                 for s in range(nbl):
                     o = (stc[0][s], tuple(a[s] for a in stc[1]), tuple(a[s] for a in stc[2]))
                     zx, zn, zs = fused_jacobi1_solve(o, bc[s], xc[s], -1.0, transpose,
                                                      float(tols[s]), 33)
-                    single &= same_bits(kx[s], zx) and same_bits(kn[s], zn) and int(ks[s]) == zs
+                    single &= same_bits(kx[s], zx) and same_norm(kn[s], zn) and int(ks[s]) == zs
                 j1_err = max(j1_err, float((kx - px).abs().max()))
                 j1_rows.append(dict(component=c, transpose=transpose,
                                     per_sample_tol=not np.isscalar(tl), sweeps=ks.tolist(),
-                                    bit_equal_plain=same, bit_equal_single_sample_kernel=single))
+                                    kernel_launches=launched, bit_equal_plain=same,
+                                    bit_equal_single_sample_kernel=single))
                 print(f"jac1 batched ({nl}^2, B={nbl}) component {c} transpose={transpose} "
-                      f"per-sample tol={not np.isscalar(tl)}: sweeps {ks.tolist()}, bit-equal "
-                      f"to plain {same}, to {nbl} single-sample kernels {single}", flush=True)
+                      f"per-sample tol={not np.isscalar(tl)}: sweeps {ks.tolist()}, {launched} "
+                      f"kernel launches, bit-equal to plain {same}, to {nbl} single-sample "
+                      f"kernels {single}", flush=True)
                 if not (same and single):
                     fail(f"jac1 batched component {c} transpose={transpose}: not bit-equal to "
-                         f"its plain version and the single-sample kernel per sample")
+                         f"its plain version and the single-sample kernel per sample, or not "
+                         f"the schedule's launches")
                 if c == 0 and not transpose and np.isscalar(tl):
                     j1_sweeps = ks
+            batch_edges(f"jac1 batched ({nl}^2, B={nbl}) component {c} transpose={transpose}",
+                        *jac1b_edge_calls(stc, xc, transpose), (bc,), ADV_TOL,
+                        BATCHED_RUN_LENGTH)
     stc = (stl.center[0].contiguous(), tuple(a.contiguous() for a in stl.lo[0]),
            tuple(a.contiguous() for a in stl.hi[0]))
     j1 = (stc, b_l[0].contiguous(), vel_l.components[0].contiguous(), -1.0, False, ADV_TOL, 33)
@@ -4270,8 +4459,8 @@ def batched_kernels(dev, kernels: list) -> dict:
     kernels.append(dict(
         name="jacobi1_solve_batched", route="cuda", source="diffpiso_tpu_torch/csrc/jacobi1.cu",
         replaces="diffpiso_tpu/solvers/pallas_krylov.py:1012",
-        launches_count="kernel launches (per component solve: entry residual, one per sweep "
-                       "of the slowest sample, exit residual)",
+        launches_count="kernel launches (per component solve: jacobi2.solve_launches of the "
+                       "slowest sample's sweeps at jacobi1.BATCHED_RUN_LENGTH)",
         max_abs_err=j1_err, ms=cuda_time_ms(lambda: fused_jacobi1_solve_batched(*j1), 20),
         **device_time(lambda: fused_jacobi1_solve_batched(*j1), 5),
         plain_ms=cuda_time_ms(lambda: jacobi1_batched_plain(*j1), 5),
@@ -7859,20 +8048,10 @@ def main() -> int:
     st_cs = [(stencil.center[i], stencil.lo[i], stencil.hi[i]) for i in range(2)]
     b_c = tuple(c * beta for c in vel.components)
     x_c = tuple(vel.components)
-    jac_sweeps = {}
-    jac_err = 0.0
-    for transpose in (False, True):
-        kx0, kx1, kn, ks = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, transpose, ADV_TOL, 33)
-        px0, px1, pn, ps = jacobi2_plain(st_cs, b_c, x_c, -1.0, transpose, ADV_TOL, 33)
-        rel = max(rel_err(kx0, px0), rel_err(kx1, px1))
-        jac_err = max(jac_err, float((kx0 - px0).abs().max()), float((kx1 - px1).abs().max()))
-        print(f"jac2 transpose={transpose}: sweeps kernel {ks} plain {ps}, residual kernel "
-              f"{kn:.3e} plain {pn:.3e}, x rel err {rel:.3e}", flush=True)
-        if ks != ps:
-            fail(f"jac2 transpose={transpose}: sweep counts differ ({ks} vs {ps})")
-        if not rel <= 1e-6:
-            fail(f"jac2 transpose={transpose}: x rel err {rel:.3e} > 1e-6")
-        jac_sweeps[transpose] = ks
+    jac_sweeps = jac2_edges(f"{N}^2", st_cs, b_c, x_c, ADV_TOL)
+    kx0, kx1, _, _ = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
+    px0, px1, _, _ = jacobi2_plain(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
+    jac_err = max(float((kx0 - px0).abs().max()), float((kx1 - px1).abs().max()))
     sw = jac_sweeps[False]
     # 14 planes in, 2 out; per cell and component: 2 residual matvecs (init,
     # exit) of 11 flops and 13 per sweep, plus the inverse diagonal
@@ -7885,7 +8064,9 @@ def main() -> int:
         **device_time(lambda: fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)),
         plain_ms=cuda_time_ms(lambda: jacobi2_plain(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33), 10),
         bound_ms=b_jac, bound_by=by_jac, library_ms=None,
-        launches_count="whole solves (each: entry residual, one launch per sweep, exit residual)",
+        launches_count="whole solves (each: jacobi2.solve_launches kernel launches, one a "
+                       "sweep, the first fused with the entry residual, in runs of "
+                       "jacobi2.RUN_LENGTH between host reads)",
     ))
 
     kx0, kx1, _, _ = fused_jacobi2_solve(st_cs, b_c, x_c, -1.0, False, ADV_TOL, 33)
@@ -8103,6 +8284,7 @@ def main() -> int:
     for fn, _ in wrappers.values():
         fn.launches = 0
     fallbacks0 = krylov.bicgstab.fallbacks
+    j0 = jac1_snapshot()
     warns, iters = 0, [0, 0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -8116,6 +8298,7 @@ def main() -> int:
     elapsed = time.perf_counter() - t0
     launches = {k: fn.launches for k, (fn, _) in wrappers.items()}
     fallbacks = krylov.bicgstab.fallbacks - fallbacks0
+    row3 = jac1_schedule_check("main path", j0, jac1_snapshot())
 
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(pressure).all())
@@ -8125,7 +8308,7 @@ def main() -> int:
         steps=TIMED_STEPS, steps_per_sec=TIMED_STEPS / elapsed,
         pressure_iters_per_step=[iters[0] / TIMED_STEPS, iters[1] / TIMED_STEPS],
         warn_fraction=warns / TIMED_STEPS, bicgstab_fallbacks=fallbacks,
-        max_abs_div=div, launches=launches,
+        max_abs_div=div, launches=launches, row3_kernel_launches=row3,
     )), flush=True)
     if not finite:
         fail("non-finite state after the main path")
@@ -8221,12 +8404,14 @@ def main() -> int:
         fb0, it0 = krylov.bicgstab.fallbacks, krylov.bicgstab.iterations
         ap0 = sum(krylov.bicgstab.applies.values())
         rs0 = sum(krylov.bicgstab.residuals.values())
+        j0 = jac1_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout_loss_grad(step_g, v, pressure, forcing, U, remat="outputs")
         torch.cuda.synchronize()
         elapsed_g = time.perf_counter() - t0
         counts = {k: fn.launches for k, (fn, _) in wrappers.items()}
+        row3 = jac1_schedule_check("grad30", j0, jac1_snapshot())
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -8247,6 +8432,7 @@ def main() -> int:
                                         default=None),
             bicgstab_fallbacks=krylov.bicgstab.fallbacks - fb0,
             bicgstab_iterations=krylov.bicgstab.iterations - it0, launches=counts,
+            row3_kernel_launches=row3,
         ))
         print(json.dumps(dict(grad_eval=rep, **evals[-1])), flush=True)
         if res.warns:

@@ -1,5 +1,5 @@
 // Batched whole Jacobi-Richardson momentum solve: B samples, both velocity
-// components, one launch per sweep.
+// components.
 //
 // Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_jacobi2_solve's vmap
 // rule in both its forms: the fold (`_jacobi2_solve_kernel_bf` / `_bfs`
@@ -24,46 +24,25 @@
 // way, so a sample grid axis with per-sample freezing computes the same
 // function at any plane size.
 //
-// Design: the single-sample kernel of csrc/jacobi2.cu (its matvec and
-// inverse diagonal from jacobi.cuh) with a third grid axis for the sample:
-// jacobi.cuh's batched kernel (`dp_jacb_kernel`) with two components. The
-// host runs the sweep loop and reads the B norms of each sweep; a finished
-// sample's blocks leave its x and norm as they were, and each sample's
-// arithmetic is the single-sample kernel's, op for op (built with
-// --fmad=false), so every sample follows exactly that kernel's trajectory:
-// the same x, residual and sweeps, bit for bit.
+// Design: the single-sample solve's kernel (csrc/jacobi2.cu), the y-march
+// of jacobi_march.cuh, with its sample axis: the CTAs of sample b are grid
+// row b, each reads its sample's stop test from the norm rows of the
+// launches before (a finished sample holds its x and norms while the
+// others sweep on), and the warps of the tiny 64 x 256 planes march runs of
+// a few rows, so a launch fills the card. Each sample's arithmetic is the
+// single-sample solve's, op for op (built with --fmad=false): the same x,
+// exit residual and sweeps, bit for bit.
 //
-// Bound on the H100: bytes (14 planes in, 2 out per sample). At 64 x 256
-// and B = 8 the 9 x B planes per sweep (about 5 MB) stay in the 50 MB L2,
-// so launch and the per-sweep read dominate; at 512^2 and B = 4 a sweep
-// moves 4 x 18 planes of 1 MiB (75 MB), about 23 us at 3.35 TB/s.
-#include "jacobi.cuh"
+// Bound on the H100: bytes (10 planes a component and sample a sweep). At
+// 64 x 256 and B = 8 a sweep's planes (about 5 MB) stay in the 50 MB L2,
+// so launch latency dominates; at 512^2 and B = 4 a sweep moves 4 x 20
+// planes of 1 MiB (84 MB), about 25 us at 3.35 TB/s.
+#include "jacobi_march.cuh"
 
-// ptrs: per component (c, ly, hy, lx, hx, b, x0, x), each (B, ny, nx)
-// contiguous — 16 device pointers; dims: (ny0, nx0, ny1, nx1). Every norm
-// slot must point at B zeroed floats; `sweeps` at B zeroed ints.
-extern "C" int jac2f_init(const void* const* ptrs, const int* dims, int nb,
-                          float sgn, int transpose, float* r_out0,
-                          float* r_out1, float* norm_out, void* stream) {
-  return dp_jacb_launch<0>(ptrs, dims, 2, nb, sgn, transpose, nullptr, nullptr,
-                           r_out0, r_out1, nullptr, nullptr, nullptr, norm_out,
-                           stream);
-}
-
-extern "C" int jac2f_sweep(const void* const* ptrs, const int* dims, int nb,
-                           float sgn, int transpose, const float* r_in0,
-                           const float* r_in1, float* r_out0, float* r_out1,
-                           const float* norm_prev, const float* tol,
-                           int* sweeps, float* norm_out, void* stream) {
-  return dp_jacb_launch<1>(ptrs, dims, 2, nb, sgn, transpose, r_in0, r_in1,
-                           r_out0, r_out1, norm_prev, tol, sweeps, norm_out,
-                           stream);
-}
-
-extern "C" int jac2f_true_residual(const void* const* ptrs, const int* dims,
-                                   int nb, float sgn, int transpose,
-                                   float* norm_out, void* stream) {
-  return dp_jacb_launch<2>(ptrs, dims, 2, nb, sgn, transpose, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, nullptr, nullptr,
-                           norm_out, stream);
+// Launch j of a solve: jacobi_march.cuh's `jm_launch`; ncomp 2.
+extern "C" int jac2f_launch(const void* const* ptrs, const int* dims, int ncomp, int nb,
+                            float sgn, int transpose, int j, int max_sweeps, const float* tol,
+                            float tol1, float* norms, void* stream) {
+  return jm_launch(ptrs, dims, ncomp, nb, sgn, transpose, j, max_sweeps, tol, tol1, norms,
+                   stream);
 }

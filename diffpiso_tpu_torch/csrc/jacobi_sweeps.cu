@@ -9,9 +9,10 @@
 //   then max |b - A x_k|
 // with A = sgn * M (or sgn * M^T when `transpose`), M the 5-point stencil
 // with the roll wrap. This is the direct form: each sweep recomputes
-// b - A x from the iterate. The whole solves (jacobi.cuh dp_jac_kernel)
+// b - A x from the iterate. The whole solves (jacobi_march.cuh, jacobi1.cu)
 // maintain the residual instead (x += iv r; r -= A (iv r)), which rounds
-// differently, so that kernel is not reused; its inverse diagonal is.
+// differently, so their kernels are not reused; jacobi.cuh's inverse
+// diagonal is.
 //
 // Design: temporal blocking in the plane, after the plane sweeps of row
 // 15f (jacobi_plane3.cu). The TPU kernel holds the planes in VMEM and

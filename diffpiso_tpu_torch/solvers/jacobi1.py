@@ -29,12 +29,14 @@ the JAX kernel's grid-over-batch rule (`_jacobi1_solve_kernel_b` around
 `_jacobi1_core`, the "auto" batched regime past jac2's budget): every
 plane (B, ny, nx), each sample with its own coefficients, b, guess and
 tolerance (shared, or per sample for the adjoints). csrc/jacobi1.cu's
-`jac1b_*` launch jacobi.cuh's batched sweep kernel with one component:
-one launch per sweep for all samples, the host reading the B norms; each
-block reads its sample's active flag from the previous sweep's norms, so a
-converged sample stays frozen while the others sweep on, and each sample
-is bit-equal to a single-sample solve (the same x, exit residual and
-sweeps). Its plain version is `jacobi1_batched_plain`.
+`jac1b_launch` is csrc/jacobi_march.cuh's march with one component and a
+sample axis, the joint solve's schedule (`jacobi2.march_solve`): a
+slowest sample's s sweeps take s launches, rounded up to a run of
+BATCHED_RUN_LENGTH launches between host reads; each CTA reads its sample's
+stop test from the norm rows on the device, so a converged sample holds
+its state while the others sweep on, and each sample is bit-equal to a
+single-sample solve (the same x, exit residual and sweeps). Its plain
+version is `jacobi1_batched_plain`.
 
 Kernel 15d, `fused_jacobi1_solve_3d`, is the same solve for one component
 of a periodic 3-D momentum system (the 7-point stencil). It replaces
@@ -64,9 +66,9 @@ import torch
 from diffpiso_tpu_torch import native
 from diffpiso_tpu_torch.ops.matvec import stencil_apply_plain
 from diffpiso_tpu_torch.solvers.jacobi2 import (
-    _FOLD_SIGS,
+    LAUNCH_SIG,
     adv_matvec,
-    batched_sweep_loop,
+    march_solve,
     sample_max_abs,
     sample_tols,
 )
@@ -77,17 +79,17 @@ _F, _I = ctypes.c_float, ctypes.c_int
 # sweep: ptrs, dims, sgn, transpose, x_in, x_out, r_in, r_out, norms, stream
 _MARCH = {"first": [_P, _P, _F, _I, _P, _P, _P, _P],
           "sweep": [_P, _P, _F, _I, _P, _P, _P, _P, _P, _P]}
-_SIGS = {
-    **{f"jac1_{k}": v for k, v in _MARCH.items()},
-    # the batched entry points take jacobi2_fold.cu's arguments
-    **{name.replace("jac2f", "jac1b"): args for name, args in _FOLD_SIGS.items()},
-}
+_SIGS = {**{f"jac1_{k}": v for k, v in _MARCH.items()}, "jac1b_launch": LAUNCH_SIG}
 _SIGS3 = {f"jac13d_{k}": v for k, v in _MARCH.items()}
 
 # What a warp (2-D) or a CTA (3-D) marches: about this many warps / CTAs a
 # launch (at 1024^2 and 128^3 one wave on the H100's 132 SMs).
 MARCH_WARPS = 4096
 MARCH_CTAS = 256
+# Launches `fused_jacobi1_solve_batched` issues between two host reads: of
+# 1, 2 and 4, 2 read the lowest host ms a call at 1024^2 x 2, where its
+# solves take 2 sweeps (chip_ab.py --pass jacobi2)
+BATCHED_RUN_LENGTH = 2
 
 
 def march_rows(ny: int, nx: int) -> int:
@@ -250,8 +252,8 @@ def fused_jacobi1_solve_batched(st_c, b, x, sgn, transpose, tol, max_sweeps):
     momentum systems at once. st_c = (center, (lo_y, lo_x), (hi_y, hi_x))
     and b, x, every plane (B, ny, nx); `tol` one value or B values. Returns
     (x', per-sample true max-residual (B,) numpy float32, per-sample sweeps
-    (B,) numpy int). On a CUDA tensor every kernel launch (init, one per
-    sweep, the exit residual) adds one to `launches`."""
+    (B,) numpy int). On a CUDA tensor every kernel launch adds one to
+    `launches` (`jacobi2.solve_launches`)."""
     if b.device.type == "cpu":
         return jacobi1_batched_plain(st_c, b, x, sgn, transpose, tol, max_sweeps)
     c, lo, hi = st_c
@@ -260,9 +262,9 @@ def fused_jacobi1_solve_batched(st_c, b, x, sgn, transpose, tol, max_sweeps):
     if any(t.shape != b.shape for t in ops) or b.ndim != 3:
         raise ValueError("fused_jacobi1_solve_batched: the planes must share one (B, ny, nx) "
                          "shape")
-    (xo,), nt, sweeps = batched_sweep_loop(native.library("jacobi1", _SIGS), "jac1b", [ops],
-                                           (b,), sgn, transpose, tol, max_sweeps,
-                                           _count_jac1b_launch)
+    (xo,), nt, sweeps = march_solve(native.library("jacobi1", _SIGS), "jac1b_launch", [ops],
+                                    sgn, transpose, tol, max_sweeps, BATCHED_RUN_LENGTH,
+                                    _count_jac1b_launch)
     return xo, nt, sweeps
 
 
@@ -270,7 +272,7 @@ def _count_jac1b_launch():
     fused_jacobi1_solve_batched.launches += 1
 
 
-fused_jacobi1_solve_batched.launches = 0  # kernel launches: init, each sweep, the exit residual
+fused_jacobi1_solve_batched.launches = 0  # kernel launches (`jacobi2.solve_launches`)
 
 
 def jacobi1_3d_plain(st_c, b, x, sgn, transpose, tol, max_sweeps):

@@ -1,44 +1,51 @@
 """Kernel 3: whole Jacobi-Richardson momentum solve for both components.
 
 Replaces diffpiso_tpu/solvers/pallas_krylov.py fused_jacobi2_solve (TPU
-kernel `_jacobi2_solve_kernel` around `_jacobi2_core`). The CUDA kernels
-are csrc/jacobi2.cu; the sweep loop runs on the host, one launch per sweep
-for both components and one 4-byte norm read per sweep, with the exact
-control flow of the TPU kernel:
+kernel `_jacobi2_solve_kernel` around `_jacobi2_core`), with the control
+flow of the TPU kernel:
 
   iv = where(|sgn c| > 1e-30, 1/(sgn c), 1)
   r = b - A x;  while max|r| > tol and j < max_sweeps: x += iv r; r -= A(iv r)
   return x and the TRUE exit residual max|b - A x|
 
-What bounds it on the H100 is bytes (14 planes in, 2 out: 16.8 MB at
-512^2, about 5 us at 3.35 TB/s); at this size launch and readback latency
-dominate, which a persistent kernel would remove. The kernels round like
-the plain version op for op, so both count the same sweeps.
+The CUDA kernel is csrc/jacobi_march.cuh's y-march (csrc/jacobi2.cu: a
+warp a 32-column strip of one component, dlt once a cell in a three-row
+ring, two rows' loads in flight), both components in one launch.
+The first launch fuses the entry residual with a speculative sweep 0, every
+launch forms the exit residual of the x it writes and reads on the device,
+from the norm rows of the launches before, whether the solve is still
+active, so a solve of s >= 1 sweeps takes s launches (one that stops at
+entry: 1). The host loop (`march_solve`) issues a run of launches
+(RUN_LENGTH here) between two reads of the last norm row. What bounds a
+sweep on the H100 is bytes (2 x 10 planes: 21 MB at 512^2, about 6.3 us at
+3.35 TB/s). The kernel rounds like the plain version op for op, so both
+count the same sweeps.
 
 On a CUDA tensor the wrapper launches the kernels; on a CPU tensor it runs
 `jacobi2_plain`.
 
 `fused_jacobi2_solve_folded` is the batched form: B samples of the
 system, each with its own coefficients, right-hand side, guess and
-tolerance, solved together by csrc/jacobi2_fold.cu, one launch per sweep
-for all samples and both components. A sample whose residual has reached
-its tolerance is frozen while the others sweep on, as a `while_loop` under
-`vmap` freezes it, so each sample follows the single-sample trajectory
-exactly: the same x, residual and sweeps. Its plain version is
-`jacobi2_fold_plain`. It is the counterpart of both forms of the JAX
-package's vmap rule of this kernel: the fold (`_jacobi2_solve_kernel_bf` /
-`_bfs` around `_jacobi2_core_bf`, below 1 MiB planes: the "fold" batched
-regime) and the grid over the batch (`_jacobi2_solve_kernel_b` around
-`_jacobi2_core`, from 1 MiB planes: the 512^2 class of the "auto"
-regime). On the TPU they differ in residency (one VMEM program for every
-sample, or one program per sample); both compute each sample's
-single-sample solve exactly, and on the H100, where a sweep is one launch
-from HBM either way, one kernel with a sample grid axis computes it at any
-plane size."""
+tolerance, solved together by the same kernel with a sample axis
+(csrc/jacobi2_fold.cu). A sample whose residual has reached its tolerance
+holds its state on the device while the others sweep on, as a
+`while_loop` under `vmap` freezes it, so each sample follows the
+single-sample trajectory exactly: the same x, residual and sweeps. Its
+plain version is `jacobi2_fold_plain`. It is the counterpart of both forms
+of the JAX package's vmap rule of this kernel: the fold
+(`_jacobi2_solve_kernel_bf` / `_bfs` around `_jacobi2_core_bf`, below 1
+MiB planes: the "fold" batched regime) and the grid over the batch
+(`_jacobi2_solve_kernel_b` around `_jacobi2_core`, from 1 MiB planes: the
+512^2 class of the "auto" regime). On the TPU they differ in residency
+(one VMEM program for every sample, or one program per sample); both
+compute each sample's single-sample solve exactly, and on the H100, where
+a sweep is one launch from HBM either way, one kernel with a sample grid
+axis computes it at any plane size."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -46,19 +53,37 @@ import torch
 from diffpiso_tpu_torch import native
 from diffpiso_tpu_torch.ops.matvec import matvec_plain
 
-_P = ctypes.c_void_p
-_SIGS = {
-    "jac2_init": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P],
-    "jac2_sweep": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, _P, _P, _P],
-    "jac2_true_residual": [_P, _P, ctypes.c_float, ctypes.c_int, _P, _P],
-}
-_I = ctypes.c_int
-_F = ctypes.c_float
-_FOLD_SIGS = {
-    "jac2f_init": [_P, _P, _I, _F, _I, _P, _P, _P, _P],
-    "jac2f_sweep": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "jac2f_true_residual": [_P, _P, _I, _F, _I, _P, _P],
-}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ptrs, dims, ncomp, nb, sgn, transpose, j, max_sweeps, tol, tol1, norms, stream
+LAUNCH_SIG = [_P, _P, _I, _I, _F, _I, _I, _I, _P, _F, _P, _P]
+
+# About this many warps a launch: below one resident wave on the H100; of
+# 1024-8192 the best on every system but training b8 (4096: 2% faster
+# there), the small mixing and training planes included (chip_ab.py --pass
+# jacobi2)
+MARCH_WARPS = 2048
+# Launches the joint solves' host loop issues between two reads of the
+# norms (a launch past the stop is idle): of 1, 2 and 4, 4 read the lowest
+# host ms a call on each joint and folded system (chip_ab.py --pass jacobi2)
+RUN_LENGTH = 4
+
+
+def march_rows(shapes, nb: int = 1) -> list:
+    """Rows a warp of csrc/jacobi_march.cuh marches on each (ny, nx) plane
+    of `shapes`, B = `nb` samples: each plane's rows split
+    into the same number of runs (at most its rows), about MARCH_WARPS
+    warps in all."""
+    runs = -(-MARCH_WARPS // (nb * sum(-(-nx // 32) for _, nx in shapes)))
+    return [-(-ny // max(1, min(ny, runs))) for ny, _ in shapes]
+
+
+def solve_launches(sweeps: int, max_sweeps: int, run: int) -> int:
+    """Kernel launches of one solve (of B samples) whose slowest sample
+    took `sweeps` sweeps, `run` launches between two host reads (the
+    wrapper's: RUN_LENGTH, or jacobi1.BATCHED_RUN_LENGTH): runs of launches
+    until the one that shows the stop (the first launch for a solve that
+    stops at entry), never past max(max_sweeps, 1)."""
+    return min(run * -(-max(sweeps, 1) // run), max(max_sweeps, 1))
 
 
 def adv_matvec(c, ly, hy, lx, hx, p, transpose, sgn):
@@ -109,52 +134,25 @@ def fused_jacobi2_solve(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
     if b_c[0].device.type == "cpu":
         return jacobi2_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
     planes = []
-    dims = []
     for (c, lo, hi), b, x0 in zip(st_cs, b_c, x_c):
         ops = (c, lo[0], hi[0], lo[1], hi[1], b, x0)
         native.require_cuda_f32("fused_jacobi2_solve", *ops)
         if any(t.shape != b.shape for t in ops) or b.ndim != 2:
             raise ValueError("fused_jacobi2_solve: a component's planes must share one 2-D shape")
         planes.append(ops)
-        dims += list(b.shape)
-    dev = b_c[0].device
-    xs = [torch.empty_like(b) for b in b_c]
-    ra = [torch.empty_like(b) for b in b_c]
-    rb = [torch.empty_like(b) for b in b_c]
-    norms = torch.zeros(max_sweeps + 2, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * 16)(*[
-        t.data_ptr() for k in range(2) for t in (*planes[k], xs[k])
-    ])
-    cdims = (ctypes.c_int * 4)(*dims)
-    sgn32 = float(np.float32(sgn))
-    tol32 = float(np.float32(tol))
-    tr = int(bool(transpose))
-    stream = native.stream_of(b_c[0])
-    lib = native.library("jacobi2", _SIGS)
-
-    def slot(k):
-        return ctypes.c_void_p(norms.data_ptr() + 4 * k)
-
-    native.check(lib.jac2_init(ptrs, cdims, sgn32, tr, native.ptr(ra[0]),
-                               native.ptr(ra[1]), slot(0), stream), "jac2_init")
-    n = float(norms[0])
-    j = 0
-    while n > tol32 and j < max_sweeps:
-        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
-        native.check(lib.jac2_sweep(
-            ptrs, cdims, sgn32, tr, native.ptr(r_in[0]), native.ptr(r_in[1]),
-            native.ptr(r_out[0]), native.ptr(r_out[1]), slot(j + 1), stream,
-        ), "jac2_sweep")
-        n = float(norms[j + 1])
-        j += 1
-    native.check(lib.jac2_true_residual(ptrs, cdims, sgn32, tr, slot(max_sweeps + 1),
-                                        stream), "jac2_true_residual")
-    nt = float(norms[max_sweeps + 1])
+    xs, nt, sweeps = march_solve(native.library("jacobi2", {"jac2_launch": LAUNCH_SIG}),
+                                 "jac2_launch", planes, sgn, transpose, tol, max_sweeps,
+                                 RUN_LENGTH, _count_jac2_kernel)
     fused_jacobi2_solve.launches += 1
-    return xs[0], xs[1], nt, j
+    return xs[0], xs[1], float(nt[0]), int(sweeps[0])
 
 
-fused_jacobi2_solve.launches = 0
+def _count_jac2_kernel():
+    fused_jacobi2_solve.kernel_launches += 1
+
+
+fused_jacobi2_solve.launches = 0  # whole solves
+fused_jacobi2_solve.kernel_launches = 0  # their kernel launches (`solve_launches`)
 
 
 def sample_max_abs(planes) -> torch.Tensor:
@@ -213,58 +211,76 @@ def jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
     return xs[0], xs[1], nt.cpu().numpy(), sweeps
 
 
-def batched_sweep_loop(lib, prefix, planes, b_c, sgn, transpose, tol, max_sweeps,
-                       on_launch):
+@functools.lru_cache(maxsize=64)
+def _march_dims(shapes, nb):
+    """`jm_launch`'s dims, (ny, nx, yc) per plane shape."""
+    if nb * max(ny * nx for ny, nx in shapes) >= 2 ** 31:
+        raise ValueError("march_solve: B planes of 2^31 cells or more")
+    return (ctypes.c_int * (3 * len(shapes)))(*[
+        d for shape, yc in zip(shapes, march_rows(shapes, nb)) for d in (*shape, yc)])
+
+
+def march_solve(lib, entry, planes, sgn, transpose, tol, max_sweeps, run, on_launch):
     """The host loop of B samples' whole Jacobi solves of one or two
-    components, around the library's `<prefix>_init`, `_sweep` and
-    `_true_residual` launches of jacobi.cuh's batched kernel: the entry
-    residual, one launch per sweep while any sample is above its tol (the
-    host reads the B norms of each sweep; a finished sample stays frozen on
-    the device), then the exit residual. `planes` are each component's
-    (c, ly, hy, lx, hx, b, x0), every plane (B, ny, nx); `on_launch` is
-    called right after each launch. Returns (the components' x, per-sample
-    true max-residual (B,) numpy float32, per-sample sweeps (B,) numpy
-    int)."""
-    nb = b_c[0].shape[0]
-    dev = b_c[0].device
-    tol_t, tol_h = sample_tols(tol, nb, dev)
-    xs = [torch.empty_like(b) for b in b_c]
-    ra = [torch.empty_like(b) for b in b_c]
-    rb = [torch.empty_like(b) for b in b_c]
-    norms = torch.zeros((max_sweeps + 2, nb), dtype=torch.float32, device=dev)
-    sweeps = torch.zeros(nb, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * (8 * len(b_c)))(*[
-        t.data_ptr() for k in range(len(b_c)) for t in (*planes[k], xs[k])])
-    cdims = (ctypes.c_int * (2 * len(b_c)))(*[d for b in b_c for d in b.shape[1:]])
-    sgn32 = float(np.float32(sgn))
-    tr = int(bool(transpose))
-    stream = native.stream_of(b_c[0])
-    init, sweep, resid = (getattr(lib, f"{prefix}_{k}") for k in ("init", "sweep",
-                                                                    "true_residual"))
-
-    def two(rs):  # the second component's buffer, or none
-        return [native.ptr(r) for r in rs] + [None] * (2 - len(rs))
-
-    def slot(k):
-        return ctypes.c_void_p(norms.data_ptr() + 4 * nb * k)
-
-    native.check(init(ptrs, cdims, nb, sgn32, tr, *two(ra), slot(0), stream), f"{prefix}_init")
-    on_launch()
-    n = norms[0].cpu().numpy()
-    j = 0
-    while (n > tol_h).any() and j < max_sweeps:
-        r_in, r_out = (ra, rb) if j % 2 == 0 else (rb, ra)
-        native.check(sweep(ptrs, cdims, nb, sgn32, tr, *two(r_in), *two(r_out), slot(j),
-                           native.ptr(tol_t), native.ptr(sweeps), slot(j + 1), stream),
-                     f"{prefix}_sweep")
-        on_launch()
-        n = norms[j + 1].cpu().numpy()
-        j += 1
-    native.check(resid(ptrs, cdims, nb, sgn32, tr, slot(max_sweeps + 1), stream),
-                 f"{prefix}_true_residual")
-    on_launch()
-    out = torch.cat([norms[max_sweeps + 1], sweeps.to(torch.float32)]).cpu().numpy()
-    return xs, out[:nb].astype(np.float32), out[nb:].astype(np.int64)
+    components around the library's `entry` (csrc/jacobi_march.cuh's
+    `jm_launch`). `planes` are each component's (c, ly, hy, lx, hx, b, x0),
+    every plane (B, ny, nx), or (ny, nx) for one sample; `tol` one value or
+    B values; `on_launch` is called right after each launch. Launch 0
+    writes x1 and r1 (the entry residual fused with a speculative sweep 0)
+    and norm rows 0 and 1, launch j >= 1 sweep j + 1 and row j + 1, each
+    row (n, e, s) per sample: the residual norm, exit residual and sweeps
+    of the sample's state (a sample that has stopped, by n <= tol (NaN
+    included), max_sweeps or at entry, holds it, and where B > 1 its x).
+    The host issues `run` launches (never past max(max_sweeps, 1)),
+    then reads the last row, at launch 1 rows 0 and 1 (row 0 is the state
+    of a sample that stops at entry), and goes on while a sample is
+    active. Returns
+    (the components' x, per-sample true max-residual (B,) numpy float32,
+    per-sample sweeps (B,) numpy int); x is the x0 planes themselves where
+    no sample swept."""
+    b0 = planes[0][5]
+    nb, dev = (b0.shape[0] if b0.ndim == 3 else 1), b0.device
+    # one tol is passed by value; B of them as a device array
+    tols = [float(np.float32(tol))] if np.ndim(tol) == 0 else \
+        np.asarray(tol, dtype=np.float32).tolist()
+    tols, tol_t = (tols[:1] * nb, None) if len(set(tols)) == 1 else (
+        tols, torch.as_tensor(tols, dtype=torch.float32, device=dev))
+    bufs = [[torch.empty_like(p[5]) for _ in range(4)] for p in planes]  # x_a, x_b, r_a, r_b
+    cap = max(max_sweeps, 1)
+    norms = torch.zeros((cap + 1, 3, nb), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * (11 * len(planes)))(*[
+        t.data_ptr() for p, bf in zip(planes, bufs) for t in (*p, *bf)])
+    head = (ptrs, _march_dims(tuple(tuple(p[5].shape[-2:]) for p in planes), nb), len(planes),
+            nb, float(np.float32(sgn)), int(bool(transpose)))
+    tail = (None if tol_t is None else native.ptr(tol_t), tols[0], native.ptr(norms),
+            native.stream_of(b0))
+    launch = getattr(lib, entry)
+    done = 0
+    while True:
+        for j in range(done, min(cap, done + run)):
+            native.check(launch(*head, j, max_sweeps, *tail), entry)
+            on_launch()
+        done = min(cap, done + run)
+        rows = norms[0 if done == 1 else done:done + 1].tolist()  # one read
+        state = []  # (n, e, s) per sample; at launch 1 row 0 where it stops at entry
+        for b in range(nb):
+            at_entry = done == 1 and not (rows[0][0][b] > tols[b] and max_sweeps >= 1)
+            state.append([r[b] for r in rows[0 if at_entry else -1]])
+        if not any(s == done and n > t and done < max_sweeps
+                   for (n, _, s), t in zip(state, tols)):
+            break
+    e = np.array([st[1] for st in state], dtype=np.float32)
+    sweeps = np.array([st[2] for st in state], dtype=np.int64)
+    x0s = [p[6] for p in planes]
+    if not sweeps.any():
+        return x0s, e, sweeps
+    if nb == 1:  # x_s is in buffer (s - 1) % 2 (idle launches hold nothing)
+        return [bf[(int(sweeps[0]) - 1) % 2] for bf in bufs], e, sweeps
+    xs = [bf[(done - 1) % 2] for bf in bufs]
+    if done == 1 and not sweeps.all():  # launch 1 never held x0 for the stopped samples
+        held = torch.as_tensor(sweeps == 0, device=dev)[:, None, None]
+        xs = [torch.where(held, x0, x) for x0, x in zip(x0s, xs)]
+    return xs, e, sweeps
 
 
 def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps):
@@ -273,9 +289,10 @@ def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
     leading batch axis (B, ny, nx); `sgn` is shared, `tol` one value or B
     values (the adjoint solves take each sample's own). Returns (x0', x1',
     per-sample true max-residual (B,) numpy float32, per-sample sweeps (B,)
-    numpy int). On a CUDA tensor every kernel launch (init, one per sweep,
-    the exit residual) adds one to `launches`, where `fused_jacobi2_solve`
-    counts one per solve; the host reads the B norms once per sweep."""
+    numpy int). On a CUDA tensor every kernel launch adds one to
+    `launches` (`solve_launches` of the slowest sample's sweeps), where
+    `fused_jacobi2_solve` counts whole solves and its `kernel_launches`
+    the launches."""
     if b_c[0].device.type == "cpu":
         return jacobi2_fold_plain(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
     planes = []
@@ -287,9 +304,9 @@ def fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose, tol, max_sweeps)
             raise ValueError("fused_jacobi2_solve_folded: a component's planes must share one "
                              "(B, ny, nx) shape")
         planes.append(ops)
-    xs, nt, sweeps = batched_sweep_loop(native.library("jacobi2_fold", _FOLD_SIGS), "jac2f",
-                                        planes, b_c, sgn, transpose, tol, max_sweeps,
-                                        _count_fold_launch)
+    xs, nt, sweeps = march_solve(native.library("jacobi2_fold", {"jac2f_launch": LAUNCH_SIG}),
+                                 "jac2f_launch", planes, sgn, transpose, tol, max_sweeps,
+                                 RUN_LENGTH, _count_fold_launch)
     return xs[0], xs[1], nt, sweeps
 
 
@@ -297,4 +314,4 @@ def _count_fold_launch():
     fused_jacobi2_solve_folded.launches += 1
 
 
-fused_jacobi2_solve_folded.launches = 0  # kernel launches: init, each sweep, the exit residual
+fused_jacobi2_solve_folded.launches = 0  # kernel launches (`solve_launches`)

@@ -29,7 +29,7 @@ from diffpiso_tpu_torch import regime
 from diffpiso_tpu_torch.fields.grid import StaggeredField
 from diffpiso_tpu_torch.ops.laplace import apply_laplacian
 from diffpiso_tpu_torch.ops.stencil_residual import fused_stencil_residual
-from diffpiso_tpu_torch.solvers import tiers
+from diffpiso_tpu_torch.solvers import jacobi1, jacobi2, tiers
 from diffpiso_tpu_torch.solvers.bicg import fused_bicg_phase_p, fused_bicg_phase_s, fused_bicg_phase_x
 from diffpiso_tpu_torch.solvers.cg import cg_iteration_plain, fused_cg_iteration
 from diffpiso_tpu_torch.solvers.fourier import safe_symbol, spectral_apply3_plain, spectral_apply_plain
@@ -43,6 +43,7 @@ from diffpiso_tpu_torch.solvers.jacobi2 import (
     fused_jacobi2_solve_folded,
     sample_max_abs,
     sample_tols,
+    solve_launches,
 )
 from diffpiso_tpu_torch.solvers.jacobi3d import fused_jacobi_sweep_3d, fused_jacobi_zblock_3d
 from diffpiso_tpu_torch.solvers.jacobi_sweeps import fused_jacobi_sweeps
@@ -307,6 +308,7 @@ def bicgstab(
             xs = [xo0, xo1]
             bicgstab.jacobi_sweeps += sweeps
             bicgstab.jacobi_solves += 1
+            bicgstab.jacobi2_schedule += solve_launches(sweeps, 1 + 8 * 4, jacobi2.RUN_LENGTH)
         else:
             solve1 = fused_jacobi1_solve_3d if tier == "jac13d" else fused_jacobi1_solve
             outs = [solve1(st_cs[i], comps[i].contiguous(), x0_c[i].contiguous(), sgn,
@@ -387,6 +389,7 @@ bicgstab.iterations = 0  # BiCGSTAB loop iterations, both attempts
 bicgstab.jacobi_sweeps = 0  # whole-solve Jacobi sweeps (jac2: joint; jac1 / jac13d: summed over components)
 bicgstab.jacobi_solves = 0  # whole Jacobi solves (jac2: one joint solve; jac1 / jac13d: one per component)
 bicgstab.jacobi_idle = 0  # jac1 / jac13d component solves that stopped at entry (no sweep)
+bicgstab.jacobi2_schedule = 0  # the kernel launches of the jac2 solves (`jacobi2.solve_launches`)
 # the trip loop of the 2-D k-sweep tier and the 3-D z-block and plane
 # tiers (each trip: one kernel call per component): the k-sweep tier's
 # probes (one k = 1 call per component each), trips, and sweeps (z-block:
@@ -947,14 +950,17 @@ def bicgstab_batched(apply_A, b, x0=None, *, tol=1e-6, max_iter: int = 1000, dia
         if tier == "jac2":
             xo0, xo1, jn, sweeps = fused_jacobi2_solve_folded(st_cs, b_c, x_c, sgn, transpose,
                                                               tol_h, 1 + 8 * 4)
-            xs, slowest = [xo0, xo1], [sweeps.max()]
+            xs, slowest, run = [xo0, xo1], [sweeps.max()], jacobi2.RUN_LENGTH
         else:
             outs = [fused_jacobi1_solve_batched(st_cs[i], b_c[i], x_c[i], sgn, transpose, tol_h,
                                                 1 + 8 * 4) for i in range(2)]
             xs, slowest = [o[0] for o in outs], [o[2].max() for o in outs]
+            run = jacobi1.BATCHED_RUN_LENGTH
             jn = np.maximum(outs[0][1], outs[1][1])  # NaN propagates
         bicgstab_batched.jacobi_solves += len(slowest)
         bicgstab_batched.jacobi_sweeps += int(sum(slowest))
+        bicgstab_batched.jacobi_schedule += sum(solve_launches(int(s), 1 + 8 * 4, run)
+                                                for s in slowest)
         x0 = _rebuild(b, xs)
         miss = ~(jn < tol_h)
         bicgstab_batched.fallbacks += int(miss.sum())
@@ -985,6 +991,7 @@ bicgstab_batched.iterations = 0  # BiCGSTAB iterations, summed over samples
 bicgstab_batched.applies = {False: 0, True: 0}  # batched operator applications
 bicgstab_batched.jacobi_solves = 0  # batched Jacobi solves (joint: one; jac1: one per component)
 bicgstab_batched.jacobi_sweeps = 0  # their slowest sample's sweeps, summed over solves
+bicgstab_batched.jacobi_schedule = 0  # their kernel launches (`jacobi2.solve_launches`)
 
 
 def pcg_batched(apply_A, b, x0=None, *, precond, tol=1e-6, max_iter: int = 2000,

@@ -98,15 +98,14 @@ FAMILIES = (
     ("wgrad", "CNN convolutions (cuDNN)"),
     ("cudnn", "CNN convolutions (cuDNN)"),
     ("fft", "FFTs (spectral loss)"),
-    ("dp_jacb_", "batched jacobi2 / jacobi1 sweeps (the fold and grid rules)"),
+    ("jm_kernel", "jacobi2 sweeps, joint and batched; batched jacobi1 (rows 3, 11a, 11b)"),
     ("pcg2_", "pcg2 elementwise + reductions"),
     ("pcg2b_", "pcg2 elementwise + reductions"),
     ("pcgp_", "PCG phases (residual / apply / update)"),
     ("gemm", "M^-1 r contractions (torch.matmul)"),
     ("dp_sum_partials", "one-block partial sums (laplace assembly; rows 18b, 18c)"),
     ("laplace_assembly", "laplace assembly"),
-    ("dp_jac_", "jacobi2 / jacobi1 sweeps"),
-    ("j1_", "jacobi2 / jacobi1 sweeps"),
+    ("j1_", "jacobi1 sweeps (row 9)"),
     ("j13_", "jacobi 3-D whole-solve sweeps"),
     ("jsw_", "k-sweep Jacobi (row 8b: the k sweeps and the norm, one launch a call)"),
     ("sres_", "fused stencil residual (row 14)"),

@@ -89,7 +89,12 @@ from diffpiso_tpu_torch.solvers.jacobi1 import (
     jacobi1_plain,
     schedule_launches,
 )
-from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve, jacobi2_plain
+from diffpiso_tpu_torch.solvers.jacobi2 import (
+    RUN_LENGTH,
+    fused_jacobi2_solve,
+    jacobi2_plain,
+    solve_launches,
+)
 from diffpiso_tpu_torch.solvers.jacobi3d import (
     fused_jacobi_sweep_3d,
     fused_jacobi_zblock_3d,
@@ -101,10 +106,14 @@ from diffpiso_tpu_torch.solvers.pcg2 import fused_pcg2_solve, gemm, pcg2_plain
 from diffpiso_tpu_torch.solvers.pcgmm import fused_pcg_mm_update, pcg_mm_update_plain
 from diffpiso_tpu_torch.solvers.spectral_apply import fused_spectral_apply
 from tests.torch_parity import (  # noqa: F401  (cuda_device is a fixture)
+    BATCH_EDGES,
     JACOBI1_EDGE_SWEEPS,
     JACOBI1_EDGES,
+    batch_edge,
+    batch_edge_sweeps_ok,
     cuda_device,
     jacobi1_edge,
+    jacobi2_edge,
     t,
 )
 
@@ -151,8 +160,34 @@ def test_laplace_assembly_kernel_matches_plain(periodic, cuda_device):
     assert torch.equal(fused_laplace_assembly(cy, cx, planes, periodic)[5], got[5])
 
 
+def _norms_same(a, b) -> bool:
+    """Per-sample exit residuals with equal bits, or both NaN."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return bool(np.all((a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))))
+
+
+def _jac2_same(k, p):
+    """The CUDA joint solve's (x0, x1, exit residual, sweeps) bit-equal to
+    the plain version's (a NaN residual equals a NaN)."""
+    return (torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+            and torch.equal(k[1].view(torch.int32), p[1].view(torch.int32))
+            and _norms_same(k[2], p[2]) and k[3] == p[3])
+
+
+def _jac2_launch_check(st, b, x0, transpose, tol, ms):
+    """One CUDA joint solve against the plain version: bit-equal, one whole
+    solve and the kernel launches its schedule derives. Returns its sweeps."""
+    before, kbefore = fused_jacobi2_solve.launches, fused_jacobi2_solve.kernel_launches
+    k = fused_jacobi2_solve(st, b, x0, -1.0, transpose, tol, ms)
+    assert fused_jacobi2_solve.launches == before + 1
+    assert fused_jacobi2_solve.kernel_launches - kbefore == solve_launches(k[3], ms, RUN_LENGTH)
+    assert _jac2_same(k, jacobi2_plain(st, b, x0, -1.0, transpose, tol, ms))
+    return k[3]
+
+
+@pytest.mark.parametrize("case", JACOBI1_EDGES)
 @pytest.mark.parametrize("transpose", [False, True])
-def test_jacobi2_kernel_matches_plain(transpose, cuda_device):
+def test_jacobi2_kernel_matches_plain(transpose, case, cuda_device):
     def comp(seed):
         c = _rand(SHAPE, seed, 0.3, -10.0).to(cuda_device)
         lo = tuple(_rand(SHAPE, seed + k, 0.4).to(cuda_device) for k in (1, 2))
@@ -162,15 +197,11 @@ def test_jacobi2_kernel_matches_plain(transpose, cuda_device):
     st = [comp(10), comp(20)]
     b = (_rand(SHAPE, 30).to(cuda_device), _rand(SHAPE, 31).to(cuda_device))
     x0 = (torch.zeros(SHAPE, device=cuda_device),) * 2
-    before = fused_jacobi2_solve.launches
-    k = fused_jacobi2_solve(st, b, x0, -1.0, transpose, 1e-6, 33)
-    assert fused_jacobi2_solve.launches == before + 1
-    p = jacobi2_plain(st, b, x0, -1.0, transpose, 1e-6, 33)
-    # same sweeps and the same true exit residual (which may sit a rounding
-    # step above tol: the loop tests the maintained residual, as on the TPU)
-    assert k[3] == p[3] > 0 and k[2] == p[2]
-    torch.testing.assert_close(k[0], p[0], rtol=0, atol=0)
-    torch.testing.assert_close(k[1], p[1], rtol=0, atol=0)
+    bb, tol, ms = jacobi2_edge(case, jacobi2_plain, st, b, x0, transpose)
+    # same x, sweeps and true exit residual (which may sit a rounding step
+    # above tol: the loop tests the maintained residual, as on the TPU)
+    ks = _jac2_launch_check(st, bb, x0, transpose, tol, ms)
+    assert ks == JACOBI1_EDGE_SWEEPS.get(case, ks) and (case != "path" or ks > 2)
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -683,11 +714,12 @@ def test_jacobi2_and_pcg2_kernels_match_plain_at_the_cavity_shapes(cuda_device):
     b = tuple(it["rhs"].components)
     x0 = tuple(torch.zeros_like(c) for c in b)
     for transpose in (False, True):
-        k = fused_jacobi2_solve(st_cs, b, x0, -1.0, transpose, 1e-6, 33)
-        pj = jacobi2_plain(st_cs, b, x0, -1.0, transpose, 1e-6, 33)
-        assert k[3] == pj[3] > 0 and k[2] == pj[2]
-        torch.testing.assert_close(k[0], pj[0], rtol=0, atol=0)
-        torch.testing.assert_close(k[1], pj[1], rtol=0, atol=0)
+        for case in JACOBI1_EDGES:  # the ragged 513 x 512 / 512 x 513 faces at every edge
+            bb, tol, ms = jacobi2_edge(case, jacobi2_plain, st_cs, b, x0, transpose)
+            ks = _jac2_launch_check(st_cs, bb, x0, transpose, tol, ms)
+            # (one sweep stops at sqrt(n0 n1) only where the sweep lowers the residual)
+            if case != "one sweep":
+                assert ks == JACOBI1_EDGE_SWEEPS.get(case, ks) and (case != "path" or ks > 0)
     mss, weights = pbase.pressure_preconditioner("dct_mm", lap)
     (v0, v0t), (v1, v1t) = mss.mats(torch.float32, cuda_device)
     sym = safe_symbol(mss, weights, torch.float32, cuda_device)
@@ -905,31 +937,30 @@ def _fold_system(dev, nb=4, res=(64, 256), seed=0):
     return st_cs, b_c, tuple(torch.zeros_like(c) for c in b_c)
 
 
-@pytest.mark.parametrize("per_sample_tol", [False, True])
+@pytest.mark.parametrize("case", BATCH_EDGES)
 @pytest.mark.parametrize("transpose", [False, True])
 def test_jacobi2_fold_kernel_is_bit_equal_to_plain_and_to_single_sample_kernels(
-        transpose, per_sample_tol, cuda_device):
+        transpose, case, cuda_device):
     from diffpiso_tpu_torch.solvers.jacobi2 import fused_jacobi2_solve_folded, jacobi2_fold_plain
 
-    st_cs, b_c, x_c = _fold_system(cuda_device)
-    tol = (3e-3, 1e-4, 1e-5, 1e-6) if per_sample_tol else 1e-6
+    st_cs, b0, x_c = _fold_system(cuda_device)
+    b_c, tol, ms = batch_edge(case, lambda b, tl, m: jacobi2_fold_plain(
+        st_cs, b, x_c, -1.0, transpose, tl, m)[2], b0)
     before = fused_jacobi2_solve_folded.launches
-    x0, x1, nt, sweeps = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
-    assert fused_jacobi2_solve_folded.launches - before == 2 + int(sweeps.max())
-    y0, y1, yn, ys = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tol, 33)
-    assert torch.equal(x0, y0) and torch.equal(x1, y1)
-    np.testing.assert_array_equal(nt, yn)
+    x0, x1, nt, sweeps = fused_jacobi2_solve_folded(st_cs, b_c, x_c, -1.0, transpose, tol, ms)
+    assert fused_jacobi2_solve_folded.launches - before == solve_launches(int(sweeps.max()), ms,
+                                                                         RUN_LENGTH)
+    y0, y1, yn, ys = jacobi2_fold_plain(st_cs, b_c, x_c, -1.0, transpose, tol, ms)
+    assert torch.equal(x0.view(torch.int32), y0.view(torch.int32))
+    assert torch.equal(x1.view(torch.int32), y1.view(torch.int32))
+    assert _norms_same(nt, yn)
     np.testing.assert_array_equal(sweeps, ys)
-    if per_sample_tol:
-        assert len(set(sweeps.tolist())) > 1
-    tols = np.broadcast_to(np.asarray(tol, np.float32), (4,))
+    assert batch_edge_sweeps_ok(case, sweeps)
     for s in range(4):
         one = [(c[s], tuple(a[s] for a in lo), tuple(a[s] for a in hi)) for c, lo, hi in st_cs]
-        z0, z1, zn, zs = fused_jacobi2_solve(one, tuple(b[s] for b in b_c),
-                                             tuple(x[s] for x in x_c), -1.0, transpose,
-                                             float(tols[s]), 33)
-        assert torch.equal(x0[s], z0) and torch.equal(x1[s], z1)
-        assert np.float32(nt[s]) == np.float32(zn) and sweeps[s] == zs
+        z = fused_jacobi2_solve(one, tuple(b[s] for b in b_c), tuple(x[s] for x in x_c), -1.0,
+                                transpose, float(tol[s]), ms)
+        assert _jac2_same((x0[s], x1[s], float(nt[s]), int(sweeps[s])), z)
 
 
 def test_cuda_batched_training_step_matches_the_cpu_plain_path(cuda_device):
@@ -1445,31 +1476,34 @@ def test_gemm_batched_matches_the_single_sample_gemm(cuda_device):
         assert torch.equal(c[i], gemm(a, b[i].contiguous(), s[i].contiguous()))
 
 
-@pytest.mark.parametrize("per_sample_tol", [False, True])
+@pytest.mark.parametrize("case", BATCH_EDGES)
 @pytest.mark.parametrize("transpose", [False, True])
 def test_jacobi1_batched_kernel_is_bit_equal_to_plain_and_single_sample_kernels(
-        transpose, per_sample_tol, cuda_device):
+        transpose, case, cuda_device):
     from diffpiso_tpu_torch.solvers.jacobi1 import (
         fused_jacobi1_solve_batched,
         jacobi1_batched_plain,
     )
 
     st_cs, b_c, x_c = _fold_system(cuda_device, nb=3)
-    tol = (3e-3, 1e-4, 1e-6) if per_sample_tol else 1e-6
     for comp in range(2):
-        st, b, x = st_cs[comp], b_c[comp], x_c[comp]
+        st, x = st_cs[comp], x_c[comp]
+        (b,), tol, ms = batch_edge(case, lambda bb, tl, m: jacobi1_batched_plain(
+            st, bb[0], x, -1.0, transpose, tl, m)[1], (b_c[comp],))
         before = fused_jacobi1_solve_batched.launches
-        kx, kn, ks = fused_jacobi1_solve_batched(st, b, x, -1.0, transpose, tol, 33)
-        assert fused_jacobi1_solve_batched.launches - before == 2 + int(ks.max())
-        px, pn, ps = jacobi1_batched_plain(st, b, x, -1.0, transpose, tol, 33)
-        assert torch.equal(kx, px)
-        np.testing.assert_array_equal(kn, pn)
+        kx, kn, ks = fused_jacobi1_solve_batched(st, b, x, -1.0, transpose, tol, ms)
+        assert fused_jacobi1_solve_batched.launches - before == solve_launches(
+            int(ks.max()), ms, jacobi1.BATCHED_RUN_LENGTH)
+        px, pn, ps = jacobi1_batched_plain(st, b, x, -1.0, transpose, tol, ms)
+        assert torch.equal(kx.view(torch.int32), px.view(torch.int32))
+        assert _norms_same(kn, pn)
         np.testing.assert_array_equal(ks, ps)
-        tols = np.broadcast_to(np.asarray(tol, np.float32), (3,))
+        assert batch_edge_sweeps_ok(case, ks)
         for s in range(3):
             one = (st[0][s], tuple(a[s] for a in st[1]), tuple(a[s] for a in st[2]))
-            zx, zn, zs = fused_jacobi1_solve(one, b[s], x[s], -1.0, transpose, float(tols[s]), 33)
-            assert torch.equal(kx[s], zx) and np.float32(kn[s]) == np.float32(zn) and ks[s] == zs
+            zx, zn, zs = fused_jacobi1_solve(one, b[s], x[s], -1.0, transpose, float(tol[s]), ms)
+            assert torch.equal(kx[s].view(torch.int32), zx.view(torch.int32)) and ks[s] == zs
+            assert _norms_same(kn[s], zn)
 
 
 def test_plane_kernels_with_a_batch_axis_equal_their_single_sample_launches(cuda_device):

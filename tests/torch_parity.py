@@ -202,3 +202,67 @@ def jacobi1_edge(case, plain, st, b, x0, transpose):
             "one sweep": (b, (n0 * n1) ** 0.5, 33), "max_sweeps 0": (b, 1e-6, 0),
             "max_sweeps 1": (b, 1e-6, 1), "max_sweeps reached": (b, 0.0, 2),
             "NaN in b": (bn, 1e-6, 33)}[case]
+
+
+# The edges of the whole-solve Jacobi schedule of rows 3, 11a and 11b (the
+# speculative first launch and the stop test on the device;
+# solvers/jacobi2.py march_solve): the joint solve's at JACOBI1_EDGES, a
+# batch's below. tests/test_torch_jacobi2_schedule.py holds the host loop to
+# the plain versions and JAX at them on the CPU, tests/test_torch_cuda.py
+# the kernel on the card.
+def jacobi2_edge(case, plain, st, b_c, x_c, transpose):
+    """(b, tol, max_sweeps) of a joint solve's edge (JACOBI1_EDGES), from
+    the plain version's (`jacobi2_plain`'s) entry residual n0 and its
+    residual after one sweep n1; the NaN goes into the second component."""
+    n0 = plain(st, b_c, x_c, -1.0, transpose, 0.0, 0)[2]
+    n1 = plain(st, b_c, x_c, -1.0, transpose, 0.0, 1)[2]
+    bn = tuple(b.clone() for b in b_c)
+    bn[-1].view(-1)[bn[-1].numel() // 3] = float("nan")
+    return {"path": (b_c, 1e-6, 33), "tol met at entry": (b_c, 2.0 * n0, 33),
+            "one sweep": (b_c, (n0 * n1) ** 0.5, 33), "max_sweeps 0": (b_c, 1e-6, 0),
+            "max_sweeps 1": (b_c, 1e-6, 1), "max_sweeps reached": (b_c, 0.0, 2),
+            "NaN in b": (bn, 1e-6, 33)}[case]
+
+
+BATCH_EDGES = ["path", "per-sample tol", "NaN in one sample", "one sample starts converged",
+               "one starts converged, max_sweeps 1", "every sample starts converged",
+               "max_sweeps 0", "max_sweeps 1", "max_sweeps reached"]
+
+
+def batch_edge(case, exit_norms, b_c):
+    """(b, per-sample tol, max_sweeps) of a batched edge for B <= 4 samples
+    (at least 3), from `exit_norms(b, tol, max_sweeps)`, the plain
+    version's per-sample exit residuals (n0: at entry).
+    The NaN goes into sample 1's first component; "one sample starts
+    converged": sample 2 at entry (tol 2 n0)."""
+    n0 = np.asarray(exit_norms(b_c, 0.0, 0), np.float32)
+    nb = len(n0)
+    tol = np.full(nb, 1e-6, np.float32)
+    if case == "per-sample tol":
+        return b_c, np.array([1e-3, 1e-6, 1e-4, 1e-5][:nb], np.float32), 33
+    if case == "NaN in one sample":
+        bn = tuple(b.clone() for b in b_c)
+        bn[0][1].view(-1)[bn[0][1].numel() // 2] = float("nan")
+        return bn, tol, 33
+    if case == "one sample starts converged":
+        tol[2] = 2.0 * n0[2]
+        return b_c, tol, 33
+    if case == "one starts converged, max_sweeps 1":  # x0 held where no launch held it
+        tol[1] = 2.0 * n0[1]
+        return b_c, tol, 1
+    if case == "every sample starts converged":
+        return b_c, 2.0 * n0, 33
+    return b_c, tol, {"path": 33, "max_sweeps 0": 0, "max_sweeps 1": 1,
+                      "max_sweeps reached": 2}[case]
+
+
+def batch_edge_sweeps_ok(case, sweeps) -> bool:
+    """Whether the per-sample sweeps show the edge `batch_edge` built."""
+    s = list(sweeps)
+    return {"path": min(s) > 2, "per-sample tol": len(set(s)) > 1,
+            "NaN in one sample": s[1] == 0 and s[0] > 0 and s[2] > 0,
+            "one sample starts converged": s[2] == 0 and s[0] > 0 and s[1] > 0,
+            "one starts converged, max_sweeps 1": s[1] == 0 and s[0] == s[2] == 1,
+            "every sample starts converged": max(s) == 0, "max_sweeps 0": max(s) == 0,
+            "max_sweeps 1": min(s) == max(s) == 1,
+            "max_sweeps reached": min(s) == max(s) == 2}[case]
