@@ -1,8 +1,9 @@
 """Compare two trees of the port on one GPU: the hand-written GEMM shape by
 shape, the 2-D paths, the 3-D momentum tier kernels and paths, the CG
 iteration (row 10d) and whole-solve 3-D PCG (row 15g), the whole-solve
-Jacobi (rows 9, 15d; rows 3, 11a, 11b), and the rank-3 PCG phases (row
-10e) and the k-sweep Jacobi (row 8b), each with their paths.
+Jacobi (rows 9, 15d; rows 3, 11a, 11b), the rank-3 PCG phases (row 10e)
+and the k-sweep Jacobi (row 8b), and the rank-2 PCG residual and apply
+(rows 10a, 10b), each with their paths.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -150,6 +151,33 @@ dct forward, CG forward and gradient) and phase 16's 1024 x 2048
 (`large_turbulence_path`: forward and grad30). The kernel and trajectory
 lines must be equal; the paths' own lines are compared without their
 launch counts and memory readings and reported with their steps/s.
+
+    python3 chip_ab.py --pass phases2 PARENT_DIR [--kernels-only]
+
+runs the rank-2 phases pass alone in the same turns, one process each,
+from each tree's chip_smoke.py (`phases2_pass`). First, before the
+process runs anything else on the card (`phases2_alone`), rows 10a and
+10b on the mixing layer's own first loop calls (captured on the CPU
+through the plain path) and on seeded planes of the systems' shapes,
+both forms: device us a call over 200-call profiles under "clock", each
+call bit-equal to the tree's exact versions where it has them. Then rows
+10a and 10b (the
+2-D PCG residual and apply) on the pressure systems of the mixing layer
+128 x 512, the DNS 512 x 2048 and training 64 x 256 (channel_mm), the
+1024^2 turbulence (fft_mm: the folded-update tier) and the Karman street
+512 x 1536 (channel), each on a step 20 steps into its run, through
+`krylov.pcg` from the step's warm guess, and the 512 cavity under plain CG
+(`krylov.cg`), deflating and not: P2_CALLS iterations, a reset every
+P2_RESET (the residual of the last apply's x', the sum x' carried where
+the tree's apply returns it), one line per loop with the sha256 of every
+call's outputs and of the scalar slots both designs write; under "clock"
+device us and kernels a call (torch.profiler, every event) and host ms
+of each call kind's first call (the residual with sum x formed and
+carried, the apply, the update). Then (unless --kernels-only) the
+mixing, 1024^2, DNS and cavity-under-CG paths (phases 7b-c, 10b-c, 11,
+15b after phase 6's spin-up) with their trajectory digests. The kernel
+and trajectory lines must be equal; the paths' own lines are compared
+without the row 10a / 10b kernel counts the change adds.
 
     python3 chip_ab.py --paths-in DIR [--save PATH] [--gemm-only | --three-d-part PART
                                        | --pass NAME [--kernels-only]]
@@ -849,6 +877,24 @@ def pcg3_solves(cs, label, lap, b, guess, spec) -> None:
     print(json.dumps(dict(row="15g clock", case=label, clock=clock)), flush=True)
 
 
+def cavity_spinup(dev, cs) -> tuple:
+    """Phase 6's 2000-step spin-up of the 512 cavity: its (v, p, g1, g2),
+    also left in `cs.STATES["cavity"]`, where phase 15b starts from."""
+    import torch
+
+    from diffpiso_tpu_torch.core.setups import lid_driven_cavity_setup
+
+    domain, sim, dt = lid_driven_cavity_setup(cs.CAV_N, device=dev)
+    step = cs.cavity_step_fn(domain, sim, dt)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(cs.CAV_SPINUP):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    cs.STATES["cavity"] = (v, p, g1, g2)
+    return v, p, g1, g2
+
+
 def solvers_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
     """The solver pass (the module docstring) with the imported package and
     its tree's chip_smoke.py `cs`."""
@@ -858,21 +904,14 @@ def solvers_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
 
     from diffpiso_tpu_torch.core.piso import piso_step
     from diffpiso_tpu_torch.core.rollout import rollout_loss_grad
-    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup, lid_driven_cavity_setup
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
     from diffpiso_tpu_torch.fields.grid import StaggeredField
     from diffpiso_tpu_torch.fields.noise import random_solenoidal
     from diffpiso_tpu_torch.solvers import base as pbase
     from diffpiso_tpu_torch.solvers import cg as cgk
 
     # the cavity after phase 6's spin-up, a CG step's system on it
-    domain, sim, dt = lid_driven_cavity_setup(cs.CAV_N, device=dev)
-    step = cs.cavity_step_fn(domain, sim, dt)
-    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
-    g1 = g2 = torch.zeros_like(p)
-    for _ in range(cs.CAV_SPINUP):
-        o = step(v, p, g1, g2)
-        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
-    cs.STATES["cavity"] = (v, p, g1, g2)
+    v, p, g1, g2 = cavity_spinup(dev, cs)
     cdomain, csim, cdt = cs.cg_cavity(cs.CAV_N, dev)
     o = piso_step(v, p, cdt, cdomain, csim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
                   advection_tol=cs.CAV_TOL, pressure_tol=cs.CAV_TOL, full_output=True)
@@ -1566,6 +1605,258 @@ def phases_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
     traj.close("turbulence {}x{}: forward, grad30, phase 16".format(*cs.SWEEP_RES))
 
 
+P2_CALLS = 12  # iterations of each loop in the rank-2 phases pass
+P2_RESET = 5  # its residual resets (the residual of the last apply's x')
+P2_REPS = 20  # profiled calls a clock reading
+# the 2-D phase wrappers as krylov calls them: (name, output tensors both
+# designs return, scalar slots both designs write (csrc/pcgphases.cu: norm
+# 0, pq 1, alpha 2, sum 3, mean 4, rz 5, beta 6), the mean only deflating)
+P2_WRAPPERS = (("fused_residual", 2, (0, 3)), ("fused_pcg_apply", 4, (0, 1, 2, 3)),
+               ("fused_pcg_update", 2, (5, 6)))
+
+
+def phases2_cases(dev, cs):
+    """The 2-D pressure systems of the rank-2 phases pass, each on a step 20
+    steps into its path's run: (label, lap, b, guess, kind), kind the
+    path's preconditioner (None: plain CG)."""
+    import torch
+
+    from diffpiso_tpu_torch.core.piso import piso_step
+    from diffpiso_tpu_torch.core.setups import decaying_turbulence_setup
+    from diffpiso_tpu_torch.examples.karman_street import karman_setup
+    from diffpiso_tpu_torch.fields.noise import random_solenoidal
+
+    def system(o, g1):
+        it = o.intermediates
+        return it["laplacian"], it["v1_div"], 0.5 * g1  # a warm start that has to iterate
+
+    for label, setup in (("mixing {}x{}".format(*cs.MIX_RES), cs.mixing_setup(cs.MIX_RES, dev)),
+                         ("dns {}x{}".format(*cs.DNS_RES), cs.mixing_setup(cs.DNS_RES, dev)),
+                         ("training {}x{}".format(*cs.TRAIN_RES),
+                          cs.training_setup(cs.TRAIN_RES, dev))):
+        step = cs.mixing_step_fn(setup)
+        v, p = setup.initial_state()
+        g1, g2 = torch.zeros_like(p), torch.zeros_like(p)
+        for k in range(20):
+            o = step(v, p, g1, g2, tm=cs.bench_time(k, setup.dt))
+            v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+        o = piso_step(v, p, setup.dt, setup.domain, setup.sim,
+                      dirichlet_values=setup.dirichlet_values(setup.perturbation(
+                          cs.bench_time(20, setup.dt))),
+                      pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=cs.MIX_TOL,
+                      pressure_tol=cs.MIX_TOL, full_output=True)
+        yield (label, *system(o, g1), "channel_mm")
+    n = cs.LARGE_N
+    domain, sim = decaying_turbulence_setup((n, n), viscosity=cs.VISCOSITY, device=dev)
+    step = cs.turbulence_step_fn(domain, sim, 0.4 / n)
+    v = random_solenoidal(domain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p = domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(20):
+        o = step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    yield (f"turbulence {n}^2", *system(step(v, p, g1, g2, full_output=True), g1), "fft_mm")
+    ks = karman_setup(cs.KARMAN_NY, device=dev)
+    v, p, g1, g2 = ks.initial_state()
+    for _ in range(20):
+        o = ks.step(v, p, g1, g2)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    o = piso_step(v, p, ks.dt, ks.domain, ks.sim, pressure_inc1_guess=g1,
+                  pressure_inc2_guess=g2, advection_tol=ks.tol, pressure_tol=ks.tol,
+                  full_output=True)
+    yield ("karman {}x{}".format(cs.KARMAN_NY, 3 * cs.KARMAN_NY), *system(o, g1), "channel")
+    domain, sim, dt = cs.cg_cavity(cs.CAV_N, dev)
+    v, p = domain.staggered_grid(0.0, device=dev), domain.centered_grid(0.0, device=dev)
+    g1 = g2 = torch.zeros_like(p)
+    for _ in range(20):
+        o = piso_step(v, p, dt, domain, sim, pressure_inc1_guess=g1, pressure_inc2_guess=g2,
+                      advection_tol=cs.CAV_TOL, pressure_tol=cs.CAV_TOL, full_output=True)
+        v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
+    yield (f"cavity {cs.CAV_N} under CG", *system(o, g1), None)
+
+
+def phases2_loop(label, lap, b, guess, kind, deflate):
+    """One loop of the rank-2 phases pass through krylov (`kind`'s PCG, or
+    plain CG where kind is None), warm from `guess`, a reset every P2_RESET
+    iterations, P2_CALLS iterations: every call of the three phase wrappers
+    hashed as it returns (its outputs and the scalar slots both designs
+    write, the scalar array captured as the wrapper allocates it). Returns
+    (the JSON line, {call kind: the first such call's (wrapper, args,
+    kwargs)})."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.solvers import base as pbase
+    from diffpiso_tpu_torch.solvers import krylov
+
+    real = {name: getattr(krylov, name) for name, *_ in P2_WRAPPERS}
+    first, h = {}, hashlib.sha256()
+    real_empty = torch.empty
+
+    def wrap(name, nout, slots):
+        def f(*a, **kw):
+            made = []
+
+            def empty(*ea, **ekw):
+                t = real_empty(*ea, **ekw)
+                if t.ndim == 1 and t.numel() == 8:
+                    made.append(t)
+                return t
+
+            torch.empty = empty
+            try:
+                out = real[name](*a, **kw)
+            finally:
+                torch.empty = real_empty
+            key = name + (" carried" if kw.get("sum_x") is not None else "")
+            first.setdefault(key, (real[name], a, kw))
+            for t in out[:nout]:
+                h.update(bits_sha256(t).encode())
+            deflate = name != "fused_pcg_update" and a[3 if name == "fused_residual" else 5]
+            for arr in made:  # the kernels' scalar array (none on the CPU)
+                h.update((arr[[i for i in (*slots, 4) if i != 4 or deflate]] + 0.0)
+                         .cpu().numpy().tobytes())
+            return out
+
+        return f
+
+    for name, *rest in P2_WRAPPERS:
+        setattr(krylov, name, wrap(name, *rest))
+    try:
+        if kind is None:
+            res = krylov.cg(lap, b, guess, tol=0.0, max_iter=P2_CALLS, residual_reset=P2_RESET,
+                            deflate_mean=deflate)
+        else:
+            pre = pbase.pressure_preconditioner(kind, lap)
+            fn = kind in pbase._FUNCTION_KINDS
+            res = krylov.pcg(lap, b, guess, precond_mm=None if fn else pre,
+                             precond=pre if fn else None, tol=0.0, max_iter=P2_CALLS,
+                             residual_reset=P2_RESET, deflate_mean=deflate,
+                             precond_zero_mean=kind in pbase._ZERO_MEAN, early_exit=True)
+    finally:
+        for name, *_ in P2_WRAPPERS:
+            setattr(krylov, name, real[name])
+    return dict(row="10a-b", case=f"{label} {kind or 'cg'} deflate={deflate}",
+                iterations=res.iterations, x_sha256=bits_sha256(res.x),
+                exit_norm_bits=np.float32(res.residual_norm).tobytes().hex(),
+                calls_sha256=h.hexdigest()), first
+
+
+# the planes of the rank-2 phases pass's systems: training, mixing, the
+# 513 x 512 cavity, the Karman street, the 1024^2 turbulence, the DNS
+P2_ALONE_SHAPES = ((64, 256), (128, 512), (513, 512), (512, 1536), (1024, 1024), (512, 2048))
+
+
+def phases2_alone(dev, cs) -> None:
+    """The rank-2 phases pass's first part, run before the process uses
+    the card for anything else: rows 10a and 10b on the mixing layer's own
+    arguments (the first apply and residual calls of its loops, deflating
+    and not, captured on the CPU through the plain path and moved to the
+    card) and on seeded planes of P2_ALONE_SHAPES (a periodic Laplacian
+    with its shift). Device us a call over 200-call profiles, every event;
+    where the tree has the exact versions every call is held bit-equal to
+    them. One JSON line a case, its readings under "clock"."""
+    import numpy as np
+    import torch
+
+    from diffpiso_tpu_torch.ops.laplace import LaplaceStencil
+    from diffpiso_tpu_torch.solvers import pcgphases as ph
+
+    def moved(lap, shift=None):
+        planes = [t.to(dev) for t in (lap.center, *lap.lo, *lap.hi)]
+        return LaplaceStencil(center=planes[0], lo=tuple(planes[1:3]), hi=tuple(planes[3:5]),
+                              shift=(lap.shift if shift is None else shift).to(dev),
+                              periodic=lap.periodic)
+
+    def seeded(shape, seed, lo=-0.5, hi=0.5):
+        return torch.as_tensor(np.random.RandomState(seed).uniform(lo, hi, shape)
+                               .astype(np.float32), device=dev)
+
+    cases = []
+    label, lap, b, guess, kind = next(phases2_cases(torch.device("cpu"), cs))
+    for d in (False, True):
+        first = phases2_loop(label, lap, b, guess, kind, d)[1]
+        _, rz, x, r, p, _ = first["fused_pcg_apply"][1]
+        _, br, xr, _ = first["fused_residual"][1]
+        cases.append((f"{label} deflate={d}", moved(lap), d,
+                      *(t.to(dev) for t in (rz, x, r, p, br, xr))))
+    for shape in P2_ALONE_SHAPES:
+        w = [seeded(shape, s, 0.5, 1.5) for s in (1, 2, 3, 4)]
+        slap = LaplaceStencil(center=-(w[0] + w[1] + w[2] + w[3]), lo=(w[0], w[2]),
+                              hi=(w[1], w[3]), shift=torch.tensor(0.1), periodic=(True, True))
+        x, r, p, br, xr = (seeded(shape, s) for s in (9, 10, 11, 12, 13))
+        for d in (False, True):
+            cases.append((f"seeded {shape[0]}x{shape[1]} deflate={d}", moved(slap), d,
+                          torch.sum(r * p), x, r, p, br, xr))
+    exact = hasattr(ph, "pcg_apply_exact")  # not in trees before row 10a / 10b's redesign
+    for case, lap, d, rz, x, r, p, br, xr in cases:
+        got = ph.fused_pcg_apply(lap, rz, x, r, p, d)
+        sx = got[4] if len(got) > 4 else None
+        calls = {"apply": lambda: ph.fused_pcg_apply(lap, rz, x, r, p, d),
+                 "residual": lambda: ph.fused_residual(lap, br, xr, d)}
+        if sx is not None:
+            calls["residual carried"] = lambda: ph.fused_residual(lap, br, got[0], d, sum_x=sx)
+        if exact:
+            want = ph.pcg_apply_exact(lap, rz, x, r, p, d)
+            kr = ph.fused_residual(lap, br, got[0], d, sum_x=sx)
+            er = ph.residual_exact(lap, br, got[0], d)
+            if not (all(torch.equal(a, w_) for a, w_ in
+                        zip(got, (*want[:4], want[4][ph.O_SUMX])))
+                    and torch.equal(kr[0], er[0]) and torch.equal(kr[1], er[1])):
+                raise RuntimeError(f"rows 10a / 10b alone, {case}: not bit-equal to the exact "
+                                   "versions")
+        print(json.dumps(dict(row="10a-b alone", case=case, shape=list(x.shape),
+                              clock={k: device_us(fn, 200, None) for k, fn in calls.items()})),
+              flush=True)
+
+
+def phases2_clock(first) -> dict:
+    """Device us a call and a launch (torch.profiler, every event) and host
+    ms of each call kind's first call."""
+    clock = {}
+    for key, (fn, a, kw) in first.items():
+        d = device_us(lambda: fn(*a, **kw), P2_REPS, None)
+        clock[key] = dict(kernels_seen=d["launches_per_call"],
+                          device_us_per_launch=d["device_us_per_launch"],
+                          device_us_per_call=d["device_us_per_call"],
+                          ms=host_ms(lambda: fn(*a, **kw), 50))
+    return clock
+
+
+def phases2_pass(dev, cs, wrappers: dict, kernels_only: bool) -> None:
+    """The rank-2 phases pass (the module docstring) with the imported
+    package and its tree's chip_smoke.py `cs`."""
+    import torch
+
+    phases2_alone(dev, cs)
+    for label, lap, b, guess, kind in phases2_cases(dev, cs):
+        for deflate in (False, True):
+            line, first = phases2_loop(label, lap, b, guess, kind, deflate)
+            print(json.dumps(line), flush=True)
+            print(json.dumps(dict(row="10a-b clock", case=line["case"], shape=list(b.shape),
+                                  clock=phases2_clock(first))), flush=True)
+        del lap, b, guess
+        torch.cuda.empty_cache()
+    if kernels_only:
+        return
+    for name, factory, run in (
+            ("mixing, phases 7b-c", "mixing_step_fn", lambda: cs.mixing_path(dev, wrappers)),
+            ("turbulence 1024^2, phases 10b-c", "turbulence_step_fn",
+             lambda: cs.large_turbulence_path(dev, wrappers)),
+            ("dns, phase 11", "mixing_step_fn", lambda: cs.mixing_path(
+                dev, wrappers, cs.DNS_RES, "dns", ("jacobi1_solve", 2)))):
+        traj = Trajectory(cs, factory)
+        run()
+        traj.close(name)
+        torch.cuda.empty_cache()
+    cavity_spinup(dev, cs)
+    traj = Trajectory(cs, "cavity_step_fn")
+    cs.cg_cavity_path(dev, wrappers)
+    traj.close("lid-driven cavity 512 under CG, phase 15b (200 steps, grad30)")
+
+
 def paths_in(tree: str, save=None, gemm_only=False, three_d=None, pass_name=None,
              kernels_only=False, kernel_prof=False) -> int:
     """Build DIR's kernels and run, with DIR's package, `gemm_pass` and
@@ -1661,6 +1952,9 @@ PH_DROP = ("launches", "launches_per_eval", "row10e_kernel_launches",
 # kernel counts the change adds, memory readings
 J2_DROP = ("launches", "launches_per_eval", "jacobi_schedule", "row3_kernel_launches",
            "memory_allocated_before_bytes")
+# and the rank-2 phases pass: the row 10a / 10b kernel counts the change
+# adds, memory readings
+P2_DROP = ("row10ab_kernel_launches", "memory_allocated_before_bytes")
 # the passes `--pass NAME` compares alone: NAME -> (the pass, run with the
 # imported package as fn(dev, cs, wrappers, kernels_only); the keys its
 # compared lines leave out; whether every line is held equal, the training
@@ -1671,6 +1965,7 @@ PASSES = {
     "jacobi2": (jacobi2_pass, J2_DROP, False),
     "training": (training_pass, J2_DROP, True),
     "phases": (phases_pass, PH_DROP, False),
+    "phases2": (phases2_pass, P2_DROP, False),
 }
 
 

@@ -26,7 +26,11 @@ Phases, each fatal on failure:
      planes of a step 20 steps into its run: the three per-iteration PCG
      phase kernels (residual, apply, update) with deflation off and on and
      shift 0 and non-zero (planes within rel 1e-6 of their scale, scalars
-     within rel 1e-5), one whole per-iteration PCG solve forward (warm) and
+     within rel 1e-5; rows 10a and 10b also bit-equal to
+     `pcgphases.residual_exact` / `pcg_apply_exact`, the residual with sum
+     x formed and carried in, one kernel a call; yardsticks: one cuSPARSE
+     CSR addmm, b - A x, for 10a and one CSR SpMV, A p, for 10b), one
+     whole per-iteration PCG solve forward (warm) and
      adjoint (cold) with the kernels against the plain phases (equal
      iteration counts), the matvec on the (128, 513) u plane in both forms
      (bit-equal), jac2 and the Laplace assembly with its masks;
@@ -144,8 +148,13 @@ Phases, each fatal on failure:
      forward and transposed on both components (equal sweeps, x within rel
      1e-6) and the PCG update with M^-1 folded in, on the loop's first
      call and on a mid-loop call (p' within rel 1e-6 of its scale, rz'
-     within rel 1e-5); then jac1 on the 512 x 2048 mixing layer's faces
-     (513 x 2048, 512 x 2049) 20 steps into its run;
+     within rel 1e-5); rows 10a and 10b (the PCG residual and apply,
+     4096 blocks: csrc/pcgphases.cu's ticket exchange, 8 virtual blocks a
+     block) with deflation off and on against their plain versions (as 2c)
+     and bit-equal to their exact versions, one kernel a call, on that
+     1024^2 system and on the DNS's 512 x 2048 pressure system; then jac1
+     on the 512 x 2048 mixing layer's faces (513 x 2048, 512 x 2049) 20
+     steps into its run;
   10. turbulence at 1024^2 (bench.py turb_1024: phase 4's configuration at
      n = 1024): (a) 2 steps and the 2-step rollout gradient on the card
      against the plain path on the CPU at full size, at phase 3's pressure
@@ -256,7 +265,9 @@ Phases, each fatal on failure:
      and on phase 4's periodic 512^2 Laplacian: planes within 1e-6 of their
      scale, rnorm / p.q / alpha / beta within rel 1e-5 (the block sums run
      in another order); host ms, device us per launch, the bound, the plain
-     version, one cuSPARSE SpMV of the same Laplacian.
+     version, one cuSPARSE SpMV of the same Laplacian; before it rows 10a
+     and 10b on the cavity's system (1026 blocks: the ticket exchange, 2
+     virtual blocks a block) as in 2f;
   15. the JAX package's default pressure solver (plain CG) and the function
      preconditioners: (a) the 64^2 cavity under CG, 5 steps and the 5-step
      gradient, card vs the CPU plain path (equal warn and gate decisions,
@@ -348,8 +359,8 @@ Phases, each fatal on failure:
      (exact sums, so the shift term agrees bit for bit): volumes within rel
      1e-6 of their scale plus what the measured alpha / beta differences
      carry (phase 2i's bar), the scalars reported with their relative
-     error; row 10e bit-equal to its exact versions (`residual3_exact`,
-     `pcg_apply3_exact`, `cg_iteration3_exact`: every sum in the kernels'
+     error; row 10e bit-equal to its exact versions (`residual_exact`,
+     `pcg_apply_exact`, `cg_iteration3_exact`: every sum in the kernels'
      order; the CG iteration over two chained calls, the sum of p formed
      and then carried), each call's kernels counted (residual 2, apply 3,
      CG iteration 3 carried / 4 formed, one more each deflating); row
@@ -1243,6 +1254,34 @@ def derived_launches(c0: dict, c1: dict, fold: bool = False, spectral: bool = Fa
              **{k: 2 * d["bicgstab_iterations"] for k in BICG_PHASES}}, d)
 
 
+# kernels a call of row 10a or 10b launches (csrc/pcgphases.cu: one
+# cooperative launch, every form)
+PHASES2_CALL_KERNELS = 1
+
+
+def phases2_counts() -> tuple:
+    """Rows 10a and 10b's kernels launched so far (their wrappers'
+    `kernel_launches`)."""
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    return pcgphases.fused_residual.kernel_launches, pcgphases.fused_pcg_apply.kernel_launches
+
+
+def phases2_check(label: str, k0: tuple, d: dict, cg: bool = False) -> dict:
+    """Rows 10a and 10b's kernels since `k0` against what the loops'
+    counter deltas `d` derive: PHASES2_CALL_KERNELS a call, the residual
+    once per warm entry, reset and loop (of the PCG loop, or of plain CG,
+    `cg`), the apply once per PCG iteration (none under CG)."""
+    got = tuple(a - b for a, b in zip(phases2_counts(), k0))
+    pre = "cg" if cg else "pcg"
+    want = ((d[f"{pre}_warm_entries"] + d[f"{pre}_resets"] + d[f"{pre}_loops"])
+            * PHASES2_CALL_KERNELS, 0 if cg else d["pcg_iterations"] * PHASES2_CALL_KERNELS)
+    print(f"{label}: rows 10a / 10b kernel launches {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{label}: rows 10a / 10b launched {got} kernels, expected {want}")
+    return {"pcg_residual": got[0], "pcg_apply": got[1]}
+
+
 def summable(v, total: float):
     """`v` rounded to a grid of 2^-k with at most 2s steps a cell (s = 50,
     or less on planes past 2^17 cells), and its sum moved to the grid point
@@ -1263,6 +1302,95 @@ def summable(v, total: float):
     flat += diff // n
     flat[: diff % n] += 1
     return torch.as_tensor((u / 2.0 ** k).astype(np.float32), device=v.device)
+
+
+def phases2_exact_check(label, lap, b, rz, x, r, p, deflate) -> None:
+    """Phase 2c's bit-for-bit check of rows 10b and 10a against
+    `pcgphases.pcg_apply_exact` / `residual_exact` (the plain arithmetic
+    with every sum in the kernels' order): the apply with its sum x', then
+    the residual of that x' with sum x formed and carried in (as the PCG
+    loop's resets and exit take it); each call's kernels counted
+    (PHASES2_CALL_KERNELS)."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import pcgphases as ph
+
+    def held(what, pairs, k0, k1, want):
+        bad = [k for k, (a, w) in pairs.items() if not torch.equal(a, w)]
+        launched = k1 - k0
+        print(f"{label} {what} deflate={deflate}: bit-equal to exact: {not bad}; kernels "
+              f"{launched} (expected {want})", flush=True)
+        if bad:
+            fail(f"{label} {what} deflate={deflate}: {', '.join(bad)} not bit-equal to the "
+                 "exact version")
+        if launched != want:
+            fail(f"{label} {what} deflate={deflate}: {launched} kernels, expected {want}")
+
+    k0 = phases2_counts()
+    ka = ph.fused_pcg_apply(lap, rz, x, r, p, deflate)
+    k1 = phases2_counts()
+    ea = ph.pcg_apply_exact(lap, rz, x, r, p, deflate)
+    held("pcg_apply", {"x'": (ka[0], ea[0]), "r'": (ka[1], ea[1]), "rnorm": (ka[2], ea[2]),
+                       "p.q": (ka[3], ea[3]), "sum x'": (ka[4], ea[4][ph.O_SUMX])},
+         k0[1], k1[1], PHASES2_CALL_KERNELS)
+    for carried in (False, True):
+        k0 = phases2_counts()
+        kr = ph.fused_residual(lap, b, ka[0], deflate, sum_x=ka[4] if carried else None)
+        k1 = phases2_counts()
+        er = ph.residual_exact(lap, b, ea[0], deflate,
+                               sum_x=ea[4][ph.O_SUMX] if carried else None)
+        held(f"pcg_residual (sum x {'carried' if carried else 'formed'})",
+             {"r": (kr[0], er[0]), "rnorm": (kr[1], er[1])}, k0[0], k1[0],
+             PHASES2_CALL_KERNELS)
+
+
+def phases2_inputs(lap, b, x0, deflate):
+    """The inputs of `phases2_system_check` on a path's pressure system:
+    (x, r, p, rz), x the warm guess `x0`, r its residual (the plain
+    version's), p = r (a first CG step), rz = r.p. Where the Laplacian
+    carries a shift, x and p go on an exactly summable grid with shift
+    sum(.) near the size of the rest (`summable`, as phase 2c's shifted
+    checks), so both versions sum them exactly."""
+    import torch
+
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    s_val = float(lap.shift)
+    x = summable(x0, float(b.abs().max()) / s_val) if s_val else x0
+    r = pcgphases.residual_plain(lap, b, x, deflate)[0]
+    p = summable(r, float(pcgphases.lap_matvec(lap, r).abs().max()) / s_val) if s_val else r
+    return x, r, p, torch.sum(r * p)
+
+
+def phases2_system_check(label, lap, b, x0) -> None:
+    """Rows 10a and 10b on a path's own pressure system, deflating and not
+    (`phases2_inputs`): against the plain versions (planes within rel 1e-6
+    of their scale, scalars within rel 1e-5, as phase 2c) and bit for bit
+    against the exact versions with each call's kernels counted
+    (`phases2_exact_check`). Planes past PCGP_GATHER_MAX (512) blocks take
+    csrc/pcgphases.cu's ticket exchange with 2 or more virtual blocks a
+    block, which the mixing and training planes of 2c / 2e do not reach."""
+    from diffpiso_tpu_torch.solvers import pcgphases
+
+    ny, nx = b.shape
+    for deflate in (False, True):
+        x, r, p, rz = phases2_inputs(lap, b, x0, deflate)
+        for name, got, want, n_planes in (
+                ("pcg_residual", pcgphases.fused_residual(lap, b, x, deflate),
+                 pcgphases.residual_plain(lap, b, x, deflate), 1),
+                ("pcg_apply", pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)[:4],
+                 pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate)[:4], 2)):
+            e = max(float((a - w).abs().max()) for a, w in zip(got[:n_planes], want[:n_planes]))
+            rel = e / max(max(float(w.abs().max()) for w in want[:n_planes]), 1e-30)
+            srel = max(float((g - w).abs() / w.abs().clamp_min(1e-30))
+                       for g, w in zip(got[n_planes:], want[n_planes:]))
+            print(f"{label} {name} at {ny}x{nx} (deflate={deflate}) vs plain: planes max abs "
+                  f"err {e:.3e} (rel to scale {rel:.3e}), scalars max rel err {srel:.3e}",
+                  flush=True)
+            if not (rel <= 1e-6 and srel <= 1e-5):
+                fail(f"{label} {name} (deflate={deflate}): kernel vs plain beyond rel 1e-6 of "
+                     "the planes' scale / rel 1e-5 (scalars)")
+        phases2_exact_check(label, lap, b, rz, x, r, p, deflate)
 
 
 def mixing_kernels(dev, kernels, setup, label: str) -> dict:
@@ -1349,7 +1477,10 @@ def mixing_kernels(dev, kernels, setup, label: str) -> dict:
                 z = summable(z, float(pcgphases.lap_matvec(lap, z).abs().max()) / s_val)
             rz = torch.sum(r * z)
             args_a = (L, rz, x0, r, z, deflate)
-            ka, pa = pcgphases.fused_pcg_apply(*args_a), pcgphases.pcg_apply_plain(*args_a)
+            # x', r', max|r'|, p.q (sum x' is held to its exact version below)
+            ka = pcgphases.fused_pcg_apply(*args_a)[:4]
+            pa = pcgphases.pcg_apply_plain(*args_a)[:4]
+            phases2_exact_check(f"{label} ({lab})", L, rhs, rz, x0, r, z, deflate)
             args_u = (rz, pa[1], prec(pa[1]), z)
             ku, pu = pcgphases.fused_pcg_update(*args_u), pcgphases.pcg_update_plain(*args_u)
             if lab == "shift 0" and not deflate:  # the main path's arguments
@@ -1403,6 +1534,18 @@ def mixing_kernels(dev, kernels, setup, label: str) -> dict:
         solves[how] = res_k.iterations
 
     out = {}
+    # the library yardsticks (the port never calls them), on the main path's
+    # arguments: row 10a's b - A x as one cuSPARSE CSR addmm (without the
+    # max), row 10b's q = A p as one CSR SpMV; the Laplacian carries no
+    # shift here, so A is the 5-point stencil
+    csr = csr_of_stencil(lap.center, lap.lo[0], lap.hi[0], lap.lo[1], lap.hi[1])
+    rl, al = inputs["pcg_residual"], inputs["pcg_apply"]
+    bcol, xcol, pcol = rl[1].reshape(-1, 1), rl[2].reshape(-1, 1), al[4].reshape(-1, 1)
+    library = {
+        "pcg_residual": (lambda: torch.addmm(bcol, csr, xcol, alpha=-1.0),
+                         pcgphases.residual_plain(*rl)[0]),
+        "pcg_apply": (lambda: csr @ pcol, pcgphases.lap_matvec(lap, al[4])),
+    }
     # bytes per call of the phases (planes in + out): residual 5 + b, x in, r
     # out; apply 5 + x, r, p in, x', r' out; update r, z, p in, p' out.
     # flops per cell: residual 10, apply 15, update 4
@@ -1413,12 +1556,17 @@ def mixing_kernels(dev, kernels, setup, label: str) -> dict:
     ):
         a = inputs[name]
         b_, by_ = bound(planes * plane, flops * ny * nx)
+        lib = dict(library_ms=None)
+        if name in library:
+            call, want = library[name]
+            lib = dict(library_ms=cuda_time_ms(call, 50), **library_device_time(call),
+                       library_rel_err=rel_err(call().reshape(want.shape), want))
         entry = dict(
             max_abs_err=errs[name], scalars_max_rel_err=rels[name],
             ms=cuda_time_ms(lambda fn=fn, a=a: fn(*a), 200),
             plain_ms=cuda_time_ms(lambda plain=plain, a=a: plain(*a), 50),
             **device_time(lambda fn=fn, a=a: fn(*a)), bound_ms=b_, bound_by=by_,
-            library_ms=None, shape=[ny, nx], solve_iterations=solves,
+            shape=[ny, nx], solve_iterations=solves, **lib,
         )
         if kernels is None:
             out[name] = entry
@@ -1816,7 +1964,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
 
     # -- 7b: the forward path
     reset()
-    c0 = loop_counters()
+    c0, k0 = loop_counters(), phases2_counts()
     j0 = jac1_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1828,6 +1976,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     fwd_T = wrappers["stencil_matvec"].launches_transposed
     STATES[name] = (setup, v, p, g1, g2, clock[0])
     loops, d = derived_launches(c0, loop_counters(), spectral=True)
+    r10ab = phases2_check(f"{name} forward", k0, d)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     active_int = setup.sim.active_mask[1:-1, 1:-1]
@@ -1840,6 +1989,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
         max_abs_div_active=div, loop_counters=d, launches=fwd,
         **({"row9_kernel_launches": j1[0] - j0[0]} if jac == "jacobi1_solve" else
            {"row3_kernel_launches": j1[1] - j0[1]}),
+        row10ab_kernel_launches=r10ab,
     )), flush=True)
     if not finite:
         fail(f"{name}: non-finite state after the forward path")
@@ -1877,7 +2027,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
     evals = []
     for rep in range(1 + GRAD_REPS):
         reset()
-        c0 = loop_counters()
+        c0, k0 = loop_counters(), phases2_counts()
         j0 = jac1_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1886,6 +2036,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
         elapsed_g = time.perf_counter() - t0
         counts = read()
         loops, d = derived_launches(c0, loop_counters(), spectral=True)
+        r10ab = phases2_check(f"{name} grad30", k0, d)
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -1898,7 +2049,7 @@ def mixing_path(dev, wrappers: dict, resolution=MIX_RES, name: str = "mixing",
             gated_ratios=[round(a.residual / a.limit, 4) for a in p_adj if a.gated],
             adjoint_ratio_passed_max=max((a.residual / a.limit for a in p_adj if not a.gated),
                                          default=None),
-            loop_counters=d, launches=counts,
+            loop_counters=d, launches=counts, row10ab_kernel_launches=r10ab,
             matvec_transposed=wrappers["stencil_matvec"].launches_transposed,
         ))
         print(json.dumps({f"{name}_grad_eval": rep, **evals[-1]}), flush=True)
@@ -2593,7 +2744,9 @@ def large_kernels(dev, kernels: list) -> dict:
     zeros = torch.zeros_like(r0)
     first = (torch.ones((), device=dev), r0, zeros)
     p1, rz1 = pcg_mm_update_plain(v0, v1, sym, *first)
-    _, r1, _, _ = pcgphases.pcg_apply_plain(lap, rz1, zeros, r0, p1, True)
+    r1 = pcgphases.pcg_apply_plain(lap, rz1, zeros, r0, p1, True)[1]
+    # rows 10a / 10b on this system (4096 blocks), warm from M^-1 r0
+    phases2_system_check(f"2f {n}^2", lap, it["v1_div"], p1)
     mid = (rz1, r1, p1)
     mm_err, f64_rel = 0.0, {}
     for label, args in (("first call", first), ("mid-loop", mid)):
@@ -2643,6 +2796,8 @@ def large_kernels(dev, kernels: list) -> dict:
                        bench_time(20, setup.dt))),
                    pressure_inc1_guess=g1, pressure_inc2_guess=g2, advection_tol=MIX_TOL,
                    pressure_tol=MIX_TOL, full_output=True).intermediates
+    # rows 10a / 10b on the DNS pressure system (4096 blocks)
+    phases2_system_check(f"2f dns {DNS_RES}", it["laplacian"], it["v1_div"], 0.5 * g1)
     st, b_c = it["stencil"], it["rhs"].components
     sweeps, err = jacobi1_check(f"dns {DNS_RES}", st, b_c, v.components)
     for c in range(2):
@@ -2782,7 +2937,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         o = step(v, p, g1, g2)
         v, p, g1, g2 = o.velocity, o.pressure, o.pressure_inc1, o.pressure_inc2
     reset()
-    c0 = loop_counters()
+    c0, k0 = loop_counters(), phases2_counts()
     j0 = jac1_snapshot()
     warns, iters = 0, [0, 0]
     torch.cuda.synchronize()
@@ -2798,6 +2953,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
     fwd = read()
     j1 = jac1_snapshot()
     loops, d = derived_launches(c0, loop_counters(), fold=True)
+    r10ab = phases2_check(f"{n} forward", k0, d)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     print(json.dumps(dict(
@@ -2807,6 +2963,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         warn_fraction=warns / TIMED_STEPS,
         max_abs_div=float(fv_divergence(v, domain.dx).abs().max()), momentum_tier=tier,
         **sweep_stats(d, TIMED_STEPS), loop_counters=d, launches=fwd,
+        row10ab_kernel_launches=r10ab,
         **({"row9_kernel_launches": j1[0] - j0[0]} if tier == "jac1" else {}))), flush=True)
     if not finite:
         fail(f"{n}: non-finite state after the forward path")
@@ -2833,7 +2990,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
     evals = []
     for rep in range(1 + GRAD_REPS):
         reset()
-        c0 = loop_counters()
+        c0, k0 = loop_counters(), phases2_counts()
         j0 = jac1_snapshot()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2843,6 +3000,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
         elapsed_g = time.perf_counter() - t0
         counts = read()
         loops, d = derived_launches(c0, loop_counters(), fold=True)
+        r10ab = phases2_check(f"{n} grad30", k0, d)
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -2857,7 +3015,7 @@ def large_turbulence_path(dev, wrappers: dict, res=(LARGE_N, LARGE_N), box=None)
             adjoint_ratio_gated_min=min((a.residual / a.limit for a in p_adj if a.gated),
                                         default=None),
             **sweep_stats(d, 2 * U), max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-            loop_counters=d, launches=counts))
+            loop_counters=d, launches=counts, row10ab_kernel_launches=r10ab))
         print(json.dumps({f"{label}_grad_eval": rep, **evals[-1]}), flush=True)
         if res.warns:
             fail(f"{n} grad30: warn fraction {res.warns / U} (must be 0)")
@@ -5019,6 +5177,8 @@ def cg_kernels(dev, kernels: list) -> None:
     to = piso_step(tv, tp, 0.4 / N, tdomain, tsim, pressure_inc1_guess=tg1,
                    pressure_inc2_guess=tg2, advection_tol=ADV_TOL, pressure_tol=P_TOL,
                    full_output=True)
+    # rows 10a / 10b on the system the cavity under CG runs (1026 blocks)
+    phases2_system_check(f"2i cavity {tuple(b.shape)} (CG)", cav_lap, b, g1)
     cases = (("cavity", cav_lap, b, g1, True), ("cavity", cav_lap, b, g1, False),
              ("turbulence", to.intermediates["laplacian"], to.intermediates["v1_div"],
               tg1, True))
@@ -5198,7 +5358,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     step = cavity_step_fn(domain, sim, dt)
     v, p, g1, g2 = STATES["cavity"]
     reset()
-    c0, b0 = cg_counters(), loop_counters()
+    c0, b0, k0 = cg_counters(), loop_counters(), phases2_counts()
     warns, iters, div = 0, [[], []], 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5213,6 +5373,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     fwd = read()
     derived, d = cg_derived(c0, cg_counters())
     bd = {k: loop_counters()[k] - b0[k] for k in b0}
+    r10ab = phases2_check("cavity under CG forward", k0, d, cg=True)
     finite = all(bool(torch.isfinite(c).all()) for c in v.components) \
         and bool(torch.isfinite(p).all())
     active_int = sim.active_mask[1:-1, 1:-1]
@@ -5226,6 +5387,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
         cg_counters=d, warn_fraction=warns / CG_STEPS, bicgstab_fallbacks=bd["bicgstab_fallbacks"],
         max_abs_div_active=div,
         host_us_per_cg_iteration=elapsed / max(d["cg_iterations"], 1) * 1e6, launches=fwd,
+        row10ab_kernel_launches=r10ab,
     )), flush=True)
     if not finite:
         fail("cavity under CG: non-finite state after the forward path")
@@ -5256,7 +5418,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
     evals = []
     for rep in range(1 + GRAD_REPS):
         reset()
-        c0, b0 = cg_counters(), loop_counters()
+        c0, b0, k0 = cg_counters(), loop_counters(), phases2_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5266,6 +5428,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
         counts = read()
         derived, d = cg_derived(c0, cg_counters())
         bd = {k: loop_counters()[k] - b0[k] for k in b0}
+        r10ab = phases2_check("cavity under CG grad30", k0, d, cg=True)
         p_adj = [a for a in res.adjoints if a.system == "pressure"]
         gnorm = float(sum(torch.sum(c.double() ** 2) for c in res.grad.components)) ** 0.5
         evals.append(dict(
@@ -5280,6 +5443,7 @@ def cg_cavity_path(dev, wrappers: dict) -> tuple:
                                          default=None),
             cg_counters=d, bicgstab_fallbacks=bd["bicgstab_fallbacks"],
             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+            row10ab_kernel_launches=r10ab,
         ))
         print(json.dumps(dict(cavity_cg_grad_eval=rep, **evals[-1])), flush=True)
         if res.warns:
@@ -6399,7 +6563,7 @@ RANK3_CALL_KERNELS = {("residual", False): 2, ("residual", True): 3, ("apply", F
 
 def rank3_exact_check(label, lap, b, x, r, p, rz, deflate) -> None:
     """Phase 2n's bit-for-bit check of row 10e against its exact versions
-    (`pcgphases.residual3_exact`, `pcg_apply3_exact`,
+    (`pcgphases.residual_exact`, `pcg_apply_exact`,
     `cg.cg_iteration3_exact`: the plain arithmetic with every sum in the
     kernels' order): the residual, the apply, and two chained CG
     iterations, the first forming sum p, the second taking the first's sum
@@ -6423,12 +6587,12 @@ def rank3_exact_check(label, lap, b, x, r, p, rz, deflate) -> None:
 
     k0 = ph.fused_residual3.kernel_launches
     kr, kn = ph.fused_residual(lap, b, x, deflate)
-    er, en, _ = ph.residual3_exact(lap, b, x, deflate)
+    er, en, _ = ph.residual_exact(lap, b, x, deflate)
     held("residual", {"r": (kr, er), "rnorm": (kn, en)}, ph.fused_residual3, k0,
          RANK3_CALL_KERNELS[("residual", deflate)])
     k0 = ph.fused_pcg_apply3.kernel_launches
     ka = ph.fused_pcg_apply(lap, rz, x, r, p, deflate)
-    ea = ph.pcg_apply3_exact(lap, rz, x, r, p, deflate)
+    ea = ph.pcg_apply_exact(lap, rz, x, r, p, deflate)
     held("apply", dict(zip(("x'", "r'", "rnorm", "p.q"), zip(ka, ea[:4]))), ph.fused_pcg_apply3,
          k0, RANK3_CALL_KERNELS[("apply", deflate)])
     sp = None

@@ -51,8 +51,8 @@ from diffpiso_tpu_torch.solvers.pcgphases import (
     O3_SUM,
     O3_SUMP,
     _lap_ptrs,
-    _matvec3_given,
-    _mean3,
+    _matvec_given,
+    _mean,
     _project,
     lap_matvec,
     scratch3,
@@ -128,7 +128,7 @@ def cg_iteration3_exact(lap, x, r, p, deflate, sum_p=None):
     max|r'|, slots): slots {slot of the kernel's scalar array: 0-d tensor}
     for the slots it writes (the mean only when deflating)."""
     sp = tree_sum3(p) if sum_p is None else sum_p.reshape(())
-    q = _matvec3_given(lap, p, sp)
+    q = _matvec_given(lap, p, sp)
     pq, pr = tree_sum3(p * q), tree_sum3(p * r)
     ok = pq.abs() > _EPS
     alpha = torch.where(ok, pr / pq, 0.0)
@@ -136,7 +136,7 @@ def cg_iteration3_exact(lap, x, r, p, deflate, sum_p=None):
     rn = r - alpha * q
     slots = {O3_SUM: sp, O3_PQ: pq, O3_PR: pr, O3_ALPHA: alpha}
     if deflate:
-        slots[O3_MEAN] = mean = _mean3(rn)
+        slots[O3_MEAN] = mean = _mean(rn)
         rn = rn - mean
     slots[O3_RQ] = rq = tree_sum3(rn * q)
     slots[O3_BETA] = beta = torch.where(ok, -rq / pq, 0.0)

@@ -460,17 +460,22 @@ def _pcg_phases(lap, b, x0, precond, tol, max_iter, residual_reset, deflate, ear
     v1t, symbol) M^-1 is folded into the update (solvers/pcgmm.py) and
     `precond` is unused, as the JAX package's large tier runs it: (z0, rz0)
     and each reset's (p, rz) come from the fold with p = 0 and rz_old = 1,
-    each iteration's update from the fold. Returns (x, true residual norm as
-    a float, iterations)."""
+    each iteration's update from the fold. The residual of the last apply's
+    x' (each reset, the exit) takes the sum x' that apply returned (None on
+    volumes) in place of forming it (bit-equal); the warm entry's residual
+    forms its own. Returns (x, true residual norm as a float, iterations)."""
+    last = [None, None]  # the last apply's x' and its sum
 
     def project(v):
         return v - torch.sum(v) / v.numel() if deflate else v
 
     def residual(x):
-        return fused_residual(lap, b, x, deflate)
+        return fused_residual(lap, b, x, deflate, sum_x=last[1] if x is last[0] else None)
 
     def apply(rz, x, r, p):
-        return fused_pcg_apply(lap, rz, x, r, p, deflate)[:3]
+        xo, ro, rn, _, sx = fused_pcg_apply(lap, rz, x, r, p, deflate)
+        last[:] = xo, sx
+        return xo, ro, rn
 
     if mm is not None:
         zeros = torch.zeros_like(b)

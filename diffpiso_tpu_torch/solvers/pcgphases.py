@@ -23,17 +23,25 @@ The CUDA kernels are csrc/pcgphases.cu (planes; the update on volumes
 too, which it takes as (nz ny, nx) planes: it is elementwise) and
 csrc/pcgphases3.cu (the residual and apply on volumes, with their own
 counters, `fused_residual3` / `fused_pcg_apply3`, to which the public
-wrappers dispatch a rank-3 operand). Each phase is split where it needs a
-global scalar (block partials and a fixed-order sum: a one-block pass on
-planes, a last-block fold on volumes; the apply sums p first and forms q
-per cell before p.q, as the TPU kernel does); rz, pq, alpha and beta stay
-on the device, so the loop reads back one value per iteration. On volumes
-the residual is 2 launches and the apply 3, one more each deflating (each
-rank-3 wrapper counts its calls in `launches` and its kernels in
-`kernel_launches`); `residual3_exact` and `pcg_apply3_exact` are their
-arithmetic in PyTorch, bit for bit, every sum in the kernels' order. What
-bounds them on the H100 is bytes (8, 10 and 4 planes; 10 and 12 volumes).
-The scalars come back as 0-d tensors. On a CUDA tensor a wrapper launches
+wrappers dispatch a rank-3 operand). On planes the residual and the apply
+are each one cooperative launch whose blocks exchange their partials at a
+grid barrier wherever a global scalar is needed; on volumes each phase is
+split there into launches that end in last-block folds (the residual 2,
+the apply 3, one more each deflating). Every sum is the one-thread-a-cell
+block partials folded in a fixed order; the apply sums p first and forms q
+per cell before p.q, as the TPU kernel does; rz, pq, alpha and beta stay
+on the device, so the loop reads back one value per iteration. The apply
+returns sum x' after its other outputs (on planes; None on volumes), and
+the residual of that x' takes it in place of forming it (`sum_x`;
+`krylov._pcg_phases` carries it). A plane's residual and apply are
+cooperative launches, so a plane holds at most `max_plane_cells` cells
+(4,325,376 on the H100's 132 SMs). The residual and apply wrappers of
+either rank count their calls in `launches` and their kernels in
+`kernel_launches`; `residual_exact` and `pcg_apply_exact` (both ranks)
+are their arithmetic in PyTorch, bit for bit, every sum in the kernels'
+order. What bounds them on the H100 is bytes (8, 10
+and 4 planes; 10 and 12 volumes). The scalars come back as 0-d tensors.
+On a CUDA tensor a wrapper launches
 its kernels; on a CPU tensor it runs its plain version."""
 
 from __future__ import annotations
@@ -47,9 +55,10 @@ from diffpiso_tpu_torch.ops.matvec import stencil_apply_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGS = {
-    "pcgp_residual": [_P] * 6 + [_I, _I, _I, _P],
-    "pcgp_apply": [_P] * 10 + [_I, _I, _I, _P],
+    "pcgp_residual": [_P] * 9 + [_U] + [_I] * 3 + [_P],
+    "pcgp_apply": [_P] * 11 + [_U] + [_I] * 3 + [_P],
     "pcgp_update": [_P] * 7 + [_I, _I, _P],
 }
 _SIGS3 = {
@@ -58,9 +67,16 @@ _SIGS3 = {
     "p3_cg_iteration": [_P] * 12 + [_I] * 4 + [_P],
 }
 _THREADS = 256  # DP_THREADS in csrc/common.cuh
+_MAX_VB = 32  # PCGP_MAX_VB in csrc/pcgphases.cu: virtual blocks a block
+_BLOCKS_PER_SM = 4  # PCGP_BOUNDS in csrc/pcgphases.cu
 _MAX_BLOCKS3 = 4096  # P3_MAX_BLOCKS in csrc/grid3.cuh
-# slots of the scalar output array in csrc/pcgphases.cu
-_O_NORM, _O_PQ, _O_RZ = 0, 1, 5
+# slots of the scalar output array in csrc/pcgphases.cu (8 floats)
+(O_NORM, O_PQ, O_ALPHA, O_SUM, O_MEAN, O_RZ, O_BETA, O_SUMX) = range(8)
+# the tagged slots of its residual and apply: PCGP_REGIONS x PCGP_GATHER_MAX
+_SLOTS = 8 * 512
+_TAG_EPOCHS = 1 << 29  # tags are epoch * 8 in 32 bits
+_exchange: dict = {}  # (device, stream) -> [the slots, the last epoch]
+_plane_cells: dict = {}  # device -> max_plane_cells(device)
 # and of csrc/pcgphases3.cu (P3_SLOTS floats)
 (O3_NORM, O3_PQ, O3_ALPHA, O3_SUM, O3_MEAN, O3_PR, O3_RQ, O3_BETA, O3_SUMP) = range(9)
 P3_SLOTS = 9
@@ -123,63 +139,79 @@ def tree_sum3(values):
     return tree_sum_plain(values, max_blocks=_MAX_BLOCKS3)
 
 
-def _mean3(r):
-    """sum r / n as the rank-3 kernels form it (float32 division by float32 n)."""
-    return tree_sum3(r) / torch.tensor(float(r.numel()), dtype=r.dtype, device=r.device)
+def _kernel_sum(v):
+    """sum(v) in the order of the kernels that form it: one thread a cell on
+    planes (csrc/pcgphases.cu), the capped grid on volumes (pcgphases3.cu)."""
+    return tree_sum3(v) if v.ndim == 3 else tree_sum_plain(v)
 
 
-def _matvec3_given(lap, p, sp):
+def _mean(r):
+    """sum r / n as the kernels form it (float32 division by float32 n)."""
+    return _kernel_sum(r) / torch.tensor(float(r.numel()), dtype=r.dtype, device=r.device)
+
+
+def _matvec_given(lap, p, sp):
     """A p with sum p given: S p + shift sp."""
     return stencil_apply_plain(lap.center, lap.lo, lap.hi, p) + lap.shift * sp
 
 
-def residual3_exact(lap, b, x, deflate):
-    """The rank-3 residual (csrc/pcgphases3.cu `p3_residual`) in PyTorch, bit
-    for bit: the plain version's elementwise operations with sum x, the
-    mean and every sum in the kernels' order (`tree_sum3`). Returns (r,
-    max|r|, slots): slots {slot of the kernel's scalar array: 0-d tensor}
-    for the slots it writes."""
-    sx = tree_sum3(x)
-    r = b - _matvec3_given(lap, x, sx)
-    slots = {O3_SUM: sx}
+def residual_exact(lap, b, x, deflate, sum_x=None):
+    """The residual (csrc/pcgphases.cu `pcgp_residual` on planes,
+    pcgphases3.cu `p3_residual` on volumes) in PyTorch, bit for bit: the
+    plain version's elementwise operations, sum x as the kernels take it
+    (`sum_x`, planes only; else formed first) and every sum in the kernels'
+    order (`_kernel_sum`). Returns (r, max|r|, slots): slots {slot of the
+    kernel's scalar array: 0-d tensor} for the slots it writes (the same
+    numbers in both arrays)."""
+    sx = _kernel_sum(x) if sum_x is None else sum_x.reshape(())
+    r = b - _matvec_given(lap, x, sx)
+    slots = {O_SUM: sx}
     if deflate:
-        slots[O3_MEAN] = mean = _mean3(r)
+        slots[O_MEAN] = mean = _mean(r)
         r = r - mean
-    slots[O3_NORM] = rn = r.abs().max()
+    slots[O_NORM] = rn = r.abs().max()
     return r, rn, slots
 
 
-def pcg_apply3_exact(lap, rz, x, r, p, deflate):
-    """The rank-3 apply (`p3_apply`) in PyTorch, bit for bit, as
-    `residual3_exact`. Returns (x', r', max|r'|, p.q, slots)."""
-    sp = tree_sum3(p)
-    q = _matvec3_given(lap, p, sp)
-    pq = tree_sum3(p * q)
+def pcg_apply_exact(lap, rz, x, r, p, deflate):
+    """The apply (`pcgp_apply`, `p3_apply`) in PyTorch, bit for bit, as
+    `residual_exact`. Returns (x', r', max|r'|, p.q, slots); on planes
+    slots[O_SUMX] is sum x', the apply's fifth output."""
+    sp = _kernel_sum(p)
+    q = _matvec_given(lap, p, sp)
+    pq = _kernel_sum(p * q)
     alpha = torch.where(pq.abs() > _EPS, rz / pq, 0.0)
     xn = x + alpha * p
     rn = r - alpha * q
-    slots = {O3_SUM: sp, O3_PQ: pq, O3_ALPHA: alpha}
+    slots = {O_SUM: sp, O_PQ: pq, O_ALPHA: alpha}
+    if x.ndim == 2:
+        slots[O_SUMX] = _kernel_sum(xn)
     if deflate:
-        slots[O3_MEAN] = mean = _mean3(rn)
+        slots[O_MEAN] = mean = _mean(rn)
         rn = rn - mean
-    slots[O3_NORM] = rnorm = rn.abs().max()
+    slots[O_NORM] = rnorm = rn.abs().max()
     return xn, rn, rnorm, pq, slots
 
 
-def residual_plain(lap, b, x, deflate):
-    """Plain PyTorch version of the residual: (r, max|r|)."""
-    r = _project(b - lap_matvec(lap, x), deflate)
+
+def residual_plain(lap, b, x, deflate, sum_x=None):
+    """Plain PyTorch version of the residual: (r, max|r|). `sum_x`: sum(x)
+    as the caller carries it, in place of torch.sum(x)."""
+    q = lap_matvec(lap, x) if sum_x is None else _matvec_given(lap, x, sum_x)
+    r = _project(b - q, deflate)
     return r, r.abs().max()
 
 
 def pcg_apply_plain(lap, rz, x, r, p, deflate):
-    """Plain PyTorch version of the apply: (x', r', max|r'|, p.q)."""
+    """Plain PyTorch version of the apply: (x', r', max|r'|, p.q, sum x'),
+    sum x' = torch.sum(x') on planes and None on volumes (as the kernels
+    return it)."""
     q = lap_matvec(lap, p)
     pq = torch.sum(p * q)
     alpha = torch.where(pq.abs() > _EPS, rz / pq, 0.0)
     xn = x + alpha * p
     rn = _project(r - alpha * q, deflate)
-    return xn, rn, rn.abs().max(), pq
+    return xn, rn, rn.abs().max(), pq, torch.sum(xn) if xn.ndim == 2 else None
 
 
 def pcg_update_plain(rz_old, r, z, p):
@@ -233,7 +265,8 @@ def fused_residual3(lap, b, x, deflate: bool):
 
 
 def fused_pcg_apply3(lap, rz, x, r, p, deflate: bool):
-    """(x', r', max|r'|, p.q) on volumes; rz a 0-d tensor."""
+    """(x', r', max|r'|, p.q, None) on volumes (the rank-3 kernels form no
+    sum x'); rz a 0-d tensor."""
     if x.device.type == "cpu":
         return pcg_apply_plain(lap, rz, x, r, p, deflate)
     ptrs, (nz, ny, nx), partials, out, stream, ticket = scratch3("fused_pcg_apply3", lap,
@@ -246,58 +279,109 @@ def fused_pcg_apply3(lap, rz, x, r, p, deflate: bool):
                      nz, ny, nx, int(bool(deflate)), stream), "p3_apply")
     fused_pcg_apply3.launches += 1
     fused_pcg_apply3.kernel_launches += launched
-    return xo, ro, out[O3_NORM], out[O3_PQ]
+    return xo, ro, out[O3_NORM], out[O3_PQ], None
 
 
-def _scratch(fn_name, tensors, shape):
-    """Check the operands; allocate the block partials and the scalar
-    output array."""
+def max_plane_cells(device) -> int:
+    """The most cells a plane of the cooperative residual and apply may
+    hold on `device`: PCGP_MAX_VB virtual blocks of 256 cells for each block
+    the card holds at once (PCGP_BOUNDS blocks an SM)."""
+    cells = _plane_cells.get(device)
+    if cells is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cells = _plane_cells[device] = _MAX_VB * _BLOCKS_PER_SM * sms * _THREADS
+    return cells
+
+
+def _scratch(fn_name, tensors, shape, coop=False):
+    """Check the operands (`coop`: and that the plane fits one cooperative
+    launch); allocate the block partials (two sums' worth and 8 handed-on
+    sums) and the scalar output array."""
     native.require_cuda_f32(fn_name, *tensors)
     if len(shape) != 2 or any(t.ndim == 2 and t.shape != shape for t in tensors):
         raise ValueError(f"{fn_name}: the planes must share one 2-D shape")
     ny, nx = shape
+    if coop and ny * nx > max_plane_cells(tensors[0].device):
+        raise ValueError(f"{fn_name}: a {ny} x {nx} plane is past the "
+                         f"{max_plane_cells(tensors[0].device)} cells one cooperative launch "
+                         "takes")
     nb = (ny * nx + _THREADS - 1) // _THREADS
     dev = tensors[0].device
-    return (torch.empty(nb, dtype=torch.float32, device=dev),
+    return (torch.empty(2 * nb + 8, dtype=torch.float32, device=dev),
             torch.empty(8, dtype=torch.float32, device=dev))
 
 
-def fused_residual(lap, b, x, deflate: bool):
-    """(r, max|r|) with r = proj(b - A x); lap a 2-D or 3-D LaplaceStencil
-    (a volume goes to `fused_residual3`)."""
+def _sync_state(t, stream):
+    """The exchange state of the residual and apply kernels on `stream`:
+    (the fold's ticket word, the tagged slots, a tag no earlier call on
+    them used). The slots are zeroed when allocated and when the epochs
+    wrap, so a slot never holds a later call's tag before that call
+    writes it."""
+    key = (t.device, stream.value)
+    state = _exchange.get(key)
+    if state is None:
+        state = _exchange[key] = [torch.zeros(_SLOTS, dtype=torch.int64, device=t.device), 0]
+    state[1] += 1
+    if state[1] == _TAG_EPOCHS:
+        state[0].zero_()
+        state[1] = 1
+    return native.fold_state(t, stream), state[0], state[1] * 8
+
+
+def fused_residual(lap, b, x, deflate: bool, sum_x=None):
+    """(r, max|r|) with r = proj(b - A x); lap a 2-D or 3-D LaplaceStencil.
+    `sum_x`: sum(x) as the apply that formed x returned it, or None, where
+    the kernels form it first (always on volumes: `fused_residual3`). A
+    plane holds at most `max_plane_cells` cells."""
+    if b.ndim == 3 and sum_x is not None:
+        raise ValueError("fused_residual: the rank-3 residual forms its own sum x")
     if b.ndim == 3:
         return fused_residual3(lap, b, x, deflate)
     if b.device.type == "cpu":
-        return residual_plain(lap, b, x, deflate)
+        return residual_plain(lap, b, x, deflate, sum_x)
     planes, shift, ptrs = _lap_ptrs(lap)
-    partials, out = _scratch("fused_residual", (*planes, shift, b, x), b.shape)
+    extra = () if sum_x is None else (sum_x,)
+    partials, out = _scratch("fused_residual", (*planes, shift, *extra, b, x), b.shape, True)
+    if sum_x is not None and sum_x.numel() != 1:
+        raise ValueError("fused_residual: sum_x must be one value")
     r = torch.empty_like(b)
     ny, nx = b.shape
     lib = native.library("pcgphases", _SIGS)
-    native.check(lib.pcgp_residual(ptrs, native.ptr(b), native.ptr(x), native.ptr(r),
-                                   native.ptr(partials), native.ptr(out), ny, nx,
-                                   int(bool(deflate)), native.stream_of(b)), "pcgp_residual")
+    stream = native.stream_of(b)
+    ticket, slots, tag = _sync_state(b, stream)
+    launched = native.launched(
+        lib.pcgp_residual(ptrs, native.ptr(b), native.ptr(x),
+                          None if sum_x is None else native.ptr(sum_x),
+                          *(native.ptr(a) for a in (r, partials, out, ticket, slots)), tag,
+                          ny, nx, int(bool(deflate)), stream), "pcgp_residual")
     fused_residual.launches += 1
-    return r, out[_O_NORM]
+    fused_residual.kernel_launches += launched
+    return r, out[O_NORM]
 
 
 def fused_pcg_apply(lap, rz, x, r, p, deflate: bool):
-    """(x', r', max|r'|, p.q); rz a 0-d tensor (a volume goes to
-    `fused_pcg_apply3`)."""
+    """(x', r', max|r'|, p.q, sum x'); rz a 0-d tensor. sum x' is what the
+    loop hands to the residual of x' on planes, None on volumes (which go
+    to `fused_pcg_apply3`). A plane holds at most `max_plane_cells`
+    cells."""
     if x.ndim == 3:
         return fused_pcg_apply3(lap, rz, x, r, p, deflate)
     if x.device.type == "cpu":
         return pcg_apply_plain(lap, rz, x, r, p, deflate)
     planes, shift, ptrs = _lap_ptrs(lap)
-    partials, out = _scratch("fused_pcg_apply", (*planes, shift, rz, x, r, p), x.shape)
-    q, xo, ro = (torch.empty_like(x) for _ in range(3))
+    partials, out = _scratch("fused_pcg_apply", (*planes, shift, rz, x, r, p), x.shape, True)
+    xo, ro = torch.empty_like(x), torch.empty_like(x)
     ny, nx = x.shape
     lib = native.library("pcgphases", _SIGS)
-    native.check(lib.pcgp_apply(ptrs, *(native.ptr(a) for a in (rz, x, r, p, q, xo, ro, partials,
-                                                                out)),
-                                ny, nx, int(bool(deflate)), native.stream_of(x)), "pcgp_apply")
+    stream = native.stream_of(x)
+    ticket, slots, tag = _sync_state(x, stream)
+    launched = native.launched(
+        lib.pcgp_apply(ptrs, *(native.ptr(a) for a in (rz, x, r, p, xo, ro, partials, out,
+                                                      ticket, slots)), tag,
+                       ny, nx, int(bool(deflate)), stream), "pcgp_apply")
     fused_pcg_apply.launches += 1
-    return xo, ro, out[_O_NORM], out[_O_PQ]
+    fused_pcg_apply.kernel_launches += launched
+    return xo, ro, out[O_NORM], out[O_PQ], out[O_SUMX]
 
 
 def fused_pcg_update(rz_old, r, z, p):
@@ -315,13 +399,16 @@ def fused_pcg_update(rz_old, r, z, p):
     native.check(lib.pcgp_update(*(native.ptr(a) for a in (rz_old, r, z, p, po, partials, out)),
                                  ny, nx, native.stream_of(p)), "pcgp_update")
     fused_pcg_update.launches += 1
-    return po, out[_O_RZ]
+    return po, out[O_RZ]
 
 
+# calls, and (the residual and the apply) the kernels those calls launched
 fused_residual.launches = 0
+fused_residual.kernel_launches = 0
 fused_pcg_apply.launches = 0
+fused_pcg_apply.kernel_launches = 0
 fused_pcg_update.launches = 0
-# the rank-3 wrappers: calls, and the kernels those calls launched
+# the rank-3 wrappers
 fused_residual3.launches = 0
 fused_residual3.kernel_launches = 0
 fused_pcg_apply3.launches = 0

@@ -827,7 +827,7 @@ def test_pcg_phase_kernels_match_plain(deflate, shifted, cuda_device):
         z = summable(z, float(pcgphases.lap_matvec(lap, z).abs().max() / lap.shift))
     rz = torch.sum(r * z)
     args = (lap, rz, x, r, z, deflate)
-    check(pcgphases.fused_pcg_apply(*args), pcgphases.pcg_apply_plain(*args), 2)
+    check(pcgphases.fused_pcg_apply(*args)[:4], pcgphases.pcg_apply_plain(*args)[:4], 2)
     r2 = pcgphases.pcg_apply_plain(*args)[1]
     args = (rz, r2, spectral_apply_plain(v0, v1, sym, r2), z)
     check(pcgphases.fused_pcg_update(*args), pcgphases.pcg_update_plain(*args), 1)
@@ -1990,6 +1990,72 @@ def _dyadic(shape, seed, dev):
     return t(k / 8.0).to(dev)
 
 
+# planes of rows 10a / 10b: ragged (7 blocks and a part), the mixing
+# layer's, 384 blocks (a fold of two partials a thread), the cavity's 1026
+# and 4096 blocks (the ticket's exchange, 2 and 8 virtual blocks a block)
+RANK2_SHAPES = {"33x48": (33, 48), "128x512": (128, 512), "96x1024": (96, 1024),
+                "513x512": (513, 512), "1024^2": (1024, 1024)}
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("case", list(RANK2_SHAPES))
+def test_rank2_pcg_phases_are_bit_equal_to_their_exact_versions(case, deflate, cuda_device):
+    """Rows 10a and 10b on a periodic Laplacian with its shift, x and p
+    random: the apply bit for bit against `pcg_apply_exact` (x', r',
+    max|r'|, p.q, sum x'), the residual of its x' with sum x formed and
+    carried in against `residual_exact`, each call one kernel
+    (`kernel_launches`). The planes reach both exchanges of
+    csrc/pcgphases.cu: tagged slots up to 512 blocks, the ticket past them
+    (513 x 512, 1024^2)."""
+    shape = RANK2_SHAPES[case]
+    lap = _lap2(cuda_device, shape, 7)
+    b, x, r, p = (_rand(shape, s).to(cuda_device) for s in (8, 9, 10, 11))
+    rz = torch.sum(r * p)
+    k0 = pcgphases.fused_pcg_apply.kernel_launches
+    got = pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)
+    assert pcgphases.fused_pcg_apply.kernel_launches - k0 == 1
+    want = pcgphases.pcg_apply_exact(lap, rz, x, r, p, deflate)
+    for a, w in zip(got, (*want[:4], want[4][pcgphases.O_SUMX])):
+        assert torch.equal(a, w)
+    for carried in (False, True):
+        k0 = pcgphases.fused_residual.kernel_launches
+        kr = pcgphases.fused_residual(lap, b, got[0], deflate,
+                                      sum_x=got[4] if carried else None)
+        assert pcgphases.fused_residual.kernel_launches - k0 == 1
+        er = pcgphases.residual_exact(lap, b, got[0], deflate)
+        assert torch.equal(kr[0], er[0]) and torch.equal(kr[1], er[1])
+
+
+def test_rank2_pcg_phases_take_planes_up_to_the_cooperative_limit(cuda_device):
+    """Rows 10a and 10b on a plane of `max_plane_cells` cells (32 virtual
+    blocks for each block the card holds at once) in one launch each,
+    bit-equal to the exact versions; a plane one row larger is refused."""
+    cells = pcgphases.max_plane_cells(cuda_device)
+    nx = 2048
+    shape = (cells // nx, nx)
+    assert shape[0] * nx == cells
+    lap = _lap2(cuda_device, shape, 7)
+    b, x, r, p = (_rand(shape, s).to(cuda_device) for s in (8, 9, 10, 11))
+    rz = torch.sum(r * p)
+    k0 = pcgphases.fused_pcg_apply.kernel_launches, pcgphases.fused_residual.kernel_launches
+    got = pcgphases.fused_pcg_apply(lap, rz, x, r, p, True)
+    want = pcgphases.pcg_apply_exact(lap, rz, x, r, p, True)
+    assert all(torch.equal(a, w) for a, w in zip(got, (*want[:4], want[4][pcgphases.O_SUMX])))
+    kr = pcgphases.fused_residual(lap, b, got[0], True, sum_x=got[4])
+    er = pcgphases.residual_exact(lap, b, got[0], True)
+    assert torch.equal(kr[0], er[0]) and torch.equal(kr[1], er[1])
+    assert (pcgphases.fused_pcg_apply.kernel_launches - k0[0],
+            pcgphases.fused_residual.kernel_launches - k0[1]) == (1, 1)
+    del lap, b, x, r, p, got, want, kr, er
+    big = (shape[0] + 1, nx)
+    lap = _lap2(cuda_device, big, 7)
+    b, x = (_rand(big, s).to(cuda_device) for s in (8, 9))
+    with pytest.raises(ValueError, match="cooperative launch"):
+        pcgphases.fused_residual(lap, b, x, False)
+    with pytest.raises(ValueError, match="cooperative launch"):
+        pcgphases.fused_pcg_apply(lap, torch.sum(x * x), x, b, x, False)
+
+
 RANK3_SHAPES = {"periodic": (16, 24, 32), "bounded": (17, 16, 16),
                 # 2 M cells: past the capped grid's 4096 x 256 threads, so each
                 # thread walks two cells (the grid-stride path)
@@ -2012,7 +2078,7 @@ def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
     their scale (the CG iteration's within 2e-6: alpha and beta are ratios
     of sums in another order, both carried into p'), rnorm, p.q and alpha
     within rel 1e-5; one call counted per call; bit for bit against the
-    exact versions (`residual3_exact`, `pcg_apply3_exact`,
+    exact versions (`residual_exact`, `pcg_apply_exact`,
     `cg_iteration3_exact`: every sum in the kernels' order), the CG
     iteration over two chained calls with the sum of p formed and then
     carried (the first call's sum p'), each call's kernels
@@ -2028,13 +2094,13 @@ def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
     k0 = pcgphases.fused_residual3.kernel_launches
     r, rn = pcgphases.fused_residual(lap, b, x, deflate)
     assert pcgphases.fused_residual3.kernel_launches - k0 == RANK3_KERNELS[("residual", deflate)]
-    er, ern, _ = pcgphases.residual3_exact(lap, b, x, deflate)
+    er, ern, _ = pcgphases.residual_exact(lap, b, x, deflate)
     assert torch.equal(r, er) and torch.equal(rn, ern)
     rz = torch.sum(r * p)
     k0 = pcgphases.fused_pcg_apply3.kernel_launches
     got = pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)
     assert pcgphases.fused_pcg_apply3.kernel_launches - k0 == RANK3_KERNELS[("apply", deflate)]
-    for a, w in zip(got, pcgphases.pcg_apply3_exact(lap, rz, x, r, p, deflate)[:4]):
+    for a, w in zip(got, pcgphases.pcg_apply_exact(lap, rz, x, r, p, deflate)[:4]):
         assert torch.equal(a, w)
     xc, rc, pc, sp = x, r, p, None
     for _ in range(2):
@@ -2061,8 +2127,8 @@ def test_rank3_phase_kernels_match_plain(case, deflate, cuda_device):
     r, rn = pcgphases.fused_residual(lap, b, x, deflate)
     close((r, rn), pcgphases.residual_plain(lap, b, x, deflate))
     rz = torch.sum(r * p)
-    close(pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate),
-          pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate))
+    close(pcgphases.fused_pcg_apply(lap, rz, x, r, p, deflate)[:4],
+          pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate)[:4])
     got = cgk.fused_cg_iteration(lap, x, r, p, deflate, with_scalars=True)
     want = cgk.cg_iteration_plain(lap, x, r, p, deflate, with_scalars=True)
     close(got[:4] + got[4][:2], want[:4] + want[4][:2], 2e-6)

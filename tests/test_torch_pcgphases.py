@@ -6,8 +6,14 @@ with and without deflation and shift; the whole per-iteration PCG loop
 on warm, cold, reset and already-converged starts; and the dispatch of
 `solve_pressure_system` by preconditioner. The systems are the mixing
 layer's: its accessible / active masks (closed ghost rows and inflow
-column, open outflow) and the `channel_mm` preconditioner. The CUDA
-kernels are held against the plain versions in tests/test_torch_cuda.py.
+column, open outflow) and the `channel_mm` preconditioner. Rows 10a and
+10b's exact versions (`residual_exact`, `pcg_apply_exact`: the kernels'
+arithmetic, every sum in their order) against the plain versions (up to
+a 96 x 1024 plane of 384 blocks) and the JAX kernels (a ragged 33 x 48
+plane too), the apply's sum x' carried into the residual of x'
+bit-equal to the sum that residual forms, and the PCG loop carrying it
+bit-equal to the loop that forms every sum. The CUDA kernels are held
+against the plain and exact versions in tests/test_torch_cuda.py.
 
 Tolerances: planes atol 1e-6 on O(1) inputs and outputs, scalars within
 rel 1e-6 (the same float32 operations; XLA may contract a multiply-add and
@@ -216,3 +222,156 @@ def test_pressure_solves_dispatch_by_preconditioner(monkeypatch):
     assert solver.kinds == ("dct2", "dct4")
     assert [pbase.pressure_preconditioner(k, pl)[0].kinds for k in ("fft_mm", "dct_mm")] == \
         [("fourier", "fourier"), ("dct2", "dct2")]
+
+
+# -- the kernels' arithmetic (`residual_exact`, `pcg_apply_exact`) ----------------------
+
+# a plane of 1584 cells (7 blocks of 256 and a ragged one) and one of 384
+# blocks (a fold of two partials a thread); the mixing masks on both
+EXACT_SHAPES = {"16x128": SHAPE, "33x48": (33, 48), "96x1024": (96, 1024)}
+
+
+def _exact_inputs(shape, deflate, shift, seed):
+    """(lap, rz, x, r, p, b) as `test_apply_plain_matches_the_jax_kernel`
+    forms them, on `shape`."""
+    _, pl = _laplacian(shape, seed, shift) if shape[1] <= 128 else (None, _port_lap(shape, seed,
+                                                                                    shift))
+    (x, r, b), (p,) = _planes(shape, seed + 1, 3), _planes(shape, seed + 2, 1, 0.2)
+    p = _mean_free_if(deflate, p)
+    x = _mean_free_if(deflate, (0.2 * x).astype(np.float32))
+    rz = torch.tensor(np.float32(0.1 * float(torch.sum(t(p) * pcgphases.lap_matvec(pl, t(p))))))
+    return pl, rz, t(x), t(r), t(p), t(b)
+
+
+def _port_lap(shape, seed, shift):
+    """The port's Laplacian alone (no JAX assembly at the large plane)."""
+    ny, nx = shape
+    rng = np.random.RandomState(seed)
+    comps = ((rng.rand(ny + 1, nx) + 0.5).astype(np.float32),
+             (rng.rand(ny, nx + 1) + 0.5).astype(np.float32))
+    _, _, active, accessible, _ = jmasks.mixing_layer_masks(shape, np.ones(ny + 2, np.float32))
+    return plap.assemble_pressure_laplacian(StaggeredField(tuple(map(t, comps))), t(active),
+                                            t(accessible), (False, False), shift)
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("shape", list(EXACT_SHAPES))
+def test_the_exact_phases_match_the_plain_versions(shape, deflate):
+    """`residual_exact` / `pcg_apply_exact` are the plain phases summed in
+    the kernels' order: planes within 1e-6 of their scale, scalars within
+    rel 1e-5; sum x' is sum(x') in that order (`tree_sum_plain`)."""
+    lap, rz, x, r, p, b = _exact_inputs(EXACT_SHAPES[shape], deflate, True, 20)
+    er, en, rslots = pcgphases.residual_exact(lap, b, x, deflate)
+    pr, pn = pcgphases.residual_plain(lap, b, x, deflate)
+    assert float((er - pr).abs().max()) <= 1e-6 * float(pr.abs().max())
+    assert abs(float(en) - float(pn)) <= 1e-5 * float(pn)
+    assert torch.equal(rslots[pcgphases.O_SUM], pcgphases.tree_sum_plain(x))
+    assert (pcgphases.O_MEAN in rslots) == deflate
+    got = pcgphases.pcg_apply_exact(lap, rz, x, r, p, deflate)
+    want = pcgphases.pcg_apply_plain(lap, rz, x, r, p, deflate)
+    for a, w in zip(got[:2], want[:2]):
+        assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    for a, w in zip((got[2], got[3], got[4][pcgphases.O_SUMX]), want[2:]):
+        assert abs(float(a) - float(w)) <= 1e-5 * float(torch.sum(got[0].abs()))
+    assert torch.equal(got[4][pcgphases.O_SUMX], pcgphases.tree_sum_plain(got[0]))
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("shape", ["16x128", "33x48"])
+def test_the_exact_phases_match_the_jax_kernels(shape, deflate, shift, monkeypatch):
+    """The exact residual and apply against the JAX kernels (interpret
+    mode) on the plain versions' inputs and at their tolerances (planes
+    atol 1e-6, scalars rel 1e-6), the residual with sum x formed and
+    carried (bit-equal). The shifted residual takes a mean-free x, as the
+    deflated cases do: shift sum(x) of a plane with a large mean carries
+    the sum's float32 rounding in each package's order into every cell (at
+    33 x 48 the JAX kernel's sum lies 6e-6 from float64, the kernels'
+    order 5e-7)."""
+    _interpret(monkeypatch)
+    sh = EXACT_SHAPES[shape]
+    jl, pl = _laplacian(sh, 1, shift)
+    (b,), (x,) = _planes(sh, 2, 1), _planes(sh, 12, 1, 0.2)
+    x = _mean_free_if(deflate or shift, x)
+    jr, jn = pallas_krylov.fused_residual(jl, jnp.asarray(b), jnp.asarray(x), deflate)
+    r, rn, _ = pcgphases.residual_exact(pl, t(b), t(x), deflate)
+    _close(r, jr)
+    _rel(rn, jn)
+    carried = pcgphases.residual_exact(pl, t(b), t(x), deflate,
+                                       sum_x=pcgphases.tree_sum_plain(t(x)))
+    assert torch.equal(carried[0], r) and torch.equal(carried[1], rn)
+    jl, pl = _laplacian(sh, 3, shift)
+    (xa, ra), (p,) = _planes(sh, 4, 2), _planes(sh, 14, 1, 0.2)
+    p = _mean_free_if(deflate, p)
+    rz = np.float32(0.1 * float(torch.sum(t(p) * pcgphases.lap_matvec(pl, t(p)))))
+    jx, jr2, jn2, jpq = pallas_krylov.fused_pcg_apply(jl, jnp.float32(rz), jnp.asarray(xa),
+                                                      jnp.asarray(ra), jnp.asarray(p), deflate)
+    got = pcgphases.pcg_apply_exact(pl, torch.tensor(rz), t(xa), t(ra), t(p), deflate)
+    _close(got[0], jx)
+    _close(got[1], jr2)
+    _rel(got[2], jn2)
+    _rel(got[3], jpq)
+
+
+def _exact_chain(lap, b, x, p, deflate, carry, calls=4):
+    """The loop's order of exact calls: apply, then the residual of its x'
+    (a reset), `calls` times; the residual takes the apply's sum x' where
+    `carry`. Returns every output in order."""
+    outs = []
+    r = pcgphases.residual_exact(lap, b, x, deflate)[0]
+    rz = torch.sum(r * p)
+    for _ in range(calls):
+        x, _, _, _, slots = pcgphases.pcg_apply_exact(lap, rz, x, r, p, deflate)
+        r, rn, rslots = pcgphases.residual_exact(
+            lap, b, x, deflate, sum_x=slots[pcgphases.O_SUMX] if carry else None)
+        outs += [x, r, rn, *rslots.values()]
+        p = r - 0.5 * p
+        rz = torch.sum(r * p)
+    return outs
+
+
+@pytest.mark.parametrize("deflate", [False, True])
+@pytest.mark.parametrize("shape", ["33x48", "96x1024"])
+def test_the_carried_sum_of_x_is_the_sum_the_residual_forms(shape, deflate):
+    """The apply's sum x' (its slot O_SUMX) handed to the residual of x' in
+    place of the sum that residual forms: every output of a chain of
+    apply / residual calls bit for bit the same."""
+    lap, _, x, _, p, b = _exact_inputs(EXACT_SHAPES[shape], deflate, True, 30)
+    carried = _exact_chain(lap, b, x, p, deflate, True)
+    fresh = _exact_chain(lap, b, x, p, deflate, False)
+    assert len(carried) == len(fresh)
+    assert all(torch.equal(a, w) for a, w in zip(carried, fresh))
+
+
+@pytest.mark.parametrize("reset", [3, 0])
+def test_the_pcg_loop_carries_sum_x_into_the_residual(reset, monkeypatch):
+    """`krylov.pcg`'s per-iteration loop on a plane hands each reset's and
+    the exit's residual the last apply's sum x' and the warm entry's none;
+    the solve is bit-equal to one that forms every sum afresh."""
+    _, pl = _laplacian(SHAPE, 6, True)
+    rhs = pcgphases.lap_matvec(pl, t(_planes(SHAPE, 7, 1)[0]))
+    x0 = 0.1 * t(_planes(SHAPE, 8, 1)[0])
+    real = pkrylov.fused_residual
+    seen = []
+
+    def spy(*a, sum_x=None, **k):
+        seen.append(sum_x is not None)
+        return real(*a, sum_x=sum_x, **k)
+
+    def fresh(*a, sum_x=None, **k):
+        return real(*a, **k)
+
+    def solve():
+        return pkrylov.pcg(pl, rhs - rhs.mean(), x0,
+                           precond_mm=pbase.pressure_preconditioner("channel_mm", pl), tol=TOL,
+                           max_iter=200, residual_reset=reset, deflate_mean=True,
+                           precond_zero_mean=False, early_exit=True)
+
+    monkeypatch.setattr(pkrylov, "fused_residual", spy)
+    res = solve()
+    k = res.iterations
+    assert k > 3 and seen == [False] + [True] * (k // reset if reset else 0) + [True]
+    monkeypatch.setattr(pkrylov, "fused_residual", fresh)
+    again = solve()
+    assert again.iterations == k and torch.equal(again.x, res.x)
+    assert again.residual_norm == res.residual_norm

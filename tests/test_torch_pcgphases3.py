@@ -11,7 +11,7 @@ per-iteration loop (`krylov.pcg` with `fft_mm`, the rank-3 phases and the
 the JAX package's `krylov.pcg` with its rank-3 phase kernels forced open
 (`eligible3` patched, interpret mode), and CG on a volume against the JAX
 `krylov.cg` with its rank-3 iteration kernel. The CUDA kernels' exact
-arithmetic (`residual3_exact`, `pcg_apply3_exact`, `cg_iteration3_exact`:
+arithmetic (`residual_exact`, `pcg_apply_exact`, `cg_iteration3_exact`:
 every sum in the capped grid's order) is held against the same JAX kernels
 and, past one cell a thread, against the plain versions; a 3-D CG loop
 carrying the sum of p' from call to call equals the loop that forms it
@@ -121,7 +121,17 @@ def test_apply_plain_matches_the_jax_kernel(deflate, shape, monkeypatch):
     _rel(got[2], jn)
     _rel(got[3], jpq)
     wrapped = pcgphases.fused_pcg_apply(pl, torch.tensor(rz), t(x), t(r), t(p), deflate)
-    assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+    assert all(torch.equal(a, b) for a, b in zip(wrapped[:4], got[:4]))
+    assert wrapped[4] is None and got[4] is None  # no sum x' on volumes
+
+
+def test_the_rank3_residual_refuses_a_carried_sum():
+    """Only the plane's apply returns sum x' (None on volumes), so the
+    rank-3 residual, which forms its own sum of x, refuses one handed in."""
+    _, pl = _laplacian(SHAPES[0], 1)
+    b, x = (t(v) for v in _vols(SHAPES[0], 2, 2))
+    with pytest.raises(ValueError, match="forms its own sum"):
+        pcgphases.fused_residual(pl, b, x, False, sum_x=torch.sum(x))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -249,7 +259,7 @@ def test_exact_phases_match_the_jax_kernels(deflate, shape, monkeypatch):
     (b,), (x,) = _vols(shape, 2, 1), _vols(shape, 12, 1, 0.1)
     x = _mean_free_if(deflate, x)
     jr, jn = pallas_krylov.fused_residual(jl, jnp.asarray(b), jnp.asarray(x), deflate)
-    er, en, _ = pcgphases.residual3_exact(pl, t(b), t(x), deflate)
+    er, en, _ = pcgphases.residual_exact(pl, t(b), t(x), deflate)
     _close(er, jr)
     _rel(en, jn)
     jl, pl = _laplacian(shape, 3)
@@ -258,7 +268,7 @@ def test_exact_phases_match_the_jax_kernels(deflate, shape, monkeypatch):
     rz = np.float32(0.1 * float(torch.sum(t(p) * pcgphases.lap_matvec(pl, t(p)))))
     ja = pallas_krylov.fused_pcg_apply(jl, jnp.float32(rz), jnp.asarray(x), jnp.asarray(r),
                                        jnp.asarray(p), deflate)
-    ea = pcgphases.pcg_apply3_exact(pl, torch.tensor(rz), t(x), t(r), t(p), deflate)
+    ea = pcgphases.pcg_apply_exact(pl, torch.tensor(rz), t(x), t(r), t(p), deflate)
     _close(ea[0], ja[0])
     _close(ea[1], ja[1])
     _rel(ea[2], ja[2])
@@ -302,13 +312,13 @@ def test_exact_phases_match_the_plain_versions_past_one_cell_a_thread():
         assert abs(float(a) - float(w)) <= 1e-5 * abs(float(w))
 
     for deflate in (False, True):
-        er, en, slots = pcgphases.residual3_exact(pl, b, x, deflate)
+        er, en, slots = pcgphases.residual_exact(pl, b, x, deflate)
         pr_, pn = pcgphases.residual_plain(pl, b, x, deflate)
         close(er, pr_)
         rel(en, pn)
         assert float(slots[pcgphases.O3_NORM]) == float(en)
         rz = torch.sum(r * p)
-        ea = pcgphases.pcg_apply3_exact(pl, rz, x, r, p, deflate)
+        ea = pcgphases.pcg_apply_exact(pl, rz, x, r, p, deflate)
         pa = pcgphases.pcg_apply_plain(pl, rz, x, r, p, deflate)
         da = abs(float(ea[4][pcgphases.O3_ALPHA]) - float(rz / pa[3]))
         q_max = float(pcgphases.lap_matvec(pl, p).abs().max())
